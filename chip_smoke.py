@@ -1,0 +1,633 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py          # from the repository root, one GPU
+
+Phases, each fatal on failure:
+
+1. build the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (nvcc, sm_90a) and print the card's name and power limit;
+2. hold each kernel against its plain PyTorch version at the main path's
+   shapes (starcoder2-7b: B=8, H=36, KV=4, hd=128, BS=16, table width
+   1024, ragged lens up to 4096; paged decode in bf16, f32 and on an int8
+   arena; the paged KV append with an out-of-range slot), and time kernel,
+   plain version, one PyTorch library call as a yardstick, and the bytes
+   bound at the H100 SXM's 3.35 TB/s (data sheet, 700 W limit);
+3. drive the main path at full width: starcoder2-7b with random weights
+   from a seed, bf16, served by ``GenesysUdpServer(use_tenants=True)``
+   through the continuous-batching engine over a 2048-block paged arena
+   with a spill file; a client thread sends 16 ``[budget, tag,
+   prompt...]`` requests (two share a 64-token prefix) by UDP. Every tag
+   must come back with exactly its budget of tokens, the shared prefix
+   must hit, and each kernel must have launched once per layer per step;
+4. one paged step's logits with the kernels against the same step with
+   the plain attention: full width in bf16, and two layers at full width
+   in f32 (greedy tokens equal wherever the top-2 margin exceeds 1e-3).
+
+Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
+"device": {...}}``. Exits non-zero without a result when no CUDA device
+is visible or the port's sources are not beside this script.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import json
+import math
+import socket
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate (data sheet, 700 W)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per dtype
+F32_ATOL = 1e-4                    # kernel vs plain, f32 outputs
+# one bf16 step, kernels vs plain: the attention outputs differ by about
+# one bf16 ulp, and 32 layers of random weights carry that into logits of
+# |logit| up to ~5, where a bf16 ulp is 1/32: held to 8 such ulps
+LOGITS_ATOL_BF16 = 0.25
+MARGIN_F32 = 1e-3
+# Host-plane pollers park after one empty round and sleep up to 50 ms
+# (a submission's edge wakes them at once, so syscall latency does not
+# suffer): a poller that spins or wakes often takes the GIL between the
+# hundreds of small PyTorch calls of an eager decode step and holds each
+# up (the defaults, 64 spin rounds and 2 ms parks, made the serving step
+# several times slower on an H100 80GB HBM3 at 700 W; see PERF.md).
+POLLER_SPIN = 1
+POLLER_MAX_SLEEP_S = 0.05
+
+B, H, KV, HD, BS = 8, 36, 4, 128, 16
+N_BLOCKS, TABLE_WIDTH = 2048, 1024   # make_engine's default table: NB // 2
+MAX_LEN = 4096
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+# ------------------------------------------------------------- timing ----
+
+# GPU clock cycles to hold the stream busy while the host enqueues a call:
+# about 4 ms at an H100 SXM's 1.98 GHz boost clock, longer than any call
+SLEEP_CYCLES = 8_000_000
+
+
+def cuda_ms(torch, fn, *, reps: int, flush) -> tuple[float, float]:
+    """Device and host time of one call of ``fn``, medians over ``reps``.
+
+    Device: CUDA events around each call, with L2 flushed before it (the
+    serve step meets every layer's KV cold) and the stream held busy by a
+    GPU sleep while the host runs the wrapper, so the events bracket the
+    device work alone and not the host's launch overhead. Host: wall time
+    of the call itself (it does not wait for the device)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    host = []
+    for start, end in ev:
+        flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append(1e3 * (time.perf_counter() - t0))
+        end.record()
+    torch.cuda.synchronize()
+    return (statistics.median(s.elapsed_time(e) for s, e in ev),
+            statistics.median(host))
+
+
+def tolerance(name: str, want) -> float:
+    """Kernel vs plain: f32 outputs agree to F32_ATOL (sums in another
+    order). A bf16 output is rounded once from f32 sums that differ in
+    order and in the plain version's bf16-rounded softmax weights, so the
+    two may land one bf16 ulp apart, and the ulp grows with |output| (the
+    int8 case dequantises to |v| up to 8): two ulps of the largest
+    |output|, 2 ** (floor(log2(max |o|)) - 6)."""
+    if name == "float32":
+        return F32_ATOL
+    amax = want.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(max(amax, 2.0 ** -100))) - 6)
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------ phase 2: kernels --
+
+def decode_inputs(torch, dev, gen, q_dtype, kv_dtype):
+    """Ragged rows: row b holds lens[b] positions on distinct random
+    blocks; the rest of its table points at the null block."""
+    lens = torch.randint(1, MAX_LEN + 1, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[0] = MAX_LEN
+    pages = [(int(n) + BS - 1) // BS for n in lens.tolist()]
+    n_blocks = max(N_BLOCKS, 1 + sum(pages))
+    order = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
+    bt = torch.zeros((B, TABLE_WIDTH), dtype=torch.int32, device=dev)
+    at = 0
+    for b, n in enumerate(pages):
+        bt[b, :n] = order[at:at + n].to(torch.int32)
+        at += n
+    q = torch.randn(B, H, HD, generator=gen, device=dev).to(q_dtype)
+    shape = (n_blocks, BS, KV, HD)
+    if kv_dtype == torch.int8:
+        kp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+    else:
+        kp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+        vp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+    return q, kp, vp, bt, lens, pages
+
+
+def library_attention(torch, q, kp, vp, bt, lens, n_pages):
+    """Yardstick only, never on the path: gather the valid pages, then one
+    F.scaled_dot_product_attention call (the gather is included)."""
+    F = torch.nn.functional
+    kd = kp[bt[:, :n_pages].long()].reshape(B, n_pages * BS, KV, HD)
+    vd = vp[bt[:, :n_pages].long()].reshape(B, n_pages * BS, KV, HD)
+    if kp.dtype == torch.int8:
+        kd, vd = kd.to(q.dtype) / 16.0, vd.to(q.dtype) / 16.0
+    mask = (torch.arange(n_pages * BS, device=q.device)[None]
+            < lens[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+
+def kernel_phase(torch, dev, flush):
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = []
+    for name, q_dtype, kv_dtype in (("bfloat16", torch.bfloat16,
+                                     torch.bfloat16),
+                                    ("float32", torch.float32, torch.float32),
+                                    ("int8", torch.bfloat16, torch.int8)):
+        q, kp, vp, bt, lens, pages = decode_inputs(torch, dev, gen, q_dtype,
+                                                   kv_dtype)
+        got = ops.paged_decode_attention(q, kp, vp, bt, lens)
+        want = ops.paged_decode_attention_plain(q, kp, vp, bt, lens)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = tolerance(name, want)
+        n_pos = int(lens.sum())
+        nbytes = (2 * n_pos * KV * HD * kp.element_size()
+                  + 2 * q.numel() * q.element_size()
+                  + 4 * (sum(pages) + B))
+        flops = 4.0 * n_pos * H * HD
+        bnd, by = bound_ms(nbytes, flops, "float32" if name == "float32"
+                           else "bfloat16")
+        ms, host_ms_k = cuda_ms(torch, lambda: ops.paged_decode_attention(
+            q, kp, vp, bt, lens), reps=20, flush=flush)
+        plain_ms, _ = cuda_ms(torch, lambda: ops.paged_decode_attention_plain(
+            q, kp, vp, bt, lens), reps=5, flush=flush)
+        library_ms, _ = cuda_ms(torch, lambda: library_attention(
+            torch, q, kp, vp, bt, lens, max(pages)), reps=10, flush=flush)
+        case = {
+            "case": name, "max_abs_err": err, "tol": tol, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bnd, "bound_by": by, "kv_bytes": nbytes,
+            "host_call_ms": host_ms_k, "lens": lens.tolist(),
+        }
+        cases.append(case)
+        print(f"kernel paged_decode_attention[{name}]: max_abs_err="
+              f"{err:.3e} (tol {tol:g}) ms={case['ms']:.4f} "
+              f"plain_ms={case['plain_ms']:.4f} "
+              f"library_ms(gather+sdpa)={case['library_ms']:.4f} "
+              f"bound_ms={bnd:.4f} ({by}, {nbytes} B) "
+              f"host_call_ms={host_ms_k:.4f}", flush=True)
+        check(err <= tol, f"paged_decode_attention[{name}] error "
+              f"{err} > {tol}")
+        del q, kp, vp, bt, lens, got, want
+
+    # the paged KV append: one layer's arena, 8 rows, the last out of range
+    k_pages = torch.randn(N_BLOCKS, BS, KV, HD, generator=gen,
+                          device=dev).to(torch.bfloat16)
+    v_pages = torch.randn_like(k_pages)
+    k_new = torch.randn(B, KV, HD, generator=gen, device=dev).to(
+        torch.bfloat16)
+    v_new = torch.randn_like(k_new)
+    slots = torch.randperm(N_BLOCKS * BS, generator=gen, device=dev)[:B]
+    slots[-1] = N_BLOCKS * BS + 5
+    slots = slots.to(torch.int32)
+    k2, v2 = k_pages.clone(), v_pages.clone()
+    ops.update_kv_buffer(k_pages, v_pages, k_new, v_new, slots)
+    ops.update_kv_buffer_plain(k2, v2, k_new, v_new, slots)
+    torch.cuda.synchronize()
+    app_err = max((k_pages.float() - k2.float()).abs().max().item(),
+                  (v_pages.float() - v2.float()).abs().max().item())
+    valid = slots[:-1].long()
+    row = KV * HD * 2
+    app_bytes = 4 * (B - 1) * row + 4 * B
+    kf, vf = k_pages.view(-1, KV, HD), v_pages.view(-1, KV, HD)
+
+    def library_append():   # yardstick: index_copy_ of the in-range rows
+        kf.index_copy_(0, valid, k_new[:-1])
+        vf.index_copy_(0, valid, v_new[:-1])
+
+    bnd, by = bound_ms(app_bytes, 0.0, "bfloat16")
+    ms, host_ms_a = cuda_ms(torch, lambda: ops.update_kv_buffer(
+        k_pages, v_pages, k_new, v_new, slots), reps=50, flush=flush)
+    plain_ms, _ = cuda_ms(torch, lambda: ops.update_kv_buffer_plain(
+        k_pages, v_pages, k_new, v_new, slots), reps=20, flush=flush)
+    library_ms, _ = cuda_ms(torch, library_append, reps=50, flush=flush)
+    append = {
+        "case": "bfloat16", "max_abs_err": app_err, "tol": 0.0, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bnd,
+        "bound_by": by, "kv_bytes": app_bytes, "host_call_ms": host_ms_a,
+    }
+    print(f"kernel update_kv_buffer[bfloat16]: max_abs_err={app_err:.3e} "
+          f"(tol 0, out-of-range slot dropped) ms={append['ms']:.4f} "
+          f"plain_ms={append['plain_ms']:.4f} "
+          f"library_ms(index_copy_)={append['library_ms']:.4f} "
+          f"bound_ms={bnd:.6f} ({by}, {app_bytes} B) "
+          f"host_call_ms={host_ms_a:.4f}", flush=True)
+    check(app_err == 0.0, f"update_kv_buffer differs from plain: {app_err}")
+    return cases, append
+
+
+# ---------------------------------------------------- phase 3: main path --
+
+def make_requests(rng, vocab: int):
+    """16 ``[budget, tag, prompt...]`` requests, prompts of 16-256 tokens,
+    budgets 8-32; tags 100 and 101 share a 64-token prefix (101 is sent
+    once 100 is answered, so its prefix blocks are sealed)."""
+    prefix = rng.integers(1, vocab, size=64).tolist()
+    reqs = []
+    for i in range(16):
+        budget = int(rng.integers(8, 33))
+        if i < 2:
+            prompt = prefix + rng.integers(1, vocab, size=16 + 8 * i).tolist()
+        else:
+            prompt = rng.integers(1, vocab,
+                                  size=int(rng.integers(16, 257))).tolist()
+        reqs.append([budget, 100 + i] + prompt)
+    return reqs
+
+
+def serve_main_path(cfg, params, *, n_slots, n_blocks, reqs, spill_path,
+                    counters):
+    """Serve ``reqs`` over UDP through GenesysUdpServer(use_tenants=True)
+    and the continuous engine; ``counters`` are zeroed right before the
+    serve loop starts. Returns (replies {tag: tokens}, engine, stats,
+    wall_s, step_s list)."""
+    from repro_torch.core.genesys import Genesys, GenesysConfig
+    from repro_torch.serving.engine import make_engine
+    from repro_torch.serving.server import GenesysUdpServer
+
+    gsys = Genesys(GenesysConfig(n_workers=2, sched_pollers=2,
+                                 ring_spin_polls=POLLER_SPIN,
+                                 ring_max_sleep_s=POLLER_MAX_SLEEP_S))
+    try:
+        eng = make_engine(cfg, params, n_slots=n_slots, n_blocks=n_blocks,
+                          block_size=BS, gsys=gsys, spill_path=spill_path)
+        step_s = []
+        inner = eng.serve_step
+
+        def timed_step(*args):      # the step ends in a device->host copy
+            t0 = time.perf_counter()
+            out = inner(*args)
+            step_s.append(time.perf_counter() - t0)
+            return out
+        eng.serve_step = timed_step
+        srv = GenesysUdpServer(gsys, port=0, use_tenants=True)
+        port = gsys.table._sockets[srv.fd].getsockname()[1]
+        client = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        client.bind(("127.0.0.1", 0))
+        client.settimeout(120)
+        result = {}
+
+        def serve():
+            result["stats"] = srv.serve_model_continuous(
+                eng, reply_port=client.getsockname()[1],
+                n_requests=len(reqs), max_idle_polls=400)
+
+        for c in counters:
+            c.launches = 0
+        th = threading.Thread(target=serve, name="smoke-serve", daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        time.sleep(0.05)
+        late = reqs[1]                    # shares request 0's prefix
+        for r in reqs:
+            if r is not late:
+                client.sendto(_dgram(r), ("127.0.0.1", port))
+        replies = {}
+        try:
+            while len(replies) < len(reqs):
+                data, _ = client.recvfrom(65536)
+                tag, *gen = _tokens(data)
+                replies[tag] = gen
+                if tag == reqs[0][1]:
+                    client.sendto(_dgram(late), ("127.0.0.1", port))
+        finally:
+            client.close()
+        th.join(120)
+        wall = time.perf_counter() - t0
+        check(not th.is_alive(), "serve loop did not stop")
+        srv.close()
+        sched = gsys.sched.counters.snapshot()
+        print(f"host plane pollers: rounds={sched['rounds']} idle_rounds="
+              f"{sched['idle_rounds']} parks={sched['parks']} wakeups="
+              f"{sched['wakeups']} served_entries={sched['served_entries']}",
+              flush=True)
+        return replies, eng, result["stats"], wall, step_s
+    finally:
+        gsys.shutdown()
+
+
+def _dgram(req) -> bytes:
+    import numpy as np
+    return np.asarray(req, np.int32).tobytes()
+
+
+def _tokens(data: bytes) -> list[int]:
+    import numpy as np
+    return np.frombuffer(data, np.int32).tolist()
+
+
+def check_replies(reqs, replies, vocab: int) -> None:
+    for budget, tag, *_ in reqs:
+        check(tag in replies, f"tag {tag} not answered")
+        gen = replies[tag]
+        check(len(gen) == budget, f"tag {tag}: {len(gen)} tokens, budget "
+              f"{budget}")
+        check(all(0 <= t < vocab for t in gen), f"tag {tag}: token ids out "
+              f"of range: {gen}")
+
+
+# ---------------------------------------------------- phase 4: logits -----
+
+def paged_state(torch, cfg, dev, gen, *, n_blocks, max_len):
+    """A filled arena and 8 rows of ragged cached lengths on distinct
+    random blocks, with one token per row to feed."""
+    from repro_torch.models import transformer
+    arenas = transformer.init_paged_arena(cfg, n_blocks, BS, device=dev)
+    for a in arenas.values():
+        a.copy_(torch.randn(a.shape, generator=gen, device=dev))
+    cl = torch.randint(1, max_len, (B,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    pages = [int(n) // BS + 1 for n in cl.tolist()]
+    width = max(pages)
+    order = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
+    bt = torch.zeros((B, width), dtype=torch.int32, device=dev)
+    at = 0
+    for b, n in enumerate(pages):
+        bt[b, :n] = order[at:at + n].to(torch.int32)
+        at += n
+    tok = torch.randint(1, cfg.vocab_size, (B, 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    return arenas, bt, cl, tok
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Median wall time of ``fn`` ending in a device sync (host clock)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(out)
+
+
+def device_busy_ms(torch, fn):
+    """Sum of the device time of the kernels ``fn`` launches, from
+    torch.profiler (CUPTI); None where the profiler records no device
+    time on this machine."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages())
+    except (RuntimeError, AttributeError) as e:
+        print(f"device busy: not measured ({e})", flush=True)
+        return None
+    return us / 1e3 if us > 0 else None
+
+
+def logits_kernel_vs_plain(torch, cfg, params, state):
+    """Logits of one paged step with the kernels and with the plain
+    attention, each on its own copy of the arenas (the step writes K/V)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    arenas, bt, cl, tok = state
+    out = []
+    for attend in (None, ops.paged_decode_attention_plain):
+        ar = {n: a.clone() for n, a in arenas.items()}
+        with torch.no_grad():
+            logits, _ = transformer.forward(
+                params, cfg, tok, cache_len=cl,
+                paged_cache=(ar["k"], ar["v"], bt), attend=attend)
+        out.append(logits[:, -1])
+        del ar
+    return out
+
+
+# ------------------------------------------------------------------ main --
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; this run needs a GPU",
+              file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not beside this script "
+              f"({SRC / 'repro_torch'}); run it from a checkout",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    try:
+        return run(torch)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+
+def run(torch) -> int:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    regs = [ln.split("info    : ")[-1] for ln in
+            (lib.parent / "ptxas.log").read_text().splitlines()
+            if "registers" in ln]
+    print(f"kernel build: {build_s:.1f} s ({lib.name}); ptxas: "
+          f"{'; '.join(regs)}", flush=True)
+
+    # phase 2: each kernel against its plain version at the path's shapes
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    decode_cases, append = kernel_phase(torch, dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+
+    # phase 3: the main path at full width
+    cfg = get_config("starcoder2-7b")
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"main path: starcoder2-7b full width, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, bf16 weights from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          flush=True)
+    reqs = make_requests(np.random.default_rng(0), cfg.vocab_size)
+    counters = (ops.paged_decode_attention, ops.update_kv_buffer)
+    with tempfile.TemporaryDirectory() as tmp:
+        replies, eng, stats, wall, step_s = serve_main_path(
+            cfg, params, n_slots=8, n_blocks=N_BLOCKS, reqs=reqs,
+            spill_path=str(Path(tmp) / "kv.spill"), counters=counters)
+    launches = {f.__name__: f.launches for f in counters}
+    steps = eng.stats.steps
+    check_replies(reqs, replies, cfg.vocab_size)
+    hits = eng.pool.stats.prefix_hits
+    print(f"main path: {len(replies)} requests answered with their budgets, "
+          f"tokens_out={stats.tokens_out} wall={wall:.3f} s "
+          f"tokens/s={stats.tokens_out / wall:.1f} steps={steps} "
+          f"mean_step_ms={1e3 * statistics.mean(step_s):.3f} "
+          f"median_step_ms={1e3 * statistics.median(step_s):.3f} "
+          f"occupancy={eng.stats.occupancy():.2f} prefix_hits={hits} "
+          f"prefill_saved={eng.stats.prefill_steps_saved} "
+          f"launches={launches}", flush=True)
+    check(hits > 0, "the shared prefix never hit")
+    for name, n in launches.items():
+        check(n == cfg.n_layers * steps, f"{name} launched {n} times, "
+              f"expected {cfg.n_layers} x {steps} steps")
+    check(all(np.isfinite(step_s)), "step times")
+    occupancy = eng.stats.occupancy()
+    arenas_bytes = sum(a.numel() * a.element_size()
+                       for a in eng.arenas.values())
+    del eng
+    gc.collect()
+
+    # phase 4a: one step's logits, kernels vs plain, full width bf16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    state = paged_state(torch, cfg, dev, gen, n_blocks=N_BLOCKS,
+                        max_len=1024)
+    lk, lp = logits_kernel_vs_plain(torch, cfg, params, state)
+    d_bf16 = (lk - lp).abs().max().item()
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    print(f"logits bf16 full width (32 layers): max_abs_diff={d_bf16:.4f} "
+          f"(tol {LOGITS_ATOL_BF16}) logit_absmax={lp.abs().max().item():.3f}"
+          f" argmax_agree={agree:.3f} finite={bool(torch.isfinite(lk).all())}",
+          flush=True)
+    check(bool(torch.isfinite(lk).all()), "non-finite logits")
+    check(d_bf16 <= LOGITS_ATOL_BF16, f"bf16 logits differ by {d_bf16}")
+    # the same kernel step alone, the host plane's threads stopped
+    arenas, bt, cl, tok = state
+
+    def one_step():
+        with torch.no_grad():
+            transformer.forward(params, cfg, tok, cache_len=cl,
+                                paged_cache=(arenas["k"], arenas["v"], bt))
+    alone_ms = host_ms(torch, one_step, reps=10)
+    busy_ms = device_busy_ms(torch, one_step)
+    busy = "not measured" if busy_ms is None else f"{busy_ms:.3f}"
+    print(f"step alone (8 rows, cached lens {cl.tolist()}): "
+          f"host_ms={alone_ms:.3f} device_busy_ms={busy} "
+          f"(weights bound {weights_gb / HBM_BYTES_PER_S * 1e12:.3f} ms)",
+          flush=True)
+    del params, state, lk, lp
+    torch.cuda.empty_cache()
+
+    # phase 4b: two layers at full width in f32, greedy tokens
+    cfg32 = dataclasses.replace(cfg, n_layers=2, params_dtype="float32",
+                                compute_dtype="float32",
+                                kv_cache_dtype="float32")
+    params32 = transformer.init(cfg32, seed=2, device=dev)
+    state = paged_state(torch, cfg32, dev, gen, n_blocks=1024, max_len=1024)
+    lk, lp = logits_kernel_vs_plain(torch, cfg32, params32, state)
+    top2 = lp.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > MARGIN_F32
+    same = lk.argmax(-1) == lp.argmax(-1)
+    d_f32 = (lk - lp).abs().max().item()
+    print(f"logits f32 full width (2 layers): max_abs_diff={d_f32:.3e} "
+          f"greedy_equal={int(same.sum())}/{B} decided_rows="
+          f"{int(decided.sum())}", flush=True)
+    check(bool(same[decided].all()), "f32 greedy tokens differ on a row "
+          "whose top-2 margin exceeds 1e-3")
+    del params32, state
+
+    bf16 = decode_cases[0]
+    kernels = [
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:169",
+         "launches": launches["paged_decode_attention"],
+         "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
+         "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
+         "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
+         "pass": True, "cases": decode_cases},
+        {"name": "update_kv_buffer", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+         "replaces": "src/repro/kernels/ops.py:71",
+         "launches": launches["update_kv_buffer"],
+         "max_abs_err": append["max_abs_err"], "ms": append["ms"],
+         "plain_ms": append["plain_ms"], "bound_ms": append["bound_ms"],
+         "bound_by": append["bound_by"], "library_ms": append["library_ms"],
+         "pass": True},
+    ]
+    print(json.dumps({"kernels": kernels, "main_path": {
+        "arch": cfg.arch_id, "steps": steps, "tokens_out": stats.tokens_out,
+        "wall_s": wall, "tokens_per_s": stats.tokens_out / wall,
+        "mean_step_ms": 1e3 * statistics.mean(step_s),
+        "occupancy": occupancy, "prefix_hits": hits,
+        "arena_bytes": arenas_bytes, "build_s": build_s,
+        "logits_bf16_max_abs_diff": d_bf16, "step_alone_ms": alone_ms,
+        "step_device_busy_ms": busy_ms, "poller_spin": POLLER_SPIN,
+        "poller_max_sleep_s": POLLER_MAX_SLEEP_S,
+        "logits_f32_max_abs_diff": d_f32}}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,180 @@
+"""Shared model layers of the PyTorch port (the counterpart of
+``repro.models.layers``): RMSNorm, RoPE, the SwiGLU and GELU MLPs, and the
+paged-decode branch of GQA attention. Parameters come from
+``models.module.ParamBuilder`` subtrees; one device, so the reference's
+sharding constraints and Megatron KV replication (``kv_rep``) are gone.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import (
+    QSCALE, paged_decode_attention_plain,
+)
+
+__all__ = ["QSCALE", "rmsnorm", "rope_tables", "apply_rope", "rope",
+           "paged_attention_xla", "PagedStep", "paged_step",
+           "init_attention", "attention", "init_mlp", "mlp"]
+
+
+# ----------------------------------------------------------------- norms ----
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    dt = x.dtype
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(dt)
+
+
+# ----------------------------------------------------------------- rope -----
+
+def rope_tables(positions, hd: int, theta: float):
+    """cos and sin [..., S, 1, hd/2] float32 of the reference's rotary
+    angles ``positions * exp(-log(theta) * arange(hd/2) / (hd/2))``."""
+    half = hd // 2
+    log_theta = torch.full((), theta, dtype=torch.float32,
+                           device=positions.device).log()
+    freqs = torch.exp(-log_theta * torch.arange(
+        0, half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs            # [..., S, half]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_rope(x, cos, sin):
+    """Rotate x [..., S, H, hd] by :func:`rope_tables`; a bf16 ``x`` is
+    rotated in float32 and cast back, as in the reference."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """x: [..., S, H, hd]; positions: [..., S] int (the reference's
+    ``rope``)."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+# ------------------------------------------------------- paged attention ----
+
+def paged_attention_xla(q, k_pages, v_pages, block_tables, lens):
+    """The plain paged decode (the reference's ``paged_attention_xla``):
+    q [B,1,H,hd]; k_pages/v_pages [NB,BS,KV,hd]; block_tables [B,MB];
+    lens [B] -> [B,1,H,hd]. Gathers the pages and runs the masked softmax;
+    the CUDA kernel behind ``ops.paged_decode_attention`` must match it."""
+    return paged_decode_attention_plain(q[:, 0], k_pages, v_pages,
+                                        block_tables, lens)[:, None]
+
+
+def init_attention(pb, cfg):
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    a = pb.sub("attn")
+    a.param("wq", (D, H, hd))
+    a.param("wk", (D, KV, hd))
+    a.param("wv", (D, KV, hd))
+    a.param("wo", (H, hd, D))
+    if cfg.qkv_bias:
+        a.param("bq", (H, hd), init="zeros")
+        a.param("bk", (KV, hd), init="zeros")
+        a.param("bv", (KV, hd), init="zeros")
+
+
+def _proj(x, w):
+    """x [B,S,D] @ w [D,*out] -> [B,S,*out] (einsum "bsd,d...->bs...")."""
+    B, S, D = x.shape
+    return (x.reshape(B * S, D) @ w.to(x.dtype).reshape(D, -1)).view(
+        B, S, *w.shape[1:])
+
+
+@dataclass(frozen=True)
+class PagedStep:
+    """What every layer's paged attention shares within one decode step:
+    the rotary tables of the new tokens' positions, each row's flat arena
+    slot for its new K/V, and the lengths to attend over. The reference
+    computes these inside every layer and XLA folds the repeats; eager
+    PyTorch would launch them once per layer, so the port computes them
+    once per step (:func:`paged_step`)."""
+    cos: torch.Tensor     # [B,1,1,hd/2] float32
+    sin: torch.Tensor
+    slots: torch.Tensor   # [B] int32, block_tables[b, cl // BS] * BS + cl % BS
+    lens: torch.Tensor    # [B] int32, cache_len + 1
+
+
+def paged_step(cfg, positions, cache_len, block_tables,
+               block_size: int) -> PagedStep:
+    """positions [B,1]; cache_len [B] int32 (positions already cached per
+    row); block_tables [B,MB] int32."""
+    cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    B, MB = block_tables.shape
+    rows = torch.arange(B, device=cache_len.device)
+    # the reference's gather clamps the block index; clamp it the same way
+    blk = torch.clamp(cache_len // block_size, 0, MB - 1).long()
+    slots = block_tables[rows, blk] * block_size + cache_len % block_size
+    return PagedStep(cos, sin, slots.to(torch.int32),
+                     (cache_len + 1).to(torch.int32))
+
+
+def attention(p, cfg, x, *, step: PagedStep, paged_cache, attend=None):
+    """GQA attention of ONE new token per row against the genesys.pagedkv
+    block arena (the paged branch of the reference's ``attention``).
+
+    x [B,1,D]; ``step`` from :func:`paged_step`; paged_cache
+    ``(k_pages, v_pages, block_tables, layer)`` with arenas
+    [L,NB,BS,KV,hd] and block_tables [B,MB] int32. Writes the token's K/V
+    at its slot with ``ops.update_kv_buffer`` (in place: the layer's arena
+    slice is a view), then attends through the block table over
+    ``step.lens`` positions via ``attend`` (default: the CUDA kernel
+    wrapper ``ops.paged_decode_attention``). Inactive rows carry all-null
+    block tables and cache_len 0: their writes land in the null block and
+    their outputs are never read. Returns [B,1,D]."""
+    attend = attend or ops.paged_decode_attention
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"paged decode takes one token per row, got S={S}")
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = apply_rope(q, step.cos, step.sin)
+    k = apply_rope(k, step.cos, step.sin)
+
+    kp, vp, bt, li = paged_cache
+    kp_l, vp_l = kp[li], vp[li]
+    if kp.dtype == torch.int8:
+        k_w = torch.clamp(torch.round(k * QSCALE), -127, 127).to(torch.int8)
+        v_w = torch.clamp(torch.round(v * QSCALE), -127, 127).to(torch.int8)
+    else:
+        k_w = k.to(kp.dtype)
+        v_w = v.to(vp.dtype)
+    ops.update_kv_buffer(kp_l, vp_l, k_w[:, 0].contiguous(),
+                         v_w[:, 0].contiguous(), step.slots)
+    out = attend(q[:, 0].contiguous(), kp_l, vp_l, bt, step.lens)
+    return _proj(out.reshape(B, 1, -1),
+                 p["wo"].reshape(-1, p["wo"].shape[-1]))
+
+
+# ------------------------------------------------------------------ mlp -----
+
+def init_mlp(pb, cfg):
+    D, F_ = cfg.d_model, cfg.d_ff
+    m = pb.sub("mlp")
+    if cfg.mlp_kind == "swiglu":
+        m.param("wi_gate", (D, F_))
+    m.param("wi_up", (D, F_))
+    m.param("wo", (F_, D))
+
+
+def mlp(p, x):
+    u = _proj(x, p["wi_up"])
+    if "wi_gate" in p:   # swiglu
+        h = F.silu(_proj(x, p["wi_gate"])) * u
+    else:                # gelu 2-matrix (starcoder2 / seamless); jax.nn.gelu
+        h = F.gelu(u, approximate="tanh")   # defaults to the tanh form
+    return _proj(h, p["wo"])

@@ -1,0 +1,464 @@
+"""Batched UDP token-serving loop — the paper's echo server (§7.3)
+generalized: requests arrive as UDP packets, are batched, run through the
+model's serve_step, and answered with sendto.
+
+Two paths, mirroring the paper's comparison:
+  * GENESYS path: recvfrom/sendto are GENESYS syscalls at work-group
+    granularity with blocking + weak ordering (the paper's exact choice for
+    its echo server);
+  * CPU baseline: a classic host loop that owns the socket and babysits the
+    accelerator (Fig 1 left).
+
+``use_ring=True`` swaps the doorbell-interrupt syscall path for the
+genesys.uring rings: receives are ring calls (Completion-future blocking),
+and each reply batch goes out as ONE multi-entry submission whose sends
+complete asynchronously — drain() is the only barrier.
+
+``use_tenants=True`` (implies the ring path) runs the server on
+genesys.sched per-tenant rings: receives go through a high-priority
+``serve-rx`` tenant, and reply traffic is hash-sharded onto a bounded
+pool of ``client-shard:<i>`` tenants (``tx_shards`` of them; the slot
+area is finite, so per-port tenants cannot be unbounded), so one client
+flooding its reply shard cannot starve receives or other shards'
+replies — QoS policies installed via ``Genesys.use_policies`` (token
+bucket, strict priority, WFQ) apply per shard.
+
+This is the PyTorch port of ``repro.serving.server``: the echo mode and
+the continuous-batching decode loop (``serve_model_continuous``, driving
+``repro_torch.serving.engine``), with the STATS/METRICS control ops. The
+dense-cache ``serve_model`` (eager and bucketed decode) and the CPU
+baseline server come with the dense-serving slice of the port.
+"""
+from __future__ import annotations
+
+import json
+import socket
+import time
+from dataclasses import dataclass
+
+import numpy as np
+
+from repro_torch.core.genesys import Genesys, Sys
+from repro_torch.core.genesys.trace import (
+    EV_REQ_BEGIN, EV_REQ_END, REQ_SYSNO, Counters, jsonable, summary_dict,
+)
+
+# STATS request op: a datagram ``GSTATS1\0 + uint32 reply_port (LE)``
+# is answered with the server's Genesys.telemetry() snapshot as JSON
+# (the full snapshot when it fits a datagram, else the compact summary,
+# flagged ``"truncated": true`` — the TCP /telemetry endpoint of
+# metrics.MetricsHttpServer always carries the full payload) instead of
+# entering the request batch.
+STATS_MAGIC = b"GSTATS1\x00"
+# METRICS request op: same wire shape, answered with the Prometheus text
+# exposition of Genesys.metrics (ticked on demand, so a UDP scrape sees
+# fresh windows); over-ceiling replies are cut at a line boundary and
+# flagged with a trailing ``# truncated`` comment.
+METRICS_MAGIC = b"GMETRX1\x00"
+_STATS_MAX_DGRAM = 60000      # stay under the UDP payload ceiling
+
+# admission-control shed reply: a one-token body ``[SHED_TOKEN]`` (after
+# the echoed tag) tells an open-loop client its request was refused by
+# load shedding — not lost, not failed — so it can back off or retry
+# against a lower-rank class. Negative, so it can never collide with a
+# real generated token id (vocab ids are non-negative).
+SHED_TOKEN = -503
+
+
+@dataclass
+class ServeStats:
+    requests: int = 0
+    batches: int = 0
+    tokens_out: int = 0
+    wall_s: float = 0.0
+    # decode accounting, consistent across ALL decode paths (fig12's
+    # dispatch-amortization ratio is decode_steps / decode_dispatches):
+    #   decode_dispatches — actual serve_fn invocations (jit dispatches)
+    #   decode_steps      — per-request token steps those dispatches
+    #                       covered (eager: == dispatches; batched/
+    #                       continuous: n_active per dispatch)
+    decode_dispatches: int = 0
+    decode_steps: int = 0
+    decode_buckets: int = 0      # batched-decode buckets run
+    stats_requests: int = 0      # STATS/METRICS ops answered
+    # continuous-loop admission pressure (queue_depth* are levels)
+    queue_depth: int = 0         # parsed requests awaiting a slot
+    queue_depth_peak: int = 0
+    poll_skips: int = 0          # polls skipped: admission was impossible
+    # genesys.admit decisions taken at the serving front end
+    shed_requests: int = 0       # refused: answered [SHED_TOKEN], not queued
+    degraded_requests: int = 0   # served with a halved token budget
+
+
+class GenesysUdpServer:
+    """Echo/decode server whose network I/O is GENESYS syscalls."""
+
+    def __init__(self, gsys: Genesys, *, port: int, max_batch: int = 8,
+                 batch_window_s: float = 0.005, payload: int = 4096,
+                 use_ring: bool = False, use_tenants: bool = False,
+                 tx_shards: int = 8, admission=None):
+        self.gsys = gsys
+        self.port = port
+        self.max_batch = max_batch
+        self.window = batch_window_s
+        self.payload = payload
+        # genesys.admit AdmissionController (or None): requests then carry
+        # a client id word ([budget, tag, client, prompt...]) and shed
+        # requests are answered with [SHED_TOKEN] instead of being queued
+        self.admission = admission
+        self.use_tenants = use_tenants
+        self.use_ring = use_ring or use_tenants
+        self.tx_shards = max(1, int(tx_shards))
+        if use_tenants:
+            # receive side: latency-critical tenant, reaped first under
+            # StrictPriority and never stuck behind a client's reply flood
+            self._rx = gsys.tenant("serve-rx", weight=8.0, priority=10)
+            self._call = self._rx.call
+            # reply side: the shard pool is built up front, so the per-
+            # reply hot path is one list index — no Genesys.tenant() lock
+            self._tx = [gsys.tenant(f"client-shard:{i}", n_slots=128)
+                        for i in range(self.tx_shards)]
+        else:
+            self._rx = None
+            self._tx = []
+            self._call = gsys.ring_call if self.use_ring else gsys.call
+        self.fd = self._call(Sys.SOCKET, socket.AF_INET, socket.SOCK_DGRAM, 0)
+        self._call(Sys.BIND, self.fd, port)
+        sock = gsys.table._sockets[self.fd]
+        sock.settimeout(0.2)
+        # trace.Counters fold: serving stats join Genesys.telemetry()
+        # ("serving"/"server") and stay torn-read-free for scrapers
+        self.counters = Counters(ServeStats())
+        gsys.attach_stats("server", self.counters)
+        # per-request wall-time histogram (µs) in the metrics registry —
+        # the windowed-p99 / SLO-burn input for the serving path
+        self._wall_hist = gsys.metrics.histogram(
+            "genesys_request_wall_us", "per-request serve wall time (µs)")
+        self._pending_handles: list[int] = []
+        # reusable receive staging: one arena extent per batch position,
+        # carved ONCE — RECVFROM lands each datagram in place (zero-copy
+        # under HostArena) and poll_requests returns borrowed views instead
+        # of per-datagram new_buffer/copy/release (the UDP double-copy fix)
+        self._rx_handles = [gsys.heap.new_buffer(payload)
+                            for _ in range(max_batch)]
+        self._rx_bufs = [np.asarray(gsys.heap.resolve(h))
+                         for h in self._rx_handles]
+
+    @property
+    def stats(self) -> ServeStats:
+        return self.counters.stats
+
+    @stats.setter
+    def stats(self, new) -> None:
+        with self.counters.lock:
+            self.counters.stats = new
+
+    def poll_requests(self, idle_wait: float | None = None
+                      ) -> list[np.ndarray]:
+        """Gather up to max_batch datagrams within the batching window
+        (blocking weak-ordered recvfrom syscalls). The first receive waits
+        the idle timeout; follow-ups only wait the short batching window so
+        a lone request is answered immediately. ``idle_wait`` overrides the
+        first-receive wait — the continuous engine polls with a tiny wait
+        while slots are decoding so admission never stalls the batch.
+
+        Returned arrays are views of the server's staging extents, valid
+        until the NEXT poll — every consumer (parse_request, reply,
+        _maybe_stats) copies what it keeps within the same iteration."""
+        out = []
+        sock = self.gsys.table._sockets[self.fd]
+        idle_timeout = sock.gettimeout()
+        if idle_wait is not None:
+            sock.settimeout(idle_wait)
+        try:
+            while len(out) < self.max_batch:
+                i = len(out)        # control ops below don't consume a slot
+                n = self._call(Sys.RECVFROM, self.fd, self._rx_handles[i],
+                               self.payload)
+                if n > 0:
+                    req = self._rx_bufs[i][:n]
+                    if self._maybe_stats(req):
+                        continue      # control op, not a serving request
+                    out.append(req)
+                    sock.settimeout(self.window)
+                if n <= 0:
+                    break
+        finally:
+            try:
+                sock.settimeout(idle_timeout)
+            except OSError:
+                pass   # socket closed during shutdown
+        return out
+
+    def _maybe_stats(self, req: np.ndarray) -> bool:
+        """Handle a STATS or METRICS control datagram: reply with the
+        telemetry JSON snapshot / Prometheus text to the embedded port.
+        Returns True if ``req`` was a control op (and must not enter the
+        request batch)."""
+        data = req.tobytes()
+        want_metrics = data.startswith(METRICS_MAGIC)
+        if not want_metrics and not data.startswith(STATS_MAGIC):
+            return False
+        self.counters.add(stats_requests=1)
+        if len(data) >= len(STATS_MAGIC) + 4:
+            port = int.from_bytes(
+                data[len(STATS_MAGIC):len(STATS_MAGIC) + 4], "little")
+            if port:
+                self.reply([self._metrics_blob() if want_metrics
+                            else self._stats_blob()], port)
+        return True
+
+    def _stats_blob(self) -> bytes:
+        snap = self.gsys.telemetry()
+        blob = json.dumps(jsonable(snap)).encode()
+        if len(blob) > _STATS_MAX_DGRAM:   # huge histogram set: the
+            # summary fallback says so explicitly — the TCP /telemetry
+            # endpoint serves the full payload with no ceiling
+            s = summary_dict(snap)
+            s["truncated"] = True
+            blob = json.dumps(s).encode()
+        return blob
+
+    def _metrics_blob(self) -> bytes:
+        reg = self.gsys.metrics
+        reg.tick()
+        text = reg.prometheus_text().encode()
+        if len(text) > _STATS_MAX_DGRAM:
+            cut = text.rfind(b"\n", 0, _STATS_MAX_DGRAM - 16)
+            text = text[:max(0, cut)] + b"\n# truncated\n"
+        return text
+
+    # async sends hold their payload extents alive until a drain barrier;
+    # past this many outstanding handles, reply() forces one so a long-
+    # running server can't grow the pending list (and the arena) unboundedly
+    PENDING_RELEASE_THRESHOLD = 1024
+
+    def reply(self, payloads, port: int) -> None:
+        """Send ``payloads`` (bytes or uint8 arrays) to ``port``. Each
+        payload is staged ONCE into an arena extent (register_bytes, the
+        "reply" copy path) and SENDTO transmits straight off the extent —
+        no frombuffer().copy() + tobytes() round trip per send."""
+        if self.use_ring:
+            # ring fast path: the whole reply batch is one multi-entry
+            # submission; sends complete out of band, drain() is the barrier
+            calls = []
+            for p in payloads:
+                bh = self.gsys.heap.register_bytes(p, path="reply")
+                self._pending_handles.append(bh)
+                calls.append((Sys.SENDTO, self.fd, bh, len(p), port))
+            if self.use_tenants:
+                # per-client tenant, hash-sharded onto the bounded pool:
+                # this port's sends ride their shard's ring, subject to
+                # its rate limit / WFQ share (the slot area is finite, so
+                # one tenant per port would exhaust it under churn)
+                self._tx[port % self.tx_shards].submit(calls)
+            else:
+                self.gsys.ring_submit(calls)
+            self._maybe_release_pending()
+            return
+        for p in payloads:
+            bh = self.gsys.heap.register_bytes(p, path="reply")
+            self.gsys.call(Sys.SENDTO, self.fd, bh, len(p), port,
+                           blocking=False)   # producer role: weak, non-block
+            # handle stays alive until the next drain (async send reads it)
+            self._pending_handles.append(bh)
+        self._maybe_release_pending()
+
+    def _maybe_release_pending(self) -> None:
+        if len(self._pending_handles) > self.PENDING_RELEASE_THRESHOLD:
+            self.gsys.drain()
+            self._release_pending()
+
+    def _release_pending(self) -> None:
+        for bh in self._pending_handles:
+            self.gsys.heap.release(bh)
+        self._pending_handles.clear()
+
+    def serve_echo(self, *, n_batches: int, reply_port: int,
+                   n_requests: int | None = None) -> ServeStats:
+        """Pure echo mode (the paper's microbenchmark). Stops after
+        `n_requests` total packets if given, else after `n_batches`."""
+        t0 = time.monotonic()
+        done = 0
+        while (self.stats.requests < n_requests if n_requests is not None
+               else done < n_batches):
+            reqs = self.poll_requests()
+            if not reqs:
+                continue
+            # the echo payloads are staging-extent views: reply() stages
+            # each into its send extent directly, no tobytes() detour
+            self.reply(reqs, reply_port)
+            self.counters.add(requests=len(reqs), batches=1)
+            done += 1
+        self.gsys.drain()
+        self._release_pending()
+        wall = time.monotonic() - t0
+        self.counters.update(lambda s: setattr(s, "wall_s", wall))
+        return self.stats
+
+    def serve_model_continuous(self, engine, *, reply_port: int,
+                               n_requests: int | None = None,
+                               max_tokens: int = 8,
+                               max_idle_polls: int = 50,
+                               per_request_tokens: bool = True
+                               ) -> ServeStats:
+        """Continuous-batching decode loop: the engine decodes every step
+        at ONE fixed batch shape while this loop admits arrivals and
+        retires/answers finishers between steps — a request that lands
+        mid-decode joins the NEXT step instead of waiting for the current
+        bucket to drain (serving/engine.py).
+
+        While slots are busy, polls wait ~0 so admission never stalls the
+        batch — and are SKIPPED outright when admission is impossible
+        this step (no free slot, or the queue already covers the free
+        ones): arrivals sit in the kernel socket buffer and are swept up
+        right after the next retirement, so a saturated engine pays zero
+        poll latency per decode step. When the engine idles, polls block
+        the socket's idle timeout. Stops once ``n_requests`` requests
+        are answered (or after ``max_idle_polls`` idle polls with
+        nothing in flight).
+
+        With tracing on, every request gets a **span id** at parse time:
+        REQ_BEGIN/REQ_END events bracket its wall time, the engine
+        records one EV_STEP per span per decode dispatch, and admission/
+        retirement/reply syscalls submitted under ``Tracer.span`` carry
+        the id in their SUBMIT aux — ``export_chrome_trace`` renders one
+        pid-5 track per request nesting its steps and syscalls.
+        """
+        t0 = time.monotonic()
+        engine.serve_stats = self.counters
+        tracer = self.gsys.tracer
+        ch = tracer.channel("requests") if tracer is not None else None
+        engine.trace = ch
+        adm = self.admission
+        # queue entries: (toks, budget, tag, span, t_parse_ns, client)
+        queue: list[tuple] = []
+        idle = 0
+        replied = 0
+        while True:
+            busy = engine.n_active > 0 or bool(queue)
+            if n_requests is not None and replied >= n_requests:
+                break
+            if busy and len(queue) >= engine.free_slots:
+                reqs = []           # nothing to admit into: don't block
+                self.counters.add(poll_skips=1)
+            else:
+                reqs = self.poll_requests(idle_wait=0.001 if busy else None)
+            if reqs:
+                idle = 0
+                self.counters.add(requests=len(reqs), batches=1)
+                now_ns = time.perf_counter_ns()
+                for r in reqs:
+                    if adm is not None:
+                        toks, budget, tag, client = parse_request(
+                            r, per_request_tokens, max_tokens,
+                            with_client=True)
+                        verdict = adm.admit_request(client)
+                        if verdict == "shed":
+                            # answer now, queue nothing: the [SHED_TOKEN]
+                            # reply is the wire-visible degradation signal
+                            self.reply([encode_reply([SHED_TOKEN], tag)],
+                                       reply_port)
+                            self.counters.add(shed_requests=1)
+                            replied += 1
+                            continue
+                        if verdict == "degrade":
+                            budget = max(1, budget >> 1)
+                            self.counters.add(degraded_requests=1)
+                    else:
+                        toks, budget, tag = parse_request(
+                            r, per_request_tokens, max_tokens)
+                        client = None
+                    span = 0
+                    if ch is not None:
+                        span = tracer.next_seq()
+                        ch.rec(EV_REQ_BEGIN, REQ_SYSNO, span, aux=budget,
+                               ts=now_ns)
+                    queue.append((toks, budget, tag, span, now_ns, client))
+            elif not busy:
+                idle += 1
+                if n_requests is None or idle >= max_idle_polls:
+                    break               # traffic died before the target
+                continue
+            # admit as many queued requests as slots/blocks allow — the
+            # rest stay queued and retry after the next retirements
+            while queue:
+                toks, budget, tag, span, tns, client = queue[0]
+                meta = (tag, span, tns, client)
+                if span:
+                    # admission syscalls (spill revivals, block touches)
+                    # belong to this request's span
+                    with tracer.span(span):
+                        ok = engine.admit(toks, budget, meta=meta,
+                                          span=span)
+                else:
+                    ok = engine.admit(toks, budget, meta=meta, span=span)
+                if not ok:
+                    break
+                queue.pop(0)
+            depth = len(queue)
+            self.counters.update(lambda s: (
+                setattr(s, "queue_depth", depth),
+                setattr(s, "queue_depth_peak",
+                        max(s.queue_depth_peak, depth))))
+            for meta, gen in engine.step():
+                tag, span, tns, client = meta
+                if span:
+                    with tracer.span(span):
+                        self.reply([encode_reply(gen, tag)], reply_port)
+                    ch.rec(EV_REQ_END, REQ_SYSNO, span, aux=len(gen))
+                else:
+                    self.reply([encode_reply(gen, tag)], reply_port)
+                wall_us = (time.perf_counter_ns() - tns) / 1e3
+                self._wall_hist.observe(wall_us)
+                if adm is not None and client is not None:
+                    # the burn-rate/windowed-p99 input the controller's
+                    # next refresh() reads — closing the control loop
+                    adm.observe(client, wall_us)
+                self.counters.add(tokens_out=len(gen))
+                replied += 1
+        self.gsys.drain()
+        self._release_pending()
+        wall = time.monotonic() - t0
+        self.counters.update(lambda s: setattr(s, "wall_s", wall))
+        return self.stats
+
+    def close(self) -> None:
+        self._call(Sys.CLOSE, self.fd)
+        self._release_pending()
+        for h in self._rx_handles:
+            self.gsys.heap.release(h)
+        self._rx_handles = []
+        self._rx_bufs = []
+
+
+def parse_request(req: np.ndarray, per_request_tokens: bool,
+                  default_tokens: int, with_client: bool = False):
+    """Decode one datagram into ``(prompt_tokens, budget, tag)``.
+
+    Plain format: the whole payload is int32 prompt tokens; the budget is
+    the server-wide ``max_tokens`` and replies carry no tag. Per-request
+    format (``per_request_tokens=True``): ``[budget, tag, prompt...]`` —
+    the tag is echoed first in the reply so an open-loop client can match
+    out-of-order completions to its requests.
+
+    ``with_client=True`` (admission-controlled servers) reads one more
+    word — ``[budget, tag, client, prompt...]`` — and returns the
+    4-tuple ``(prompt_tokens, budget, tag, client)``: the client id the
+    :class:`~repro_torch.core.genesys.admit.AdmissionController` maps to an
+    admission group."""
+    toks = np.frombuffer(req.tobytes(), dtype=np.int32)
+    if not per_request_tokens:
+        return (toks, default_tokens, None, None) if with_client \
+            else (toks, default_tokens, None)
+    budget = max(1, int(toks[0])) if len(toks) else 1
+    tag = int(toks[1]) if len(toks) > 1 else 0
+    if not with_client:
+        return toks[2:], budget, tag
+    client = int(toks[2]) if len(toks) > 2 else 0
+    return toks[3:], budget, tag, client
+
+
+def encode_reply(gen, tag: int | None) -> bytes:
+    toks = ([] if tag is None else [tag]) + list(gen)
+    return np.asarray(toks, dtype=np.int32).tobytes()

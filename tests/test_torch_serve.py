@@ -1,0 +1,103 @@
+"""Continuous UDP serving end to end through the port: datagrams arrive by
+RECVFROM on the port's Genesys tenant rings, run through the port's
+continuous-batching engine and a reduced starcoder2-7b (float32), and
+leave by SENDTO. Every reply equals the JAX engine's continuation of the
+same request on bridged weights. Also: the launcher rejects the paths
+this slice does not have."""
+import dataclasses
+import socket
+import threading
+import time
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.models.registry import get_api
+from repro.serving.engine import make_engine as jax_engine
+from repro.sharding import rules_for
+from repro_torch.configs import get_config
+from repro_torch.core.genesys import Genesys, GenesysConfig
+from repro_torch.launch import serve as launcher
+from repro_torch.serving.engine import make_engine
+from repro_torch.serving.server import SHED_TOKEN, GenesysUdpServer
+from repro_torch.weights import from_jax_params
+
+torch.set_num_threads(1)
+
+F32 = dict(params_dtype="float32", compute_dtype="float32",
+           kv_cache_dtype="float32")
+
+
+def test_continuous_udp_end_to_end_matches_jax_engine(mesh11):
+    jcfg = dataclasses.replace(jax_config("starcoder2-7b").reduced(), **F32)
+    cfg = dataclasses.replace(get_config("starcoder2-7b").reduced(), **F32)
+    params, _ = get_api(jcfg).init(jax.random.PRNGKey(2), jcfg)
+    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, params),
+                              cfg, device="cpu")
+    rng = np.random.default_rng(12)
+    reqs = [[int(rng.integers(1, 6)), 700 + i]
+            + rng.integers(1, cfg.vocab_size, size=rng.integers(2, 12))
+            .tolist() for i in range(5)]
+    with mesh11:
+        jeng = jax_engine(jcfg, rules_for(jcfg, mesh11), params, n_slots=3,
+                          n_blocks=48, block_size=4)
+        want = {}
+        for r in reqs:
+            assert jeng.admit(np.asarray(r[2:], np.int32), r[0], meta=r[1])
+            want.update(dict(jeng.drain()))
+
+    gsys = Genesys(GenesysConfig(n_workers=2, sched_pollers=2))
+    try:
+        eng = make_engine(cfg, tparams, n_slots=3, n_blocks=48,
+                          block_size=4, gsys=gsys)
+        srv = GenesysUdpServer(gsys, port=0, max_batch=4, payload=256,
+                               batch_window_s=0.02, use_tenants=True)
+        port = gsys.table._sockets[srv.fd].getsockname()[1]
+        client = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        client.bind(("127.0.0.1", 0))
+        client.settimeout(20)
+        th = threading.Thread(
+            target=srv.serve_model_continuous,
+            kwargs=dict(engine=eng, reply_port=client.getsockname()[1],
+                        n_requests=len(reqs)), daemon=True)
+        th.start()
+        time.sleep(0.05)
+        for r in reqs:
+            client.sendto(np.asarray(r, np.int32).tobytes(),
+                          ("127.0.0.1", port))
+        got = {}
+        try:
+            for _ in reqs:
+                data, _ = client.recvfrom(4096)
+                reply = np.frombuffer(data, np.int32).tolist()
+                got[reply[0]] = reply[1:]
+        finally:
+            client.close()
+        th.join(20)
+        assert not th.is_alive()
+        srv.close()
+    finally:
+        gsys.shutdown()
+    assert got == want
+    assert all(len(got[r[1]]) == r[0] for r in reqs)
+    assert SHED_TOKEN not in sum(got.values(), [])
+    assert srv.stats.tokens_out == sum(r[0] for r in reqs)
+    assert eng.stats.retired == len(reqs)
+    assert eng.pool.stats.blocks_in_use == 0
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "starcoder2-7b", "--reply-port", "1"],
+    ["--arch", "starcoder2-7b", "--reply-port", "1", "--continuous",
+     "--batch-decode"],
+    ["--arch", "starcoder2-7b", "--reply-port", "1", "--continuous",
+     "--batches", "4"],
+])
+def test_launcher_rejects_dense_serving_flags(argv, capsys):
+    with pytest.raises(SystemExit) as e:
+        launcher.main(argv)
+    assert e.value.code == 2
+    assert "dense-serving slice" in capsys.readouterr().err
