@@ -24,6 +24,31 @@ Phases, each fatal on failure:
    the plain attention: full width in bf16, and two layers at full width
    in f32 (greedy tokens equal wherever the top-2 margin exceeds 1e-3).
 
+The dense-cache path (the second slice) adds:
+
+2b. the dense flash-decode kernel (K2) against its plain version in bf16,
+    f32 and on an int8 cache, each without and with the step's new token,
+    at B=8, H=36, KV=4, hd=128, S=4096 with ragged lens up to 4096, on a
+    cache whose S is not a multiple of 512 (nor of 64), and at the shape
+    the bucketed serve loop gives it (a bucket of 8 rows, the server's
+    largest poll batch, of the 256-position cache);
+    timed against the plain version, one masked
+    ``F.scaled_dot_product_attention(..., enable_gqa=True)`` as the
+    library yardstick, and the bytes bound;
+5.  the dense path at full width, with phase 3's weights: 16 plain
+    requests (distinct last tokens) through
+    ``GenesysUdpServer(use_tenants=True).serve_model`` eager, the same
+    with ``batch_decode=True`` and ``[budget, tag, prompt...]`` requests
+    (budgets 8-32), and the same plain requests through
+    ``CpuBaselineUdpServer.serve_model`` — the paper's GENESYS-versus-CPU
+    comparison. Every reply must carry exactly its budget, eager and CPU
+    baseline must return the same token lists (matched by content), and
+    K2 and the KV append must have launched once per layer per decode
+    dispatch in each of the three runs;
+5b. one dense step's logits with the kernels against the same step with
+    the plain attention, full width bf16, over a filled cache with ragged
+    lengths (one row at capacity).
+
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
 is visible or the port's sources are not beside this script.
@@ -66,6 +91,9 @@ POLLER_MAX_SLEEP_S = 0.05
 B, H, KV, HD, BS = 8, 36, 4, 128, 16
 N_BLOCKS, TABLE_WIDTH = 2048, 1024   # make_engine's default table: NB // 2
 MAX_LEN = 4096
+# the dense path: the launcher's cache of one row and 256 positions,
+# tiled to a power-of-two bucket by the bucketed loop
+DENSE_LEN, N_DENSE_REQS, EAGER_TOKENS = 256, 16, 16
 
 
 class SmokeFailure(RuntimeError):
@@ -267,6 +295,104 @@ def kernel_phase(torch, dev, flush):
     return cases, append
 
 
+# ------------------------------------------ phase 2b: the dense kernel --
+
+def dense_inputs(torch, dev, gen, q_dtype, kv_dtype, *, b, s, max_len):
+    """q, a carried-layout cache k/v [b,s,KV,hd], ragged lens (row 0 at
+    max_len) and a new token k_new/v_new [b,KV,hd] in q's dtype."""
+    lens = torch.randint(1, max_len + 1, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[0] = max_len
+    q = torch.randn(b, H, HD, generator=gen, device=dev).to(q_dtype)
+    shape = (b, s, KV, HD)
+    if kv_dtype == torch.int8:
+        k = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+    else:
+        k = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+        v = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+    k_new = torch.randn(b, KV, HD, generator=gen, device=dev).to(q_dtype)
+    v_new = torch.randn(b, KV, HD, generator=gen, device=dev).to(q_dtype)
+    return q, k, v, lens, k_new, v_new
+
+
+def library_dense_attention(torch, q, k, v, lens):
+    """Yardstick only, never on the path: one masked
+    F.scaled_dot_product_attention call over the cache (GQA by
+    enable_gqa; an int8 cache dequantised first)."""
+    F = torch.nn.functional
+    if k.dtype == torch.int8:
+        k, v = k.to(q.dtype) / 16.0, v.to(q.dtype) / 16.0
+    mask = (torch.arange(k.shape[1], device=q.device)[None]
+            < lens[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+
+def dense_kernel_phase(torch, dev, flush):
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    dtypes = (("bfloat16", torch.bfloat16, torch.bfloat16),
+              ("float32", torch.float32, torch.float32),
+              ("int8", torch.bfloat16, torch.int8))
+    # (label, rows, cache positions, largest len): the kernel check's
+    # sizes; a cache of 1000 positions (1000 % 512 and 1000 % 64 are not
+    # 0) with a row past capacity; the bucketed serve loop's shape
+    shapes = [("S4096", B, MAX_LEN, MAX_LEN) + (d,) for d in dtypes]
+    shapes += [("S1000-tail", B, 1000, 1005, dtypes[0]),
+               ("bucket8-S256", 8, DENSE_LEN, 40, dtypes[0])]
+    cases = []
+    for label, b, s, max_len, (name, q_dtype, kv_dtype) in shapes:
+        q, k, v, lens, k_new, v_new = dense_inputs(
+            torch, dev, gen, q_dtype, kv_dtype, b=b, s=s, max_len=max_len)
+        n_pos = int(lens.clamp(max=s).sum())
+        for new in (False, True):
+            extra = (k_new, v_new) if new else ()
+            got = ops.decode_attention(q, k, v, lens, *extra)
+            want = ops.decode_attention_plain(q, k, v, lens, *extra)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = tolerance(name, want)
+            nbytes = (2 * n_pos * KV * HD * k.element_size()
+                      + 2 * q.numel() * q.element_size() + 4 * b
+                      + (2 * k_new.numel() * k_new.element_size()
+                         if new else 0))
+            flops = 4.0 * (n_pos + (b if new else 0)) * H * HD
+            bnd, by = bound_ms(nbytes, flops, "float32" if name == "float32"
+                               else "bfloat16")
+            ms, host_ms_k = cuda_ms(torch, lambda: ops.decode_attention(
+                q, k, v, lens, *extra), reps=20, flush=flush)
+            plain_ms, _ = cuda_ms(torch, lambda: ops.decode_attention_plain(
+                q, k, v, lens, *extra), reps=5, flush=flush)
+            library_ms = None
+            if not new:     # one library call computes the same function
+                library_ms, _ = cuda_ms(torch, lambda: library_dense_attention(
+                    torch, q, k, v, lens), reps=10, flush=flush)
+            case = {
+                "case": f"{label}-{name}-{'new' if new else 'cache'}",
+                "max_abs_err": err, "tol": tol, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bnd, "bound_by": by, "kv_bytes": nbytes,
+                "host_call_ms": host_ms_k, "lens": lens.tolist(),
+            }
+            cases.append(case)
+            lib = "null" if library_ms is None else f"{library_ms:.4f}"
+            print(f"kernel decode_attention[{case['case']}]: max_abs_err="
+                  f"{err:.3e} (tol {tol:g}) ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms(sdpa)={lib} "
+                  f"bound_ms={bnd:.4f} ({by}, {nbytes} B) "
+                  f"host_call_ms={host_ms_k:.4f}", flush=True)
+            check(err <= tol, f"decode_attention[{case['case']}] error "
+                  f"{err} > {tol}")
+        del q, k, v, lens, k_new, v_new, got, want
+    return cases
+
+
 # ---------------------------------------------------- phase 3: main path --
 
 def make_requests(rng, vocab: int):
@@ -377,6 +503,242 @@ def check_replies(reqs, replies, vocab: int) -> None:
               f"of range: {gen}")
 
 
+# ------------------------------------------------ phase 5: dense path ---
+
+def make_dense_requests(rng, vocab: int):
+    """16 prompts of 16-256 tokens with distinct last tokens, and budgets
+    8-32 for the bucketed run's ``[budget, tag, prompt...]`` form."""
+    import numpy as np
+    last = rng.choice(np.arange(1, vocab), size=N_DENSE_REQS, replace=False)
+    prompts = [rng.integers(1, vocab, size=int(n)).tolist() + [int(t)]
+               for n, t in zip(rng.integers(15, 256, size=N_DENSE_REQS),
+                               last)]
+    budgets = [int(b) for b in rng.integers(8, 33, size=N_DENSE_REQS)]
+    return prompts, budgets
+
+
+def serve_dense(torch, cfg, params, mode, reqs, *, max_tokens, counters):
+    """Serve ``reqs`` over UDP on the dense path: ``mode`` "eager" or
+    "bucketed" through GenesysUdpServer(use_tenants=True).serve_model, or
+    "cpu" through CpuBaselineUdpServer.serve_model; ``counters`` are
+    zeroed right before the loop starts. Returns (replies in arrival
+    order, stats, wall_s, step_s list)."""
+    from repro_torch.core.genesys import Genesys, GenesysConfig
+    from repro_torch.models import transformer
+    from repro_torch.serving.server import (
+        CpuBaselineUdpServer, GenesysUdpServer,
+    )
+    from repro_torch.train.steps import make_serve_step
+
+    inner = make_serve_step(cfg)
+    step_s = []
+
+    def serve_fn(*args):        # the loop reads the tokens back anyway
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    cache = transformer.init_cache(cfg, 1, DENSE_LEN,
+                                   device=params["embed"].device)
+    gsys = None
+    if mode == "cpu":
+        srv = CpuBaselineUdpServer(port=0)
+        port = srv.sock.getsockname()[1]
+    else:
+        gsys = Genesys(GenesysConfig(n_workers=2, sched_pollers=2,
+                                     ring_spin_polls=POLLER_SPIN,
+                                     ring_max_sleep_s=POLLER_MAX_SLEEP_S))
+        srv = GenesysUdpServer(gsys, port=0, use_tenants=True)
+        port = gsys.table._sockets[srv.fd].getsockname()[1]
+    try:
+        client = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        client.bind(("127.0.0.1", 0))
+        client.settimeout(120)
+        reply_port = client.getsockname()[1]
+        result = {}
+
+        def serve():
+            if mode == "cpu":
+                result["stats"] = srv.serve_model(
+                    serve_fn, params, cache, n_batches=len(reqs),
+                    reply_port=reply_port, max_tokens=max_tokens)
+            else:
+                result["stats"] = srv.serve_model(
+                    serve_fn, params, cache, n_batches=len(reqs),
+                    n_requests=len(reqs), max_idle_polls=400,
+                    reply_port=reply_port, max_tokens=max_tokens,
+                    batch_decode=mode == "bucketed",
+                    per_request_tokens=mode == "bucketed")
+
+        for c in counters:
+            c.launches = 0
+        th = threading.Thread(target=serve, name=f"smoke-{mode}",
+                              daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        time.sleep(0.05)
+        for r in reqs:
+            client.sendto(_dgram(r), ("127.0.0.1", port))
+        replies = []
+        try:
+            while len(replies) < len(reqs):
+                data, _ = client.recvfrom(65536)
+                replies.append(_tokens(data))
+        finally:
+            client.close()
+        th.join(120)
+        wall = time.perf_counter() - t0
+        check(not th.is_alive(), f"{mode} serve loop did not stop")
+        return replies, result["stats"], wall, step_s
+    finally:
+        srv.close()
+        if gsys is not None:
+            gsys.shutdown()
+
+
+def dense_path_phase(torch, cfg, params):
+    """Phase 5: the three dense servers at full width. Returns a dict of
+    per-run results and K2's launches per run."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    prompts, budgets = make_dense_requests(np.random.default_rng(5),
+                                           cfg.vocab_size)
+    tagged = [[b, 300 + i] + p
+              for i, (b, p) in enumerate(zip(budgets, prompts))]
+    counters = (ops.decode_attention, ops.update_kv_buffer,
+                ops.paged_decode_attention)
+    runs = {}
+    for mode, reqs, max_tokens in (("eager", prompts, EAGER_TOKENS),
+                                   ("bucketed", tagged, max(budgets)),
+                                   ("cpu", prompts, EAGER_TOKENS)):
+        replies, stats, wall, step_s = serve_dense(
+            torch, cfg, params, mode, reqs, max_tokens=max_tokens,
+            counters=counters)
+        launches = {f.__name__: f.launches for f in counters}
+        dispatches = len(step_s)
+        if mode == "bucketed":
+            got = {r[0]: r[1:] for r in replies}
+            for budget, tag, *_ in reqs:
+                check(len(got.get(tag, ())) == budget, f"bucketed tag "
+                      f"{tag}: {len(got.get(tag, ()))} tokens, budget "
+                      f"{budget}")
+            gens = list(got.values())
+        else:
+            gens = replies
+            check(all(len(g) == max_tokens for g in gens),
+                  f"{mode}: a reply without its {max_tokens} tokens")
+        check(all(0 <= t < cfg.vocab_size for g in gens for t in g),
+              f"{mode}: token ids out of range")
+        tokens = sum(len(g) for g in gens)
+        if mode != "cpu":
+            check(stats.decode_dispatches == dispatches,
+                  f"{mode}: {stats.decode_dispatches} dispatches counted, "
+                  f"{dispatches} made")
+        for name in ("decode_attention", "update_kv_buffer"):
+            check(launches[name] == cfg.n_layers * dispatches,
+                  f"{mode}: {name} launched {launches[name]} times, "
+                  f"expected {cfg.n_layers} x {dispatches} dispatches")
+        check(launches["paged_decode_attention"] == 0,
+              f"{mode}: the paged kernel ran on the dense path")
+        run = {"replies": gens, "tokens_out": tokens, "wall_s": wall,
+               "tokens_per_s": tokens / wall, "dispatches": dispatches,
+               "mean_step_ms": 1e3 * statistics.mean(step_s),
+               "median_step_ms": 1e3 * statistics.median(step_s),
+               "launches": launches["decode_attention"]}
+        runs[mode] = run
+        print(f"dense path [{mode}]: {len(reqs)} requests answered with "
+              f"their budgets, tokens_out={tokens} wall={wall:.3f} s "
+              f"tokens/s={run['tokens_per_s']:.1f} dispatches={dispatches} "
+              f"mean_step_ms={run['mean_step_ms']:.3f} "
+              f"median_step_ms={run['median_step_ms']:.3f} "
+              f"launches={launches}", flush=True)
+    check(sorted(runs["eager"]["replies"]) == sorted(runs["cpu"]["replies"]),
+          "GENESYS eager and the CPU baseline returned different tokens")
+    # bucketed rows decode in a batch of 8 (other bf16 GEMM shapes), so
+    # their tokens may part from eager's at a near tie: reported, not gated
+    eager_by_first = {tuple(g[:8]) for g in runs["eager"]["replies"]}
+    same = sum(tuple(g[:8]) in eager_by_first
+               for g in runs["bucketed"]["replies"])
+    print(f"dense path: eager == cpu baseline on all {N_DENSE_REQS} "
+          f"replies; bucketed first 8 tokens equal eager's on {same}/"
+          f"{N_DENSE_REQS}", flush=True)
+    for run in runs.values():
+        del run["replies"]
+    # the step alone at the eager and the bucketed shape, the host
+    # plane's threads stopped: host clock vs device busy time
+    for mode, rows in (("eager", 1), ("bucketed", 8)):
+        runs[mode].update(dense_step_alone(torch, cfg, params, rows))
+    return runs
+
+
+def dense_step_alone(torch, cfg, params, rows: int) -> dict:
+    """One dense step of ``rows`` rows over the 256-position cache at
+    cached length 128: host ms (ends in a sync) and device busy ms."""
+    from repro_torch.models import transformer
+    from repro_torch.train.steps import make_serve_step
+    step = make_serve_step(cfg)
+    cache = transformer.init_cache(cfg, rows, DENSE_LEN, device="cuda")
+    tok = torch.ones((rows, 1), dtype=torch.int32, device="cuda")
+    cl = torch.full((rows,), 128, dtype=torch.int32, device="cuda")
+
+    def one_step():
+        step(params, cache, tok, cl)
+    alone_ms = host_ms(torch, one_step, reps=10)
+    busy_ms = device_busy_ms(torch, one_step, top=8)
+    busy = "not measured" if busy_ms is None else f"{busy_ms:.3f}"
+    print(f"dense step alone ({rows} row(s), cached len 128): "
+          f"host_ms={alone_ms:.3f} device_busy_ms={busy}", flush=True)
+    host_ops(torch, one_step, top=8)
+    return {"step_alone_ms": alone_ms, "step_device_busy_ms": busy_ms}
+
+
+def host_ops(torch, fn, top: int) -> None:
+    """Print the ``top`` operators of one call of ``fn`` by host (CPU)
+    time, from torch.profiler; the profiler's own cost inflates every
+    entry, so the order is what it shows."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted(prof.key_averages(),
+                    key=lambda e: -e.self_cpu_time_total)
+    total = sum(e.self_cpu_time_total for e in events) / 1e3
+    heavy = "; ".join(
+        f"{e.key[:40]} x{e.count} {e.self_cpu_time_total / 1e3:.3f} ms"
+        for e in events[:top])
+    print(f"  host time by op (profiled, {total:.3f} ms in all): {heavy}",
+          flush=True)
+
+
+def dense_logits_kernel_vs_plain(torch, cfg, params, dev, gen):
+    """Phase 5b: one dense step's logits with the kernels and with the
+    plain attention, each on its own copy of a filled cache of 8 rows and
+    1024 positions with ragged lengths, one row at capacity."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    cache = transformer.init_cache(cfg, B, 1024, device=dev)
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    cl = torch.randint(1, 1024, (B,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    cl[0] = 1024
+    tok = torch.randint(1, cfg.vocab_size, (B, 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    out = []
+    for attend in (None, ops.decode_attention_plain):
+        c = {n: t.clone() for n, t in cache.items()}
+        with torch.no_grad():
+            logits, _ = transformer.forward(params, cfg, tok, cache_len=cl,
+                                            cache=c, attend=attend)
+        out.append(logits[:, -1])
+        del c
+    return out, cl.tolist()
+
+
 # ---------------------------------------------------- phase 4: logits -----
 
 def paged_state(torch, cfg, dev, gen, *, n_blocks, max_len):
@@ -414,19 +776,26 @@ def host_ms(torch, fn, reps: int) -> float:
     return statistics.median(out)
 
 
-def device_busy_ms(torch, fn):
+def device_busy_ms(torch, fn, top: int = 0):
     """Sum of the device time of the kernels ``fn`` launches, from
     torch.profiler (CUPTI); None where the profiler records no device
-    time on this machine."""
+    time on this machine. With ``top``, also prints the ``top`` kernels
+    by device time."""
     from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages())
+        events = prof.key_averages()
+        us = sum(e.self_device_time_total for e in events)
     except (RuntimeError, AttributeError) as e:
         print(f"device busy: not measured ({e})", flush=True)
         return None
+    if top and us > 0:
+        heavy = sorted(events, key=lambda e: -e.self_device_time_total)
+        print("  device time by kernel: " + "; ".join(
+            f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+            for e in heavy[:top]), flush=True)
     return us / 1e3 if us > 0 else None
 
 
@@ -502,6 +871,8 @@ def run(torch) -> int:
     # phase 2: each kernel against its plain version at the path's shapes
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     decode_cases, append = kernel_phase(torch, dev, flush)
+    # phase 2b: the dense kernel against its plain version
+    dense_cases = dense_kernel_phase(torch, dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -573,7 +944,7 @@ def run(torch) -> int:
           f"host_ms={alone_ms:.3f} device_busy_ms={busy} "
           f"(weights bound {weights_gb / HBM_BYTES_PER_S * 1e12:.3f} ms)",
           flush=True)
-    del params, state, lk, lp
+    del state, lk, lp
     torch.cuda.empty_cache()
 
     # phase 4b: two layers at full width in f32, greedy tokens
@@ -593,6 +964,24 @@ def run(torch) -> int:
     check(bool(same[decided].all()), "f32 greedy tokens differ on a row "
           "whose top-2 margin exceeds 1e-3")
     del params32, state
+    torch.cuda.empty_cache()
+
+    # phase 5: the dense path at full width, phase 3's weights
+    dense_runs = dense_path_phase(torch, cfg, params)
+    # phase 5b: one dense step's logits, kernels vs plain, full width bf16
+    (lk, lp), dense_cl = dense_logits_kernel_vs_plain(torch, cfg, params,
+                                                      dev, gen)
+    d_dense = (lk - lp).abs().max().item()
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    print(f"dense logits bf16 full width (32 layers, cached lens "
+          f"{dense_cl}): max_abs_diff={d_dense:.4f} (tol "
+          f"{LOGITS_ATOL_BF16}) logit_absmax={lp.abs().max().item():.3f} "
+          f"argmax_agree={agree:.3f} "
+          f"finite={bool(torch.isfinite(lk).all())}", flush=True)
+    check(bool(torch.isfinite(lk).all()), "non-finite dense logits")
+    check(d_dense <= LOGITS_ATOL_BF16, f"dense bf16 logits differ by "
+          f"{d_dense}")
+    del params, lk, lp
 
     bf16 = decode_cases[0]
     kernels = [
@@ -612,6 +1001,18 @@ def run(torch) -> int:
          "plain_ms": append["plain_ms"], "bound_ms": append["bound_ms"],
          "bound_by": append["bound_by"], "library_ms": append["library_ms"],
          "pass": True},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dense_decode.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:83",
+         "launches": sum(r["launches"] for r in dense_runs.values()),
+         "launches_by_run": {m: r["launches"]
+                             for m, r in dense_runs.items()},
+         "max_abs_err": dense_cases[0]["max_abs_err"],
+         "ms": dense_cases[0]["ms"], "plain_ms": dense_cases[0]["plain_ms"],
+         "bound_ms": dense_cases[0]["bound_ms"],
+         "bound_by": dense_cases[0]["bound_by"],
+         "library_ms": dense_cases[0]["library_ms"],
+         "pass": True, "cases": dense_cases},
     ]
     print(json.dumps({"kernels": kernels, "main_path": {
         "arch": cfg.arch_id, "steps": steps, "tokens_out": stats.tokens_out,
@@ -622,7 +1023,8 @@ def run(torch) -> int:
         "logits_bf16_max_abs_diff": d_bf16, "step_alone_ms": alone_ms,
         "step_device_busy_ms": busy_ms, "poller_spin": POLLER_SPIN,
         "poller_max_sleep_s": POLLER_MAX_SLEEP_S,
-        "logits_f32_max_abs_diff": d_f32}}), flush=True)
+        "logits_f32_max_abs_diff": d_f32}, "dense_path": dict(
+        dense_runs, logits_bf16_max_abs_diff=d_dense)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``*.cu`` file under ``kernels/csrc/`` is compiled by ``nvcc`` into one
-shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds, not minutes). The library lands in
+Every ``*.cu`` file under ``kernels/csrc/`` is compiled by its own ``nvcc``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds, not minutes). The library lands in
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
-sources and the compiler flags, and is built at first use: importing this
-module compiles nothing, and nothing is fetched.
+sources, the headers they share (``csrc/*.cuh``) and the compiler flags, and
+is built at first use: importing this module compiles nothing, and nothing
+is fetched.
 """
 from __future__ import annotations
 
@@ -21,8 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-O3", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libgenesys_kernels.so"
 
 _ptr, _int, _ll, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -32,6 +33,8 @@ _ptr, _int, _ll, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "paged_decode_attention_launch": (
         [_ptr] * 8 + [_int] * 9 + [_f32, _f32, _int, _int, _ptr], _int),
+    "dense_decode_attention_launch": (
+        [_ptr] * 9 + [_int] * 8 + [_f32, _f32, _int, _int, _ptr], _int),
     "kv_append_launch": ([_ptr] * 5 + [_int, _ll, _ll, _ptr], _int),
     "genesys_kernels_error_string": ([_int], ctypes.c_char_p),
 }
@@ -39,6 +42,10 @@ SIGNATURES = {
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc() -> str:
@@ -56,7 +63,7 @@ def nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -72,18 +79,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent builder never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    # build in a private directory, then rename the library into place: a
+    # concurrent build never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp = Path(tmp)
+        objs = [tmp / f"{src.stem}.o" for src in sources()]
+        procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        (out_dir / "ptxas.log").write_text("".join(logs))
+        for src, p, log in zip(sources(), procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({p.returncode}):\n{log[-4000:]}")
+        link = subprocess.run([nvcc(), "-shared", "-o", str(tmp / LIB_NAME),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr[-4000:]}")
+        os.replace(tmp / LIB_NAME, lib)
     return lib
 
 

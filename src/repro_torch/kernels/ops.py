@@ -1,7 +1,8 @@
 """Public kernel surface of the PyTorch port (the counterpart of
-``repro.kernels.ops``): the paged decode attention and the paged KV append,
-each a wrapper that launches a hand-written CUDA kernel on CUDA tensors and
-runs its plain PyTorch version on CPU tensors.
+``repro.kernels.ops``): the paged decode attention (K1), the dense-cache
+decode attention (K2) and the paged KV append, each a wrapper that launches
+a hand-written CUDA kernel on CUDA tensors and runs its plain PyTorch
+version on CPU tensors.
 
 :func:`update_kv_buffer` replaces ``repro.kernels.ops.update_kv_buffer``
 (a jnp scatter with ``mode="drop"``). Unlike the reference it updates the
@@ -21,7 +22,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (  # noqa: F401
-    paged_decode_attention, paged_decode_attention_plain,
+    decode_attention, decode_attention_plain, paged_decode_attention,
+    paged_decode_attention_plain,
 )
 
 

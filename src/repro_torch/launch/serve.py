@@ -1,26 +1,25 @@
-"""Serving launcher of the PyTorch port: the continuous-batching UDP model
-server over GENESYS network and memory syscalls (the ``--continuous``
-path of ``repro.launch.serve``), on one GPU.
+"""Serving launcher of the PyTorch port: the UDP model server over GENESYS
+network (and, with ``--continuous``, memory) syscalls of
+``repro.launch.serve``, on one GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
-      --continuous --port 9111 --reply-port 9112 [--device cpu] [--reduced]
+      --port 9111 --reply-port 9112 [--batches 4] [--batch-decode] \\
+      [--continuous] [--device cpu] [--reduced]
 
 Weights are random, drawn from seed 0. Requests are int32 datagrams
-(``[budget, tag, prompt...]`` with ``--per-request-tokens``); the loop
-answers each with its greedy continuation and exits once it idles with
-nothing in flight. The dense-cache paths (``--batch-decode``, or no
-``--continuous``) are rejected: they are the dense-serving slice of the
-port.
+(``[budget, tag, prompt...]`` with ``--per-request-tokens``), each
+answered with its greedy continuation. Without ``--continuous`` the loop
+decodes over a dense cache of one row and 256 positions, each request
+eagerly or, with ``--batch-decode``, each poll batch as one power-of-two
+bucket, and exits after ``--batches`` non-empty poll batches. With
+``--continuous`` it runs the continuous-batching engine over the
+genesys.pagedkv arena and exits once it idles with nothing in flight.
 """
 from __future__ import annotations
 
 import argparse
 import threading
 import time
-
-DENSE_SERVING = ("dense-cache serving (serve_model, --batches, "
-                 "--batch-decode) is the dense-serving slice of the PyTorch "
-                 "port and not available yet; use --continuous")
 
 
 def start_stats_reporter(gsys, interval_s: float, *, out=print
@@ -63,11 +62,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "(implies --use-ring)")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over the genesys.pagedkv "
-                         "paged KV pool (the only serving path of this port)")
-    ap.add_argument("--batches", type=int, default=None,
-                    help="dense-cache serving only: rejected")
+                         "paged KV pool")
+    ap.add_argument("--batches", type=int, default=4,
+                    help="dense-cache serving: non-empty poll batches to "
+                         "serve before exiting")
     ap.add_argument("--batch-decode", action="store_true",
-                    help="dense-cache serving only: rejected")
+                    help="dense-cache serving: bucket concurrent requests, "
+                         "one decode dispatch per token step per bucket")
     ap.add_argument("--slots", type=int, default=8,
                     help="decode slots for --continuous")
     ap.add_argument("--kv-blocks", type=int, default=256,
@@ -107,8 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if not args.continuous or args.batch_decode or args.batches is not None:
-        ap.error(DENSE_SERVING)
 
     from repro_torch.configs import get_config
     from repro_torch.core.genesys import (Genesys, GenesysConfig,
@@ -117,6 +116,7 @@ def main(argv=None) -> None:
     from repro_torch.models import transformer
     from repro_torch.serving.engine import make_engine
     from repro_torch.serving.server import GenesysUdpServer
+    from repro_torch.train.steps import make_serve_step
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -172,18 +172,26 @@ def main(argv=None) -> None:
     params = transformer.init(cfg, seed=0, device=args.device)
     srv = GenesysUdpServer(gsys, port=args.port, use_ring=args.use_ring,
                            use_tenants=args.tenants, admission=controller)
-    engine = make_engine(cfg, params, n_slots=args.slots,
-                         n_blocks=args.kv_blocks,
-                         block_size=args.block_size, gsys=gsys,
-                         spill_path=args.spill)
-    engine.admission = controller
-    stats = srv.serve_model_continuous(
-        engine, reply_port=args.reply_port, max_tokens=args.max_tokens,
-        per_request_tokens=args.per_request_tokens)
-    print(f"engine: occupancy={engine.stats.occupancy():.2f} "
-          f"prefill_saved={engine.stats.prefill_steps_saved} "
-          f"kv_hit_rate={engine.pool.stats.hit_rate():.2f} "
-          f"kv_rss={engine.pool.rss_bytes()}")
+    if args.continuous:
+        engine = make_engine(cfg, params, n_slots=args.slots,
+                             n_blocks=args.kv_blocks,
+                             block_size=args.block_size, gsys=gsys,
+                             spill_path=args.spill)
+        engine.admission = controller
+        stats = srv.serve_model_continuous(
+            engine, reply_port=args.reply_port, max_tokens=args.max_tokens,
+            per_request_tokens=args.per_request_tokens)
+        print(f"engine: occupancy={engine.stats.occupancy():.2f} "
+              f"prefill_saved={engine.stats.prefill_steps_saved} "
+              f"kv_hit_rate={engine.pool.stats.hit_rate():.2f} "
+              f"kv_rss={engine.pool.rss_bytes()}")
+    else:
+        cache = transformer.init_cache(cfg, 1, 256, device=args.device)
+        stats = srv.serve_model(
+            make_serve_step(cfg), params, cache, n_batches=args.batches,
+            reply_port=args.reply_port, max_tokens=args.max_tokens,
+            batch_decode=args.batch_decode,
+            per_request_tokens=args.per_request_tokens)
     print(f"requests={stats.requests} batches={stats.batches} "
           f"tokens={stats.tokens_out} wall={stats.wall_s:.2f}s "
           f"decode_dispatches={stats.decode_dispatches} "

@@ -1,6 +1,7 @@
 """Shared model layers of the PyTorch port (the counterpart of
 ``repro.models.layers``): RMSNorm, RoPE, the SwiGLU and GELU MLPs, and the
-paged-decode branch of GQA attention. Parameters come from
+two decode branches of GQA attention, the paged one and the carried
+dense-cache one. Parameters come from
 ``models.module.ParamBuilder`` subtrees; one device, so the reference's
 sharding constraints and Megatron KV replication (``kv_rep``) are gone.
 """
@@ -13,12 +14,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (
-    QSCALE, paged_decode_attention_plain,
+    QSCALE, decode_attention_plain, paged_decode_attention_plain,
 )
 
 __all__ = ["QSCALE", "rmsnorm", "rope_tables", "apply_rope", "rope",
-           "paged_attention_xla", "PagedStep", "paged_step",
-           "init_attention", "attention", "init_mlp", "mlp"]
+           "paged_attention_xla", "decode_attention_xla",
+           "decode_attention_two_part", "DecodeStep", "paged_step",
+           "dense_step", "init_attention", "attention", "init_mlp", "mlp"]
 
 
 # ----------------------------------------------------------------- norms ----
@@ -70,6 +72,25 @@ def paged_attention_xla(q, k_pages, v_pages, block_tables, lens):
                                         block_tables, lens)[:, None]
 
 
+# ------------------------------------------------------- dense attention ----
+
+def decode_attention_xla(q, k_cache, v_cache, cache_len):
+    """The plain dense decode (the reference's ``decode_attention_xla``):
+    q [B,1,H,hd]; caches [B,S,KV,hd]; cache_len [B] -> [B,1,H,hd]."""
+    return decode_attention_plain(q[:, 0], k_cache, v_cache,
+                                  cache_len)[:, None]
+
+
+def decode_attention_two_part(q, k_cache, v_cache, k_new, v_new, cache_len):
+    """Decode without writing the cache first (the reference's
+    ``decode_attention_two_part``): softmax over [cache masked below
+    cache_len; new token]. q [B,1,H,hd]; caches [B,S,KV,hd]; k_new/v_new
+    [B,1,KV,hd] -> [B,1,H,hd]. The CUDA kernel behind
+    ``ops.decode_attention`` must match it."""
+    return decode_attention_plain(q[:, 0], k_cache, v_cache, cache_len,
+                                  k_new[:, 0], v_new[:, 0])[:, None]
+
+
 def init_attention(pb, cfg):
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     a = pb.sub("attn")
@@ -91,21 +112,26 @@ def _proj(x, w):
 
 
 @dataclass(frozen=True)
-class PagedStep:
-    """What every layer's paged attention shares within one decode step:
-    the rotary tables of the new tokens' positions, each row's flat arena
-    slot for its new K/V, and the lengths to attend over. The reference
-    computes these inside every layer and XLA folds the repeats; eager
-    PyTorch would launch them once per layer, so the port computes them
-    once per step (:func:`paged_step`)."""
+class DecodeStep:
+    """What every layer's decode attention shares within one step: the
+    rotary tables of the new tokens' positions, each row's flat slot for
+    its new K/V, and the lengths to attend over. The reference computes
+    these inside every layer and XLA folds the repeats; eager PyTorch
+    would launch them once per layer, so the port computes them once per
+    step (:func:`paged_step`, :func:`dense_step`)."""
     cos: torch.Tensor     # [B,1,1,hd/2] float32
     sin: torch.Tensor
-    slots: torch.Tensor   # [B] int32, block_tables[b, cl // BS] * BS + cl % BS
-    lens: torch.Tensor    # [B] int32, cache_len + 1
+    # [B] int32. paged: block_tables[b, cl // BS] * BS + cl % BS in the
+    # arena; dense: b * S + cl in a layer's [B*S] cache, B * S (dropped)
+    # where cl >= S
+    slots: torch.Tensor
+    # [B] int32. paged: cache_len + 1 (the token is written first);
+    # dense: cache_len (the token is attended apart)
+    lens: torch.Tensor
 
 
 def paged_step(cfg, positions, cache_len, block_tables,
-               block_size: int) -> PagedStep:
+               block_size: int) -> DecodeStep:
     """positions [B,1]; cache_len [B] int32 (positions already cached per
     row); block_tables [B,MB] int32."""
     cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
@@ -114,27 +140,58 @@ def paged_step(cfg, positions, cache_len, block_tables,
     # the reference's gather clamps the block index; clamp it the same way
     blk = torch.clamp(cache_len // block_size, 0, MB - 1).long()
     slots = block_tables[rows, blk] * block_size + cache_len % block_size
-    return PagedStep(cos, sin, slots.to(torch.int32),
-                     (cache_len + 1).to(torch.int32))
+    return DecodeStep(cos, sin, slots.to(torch.int32),
+                      (cache_len + 1).to(torch.int32))
 
 
-def attention(p, cfg, x, *, step: PagedStep, paged_cache, attend=None):
-    """GQA attention of ONE new token per row against the genesys.pagedkv
-    block arena (the paged branch of the reference's ``attention``).
+def dense_step(cfg, positions, cache_len, max_len: int) -> DecodeStep:
+    """positions [B,1]; cache_len [B] int32 (positions already cached per
+    row) of a carried cache [L,B,max_len,KV,hd]. A row at
+    ``cache_len >= max_len`` gets the out-of-range slot B * max_len, whose
+    write is dropped (the reference's ``mode="drop"``); b * max_len +
+    max_len would be row b+1's first position."""
+    cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    B = cache_len.shape[0]
+    rows = torch.arange(B, device=cache_len.device)
+    slots = torch.where(cache_len < max_len, rows * max_len + cache_len,
+                        B * max_len)
+    return DecodeStep(cos, sin, slots.to(torch.int32),
+                      cache_len.to(torch.int32))
 
-    x [B,1,D]; ``step`` from :func:`paged_step`; paged_cache
-    ``(k_pages, v_pages, block_tables, layer)`` with arenas
-    [L,NB,BS,KV,hd] and block_tables [B,MB] int32. Writes the token's K/V
-    at its slot with ``ops.update_kv_buffer`` (in place: the layer's arena
-    slice is a view), then attends through the block table over
-    ``step.lens`` positions via ``attend`` (default: the CUDA kernel
-    wrapper ``ops.paged_decode_attention``). Inactive rows carry all-null
-    block tables and cache_len 0: their writes land in the null block and
-    their outputs are never read. Returns [B,1,D]."""
-    attend = attend or ops.paged_decode_attention
+
+def _quantise(t, dtype):
+    """The new K or V as the cache stores it: int8 by
+    ``clip(round(t * QSCALE))``, else a cast."""
+    if dtype == torch.int8:
+        return torch.clamp(torch.round(t * QSCALE), -127, 127).to(torch.int8)
+    return t.to(dtype)
+
+
+def attention(p, cfg, x, *, step: DecodeStep, paged_cache=None,
+              carried_cache=None, attend=None):
+    """GQA attention of ONE new token per row against a KV cache: the
+    paged or the carried branch of the reference's ``attention``. x
+    [B,1,D]; returns [B,1,D].
+
+    paged_cache ``(k_pages, v_pages, block_tables, layer)``, arenas
+    [L,NB,BS,KV,hd] and block_tables [B,MB] int32, ``step`` from
+    :func:`paged_step`: writes the token's K/V at its slot with
+    ``ops.update_kv_buffer`` (in place: the layer's arena slice is a
+    view), then attends through the block table over ``step.lens``
+    positions via ``attend`` (default: the CUDA kernel wrapper
+    ``ops.paged_decode_attention``). Inactive rows carry all-null block
+    tables and cache_len 0: their writes land in the null block and their
+    outputs are never read.
+
+    carried_cache ``(kc, vc, layer)``, caches [L,B,S,KV,hd], ``step`` from
+    :func:`dense_step`: attends the layer's cache below ``step.lens``
+    together with the token itself, unquantised, via ``attend`` (default:
+    the CUDA kernel wrapper ``ops.decode_attention``), then writes the
+    token's K/V (int8: quantised) at ``[layer, b, cache_len[b]]`` in
+    place, dropping rows at ``cache_len >= S``."""
     B, S, _ = x.shape
     if S != 1:
-        raise ValueError(f"paged decode takes one token per row, got S={S}")
+        raise ValueError(f"decode takes one token per row, got S={S}")
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -145,17 +202,23 @@ def attention(p, cfg, x, *, step: PagedStep, paged_cache, attend=None):
     q = apply_rope(q, step.cos, step.sin)
     k = apply_rope(k, step.cos, step.sin)
 
-    kp, vp, bt, li = paged_cache
-    kp_l, vp_l = kp[li], vp[li]
-    if kp.dtype == torch.int8:
-        k_w = torch.clamp(torch.round(k * QSCALE), -127, 127).to(torch.int8)
-        v_w = torch.clamp(torch.round(v * QSCALE), -127, 127).to(torch.int8)
+    q1, k1, v1 = (t[:, 0].contiguous() for t in (q, k, v))
+    if paged_cache is not None:
+        kp, vp, bt, li = paged_cache
+        kp_l, vp_l = kp[li], vp[li]
+        ops.update_kv_buffer(kp_l, vp_l, _quantise(k1, kp.dtype),
+                             _quantise(v1, vp.dtype), step.slots)
+        out = (attend or ops.paged_decode_attention)(q1, kp_l, vp_l, bt,
+                                                     step.lens)
     else:
-        k_w = k.to(kp.dtype)
-        v_w = v.to(vp.dtype)
-    ops.update_kv_buffer(kp_l, vp_l, k_w[:, 0].contiguous(),
-                         v_w[:, 0].contiguous(), step.slots)
-    out = attend(q[:, 0].contiguous(), kp_l, vp_l, bt, step.lens)
+        kc, vc, li = carried_cache
+        kc_l, vc_l = kc[li], vc[li]     # [B,S,KV,hd] views
+        out = (attend or ops.decode_attention)(q1, kc_l, vc_l, step.lens,
+                                               k1, v1)
+        # the write follows the read on the stream: nothing it overwrites
+        # is read this step
+        ops.update_kv_buffer(kc_l, vc_l, _quantise(k1, kc.dtype),
+                             _quantise(v1, vc.dtype), step.slots)
     return _proj(out.reshape(B, 1, -1),
                  p["wo"].reshape(-1, p["wo"].shape[-1]))
 

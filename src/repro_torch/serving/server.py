@@ -23,11 +23,16 @@ flooding its reply shard cannot starve receives or other shards'
 replies — QoS policies installed via ``Genesys.use_policies`` (token
 bucket, strict priority, WFQ) apply per shard.
 
-This is the PyTorch port of ``repro.serving.server``: the echo mode and
-the continuous-batching decode loop (``serve_model_continuous``, driving
-``repro_torch.serving.engine``), with the STATS/METRICS control ops. The
-dense-cache ``serve_model`` (eager and bucketed decode) and the CPU
-baseline server come with the dense-serving slice of the port.
+``serve_model(..., batch_decode=True)`` batches the decode itself:
+concurrent requests are bucketed to a power-of-two batch, each token
+step is one ``serve_fn`` dispatch for the whole bucket, and the bucket's
+replies fan out through the ring/tenant path as one multi-entry
+submission.
+
+This is the PyTorch port of ``repro.serving.server``: the reference's
+text, with its JAX arrays as torch tensors on the cache's device. One
+difference: the port's serve steps update the dense cache in place, where
+the reference's return a new one (see :func:`_greedy_decode`).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from repro_torch.core.genesys import Genesys, Sys
 from repro_torch.core.genesys.trace import (
@@ -296,6 +302,135 @@ class GenesysUdpServer:
         self.counters.update(lambda s: setattr(s, "wall_s", wall))
         return self.stats
 
+    def serve_model(self, serve_fn, params, cache, *, n_batches: int,
+                    reply_port: int, max_tokens: int = 8,
+                    n_requests: int | None = None,
+                    max_idle_polls: int = 50,
+                    batch_decode: bool = False,
+                    per_request_tokens: bool = False) -> ServeStats:
+        """Decode-loop mode: each request's payload is int32 prompt tokens;
+        respond with greedily decoded continuations. Stops at whichever
+        bound hits first: ``n_batches`` non-empty batches, ``n_requests``
+        total requests (if given), or ``max_idle_polls`` consecutive empty
+        polls while waiting on ``n_requests`` — so a lost datagram cannot
+        strand the loop forever.
+
+        ``batch_decode=True`` decodes the whole poll batch together:
+        requests are bucketed to a power-of-two batch size (bounded jit
+        recompiles in the reference; a bounded set of shapes here) and
+        each token step is ONE ``serve_fn`` dispatch for the bucket
+        instead of one per request; the bucket's replies then fan out
+        through the existing ring/tenant send path as one multi-entry
+        submission. Default ``False`` keeps the eager per-request replies
+        (minimum per-request latency; one dispatch per request per
+        token).
+
+        ``per_request_tokens=True`` switches the wire format to
+        ``[budget, tag, prompt...]`` int32 (replies echo ``[tag,
+        gens...]``): each request decodes its OWN token budget, capped at
+        ``max_tokens`` steps per bucket member — the mixed-length workload
+        the continuous engine is benchmarked against."""
+        t0 = time.monotonic()
+        done = 0
+        idle = 0
+        cache_len = torch.zeros((cache_batch_size(cache),),
+                                dtype=torch.int32,
+                                device=_first_leaf(cache).device)
+        while done < n_batches and (
+                n_requests is None or self.stats.requests < n_requests):
+            reqs = self.poll_requests()
+            if not reqs:
+                idle += 1
+                if n_requests is not None and idle >= max_idle_polls:
+                    break               # traffic died before the target
+                continue
+            idle = 0
+            tracer = self.gsys.tracer
+            ch = tracer.channel("requests") if tracer is not None else None
+            t_parse = time.perf_counter_ns()
+            adm = self.admission if per_request_tokens else None
+            parsed = [parse_request(r, per_request_tokens, max_tokens,
+                                    with_client=adm is not None)
+                      for r in reqs]
+            if adm is not None:
+                # admission decisions before anything queues: sheds are
+                # answered now ([SHED_TOKEN]), degrades lose half their
+                # token budget, admits pass through untouched
+                kept = []
+                for toks_i, budget, tag, client in parsed:
+                    verdict = adm.admit_request(client)
+                    if verdict == "shed":
+                        self.reply([encode_reply([SHED_TOKEN], tag)],
+                                   reply_port)
+                        self.counters.add(shed_requests=1)
+                        continue
+                    if verdict == "degrade":
+                        budget = max(1, budget >> 1)
+                        self.counters.add(degraded_requests=1)
+                    kept.append((toks_i, budget, tag, client))
+                parsed = kept
+            toks = [p[0] for p in parsed]
+            budgets = [p[1] for p in parsed]
+            tags = [p[2] for p in parsed]
+            clients = [p[3] if len(p) > 3 else None for p in parsed]
+            spans = [0] * len(parsed)
+            if ch is not None:
+                spans = [tracer.next_seq() for _ in parsed]
+                for sp, b in zip(spans, budgets):
+                    ch.rec(EV_REQ_BEGIN, REQ_SYSNO, sp, aux=b, ts=t_parse)
+            if batch_decode:
+                gens = _greedy_decode_batch(serve_fn, params, cache, toks,
+                                            max_tokens, self.stats,
+                                            budgets=(budgets if
+                                                     per_request_tokens
+                                                     else None))
+                # the bucket's replies fan out through the tenant/ring
+                # send path as ONE multi-entry submission (not attributable
+                # to a single request span, so no span context here)
+                self.reply([encode_reply(gn, tag)
+                            for gn, tag in zip(gens, tags)], reply_port)
+                self.counters.add(tokens_out=sum(len(gn) for gn in gens))
+                end = time.perf_counter_ns()
+                for sp, gn in zip(spans, gens):
+                    if sp:
+                        ch.rec(EV_REQ_END, REQ_SYSNO, sp, aux=len(gn),
+                               ts=end)
+                wall_us = (end - t_parse) / 1e3
+                self._wall_hist.observe_block([wall_us] * len(parsed))
+                if adm is not None:
+                    for client in clients:
+                        adm.observe(client, wall_us)
+            else:
+                for t, n_i, tag, sp, client in zip(toks, budgets, tags,
+                                                   spans, clients):
+                    t1 = time.perf_counter_ns()
+                    gen = _greedy_decode(serve_fn, params, cache, cache_len,
+                                         t, n_i)
+                    # reply eagerly, per request: earlier requests in a
+                    # batch are not held hostage by later ones' decode
+                    # steps (the ring/tenant send is async, so this costs
+                    # one SQE each)
+                    if sp:
+                        with tracer.span(sp):
+                            self.reply([encode_reply(gen, tag)], reply_port)
+                        ch.rec(EV_REQ_END, REQ_SYSNO, sp, aux=len(gen))
+                    else:
+                        self.reply([encode_reply(gen, tag)], reply_port)
+                    wall_us = (time.perf_counter_ns() - t1) / 1e3
+                    self._wall_hist.observe(wall_us)
+                    if adm is not None:
+                        adm.observe(client, wall_us)
+                    self.counters.add(tokens_out=len(gen),
+                                      decode_dispatches=n_i,
+                                      decode_steps=n_i)
+            self.counters.add(requests=len(reqs), batches=1)
+            done += 1
+        self.gsys.drain()
+        self._release_pending()
+        wall = time.monotonic() - t0
+        self.counters.update(lambda s: setattr(s, "wall_s", wall))
+        return self.stats
+
     def serve_model_continuous(self, engine, *, reply_port: int,
                                n_requests: int | None = None,
                                max_tokens: int = 8,
@@ -432,6 +567,18 @@ class GenesysUdpServer:
         self._rx_bufs = []
 
 
+def _first_leaf(cache):
+    """The first tensor of a cache, a tensor or a dict of them (keys in
+    sorted order, as the reference's tree_leaves takes them)."""
+    while isinstance(cache, dict):
+        cache = cache[sorted(cache)[0]]
+    return cache
+
+
+def cache_batch_size(cache) -> int:
+    return _first_leaf(cache).shape[1]
+
+
 def parse_request(req: np.ndarray, per_request_tokens: bool,
                   default_tokens: int, with_client: bool = False):
     """Decode one datagram into ``(prompt_tokens, budget, tag)``.
@@ -462,3 +609,153 @@ def parse_request(req: np.ndarray, per_request_tokens: bool,
 def encode_reply(gen, tag: int | None) -> bytes:
     toks = ([] if tag is None else [tag]) + list(gen)
     return np.asarray(toks, dtype=np.int32).tobytes()
+
+
+def _greedy_decode(serve_fn, params, cache, cache_len, prompt_toks,
+                   max_tokens: int) -> list[int]:
+    """One request's greedy continuation — shared by the GENESYS and CPU
+    servers so the two benchmark paths decode identically.
+
+    Every request starts from the same ``cache``, which the port's serve
+    step updates in place (the reference's returns a new one, so its
+    template stays zeros). What an earlier request left in it is never
+    read: step i writes position i of row 0 and attends positions below
+    i plus its own token, so a request reads only what it wrote itself."""
+    cur = torch.full((1, 1), int(prompt_toks[-1]), dtype=torch.int32,
+                     device=cache_len.device)
+    gen: list[int] = []
+    cl = cache_len
+    c = cache
+    for _ in range(max_tokens):
+        nxt, c = serve_fn(params, c, cur, cl[:1])
+        gen.append(int(nxt[0]))
+        cur = nxt.reshape(1, 1)
+        cl = cl + 1
+    return gen
+
+
+MAX_DECODE_BUCKET = 64      # widest decode batch one jit dispatch covers
+
+
+def _bucket_size(k: int) -> int:
+    """Smallest power of two >= k: a bounded set of jit shapes, so decode
+    recompiles at most log2(MAX_DECODE_BUCKET) times, ever."""
+    return 1 << (max(1, int(k)) - 1).bit_length()
+
+
+def _tile_cache(cache, kb: int):
+    """Fresh per-request decode state, batched: every request decodes from
+    the same *initial* cache (exactly what the per-request path does), so
+    row 0 of the template cache is tiled to the bucket's batch size."""
+    if isinstance(cache, dict):
+        return {n: _tile_cache(leaf, kb) for n, leaf in cache.items()}
+    return torch.repeat_interleave(cache[:, :1], kb, dim=1)
+
+
+def _greedy_decode_batch(serve_fn, params, cache, prompts, max_tokens: int,
+                         stats: ServeStats | None = None,
+                         budgets: list[int] | None = None
+                         ) -> list[list[int]]:
+    """Greedy continuations for a whole request batch: one ``serve_fn``
+    dispatch per token step per power-of-two bucket, instead of one per
+    request — the dispatch amortization the ROADMAP called for.
+
+    Semantically identical to mapping :func:`_greedy_decode` over
+    ``prompts``: each request decodes from a fresh initial cache; padded
+    bucket rows (zero tokens) decode garbage nobody reads.
+
+    ``budgets`` gives per-request token counts: the bucket is CLOSED —
+    it runs until its longest member finishes (capped at ``max_tokens``)
+    and early finishers ride along as dead rows. That occupancy waste is
+    exactly what the continuous engine eliminates (fig12).
+    """
+    gens: list[list[int]] = []
+    # cap the bucket so an oversized poll batch splits instead of padding
+    # to one huge pow2 (bounded jit shapes AND bounded padding waste)
+    bucket = max(1, min(_bucket_size(len(prompts)), MAX_DECODE_BUCKET))
+    for lo in range(0, len(prompts), bucket):
+        chunk = prompts[lo:lo + bucket]
+        want = ([max_tokens] * len(chunk) if budgets is None
+                else [min(max(1, b), max_tokens)
+                      for b in budgets[lo:lo + bucket]])
+        k = len(chunk)
+        kb = _bucket_size(k)
+        c = _tile_cache(cache, kb)
+        dev = _first_leaf(c).device
+        cl = torch.zeros((kb,), dtype=torch.int32, device=dev)
+        cur_np = np.zeros((kb, 1), np.int32)
+        for i, t in enumerate(chunk):
+            cur_np[i, 0] = t[-1]
+        cur = torch.from_numpy(cur_np).to(dev)
+        chunk_gens: list[list[int]] = [[] for _ in range(k)]
+        steps = max(want)
+        for _ in range(steps):
+            nxt, c = serve_fn(params, c, cur, cl)
+            step = nxt.reshape(-1)[:k].tolist()
+            for i, v in enumerate(step):
+                if len(chunk_gens[i]) < want[i]:
+                    chunk_gens[i].append(v)
+            cur = nxt.reshape(kb, 1)
+            cl = cl + 1
+        gens.extend(chunk_gens)
+        if stats is not None:
+            stats.decode_dispatches += steps
+            stats.decode_steps += sum(want)
+            stats.decode_buckets += 1
+    return gens
+
+
+class CpuBaselineUdpServer:
+    """The paper's CPU path: plain socket loop, no GENESYS."""
+
+    def __init__(self, *, port: int, payload: int = 4096):
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.bind(("127.0.0.1", port))
+        self.sock.settimeout(0.2)
+        self.payload = payload
+        self.stats = ServeStats()
+
+    def serve_echo(self, *, n_batches: int, reply_port: int) -> ServeStats:
+        t0 = time.monotonic()
+        done = 0
+        while done < n_batches:
+            try:
+                data, _ = self.sock.recvfrom(self.payload)
+            except socket.timeout:
+                continue
+            self.sock.sendto(data, ("127.0.0.1", reply_port))
+            self.stats.requests += 1
+            self.stats.batches += 1
+            done += 1
+        self.stats.wall_s = time.monotonic() - t0
+        return self.stats
+
+    def serve_model(self, serve_fn, params, cache, *, n_batches: int,
+                    reply_port: int, max_tokens: int = 8) -> ServeStats:
+        """The classic host decode loop (Fig 1 left): the CPU owns the
+        socket, babysits the accelerator, one request at a time. The
+        comparison target for GenesysUdpServer.serve_model's ring path."""
+        t0 = time.monotonic()
+        done = 0
+        cache_len = torch.zeros((cache_batch_size(cache),),
+                                dtype=torch.int32,
+                                device=_first_leaf(cache).device)
+        while done < n_batches:
+            try:
+                data, _ = self.sock.recvfrom(self.payload)
+            except socket.timeout:
+                continue
+            t = np.frombuffer(data, dtype=np.int32)
+            gen = _greedy_decode(serve_fn, params, cache, cache_len, t,
+                                 max_tokens)
+            self.sock.sendto(np.asarray(gen, dtype=np.int32).tobytes(),
+                             ("127.0.0.1", reply_port))
+            self.stats.tokens_out += len(gen)
+            self.stats.requests += 1
+            self.stats.batches += 1
+            done += 1
+        self.stats.wall_s = time.monotonic() - t0
+        return self.stats
+
+    def close(self) -> None:
+        self.sock.close()

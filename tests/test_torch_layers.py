@@ -1,6 +1,7 @@
 """The port's model layers against the JAX package's, at reduced widths in
-float32: rmsnorm, rope, both MLPs, and the paged branch of attention
-(K/V append into the block arena + attention through the block table).
+float32: rmsnorm, rope, both MLPs, the paged branch of attention (K/V
+append into the block arena + attention through the block table) and the
+carried-cache branch (two-part attention, then the write at cache_len).
 Inputs and weights come from numpy with a seed; the same arrays go to
 both packages."""
 import dataclasses
@@ -109,3 +110,45 @@ def test_paged_attention_branch_matches(arch, mesh11):
     # the active rows' writes landed where the block tables say
     assert not np.allclose(tk.numpy()[li, 1, 1], kp[li, 1, 1])    # 9 -> 1:1
     assert not np.allclose(tk.numpy()[li, 2, 0], kp[li, 2, 0])    # 4 -> 2:0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-72b", "starcoder2-7b"])
+def test_carried_attention_branch_matches(arch, mesh11):
+    """One token per row against the carried cache [L,B,S,KV,hd]: the
+    output attends the cache below cache_len plus the token itself, the
+    token lands at [layer, b, cache_len[b]], and the row at cache_len = S
+    drops its write instead of spilling into the next row."""
+    jcfg, cfg = _cfgs(arch)
+    rng = np.random.default_rng(4)
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    L, B, S = 2, 3, 8
+    p = {"wq": _normal(rng, D, H, hd) * D ** -0.5,
+         "wk": _normal(rng, D, KV, hd) * D ** -0.5,
+         "wv": _normal(rng, D, KV, hd) * D ** -0.5,
+         "wo": _normal(rng, H, hd, D) * (H * hd) ** -0.5}
+    if cfg.qkv_bias:
+        p.update(bq=_normal(rng, H, hd), bk=_normal(rng, KV, hd),
+                 bv=_normal(rng, KV, hd))
+    kc, vc = _normal(rng, L, B, S, KV, hd), _normal(rng, L, B, S, KV, hd)
+    cache_len = np.asarray([5, 0, S], np.int32)     # row 2 is full
+    x = _normal(rng, B, 1, D)
+    pos = cache_len[:, None]
+    li = 1
+    jout, (jk, jv) = jl.attention(
+        {k: jnp.asarray(v) for k, v in p.items()}, jcfg,
+        rules_for(jcfg, mesh11), jnp.asarray(x), positions=jnp.asarray(pos),
+        cache_len=jnp.asarray(cache_len),
+        carried_cache=(jnp.asarray(kc), jnp.asarray(vc), li))
+    tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    step = tl.dense_step(cfg, torch.from_numpy(pos),
+                         torch.from_numpy(cache_len), S)
+    assert step.slots.tolist() == [0 * S + 5, 1 * S + 0, B * S]
+    assert step.lens.tolist() == cache_len.tolist()
+    tout = tl.attention(
+        from_jax_params(p, cfg, device="cpu"), cfg, torch.from_numpy(x),
+        step=step, carried_cache=(tk, tv, li))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=ATOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=ATOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL)
+    written = np.argwhere((tk.numpy() != kc).any(axis=(3, 4)))
+    assert written.tolist() == [[li, 0, 5], [li, 1, 0]]   # row 2 dropped

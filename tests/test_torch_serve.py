@@ -2,8 +2,8 @@
 RECVFROM on the port's Genesys tenant rings, run through the port's
 continuous-batching engine and a reduced starcoder2-7b (float32), and
 leave by SENDTO. Every reply equals the JAX engine's continuation of the
-same request on bridged weights. Also: the launcher rejects the paths
-this slice does not have."""
+same request on bridged weights. Also: the launcher serves the dense-cache
+paths (eager and ``--batch-decode``) end to end on a reduced model."""
 import dataclasses
 import socket
 import threading
@@ -89,15 +89,61 @@ def test_continuous_udp_end_to_end_matches_jax_engine(mesh11):
     assert eng.pool.stats.blocks_in_use == 0
 
 
-@pytest.mark.parametrize("argv", [
-    ["--arch", "starcoder2-7b", "--reply-port", "1"],
-    ["--arch", "starcoder2-7b", "--reply-port", "1", "--continuous",
-     "--batch-decode"],
-    ["--arch", "starcoder2-7b", "--reply-port", "1", "--continuous",
-     "--batches", "4"],
-])
-def test_launcher_rejects_dense_serving_flags(argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        launcher.main(argv)
-    assert e.value.code == 2
-    assert "dense-serving slice" in capsys.readouterr().err
+def _free_udp_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _port_is_free(port: int) -> bool:
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+        return True
+
+
+@pytest.mark.parametrize("flags,reqs,want_lens", [
+    ([], [[3, 1, 4], [9]], [5, 5]),                        # eager, plain
+    (["--per-request-tokens", "--tenants"],
+     [[2, 11, 3, 1], [4, 12, 9]], [2, 4]),                 # eager, budgets
+    (["--batch-decode", "--per-request-tokens"],
+     [[3, 21, 5], [1, 22, 8, 2]], [3, 1]),                 # bucketed
+], ids=["eager", "eager-budgets-tenants", "batch-decode"])
+def test_launcher_serves_dense_cache(flags, reqs, want_lens, capsys):
+    """``python -m repro_torch.launch.serve`` without ``--continuous``:
+    a dense cache of 256 positions on the CPU, two requests (each sent
+    once the previous one is answered, so two poll batches), exit after
+    ``--batches 2``."""
+    port = _free_udp_port()
+    client = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    client.bind(("127.0.0.1", 0))
+    client.settimeout(60)
+    argv = ["--arch", "starcoder2-7b", "--reduced", "--device", "cpu",
+            "--port", str(port), "--reply-port",
+            str(client.getsockname()[1]), "--batches", "2",
+            "--max-tokens", "5", *flags]
+    th = threading.Thread(target=launcher.main, args=(argv,), daemon=True)
+    th.start()
+    deadline = time.monotonic() + 60
+    while _port_is_free(port):      # the server binds it once it is built
+        assert time.monotonic() < deadline and th.is_alive()
+        time.sleep(0.02)
+    replies = []
+    try:
+        for r in reqs:
+            client.sendto(np.asarray(r, np.int32).tobytes(),
+                          ("127.0.0.1", port))
+            data, _ = client.recvfrom(4096)
+            replies.append(np.frombuffer(data, np.int32).tolist())
+    finally:
+        client.close()
+    th.join(60)
+    assert not th.is_alive()
+    tagged = "--per-request-tokens" in flags
+    assert [len(r) - tagged for r in replies] == want_lens
+    if tagged:
+        assert [r[0] for r in replies] == [q[1] for q in reqs]
+    out = capsys.readouterr().out
+    assert f"requests=2 batches=2 tokens={sum(want_lens)}" in out
