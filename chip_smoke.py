@@ -49,6 +49,34 @@ The dense-cache path (the second slice) adds:
     the plain attention, full width bf16, over a filled cache with ragged
     lengths (one row at capacity).
 
+The training path (the third slice) adds:
+
+6.  the flash-attention kernels, forward (K3a) and backward (K3b), against
+    their plain versions at the training shapes (B=1, H=36, KV=4, hd=128,
+    S=4096, causal) in bf16 and f32, and at S=1000 in bf16 (a tail that is
+    no multiple of 64): o, lse, dq, dk and dv, timed against the plain
+    versions, ``F.scaled_dot_product_attention(..., is_causal=True,
+    enable_gqa=True)`` forward and forward+backward as the library
+    yardstick, and the operations bound at the bf16 / f32 peak; each
+    output element is held to a bound relative to its own size and its
+    head vector's (and the kernel's outputs made 3% off in half their
+    rows must fail that rule);
+7.  training at full width: starcoder2-7b with 8 of its 32 layers (its
+    f32 training state at 32 layers, 118 GB, does not fit the card), f32
+    master weights from seed 0, bf16 compute, ``remat="full"``; batches of
+    2 x 4096 tokens read by ``GenesysDataLoader`` from a shard of ids in
+    [0, 500) synthesised from seed 0, 2 microbatches a step;
+    ``Trainer.run(4)`` with a ``CheckpointManager`` saving at step 4, then
+    a fresh ``Trainer`` (other weights) that resumes (step 4, every
+    restored leaf equal to a host copy bit for bit) and runs 2 more steps.
+    Losses and grad norms finite, the last two steps' mean loss below the
+    first's, K3a launched 2 x layers x microbatches x steps times (remat
+    runs the forward again) and K3b once per layer per microbatch per step;
+7b. phase 7's train step at 2 layers of full width: loss and gradients
+    with the kernels against the plain attention, in bf16 and in f32
+    compute, and a control (one 64-key tile of K and V zeroed) that the
+    same comparison must reject.
+
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
 is visible or the port's sources are not beside this script.
@@ -59,6 +87,7 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import socket
 import statistics
 import subprocess
@@ -94,6 +123,36 @@ MAX_LEN = 4096
 # the dense path: the launcher's cache of one row and 256 positions,
 # tiled to a power-of-two bucket by the bucketed loop
 DENSE_LEN, N_DENSE_REQS, EAGER_TOKENS = 256, 16, 16
+# the training path: starcoder2-7b at full width, depth cut to 8 layers
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 8, 4096, 2, 2
+TRAIN_STEPS, RESUME_STEPS = 4, 2
+# K3 vs plain, each element of o, dq, dk and dv:
+#   |got - ref| <= r * (|ref| + rms_vec + rms / 16)
+# rms_vec is the RMS of the element's own head vector (one query row or
+# key of one head) and rms that of the whole tensor. The size of an output
+# vector falls with the number of keys or queries it sums (|o| ~ sqrt(e/i)
+# for row i), by 20x and more over S = 4096, so each vector is held to its
+# own size; rms / 16 covers vectors that cancel to ~0 (row 0's dq). bf16:
+# the kernels round p and dS to bf16 (2**-9 relative, random over the
+# terms of each sum) and both sides round each output once (at most one
+# ulp, <= 2**-7 of it): r = 2**-6, two ulps at most. f32: the same sums in
+# another order, r = 2**-13. Besides, the whole tensor's relative
+# Frobenius error ||got - ref|| / ||ref|| is held to FA_FROB. lse is an f32
+# log-sum-exp of f32 scores either way: 1e-4.
+FA_REL = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -13}
+FA_FROB = {"bfloat16": 1e-2, "float32": 1e-5}
+FA_LSE_ATOL = 1e-4
+# the control: the kernel's outputs with the second half of their rows
+# (or keys) 3% off must fail the element-wise rule
+FA_CONTROL_SCALE = 1.03
+# one train step (phase 7's step at 2 layers), kernels vs plain attention:
+# loss to 1e-3 (bf16) or 1e-5 (f32), and each gradient leaf, read from
+# the step's first moments, by its relative norm ||g - g_ref|| / ||g_ref||
+# to 2e-2 (bf16) or 1e-4 (f32). The control, plain attention with one
+# 64-key tile of K and V zeroed, must fail them.
+STEP_LOSS_ATOL = {"bfloat16": 1e-3, "float32": 1e-5}
+STEP_GRAD_REL = {"bfloat16": 2e-2, "float32": 1e-4}
+CONTROL_KEYS = (2048, 2112)
 
 
 class SmokeFailure(RuntimeError):
@@ -817,6 +876,368 @@ def logits_kernel_vs_plain(torch, cfg, params, state):
     return out
 
 
+# ------------------------------------------- phase 6: flash attention --
+
+def fa_reading(got, want, r: float) -> dict:
+    """The K3 comparison of one output ([B,S,heads,hd]): the largest
+    absolute error, the largest ratio of error to the element's bound
+    ``r * (|want| + rms_vec + rms / 16)`` (the rule holds while it is at
+    most 1), and the relative Frobenius error."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    rms_vec = w.square().mean(dim=-1, keepdim=True).sqrt()
+    rms = w.square().mean().sqrt()
+    bound = r * (w.abs() + rms_vec + rms / 16)
+    return {"max_abs_err": diff.max().item(),
+            "worst": (diff / bound).max().item(),
+            "frob": (diff.norm() / w.norm()).item()}
+
+
+def flash_kernel_phase(torch, dev, flush):
+    """K3a and K3b against their plain versions at the training shapes.
+    The backward kernel and its plain version take the same o and lse
+    (the plain forward's), so each comparison sees one kernel. At S=4096
+    in bf16 a control holds the kernel's outputs, 3% off in the second
+    half of the rows (keys for dk, dv), to the same rule: it must fail."""
+    from repro_torch.kernels import flash_attention as fa
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    cases = {"fwd": [], "bwd": []}
+    for label, s, dt in (("S4096-bfloat16", TRAIN_SEQ, torch.bfloat16),
+                         ("S4096-float32", TRAIN_SEQ, torch.float32),
+                         ("S1000-tail-bfloat16", 1000, torch.bfloat16)):
+        name = str(dt).split(".")[-1]
+        q, do = (torch.randn(1, s, H, HD, generator=gen, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(1, s, KV, HD, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+        grads = fa.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal=True)
+        grads_p = fa.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do,
+                                               causal=True)
+        torch.cuda.synchronize()
+        r = FA_REL[name]
+        errs, control = {}, {}
+        for n, got, want in (("o", o, o_p), ("dq", grads[0], grads_p[0]),
+                             ("dk", grads[1], grads_p[1]),
+                             ("dv", grads[2], grads_p[2])):
+            errs[n] = fa_reading(got, want, r)
+            e = errs[n]
+            check(e["worst"] <= 1.0 and e["frob"] <= FA_FROB[name],
+                  f"flash attention [{label}] {n}: error up to "
+                  f"{e['worst']:.3g} x its bound (max abs "
+                  f"{e['max_abs_err']:.3g}), relative Frobenius "
+                  f"{e['frob']:.3g} (tol {FA_FROB[name]})")
+            if label == "S4096-bfloat16":
+                off = got.clone()
+                off[:, s // 2:] *= FA_CONTROL_SCALE
+                control[n] = fa_reading(off, want, r)
+                check(control[n]["worst"] > 1.0, f"flash attention control: "
+                      f"{n} 3% off in half its rows passes the rule")
+                del off
+        lse_err = (lse - lse_p).abs().max().item()
+        check(lse_err <= FA_LSE_ATOL, f"flash attention [{label}] lse error "
+              f"{lse_err} > {FA_LSE_ATOL}")
+        del o_p, lse_p, grads_p, o, grads
+        torch.cuda.empty_cache()
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        # what causal attention needs: s(s+1)/2 (query, key) pairs per head
+        pairs = H * s * (s + 1) / 2
+        esz = q.element_size()
+        io_fwd = (2 * s * H + 2 * s * KV) * HD * esz + 4 * H * s
+        io_bwd = (4 * s * H + 4 * s * KV) * HD * esz + 4 * H * s
+        bounds = {"fwd": bound_ms(io_fwd, 4.0 * pairs * HD, name),
+                  "bwd": bound_ms(io_bwd, 10.0 * pairs * HD, name)}
+        reps = 10 if name == "bfloat16" else 3
+        ms_f, host_f = cuda_ms(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True), reps=reps, flush=flush)
+        ms_b, host_b = cuda_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=True), reps=reps, flush=flush)
+        plain_f, _ = cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(
+            q, k, v, causal=True), reps=3, flush=flush)
+        plain_b, _ = cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=True), reps=3, flush=flush)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():     # yardstick only, never on the path
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        lib_f, _ = cuda_ms(torch, sdpa, reps=reps, flush=flush)
+        lib_fb, _ = cuda_ms(torch, lambda: sdpa().backward(dot), reps=reps,
+                            flush=flush)
+        del qt, kt, vt
+        for kind, ms, host, plain, lib in (
+                ("fwd", ms_f, host_f, plain_f, lib_f),
+                ("bwd", ms_b, host_b, plain_b, lib_fb - lib_f)):
+            bnd, by = bounds[kind]
+            outs = ("o",) if kind == "fwd" else ("dq", "dk", "dv")
+            case = {"case": label,
+                    "max_abs_err": max(errs[n]["max_abs_err"] for n in outs),
+                    "ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": bnd, "bound_by": by, "host_call_ms": host,
+                    "rule_r": r, "frob_tol": FA_FROB[name],
+                    "errors": errs, "lse_err": lse_err}
+            if control:
+                case["control_3pct"] = control
+            if kind == "bwd":
+                case["library_fwd_bwd_ms"] = lib_fb
+            cases[kind].append(case)
+        print(f"kernel flash_attention[{label}]: errors (max abs, worst "
+              f"ratio to the bound r={r:g}, relative Frobenius tol "
+              f"{FA_FROB[name]:g}) "
+              + " ".join(f"{n}=({e['max_abs_err']:.3e}, {e['worst']:.3f}, "
+                         f"{e['frob']:.3e})" for n, e in errs.items())
+              + (" control 3% off: " + " ".join(
+                  f"{n}=({e['worst']:.3f}, {e['frob']:.3e})"
+                  for n, e in control.items()) if control else "")
+              + f" lse={lse_err:.2e} | fwd ms={ms_f:.4f} plain_ms="
+              f"{plain_f:.4f} sdpa_ms={lib_f:.4f} bound_ms="
+              f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) | bwd ms="
+              f"{ms_b:.4f} plain_ms={plain_b:.4f} sdpa_fwd_bwd_ms="
+              f"{lib_fb:.4f} bound_ms={bounds['bwd'][0]:.4f} "
+              f"({bounds['bwd'][1]})", flush=True)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return cases
+
+
+# -------------------------------------------- phase 7: the training path --
+
+def train_path_phase(torch, cfg, dev):
+    """Train 8 layers of starcoder2-7b at full width through the port's
+    Trainer, GenesysDataLoader and CheckpointManager; resume in a fresh
+    Trainer. Returns the phase's numbers."""
+    import numpy as np
+
+    from repro_torch.checkpoint.ckpt import CheckpointManager, flatten
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.genesys import Genesys, GenesysConfig
+    from repro_torch.data.pipeline import GenesysDataLoader, write_token_shard
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.steps import make_train_step
+
+    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    check(tcfg.remat == "full" and tcfg.params_dtype == "float32"
+          and tcfg.compute_dtype == "bfloat16", "starcoder2-7b's training "
+          "config changed")
+    work = ROOT / "build" / "smoke_train"     # gitignored, removed below
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gsys = Genesys(GenesysConfig(n_workers=2, coalesce_window_us=200,
+                                 coalesce_max=8))
+    try:
+        shard = str(work / "tokens.bin")
+        write_token_shard(shard, np.random.default_rng(0).integers(
+            0, 500, size=2_000_000).astype(np.uint32))
+        free_gb = shutil.disk_usage(work).free / 1e9
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = transformer.init(tcfg, seed=0, device=dev, master=True)
+        n_params = sum(x.numel() for x in flatten(params))
+        inner, opt = make_train_step(tcfg, TrainConfig(
+            microbatches=TRAIN_MICRO))
+        step_s, gnorms = [], []
+
+        def train_step(*args):      # ends in the loop's float(loss) anyway
+            t0 = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            gnorms.append(float(out[2]["grad_norm"]))
+            return out
+        loader = GenesysDataLoader(gsys, [shard], batch=TRAIN_BATCH,
+                                   seq=TRAIN_SEQ)
+        cm = CheckpointManager(gsys, str(work / "ckpt"), keep=1)
+        counters = (ops.flash_attention_fwd, ops.flash_attention_bwd,
+                    ops.paged_decode_attention, ops.decode_attention,
+                    ops.update_kv_buffer)
+        for c in counters:
+            c.launches = 0
+        tr = Trainer(gsys, train_step, params, opt.init(params), loader,
+                     ckpt=cm, ckpt_every=TRAIN_STEPS)
+        st = tr.run(TRAIN_STEPS)
+        check(st.ckpts == 1 and cm.latest_step() == TRAIN_STEPS,
+              f"checkpoints {st.ckpts}, latest {cm.latest_step()}")
+        state_bytes = cm.stats["bytes"]
+        save_s = cm.stats["save_wall_s"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        saved = [x.detach().cpu() for x in flatten(
+            {"params": tr.params, "opt": tr.opt_state})]
+        losses = list(st.losses)
+        del tr, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # a fresh trainer over other weights resumes from the checkpoint
+        params = transformer.init(tcfg, seed=1, device=dev, master=True)
+        tr = Trainer(gsys, train_step, params, opt.init(params), loader,
+                     ckpt=cm, ckpt_every=TRAIN_STEPS)
+        t0 = time.perf_counter()
+        check(tr.resume(), "resume found no checkpoint")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(tr.step == TRAIN_STEPS, f"resumed at step {tr.step}")
+        live = flatten({"params": tr.params, "opt": tr.opt_state})
+        check(len(live) == len(saved), "restored tree differs")
+        for i, (a, b) in enumerate(zip(live, saved)):
+            check(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+                  f"restored leaf {i} differs from the saved state")
+        del saved
+        st2 = tr.run(RESUME_STEPS)
+        losses += st2.losses[-RESUME_STEPS:]
+        launches = {f.__name__: f.launches for f in counters}
+        steps = TRAIN_STEPS + RESUME_STEPS
+        check(all(math.isfinite(x) for x in losses + gnorms),
+              f"non-finite loss or grad norm: {losses} {gnorms}")
+        check(statistics.mean(losses[-2:]) < losses[0],
+              f"loss did not fall: {losses}")
+        per = TRAIN_LAYERS * TRAIN_MICRO * steps
+        check(launches["flash_attention_fwd"] == 2 * per,
+              f"K3a launched {launches['flash_attention_fwd']} times, "
+              f"expected 2 x {per}")
+        check(launches["flash_attention_bwd"] == per,
+              f"K3b launched {launches['flash_attention_bwd']} times, "
+              f"expected {per}")
+        check(launches["paged_decode_attention"] == launches[
+            "decode_attention"] == launches["update_kv_buffer"] == 0,
+            "a decode kernel ran on the training path")
+
+        # one more step alone, profiled: device busy time
+        batch = {k: torch.from_numpy(x).to(dev)
+                 for k, x in loader.next_batch().items()}
+        busy_ms = device_busy_ms(torch, lambda: inner(tr.params, tr.opt_state,
+                                                      batch), top=8)
+        loader.close()
+    finally:
+        gsys.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = step_s[1:]      # the first step builds the allocator's pools
+    step_ms = 1e3 * statistics.median(steady)
+    embed = tcfg.padded_vocab * tcfg.d_model     # a gather, no products
+    attn = 6.0 * TRAIN_LAYERS * H * HD * TRAIN_SEQ * TRAIN_SEQ * TRAIN_BATCH
+    model_flops = 6.0 * (n_params - embed) * tokens + attn
+    out = {
+        "arch": tcfg.arch_id, "layers": TRAIN_LAYERS, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+        "steps": steps, "losses": losses, "grad_norms": gnorms,
+        "step_ms": [1e3 * x for x in step_s], "median_step_ms": step_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3), "peak_mem_gb": peak_gb,
+        "step_device_busy_ms": busy_ms, "ckpt_bytes": state_bytes,
+        "ckpt_save_wall_s": save_s, "restore_s": restore_s,
+        "disk_free_gb_before": free_gb, "model_flops_per_step": model_flops,
+        "model_flops_share_of_bf16_peak":
+            model_flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
+        "launches": launches,
+    }
+    busy = "not measured" if busy_ms is None else f"{busy_ms:.1f}"
+    print(f"train path: starcoder2-7b full width, {TRAIN_LAYERS} layers "
+          f"({n_params / 1e9:.3f} B params, f32 master, bf16 compute, remat "
+          f"full), {TRAIN_BATCH}x{TRAIN_SEQ} tokens/step in {TRAIN_MICRO} "
+          f"microbatches: losses {[round(x, 4) for x in losses]} grad_norms "
+          f"{[round(x, 4) for x in gnorms]} step_ms "
+          f"{[round(1e3 * x, 1) for x in step_s]} median {step_ms:.1f} "
+          f"tokens/s={out['tokens_per_s']:.0f} peak_mem={peak_gb:.2f} GB "
+          f"device_busy_ms={busy} checkpoint {state_bytes} B saved in "
+          f"{save_s:.1f} s (disk free before {free_gb:.1f} GB), restored in "
+          f"{restore_s:.1f} s, bit-equal; model flops/step "
+          f"{model_flops:.4g} = {out['model_flops_share_of_bf16_peak']:.3f}"
+          f" of the bf16 peak; launches={launches}", flush=True)
+    return out
+
+
+def step_kernel_vs_plain(torch, cfg, dev):
+    """Phase 7b: phase 7's train step (2 microbatches of 1 x 4096 tokens)
+    at 2 layers of full width, from the same weights, with the kernels,
+    with the plain attention, and with a control that must fail the
+    comparison: the plain attention with keys CONTROL_KEYS of K and V
+    zeroed (a kernel that loads one tile wrong). bf16 and f32 compute.
+    Each gradient is read from the step's first moments, which a fresh
+    state leaves at (1 - beta1) * min(1, clip / grad_norm) * g."""
+    import numpy as np
+
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.train.steps import make_train_step
+
+    def dropped_tile(q, k, v, *, causal, q_offset=0):
+        keep = torch.ones(k.shape[1], 1, 1, dtype=k.dtype, device=k.device)
+        keep[CONTROL_KEYS[0]:CONTROL_KEYS[1]] = 0
+        return L.flash_attention_xla(q, k * keep, v * keep, causal=causal,
+                                     q_offset=q_offset)
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        return tree.detach().clone()
+
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(
+        0, 500, size=(TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    tc = TrainConfig(microbatches=TRAIN_MICRO)
+    out = {}
+    for compute in ("bfloat16", "float32"):
+        scfg = dataclasses.replace(cfg, n_layers=2, compute_dtype=compute)
+        base = transformer.init(scfg, seed=3, device=dev, master=True)
+
+        def one_step(attend):
+            step, opt = make_train_step(scfg, tc, attend)
+            params = clone(base)
+            _, state, metrics = step(params, opt.init(params), batch)
+            gnorm = float(metrics["grad_norm"])
+            scale = (1 - tc.beta1) * min(1.0, tc.grad_clip / max(gnorm,
+                                                                 1e-9))
+            grads = [m.div_(scale) for m in flatten(state.m)]
+            return float(metrics["loss"]), gnorm, grads
+
+        def against_plain(res):
+            loss, gnorm, grads = res
+            rel = max((torch.linalg.vector_norm(a - b)
+                       / torch.linalg.vector_norm(b).clamp_min(1e-30)).item()
+                      for a, b in zip(grads, plain[2]))
+            d_loss = abs(loss - plain[0])
+            ok = (math.isfinite(loss) and d_loss <= STEP_LOSS_ATOL[compute]
+                  and rel <= STEP_GRAD_REL[compute])
+            return {"loss": loss, "loss_abs_diff": d_loss, "grad_norm": gnorm,
+                    "grad_leaf_max_rel_norm_diff": rel, "pass": ok}
+
+        plain = one_step(L.flash_attention_xla)
+        kern = against_plain(one_step(None))
+        ctrl = against_plain(one_step(dropped_tile))
+        print(f"train step kernels vs plain ({compute} compute, 2 layers "
+              f"full width, {TRAIN_BATCH}x{TRAIN_SEQ} in {TRAIN_MICRO} "
+              f"microbatches): loss {kern['loss']:.6f} vs {plain[0]:.6f} "
+              f"(|diff| {kern['loss_abs_diff']:.3e}, tol "
+              f"{STEP_LOSS_ATOL[compute]}) grad leaves max relative norm "
+              f"diff {kern['grad_leaf_max_rel_norm_diff']:.3e} (tol "
+              f"{STEP_GRAD_REL[compute]}) grad_norm {kern['grad_norm']:.6f} "
+              f"vs {plain[1]:.6f}; control (keys {CONTROL_KEYS[0]}-"
+              f"{CONTROL_KEYS[1] - 1} zeroed): |loss diff| "
+              f"{ctrl['loss_abs_diff']:.3e} grad leaves "
+              f"{ctrl['grad_leaf_max_rel_norm_diff']:.3e}", flush=True)
+        check(kern["pass"], f"{compute} step, kernels vs plain: {kern}")
+        check(not ctrl["pass"], f"{compute} step: the control (one tile "
+              f"dropped) passes the comparison: {ctrl}")
+        out[compute] = {"kernels": kern, "control": ctrl,
+                        "loss_plain": plain[0], "grad_norm_plain": plain[1]}
+        del base, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -845,6 +1266,7 @@ def main() -> int:
 def run(torch) -> int:
     import numpy as np
 
+    t_start = time.perf_counter()
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.models import transformer
@@ -982,6 +1404,17 @@ def run(torch) -> int:
     check(d_dense <= LOGITS_ATOL_BF16, f"dense bf16 logits differ by "
           f"{d_dense}")
     del params, lk, lp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 6: the flash-attention kernels against their plain versions
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flash_cases = flash_kernel_phase(torch, dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    # phase 7: training at full width, 8 layers; 7b: kernels vs plain
+    train = train_path_phase(torch, cfg, dev)
+    train["step_kernel_vs_plain"] = step_kernel_vs_plain(torch, cfg, dev)
 
     bf16 = decode_cases[0]
     kernels = [
@@ -1014,6 +1447,18 @@ def run(torch) -> int:
          "library_ms": dense_cases[0]["library_ms"],
          "pass": True, "cases": dense_cases},
     ]
+    for kind, name, line in (("fwd", "flash_attention_fwd", 76),
+                             ("bwd", "flash_attention_bwd", 205)):
+        main = flash_cases[kind][0]          # S=4096, bf16: the path's case
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "pass": True, "cases": flash_cases[kind]})
     print(json.dumps({"kernels": kernels, "main_path": {
         "arch": cfg.arch_id, "steps": steps, "tokens_out": stats.tokens_out,
         "wall_s": wall, "tokens_per_s": stats.tokens_out / wall,
@@ -1024,7 +1469,9 @@ def run(torch) -> int:
         "step_device_busy_ms": busy_ms, "poller_spin": POLLER_SPIN,
         "poller_max_sleep_s": POLLER_MAX_SLEEP_S,
         "logits_f32_max_abs_diff": d_f32}, "dense_path": dict(
-        dense_runs, logits_bf16_max_abs_diff=d_dense)}), flush=True)
+        dense_runs, logits_bf16_max_abs_diff=d_dense),
+        "train_path": train, "wall_s": time.perf_counter() - t_start}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -36,6 +36,10 @@ SIGNATURES = {
     "dense_decode_attention_launch": (
         [_ptr] * 9 + [_int] * 8 + [_f32, _f32, _int, _int, _ptr], _int),
     "kv_append_launch": ([_ptr] * 5 + [_int, _ll, _ll, _ptr], _int),
+    "flash_attention_fwd_launch": (
+        [_ptr] * 5 + [_int] * 6 + [_f32, _int, _int, _ptr], _int),
+    "flash_attention_bwd_launch": (
+        [_ptr] * 9 + [_int] * 6 + [_f32, _int, _int, _ptr], _int),
     "genesys_kernels_error_string": ([_int], ctypes.c_char_p),
 }
 

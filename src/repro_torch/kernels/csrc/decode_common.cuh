@@ -45,42 +45,13 @@
 
 #include <type_traits>
 
+#include "mma_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;         // 4 warps per CTA
 constexpr int kMaxGroup = 16;         // query heads per KV head in one CTA
 constexpr int kMaxDimsPerThread = 2;  // head_dim <= 256
-
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Positions of row b that are attended: lens[b] clipped to [0, cap].
 __device__ __forceinline__ int valid_len(const int* lens, int b, int cap) {
@@ -369,29 +340,6 @@ constexpr int kMmaRows = 16;
 constexpr int kKvStride = kMmaHd + 8;        // K/V tile rows, bf16
 constexpr int kScoreStride = kTileTokens + 4;  // score rows, f32
 constexpr int kProbStride = kTileTokens + 8;   // softmax-weight rows, bf16
-
-// d += a * b on the tensor cores: m16n8k16, bf16 inputs, f32 accumulate.
-// a: 16x16 row-major fragment, b: 16x8 column-major fragment (PTX ISA
-// "Matrix Fragments for mma.m16n8k16").
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two adjacent bf16 (the lower address in the low half), as one register.
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
 
 // One 16-byte chunk of a K/V row into a bf16 shared-memory row: bf16 is
 // copied as it is, int8 dequantised (q / QSCALE is exact in bf16).

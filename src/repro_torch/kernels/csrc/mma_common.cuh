@@ -1,0 +1,84 @@
+// Small device helpers shared by every kernel of the port: dtype codes,
+// f32 <-> bf16 conversion, warp reductions, and the tensor-core product
+// (mma.sync m16n8k16, bf16 inputs, f32 accumulate) with the register
+// packing its fragments need. The decode kernels (decode_common.cuh) and
+// the flash-attention kernels (flash_attention.cu) include it.
+//
+// Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
+// mma.m16n8k16"), for lane = 4 * gid + tig:
+//   A (16x16, row-major): a0 = A[gid][2tig..2tig+1], a1 = A[gid+8][2tig..],
+//                         a2 = A[gid][2tig+8..],     a3 = A[gid+8][2tig+8..]
+//   B (16x8, col-major):  b0 = B[2tig..2tig+1][gid], b1 = B[2tig+8..+9][gid]
+//   C (16x8, f32):        c0, c1 = C[gid][2tig..2tig+1],
+//                         c2, c3 = C[gid+8][2tig..2tig+1]
+// so the C fragments of two neighbouring 8-column tiles, packed to bf16,
+// are the A fragment of a 16-deep product over those columns.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// d += a * b on the tensor cores: m16n8k16, bf16 inputs, f32 accumulate.
+// a: 16x16 row-major fragment, b: 16x8 column-major fragment.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two adjacent bf16 (the lower address in the low half), as one register.
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Two f32 rounded to bf16 and packed (lo in the low half).
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  return pack_pair(__float2bfloat16(lo), __float2bfloat16(hi));
+}
+
+}  // namespace

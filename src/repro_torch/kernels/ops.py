@@ -1,8 +1,9 @@
 """Public kernel surface of the PyTorch port (the counterpart of
 ``repro.kernels.ops``): the paged decode attention (K1), the dense-cache
-decode attention (K2) and the paged KV append, each a wrapper that launches
-a hand-written CUDA kernel on CUDA tensors and runs its plain PyTorch
-version on CPU tensors.
+decode attention (K2), the paged KV append, and :func:`flash_attention`,
+the no-cache attention with its gradient (K3a forward, K3b backward); each
+launches a hand-written CUDA kernel on CUDA tensors and runs its plain
+PyTorch version on CPU tensors.
 
 :func:`update_kv_buffer` replaces ``repro.kernels.ops.update_kv_buffer``
 (a jnp scatter with ``mode="drop"``). Unlike the reference it updates the
@@ -25,6 +26,37 @@ from repro_torch.kernels.decode_attention import (  # noqa: F401
     decode_attention, decode_attention_plain, paged_decode_attention,
     paged_decode_attention_plain,
 )
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_fwd_plain,
+)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp`` (``repro.kernels.ops``): the forward
+    keeps ``(q, k, v, o, lse)``, the backward runs K3b on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal=True):
+    """Attention of q [B,S,H,hd] over k, v [B,S,KV,hd] -> [B,S,H,hd],
+    differentiable: K3a forward and K3b backward on CUDA tensors, their
+    plain versions on CPU tensors (see ``kernels.flash_attention``)."""
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal)
 
 
 def update_kv_buffer_plain(k_pages, v_pages, k_new, v_new, slots):

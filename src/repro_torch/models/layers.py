@@ -1,7 +1,8 @@
 """Shared model layers of the PyTorch port (the counterpart of
-``repro.models.layers``): RMSNorm, RoPE, the SwiGLU and GELU MLPs, and the
-two decode branches of GQA attention, the paged one and the carried
-dense-cache one. Parameters come from
+``repro.models.layers``): RMSNorm, RoPE, the SwiGLU and GELU MLPs, and
+three branches of GQA attention: the no-cache one (training and prefill)
+and two decode branches, the paged one and the carried dense-cache one.
+Parameters come from
 ``models.module.ParamBuilder`` subtrees; one device, so the reference's
 sharding constraints and Megatron KV replication (``kv_rep``) are gone.
 """
@@ -16,11 +17,13 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (
     QSCALE, decode_attention_plain, paged_decode_attention_plain,
 )
+from repro_torch.kernels.flash_attention import flash_attention_fwd_plain
 
 __all__ = ["QSCALE", "rmsnorm", "rope_tables", "apply_rope", "rope",
-           "paged_attention_xla", "decode_attention_xla",
-           "decode_attention_two_part", "DecodeStep", "paged_step",
-           "dense_step", "init_attention", "attention", "init_mlp", "mlp"]
+           "flash_attention_xla", "paged_attention_xla",
+           "decode_attention_xla", "decode_attention_two_part",
+           "AttentionStep", "nocache_step", "paged_step", "dense_step",
+           "init_attention", "attention", "init_mlp", "mlp"]
 
 
 # ----------------------------------------------------------------- norms ----
@@ -59,6 +62,20 @@ def rope(x, positions, theta: float):
     """x: [..., S, H, hd]; positions: [..., S] int (the reference's
     ``rope``)."""
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------- no-cache attention ----
+
+def flash_attention_xla(q, k, v, *, causal, q_offset=0):
+    """The plain no-cache attention (the reference's
+    ``flash_attention_xla``): q [B,Sq,H,hd]; k, v [B,Skv,KV,hd] (grouped)
+    -> [B,Sq,H,hd]. Scores in float32, masked causally at
+    ``q_offset + i >= j``, softmax weights cast to V's dtype before the PV
+    product; differentiable by autograd. The reference's online softmax
+    over KV chunks gives the same function; this takes the softmax whole.
+    The kernels behind ``ops.flash_attention`` must match it."""
+    return flash_attention_fwd_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset)[0]
 
 
 # ------------------------------------------------------- paged attention ----
@@ -112,26 +129,33 @@ def _proj(x, w):
 
 
 @dataclass(frozen=True)
-class DecodeStep:
-    """What every layer's decode attention shares within one step: the
-    rotary tables of the new tokens' positions, each row's flat slot for
-    its new K/V, and the lengths to attend over. The reference computes
-    these inside every layer and XLA folds the repeats; eager PyTorch
-    would launch them once per layer, so the port computes them once per
-    step (:func:`paged_step`, :func:`dense_step`)."""
-    cos: torch.Tensor     # [B,1,1,hd/2] float32
+class AttentionStep:
+    """What every layer's attention shares within one step: the rotary
+    tables of the tokens' positions and, when decoding, each row's flat
+    slot for its new K/V and the lengths to attend over. The reference
+    computes these inside every layer and XLA folds the repeats; eager
+    PyTorch would launch them once per layer, so the port computes them
+    once per step (:func:`nocache_step`, :func:`paged_step`,
+    :func:`dense_step`)."""
+    cos: torch.Tensor     # [B,S,1,hd/2] float32
     sin: torch.Tensor
     # [B] int32. paged: block_tables[b, cl // BS] * BS + cl % BS in the
     # arena; dense: b * S + cl in a layer's [B*S] cache, B * S (dropped)
-    # where cl >= S
-    slots: torch.Tensor
+    # where cl >= S; None without a cache
+    slots: torch.Tensor | None = None
     # [B] int32. paged: cache_len + 1 (the token is written first);
-    # dense: cache_len (the token is attended apart)
-    lens: torch.Tensor
+    # dense: cache_len (the token is attended apart); None without a cache
+    lens: torch.Tensor | None = None
+
+
+def nocache_step(cfg, positions) -> AttentionStep:
+    """positions [B,S] int: the rotary tables of a training or prefill
+    forward."""
+    return AttentionStep(*rope_tables(positions, cfg.hd, cfg.rope_theta))
 
 
 def paged_step(cfg, positions, cache_len, block_tables,
-               block_size: int) -> DecodeStep:
+               block_size: int) -> AttentionStep:
     """positions [B,1]; cache_len [B] int32 (positions already cached per
     row); block_tables [B,MB] int32."""
     cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
@@ -140,11 +164,11 @@ def paged_step(cfg, positions, cache_len, block_tables,
     # the reference's gather clamps the block index; clamp it the same way
     blk = torch.clamp(cache_len // block_size, 0, MB - 1).long()
     slots = block_tables[rows, blk] * block_size + cache_len % block_size
-    return DecodeStep(cos, sin, slots.to(torch.int32),
-                      (cache_len + 1).to(torch.int32))
+    return AttentionStep(cos, sin, slots.to(torch.int32),
+                         (cache_len + 1).to(torch.int32))
 
 
-def dense_step(cfg, positions, cache_len, max_len: int) -> DecodeStep:
+def dense_step(cfg, positions, cache_len, max_len: int) -> AttentionStep:
     """positions [B,1]; cache_len [B] int32 (positions already cached per
     row) of a carried cache [L,B,max_len,KV,hd]. A row at
     ``cache_len >= max_len`` gets the out-of-range slot B * max_len, whose
@@ -155,8 +179,8 @@ def dense_step(cfg, positions, cache_len, max_len: int) -> DecodeStep:
     rows = torch.arange(B, device=cache_len.device)
     slots = torch.where(cache_len < max_len, rows * max_len + cache_len,
                         B * max_len)
-    return DecodeStep(cos, sin, slots.to(torch.int32),
-                      cache_len.to(torch.int32))
+    return AttentionStep(cos, sin, slots.to(torch.int32),
+                         cache_len.to(torch.int32))
 
 
 def _quantise(t, dtype):
@@ -167,11 +191,18 @@ def _quantise(t, dtype):
     return t.to(dtype)
 
 
-def attention(p, cfg, x, *, step: DecodeStep, paged_cache=None,
+def attention(p, cfg, x, *, step: AttentionStep, paged_cache=None,
               carried_cache=None, attend=None):
-    """GQA attention of ONE new token per row against a KV cache: the
-    paged or the carried branch of the reference's ``attention``. x
-    [B,1,D]; returns [B,1,D].
+    """GQA attention: the no-cache, paged or carried branch of the
+    reference's ``attention``. x [B,S,D]; returns [B,S,D].
+
+    No cache (training and prefill), ``step`` from :func:`nocache_step`
+    over the S positions of each row: causal attention of the S tokens
+    among themselves via ``attend(q, k, v, causal=True)`` (default: the
+    differentiable ``ops.flash_attention``, K3a/K3b on CUDA tensors;
+    :func:`flash_attention_xla` is the plain version).
+
+    The two decode branches take ONE new token per row (S = 1).
 
     paged_cache ``(k_pages, v_pages, block_tables, layer)``, arenas
     [L,NB,BS,KV,hd] and block_tables [B,MB] int32, ``step`` from
@@ -190,7 +221,7 @@ def attention(p, cfg, x, *, step: DecodeStep, paged_cache=None,
     token's K/V (int8: quantised) at ``[layer, b, cache_len[b]]`` in
     place, dropping rows at ``cache_len >= S``."""
     B, S, _ = x.shape
-    if S != 1:
+    if S != 1 and (paged_cache is not None or carried_cache is not None):
         raise ValueError(f"decode takes one token per row, got S={S}")
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
@@ -201,6 +232,10 @@ def attention(p, cfg, x, *, step: DecodeStep, paged_cache=None,
         v = v + p["bv"].to(x.dtype)
     q = apply_rope(q, step.cos, step.sin)
     k = apply_rope(k, step.cos, step.sin)
+    wo = p["wo"].reshape(-1, p["wo"].shape[-1])
+    if paged_cache is None and carried_cache is None:
+        out = (attend or ops.flash_attention)(q, k, v, causal=True)
+        return _proj(out.reshape(B, S, -1), wo)
 
     q1, k1, v1 = (t[:, 0].contiguous() for t in (q, k, v))
     if paged_cache is not None:
@@ -219,8 +254,7 @@ def attention(p, cfg, x, *, step: DecodeStep, paged_cache=None,
         # is read this step
         ops.update_kv_buffer(kc_l, vc_l, _quantise(k1, kc.dtype),
                              _quantise(v1, vc.dtype), step.slots)
-    return _proj(out.reshape(B, 1, -1),
-                 p["wo"].reshape(-1, p["wo"].shape[-1]))
+    return _proj(out.reshape(B, 1, -1), wo)
 
 
 # ------------------------------------------------------------------ mlp -----

@@ -99,3 +99,17 @@ def layer_slice(tree: dict, i: int) -> dict:
     """Views of layer ``i`` of a stacked ``[L, ...]`` parameter tree."""
     return {k: (layer_slice(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
+
+
+def unstack_layers(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked ``[L, ...]`` tree as views, taken
+    apart once with ``unbind(0)``: under autograd its backward stacks the
+    layers' gradients once, where ``n`` single-layer selects would each
+    fill a zero gradient as large as the whole stack."""
+    layers = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = (unstack_layers(v, n) if isinstance(v, dict)
+                 else v.unbind(0))
+        for layer, part in zip(layers, parts):
+            layer[k] = part
+    return layers

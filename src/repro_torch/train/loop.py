@@ -1,0 +1,94 @@
+"""Training loop with GENESYS-integrated services and fault tolerance (the
+counterpart of ``repro.train.loop``).
+
+Per step:
+  * batch fetched through the GENESYS pread prefetch pipeline;
+  * async checkpoint every ``ckpt_every`` steps (non-blocking pwrites,
+    §8.3 drain at commit);
+  * madvise(DONTNEED) hints to the host memory pool for staging buffers
+    that are dead after the device copy (the miniAMR pattern, §7.2);
+  * watchdog: steps that exceed ``step_deadline_s`` are logged as
+    stragglers (timing via the GENESYS clock syscall);
+  * crash/preemption recovery: ``resume()`` restores the latest committed
+    checkpoint into the live tensors.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from repro_torch.checkpoint.ckpt import CheckpointManager
+from repro_torch.core.genesys import Genesys, Sys
+from repro_torch.core.genesys.memory_pool import MADV_DONTNEED
+from repro_torch.optim.adamw import leaves
+
+
+@dataclass
+class LoopStats:
+    steps: int = 0
+    straggler_steps: int = 0
+    ckpts: int = 0
+    losses: list = field(default_factory=list)
+
+
+class Trainer:
+    def __init__(self, gsys: Genesys, train_step, params, opt_state, loader,
+                 *, ckpt: CheckpointManager | None = None,
+                 ckpt_every: int = 50, step_deadline_s: float = 60.0):
+        self.gsys = gsys
+        self.train_step = train_step
+        self.params = params
+        self.opt_state = opt_state
+        self.loader = loader
+        self.ckpt = ckpt
+        self.ckpt_every = ckpt_every
+        self.deadline = step_deadline_s
+        self.device = leaves(params)[0].device     # batches go there
+        self.step = 0
+        self.stats = LoopStats()
+
+    def resume(self) -> bool:
+        """Restart: copy the latest committed checkpoint, if any, into the
+        live parameters and optimizer state (in place)."""
+        if self.ckpt is None:
+            return False
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            return False
+        self.ckpt.restore(latest, {"params": self.params,
+                                   "opt": self.opt_state})
+        self.step = latest
+        return True
+
+    def run(self, n_steps: int) -> LoopStats:
+        for _ in range(n_steps):
+            t0 = self.gsys.call(Sys.CLOCK_GETTIME, 0) / 1e6
+            batch = self.loader.next_batch()
+
+            # stage through the host pool; release pages after device copy
+            staging = self.gsys.pool.mmap(batch["tokens"].nbytes * 2)
+            self.gsys.pool.touch(staging)
+            tbatch = {k: torch.from_numpy(v).to(self.device)
+                      for k, v in batch.items()}
+            self.gsys.call(Sys.MADVISE, staging, 0, MADV_DONTNEED,
+                           blocking=False)    # §7.2: weak + non-blocking
+
+            self.params, self.opt_state, metrics = self.train_step(
+                self.params, self.opt_state, tbatch)
+            loss = float(metrics["loss"])
+            self.stats.losses.append(loss)
+            self.step += 1
+            self.stats.steps += 1
+
+            if self.ckpt and self.step % self.ckpt_every == 0:
+                self.ckpt.save(self.step, {"params": self.params,
+                                           "opt": self.opt_state})
+                self.stats.ckpts += 1
+
+            t1 = self.gsys.call(Sys.CLOCK_GETTIME, 0) / 1e6
+            if t1 - t0 > self.deadline:
+                self.stats.straggler_steps += 1
+            self.gsys.pool.munmap(staging)
+        self.gsys.drain()
+        return self.stats

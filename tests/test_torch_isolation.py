@@ -12,7 +12,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
 
-VERBATIM = (["config.py", "core/__init__.py", "serving/pagedkv.py"]
+VERBATIM = (["config.py", "core/__init__.py", "serving/pagedkv.py",
+             "data/pipeline.py"]
             + [f"configs/{p.name}"
                for p in sorted((SRC / "repro" / "configs").glob("*.py"))]
             + [f"core/genesys/{n}.py" for n in (
