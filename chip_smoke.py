@@ -77,6 +77,35 @@ The training path (the third slice) adds:
     compute, and a control (one 64-key tile of K and V zeroed) that the
     same comparison must reject.
 
+The hybrid family (the fourth slice) adds, for zamba2-2.7b (54 mamba2
+layers and one shared attention + MLP block applied after every 6 of
+them; d_model 2560, 80 SSM heads of 64, state 64; random weights from a
+seed):
+
+6.  one more K3 case at the shared block's shape: H = KV = 32, hd 80;
+8.  the SSD scan kernels, forward (K4) and backward (K4b), against their
+    plain versions at B=1, L=4096, H=80, P=64, N=64 with x in bf16 and in
+    f32, at L=48 (one chunk of 48) and at B=4, L=256, with dt and A drawn
+    as Mamba2's initialisation draws them; y, the final state, dx, ddt,
+    dA, dBm and dCm each held to an element-wise rule, which the kernels
+    run on the two halves of the sequence apart (the middle carry
+    dropped) must fail; timed against the plain versions and the
+    operations bound (no PyTorch call computes the scan);
+9.  training at full width and all 54 layers (2.42 B parameters, 38.8 GB
+    of f32 training state) as phase 7 trains: K4 launched twice per mamba
+    layer and microbatch (remat runs the forward again), K4b once, K3a
+    and K3b once per shared-block application and microbatch;
+9b. phase 9's step on one group (6 mamba layers and the shared block),
+    kernels against plain in bf16 and f32, and a control that drops the
+    SSD carry into chunk 32;
+10. serving at full width in bf16 through phase 5's three dense servers
+    (K2 once per shared-block application per dispatch, no scan),
+    back-to-back eager requests each returning what it returns alone, and
+    in f32 a prefill of 256 tokens against the same tokens decoded one at
+    a time through the serve step (greedy tokens equal wherever the
+    prefill's top-2 margin exceeds 1e-3; a prefill that drops the carry
+    into chunk 2 must not pass).
+
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
 is visible or the port's sources are not beside this script.
@@ -153,6 +182,21 @@ FA_CONTROL_SCALE = 1.03
 STEP_LOSS_ATOL = {"bfloat16": 1e-3, "float32": 1e-5}
 STEP_GRAD_REL = {"bfloat16": 2e-2, "float32": 1e-4}
 CONTROL_KEYS = (2048, 2112)
+# K4/K4b vs plain, each output element by phase 6's rule (fa_reading):
+#   |got - ref| <= r * (|ref| + rms_vec + rms / 16)
+# with rms_vec over the last axis (P, N or the heads). Both sides compute
+# in f32 from the same inputs and differ in the order of their sums (the
+# kernels' chunk products, the running sum of dt A) only: r = 2**-13 for
+# an f32 output. A bf16 output (y and dx when x is bf16) is rounded once
+# from those f32 values on each side, so the two may land one bf16 ulp
+# apart (<= 2**-7 of it): r = 2**-6, as in phase 6.
+SSD_REL = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -13}
+# the control, the kernels run on the two halves of the sequence apart
+# (the carry across the middle boundary dropped), must fail that rule in
+# these outputs
+SSD_CONTROL_FAILS = ("y", "dx", "dBm", "dCm")
+# phase 10: decode against a prefill of 256 tokens (4 chunks)
+PREFILL_LEN = 256
 
 
 class SmokeFailure(RuntimeError):
@@ -583,7 +627,7 @@ def serve_dense(torch, cfg, params, mode, reqs, *, max_tokens, counters):
     zeroed right before the loop starts. Returns (replies in arrival
     order, stats, wall_s, step_s list)."""
     from repro_torch.core.genesys import Genesys, GenesysConfig
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_api
     from repro_torch.serving.server import (
         CpuBaselineUdpServer, GenesysUdpServer,
     )
@@ -599,8 +643,8 @@ def serve_dense(torch, cfg, params, mode, reqs, *, max_tokens, counters):
         step_s.append(time.perf_counter() - t0)
         return out
 
-    cache = transformer.init_cache(cfg, 1, DENSE_LEN,
-                                   device=params["embed"].device)
+    cache = get_api(cfg).init_cache(cfg, 1, DENSE_LEN,
+                                    device=params["embed"].device)
     gsys = None
     if mode == "cpu":
         srv = CpuBaselineUdpServer(port=0)
@@ -657,9 +701,18 @@ def serve_dense(torch, cfg, params, mode, reqs, *, max_tokens, counters):
             gsys.shutdown()
 
 
+def attention_layers(cfg) -> int:
+    """The attention layers one token passes: every layer of a
+    transformer, the shared block's applications in the hybrid."""
+    from repro_torch.config import Family
+    from repro_torch.models import mamba2
+    return (mamba2.n_shared_applications(cfg)
+            if cfg.family == Family.HYBRID else cfg.n_layers)
+
+
 def dense_path_phase(torch, cfg, params):
-    """Phase 5: the three dense servers at full width. Returns a dict of
-    per-run results and K2's launches per run."""
+    """Phase 5 (and 10): the three dense servers at full width. Returns a
+    dict of per-run results and K2's launches per run."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -669,7 +722,8 @@ def dense_path_phase(torch, cfg, params):
     tagged = [[b, 300 + i] + p
               for i, (b, p) in enumerate(zip(budgets, prompts))]
     counters = (ops.decode_attention, ops.update_kv_buffer,
-                ops.paged_decode_attention)
+                ops.paged_decode_attention, ops.mamba2_ssd_fwd)
+    n_attn = attention_layers(cfg)
     runs = {}
     for mode, reqs, max_tokens in (("eager", prompts, EAGER_TOKENS),
                                    ("bucketed", tagged, max(budgets)),
@@ -698,19 +752,21 @@ def dense_path_phase(torch, cfg, params):
                   f"{mode}: {stats.decode_dispatches} dispatches counted, "
                   f"{dispatches} made")
         for name in ("decode_attention", "update_kv_buffer"):
-            check(launches[name] == cfg.n_layers * dispatches,
+            check(launches[name] == n_attn * dispatches,
                   f"{mode}: {name} launched {launches[name]} times, "
-                  f"expected {cfg.n_layers} x {dispatches} dispatches")
-        check(launches["paged_decode_attention"] == 0,
-              f"{mode}: the paged kernel ran on the dense path")
+                  f"expected {n_attn} x {dispatches} dispatches")
+        check(launches["paged_decode_attention"] == 0
+              and launches["mamba2_ssd_fwd"] == 0,
+              f"{mode}: the paged kernel or the scan ran on the dense path")
         run = {"replies": gens, "tokens_out": tokens, "wall_s": wall,
                "tokens_per_s": tokens / wall, "dispatches": dispatches,
                "mean_step_ms": 1e3 * statistics.mean(step_s),
                "median_step_ms": 1e3 * statistics.median(step_s),
                "launches": launches["decode_attention"]}
         runs[mode] = run
-        print(f"dense path [{mode}]: {len(reqs)} requests answered with "
-              f"their budgets, tokens_out={tokens} wall={wall:.3f} s "
+        print(f"dense path {cfg.arch_id} [{mode}]: {len(reqs)} requests "
+              f"answered with their budgets, tokens_out={tokens} "
+              f"wall={wall:.3f} s "
               f"tokens/s={run['tokens_per_s']:.1f} dispatches={dispatches} "
               f"mean_step_ms={run['mean_step_ms']:.3f} "
               f"median_step_ms={run['median_step_ms']:.3f} "
@@ -722,8 +778,9 @@ def dense_path_phase(torch, cfg, params):
     eager_by_first = {tuple(g[:8]) for g in runs["eager"]["replies"]}
     same = sum(tuple(g[:8]) in eager_by_first
                for g in runs["bucketed"]["replies"])
-    print(f"dense path: eager == cpu baseline on all {N_DENSE_REQS} "
-          f"replies; bucketed first 8 tokens equal eager's on {same}/"
+    print(f"dense path {cfg.arch_id}: eager == cpu baseline on all "
+          f"{N_DENSE_REQS} replies; bucketed first 8 tokens equal eager's "
+          f"on {same}/"
           f"{N_DENSE_REQS}", flush=True)
     for run in runs.values():
         del run["replies"]
@@ -737,10 +794,10 @@ def dense_path_phase(torch, cfg, params):
 def dense_step_alone(torch, cfg, params, rows: int) -> dict:
     """One dense step of ``rows`` rows over the 256-position cache at
     cached length 128: host ms (ends in a sync) and device busy ms."""
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_api
     from repro_torch.train.steps import make_serve_step
     step = make_serve_step(cfg)
-    cache = transformer.init_cache(cfg, rows, DENSE_LEN, device="cuda")
+    cache = get_api(cfg).init_cache(cfg, rows, DENSE_LEN, device="cuda")
     tok = torch.ones((rows, 1), dtype=torch.int32, device="cuda")
     cl = torch.full((rows,), 128, dtype=torch.int32, device="cuda")
 
@@ -749,8 +806,8 @@ def dense_step_alone(torch, cfg, params, rows: int) -> dict:
     alone_ms = host_ms(torch, one_step, reps=10)
     busy_ms = device_busy_ms(torch, one_step, top=8)
     busy = "not measured" if busy_ms is None else f"{busy_ms:.3f}"
-    print(f"dense step alone ({rows} row(s), cached len 128): "
-          f"host_ms={alone_ms:.3f} device_busy_ms={busy}", flush=True)
+    print(f"dense step alone {cfg.arch_id} ({rows} row(s), cached len "
+          f"128): host_ms={alone_ms:.3f} device_busy_ms={busy}", flush=True)
     host_ops(torch, one_step, top=8)
     return {"step_alone_ms": alone_ms, "step_device_busy_ms": busy_ms}
 
@@ -894,24 +951,30 @@ def fa_reading(got, want, r: float) -> dict:
 
 
 def flash_kernel_phase(torch, dev, flush):
-    """K3a and K3b against their plain versions at the training shapes.
-    The backward kernel and its plain version take the same o and lse
+    """K3a and K3b against their plain versions at the training shapes
+    (starcoder2-7b's, and zamba2's shared block at hd 80). The backward
+    kernel and its plain version take the same o and lse
     (the plain forward's), so each comparison sees one kernel. At S=4096
     in bf16 a control holds the kernel's outputs, 3% off in the second
     half of the rows (keys for dk, dv), to the same rule: it must fail."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
 
     F = torch.nn.functional
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     cases = {"fwd": [], "bwd": []}
-    for label, s, dt in (("S4096-bfloat16", TRAIN_SEQ, torch.bfloat16),
-                         ("S4096-float32", TRAIN_SEQ, torch.float32),
-                         ("S1000-tail-bfloat16", 1000, torch.bfloat16)):
+    zamba = get_config("zamba2-2.7b")    # its shared block: hd 80, G = 1
+    for label, s, dt, (nh, nkv, hd) in (
+            ("S4096-bfloat16", TRAIN_SEQ, torch.bfloat16, (H, KV, HD)),
+            ("S4096-float32", TRAIN_SEQ, torch.float32, (H, KV, HD)),
+            ("S1000-tail-bfloat16", 1000, torch.bfloat16, (H, KV, HD)),
+            ("S4096-hd80-bfloat16", TRAIN_SEQ, torch.bfloat16,
+             (zamba.n_heads, zamba.n_kv_heads, zamba.hd))):
         name = str(dt).split(".")[-1]
-        q, do = (torch.randn(1, s, H, HD, generator=gen, device=dev).to(dt)
+        q, do = (torch.randn(1, s, nh, hd, generator=gen, device=dev).to(dt)
                  for _ in range(2))
-        k, v = (torch.randn(1, s, KV, HD, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(1, s, nkv, hd, generator=gen, device=dev).to(dt)
                 for _ in range(2))
         o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, causal=True)
@@ -945,12 +1008,12 @@ def flash_kernel_phase(torch, dev, flush):
         torch.cuda.empty_cache()
         o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         # what causal attention needs: s(s+1)/2 (query, key) pairs per head
-        pairs = H * s * (s + 1) / 2
+        pairs = nh * s * (s + 1) / 2
         esz = q.element_size()
-        io_fwd = (2 * s * H + 2 * s * KV) * HD * esz + 4 * H * s
-        io_bwd = (4 * s * H + 4 * s * KV) * HD * esz + 4 * H * s
-        bounds = {"fwd": bound_ms(io_fwd, 4.0 * pairs * HD, name),
-                  "bwd": bound_ms(io_bwd, 10.0 * pairs * HD, name)}
+        io_fwd = (2 * s * nh + 2 * s * nkv) * hd * esz + 4 * nh * s
+        io_bwd = (4 * s * nh + 4 * s * nkv) * hd * esz + 4 * nh * s
+        bounds = {"fwd": bound_ms(io_fwd, 4.0 * pairs * hd, name),
+                  "bwd": bound_ms(io_bwd, 10.0 * pairs * hd, name)}
         reps = 10 if name == "bfloat16" else 3
         ms_f, host_f = cuda_ms(torch, lambda: fa.flash_attention_fwd(
             q, k, v, causal=True), reps=reps, flush=flush)
@@ -976,7 +1039,8 @@ def flash_kernel_phase(torch, dev, flush):
                 ("bwd", ms_b, host_b, plain_b, lib_fb - lib_f)):
             bnd, by = bounds[kind]
             outs = ("o",) if kind == "fwd" else ("dq", "dk", "dv")
-            case = {"case": label,
+            case = {"case": label, "heads": nh, "kv_heads": nkv,
+                    "head_dim": hd,
                     "max_abs_err": max(errs[n]["max_abs_err"] for n in outs),
                     "ms": ms, "plain_ms": plain, "library_ms": lib,
                     "bound_ms": bnd, "bound_by": by, "host_call_ms": host,
@@ -1008,10 +1072,34 @@ def flash_kernel_phase(torch, dev, flush):
 
 # -------------------------------------------- phase 7: the training path --
 
-def train_path_phase(torch, cfg, dev):
-    """Train 8 layers of starcoder2-7b at full width through the port's
-    Trainer, GenesysDataLoader and CheckpointManager; resume in a fresh
-    Trainer. Returns the phase's numbers."""
+KERNEL_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd",
+                   "mamba2_ssd_fwd", "mamba2_ssd_bwd",
+                   "paged_decode_attention", "decode_attention",
+                   "update_kv_buffer")
+
+
+def model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 per non-embedding parameter and
+    token, causal attention forward and backward (6 H hd S^2 per sequence
+    and attention layer), and a hybrid's SSD scan (three times its forward,
+    2c(cN + cP + 2NP) per head and chunk)."""
+    from repro_torch.config import Family
+    embed = cfg.padded_vocab * cfg.d_model     # a gather, no products
+    out = 6.0 * (n_params - embed) * batch * seq
+    out += 6.0 * attention_layers(cfg) * cfg.n_heads * cfg.hd * seq * seq \
+        * batch
+    if cfg.family == Family.HYBRID:
+        c, n, p = min(64, seq), cfg.ssm_state, cfg.ssm_head_dim
+        out += 3.0 * 2 * c * (c * n + c * p + 2 * n * p) * cfg.ssm_heads \
+            * (seq // c) * batch * cfg.n_layers
+    return out
+
+
+def train_path_phase(torch, tcfg, dev, *, expected: dict):
+    """Train ``tcfg`` at full width through the port's Trainer,
+    GenesysDataLoader and CheckpointManager; resume in a fresh Trainer.
+    ``expected`` maps kernel counters to their launches over the run (every
+    other counter must stay 0). Returns the phase's numbers."""
     import numpy as np
 
     from repro_torch.checkpoint.ckpt import CheckpointManager, flatten
@@ -1019,14 +1107,14 @@ def train_path_phase(torch, cfg, dev):
     from repro_torch.core.genesys import Genesys, GenesysConfig
     from repro_torch.data.pipeline import GenesysDataLoader, write_token_shard
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_api
     from repro_torch.train.loop import Trainer
     from repro_torch.train.steps import make_train_step
 
-    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
     check(tcfg.remat == "full" and tcfg.params_dtype == "float32"
-          and tcfg.compute_dtype == "bfloat16", "starcoder2-7b's training "
-          "config changed")
+          and tcfg.compute_dtype == "bfloat16", f"{tcfg.arch_id}'s training "
+          f"config changed")
+    init = get_api(tcfg).init
     work = ROOT / "build" / "smoke_train"     # gitignored, removed below
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -1039,7 +1127,7 @@ def train_path_phase(torch, cfg, dev):
         free_gb = shutil.disk_usage(work).free / 1e9
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        params = transformer.init(tcfg, seed=0, device=dev, master=True)
+        params = init(tcfg, seed=0, device=dev, master=True)
         n_params = sum(x.numel() for x in flatten(params))
         inner, opt = make_train_step(tcfg, TrainConfig(
             microbatches=TRAIN_MICRO))
@@ -1055,9 +1143,7 @@ def train_path_phase(torch, cfg, dev):
         loader = GenesysDataLoader(gsys, [shard], batch=TRAIN_BATCH,
                                    seq=TRAIN_SEQ)
         cm = CheckpointManager(gsys, str(work / "ckpt"), keep=1)
-        counters = (ops.flash_attention_fwd, ops.flash_attention_bwd,
-                    ops.paged_decode_attention, ops.decode_attention,
-                    ops.update_kv_buffer)
+        counters = [getattr(ops, n) for n in KERNEL_COUNTERS]
         for c in counters:
             c.launches = 0
         tr = Trainer(gsys, train_step, params, opt.init(params), loader,
@@ -1076,7 +1162,7 @@ def train_path_phase(torch, cfg, dev):
         torch.cuda.empty_cache()
 
         # a fresh trainer over other weights resumes from the checkpoint
-        params = transformer.init(tcfg, seed=1, device=dev, master=True)
+        params = init(tcfg, seed=1, device=dev, master=True)
         tr = Trainer(gsys, train_step, params, opt.init(params), loader,
                      ckpt=cm, ckpt_every=TRAIN_STEPS)
         t0 = time.perf_counter()
@@ -1093,21 +1179,14 @@ def train_path_phase(torch, cfg, dev):
         st2 = tr.run(RESUME_STEPS)
         losses += st2.losses[-RESUME_STEPS:]
         launches = {f.__name__: f.launches for f in counters}
-        steps = TRAIN_STEPS + RESUME_STEPS
         check(all(math.isfinite(x) for x in losses + gnorms),
               f"non-finite loss or grad norm: {losses} {gnorms}")
         check(statistics.mean(losses[-2:]) < losses[0],
               f"loss did not fall: {losses}")
-        per = TRAIN_LAYERS * TRAIN_MICRO * steps
-        check(launches["flash_attention_fwd"] == 2 * per,
-              f"K3a launched {launches['flash_attention_fwd']} times, "
-              f"expected 2 x {per}")
-        check(launches["flash_attention_bwd"] == per,
-              f"K3b launched {launches['flash_attention_bwd']} times, "
-              f"expected {per}")
-        check(launches["paged_decode_attention"] == launches[
-            "decode_attention"] == launches["update_kv_buffer"] == 0,
-            "a decode kernel ran on the training path")
+        for name, n in launches.items():
+            check(n == expected.get(name, 0), f"{tcfg.arch_id} training: "
+                  f"{name} launched {n} times, expected "
+                  f"{expected.get(name, 0)}")
 
         # one more step alone, profiled: device busy time
         batch = {k: torch.from_numpy(x).to(dev)
@@ -1122,24 +1201,23 @@ def train_path_phase(torch, cfg, dev):
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = step_s[1:]      # the first step builds the allocator's pools
     step_ms = 1e3 * statistics.median(steady)
-    embed = tcfg.padded_vocab * tcfg.d_model     # a gather, no products
-    attn = 6.0 * TRAIN_LAYERS * H * HD * TRAIN_SEQ * TRAIN_SEQ * TRAIN_BATCH
-    model_flops = 6.0 * (n_params - embed) * tokens + attn
+    flops = model_flops(tcfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    steps = TRAIN_STEPS + RESUME_STEPS
     out = {
-        "arch": tcfg.arch_id, "layers": TRAIN_LAYERS, "params": n_params,
+        "arch": tcfg.arch_id, "layers": tcfg.n_layers, "params": n_params,
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
         "steps": steps, "losses": losses, "grad_norms": gnorms,
         "step_ms": [1e3 * x for x in step_s], "median_step_ms": step_ms,
         "tokens_per_s": tokens / (step_ms / 1e3), "peak_mem_gb": peak_gb,
         "step_device_busy_ms": busy_ms, "ckpt_bytes": state_bytes,
         "ckpt_save_wall_s": save_s, "restore_s": restore_s,
-        "disk_free_gb_before": free_gb, "model_flops_per_step": model_flops,
+        "disk_free_gb_before": free_gb, "model_flops_per_step": flops,
         "model_flops_share_of_bf16_peak":
-            model_flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
+            flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
         "launches": launches,
     }
     busy = "not measured" if busy_ms is None else f"{busy_ms:.1f}"
-    print(f"train path: starcoder2-7b full width, {TRAIN_LAYERS} layers "
+    print(f"train path: {tcfg.arch_id} full width, {tcfg.n_layers} layers "
           f"({n_params / 1e9:.3f} B params, f32 master, bf16 compute, remat "
           f"full), {TRAIN_BATCH}x{TRAIN_SEQ} tokens/step in {TRAIN_MICRO} "
           f"microbatches: losses {[round(x, 4) for x in losses]} grad_norms "
@@ -1149,32 +1227,28 @@ def train_path_phase(torch, cfg, dev):
           f"device_busy_ms={busy} checkpoint {state_bytes} B saved in "
           f"{save_s:.1f} s (disk free before {free_gb:.1f} GB), restored in "
           f"{restore_s:.1f} s, bit-equal; model flops/step "
-          f"{model_flops:.4g} = {out['model_flops_share_of_bf16_peak']:.3f}"
+          f"{flops:.4g} = {out['model_flops_share_of_bf16_peak']:.3f}"
           f" of the bf16 peak; launches={launches}", flush=True)
     return out
 
 
-def step_kernel_vs_plain(torch, cfg, dev):
-    """Phase 7b: phase 7's train step (2 microbatches of 1 x 4096 tokens)
-    at 2 layers of full width, from the same weights, with the kernels,
-    with the plain attention, and with a control that must fail the
-    comparison: the plain attention with keys CONTROL_KEYS of K and V
-    zeroed (a kernel that loads one tile wrong). bf16 and f32 compute.
-    Each gradient is read from the step's first moments, which a fresh
-    state leaves at (1 - beta1) * min(1, clip / grad_norm) * g."""
+def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
+                         control: dict, control_label: str, prepare=None):
+    """Phase 7b (and 9b): the training phase's step (2 microbatches of 1 x
+    4096 tokens) at ``layers`` layers of full width, from the same
+    weights, with the kernels, with the plain versions (``plain``: the
+    step's ``attend`` and ``ssd``), and with a control that must fail the
+    comparison (``control``: a plain version that drops one tile or one
+    chunk's carry). bf16 and f32 compute. ``prepare(params)`` may set
+    weights before the runs. Each gradient is read from the step's first
+    moments, which a fresh state leaves at (1 - beta1) * min(1, clip /
+    grad_norm) * g."""
     import numpy as np
 
     from repro_torch.checkpoint.ckpt import flatten
     from repro_torch.config import TrainConfig
-    from repro_torch.models import layers as L
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_api
     from repro_torch.train.steps import make_train_step
-
-    def dropped_tile(q, k, v, *, causal, q_offset=0):
-        keep = torch.ones(k.shape[1], 1, 1, dtype=k.dtype, device=k.device)
-        keep[CONTROL_KEYS[0]:CONTROL_KEYS[1]] = 0
-        return L.flash_attention_xla(q, k * keep, v * keep, causal=causal,
-                                     q_offset=q_offset)
 
     def clone(tree):
         if isinstance(tree, dict):
@@ -1189,11 +1263,15 @@ def step_kernel_vs_plain(torch, cfg, dev):
     tc = TrainConfig(microbatches=TRAIN_MICRO)
     out = {}
     for compute in ("bfloat16", "float32"):
-        scfg = dataclasses.replace(cfg, n_layers=2, compute_dtype=compute)
-        base = transformer.init(scfg, seed=3, device=dev, master=True)
+        scfg = dataclasses.replace(cfg, n_layers=layers,
+                                   compute_dtype=compute)
+        base = get_api(scfg).init(scfg, seed=3, device=dev, master=True)
+        if prepare is not None:
+            prepare(base)
+        names = leaf_paths(base)
 
-        def one_step(attend):
-            step, opt = make_train_step(scfg, tc, attend)
+        def one_step(kw):
+            step, opt = make_train_step(scfg, tc, **kw)
             params = clone(base)
             _, state, metrics = step(params, opt.init(params), batch)
             gnorm = float(metrics["grad_norm"])
@@ -1204,37 +1282,340 @@ def step_kernel_vs_plain(torch, cfg, dev):
 
         def against_plain(res):
             loss, gnorm, grads = res
-            rel = max((torch.linalg.vector_norm(a - b)
-                       / torch.linalg.vector_norm(b).clamp_min(1e-30)).item()
-                      for a, b in zip(grads, plain[2]))
-            d_loss = abs(loss - plain[0])
+            rels = [(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b).clamp_min(1e-30)).item()
+                    for a, b in zip(grads, ref[2])]
+            rel = max(rels)
+            d_loss = abs(loss - ref[0])
             ok = (math.isfinite(loss) and d_loss <= STEP_LOSS_ATOL[compute]
                   and rel <= STEP_GRAD_REL[compute])
             return {"loss": loss, "loss_abs_diff": d_loss, "grad_norm": gnorm,
-                    "grad_leaf_max_rel_norm_diff": rel, "pass": ok}
+                    "grad_leaf_max_rel_norm_diff": rel,
+                    "grad_leaf_max": names[rels.index(rel)], "pass": ok}
 
-        plain = one_step(L.flash_attention_xla)
-        kern = against_plain(one_step(None))
-        ctrl = against_plain(one_step(dropped_tile))
-        print(f"train step kernels vs plain ({compute} compute, 2 layers "
-              f"full width, {TRAIN_BATCH}x{TRAIN_SEQ} in {TRAIN_MICRO} "
-              f"microbatches): loss {kern['loss']:.6f} vs {plain[0]:.6f} "
-              f"(|diff| {kern['loss_abs_diff']:.3e}, tol "
-              f"{STEP_LOSS_ATOL[compute]}) grad leaves max relative norm "
-              f"diff {kern['grad_leaf_max_rel_norm_diff']:.3e} (tol "
+        ref = one_step(plain)
+        kern = against_plain(one_step({}))
+        ctrl = against_plain(one_step(control))
+        print(f"train step kernels vs plain ({cfg.arch_id}, {compute} "
+              f"compute, {layers} layers full width, {TRAIN_BATCH}x"
+              f"{TRAIN_SEQ} in {TRAIN_MICRO} microbatches): loss "
+              f"{kern['loss']:.6f} vs {ref[0]:.6f} (|diff| "
+              f"{kern['loss_abs_diff']:.3e}, tol {STEP_LOSS_ATOL[compute]}) "
+              f"grad leaves max relative norm diff "
+              f"{kern['grad_leaf_max_rel_norm_diff']:.3e} at "
+              f"{kern['grad_leaf_max']} (tol "
               f"{STEP_GRAD_REL[compute]}) grad_norm {kern['grad_norm']:.6f} "
-              f"vs {plain[1]:.6f}; control (keys {CONTROL_KEYS[0]}-"
-              f"{CONTROL_KEYS[1] - 1} zeroed): |loss diff| "
+              f"vs {ref[1]:.6f}; control ({control_label}): |loss diff| "
               f"{ctrl['loss_abs_diff']:.3e} grad leaves "
-              f"{ctrl['grad_leaf_max_rel_norm_diff']:.3e}", flush=True)
+              f"{ctrl['grad_leaf_max_rel_norm_diff']:.3e} at "
+              f"{ctrl['grad_leaf_max']}", flush=True)
         check(kern["pass"], f"{compute} step, kernels vs plain: {kern}")
-        check(not ctrl["pass"], f"{compute} step: the control (one tile "
-              f"dropped) passes the comparison: {ctrl}")
+        check(not ctrl["pass"], f"{compute} step: the control "
+              f"({control_label}) passes the comparison: {ctrl}")
         out[compute] = {"kernels": kern, "control": ctrl,
-                        "loss_plain": plain[0], "grad_norm_plain": plain[1]}
-        del base, plain
+                        "loss_plain": ref[0], "grad_norm_plain": ref[1]}
+        del base, ref
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def leaf_paths(tree, prefix: str = "") -> list[str]:
+    """The path of every leaf of a parameter tree, in ``flatten`` order
+    (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k],
+                                                             f"{prefix}/{k}")]
+    return [prefix]
+
+
+def dropped_tile(q, k, v, *, causal, q_offset=0):
+    """Plain attention with keys CONTROL_KEYS of K and V zeroed: phase 7b's
+    control, a kernel that loads one tile wrong."""
+    from repro_torch.models import layers as L
+    keep = k.new_ones((k.shape[1], 1, 1))
+    keep[CONTROL_KEYS[0]:CONTROL_KEYS[1]] = 0
+    return L.flash_attention_xla(q, k * keep, v * keep, causal=causal,
+                                 q_offset=q_offset)
+
+
+# ---------------------------------------------- phase 8: the SSD scan ---
+
+def mamba2_decay_init(torch, heads: int, gen, dev):
+    """(A_log, dt_bias) [heads] as Mamba2's reference initialisation draws
+    them: A uniform in [1, 16], dt log-uniform in [1e-3, 1e-1] and dt_bias
+    its inverse softplus. The repo's init (A = -1, dt_bias = 0, so dt near
+    0.7) decays a chunk's carried state by about e^-45 over 64 positions;
+    these carry it across many chunks, as a trained model does, so that a
+    comparison can see the carry."""
+    a = 1 + 15 * torch.rand(heads, generator=gen, device=dev)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(lo + (hi - lo) * torch.rand(heads, generator=gen,
+                                               device=dev))
+    return torch.log(a), dt + torch.log(-torch.expm1(-dt))
+
+
+def ssd_inputs(torch, zcfg, dev, gen, batch: int, length: int, dtype):
+    """zamba2's scan inputs: x and dy [B,L,H,P] in ``dtype``, dt =
+    softplus(N(0,1) + dt_bias) and A = -exp(A_log) from
+    :func:`mamba2_decay_init`, Bm and Cm [B,L,N] N(0,1)."""
+    F = torch.nn.functional
+    H, P, N = zcfg.ssm_heads, zcfg.ssm_head_dim, zcfg.ssm_state
+    a_log, dt_bias = mamba2_decay_init(torch, H, gen, dev)
+    x, dy = (torch.randn(batch, length, H, P, generator=gen, device=dev)
+             .to(dtype) for _ in range(2))
+    dt = F.softplus(torch.randn(batch, length, H, generator=gen, device=dev)
+                    + dt_bias)
+    Bm, Cm = (torch.randn(batch, length, N, generator=gen, device=dev)
+              for _ in range(2))
+    return (x, dt, -torch.exp(a_log), Bm, Cm), dy
+
+
+def ssd_halves(fn, ins, dy=None):
+    """``fn`` run on the two halves of the sequence apart: the carried
+    state (or, backwards, its cotangent) across the middle chunk boundary
+    is dropped. Forward: y; backward: (dx, ddt, dA, dBm, dCm)."""
+    import torch
+    half = ins[0].shape[1] // 2
+    parts = []
+    for sl in (slice(None, half), slice(half, None)):
+        cut = [t if t.dim() == 1 else t[:, sl].contiguous() for t in ins]
+        parts.append(fn(*cut) if dy is None
+                     else fn(*cut, dy[:, sl].contiguous()))
+    if dy is None:
+        return torch.cat([parts[0][0], parts[1][0]], dim=1)
+    return tuple(a + b if a.dim() == 1 else torch.cat([a, b], dim=1)
+                 for a, b in zip(*parts))
+
+
+def ssd_kernel_phase(torch, zcfg, dev, flush):
+    """K4 and K4b against their plain versions at zamba2's shape (B = 1, L
+    = 4096, H 80, P 64, N 64) with x in bf16 and in f32, at L = 48 (one
+    chunk of 48), and at B = 4, L = 256 (the launcher's batches put several
+    rows in one call). Each output element is held to SSD_REL of its own
+    size and its vector's; at L = 4096 in bf16 the kernels' outputs with
+    the carry across the middle chunk boundary dropped must fail that
+    rule."""
+    from repro_torch.kernels import mamba2_scan as ms
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    cases = {"fwd": [], "bwd": []}
+    names = ("y", "s_final", "dx", "ddt", "dA", "dBm", "dCm")
+    for label, batch, length, dt in (
+            ("L4096-bfloat16", 1, TRAIN_SEQ, torch.bfloat16),
+            ("L4096-float32", 1, TRAIN_SEQ, torch.float32),
+            ("L48-one-chunk-bfloat16", 1, 48, torch.bfloat16),
+            ("B4-L256-bfloat16", 4, 256, torch.bfloat16)):
+        ins, dy = ssd_inputs(torch, zcfg, dev, gen, batch, length, dt)
+        got = ms.mamba2_ssd_fwd(*ins) + ms.mamba2_ssd_bwd(*ins, dy)
+        want = ms.ssd_chunked_plain(*ins) + ms.ssd_backward_plain(*ins, dy)
+        torch.cuda.synchronize()
+        errs, control = {}, {}
+        for n, g, w in zip(names, got, want):
+            errs[n] = fa_reading(g, w, SSD_REL[str(g.dtype).split(".")[-1]])
+            check(errs[n]["worst"] <= 1.0, f"SSD scan [{label}] {n}: error "
+                  f"up to {errs[n]['worst']:.3g} x its bound (max abs "
+                  f"{errs[n]['max_abs_err']:.3g})")
+        if label == "L4096-bfloat16":
+            off = (ssd_halves(ms.mamba2_ssd_fwd, ins),) + (None,) \
+                + ssd_halves(ms.mamba2_ssd_bwd, ins, dy)
+            for n, g, w in zip(names, off, want):
+                if g is not None:
+                    control[n] = fa_reading(
+                        g, w, SSD_REL[str(g.dtype).split(".")[-1]])
+            for n in SSD_CONTROL_FAILS:
+                check(control[n]["worst"] > 1.0, f"SSD scan control: {n} "
+                      f"with the middle carry dropped passes the rule")
+            del off
+        del got, want
+        torch.cuda.empty_cache()
+        x = ins[0]
+        B, L, H, P = x.shape
+        N = ins[3].shape[-1]
+        c = min(64, L)
+        esz = x.element_size()
+        io_f = 2 * x.numel() * esz + 4 * (B * L * H + H + 2 * B * L * N
+                                          + B * H * N * P)
+        io_b = 4 * x.numel() * esz + 4 * (2 * B * L * H + 2 * H
+                                          + 4 * B * L * N)
+        units = B * H * (L // c)
+        bounds = {
+            "fwd": bound_ms(io_f, units * 2 * c * (c * N + c * P + 2 * N * P),
+                            "float32"),
+            "bwd": bound_ms(io_b, units * 2 * c * (3 * c * N + 2 * c * P
+                                                   + 5 * N * P), "float32")}
+        ms_f, host_f = cuda_ms(torch, lambda: ms.mamba2_ssd_fwd(*ins),
+                               reps=10, flush=flush)
+        ms_b, host_b = cuda_ms(torch, lambda: ms.mamba2_ssd_bwd(*ins, dy),
+                               reps=10, flush=flush)
+        plain_f, _ = cuda_ms(torch, lambda: ms.ssd_chunked_plain(*ins),
+                             reps=3, flush=flush)
+        plain_b, _ = cuda_ms(torch, lambda: ms.ssd_backward_plain(*ins, dy),
+                             reps=3, flush=flush)
+        for kind, t, host, plain, outs in (
+                ("fwd", ms_f, host_f, plain_f, ("y", "s_final")),
+                ("bwd", ms_b, host_b, plain_b,
+                 ("dx", "ddt", "dA", "dBm", "dCm"))):
+            bnd, by = bounds[kind]
+            case = {"case": label, "max_abs_err": max(
+                        errs[n]["max_abs_err"] for n in outs),
+                    "ms": t, "plain_ms": plain, "library_ms": None,
+                    "bound_ms": bnd, "bound_by": by, "host_call_ms": host,
+                    "errors": {n: errs[n] for n in outs}}
+            if control:
+                case["control_middle_carry_dropped"] = {
+                    n: control[n] for n in outs if n in control}
+            cases[kind].append(case)
+        print(f"kernel mamba2_ssd[{label}]: errors (max abs, worst ratio to "
+              f"the bound, relative Frobenius) " + " ".join(
+                  f"{n}=({e['max_abs_err']:.3e}, {e['worst']:.3f}, "
+                  f"{e['frob']:.3e})" for n, e in errs.items())
+              + (" control (middle carry dropped): " + " ".join(
+                  f"{n}=({e['worst']:.3f}, {e['frob']:.3e})"
+                  for n, e in control.items()) if control else "")
+              + f" | fwd ms={ms_f:.4f} plain_ms={plain_f:.4f} bound_ms="
+              f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) | bwd ms="
+              f"{ms_b:.4f} plain_ms={plain_b:.4f} bound_ms="
+              f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]})", flush=True)
+        del ins, dy, x
+        torch.cuda.empty_cache()
+    return cases
+
+
+def carry_dropped(x, dt, A, Bm, Cm):
+    """The plain SSD scan with the carry across the middle chunk boundary
+    dropped: phase 9b's control, a kernel that loses one chunk's state."""
+    from repro_torch.kernels import mamba2_scan as ms
+    import torch
+    half = x.shape[1] // 2
+    y0, _ = ms.ssd_chunked_plain(x[:, :half], dt[:, :half], A, Bm[:, :half],
+                                 Cm[:, :half])
+    y1, s = ms.ssd_chunked_plain(x[:, half:], dt[:, half:], A, Bm[:, half:],
+                                 Cm[:, half:])
+    return torch.cat([y0, y1], dim=1), s
+
+
+def set_mamba2_decay(torch, params, seed: int) -> None:
+    """Every mamba layer's A_log and dt_bias drawn as Mamba2 initialises
+    them (:func:`mamba2_decay_init`), in place."""
+    m = params["blocks"]["mamba"]
+    gen = torch.Generator(device=m["A_log"].device)
+    gen.manual_seed(seed)
+    for i in range(m["A_log"].shape[0]):
+        a_log, dt_bias = mamba2_decay_init(torch, m["A_log"].shape[1], gen,
+                                           m["A_log"].device)
+        m["A_log"][i].copy_(a_log)
+        m["dt_bias"][i].copy_(dt_bias)
+
+
+# ------------------------------------------- phase 10: hybrid serving ---
+
+def hybrid_serve_phase(torch, zcfg, dev) -> dict:
+    """zamba2-2.7b served at full width in bf16 by the three dense servers
+    (phase 5's requests), back-to-back eager requests against each alone,
+    and, in f32, ``make_prefill_step`` over 256 tokens against the same
+    tokens fed one at a time through ``make_serve_step`` (and against a
+    prefill that drops the carry into chunk 2, which must fail)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_api
+    from repro_torch.serving.server import _greedy_decode
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    api = get_api(zcfg)
+    t0 = time.perf_counter()
+    params = api.init(zcfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"hybrid serving: {zcfg.arch_id} full width, {zcfg.n_layers} mamba "
+          f"layers and {attention_layers(zcfg)} shared-block applications, "
+          f"bf16 weights from seed 0 in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          flush=True)
+    out = {"dense_path": dense_path_phase(torch, zcfg, params)}
+
+    # back-to-back eager requests on one template cache, each against
+    # itself alone on a fresh cache
+    serve = make_serve_step(zcfg)
+    cl = torch.zeros((1,), dtype=torch.int32, device=dev)
+    reqs = [(np.asarray([7, 300, 41], np.int32), 9),
+            (np.asarray([12], np.int32), 4)]
+    alone = [_greedy_decode(serve, params,
+                            api.init_cache(zcfg, 1, DENSE_LEN, device=dev),
+                            cl, p, n) for p, n in reqs]
+    shared = api.init_cache(zcfg, 1, DENSE_LEN, device=dev)
+    together = [_greedy_decode(serve, params, shared, cl, p, n)
+                for p, n in reqs]
+    written = shared["ssm"][:, 0].abs().sum().item()
+    print(f"hybrid serving: back-to-back eager requests {together}, alone "
+          f"{alone}; the template's SSM state |sum| {written:.3g} after "
+          f"them", flush=True)
+    check(together == alone, "a back-to-back eager request read an earlier "
+          "request's recurrent state")
+    check(written > 0, "the serve step never wrote the template's state")
+    out["back_to_back_isolated"] = True
+    del params, shared
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # decode against prefill, f32 at full width and depth
+    fcfg = dataclasses.replace(zcfg, params_dtype="float32",
+                               compute_dtype="float32",
+                               kv_cache_dtype="float32")
+    fparams = api.init(fcfg, seed=2, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        1, fcfg.vocab_size, size=(1, PREFILL_LEN))).to(dev)
+    counters = [getattr(ops, n) for n in KERNEL_COUNTERS]
+    for c in counters:
+        c.launches = 0
+    logits, _ = make_prefill_step(fcfg)(fparams, {"tokens": toks})
+    launches = {f.__name__: f.launches for f in counters}
+    want = {"mamba2_ssd_fwd": fcfg.n_layers,
+            "flash_attention_fwd": attention_layers(fcfg)}
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"prefill: {name} launched {n} times, "
+              f"expected {want.get(name, 0)}")
+    ctrl, _ = make_prefill_step(fcfg, ssd=carry_dropped)(
+        fparams, {"tokens": toks})
+    cache = api.init_cache(fcfg, 1, PREFILL_LEN, device=dev)
+    step = make_serve_step(fcfg)
+    decoded = []
+    t0 = time.perf_counter()
+    for i in range(PREFILL_LEN):
+        nxt, cache = step(fparams, cache, toks[:, i:i + 1],
+                          torch.full((1,), i, dtype=torch.int32, device=dev))
+        decoded.append(nxt)
+    decoded = torch.cat(decoded)
+    decode_s = time.perf_counter() - t0
+    top2 = logits[0].topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > MARGIN_F32
+    same = logits[0].argmax(-1) == decoded
+    same_ctrl = ctrl[0].argmax(-1) == decoded
+    max_diff_ctrl = (ctrl - logits).abs().max().item()
+    print(f"decode vs prefill ({fcfg.arch_id} f32, {PREFILL_LEN} tokens, "
+          f"{PREFILL_LEN // 64} chunks): greedy tokens equal at "
+          f"{int(same.sum())}/{PREFILL_LEN} positions, at "
+          f"{int(same[decided].sum())}/{int(decided.sum())} whose top-2 "
+          f"margin exceeds {MARGIN_F32}; control (carry into chunk 2 "
+          f"dropped): equal at {int(same_ctrl[decided].sum())}/"
+          f"{int(decided.sum())}, logits moved up to {max_diff_ctrl:.3g}; "
+          f"{PREFILL_LEN} decode steps in {decode_s:.1f} s; prefill "
+          f"launches {launches}", flush=True)
+    check(bool(same[decided].all()), "decode and prefill disagree on a "
+          "greedy token whose top-2 margin exceeds the limit")
+    check(not bool(same_ctrl[decided].all()), "the decode-vs-prefill "
+          "control (a dropped carry) passes the comparison")
+    out["decode_vs_prefill"] = {
+        "tokens": PREFILL_LEN, "equal": int(same.sum()),
+        "decided": int(decided.sum()),
+        "equal_decided": int(same[decided].sum()),
+        "control_equal_decided": int(same_ctrl[decided].sum()),
+        "control_max_logit_diff": max_diff_ctrl, "decode_s": decode_s,
+        "prefill_launches": launches}
+    del fparams, cache, logits, ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1269,6 +1650,8 @@ def run(torch) -> int:
     t_start = time.perf_counter()
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import mamba2_scan as ms
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer
 
     dev = torch.device("cuda")
@@ -1413,8 +1796,41 @@ def run(torch) -> int:
     del flush
     torch.cuda.empty_cache()
     # phase 7: training at full width, 8 layers; 7b: kernels vs plain
-    train = train_path_phase(torch, cfg, dev)
-    train["step_kernel_vs_plain"] = step_kernel_vs_plain(torch, cfg, dev)
+    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    per = TRAIN_MICRO * (TRAIN_STEPS + RESUME_STEPS)
+    train = train_path_phase(torch, tcfg, dev, expected={
+        "flash_attention_fwd": 2 * TRAIN_LAYERS * per,   # remat: twice
+        "flash_attention_bwd": TRAIN_LAYERS * per})
+    train["step_kernel_vs_plain"] = step_kernel_vs_plain(
+        torch, cfg, dev, layers=2, plain={"attend": L.flash_attention_xla},
+        control={"attend": dropped_tile},
+        control_label=f"keys {CONTROL_KEYS[0]}-{CONTROL_KEYS[1] - 1} zeroed")
+
+    # the hybrid family: zamba2-2.7b, all 54 layers at full width
+    zcfg = get_config("zamba2-2.7b")
+    # phase 8: the SSD scan kernels against their plain versions
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ssd_cases = ssd_kernel_phase(torch, zcfg, dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    # phase 9: training; the mamba layers run twice under remat, the
+    # shared block once
+    n_attn = attention_layers(zcfg)
+    ztrain = train_path_phase(torch, zcfg, dev, expected={
+        "mamba2_ssd_fwd": 2 * zcfg.n_layers * per,
+        "mamba2_ssd_bwd": zcfg.n_layers * per,
+        "flash_attention_fwd": n_attn * per,
+        "flash_attention_bwd": n_attn * per})
+    # phase 9b: one group (6 mamba layers and the shared block), kernels
+    # vs plain, with the decay of Mamba2's initialisation
+    ztrain["step_kernel_vs_plain"] = step_kernel_vs_plain(
+        torch, zcfg, dev, layers=zcfg.shared_attn_period,
+        plain={"attend": L.flash_attention_xla, "ssd": ms.ssd_chunked_plain},
+        control={"attend": L.flash_attention_xla, "ssd": carry_dropped},
+        control_label="the SSD carry into chunk 32 dropped",
+        prepare=lambda p: set_mamba2_decay(torch, p, seed=9))
+    # phase 10: serving
+    zserve = hybrid_serve_phase(torch, zcfg, dev)
 
     bf16 = decode_cases[0]
     kernels = [
@@ -1437,9 +1853,13 @@ def run(torch) -> int:
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dense_decode.cu",
          "replaces": "src/repro/kernels/decode_attention.py:83",
-         "launches": sum(r["launches"] for r in dense_runs.values()),
-         "launches_by_run": {m: r["launches"]
-                             for m, r in dense_runs.items()},
+         "launches": sum(r["launches"] for runs in (
+             dense_runs, zserve["dense_path"]) for r in runs.values()),
+         "launches_by_run": {f"{arch}-{m}": r["launches"]
+                             for arch, runs in (
+                                 (cfg.arch_id, dense_runs),
+                                 (zcfg.arch_id, zserve["dense_path"]))
+                             for m, r in runs.items()},
          "max_abs_err": dense_cases[0]["max_abs_err"],
          "ms": dense_cases[0]["ms"], "plain_ms": dense_cases[0]["plain_ms"],
          "bound_ms": dense_cases[0]["bound_ms"],
@@ -1454,11 +1874,24 @@ def run(torch) -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-            "launches": train["launches"][name],
+            "launches": train["launches"][name] + ztrain["launches"][name],
+            "launches_by_run": {cfg.arch_id: train["launches"][name],
+                                zcfg.arch_id: ztrain["launches"][name]},
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "pass": True, "cases": flash_cases[kind]})
+    for kind, name in (("fwd", "mamba2_ssd_fwd"), ("bwd", "mamba2_ssd_bwd")):
+        main = ssd_cases[kind][0]            # L=4096, bf16: the path's case
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
+            "replaces": "src/repro/kernels/mamba2_scan.py:67",
+            "launches": ztrain["launches"][name],
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "pass": True, "cases": ssd_cases[kind]})
     print(json.dumps({"kernels": kernels, "main_path": {
         "arch": cfg.arch_id, "steps": steps, "tokens_out": stats.tokens_out,
         "wall_s": wall, "tokens_per_s": stats.tokens_out / wall,
@@ -1470,7 +1903,9 @@ def run(torch) -> int:
         "poller_max_sleep_s": POLLER_MAX_SLEEP_S,
         "logits_f32_max_abs_diff": d_f32}, "dense_path": dict(
         dense_runs, logits_bf16_max_abs_diff=d_dense),
-        "train_path": train, "wall_s": time.perf_counter() - t_start}),
+        "train_path": train, "hybrid": {"train_path": ztrain,
+                                         "serve": zserve},
+        "wall_s": time.perf_counter() - t_start}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

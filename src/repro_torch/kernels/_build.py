@@ -40,6 +40,8 @@ SIGNATURES = {
         [_ptr] * 5 + [_int] * 6 + [_f32, _int, _int, _ptr], _int),
     "flash_attention_bwd_launch": (
         [_ptr] * 9 + [_int] * 6 + [_f32, _int, _int, _ptr], _int),
+    "mamba2_ssd_fwd_launch": ([_ptr] * 9 + [_int] * 7 + [_ptr], _int),
+    "mamba2_ssd_bwd_launch": ([_ptr] * 18 + [_int] * 7 + [_ptr], _int),
     "genesys_kernels_error_string": ([_int], ctypes.c_char_p),
 }
 

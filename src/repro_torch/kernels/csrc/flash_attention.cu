@@ -23,7 +23,7 @@
 // * hd elements read and written, hundreds of FLOPs per byte; the backward
 // does five products, 5 * B * H * S^2 * hd. So the design keeps the score
 // matrix out of device memory and puts the products on the tensor cores:
-//   * bf16 (the path's compute dtype, hd 64 or 128): every product is
+//   * bf16 (the path's compute dtype, hd 64, 80 or 128): every product is
 //     mma.sync m16n8k16 with f32 accumulation. Each warp owns 16 rows of
 //     the tile it accumulates (query rows in the forward and in dq, key rows
 //     in dk/dv) and keeps them in registers; the operand it streams (K and V
@@ -44,7 +44,8 @@
 //     query tiles that have the most keys.
 //   * f32 (f32 models) takes CUDA-core kernels: a lane per key (forward, dq)
 //     or per query row (dk/dv) for the dot products, a lane per head
-//     dimension for the accumulators, tiles in shared memory.
+//     dimension for the accumulators (at hd 80 lanes 16-31 own two, the
+//     others three), tiles in shared memory.
 // Not done yet: cp.async or TMA to overlap loads with the products, wgmma,
 // ldmatrix, warp specialisation, a persistent grid.
 //
@@ -532,6 +533,13 @@ __device__ __forceinline__ void stage_f32(float* dst, int str, const float* src,
   }
 }
 
+// Whether lane `lane` owns head dim lane + 32 i (at HD = 80 the third is
+// lanes 0-15 only; the others skip it).
+template <int HD>
+__device__ __forceinline__ bool has_dim(int lane, int i) {
+  return HD % 32 == 0 || lane + 32 * i < HD;
+}
+
 // One CTA: query rows [q0, q0 + 16) of head h of row b; warp w owns 4 rows.
 // Per 32-key tile a lane scores one key against each row; the row's online
 // softmax runs across the warp, and each lane accumulates head dims
@@ -542,7 +550,7 @@ __global__ void __launch_bounds__(kFaThreads) fa_fwd_f32(
     const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse, int H, int KV, int Sq, int Skv, float scale,
     int causal) {
-  constexpr int DL = HD / 32;
+  constexpr int DL = (HD + 31) / 32;
   constexpr int RW = kF32Rows / 4;
   __shared__ float qs[kF32Rows * HD];
   __shared__ float ks[kF32Keys * (HD + 1)];
@@ -591,7 +599,8 @@ __global__ void __launch_bounds__(kFaThreads) fa_fwd_f32(
         const float pj = __shfl_sync(0xffffffffu, p, j);
         const float* vr = vs + j * (HD + 1) + lane;
 #pragma unroll
-        for (int i = 0; i < DL; ++i) acc[r][i] += pj * vr[32 * i];
+        for (int i = 0; i < DL; ++i)
+          if (has_dim<HD>(lane, i)) acc[r][i] += pj * vr[32 * i];
       }
     }
   }
@@ -602,7 +611,8 @@ __global__ void __launch_bounds__(kFaThreads) fa_fwd_f32(
     const float d = fmaxf(l[r], 1e-30f);
     float* orow = o + qoff + row * qs_;
 #pragma unroll
-    for (int i = 0; i < DL; ++i) orow[lane + 32 * i] = acc[r][i] / d;
+    for (int i = 0; i < DL; ++i)
+      if (has_dim<HD>(lane, i)) orow[lane + 32 * i] = acc[r][i] / d;
     if (lane == 0) lse[((size_t)b * H + h) * Sq + row] = m[r] + logf(d);
   }
 }
@@ -617,7 +627,7 @@ __global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dq, int H, int KV, int Sq, int Skv, float scale,
     int causal) {
-  constexpr int DL = HD / 32;
+  constexpr int DL = (HD + 31) / 32;
   constexpr int RW = kF32DqRows / 4;
   __shared__ float qs[kF32DqRows * HD];
   __shared__ float dos[kF32DqRows * HD];
@@ -670,7 +680,8 @@ __global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
         const float dsj = __shfl_sync(0xffffffffu, dsv, j);
         const float* kj = ks + j * (HD + 1) + lane;
 #pragma unroll
-        for (int i = 0; i < DL; ++i) acc[r][i] += dsj * kj[32 * i];
+        for (int i = 0; i < DL; ++i)
+          if (has_dim<HD>(lane, i)) acc[r][i] += dsj * kj[32 * i];
       }
     }
   }
@@ -680,7 +691,8 @@ __global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
     if (row >= Sq) continue;
     float* out = dq + qoff + row * qs_;
 #pragma unroll
-    for (int i = 0; i < DL; ++i) out[lane + 32 * i] = acc[r][i];
+    for (int i = 0; i < DL; ++i)
+      if (has_dim<HD>(lane, i)) out[lane + 32 * i] = acc[r][i];
   }
 }
 
@@ -695,7 +707,7 @@ __global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int H, int KV, int Sq,
     int Skv, float scale, int causal) {
-  constexpr int DL = HD / 32;
+  constexpr int DL = (HD + 31) / 32;
   constexpr int RW = kF32KvRows / 4;
   __shared__ float kt[kF32KvRows * HD];
   __shared__ float vt[kF32KvRows * HD];
@@ -756,6 +768,7 @@ __global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
           const float* dj = dos + j * (HD + 1) + lane;
 #pragma unroll
           for (int i = 0; i < DL; ++i) {
+            if (!has_dim<HD>(lane, i)) continue;
             dva[r][i] += pj * dj[32 * i];
             dka[r][i] += dsj * qj[32 * i];
           }
@@ -769,6 +782,7 @@ __global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
     if (key >= Skv) continue;
 #pragma unroll
     for (int i = 0; i < DL; ++i) {
+      if (!has_dim<HD>(lane, i)) continue;
       dk[koff + key * ks_ + lane + 32 * i] = dka[r][i];
       dv[koff + key * ks_ + lane + 32 * i] = dva[r][i];
     }
@@ -778,7 +792,8 @@ __global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
 bool fa_args_ok(int B, int H, int KV, int Sq, int Skv, int hd, int causal,
                 int dtype) {
   return B > 0 && KV > 0 && H % KV == 0 && Sq > 0 && Skv > 0 &&
-         (hd == 64 || hd == 128) && (dtype == kF32 || dtype == kBF16) &&
+         (hd == 64 || hd == 80 || hd == 128) &&
+         (dtype == kF32 || dtype == kBF16) &&
          (!causal || Sq == Skv) && B <= 65535 && H <= 65535;
 }
 
@@ -842,7 +857,7 @@ extern "C" {
 
 // q [B,Sq,H,hd], k/v [B,Skv,KV,hd] (dtype: 0 f32, 1 bf16), contiguous and
 // 16-byte aligned; o [B,Sq,H,hd] in the same dtype and lse [B,H,Sq] f32 are
-// written. hd is 64 or 128; causal needs Sq == Skv.
+// written. hd is 64, 80 or 128; causal needs Sq == Skv.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, float* lse, int B, int H, int KV,
                                int Sq, int Skv, int hd, float scale,
@@ -852,6 +867,9 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return launch_fwd<64>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal,
+                          dtype, st);
+  if (hd == 80)
+    return launch_fwd<80>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal,
                           dtype, st);
   return launch_fwd<128>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal,
                          dtype, st);
@@ -871,6 +889,9 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return launch_bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, Sq,
+                          Skv, scale, causal, dtype, st);
+  if (hd == 80)
+    return launch_bwd<80>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, Sq,
                           Skv, scale, causal, dtype, st);
   return launch_bwd<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, Sq,
                          Skv, scale, causal, dtype, st);

@@ -40,7 +40,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 
 
 def _grouped(t, KV):
@@ -75,8 +75,8 @@ def flash_attention_fwd_plain(q, k, v, *, causal, scale=None, q_offset=0):
     o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(), v.float())
     o = o / denom.permute(0, 3, 1, 2)[..., None]
     lse = m[..., 0] + torch.log(denom)
-    return (o.reshape(B, Sq, H, hd).to(q.dtype),
-            lse.reshape(B, H, Sq))
+    return (o.reshape(B, Sq, H, hd).to(q.dtype).contiguous(),
+            lse.reshape(B, H, Sq).contiguous())
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal, scale=None):
@@ -169,9 +169,9 @@ flash_attention_bwd.launches = 0
 
 def _check(q, k, v, causal, tensors):
     """What the kernels take: q [B,Sq,H,hd], k and v [B,Skv,KV,hd] with H
-    a multiple of KV and hd 64 or 128, all float32 or all bfloat16, every
-    input on q's device, contiguous and 16-byte aligned; causal only with
-    Sq == Skv. Returns (B, Sq, H, hd)."""
+    a multiple of KV and hd in ``HEAD_DIMS``, all float32 or all bfloat16,
+    every input on q's device, contiguous and 16-byte aligned; causal only
+    with Sq == Skv. Returns (B, Sq, H, hd)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q [B,Sq,H,hd] and k, v [B,Skv,KV,hd] expected, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -1,9 +1,10 @@
 """Public kernel surface of the PyTorch port (the counterpart of
 ``repro.kernels.ops``): the paged decode attention (K1), the dense-cache
-decode attention (K2), the paged KV append, and :func:`flash_attention`,
-the no-cache attention with its gradient (K3a forward, K3b backward); each
-launches a hand-written CUDA kernel on CUDA tensors and runs its plain
-PyTorch version on CPU tensors.
+decode attention (K2), the paged KV append, :func:`flash_attention`,
+the no-cache attention with its gradient (K3a forward, K3b backward), and
+:func:`mamba2_ssd`, the chunked SSD scan with its gradient (K4 forward,
+K4b backward); each launches hand-written CUDA kernels on CUDA tensors and
+runs its plain PyTorch version on CPU tensors.
 
 :func:`update_kv_buffer` replaces ``repro.kernels.ops.update_kv_buffer``
 (a jnp scatter with ``mode="drop"``). Unlike the reference it updates the
@@ -29,6 +30,9 @@ from repro_torch.kernels.decode_attention import (  # noqa: F401
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain,
+)
+from repro_torch.kernels.mamba2_scan import (  # noqa: F401
+    mamba2_ssd_bwd, mamba2_ssd_fwd, ssd_backward_plain, ssd_chunked_plain,
 )
 
 
@@ -57,6 +61,34 @@ def flash_attention(q, k, v, causal=True):
     plain versions on CPU tensors (see ``kernels.flash_attention``)."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal)
+
+
+class _Mamba2Ssd(torch.autograd.Function):
+    """The SSD scan with its gradient: the forward keeps only its inputs,
+    the backward runs K4b on them (which recomputes the carried states).
+    The final state is not differentiable: training never reads it, and
+    K4b takes its cotangent as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        y, s_fin = mamba2_ssd_fwd(x, dt, A, Bm, Cm)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.mark_non_differentiable(s_fin)
+        return y, s_fin
+
+    @staticmethod
+    def backward(ctx, dy, _ds_fin):
+        return mamba2_ssd_bwd(*ctx.saved_tensors, dy.contiguous())
+
+
+def mamba2_ssd(x, dt, A, Bm, Cm):
+    """The chunked SSD scan of x [B,L,H,P] with dt [B,L,H], A [H] and Bm,
+    Cm [B,L,N] float32 -> (y [B,L,H,P] in x's dtype, s_final [B,H,N,P]
+    float32), differentiable in y: K4 forward and K4b backward on CUDA
+    tensors, their plain versions on CPU tensors (see
+    ``kernels.mamba2_scan``)."""
+    return _Mamba2Ssd.apply(x.contiguous(), dt.contiguous(), A.contiguous(),
+                            Bm.contiguous(), Cm.contiguous())
 
 
 def update_kv_buffer_plain(k_pages, v_pages, k_new, v_new, slots):

@@ -6,9 +6,12 @@ network (and, with ``--continuous``, memory) syscalls of
       --port 9111 --reply-port 9112 [--batches 4] [--batch-decode] \\
       [--continuous] [--device cpu] [--reduced]
 
-Weights are random, drawn from seed 0. Requests are int32 datagrams
-(``[budget, tag, prompt...]`` with ``--per-request-tokens``), each
-answered with its greedy continuation. Without ``--continuous`` the loop
+``--arch`` names a dense, VLM or hybrid model (zamba2-2.7b decodes
+through its recurrent state and the shared block's dense KV cache;
+``--continuous`` takes the transformer only, as the reference's paged
+step does). Weights are random, drawn from seed 0. Requests are int32
+datagrams (``[budget, tag, prompt...]`` with ``--per-request-tokens``),
+each answered with its greedy continuation. Without ``--continuous`` the loop
 decodes over a dense cache of one row and 256 positions, each request
 eagerly or, with ``--batch-decode``, each poll batch as one power-of-two
 bucket, and exits after ``--batches`` non-empty poll batches. With
@@ -113,7 +116,7 @@ def main(argv=None) -> None:
     from repro_torch.core.genesys import (Genesys, GenesysConfig,
                                           StrictPriority, TokenBucket,
                                           WeightedFair, format_summary)
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_api
     from repro_torch.serving.engine import make_engine
     from repro_torch.serving.server import GenesysUdpServer
     from repro_torch.train.steps import make_serve_step
@@ -169,7 +172,8 @@ def main(argv=None) -> None:
                                         telemetry_fn=gsys.telemetry)
         print(f"metrics exposition on :{metrics_srv.port} "
               f"(/metrics, /telemetry)", flush=True)
-    params = transformer.init(cfg, seed=0, device=args.device)
+    api = get_api(cfg)
+    params = api.init(cfg, seed=0, device=args.device)
     srv = GenesysUdpServer(gsys, port=args.port, use_ring=args.use_ring,
                            use_tenants=args.tenants, admission=controller)
     if args.continuous:
@@ -186,7 +190,7 @@ def main(argv=None) -> None:
               f"kv_hit_rate={engine.pool.stats.hit_rate():.2f} "
               f"kv_rss={engine.pool.rss_bytes()}")
     else:
-        cache = transformer.init_cache(cfg, 1, 256, device=args.device)
+        cache = api.init_cache(cfg, 1, 256, device=args.device)
         stats = srv.serve_model(
             make_serve_step(cfg), params, cache, n_batches=args.batches,
             reply_port=args.reply_port, max_tokens=args.max_tokens,

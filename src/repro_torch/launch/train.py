@@ -5,6 +5,10 @@
       --reduced --steps 100 --batch 8 --seq 128 [--data tokens.bin] \\
       [--ckpt-dir DIR [--ckpt-every N] [--resume]] [--device cpu]
 
+``--arch`` names any model of the dense, VLM or hybrid family (zamba2-2.7b
+trains through the chunked SSD scan; the sequence must then be a multiple
+of 64, or at most 64).
+
 Weights are random, drawn from seed 0 and held as float32 master weights.
 Batches come from a uint32 token shard through ``GenesysDataLoader``
 (synthesised from seed 0 when ``--data`` is not given); checkpoints go
@@ -49,7 +53,7 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.core.genesys import Genesys, GenesysConfig
     from repro_torch.data.pipeline import GenesysDataLoader, write_token_shard
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_api
     from repro_torch.train.loop import Trainer
     from repro_torch.train.steps import make_train_step
 
@@ -66,8 +70,8 @@ def main(argv=None):
                 0, min(cfg.vocab_size, 32000),
                 size=args.batch * (args.seq + 1) * 64).astype(np.uint32))
             print(f"synthesized corpus at {data}")
-        params = transformer.init(cfg, seed=0, device=args.device,
-                                  master=True)
+        params = get_api(cfg).init(cfg, seed=0, device=args.device,
+                                   master=True)
         ts, opt = make_train_step(cfg, TrainConfig(
             lr=args.lr, microbatches=args.microbatches))
         loader = GenesysDataLoader(gsys, [data], batch=args.batch,

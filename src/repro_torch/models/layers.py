@@ -23,7 +23,7 @@ __all__ = ["QSCALE", "rmsnorm", "rope_tables", "apply_rope", "rope",
            "flash_attention_xla", "paged_attention_xla",
            "decode_attention_xla", "decode_attention_two_part",
            "AttentionStep", "nocache_step", "paged_step", "dense_step",
-           "init_attention", "attention", "init_mlp", "mlp"]
+           "init_attention", "attention", "init_mlp", "mlp", "proj"]
 
 
 # ----------------------------------------------------------------- norms ----
@@ -121,7 +121,7 @@ def init_attention(pb, cfg):
         a.param("bv", (KV, hd), init="zeros")
 
 
-def _proj(x, w):
+def proj(x, w):
     """x [B,S,D] @ w [D,*out] -> [B,S,*out] (einsum "bsd,d...->bs...")."""
     B, S, D = x.shape
     return (x.reshape(B * S, D) @ w.to(x.dtype).reshape(D, -1)).view(
@@ -223,9 +223,9 @@ def attention(p, cfg, x, *, step: AttentionStep, paged_cache=None,
     B, S, _ = x.shape
     if S != 1 and (paged_cache is not None or carried_cache is not None):
         raise ValueError(f"decode takes one token per row, got S={S}")
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+    q = proj(x, p["wq"])
+    k = proj(x, p["wk"])
+    v = proj(x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -235,7 +235,7 @@ def attention(p, cfg, x, *, step: AttentionStep, paged_cache=None,
     wo = p["wo"].reshape(-1, p["wo"].shape[-1])
     if paged_cache is None and carried_cache is None:
         out = (attend or ops.flash_attention)(q, k, v, causal=True)
-        return _proj(out.reshape(B, S, -1), wo)
+        return proj(out.reshape(B, S, -1), wo)
 
     q1, k1, v1 = (t[:, 0].contiguous() for t in (q, k, v))
     if paged_cache is not None:
@@ -254,7 +254,7 @@ def attention(p, cfg, x, *, step: AttentionStep, paged_cache=None,
         # is read this step
         ops.update_kv_buffer(kc_l, vc_l, _quantise(k1, kc.dtype),
                              _quantise(v1, vc.dtype), step.slots)
-    return _proj(out.reshape(B, 1, -1), wo)
+    return proj(out.reshape(B, 1, -1), wo)
 
 
 # ------------------------------------------------------------------ mlp -----
@@ -269,9 +269,9 @@ def init_mlp(pb, cfg):
 
 
 def mlp(p, x):
-    u = _proj(x, p["wi_up"])
+    u = proj(x, p["wi_up"])
     if "wi_gate" in p:   # swiglu
-        h = F.silu(_proj(x, p["wi_gate"])) * u
+        h = F.silu(proj(x, p["wi_gate"])) * u
     else:                # gelu 2-matrix (starcoder2 / seamless); jax.nn.gelu
         h = F.gelu(u, approximate="tanh")   # defaults to the tanh form
-    return _proj(h, p["wo"])
+    return proj(h, p["wo"])

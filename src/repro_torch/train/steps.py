@@ -1,6 +1,7 @@
 """Step builders of the PyTorch port (the counterpart of
 ``repro.train.steps``): the train step, the prefill step, the paged serve
-step and the dense-cache serve step.
+step and the dense-cache serve step, each over the family's model from
+``models.registry``.
 
 Batch dict convention (the reference's):
   tokens  [B, S_text] int32        (always)
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.config import Family, ModelConfig, TrainConfig
 from repro_torch.models import transformer
+from repro_torch.models.registry import get_api
 from repro_torch.optim import AdamW
 from repro_torch.optim.adamw import leaves
 
@@ -33,28 +35,30 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
     return (nll + zl).sum() / denom, nll.sum() / denom
 
 
-def _check_family(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in transformer.DECODER_FAMILIES:
-        raise ValueError(
-            f"{what} in the port supports the dense transformer (and the "
-            f"VLM backbone), not {cfg.family}: MoE, SSM, hybrid and the "
-            f"encoder-decoder are the other-families slice of the port")
+def _forward(cfg: ModelConfig, params, tokens, *, embeds=None, attend=None,
+             ssd=None, **cache):
+    """The family's forward (``models.registry``). ``embeds`` is a VLM's
+    patch prefix; ``ssd`` the hybrid's scan (default ``ops.mamba2_ssd``)."""
+    api = get_api(cfg)
+    kw = {"ssd": ssd} if cfg.family == Family.HYBRID else {"embeds": embeds}
+    return api.forward(params, cfg, tokens, attend=attend, **kw, **cache)
 
 
-def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig, attend=None):
+def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig, attend=None,
+            ssd=None):
     """The no-cache forward and :func:`cross_entropy` over the text
     positions (a VLM's logits over its patch prefix are dropped). Returns
     ``(loss, {"nll": nll})``."""
-    logits, _ = transformer.forward(params, cfg, batch["tokens"],
-                                    embeds=batch.get("embeds"),
-                                    attend=attend)
+    logits, _ = _forward(cfg, params, batch["tokens"],
+                         embeds=batch.get("embeds"), attend=attend, ssd=ssd)
     if cfg.family == Family.VLM and batch.get("embeds") is not None:
         logits = logits[:, batch["embeds"].shape[1]:]
     loss, nll = cross_entropy(logits, batch["labels"], tc.z_loss)
     return loss, {"nll": nll}
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None):
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None,
+                    ssd=None):
     """``(train_step, opt)``: ``train_step(params, opt_state, batch) ->
     (params, opt_state, metrics)`` with ``loss``, ``grad_norm`` and
     ``nll`` as 0-d tensors.
@@ -65,11 +69,13 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None):
     sum is divided by ``microbatches``, and loss and nll are the
     microbatches' means. Then AdamW updates ``params`` and ``opt_state``
     IN PLACE (``optim.adamw``) and they are returned. ``params`` are the
-    port's master weights (``transformer.init(..., master=True)``); the
-    step marks them as requiring grad. ``attend`` is the layers' attention
-    (default: ``ops.flash_attention``; ``layers.flash_attention_xla`` is
+    port's master weights (``init(..., master=True)`` of the family's
+    model); the step marks them as requiring grad. ``attend`` is the
+    layers' attention (default: ``ops.flash_attention``;
+    ``layers.flash_attention_xla`` is the plain version), ``ssd`` a hybrid's
+    scan (default: ``ops.mamba2_ssd``; ``mamba2_scan.ssd_chunked_plain`` is
     the plain version)."""
-    _check_family(cfg, "training")
+    get_api(cfg)
     opt = AdamW(lr=tc.lr, beta1=tc.beta1, beta2=tc.beta2,
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
     n_mb = tc.microbatches
@@ -87,7 +93,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None):
         for i in range(n_mb):
             mb = {k: v.reshape(n_mb, rows // n_mb, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, aux = loss_fn(params, cfg, mb, tc, attend)
+            loss, aux = loss_fn(params, cfg, mb, tc, attend, ssd)
             loss.backward()
             losses.append(loss.detach())
             nlls.append(aux["nll"].detach())
@@ -112,43 +118,38 @@ def _grads(params):
     return params.grad
 
 
-def make_prefill_step(cfg: ModelConfig, attend=None):
+def make_prefill_step(cfg: ModelConfig, attend=None, ssd=None):
     """``prefill_step(params, batch) -> (logits [B,S,V] float32,
     next_token [B] int32)``: the no-cache forward without gradients."""
-    _check_family(cfg, "prefill")
+    get_api(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = transformer.forward(params, cfg, batch["tokens"],
-                                        embeds=batch.get("embeds"),
-                                        attend=attend)
+        logits, _ = _forward(cfg, params, batch["tokens"],
+                             embeds=batch.get("embeds"), attend=attend,
+                             ssd=ssd)
         return logits, torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, attend=None):
-    """One decode step over the carried dense cache: ``(params, cache
-    {k,v: [L,B,S,KV,hd]}, token [B,1], cache_len [B]) -> (next_token [B]
-    int32, cache)``.
+    """One decode step over the family's carried dense cache (its
+    ``init_cache``: ``{k,v: [L,B,S,KV,hd]}`` for the transformer, ``{kv,
+    ssm, conv}`` for the hybrid): ``(params, cache, token [B,1], cache_len
+    [B]) -> (next_token [B] int32, cache)``.
 
     ``attend(q [B,H,hd], k, v [B,S,KV,hd], lens, k_new, v_new)`` is the
     dense attention: ``None`` takes the CUDA kernel wrapper
     ``kernels.ops.decode_attention`` (its plain version on CPU tensors);
     ``kernels.ops.decode_attention_plain`` forces the plain version, for
-    comparisons. The cache is updated in place and returned. Dense
-    decoder-only models only."""
-    if cfg.family not in transformer.DECODER_FAMILIES:
-        raise ValueError(
-            f"dense-cache decode in the port supports the dense "
-            f"transformer, not {cfg.family} (the encoder-decoder is the "
-            f"other-families slice of the port, with MoE, SSM and hybrid)")
+    comparisons. The cache is updated in place and returned."""
+    get_api(cfg)
 
     @torch.no_grad()
     def serve_step(params, cache, token, cache_len):
-        logits, new_cache = transformer.forward(
-            params, cfg, token, cache_len=cache_len, cache=cache,
-            attend=attend)
+        logits, new_cache = _forward(cfg, params, token, attend=attend,
+                                     cache_len=cache_len, cache=cache)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, new_cache
 

@@ -225,3 +225,20 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(case, exc):
         q = torch.zeros(1, 4, 8, 64).transpose(1, 2)
     with pytest.raises(exc):
         tfa._check(q, k, v, causal, (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_at_the_hybrid_head_dim_matches_xla(dtype):
+    """zamba2's shared block: hd 80 with G = 1 (H = KV), causal. The plain
+    forward matches ``flash_attention_xla`` and its backward ``jax.vjp``
+    of it; the kernel wrappers take hd 80."""
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(1, 4, 4, 128, 80, dtype)
+    o, lse = tfa.flash_attention_fwd_plain(tq, tk, tv, causal=True)
+    want, vjp = jax.vjp(lambda q, k, v: jlayers.flash_attention_xla(
+        q, k, v, causal=True), jq, jk, jv)
+    _close(o, want, dtype)
+    grads = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo,
+                                          causal=True)
+    for g, w in zip(grads, vjp(jdo)):
+        _close(g, w, dtype, atol=GRAD_F32_ATOL)
+    assert tfa._check(tq, tk, tv, True, (tq, tk, tv)) == (1, 128, 4, 80)
