@@ -82,6 +82,11 @@ layers and one shared attention + MLP block applied after every 6 of
 them; d_model 2560, 80 SSM heads of 64, state 64; random weights from a
 seed):
 
+2b. K2 also at the shared block's decode shape: H = KV = 32, hd 80 (G =
+    1, K2's CUDA-core variant), a cache of 256 positions, one row in bf16
+    and in f32 and a bucket of 8 rows in bf16, each without and with the
+    new token; and the KV append into that cache (a bucket of 8 rows in
+    bf16, one past capacity, and one row in f32);
 6.  one more K3 case at the shared block's shape: H = KV = 32, hd 80;
 8.  the SSD scan kernels, forward (K4) and backward (K4b), against their
     plain versions at B=1, L=4096, H=80, P=64, N=64 with x in bf16 and in
@@ -96,11 +101,13 @@ seed):
     layer and microbatch (remat runs the forward again), K4b once, K3a
     and K3b once per shared-block application and microbatch;
 9b. phase 9's step on one group (6 mamba layers and the shared block),
-    kernels against plain in bf16 and f32, and a control that drops the
+    kernels against plain in bf16 and f32 (bf16 again on three more
+    seeds of weights, decay and tokens), and a control that drops the
     SSD carry into chunk 32;
 10. serving at full width in bf16 through phase 5's three dense servers
     (K2 once per shared-block application per dispatch, no scan),
-    back-to-back eager requests each returning what it returns alone, and
+    back-to-back eager requests each returning what it returns alone on
+    a template cache that stays unwritten, and
     in f32 a prefill of 256 tokens against the same tokens decoded one at
     a time through the serve step (greedy tokens equal wherever the
     prefill's top-2 margin exceeds 1e-3; a prefill that drops the carry
@@ -355,59 +362,78 @@ def kernel_phase(torch, dev, flush):
     # the paged KV append: one layer's arena, 8 rows, the last out of range
     k_pages = torch.randn(N_BLOCKS, BS, KV, HD, generator=gen,
                           device=dev).to(torch.bfloat16)
-    v_pages = torch.randn_like(k_pages)
-    k_new = torch.randn(B, KV, HD, generator=gen, device=dev).to(
-        torch.bfloat16)
-    v_new = torch.randn_like(k_new)
     slots = torch.randperm(N_BLOCKS * BS, generator=gen, device=dev)[:B]
     slots[-1] = N_BLOCKS * BS + 5
-    slots = slots.to(torch.int32)
+    append = append_case(torch, gen, flush, "paged-bfloat16", k_pages,
+                         slots.to(torch.int32))
+    return cases, append
+
+
+def append_case(torch, gen, flush, label, k_pages, slots) -> dict:
+    """The KV append into ``k_pages``/``v_pages`` [NB,BS,KV,hd] (a random
+    ``v_pages`` like ``k_pages``) of one new row per slot, against its plain
+    version (equal bit for bit; a slot out of range is dropped), timed
+    against the plain version, ``index_copy_`` of the in-range rows as the
+    library yardstick, and the bytes bound."""
+    from repro_torch.kernels import ops
+
+    NB, bs, kv, hd = k_pages.shape
+    rows = slots.shape[0]
+    dev = k_pages.device
+    v_pages = torch.randn(k_pages.shape, generator=gen, device=dev).to(
+        k_pages.dtype)
+    k_new, v_new = (torch.randn(rows, kv, hd, generator=gen, device=dev)
+                    .to(k_pages.dtype) for _ in range(2))
     k2, v2 = k_pages.clone(), v_pages.clone()
     ops.update_kv_buffer(k_pages, v_pages, k_new, v_new, slots)
     ops.update_kv_buffer_plain(k2, v2, k_new, v_new, slots)
     torch.cuda.synchronize()
-    app_err = max((k_pages.float() - k2.float()).abs().max().item(),
-                  (v_pages.float() - v2.float()).abs().max().item())
-    valid = slots[:-1].long()
-    row = KV * HD * 2
-    app_bytes = 4 * (B - 1) * row + 4 * B
-    kf, vf = k_pages.view(-1, KV, HD), v_pages.view(-1, KV, HD)
+    err = max((k_pages.float() - k2.float()).abs().max().item(),
+              (v_pages.float() - v2.float()).abs().max().item())
+    keep = slots < NB * bs
+    valid, n_valid = slots[keep].long(), int(keep.sum())
+    nbytes = 4 * n_valid * kv * hd * k_pages.element_size() + 4 * rows
+    kf, vf = k_pages.view(-1, kv, hd), v_pages.view(-1, kv, hd)
 
     def library_append():   # yardstick: index_copy_ of the in-range rows
-        kf.index_copy_(0, valid, k_new[:-1])
-        vf.index_copy_(0, valid, v_new[:-1])
+        kf.index_copy_(0, valid, k_new[keep])
+        vf.index_copy_(0, valid, v_new[keep])
 
-    bnd, by = bound_ms(app_bytes, 0.0, "bfloat16")
+    bnd, by = bound_ms(nbytes, 0.0, "bfloat16")
     ms, host_ms_a = cuda_ms(torch, lambda: ops.update_kv_buffer(
         k_pages, v_pages, k_new, v_new, slots), reps=50, flush=flush)
     plain_ms, _ = cuda_ms(torch, lambda: ops.update_kv_buffer_plain(
         k_pages, v_pages, k_new, v_new, slots), reps=20, flush=flush)
     library_ms, _ = cuda_ms(torch, library_append, reps=50, flush=flush)
-    append = {
-        "case": "bfloat16", "max_abs_err": app_err, "tol": 0.0, "ms": ms,
-        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bnd,
-        "bound_by": by, "kv_bytes": app_bytes, "host_call_ms": host_ms_a,
+    case = {
+        "case": f"{label}-rows{rows}-KV{kv}-hd{hd}", "max_abs_err": err,
+        "tol": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bnd, "bound_by": by, "kv_bytes": nbytes,
+        "host_call_ms": host_ms_a,
     }
-    print(f"kernel update_kv_buffer[bfloat16]: max_abs_err={app_err:.3e} "
-          f"(tol 0, out-of-range slot dropped) ms={append['ms']:.4f} "
-          f"plain_ms={append['plain_ms']:.4f} "
-          f"library_ms(index_copy_)={append['library_ms']:.4f} "
-          f"bound_ms={bnd:.6f} ({by}, {app_bytes} B) "
+    print(f"kernel update_kv_buffer[{case['case']}]: max_abs_err={err:.3e} "
+          f"(tol 0, {rows - n_valid} out-of-range slot(s) dropped) "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms(index_copy_)={library_ms:.4f} "
+          f"bound_ms={bnd:.6f} ({by}, {nbytes} B) "
           f"host_call_ms={host_ms_a:.4f}", flush=True)
-    check(app_err == 0.0, f"update_kv_buffer differs from plain: {app_err}")
-    return cases, append
+    check(err == 0.0, f"update_kv_buffer[{case['case']}] differs from "
+          f"plain: {err}")
+    return case
 
 
 # ------------------------------------------ phase 2b: the dense kernel --
 
-def dense_inputs(torch, dev, gen, q_dtype, kv_dtype, *, b, s, max_len):
-    """q, a carried-layout cache k/v [b,s,KV,hd], ragged lens (row 0 at
-    max_len) and a new token k_new/v_new [b,KV,hd] in q's dtype."""
+def dense_inputs(torch, dev, gen, q_dtype, kv_dtype, *, b, s, max_len, heads):
+    """q [b,h,hd], a carried-layout cache k/v [b,s,kv,hd], ragged lens (row
+    0 at max_len) and a new token k_new/v_new [b,kv,hd] in q's dtype, for
+    ``heads`` = (h, kv, hd)."""
+    h, kv, hd = heads
     lens = torch.randint(1, max_len + 1, (b,), generator=gen, device=dev,
                          dtype=torch.int32)
     lens[0] = max_len
-    q = torch.randn(b, H, HD, generator=gen, device=dev).to(q_dtype)
-    shape = (b, s, KV, HD)
+    q = torch.randn(b, h, hd, generator=gen, device=dev).to(q_dtype)
+    shape = (b, s, kv, hd)
     if kv_dtype == torch.int8:
         k = torch.randint(-127, 128, shape, generator=gen, device=dev,
                           dtype=torch.int8)
@@ -416,8 +442,8 @@ def dense_inputs(torch, dev, gen, q_dtype, kv_dtype, *, b, s, max_len):
     else:
         k = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
         v = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
-    k_new = torch.randn(b, KV, HD, generator=gen, device=dev).to(q_dtype)
-    v_new = torch.randn(b, KV, HD, generator=gen, device=dev).to(q_dtype)
+    k_new = torch.randn(b, kv, hd, generator=gen, device=dev).to(q_dtype)
+    v_new = torch.randn(b, kv, hd, generator=gen, device=dev).to(q_dtype)
     return q, k, v, lens, k_new, v_new
 
 
@@ -435,7 +461,11 @@ def library_dense_attention(torch, q, k, v, lens):
         attn_mask=mask, enable_gqa=True)[:, :, 0]
 
 
-def dense_kernel_phase(torch, dev, flush):
+def dense_kernel_phase(torch, dev, flush, hybrid):
+    """K2 against its plain version at starcoder2's shapes and at the
+    hybrid's shared attention (``hybrid`` = (H, KV, hd), G = 1, which
+    takes K2's CUDA-core variant), and the KV append at the hybrid's
+    dense cache. Returns (K2's cases, the append's cases)."""
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev)
@@ -443,16 +473,24 @@ def dense_kernel_phase(torch, dev, flush):
     dtypes = (("bfloat16", torch.bfloat16, torch.bfloat16),
               ("float32", torch.float32, torch.float32),
               ("int8", torch.bfloat16, torch.int8))
-    # (label, rows, cache positions, largest len): the kernel check's
-    # sizes; a cache of 1000 positions (1000 % 512 and 1000 % 64 are not
-    # 0) with a row past capacity; the bucketed serve loop's shape
-    shapes = [("S4096", B, MAX_LEN, MAX_LEN) + (d,) for d in dtypes]
-    shapes += [("S1000-tail", B, 1000, 1005, dtypes[0]),
-               ("bucket8-S256", 8, DENSE_LEN, 40, dtypes[0])]
+    heads = (H, KV, HD)
+    # (label, rows, cache positions, largest len, heads): the kernel
+    # check's sizes; a cache of 1000 positions (1000 % 512 and 1000 % 64
+    # are not 0) with a row past capacity; the bucketed serve loop's
+    # shape; then the hybrid's decode, eager (one row, bf16, and f32 as
+    # phase 10's decode against prefill runs it) and bucketed
+    shapes = [("S4096", B, MAX_LEN, MAX_LEN, heads, d) for d in dtypes]
+    shapes += [("S1000-tail", B, 1000, 1005, heads, dtypes[0]),
+               ("bucket8-S256", 8, DENSE_LEN, 40, heads, dtypes[0]),
+               ("hybrid-B1-S256", 1, DENSE_LEN, DENSE_LEN, hybrid, dtypes[0]),
+               ("hybrid-B1-S256", 1, DENSE_LEN, DENSE_LEN, hybrid, dtypes[1]),
+               ("hybrid-bucket8-S256", 8, DENSE_LEN, 40, hybrid, dtypes[0])]
     cases = []
-    for label, b, s, max_len, (name, q_dtype, kv_dtype) in shapes:
+    for label, b, s, max_len, (h, kv, hd), (name, q_dtype, kv_dtype) \
+            in shapes:
         q, k, v, lens, k_new, v_new = dense_inputs(
-            torch, dev, gen, q_dtype, kv_dtype, b=b, s=s, max_len=max_len)
+            torch, dev, gen, q_dtype, kv_dtype, b=b, s=s, max_len=max_len,
+            heads=(h, kv, hd))
         n_pos = int(lens.clamp(max=s).sum())
         for new in (False, True):
             extra = (k_new, v_new) if new else ()
@@ -461,11 +499,11 @@ def dense_kernel_phase(torch, dev, flush):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = tolerance(name, want)
-            nbytes = (2 * n_pos * KV * HD * k.element_size()
+            nbytes = (2 * n_pos * kv * hd * k.element_size()
                       + 2 * q.numel() * q.element_size() + 4 * b
                       + (2 * k_new.numel() * k_new.element_size()
                          if new else 0))
-            flops = 4.0 * (n_pos + (b if new else 0)) * H * HD
+            flops = 4.0 * (n_pos + (b if new else 0)) * h * hd
             bnd, by = bound_ms(nbytes, flops, "float32" if name == "float32"
                                else "bfloat16")
             ms, host_ms_k = cuda_ms(torch, lambda: ops.decode_attention(
@@ -493,7 +531,26 @@ def dense_kernel_phase(torch, dev, flush):
             check(err <= tol, f"decode_attention[{case['case']}] error "
                   f"{err} > {tol}")
         del q, k, v, lens, k_new, v_new, got, want
-    return cases
+    # the hybrid's KV append: a bucket's cache of one application of the
+    # shared block (slots as layers.dense_step makes them; one row at
+    # capacity, whose write is dropped), and one row in f32 as phase 10's
+    # decode against prefill writes it
+    appends = []
+    _, kv, hd = hybrid
+    for b, dtype, name in ((8, torch.bfloat16, "bfloat16"),
+                           (1, torch.float32, "float32")):
+        kc = torch.randn(b, DENSE_LEN, kv, hd, generator=gen,
+                         device=dev).to(dtype)
+        lens = torch.randint(0, 40, (b,), generator=gen, device=dev)
+        if b > 1:
+            lens[-1] = DENSE_LEN
+        rows = torch.arange(b, device=dev)
+        slots = torch.where(lens < DENSE_LEN, rows * DENSE_LEN + lens,
+                            b * DENSE_LEN).to(torch.int32)
+        appends.append(append_case(torch, gen, flush, f"hybrid-{name}", kc,
+                                   slots))
+        del kc
+    return cases, appends
 
 
 # ---------------------------------------------------- phase 3: main path --
@@ -1233,16 +1290,19 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict):
 
 
 def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
-                         control: dict, control_label: str, prepare=None):
+                         control: dict, control_label: str, prepare=None,
+                         bf16_seeds=()):
     """Phase 7b (and 9b): the training phase's step (2 microbatches of 1 x
     4096 tokens) at ``layers`` layers of full width, from the same
     weights, with the kernels, with the plain versions (``plain``: the
     step's ``attend`` and ``ssd``), and with a control that must fail the
     comparison (``control``: a plain version that drops one tile or one
-    chunk's carry). bf16 and f32 compute. ``prepare(params)`` may set
-    weights before the runs. Each gradient is read from the step's first
-    moments, which a fresh state leaves at (1 - beta1) * min(1, clip /
-    grad_norm) * g."""
+    chunk's carry). bf16 and f32 compute. ``prepare(params, seed)`` may
+    set weights before the runs. In bf16, the kernels are held to the
+    plain versions again on each seed of ``bf16_seeds`` (weights, prepared
+    weights and tokens all drawn from it). Each gradient is read from the
+    step's first moments, which a fresh state leaves at (1 - beta1) *
+    min(1, clip / grad_norm) * g."""
     import numpy as np
 
     from repro_torch.checkpoint.ckpt import flatten
@@ -1255,22 +1315,26 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
             return {k: clone(v) for k, v in tree.items()}
         return tree.detach().clone()
 
-    rng = np.random.default_rng(7)
-    toks = torch.from_numpy(rng.integers(
-        0, 500, size=(TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
-    batch = {"tokens": toks[:, :-1].contiguous(),
-             "labels": toks[:, 1:].contiguous()}
+    def batch_of(seed):
+        toks = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, 500, size=(TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
+        return {"tokens": toks[:, :-1].contiguous(),
+                "labels": toks[:, 1:].contiguous()}
+
     tc = TrainConfig(microbatches=TRAIN_MICRO)
     out = {}
     for compute in ("bfloat16", "float32"):
         scfg = dataclasses.replace(cfg, n_layers=layers,
                                    compute_dtype=compute)
-        base = get_api(scfg).init(scfg, seed=3, device=dev, master=True)
-        if prepare is not None:
-            prepare(base)
-        names = leaf_paths(base)
 
-        def one_step(kw):
+        def weights(seed, prepare_seed):
+            base = get_api(scfg).init(scfg, seed=seed, device=dev,
+                                      master=True)
+            if prepare is not None:
+                prepare(base, prepare_seed)
+            return base
+
+        def one_step(base, batch, kw):
             step, opt = make_train_step(scfg, tc, **kw)
             params = clone(base)
             _, state, metrics = step(params, opt.init(params), batch)
@@ -1280,7 +1344,7 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
             grads = [m.div_(scale) for m in flatten(state.m)]
             return float(metrics["loss"]), gnorm, grads
 
-        def against_plain(res):
+        def against_plain(res, ref):
             loss, gnorm, grads = res
             rels = [(torch.linalg.vector_norm(a - b)
                      / torch.linalg.vector_norm(b).clamp_min(1e-30)).item()
@@ -1293,9 +1357,11 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
                     "grad_leaf_max_rel_norm_diff": rel,
                     "grad_leaf_max": names[rels.index(rel)], "pass": ok}
 
-        ref = one_step(plain)
-        kern = against_plain(one_step({}))
-        ctrl = against_plain(one_step(control))
+        base, batch = weights(3, 9), batch_of(7)
+        names = leaf_paths(base)
+        ref = one_step(base, batch, plain)
+        kern = against_plain(one_step(base, batch, {}), ref)
+        ctrl = against_plain(one_step(base, batch, control), ref)
         print(f"train step kernels vs plain ({cfg.arch_id}, {compute} "
               f"compute, {layers} layers full width, {TRAIN_BATCH}x"
               f"{TRAIN_SEQ} in {TRAIN_MICRO} microbatches): loss "
@@ -1317,6 +1383,26 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
         del base, ref
         gc.collect()
         torch.cuda.empty_cache()
+        if compute != "bfloat16" or not bf16_seeds:
+            continue
+        out[compute]["kernels_other_seeds"] = []
+        for seed in bf16_seeds:
+            base, batch = weights(seed, seed), batch_of(seed)
+            ref = one_step(base, batch, plain)
+            kern = dict(against_plain(one_step(base, batch, {}), ref),
+                        seed=seed)
+            print(f"train step kernels vs plain ({cfg.arch_id}, {compute}, "
+                  f"seed {seed}): |loss diff| {kern['loss_abs_diff']:.3e} "
+                  f"grad leaves max relative norm diff "
+                  f"{kern['grad_leaf_max_rel_norm_diff']:.3e} at "
+                  f"{kern['grad_leaf_max']} (tol {STEP_GRAD_REL[compute]})",
+                  flush=True)
+            check(kern["pass"], f"{compute} step, kernels vs plain, seed "
+                  f"{seed}: {kern}")
+            out[compute]["kernels_other_seeds"].append(kern)
+            del base, ref
+            gc.collect()
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1547,13 +1633,14 @@ def hybrid_serve_phase(torch, zcfg, dev) -> dict:
     shared = api.init_cache(zcfg, 1, DENSE_LEN, device=dev)
     together = [_greedy_decode(serve, params, shared, cl, p, n)
                 for p, n in reqs]
-    written = shared["ssm"][:, 0].abs().sum().item()
+    written = sum(shared[n].abs().sum().item() for n in ("ssm", "conv"))
     print(f"hybrid serving: back-to-back eager requests {together}, alone "
-          f"{alone}; the template's SSM state |sum| {written:.3g} after "
-          f"them", flush=True)
+          f"{alone}; the template's recurrent state |sum| {written:.3g} "
+          f"after them", flush=True)
     check(together == alone, "a back-to-back eager request read an earlier "
           "request's recurrent state")
-    check(written > 0, "the serve step never wrote the template's state")
+    check(written == 0, "an eager request wrote the template's recurrent "
+          "state")
     out["back_to_back_isolated"] = True
     del params, shared
     gc.collect()
@@ -1677,7 +1764,9 @@ def run(torch) -> int:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     decode_cases, append = kernel_phase(torch, dev, flush)
     # phase 2b: the dense kernel against its plain version
-    dense_cases = dense_kernel_phase(torch, dev, flush)
+    zcfg = get_config("zamba2-2.7b")
+    dense_cases, hybrid_appends = dense_kernel_phase(
+        torch, dev, flush, (zcfg.n_heads, zcfg.n_kv_heads, zcfg.hd))
     del flush
     torch.cuda.empty_cache()
 
@@ -1807,7 +1896,6 @@ def run(torch) -> int:
         control_label=f"keys {CONTROL_KEYS[0]}-{CONTROL_KEYS[1] - 1} zeroed")
 
     # the hybrid family: zamba2-2.7b, all 54 layers at full width
-    zcfg = get_config("zamba2-2.7b")
     # phase 8: the SSD scan kernels against their plain versions
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     ssd_cases = ssd_kernel_phase(torch, zcfg, dev, flush)
@@ -1828,7 +1916,8 @@ def run(torch) -> int:
         plain={"attend": L.flash_attention_xla, "ssd": ms.ssd_chunked_plain},
         control={"attend": L.flash_attention_xla, "ssd": carry_dropped},
         control_label="the SSD carry into chunk 32 dropped",
-        prepare=lambda p: set_mamba2_decay(torch, p, seed=9))
+        prepare=lambda p, seed: set_mamba2_decay(torch, p, seed=seed),
+        bf16_seeds=(21, 22, 23))
     # phase 10: serving
     zserve = hybrid_serve_phase(torch, zcfg, dev)
 
@@ -1849,7 +1938,7 @@ def run(torch) -> int:
          "max_abs_err": append["max_abs_err"], "ms": append["ms"],
          "plain_ms": append["plain_ms"], "bound_ms": append["bound_ms"],
          "bound_by": append["bound_by"], "library_ms": append["library_ms"],
-         "pass": True},
+         "pass": True, "cases": [append] + hybrid_appends},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dense_decode.cu",
          "replaces": "src/repro/kernels/decode_attention.py:83",

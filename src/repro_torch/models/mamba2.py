@@ -164,7 +164,7 @@ def _groups(cfg: ModelConfig) -> tuple[int, int]:
     return cfg.n_layers // period, period
 
 
-def forward(params, cfg: ModelConfig, tokens, *, positions=None,
+def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
             cache_len=None, cache=None, attend=None, ssd=None):
     """The hybrid over ``tokens [B,S]`` int: without a cache, the training
     and prefill forward; with one, one decode step.
@@ -184,7 +184,13 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     ``kv[g]`` through the carried dense-cache branch (``attend`` default
     ``ops.decode_attention``). Every leaf is updated IN PLACE (the
     reference returns new arrays) and the cache returned. Returns
-    ``(logits [B,1,V] float32, cache)``."""
+    ``(logits [B,1,V] float32, cache)``.
+
+    ``embeds`` is a VLM's patch prefix (``models.transformer.forward``),
+    taken so the families share one signature; the hybrid has none and
+    refuses one."""
+    if embeds is not None:
+        raise ValueError(f"{cfg.arch_id} takes no embeds prefix")
     x = params["embed"][tokens.long()].to(
         weights.torch_dtype(cfg.compute_dtype))
     B, S, _ = x.shape

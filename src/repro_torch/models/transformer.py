@@ -87,7 +87,8 @@ def _logits(params, cfg, x):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
-            cache_len=None, paged_cache=None, cache=None, attend=None):
+            cache_len=None, paged_cache=None, cache=None, attend=None,
+            ssd=None):
     """The model over ``tokens [B,S]`` int. Without a cache, the training
     and prefill forward; with one of two caches, one decode step.
 
@@ -114,7 +115,11 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     Either is updated IN PLACE (the reference returns new arrays) and
     returned. ``attend`` is the layers' attention (default: the CUDA
     kernel wrapper of the branch; the plain versions for comparisons).
-    Returns ``(logits [B,1,V] float32, {"k": k, "v": v})``."""
+    Returns ``(logits [B,1,V] float32, {"k": k, "v": v})``.
+
+    ``ssd`` is the hybrid's scan (``models.mamba2.forward``), taken so the
+    families share one signature; a transformer has no scan and ignores
+    it."""
     if paged_cache is not None and cache is not None:
         raise ValueError("give at most one of paged_cache and cache")
     x = _embed(params, cfg, tokens)

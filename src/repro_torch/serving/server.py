@@ -32,8 +32,8 @@ submission.
 This is the PyTorch port of ``repro.serving.server``: the reference's
 text, with its JAX arrays as torch tensors on the cache's device. One
 difference: the port's serve steps update the dense cache in place, where
-the reference's return a new one, so the eager path resets a hybrid's
-recurrent state before each request (see :func:`_greedy_decode`).
+the reference's return a new one, so every request decodes on a copy of
+the template cache (see :func:`_greedy_decode`).
 """
 from __future__ import annotations
 
@@ -612,39 +612,22 @@ def encode_reply(gen, tag: int | None) -> bytes:
     return np.asarray(toks, dtype=np.int32).tobytes()
 
 
-# the cache leaves that hold a recurrent state (the hybrid's conv window
-# and SSM state, [L, B, ...] each): every decode step reads all of them
-RECURRENT_LEAVES = ("ssm", "conv")
-
-
-def _reset_recurrent(cache) -> None:
-    """Zero row 0 of every recurrent leaf of ``cache``: the state a
-    request starts from (``init_cache`` makes it zeros)."""
-    if isinstance(cache, dict):
-        for name in RECURRENT_LEAVES:
-            if name in cache:
-                cache[name][:, :1].zero_()
-
-
 def _greedy_decode(serve_fn, params, cache, cache_len, prompt_toks,
                    max_tokens: int) -> list[int]:
     """One request's greedy continuation — shared by the GENESYS and CPU
     servers so the two benchmark paths decode identically.
 
-    Every request starts from the same ``cache``, which the port's serve
-    step updates in place (the reference's returns a new one, so its
-    template stays zeros). What an earlier request left in the KV leaves
-    is never read: step i writes position i of row 0 and attends positions
-    below i plus its own token, so a request reads only what it wrote
-    itself. A recurrent state (a hybrid's ``ssm`` and ``conv``) is read
-    whole at every step, so row 0 of it is zeroed before the request
-    starts."""
-    _reset_recurrent(cache)
+    Every request starts from the same ``cache``, row 0 of which is the
+    initial decode state. The port's serve step updates its cache in
+    place (the reference's returns a new one, so its template is never
+    written), so the request decodes on a copy of that row and the
+    template stays as ``init_cache`` made it, whatever state the model
+    carries (a hybrid's recurrent state is read whole at every step)."""
     cur = torch.full((1, 1), int(prompt_toks[-1]), dtype=torch.int32,
                      device=cache_len.device)
     gen: list[int] = []
     cl = cache_len
-    c = cache
+    c = _tile_cache(cache, 1)
     for _ in range(max_tokens):
         nxt, c = serve_fn(params, c, cur, cl[:1])
         gen.append(int(nxt[0]))
@@ -665,8 +648,7 @@ def _bucket_size(k: int) -> int:
 def _tile_cache(cache, kb: int):
     """Fresh per-request decode state, batched: every request decodes from
     the same *initial* cache (exactly what the per-request path does), so
-    row 0 of the template cache is tiled to the bucket's batch size (a
-    copy, written by the bucket's steps in place of the template)."""
+    row 0 of the template cache is tiled to the bucket's batch size."""
     if isinstance(cache, dict):
         return {n: _tile_cache(leaf, kb) for n, leaf in cache.items()}
     return torch.repeat_interleave(cache[:, :1], kb, dim=1)
@@ -690,7 +672,6 @@ def _greedy_decode_batch(serve_fn, params, cache, prompts, max_tokens: int,
     exactly what the continuous engine eliminates (fig12).
     """
     gens: list[list[int]] = []
-    _reset_recurrent(cache)     # an eager request may have left its state
     # cap the bucket so an oversized poll batch splits instead of padding
     # to one huge pow2 (bounded jit shapes AND bounded padding waste)
     bucket = max(1, min(_bucket_size(len(prompts)), MAX_DECODE_BUCKET))

@@ -35,22 +35,14 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
     return (nll + zl).sum() / denom, nll.sum() / denom
 
 
-def _forward(cfg: ModelConfig, params, tokens, *, embeds=None, attend=None,
-             ssd=None, **cache):
-    """The family's forward (``models.registry``). ``embeds`` is a VLM's
-    patch prefix; ``ssd`` the hybrid's scan (default ``ops.mamba2_ssd``)."""
-    api = get_api(cfg)
-    kw = {"ssd": ssd} if cfg.family == Family.HYBRID else {"embeds": embeds}
-    return api.forward(params, cfg, tokens, attend=attend, **kw, **cache)
-
-
 def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig, attend=None,
             ssd=None):
     """The no-cache forward and :func:`cross_entropy` over the text
     positions (a VLM's logits over its patch prefix are dropped). Returns
     ``(loss, {"nll": nll})``."""
-    logits, _ = _forward(cfg, params, batch["tokens"],
-                         embeds=batch.get("embeds"), attend=attend, ssd=ssd)
+    logits, _ = get_api(cfg).forward(params, cfg, batch["tokens"],
+                                     embeds=batch.get("embeds"),
+                                     attend=attend, ssd=ssd)
     if cfg.family == Family.VLM and batch.get("embeds") is not None:
         logits = logits[:, batch["embeds"].shape[1]:]
     loss, nll = cross_entropy(logits, batch["labels"], tc.z_loss)
@@ -121,13 +113,13 @@ def _grads(params):
 def make_prefill_step(cfg: ModelConfig, attend=None, ssd=None):
     """``prefill_step(params, batch) -> (logits [B,S,V] float32,
     next_token [B] int32)``: the no-cache forward without gradients."""
-    get_api(cfg)
+    forward = get_api(cfg).forward
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = _forward(cfg, params, batch["tokens"],
-                             embeds=batch.get("embeds"), attend=attend,
-                             ssd=ssd)
+        logits, _ = forward(params, cfg, batch["tokens"],
+                            embeds=batch.get("embeds"), attend=attend,
+                            ssd=ssd)
         return logits, torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     return prefill_step
@@ -144,12 +136,12 @@ def make_serve_step(cfg: ModelConfig, attend=None):
     ``kernels.ops.decode_attention`` (its plain version on CPU tensors);
     ``kernels.ops.decode_attention_plain`` forces the plain version, for
     comparisons. The cache is updated in place and returned."""
-    get_api(cfg)
+    forward = get_api(cfg).forward
 
     @torch.no_grad()
     def serve_step(params, cache, token, cache_len):
-        logits, new_cache = _forward(cfg, params, token, attend=attend,
-                                     cache_len=cache_len, cache=cache)
+        logits, new_cache = forward(params, cfg, token, attend=attend,
+                                    cache_len=cache_len, cache=cache)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, new_cache
 
