@@ -113,6 +113,33 @@ seed):
     prefill's top-2 margin exceeds 1e-3; a prefill that drops the carry
     into chunk 2 must not pass).
 
+The SSM family (the fifth slice) adds, for rwkv6-3b (32 blocks of time
+mix and channel mix, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536;
+3.09 B parameters; random weights from a seed):
+
+11. the WKV kernels, forward (K5) and backward (K5b), against their plain
+    versions at B=1, L=4096, H=40, hd=64 with r, k, v in bf16 and in f32,
+    at L=48 (one chunk of 48), at B=4, L=256, and with w near the clip
+    (log-uniform in [1e-6, 0.2]: both sides finite), w otherwise drawn as
+    RWKV-6 initialises its decay (w in [0.69, 0.9975]); o, the final
+    state, dr, dk, dv, dw and du each held to phase 8's element-wise rule,
+    which the kernels run on the two halves of the sequence apart must
+    fail (all but du, which the carry does not reach); timed against the
+    plain versions and the operations bound (no PyTorch call computes the
+    WKV);
+12. training at full width and all 32 blocks (49.4 GB of f32 training
+    state) as phase 7 trains: K5 launched twice per block and microbatch
+    (remat), K5b once, every other kernel never;
+12b. phase 12's step on 2 blocks, kernels against plain in bf16 and f32,
+    with RWKV-6's decay and bonus init, and a control that drops the WKV
+    carry into chunk 32;
+13. serving at full width in bf16 through phase 5's three dense servers
+    (no kernel: the decode recurrence is plain torch, as in the
+    reference), back-to-back eager requests, and in f32 (with RWKV-6's
+    decay init) a prefill of 256 tokens through K5 against the same tokens
+    decoded one at a time, with a control that drops the carry into chunk
+    2.
+
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
 is visible or the port's sources are not beside this script.
@@ -202,6 +229,22 @@ SSD_REL = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -13}
 # (the carry across the middle boundary dropped), must fail that rule in
 # these outputs
 SSD_CONTROL_FAILS = ("y", "dx", "dBm", "dCm")
+# K5/K5b vs plain, each output element by the same rule and for the same
+# reason (f32 sums in another order; a bf16 output rounded once on each
+# side): o, dr, dk, dv in r's dtype, the final state, dw and du in f32
+WKV_REL = SSD_REL
+# the halves control must fail the rule in every output the carry reaches:
+# du (sum_t (do_t . v_t) r_t k_t) does not depend on the state
+WKV_CONTROL_FAILS = ("o", "dr", "dk", "dv", "dw")
+# Near the clip (w down to 1e-6) dw = d log w / w, where d log w is a
+# reverse running sum over the chunk of terms of size |r k dA| whose signs
+# cancel to a result of size about w: both versions carry a rounding error
+# of about 2**-24 times those terms' sum, which 1/w then amplifies past any
+# bound relative to the element (a first check on an H100 read errors of
+# 1.4e5 times it). There dw is held through w * dw, the gradient with
+# respect to log w that the running sum computes, each element to 2**-13
+# of the largest |w * dw| of the tensor; the other outputs keep the rule.
+WKV_CLIP_REL = 2.0 ** -13
 # phase 10: decode against a prefill of 256 tokens (4 chunks)
 PREFILL_LEN = 256
 
@@ -760,16 +803,19 @@ def serve_dense(torch, cfg, params, mode, reqs, *, max_tokens, counters):
 
 def attention_layers(cfg) -> int:
     """The attention layers one token passes: every layer of a
-    transformer, the shared block's applications in the hybrid."""
+    transformer, the shared block's applications in the hybrid, none in
+    rwkv6."""
     from repro_torch.config import Family
     from repro_torch.models import mamba2
+    if cfg.family == Family.SSM:
+        return 0
     return (mamba2.n_shared_applications(cfg)
             if cfg.family == Family.HYBRID else cfg.n_layers)
 
 
 def dense_path_phase(torch, cfg, params):
-    """Phase 5 (and 10): the three dense servers at full width. Returns a
-    dict of per-run results and K2's launches per run."""
+    """Phase 5 (and 10, 13): the three dense servers at full width.
+    Returns a dict of per-run results and K2's launches per run."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -779,7 +825,8 @@ def dense_path_phase(torch, cfg, params):
     tagged = [[b, 300 + i] + p
               for i, (b, p) in enumerate(zip(budgets, prompts))]
     counters = (ops.decode_attention, ops.update_kv_buffer,
-                ops.paged_decode_attention, ops.mamba2_ssd_fwd)
+                ops.paged_decode_attention, ops.mamba2_ssd_fwd,
+                ops.rwkv6_wkv_fwd)
     n_attn = attention_layers(cfg)
     runs = {}
     for mode, reqs, max_tokens in (("eager", prompts, EAGER_TOKENS),
@@ -813,8 +860,9 @@ def dense_path_phase(torch, cfg, params):
                   f"{mode}: {name} launched {launches[name]} times, "
                   f"expected {n_attn} x {dispatches} dispatches")
         check(launches["paged_decode_attention"] == 0
-              and launches["mamba2_ssd_fwd"] == 0,
-              f"{mode}: the paged kernel or the scan ran on the dense path")
+              and launches["mamba2_ssd_fwd"] == 0
+              and launches["rwkv6_wkv_fwd"] == 0,
+              f"{mode}: the paged kernel or a scan ran on the dense path")
         run = {"replies": gens, "tokens_out": tokens, "wall_s": wall,
                "tokens_per_s": tokens / wall, "dispatches": dispatches,
                "mean_step_ms": 1e3 * statistics.mean(step_s),
@@ -1131,6 +1179,7 @@ def flash_kernel_phase(torch, dev, flush):
 
 KERNEL_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd",
                    "mamba2_ssd_fwd", "mamba2_ssd_bwd",
+                   "rwkv6_wkv_fwd", "rwkv6_wkv_bwd",
                    "paged_decode_attention", "decode_attention",
                    "update_kv_buffer")
 
@@ -1138,8 +1187,9 @@ KERNEL_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd",
 def model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6 per non-embedding parameter and
     token, causal attention forward and backward (6 H hd S^2 per sequence
-    and attention layer), and a hybrid's SSD scan (three times its forward,
-    2c(cN + cP + 2NP) per head and chunk)."""
+    and attention layer), a hybrid's SSD scan (three times its forward,
+    2c(cN + cP + 2NP) per head and chunk) and rwkv6's WKV (three times its
+    forward, 2c(2 hd^2 + c hd) per head and chunk)."""
     from repro_torch.config import Family
     embed = cfg.padded_vocab * cfg.d_model     # a gather, no products
     out = 6.0 * (n_params - embed) * batch * seq
@@ -1148,6 +1198,10 @@ def model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     if cfg.family == Family.HYBRID:
         c, n, p = min(64, seq), cfg.ssm_state, cfg.ssm_head_dim
         out += 3.0 * 2 * c * (c * n + c * p + 2 * n * p) * cfg.ssm_heads \
+            * (seq // c) * batch * cfg.n_layers
+    if cfg.family == Family.SSM:
+        c, d = min(64, seq), cfg.hd
+        out += 3.0 * 2 * c * (2 * d * d + c * d) * cfg.n_heads \
             * (seq // c) * batch * cfg.n_layers
     return out
 
@@ -1292,12 +1346,12 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict):
 def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
                          control: dict, control_label: str, prepare=None,
                          bf16_seeds=()):
-    """Phase 7b (and 9b): the training phase's step (2 microbatches of 1 x
-    4096 tokens) at ``layers`` layers of full width, from the same
+    """Phase 7b (and 9b, 12b): the training phase's step (2 microbatches of
+    1 x 4096 tokens) at ``layers`` layers of full width, from the same
     weights, with the kernels, with the plain versions (``plain``: the
-    step's ``attend`` and ``ssd``), and with a control that must fail the
-    comparison (``control``: a plain version that drops one tile or one
-    chunk's carry). bf16 and f32 compute. ``prepare(params, seed)`` may
+    step's ``attend``, ``ssd`` or ``wkv``), and with a control that must
+    fail the comparison (``control``: a plain version that drops one tile
+    or one chunk's carry). bf16 and f32 compute. ``prepare(params, seed)`` may
     set weights before the runs. In bf16, the kernels are held to the
     plain versions again on each seed of ``bf16_seeds`` (weights, prepared
     weights and tokens all drawn from it). Each gradient is read from the
@@ -1457,21 +1511,32 @@ def ssd_inputs(torch, zcfg, dev, gen, batch: int, length: int, dtype):
     return (x, dt, -torch.exp(a_log), Bm, Cm), dy
 
 
-def ssd_halves(fn, ins, dy=None):
-    """``fn`` run on the two halves of the sequence apart: the carried
-    state (or, backwards, its cotangent) across the middle chunk boundary
-    is dropped. Forward: y; backward: (dx, ddt, dA, dBm, dCm)."""
+def halves(fn, ins, dy=None):
+    """``fn`` (a scan's forward, or with ``dy`` its backward) run on the
+    two halves of the sequence apart: the carried state (or, backwards,
+    its cotangent) across the middle chunk boundary is dropped. Inputs and
+    outputs of three or more dims ([B, L, ...]) are cut and joined along
+    L, the others (A, u; dA, du) taken whole and summed. Forward: the
+    output; backward: the gradients."""
     import torch
     half = ins[0].shape[1] // 2
     parts = []
     for sl in (slice(None, half), slice(half, None)):
-        cut = [t if t.dim() == 1 else t[:, sl].contiguous() for t in ins]
+        cut = [t[:, sl].contiguous() if t.dim() >= 3 else t for t in ins]
         parts.append(fn(*cut) if dy is None
                      else fn(*cut, dy[:, sl].contiguous()))
     if dy is None:
         return torch.cat([parts[0][0], parts[1][0]], dim=1)
-    return tuple(a + b if a.dim() == 1 else torch.cat([a, b], dim=1)
+    return tuple(torch.cat([a, b], dim=1) if a.dim() >= 3 else a + b
                  for a, b in zip(*parts))
+
+
+def carry_dropped(plain):
+    """``plain`` (a scan's plain version) with the carry across the middle
+    chunk boundary dropped: the control of phases 9b, 10, 12b and 13, a
+    kernel that loses one chunk's state. The final state, which no
+    caller reads, is None."""
+    return lambda *ins: (halves(plain, ins), None)
 
 
 def ssd_kernel_phase(torch, zcfg, dev, flush):
@@ -1504,8 +1569,8 @@ def ssd_kernel_phase(torch, zcfg, dev, flush):
                   f"up to {errs[n]['worst']:.3g} x its bound (max abs "
                   f"{errs[n]['max_abs_err']:.3g})")
         if label == "L4096-bfloat16":
-            off = (ssd_halves(ms.mamba2_ssd_fwd, ins),) + (None,) \
-                + ssd_halves(ms.mamba2_ssd_bwd, ins, dy)
+            off = (halves(ms.mamba2_ssd_fwd, ins),) + (None,) \
+                + halves(ms.mamba2_ssd_bwd, ins, dy)
             for n, g, w in zip(names, off, want):
                 if g is not None:
                     control[n] = fa_reading(
@@ -1569,19 +1634,6 @@ def ssd_kernel_phase(torch, zcfg, dev, flush):
     return cases
 
 
-def carry_dropped(x, dt, A, Bm, Cm):
-    """The plain SSD scan with the carry across the middle chunk boundary
-    dropped: phase 9b's control, a kernel that loses one chunk's state."""
-    from repro_torch.kernels import mamba2_scan as ms
-    import torch
-    half = x.shape[1] // 2
-    y0, _ = ms.ssd_chunked_plain(x[:, :half], dt[:, :half], A, Bm[:, :half],
-                                 Cm[:, :half])
-    y1, s = ms.ssd_chunked_plain(x[:, half:], dt[:, half:], A, Bm[:, half:],
-                                 Cm[:, half:])
-    return torch.cat([y0, y1], dim=1), s
-
-
 def set_mamba2_decay(torch, params, seed: int) -> None:
     """Every mamba layer's A_log and dt_bias drawn as Mamba2 initialises
     them (:func:`mamba2_decay_init`), in place."""
@@ -1595,62 +1647,69 @@ def set_mamba2_decay(torch, params, seed: int) -> None:
         m["dt_bias"][i].copy_(dt_bias)
 
 
-# ------------------------------------------- phase 10: hybrid serving ---
+# --------------------------------- phases 10 and 13: recurrent serving ---
 
-def hybrid_serve_phase(torch, zcfg, dev) -> dict:
-    """zamba2-2.7b served at full width in bf16 by the three dense servers
-    (phase 5's requests), back-to-back eager requests against each alone,
-    and, in f32, ``make_prefill_step`` over 256 tokens against the same
-    tokens fed one at a time through ``make_serve_step`` (and against a
-    prefill that drops the carry into chunk 2, which must fail)."""
+def recurrent_serve_phase(torch, cfg, dev, *, prefill_launches: dict,
+                          control: dict, prepare=None) -> dict:
+    """A recurrent family (zamba2-2.7b, rwkv6-3b) served at full width in
+    bf16 by the three dense servers (phase 5's requests), back-to-back
+    eager requests against each alone, and, in f32, ``make_prefill_step``
+    over 256 tokens against the same tokens fed one at a time through
+    ``make_serve_step``; ``prefill_launches`` are the prefill's kernel
+    launches (every other counter stays 0), ``control`` the prefill
+    step's keywords for a scan that drops the carry into chunk 2, which
+    must fail, and ``prepare(params)`` sets the f32 weights' decay so
+    that the carry reaches across chunks."""
     import numpy as np
 
+    from repro_torch.checkpoint.ckpt import flatten
     from repro_torch.kernels import ops
     from repro_torch.models.registry import get_api
     from repro_torch.serving.server import _greedy_decode
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
-    api = get_api(zcfg)
+    api = get_api(cfg)
     t0 = time.perf_counter()
-    params = api.init(zcfg, seed=0, device=dev)
+    params = api.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    print(f"hybrid serving: {zcfg.arch_id} full width, {zcfg.n_layers} mamba "
-          f"layers and {attention_layers(zcfg)} shared-block applications, "
-          f"bf16 weights from seed 0 in {time.perf_counter() - t0:.1f} s, "
+    print(f"{cfg.arch_id} serving: full width, {cfg.n_layers} layers and "
+          f"{attention_layers(cfg)} attention-layer applications, bf16 "
+          f"weights from seed 0 in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
           flush=True)
-    out = {"dense_path": dense_path_phase(torch, zcfg, params)}
+    out = {"dense_path": dense_path_phase(torch, cfg, params)}
 
     # back-to-back eager requests on one template cache, each against
     # itself alone on a fresh cache
-    serve = make_serve_step(zcfg)
+    serve = make_serve_step(cfg)
     cl = torch.zeros((1,), dtype=torch.int32, device=dev)
     reqs = [(np.asarray([7, 300, 41], np.int32), 9),
             (np.asarray([12], np.int32), 4)]
     alone = [_greedy_decode(serve, params,
-                            api.init_cache(zcfg, 1, DENSE_LEN, device=dev),
+                            api.init_cache(cfg, 1, DENSE_LEN, device=dev),
                             cl, p, n) for p, n in reqs]
-    shared = api.init_cache(zcfg, 1, DENSE_LEN, device=dev)
+    shared = api.init_cache(cfg, 1, DENSE_LEN, device=dev)
     together = [_greedy_decode(serve, params, shared, cl, p, n)
                 for p, n in reqs]
-    written = sum(shared[n].abs().sum().item() for n in ("ssm", "conv"))
-    print(f"hybrid serving: back-to-back eager requests {together}, alone "
-          f"{alone}; the template's recurrent state |sum| {written:.3g} "
-          f"after them", flush=True)
+    written = sum(t.abs().sum().item() for t in flatten(shared))
+    print(f"{cfg.arch_id} serving: back-to-back eager requests {together}, "
+          f"alone {alone}; the template cache's |sum| {written:.3g} after "
+          f"them", flush=True)
     check(together == alone, "a back-to-back eager request read an earlier "
           "request's recurrent state")
-    check(written == 0, "an eager request wrote the template's recurrent "
-          "state")
+    check(written == 0, "an eager request wrote the template cache")
     out["back_to_back_isolated"] = True
     del params, shared
     gc.collect()
     torch.cuda.empty_cache()
 
     # decode against prefill, f32 at full width and depth
-    fcfg = dataclasses.replace(zcfg, params_dtype="float32",
+    fcfg = dataclasses.replace(cfg, params_dtype="float32",
                                compute_dtype="float32",
                                kv_cache_dtype="float32")
     fparams = api.init(fcfg, seed=2, device=dev)
+    if prepare is not None:
+        prepare(fparams)
     toks = torch.from_numpy(np.random.default_rng(11).integers(
         1, fcfg.vocab_size, size=(1, PREFILL_LEN))).to(dev)
     counters = [getattr(ops, n) for n in KERNEL_COUNTERS]
@@ -1658,13 +1717,10 @@ def hybrid_serve_phase(torch, zcfg, dev) -> dict:
         c.launches = 0
     logits, _ = make_prefill_step(fcfg)(fparams, {"tokens": toks})
     launches = {f.__name__: f.launches for f in counters}
-    want = {"mamba2_ssd_fwd": fcfg.n_layers,
-            "flash_attention_fwd": attention_layers(fcfg)}
     for name, n in launches.items():
-        check(n == want.get(name, 0), f"prefill: {name} launched {n} times, "
-              f"expected {want.get(name, 0)}")
-    ctrl, _ = make_prefill_step(fcfg, ssd=carry_dropped)(
-        fparams, {"tokens": toks})
+        check(n == prefill_launches.get(name, 0), f"prefill: {name} launched "
+              f"{n} times, expected {prefill_launches.get(name, 0)}")
+    ctrl, _ = make_prefill_step(fcfg, **control)(fparams, {"tokens": toks})
     cache = api.init_cache(fcfg, 1, PREFILL_LEN, device=dev)
     step = make_serve_step(fcfg)
     decoded = []
@@ -1706,6 +1762,172 @@ def hybrid_serve_phase(torch, zcfg, dev) -> dict:
     return out
 
 
+# ------------------------------------------------- phase 11: the WKV ------
+
+def rwkv6_decay_init(torch, n_layers: int, d: int, dev):
+    """[n_layers, d] decay_base and bonus as RWKV-6 initialises its
+    ``time_decay`` and ``time_faaaa`` (RWKV-LM, v6), for channel n and
+    layer ratio i / (n_layers - 1): decay -6 + 5 (n / (d - 1))^(0.7 + 1.3
+    ratio), spread over [-6, -1], so that w = exp(-exp(decay)) lies in
+    [0.69, 0.9975] and a state carries across many chunks; bonus ratio (1
+    - n / (d - 1)) + ((n + 1) % 3 - 1) / 10. The repo's init (both 0: w =
+    1/e) decays a chunk's state by e^-64 before the next, where no
+    comparison can see the carry."""
+    ratio = (torch.arange(n_layers, device=dev, dtype=torch.float32)[:, None]
+             / max(n_layers - 1, 1))
+    idx = torch.arange(d, device=dev)
+    n = (idx / (d - 1)).float()[None, :]
+    decay = -6 + 5 * n ** (0.7 + 1.3 * ratio)
+    bonus = ratio * (1 - n) + ((idx + 1) % 3 - 1).float()[None, :] * 0.1
+    return decay, bonus
+
+
+def set_rwkv6_init(torch, params) -> None:
+    """Every block's decay_base and bonus as RWKV-6 initialises them
+    (:func:`rwkv6_decay_init`), in place."""
+    t = params["blocks"]["tmix"]
+    decay, bonus = rwkv6_decay_init(torch, *t["decay_base"].shape,
+                                    t["decay_base"].device)
+    t["decay_base"].copy_(decay)
+    t["bonus"].copy_(bonus)
+
+
+def wkv_inputs(torch, rcfg, dev, gen, batch: int, length: int, dtype,
+               near_clip: bool = False):
+    """rwkv6's WKV inputs: r, k, v and do [B,L,H,hd] N(0,1) in ``dtype``;
+    u [H,hd] RWKV-6's bonus at a middle layer; w = exp(-exp(x)) with x
+    uniform in [-6, -1] (RWKV-6's decay init: w in [0.69, 0.9975]), or,
+    near the clip, w log-uniform in [1e-6, 0.2]."""
+    H, hd = rcfg.n_heads, rcfg.hd
+    r, k, v, do = (torch.randn(batch, length, H, hd, generator=gen,
+                               device=dev).to(dtype) for _ in range(4))
+    x = torch.rand(batch, length, H, hd, generator=gen, device=dev)
+    if near_clip:
+        lo, hi = math.log(1e-6), math.log(0.2)
+        w = torch.exp(lo + (hi - lo) * x)
+    else:
+        w = torch.exp(-torch.exp(-6 + 5 * x))
+    _, bonus = rwkv6_decay_init(torch, 3, H * hd, dev)
+    return (r, k, v, w, bonus[1].reshape(H, hd).contiguous()), do
+
+
+def wkv_kernel_phase(torch, rcfg, dev, flush):
+    """K5 and K5b against their plain versions at rwkv6-3b's shape (B = 1,
+    L = 4096, H 40, hd 64) with r, k, v in bf16 and in f32, at L = 48 (one
+    chunk of 48), at B = 4, L = 256, and with w near the clip (both sides
+    must stay finite). Each output element is held to WKV_REL of its own
+    size and its vector's (dw near the clip as WKV_CLIP_REL says); at L =
+    4096 in bf16 the kernels' outputs with the carry across the middle
+    chunk boundary dropped must fail that rule."""
+    from repro_torch.kernels import rwkv6_scan as rs
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    cases = {"fwd": [], "bwd": []}
+    names = ("o", "s_final", "dr", "dk", "dv", "dw", "du")
+    for label, batch, length, dt, near_clip in (
+            ("L4096-bfloat16", 1, TRAIN_SEQ, torch.bfloat16, False),
+            ("L4096-float32", 1, TRAIN_SEQ, torch.float32, False),
+            ("L48-one-chunk-bfloat16", 1, 48, torch.bfloat16, False),
+            ("B4-L256-bfloat16", 4, 256, torch.bfloat16, False),
+            ("L4096-near-clip-bfloat16", 1, TRAIN_SEQ, torch.bfloat16,
+             True)):
+        ins, do = wkv_inputs(torch, rcfg, dev, gen, batch, length, dt,
+                             near_clip)
+        got = rs.rwkv6_wkv_fwd(*ins) + rs.rwkv6_wkv_bwd(*ins, do)
+        want = rs.wkv6_chunked_plain(*ins) + rs.wkv6_backward_plain(*ins,
+                                                                    do)
+        torch.cuda.synchronize()
+        errs, control = {}, {}
+        for n, g, w in zip(names, got, want):
+            check(bool(torch.isfinite(g).all()) and
+                  bool(torch.isfinite(w).all()), f"WKV [{label}] {n}: "
+                  f"non-finite values (kernel {bool(torch.isfinite(g).all())}"
+                  f" finite, plain {bool(torch.isfinite(w).all())})")
+            if n == "dw" and near_clip:
+                errs[n] = log_w_reading(g, w, ins[3])
+            else:
+                errs[n] = fa_reading(g, w,
+                                     WKV_REL[str(g.dtype).split(".")[-1]])
+            check(errs[n]["worst"] <= 1.0, f"WKV [{label}] {n}: error up to "
+                  f"{errs[n]['worst']:.3g} x its bound (max abs "
+                  f"{errs[n]['max_abs_err']:.3g})")
+        if label == "L4096-bfloat16":
+            off = (halves(rs.rwkv6_wkv_fwd, ins),) + (None,) \
+                + halves(rs.rwkv6_wkv_bwd, ins, do)
+            for n, g, w in zip(names, off, want):
+                if g is not None:
+                    control[n] = fa_reading(
+                        g, w, WKV_REL[str(g.dtype).split(".")[-1]])
+            for n in WKV_CONTROL_FAILS:
+                check(control[n]["worst"] > 1.0, f"WKV control: {n} with "
+                      f"the middle carry dropped passes the rule")
+            del off
+        del got, want
+        torch.cuda.empty_cache()
+        r = ins[0]
+        B, L, H, hd = r.shape
+        c = min(64, L)
+        esz = r.element_size()
+        io_f = r.numel() * (4 * esz + 4) + 4 * (H * hd + B * H * hd * hd)
+        io_b = r.numel() * (7 * esz + 8) + 4 * 2 * H * hd
+        units = B * H * (L // c)
+        bounds = {
+            "fwd": bound_ms(io_f, units * 2 * c * (2 * hd * hd + c * hd),
+                            "float32"),
+            "bwd": bound_ms(io_b, units * 2 * c * (5 * hd * hd
+                                                   + 2.5 * c * hd),
+                            "float32")}
+        ms_f, host_f = cuda_ms(torch, lambda: rs.rwkv6_wkv_fwd(*ins),
+                               reps=10, flush=flush)
+        ms_b, host_b = cuda_ms(torch, lambda: rs.rwkv6_wkv_bwd(*ins, do),
+                               reps=10, flush=flush)
+        plain_f, _ = cuda_ms(torch, lambda: rs.wkv6_chunked_plain(*ins),
+                             reps=3, flush=flush)
+        plain_b, _ = cuda_ms(torch, lambda: rs.wkv6_backward_plain(*ins, do),
+                             reps=3, flush=flush)
+        for kind, t, host, plain, outs in (
+                ("fwd", ms_f, host_f, plain_f, ("o", "s_final")),
+                ("bwd", ms_b, host_b, plain_b, ("dr", "dk", "dv", "dw",
+                                                "du"))):
+            bnd, by = bounds[kind]
+            case = {"case": label, "max_abs_err": max(
+                        errs[n]["max_abs_err"] for n in outs),
+                    "ms": t, "plain_ms": plain, "library_ms": None,
+                    "bound_ms": bnd, "bound_by": by, "host_call_ms": host,
+                    "errors": {n: errs[n] for n in outs}}
+            if control:
+                case["control_middle_carry_dropped"] = {
+                    n: control[n] for n in outs if n in control}
+            cases[kind].append(case)
+        print(f"kernel rwkv6_wkv[{label}]: errors (max abs, worst ratio to "
+              f"the bound, relative Frobenius) " + " ".join(
+                  f"{n}=({e['max_abs_err']:.3e}, {e['worst']:.3f}, "
+                  f"{e['frob']:.3e})" for n, e in errs.items())
+              + (" control (middle carry dropped): " + " ".join(
+                  f"{n}=({e['worst']:.3f}, {e['frob']:.3e})"
+                  for n, e in control.items()) if control else "")
+              + f" | fwd ms={ms_f:.4f} plain_ms={plain_f:.4f} bound_ms="
+              f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) | bwd ms="
+              f"{ms_b:.4f} plain_ms={plain_b:.4f} bound_ms="
+              f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]})", flush=True)
+        del ins, do, r
+        torch.cuda.empty_cache()
+    return cases
+
+
+def log_w_reading(got, want, w) -> dict:
+    """The near-clip comparison of dw (WKV_CLIP_REL): w * dw against its
+    plain version, each element to WKV_CLIP_REL of the largest |w * dw|;
+    ``max_abs_err`` is that of dw itself."""
+    g, ref = got * w, want * w
+    diff = (g - ref).abs()
+    return {"max_abs_err": (got - want).abs().max().item(),
+            "worst": (diff.max() / (WKV_CLIP_REL * ref.abs().max())).item(),
+            "frob": (diff.norm() / ref.norm()).item(),
+            "rule": "w * dw to 2**-13 of its largest"}
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -1738,6 +1960,7 @@ def run(torch) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import mamba2_scan as ms
+    from repro_torch.kernels import rwkv6_scan as wr
     from repro_torch.models import layers as L
     from repro_torch.models import transformer
 
@@ -1914,12 +2137,40 @@ def run(torch) -> int:
     ztrain["step_kernel_vs_plain"] = step_kernel_vs_plain(
         torch, zcfg, dev, layers=zcfg.shared_attn_period,
         plain={"attend": L.flash_attention_xla, "ssd": ms.ssd_chunked_plain},
-        control={"attend": L.flash_attention_xla, "ssd": carry_dropped},
+        control={"attend": L.flash_attention_xla,
+                 "ssd": carry_dropped(ms.ssd_chunked_plain)},
         control_label="the SSD carry into chunk 32 dropped",
         prepare=lambda p, seed: set_mamba2_decay(torch, p, seed=seed),
         bf16_seeds=(21, 22, 23))
     # phase 10: serving
-    zserve = hybrid_serve_phase(torch, zcfg, dev)
+    zserve = recurrent_serve_phase(
+        torch, zcfg, dev, prefill_launches={
+            "mamba2_ssd_fwd": zcfg.n_layers,
+            "flash_attention_fwd": attention_layers(zcfg)},
+        control={"ssd": carry_dropped(ms.ssd_chunked_plain)})
+
+    # the SSM family: rwkv6-3b, all 32 layers at full width
+    # phase 11: the WKV kernels against their plain versions
+    rcfg = get_config("rwkv6-3b")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    wkv_cases = wkv_kernel_phase(torch, rcfg, dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    # phase 12: training; every block runs the WKV twice under remat
+    rtrain = train_path_phase(torch, rcfg, dev, expected={
+        "rwkv6_wkv_fwd": 2 * rcfg.n_layers * per,
+        "rwkv6_wkv_bwd": rcfg.n_layers * per})
+    # phase 12b: two blocks, kernels vs plain, with RWKV-6's decay init
+    rtrain["step_kernel_vs_plain"] = step_kernel_vs_plain(
+        torch, rcfg, dev, layers=2, plain={"wkv": wr.wkv6_chunked_plain},
+        control={"wkv": carry_dropped(wr.wkv6_chunked_plain)},
+        control_label="the WKV carry into chunk 32 dropped",
+        prepare=lambda p, seed: set_rwkv6_init(torch, p))
+    # phase 13: serving (no kernel: the decode recurrence is plain torch)
+    rserve = recurrent_serve_phase(
+        torch, rcfg, dev, prefill_launches={"rwkv6_wkv_fwd": rcfg.n_layers},
+        control={"wkv": carry_dropped(wr.wkv6_chunked_plain)},
+        prepare=lambda p: set_rwkv6_init(torch, p))
 
     bf16 = decode_cases[0]
     kernels = [
@@ -1981,6 +2232,17 @@ def run(torch) -> int:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "pass": True, "cases": ssd_cases[kind]})
+    for kind, name in (("fwd", "rwkv6_wkv_fwd"), ("bwd", "rwkv6_wkv_bwd")):
+        main = wkv_cases[kind][0]            # L=4096, bf16: the path's case
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan.py:65",
+            "launches": rtrain["launches"][name],
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "pass": True, "cases": wkv_cases[kind]})
     print(json.dumps({"kernels": kernels, "main_path": {
         "arch": cfg.arch_id, "steps": steps, "tokens_out": stats.tokens_out,
         "wall_s": wall, "tokens_per_s": stats.tokens_out / wall,
@@ -1994,6 +2256,7 @@ def run(torch) -> int:
         dense_runs, logits_bf16_max_abs_diff=d_dense),
         "train_path": train, "hybrid": {"train_path": ztrain,
                                          "serve": zserve},
+        "ssm": {"train_path": rtrain, "serve": rserve},
         "wall_s": time.perf_counter() - t_start}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

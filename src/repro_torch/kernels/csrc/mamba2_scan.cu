@@ -62,55 +62,9 @@
 // PyTorch's current stream, return cudaGetLastError(), allocate nothing,
 // never synchronise).
 
-#include "mma_common.cuh"
+#include "scan_common.cuh"
 
 namespace {
-
-constexpr int kT = 64;           // tile edge: chunk, N and P padded to it
-constexpr int kLd = kT + 1;      // shared row stride (floats): no conflicts
-constexpr int kTile = kT * kLd;  // floats per tile
-constexpr int kSsdThreads = 256;
-
-using bf16 = __nv_bfloat16;
-
-// acc[r][s] = sum_{k < K} a(i_r, k) * b(k, j_s) for rows i_r = ty + 16 r and
-// columns j_s = tx + 16 s of a 64 x 64 product (ty, tx = thread / 16, % 16).
-template <typename FA, typename FB>
-__device__ __forceinline__ void mm(float (&acc)[4][4], int K, FA a, FB b) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) acc[r][s] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) av[r] = a(ty + 16 * r, k);
-#pragma unroll
-    for (int s = 0; s < 4; ++s) bv[s] = b(k, tx + 16 * s);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(av[r], bv[s], acc[r][s]);
-  }
-}
-
-// The sum of v over the 16 threads that share a row of mm's layout (one
-// half-warp), in every one of them.
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// dst[i][j] = f(i, j) for i < rows and j < cols, 0 elsewhere in the tile.
-template <typename F>
-__device__ __forceinline__ void fill(float* dst, int rows, int cols, F f) {
-  for (int e = threadIdx.x; e < kT * kT; e += kSsdThreads) {
-    const int i = e / kT, j = e % kT;
-    dst[i * kLd + j] = (i < rows && j < cols) ? f(i, j) : 0.f;
-  }
-}
 
 // Per-chunk view of the inputs of CTA (z, h, b).
 struct Chunk {
@@ -141,7 +95,7 @@ struct Chunk {
 // ---- K4 pass 1: cs and the chunk's own state contribution -------------------
 
 template <typename TX>
-__global__ void __launch_bounds__(kSsdThreads) ssd_chunk_state(
+__global__ void __launch_bounds__(kScanThreads) ssd_chunk_state(
     const TX* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
     float* __restrict__ states, float* __restrict__ cs_out, int L, int H,
@@ -188,10 +142,10 @@ __global__ void __launch_bounds__(kSsdThreads) ssd_chunk_state(
 // reverse == 0: S_0 = 0, S_{z+1} = exp(cs_last_z) S_z + v_z; v_z is replaced
 // by S_z and S_nc goes to `fin`. reverse == 1: G_nc = 0, G_z = exp(cs_last_z)
 // G_{z+1} + v_z, walking z down; v_z is replaced by G_{z+1}.
-__global__ void __launch_bounds__(kSsdThreads) ssd_state_pass(
+__global__ void __launch_bounds__(kScanThreads) ssd_state_pass(
     float* __restrict__ v, const float* __restrict__ cs,
     float* __restrict__ fin, int L, int H, int NP, int c, int reverse) {
-  const int e = blockIdx.x * kSsdThreads + threadIdx.x;
+  const int e = blockIdx.x * kScanThreads + threadIdx.x;
   if (e >= NP) return;
   const int h = blockIdx.y, b = blockIdx.z, nc = L / c;
   const float* csb = cs + ((size_t)b * H + h) * L;
@@ -210,7 +164,7 @@ __global__ void __launch_bounds__(kSsdThreads) ssd_state_pass(
 // ---- K4 pass 3: the outputs -------------------------------------------------
 
 template <typename TX>
-__global__ void __launch_bounds__(kSsdThreads) ssd_chunk_out(
+__global__ void __launch_bounds__(kScanThreads) ssd_chunk_out(
     const TX* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ Bm, const float* __restrict__ Cm,
     const float* __restrict__ states, const float* __restrict__ cs_in,
@@ -266,7 +220,7 @@ __global__ void __launch_bounds__(kSsdThreads) ssd_chunk_out(
 // ---- K4b pass 4: each chunk's state cotangent W_z ---------------------------
 
 template <typename TX>
-__global__ void __launch_bounds__(kSsdThreads) ssd_chunk_dstate(
+__global__ void __launch_bounds__(kScanThreads) ssd_chunk_dstate(
     const float* __restrict__ Cm, const TX* __restrict__ dy,
     const float* __restrict__ cs_in, float* __restrict__ gstates, int L,
     int H, int P, int N, int c) {
@@ -298,7 +252,7 @@ constexpr int kBwdTiles = 9;
 constexpr int kBwdVecs = 8;
 
 template <typename TX>
-__global__ void __launch_bounds__(kSsdThreads) ssd_chunk_bwd(
+__global__ void __launch_bounds__(kScanThreads) ssd_chunk_bwd(
     const TX* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const TX* __restrict__ dy,
@@ -324,7 +278,7 @@ __global__ void __launch_bounds__(kSsdThreads) ssd_chunk_bwd(
   float* Ov = colT + kT;        // d cs_i through the carried state's output
   float* Qv = Ov + kT;          // d cs_j through the chunk's own state
   float* ddtv = Qv + kT;        // ddt_j through u_j
-  float* red = ddtv + kT;       // [kSsdThreads / 32]
+  float* red = ddtv + kT;       // [kScanThreads / 32]
   const Chunk ch(L, H, P, N, c);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   if (tid < kT) {
@@ -362,7 +316,7 @@ __global__ void __launch_bounds__(kSsdThreads) ssd_chunk_bwd(
   }
   // the total over all ([N, P]) of G_{z+1} * S_z, for d cs_last
   float gs = 0.f;
-  for (int e = tid; e < kT * kT; e += kSsdThreads) {
+  for (int e = tid; e < kT * kT; e += kScanThreads) {
     const int n = e / kT, p = e % kT;
     gs += Gs[n * kLd + p] * Ss[n * kLd + p];
   }
@@ -454,7 +408,7 @@ __global__ void __launch_bounds__(kSsdThreads) ssd_chunk_bwd(
   if (tid == 0) {
     float dlast = expf(last) * [&] {
       float t = 0.f;
-      for (int w = 0; w < kSsdThreads / 32; ++w) t += red[w];
+      for (int w = 0; w < kScanThreads / 32; ++w) t += red[w];
       return t;
     }();
     for (int j = 0; j < c; ++j) dlast += Qv[j];
@@ -469,27 +423,11 @@ __global__ void __launch_bounds__(kSsdThreads) ssd_chunk_bwd(
   }
 }
 
-// ---- K4b pass 7: out[o][i] = sum_m in[o][m][i], m in order ------------------
-
-__global__ void __launch_bounds__(kSsdThreads) sum_mid(
-    const float* __restrict__ in, float* __restrict__ out, long long outer,
-    int mid, long long inner) {
-  const long long t = (long long)blockIdx.x * kSsdThreads + threadIdx.x;
-  if (t >= outer * inner) return;
-  const long long o = t / inner, i = t % inner;
-  const float* p = in + o * mid * inner + i;
-  float s = 0.f;
-  for (int m = 0; m < mid; ++m) s += p[(long long)m * inner];
-  out[t] = s;
-}
-
 bool ssd_args_ok(int B, int L, int H, int P, int N, int c, int dtype) {
   return B > 0 && L > 0 && H > 0 && P > 0 && P <= kT && N > 0 && N <= kT &&
          c > 0 && c <= kT && L % c == 0 && B <= 65535 && H <= 65535 &&
          (dtype == kF32 || dtype == kBF16);
 }
-
-int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
 
 constexpr size_t kStateSmem = (2 * kTile + 2 * kT) * sizeof(float);
 constexpr size_t kOutSmem = (5 * kTile + kT) * sizeof(float);
@@ -497,22 +435,14 @@ constexpr size_t kDstateSmem = 2 * kTile * sizeof(float);
 constexpr size_t kBwdSmem =
     (kBwdTiles * kTile + kBwdVecs * kT) * sizeof(float);
 
-// Above 48 KB a kernel must opt in to its dynamic shared memory.
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 template <typename TX>
 int launch_states(const TX* x, const float* dt, const float* A,
                   const float* Bm, float* states, float* fin, float* cs,
                   int B, int L, int H, int P, int N, int c, cudaStream_t st) {
   const dim3 grid(L / c, H, B);
-  ssd_chunk_state<TX><<<grid, kSsdThreads, kStateSmem, st>>>(
+  ssd_chunk_state<TX><<<grid, kScanThreads, kStateSmem, st>>>(
       x, dt, A, Bm, states, cs, L, H, P, N, c);
-  ssd_state_pass<<<dim3(cdiv(N * P, kSsdThreads), H, B), kSsdThreads, 0,
+  ssd_state_pass<<<dim3(cdiv(N * P, kScanThreads), H, B), kScanThreads, 0,
                    st>>>(states, cs, fin, L, H, N * P, c, 0);
   return cudaGetLastError();
 }
@@ -528,7 +458,7 @@ int launch_fwd(const void* x, const float* dt, const float* A,
   err = launch_states<TX>(xt, dt, A, Bm, states, fin, cs, B, L, H, P, N, c,
                           st);
   if (err != cudaSuccess) return err;
-  ssd_chunk_out<TX><<<dim3(L / c, H, B), kSsdThreads, kOutSmem, st>>>(
+  ssd_chunk_out<TX><<<dim3(L / c, H, B), kScanThreads, kOutSmem, st>>>(
       xt, dt, Bm, Cm, states, cs, static_cast<TX*>(y), L, H, P, N, c);
   return cudaGetLastError();
 }
@@ -549,21 +479,21 @@ int launch_bwd(const void* x, const float* dt, const float* A,
   err = launch_states<TX>(xt, dt, A, Bm, states, fin, cs, B, L, H, P, N, c,
                           st);
   if (err != cudaSuccess) return err;
-  ssd_chunk_dstate<TX><<<grid, kSsdThreads, kDstateSmem, st>>>(
+  ssd_chunk_dstate<TX><<<grid, kScanThreads, kDstateSmem, st>>>(
       Cm, dyt, cs, gstates, L, H, P, N, c);
-  ssd_state_pass<<<dim3(cdiv(N * P, kSsdThreads), H, B), kSsdThreads, 0,
+  ssd_state_pass<<<dim3(cdiv(N * P, kScanThreads), H, B), kScanThreads, 0,
                    st>>>(gstates, cs, nullptr, L, H, N * P, c, 1);
-  ssd_chunk_bwd<TX><<<grid, kSsdThreads, kBwdSmem, st>>>(
+  ssd_chunk_bwd<TX><<<grid, kScanThreads, kBwdSmem, st>>>(
       xt, dt, A, Bm, Cm, dyt, states, gstates, cs, static_cast<TX*>(dx), ddt,
       dB_part, dC_part, dA_part, B, L, H, P, N, c);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long ln = (long long)L * N;
-  sum_mid<<<cdiv(B * ln, kSsdThreads), kSsdThreads, 0, st>>>(dB_part, dBm, B,
+  sum_mid<<<cdiv(B * ln, kScanThreads), kScanThreads, 0, st>>>(dB_part, dBm, B,
                                                              H, ln);
-  sum_mid<<<cdiv(B * ln, kSsdThreads), kSsdThreads, 0, st>>>(dC_part, dCm, B,
+  sum_mid<<<cdiv(B * ln, kScanThreads), kScanThreads, 0, st>>>(dC_part, dCm, B,
                                                              H, ln);
-  sum_mid<<<cdiv(H, kSsdThreads), kSsdThreads, 0, st>>>(dA_part, dA, H,
+  sum_mid<<<cdiv(H, kScanThreads), kScanThreads, 0, st>>>(dA_part, dA, H,
                                                         B * nc, 1);
   return cudaGetLastError();
 }

@@ -1,10 +1,12 @@
 """Public kernel surface of the PyTorch port (the counterpart of
 ``repro.kernels.ops``): the paged decode attention (K1), the dense-cache
 decode attention (K2), the paged KV append, :func:`flash_attention`,
-the no-cache attention with its gradient (K3a forward, K3b backward), and
+the no-cache attention with its gradient (K3a forward, K3b backward),
 :func:`mamba2_ssd`, the chunked SSD scan with its gradient (K4 forward,
-K4b backward); each launches hand-written CUDA kernels on CUDA tensors and
-runs its plain PyTorch version on CPU tensors.
+K4b backward), and :func:`rwkv6_wkv`, the chunked RWKV-6 WKV with its
+gradient (K5 forward, K5b backward); each launches hand-written CUDA
+kernels on CUDA tensors and runs its plain PyTorch version on CPU
+tensors.
 
 :func:`update_kv_buffer` replaces ``repro.kernels.ops.update_kv_buffer``
 (a jnp scatter with ``mode="drop"``). Unlike the reference it updates the
@@ -33,6 +35,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 )
 from repro_torch.kernels.mamba2_scan import (  # noqa: F401
     mamba2_ssd_bwd, mamba2_ssd_fwd, ssd_backward_plain, ssd_chunked_plain,
+)
+from repro_torch.kernels.rwkv6_scan import (  # noqa: F401
+    rwkv6_wkv_bwd, rwkv6_wkv_fwd, wkv6_backward_plain, wkv6_chunked_plain,
 )
 
 
@@ -89,6 +94,34 @@ def mamba2_ssd(x, dt, A, Bm, Cm):
     ``kernels.mamba2_scan``)."""
     return _Mamba2Ssd.apply(x.contiguous(), dt.contiguous(), A.contiguous(),
                             Bm.contiguous(), Cm.contiguous())
+
+
+class _Rwkv6Wkv(torch.autograd.Function):
+    """The WKV with its gradient: the forward keeps only its inputs, the
+    backward runs K5b on them (which recomputes the carried states). The
+    final state is not differentiable: training never reads it, and K5b
+    takes its cotangent as zero."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        o, s_fin = rwkv6_wkv_fwd(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.mark_non_differentiable(s_fin)
+        return o, s_fin
+
+    @staticmethod
+    def backward(ctx, do, _ds_fin):
+        return rwkv6_wkv_bwd(*ctx.saved_tensors, do.contiguous())
+
+
+def rwkv6_wkv(r, k, v, w, u):
+    """The chunked RWKV-6 WKV of r, k, v [B,L,H,hd] with the decay w
+    [B,L,H,hd] float32 and the bonus u [H,hd] float32 -> (o [B,L,H,hd] in
+    r's dtype, s_final [B,H,hd,hd] float32), differentiable in o: K5
+    forward and K5b backward on CUDA tensors, their plain versions on CPU
+    tensors (see ``kernels.rwkv6_scan``)."""
+    return _Rwkv6Wkv.apply(r.contiguous(), k.contiguous(), v.contiguous(),
+                           w.contiguous(), u.contiguous())
 
 
 def update_kv_buffer_plain(k_pages, v_pages, k_new, v_new, slots):

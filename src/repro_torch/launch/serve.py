@@ -6,11 +6,12 @@ network (and, with ``--continuous``, memory) syscalls of
       --port 9111 --reply-port 9112 [--batches 4] [--batch-decode] \\
       [--continuous] [--device cpu] [--reduced]
 
-``--arch`` names a dense, VLM or hybrid model (zamba2-2.7b decodes
-through its recurrent state and the shared block's dense KV cache;
-``--continuous`` takes the transformer only, as the reference's paged
-step does). Weights are random, drawn from seed 0. Requests are int32
-datagrams (``[budget, tag, prompt...]`` with ``--per-request-tokens``),
+``--arch`` names a dense, VLM, hybrid or SSM model (zamba2-2.7b decodes
+through its recurrent state and the shared block's dense KV cache,
+rwkv6-3b through its WKV state and token shifts; ``--continuous`` takes
+the transformer only, as the reference's paged step does). Weights are
+random, drawn from seed 0. Requests are int32 datagrams (``[budget, tag,
+prompt...]`` with ``--per-request-tokens``),
 each answered with its greedy continuation. Without ``--continuous`` the loop
 decodes over a dense cache of one row and 256 positions, each request
 eagerly or, with ``--batch-decode``, each poll batch as one power-of-two
@@ -117,6 +118,7 @@ def main(argv=None) -> None:
                                           StrictPriority, TokenBucket,
                                           WeightedFair, format_summary)
     from repro_torch.models.registry import get_api
+    from repro_torch.models.transformer import DECODER_FAMILIES
     from repro_torch.serving.engine import make_engine
     from repro_torch.serving.server import GenesysUdpServer
     from repro_torch.train.steps import make_serve_step
@@ -124,6 +126,9 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.continuous and cfg.family not in DECODER_FAMILIES:
+        ap.error(f"--continuous takes the transformer only: {cfg.arch_id}'s "
+                 f"recurrent state is not block-addressable")
     # pollers park after one empty round and sleep up to 50 ms (a
     # submission's edge wakes them): an eager decode step is hundreds of
     # small PyTorch calls, and a spinning or often-woken poller takes the

@@ -5,9 +5,9 @@
       --reduced --steps 100 --batch 8 --seq 128 [--data tokens.bin] \\
       [--ckpt-dir DIR [--ckpt-every N] [--resume]] [--device cpu]
 
-``--arch`` names any model of the dense, VLM or hybrid family (zamba2-2.7b
-trains through the chunked SSD scan; the sequence must then be a multiple
-of 64, or at most 64).
+``--arch`` names any model of the dense, VLM, hybrid or SSM family
+(zamba2-2.7b trains through the chunked SSD scan, rwkv6-3b through the
+chunked WKV; the sequence must then be a multiple of 64, or at most 64).
 
 Weights are random, drawn from seed 0 and held as float32 master weights.
 Batches come from a uint32 token shard through ``GenesysDataLoader``

@@ -15,14 +15,13 @@ from functools import partial
 
 import torch
 import torch.nn.functional as F
-from torch.utils import checkpoint as ckpt
 
 from repro_torch import weights
 from repro_torch.config import Family, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.module import (
-    ParamBuilder, layer_slice, stack_layers, unstack_layers,
+    ParamBuilder, checkpoint_layer, layer_slice, stack_layers, unstack_layers,
 )
 
 
@@ -165,7 +164,7 @@ def _groups(cfg: ModelConfig) -> tuple[int, int]:
 
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
-            cache_len=None, cache=None, attend=None, ssd=None):
+            cache_len=None, cache=None, attend=None, ssd=None, wkv=None):
     """The hybrid over ``tokens [B,S]`` int: without a cache, the training
     and prefill forward; with one, one decode step.
 
@@ -188,7 +187,8 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
 
     ``embeds`` is a VLM's patch prefix (``models.transformer.forward``),
     taken so the families share one signature; the hybrid has none and
-    refuses one."""
+    refuses one. ``wkv`` is rwkv6's (``models.rwkv6.forward``), which the
+    hybrid ignores."""
     if embeds is not None:
         raise ValueError(f"{cfg.arch_id} takes no embeds prefix")
     x = params["embed"][tokens.long()].to(
@@ -205,8 +205,8 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
         if positions is None:
             positions = torch.arange(S, device=x.device).expand(B, S)
         step = L.nocache_step(cfg, positions)
-        layer_fn = _remat(cfg, lambda lp, h: mamba_block(lp, cfg, h,
-                                                         ssd=ssd)[0])
+        layer_fn = checkpoint_layer(
+            cfg, lambda lp, h: mamba_block(lp, cfg, h, ssd=ssd)[0])
         layers = unstack_layers(params["blocks"], cfg.n_layers)
 
     for g in range(n_groups):
@@ -228,18 +228,6 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     x = L.rmsnorm(x, params["final_norm"])
     logits = (x @ params["lm_head"].to(x.dtype)).float()
     return logits, cache
-
-
-def _remat(cfg, fn):
-    """``fn`` under activation checkpointing unless ``cfg.remat`` is
-    "none" (the reference checkpoints the mamba layers for any other
-    mode)."""
-    if cfg.remat not in ("none", "full", "dots"):
-        raise ValueError(f"remat must be none, full or dots, got "
-                         f"{cfg.remat!r}")
-    if cfg.remat == "none":
-        return fn
-    return partial(ckpt.checkpoint, fn, use_reentrant=False)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

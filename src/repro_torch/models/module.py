@@ -12,9 +12,11 @@ parameters instead (``repro_torch.weights.from_jax_params``).
 from __future__ import annotations
 
 import hashlib
+from functools import partial
 from typing import Callable
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 
 def _name_seed(key: str) -> int:
@@ -113,3 +115,16 @@ def unstack_layers(tree: dict, n: int) -> list[dict]:
         for layer, part in zip(layers, parts):
             layer[k] = part
     return layers
+
+
+def checkpoint_layer(cfg, fn: Callable) -> Callable:
+    """``fn`` under activation checkpointing unless ``cfg.remat`` is
+    "none": the reference's ``jax.checkpoint`` of a recurrent family's
+    layer body (the hybrid's mamba layers, rwkv6's blocks), for "full" and
+    "dots" alike."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got "
+                         f"{cfg.remat!r}")
+    if cfg.remat == "none":
+        return fn
+    return partial(ckpt.checkpoint, fn, use_reentrant=False)

@@ -2,8 +2,8 @@
 ``repro.models.registry``): family -> (init, forward, init_cache).
 
 The port has the dense transformer, the VLM's backbone (the same decoder;
-the patch-embed prefix is precomputed) and the zamba2 hybrid. MoE, the
-SSM (rwkv6) and the encoder-decoder are the other-families slice of the
+the patch-embed prefix is precomputed), the zamba2 hybrid and the SSM
+(rwkv6). MoE and the encoder-decoder are the other-families slice of the
 port, and :func:`get_api` refuses them.
 """
 from __future__ import annotations
@@ -12,7 +12,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.config import Family, ModelConfig
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import mamba2, rwkv6, transformer
 
 
 @dataclass(frozen=True)
@@ -28,6 +28,7 @@ _BY_FAMILY = {
     Family.VLM: ModelApi(transformer.init, transformer.forward,
                          transformer.init_cache),
     Family.HYBRID: ModelApi(mamba2.init, mamba2.forward, mamba2.init_cache),
+    Family.SSM: ModelApi(rwkv6.init, rwkv6.forward, rwkv6.init_cache),
 }
 
 
@@ -37,7 +38,7 @@ def get_api(cfg: ModelConfig) -> ModelApi:
     api = _BY_FAMILY.get(cfg.family)
     if api is None:
         raise ValueError(
-            f"the port has the dense transformer, the VLM backbone and the "
-            f"zamba2 hybrid, not {cfg.family}: MoE, SSM and the "
-            f"encoder-decoder are the other-families slice of the port")
+            f"the port has the dense transformer, the VLM backbone, the "
+            f"zamba2 hybrid and the rwkv6 SSM, not {cfg.family}: MoE and "
+            f"the encoder-decoder are the other-families slice of the port")
     return api

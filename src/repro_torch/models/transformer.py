@@ -88,7 +88,7 @@ def _logits(params, cfg, x):
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
             cache_len=None, paged_cache=None, cache=None, attend=None,
-            ssd=None):
+            ssd=None, wkv=None):
     """The model over ``tokens [B,S]`` int. Without a cache, the training
     and prefill forward; with one of two caches, one decode step.
 
@@ -117,9 +117,9 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     kernel wrapper of the branch; the plain versions for comparisons).
     Returns ``(logits [B,1,V] float32, {"k": k, "v": v})``.
 
-    ``ssd`` is the hybrid's scan (``models.mamba2.forward``), taken so the
-    families share one signature; a transformer has no scan and ignores
-    it."""
+    ``ssd`` is the hybrid's scan (``models.mamba2.forward``) and ``wkv``
+    rwkv6's (``models.rwkv6.forward``), taken so the families share one
+    signature; a transformer has neither and ignores them."""
     if paged_cache is not None and cache is not None:
         raise ValueError("give at most one of paged_cache and cache")
     x = _embed(params, cfg, tokens)

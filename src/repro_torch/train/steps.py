@@ -36,13 +36,13 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
 
 
 def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig, attend=None,
-            ssd=None):
+            ssd=None, wkv=None):
     """The no-cache forward and :func:`cross_entropy` over the text
     positions (a VLM's logits over its patch prefix are dropped). Returns
     ``(loss, {"nll": nll})``."""
     logits, _ = get_api(cfg).forward(params, cfg, batch["tokens"],
                                      embeds=batch.get("embeds"),
-                                     attend=attend, ssd=ssd)
+                                     attend=attend, ssd=ssd, wkv=wkv)
     if cfg.family == Family.VLM and batch.get("embeds") is not None:
         logits = logits[:, batch["embeds"].shape[1]:]
     loss, nll = cross_entropy(logits, batch["labels"], tc.z_loss)
@@ -50,7 +50,7 @@ def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig, attend=None,
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None,
-                    ssd=None):
+                    ssd=None, wkv=None):
     """``(train_step, opt)``: ``train_step(params, opt_state, batch) ->
     (params, opt_state, metrics)`` with ``loss``, ``grad_norm`` and
     ``nll`` as 0-d tensors.
@@ -66,7 +66,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None,
     layers' attention (default: ``ops.flash_attention``;
     ``layers.flash_attention_xla`` is the plain version), ``ssd`` a hybrid's
     scan (default: ``ops.mamba2_ssd``; ``mamba2_scan.ssd_chunked_plain`` is
-    the plain version)."""
+    the plain version), ``wkv`` rwkv6's WKV (default: ``ops.rwkv6_wkv``;
+    ``rwkv6_scan.wkv6_chunked_plain`` is the plain version)."""
     get_api(cfg)
     opt = AdamW(lr=tc.lr, beta1=tc.beta1, beta2=tc.beta2,
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
@@ -85,7 +86,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None,
         for i in range(n_mb):
             mb = {k: v.reshape(n_mb, rows // n_mb, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, aux = loss_fn(params, cfg, mb, tc, attend, ssd)
+            loss, aux = loss_fn(params, cfg, mb, tc, attend, ssd, wkv)
             loss.backward()
             losses.append(loss.detach())
             nlls.append(aux["nll"].detach())
@@ -110,7 +111,7 @@ def _grads(params):
     return params.grad
 
 
-def make_prefill_step(cfg: ModelConfig, attend=None, ssd=None):
+def make_prefill_step(cfg: ModelConfig, attend=None, ssd=None, wkv=None):
     """``prefill_step(params, batch) -> (logits [B,S,V] float32,
     next_token [B] int32)``: the no-cache forward without gradients."""
     forward = get_api(cfg).forward
@@ -119,7 +120,7 @@ def make_prefill_step(cfg: ModelConfig, attend=None, ssd=None):
     def prefill_step(params, batch):
         logits, _ = forward(params, cfg, batch["tokens"],
                             embeds=batch.get("embeds"), attend=attend,
-                            ssd=ssd)
+                            ssd=ssd, wkv=wkv)
         return logits, torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     return prefill_step
@@ -128,8 +129,9 @@ def make_prefill_step(cfg: ModelConfig, attend=None, ssd=None):
 def make_serve_step(cfg: ModelConfig, attend=None):
     """One decode step over the family's carried dense cache (its
     ``init_cache``: ``{k,v: [L,B,S,KV,hd]}`` for the transformer, ``{kv,
-    ssm, conv}`` for the hybrid): ``(params, cache, token [B,1], cache_len
-    [B]) -> (next_token [B] int32, cache)``.
+    ssm, conv}`` for the hybrid, ``{wkv, shift1, shift2}`` for rwkv6):
+    ``(params, cache, token [B,1], cache_len [B]) -> (next_token [B]
+    int32, cache)``.
 
     ``attend(q [B,H,hd], k, v [B,S,KV,hd], lens, k_new, v_new)`` is the
     dense attention: ``None`` takes the CUDA kernel wrapper

@@ -1,9 +1,9 @@
 """Weight layout of the PyTorch port, and the bridge from the JAX package.
 
 Parameters are nested dicts of tensors in the JAX package's layout
-(``transformer.init``, ``mamba2.init``): ``embed [V,D]``, per-layer leaves
-stacked ``[L, ...]`` under ``blocks``, the hybrid's ``shared`` block,
-``final_norm [D]``, ``lm_head [D,V]``.
+(``transformer.init``, ``mamba2.init``, ``rwkv6.init``): ``embed [V,D]``,
+per-layer leaves stacked ``[L, ...]`` under ``blocks``, the hybrid's
+``shared`` block, ``final_norm [D]``, ``lm_head [D,V]``.
 
 Held dtype: the reference keeps every parameter in ``params_dtype``
 (float32) and casts each matrix to ``compute_dtype`` right before its only
@@ -15,7 +15,9 @@ bf16 instead of 4 in float32). The leaves the reference reads as float32
 stay in ``params_dtype``: the norm scales (``rmsnorm`` reads them as
 float32; the mamba blocks' ``ln`` and gated ``mamba/norm`` among them) and
 the mamba blocks' ``mamba/A_log`` and ``mamba/dt_bias``, which enter the
-scan's decay in float32. They are told by their path, not by a name alone
+scan's decay in float32, and the rwkv6 blocks' ``ln1``, ``ln2`` and
+``tmix/ln_x`` (norm scales) and ``tmix/decay_base`` and ``tmix/bonus``,
+which enter the WKV's decay and bonus in float32. They are told by their path, not by a name alone
 (:data:`FLOAT32_PATH`). For training (``master=True``) every
 parameter is held in ``params_dtype``, as the reference holds it: AdamW
 updates the float32 values, and a bf16-held weight would lose most of each
@@ -29,12 +31,14 @@ import numpy as np
 import torch
 
 # the leaves held in params_dtype for serving: the transformer's norm
-# scales anywhere, and a mamba block's own ln (a leaf of a layer, "blocks/"
-# in the stacked tree, "layer<i>/" while it is built) and its gated norm,
-# A_log and dt_bias
+# scales anywhere; a mamba block's own ln (a leaf of a layer, "blocks/" in
+# the stacked tree, "layer<i>/" while it is built) and its gated norm,
+# A_log and dt_bias; an rwkv6 block's ln1, ln2 and time-mix ln_x (norm
+# scales) and its decay_base and bonus (read as float32 into the WKV)
 FLOAT32_PATH = re.compile(r"(^|/)(ln_attn|ln_mlp|final_norm"
-                          r"|(blocks|layer\d+)/ln"
-                          r"|mamba/(norm|A_log|dt_bias))$")
+                          r"|(blocks|layer\d+)/(ln|ln1|ln2)"
+                          r"|mamba/(norm|A_log|dt_bias)"
+                          r"|tmix/(ln_x|decay_base|bonus))$")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8}

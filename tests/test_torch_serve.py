@@ -111,13 +111,14 @@ def _port_is_free(port: int) -> bool:
     (["--batch-decode", "--per-request-tokens"],
      [[3, 21, 5], [1, 22, 8, 2]], [3, 1]),                 # bucketed
     (["--arch", "zamba2-2.7b"], [[3, 1, 4], [9]], [5, 5]),  # the hybrid
-], ids=["eager", "eager-budgets-tenants", "batch-decode", "hybrid"])
+    (["--arch", "rwkv6-3b"], [[3, 1, 4], [9]], [5, 5]),     # the SSM
+], ids=["eager", "eager-budgets-tenants", "batch-decode", "hybrid", "ssm"])
 def test_launcher_serves_dense_cache(flags, reqs, want_lens, capsys):
     """``python -m repro_torch.launch.serve`` without ``--continuous``:
     a dense cache of 256 positions on the CPU, two requests (each sent
     once the previous one is answered, so two poll batches), exit after
-    ``--batches 2``; starcoder2-7b, or zamba2-2.7b where the flags name
-    it (the last ``--arch`` wins)."""
+    ``--batches 2``; starcoder2-7b, or zamba2-2.7b or rwkv6-3b where the
+    flags name it (the last ``--arch`` wins)."""
     port = _free_udp_port()
     client = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     client.bind(("127.0.0.1", 0))

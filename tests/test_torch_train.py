@@ -268,7 +268,8 @@ def test_master_weights_are_float32_and_serving_weights_compute_dtype():
                                master["embed"].to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "moonshot-v1-16b-a3b"])
 def test_steps_reject_families_the_port_does_not_train(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(ValueError, match="other-families slice"):
