@@ -61,8 +61,9 @@ The training path (the third slice) adds:
     output element is held to a bound relative to its own size and its
     head vector's (and the kernel's outputs made 3% off in half their
     rows must fail that rule);
-7.  training at full width: starcoder2-7b with 8 of its 32 layers (its
-    f32 training state at 32 layers, 118 GB, does not fit the card), f32
+7.  training at full width: starcoder2-7b with 4 of its 32 layers (its
+    f32 training state at 32 layers, 118 GB, does not fit the card; 8
+    until the MoE phases needed the smoke's time), f32
     master weights from seed 0, bf16 compute, ``remat="full"``; batches of
     2 x 4096 tokens read by ``GenesysDataLoader`` from a shard of ids in
     [0, 500) synthesised from seed 0, 2 microbatches a step;
@@ -96,10 +97,11 @@ seed):
     run on the two halves of the sequence apart (the middle carry
     dropped) must fail; timed against the plain versions and the
     operations bound (no PyTorch call computes the scan);
-9.  training at full width and all 54 layers (2.42 B parameters, 38.8 GB
-    of f32 training state) as phase 7 trains: K4 launched twice per mamba
-    layer and microbatch (remat runs the forward again), K4b once, K3a
-    and K3b once per shared-block application and microbatch;
+9.  training at full width and 6 of the 54 layers (one of 9 groups of 6
+    mamba layers and the shared block; cut to keep the smoke within its
+    time) as phase 7 trains: K4 launched twice per mamba layer and
+    microbatch (remat runs the forward again), K4b once, K3a and K3b
+    once per shared-block application and microbatch;
 9b. phase 9's step on one group (6 mamba layers and the shared block),
     kernels against plain in bf16 and f32 (bf16 again on three more
     seeds of weights, decay and tokens), and a control that drops the
@@ -127,9 +129,9 @@ mix and channel mix, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536;
     fail (all but du, which the carry does not reach); timed against the
     plain versions and the operations bound (no PyTorch call computes the
     WKV);
-12. training at full width and all 32 blocks (49.4 GB of f32 training
-    state) as phase 7 trains: K5 launched twice per block and microbatch
-    (remat), K5b once, every other kernel never;
+12. training at full width and 4 of the 32 blocks (cut to keep the smoke
+    within its time) as phase 7 trains: K5 launched twice per block and
+    microbatch (remat), K5b once, every other kernel never;
 12b. phase 12's step on 2 blocks, kernels against plain in bf16 and f32,
     with RWKV-6's decay and bonus init, and a control that drops the WKV
     carry into chunk 32;
@@ -140,12 +142,48 @@ mix and channel mix, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536;
     decoded one at a time, with a control that drops the carry into chunk
     2.
 
+The MoE family (the sixth slice) adds, for moonshot-v1-16b-a3b (48
+layers, d_model 2048, 16 heads over 16 KV heads of 128, 64 experts of d_ff
+1408, top-6, vocab 163840; 28.06 B parameters, 3.98 B active a token;
+random weights from a seed):
+
+2, 2b. K1 at its decode shape (H = KV = 16, hd 128, G = 1: 8 ragged rows
+    up to 4096) and K2 at its dense serving shapes (one row and a bucket
+    of 8 over the 256-position cache), bf16, against their plain versions;
+14. the grouped-matmul kernels, forward (K6) and gradient (K6b: dx and
+    dw), against their plain versions at the expert products' shapes (64
+    groups of d_model 2048 -> d_ff 1408) with 512 rows a group (training)
+    and 4 (a decode step's capacity), in bf16 and f32, each output
+    element held to phase 6's rule, which a control (tile 1's expert id
+    shifted) must fail; timed against the plain versions, ``torch.bmm``
+    over the same equal groups and the bound; and ``ops.moe_gmm_apply``
+    (sort, pad and tile ids on the device) through K6 and K6b against the
+    plain versions at the reference's ragged test shapes (random experts
+    with one left empty; every token on one expert);
+15. the main path at full width and all 48 layers in bf16: phase 3's
+    requests through the paged engine over a 1024-block arena (6.4 GB
+    beside 56.1 GB of weights), K1 and the append once and K6 three times
+    per layer and step; the assignments the capacity dropped, counted on
+    the device and read once; one decode step alone, host clock against
+    device busy time and the bytes bound of the weights it reads;
+16. the three dense servers (phase 5's requests; eager and CPU baseline
+    equal, a one-row step dropping nothing), and one step of a bucket of
+    8 rows against each row alone, the logits of every row that lost no
+    assignment held to its step alone;
+17. training, 4 of 48 layers (the one cut: 47.3 GB of f32 state; 449 GB
+    at 48) as phase 7 trains, K6 six times (remat) and K6b three times
+    per layer and microbatch; model FLOPs on the active parameters;
+17b. two layers' train step with K6/K6b against their plain versions in
+    bf16 and f32, and a control (tile 1's expert id shifted) that must
+    fail.
+
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
 is visible or the port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -186,8 +224,8 @@ MAX_LEN = 4096
 # the dense path: the launcher's cache of one row and 256 positions,
 # tiled to a power-of-two bucket by the bucketed loop
 DENSE_LEN, N_DENSE_REQS, EAGER_TOKENS = 256, 16, 16
-# the training path: starcoder2-7b at full width, depth cut to 8 layers
-TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 8, 4096, 2, 2
+# the training path: starcoder2-7b at full width, depth cut to 4 layers
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4, 4096, 2, 2
 TRAIN_STEPS, RESUME_STEPS = 4, 2
 # K3 vs plain, each element of o, dq, dk and dv:
 #   |got - ref| <= r * (|ref| + rms_vec + rms / 16)
@@ -247,6 +285,23 @@ WKV_CONTROL_FAILS = ("o", "dr", "dk", "dv", "dw")
 WKV_CLIP_REL = 2.0 ** -13
 # phase 10: decode against a prefill of 256 tokens (4 chunks)
 PREFILL_LEN = 256
+# the MoE family (moonshot-v1-16b-a3b): serving over an arena of 1024
+# blocks of 16 tokens (6.4 GB at 393 KB a token) beside 56.1 GB of bf16
+# weights; training cut to 4 of 48 layers (47.3 GB of f32 state; 449 GB
+# at 48)
+MOE_N_BLOCKS = 1024
+MOE_TRAIN_LAYERS = 4
+# the recurrent families' training depth (phases 9 and 12), cut from 54
+# and 32 so the smoke keeps within its time with the MoE phases: at full
+# depth their checkpoints (29 and 37 GB) took 56-95 s each to save and
+# restore; one of zamba2's 9 groups (6 mamba layers and the shared
+# block), 4 of rwkv6's 32 blocks
+HYBRID_TRAIN_LAYERS = 6
+SSM_TRAIN_LAYERS = 4
+# phase 16: a bucket row that lost no assignment against its step alone:
+# 8 bf16 ulps of the largest |logit|, as phase 4a holds starcoder2's
+# logits (0.25 at |logit| ~5)
+MOE_BUCKET_ULPS = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -313,9 +368,11 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 # ------------------------------------------------------ phase 2: kernels --
 
-def decode_inputs(torch, dev, gen, q_dtype, kv_dtype):
+def decode_inputs(torch, dev, gen, q_dtype, kv_dtype, heads=(H, KV, HD)):
     """Ragged rows: row b holds lens[b] positions on distinct random
-    blocks; the rest of its table points at the null block."""
+    blocks; the rest of its table points at the null block. ``heads`` =
+    (query heads, KV heads, hd)."""
+    h, kv, hd = heads
     lens = torch.randint(1, MAX_LEN + 1, (B,), generator=gen, device=dev,
                          dtype=torch.int32)
     lens[0] = MAX_LEN
@@ -327,8 +384,8 @@ def decode_inputs(torch, dev, gen, q_dtype, kv_dtype):
     for b, n in enumerate(pages):
         bt[b, :n] = order[at:at + n].to(torch.int32)
         at += n
-    q = torch.randn(B, H, HD, generator=gen, device=dev).to(q_dtype)
-    shape = (n_blocks, BS, KV, HD)
+    q = torch.randn(B, h, hd, generator=gen, device=dev).to(q_dtype)
+    shape = (n_blocks, BS, kv, hd)
     if kv_dtype == torch.int8:
         kp = torch.randint(-127, 128, shape, generator=gen, device=dev,
                            dtype=torch.int8)
@@ -344,8 +401,9 @@ def library_attention(torch, q, kp, vp, bt, lens, n_pages):
     """Yardstick only, never on the path: gather the valid pages, then one
     F.scaled_dot_product_attention call (the gather is included)."""
     F = torch.nn.functional
-    kd = kp[bt[:, :n_pages].long()].reshape(B, n_pages * BS, KV, HD)
-    vd = vp[bt[:, :n_pages].long()].reshape(B, n_pages * BS, KV, HD)
+    kv, hd = kp.shape[2:]
+    kd = kp[bt[:, :n_pages].long()].reshape(B, n_pages * BS, kv, hd)
+    vd = vp[bt[:, :n_pages].long()].reshape(B, n_pages * BS, kv, hd)
     if kp.dtype == torch.int8:
         kd, vd = kd.to(q.dtype) / 16.0, vd.to(q.dtype) / 16.0
     mask = (torch.arange(n_pages * BS, device=q.device)[None]
@@ -355,28 +413,32 @@ def library_attention(torch, q, kp, vp, bt, lens, n_pages):
         attn_mask=mask, enable_gqa=True)[:, :, 0]
 
 
-def kernel_phase(torch, dev, flush):
+def kernel_phase(torch, dev, flush, moe):
+    """K1 at starcoder2's shape in bf16, f32 and int8, and at the MoE
+    model's (``moe`` = (H, KV, hd)) in bf16; the KV append."""
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = []
-    for name, q_dtype, kv_dtype in (("bfloat16", torch.bfloat16,
-                                     torch.bfloat16),
-                                    ("float32", torch.float32, torch.float32),
-                                    ("int8", torch.bfloat16, torch.int8)):
+    for name, q_dtype, kv_dtype, heads in (
+            ("bfloat16", torch.bfloat16, torch.bfloat16, (H, KV, HD)),
+            ("float32", torch.float32, torch.float32, (H, KV, HD)),
+            ("int8", torch.bfloat16, torch.int8, (H, KV, HD)),
+            ("moe-bfloat16", torch.bfloat16, torch.bfloat16, moe)):
+        h, kv, hd = heads
         q, kp, vp, bt, lens, pages = decode_inputs(torch, dev, gen, q_dtype,
-                                                   kv_dtype)
+                                                   kv_dtype, heads)
         got = ops.paged_decode_attention(q, kp, vp, bt, lens)
         want = ops.paged_decode_attention_plain(q, kp, vp, bt, lens)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = tolerance(name, want)
         n_pos = int(lens.sum())
-        nbytes = (2 * n_pos * KV * HD * kp.element_size()
+        nbytes = (2 * n_pos * kv * hd * kp.element_size()
                   + 2 * q.numel() * q.element_size()
                   + 4 * (sum(pages) + B))
-        flops = 4.0 * n_pos * H * HD
+        flops = 4.0 * n_pos * h * hd
         bnd, by = bound_ms(nbytes, flops, "float32" if name == "float32"
                            else "bfloat16")
         ms, host_ms_k = cuda_ms(torch, lambda: ops.paged_decode_attention(
@@ -386,8 +448,9 @@ def kernel_phase(torch, dev, flush):
         library_ms, _ = cuda_ms(torch, lambda: library_attention(
             torch, q, kp, vp, bt, lens, max(pages)), reps=10, flush=flush)
         case = {
-            "case": name, "max_abs_err": err, "tol": tol, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "case": name, "heads": list(heads), "max_abs_err": err,
+            "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "bound_ms": bnd, "bound_by": by, "kv_bytes": nbytes,
             "host_call_ms": host_ms_k, "lens": lens.tolist(),
         }
@@ -504,11 +567,12 @@ def library_dense_attention(torch, q, k, v, lens):
         attn_mask=mask, enable_gqa=True)[:, :, 0]
 
 
-def dense_kernel_phase(torch, dev, flush, hybrid):
-    """K2 against its plain version at starcoder2's shapes and at the
+def dense_kernel_phase(torch, dev, flush, hybrid, moe):
+    """K2 against its plain version at starcoder2's shapes, at the
     hybrid's shared attention (``hybrid`` = (H, KV, hd), G = 1, which
-    takes K2's CUDA-core variant), and the KV append at the hybrid's
-    dense cache. Returns (K2's cases, the append's cases)."""
+    takes K2's CUDA-core variant) and at the MoE model's attention
+    (``moe``, G = 1, hd 128), and the KV append at the hybrid's dense
+    cache. Returns (K2's cases, the append's cases)."""
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev)
@@ -527,7 +591,9 @@ def dense_kernel_phase(torch, dev, flush, hybrid):
                ("bucket8-S256", 8, DENSE_LEN, 40, heads, dtypes[0]),
                ("hybrid-B1-S256", 1, DENSE_LEN, DENSE_LEN, hybrid, dtypes[0]),
                ("hybrid-B1-S256", 1, DENSE_LEN, DENSE_LEN, hybrid, dtypes[1]),
-               ("hybrid-bucket8-S256", 8, DENSE_LEN, 40, hybrid, dtypes[0])]
+               ("hybrid-bucket8-S256", 8, DENSE_LEN, 40, hybrid, dtypes[0]),
+               ("moe-B1-S256", 1, DENSE_LEN, DENSE_LEN, moe, dtypes[0]),
+               ("moe-bucket8-S256", 8, DENSE_LEN, 40, moe, dtypes[0])]
     cases = []
     for label, b, s, max_len, (h, kv, hd), (name, q_dtype, kv_dtype) \
             in shapes:
@@ -706,6 +772,75 @@ def check_replies(reqs, replies, vocab: int) -> None:
               f"of range: {gen}")
 
 
+def main_path_run(torch, cfg, params, *, n_blocks: int,
+                  per_layer: dict) -> dict:
+    """Phases 3 and 15: phase 3's 16 requests through the paged engine (8
+    slots, ``n_blocks`` blocks, a spill file): every reply carries its
+    budget, the shared prefix hits, and each kernel wrapper of
+    ``per_layer`` ({wrapper: launches per layer and step}) launched as
+    many times. An MoE model's capacity drops are counted on the device
+    and read once, at the end. Returns the run's numbers."""
+    import numpy as np
+
+    from repro_torch.config import Family
+    from repro_torch.models import moe
+
+    reqs = make_requests(np.random.default_rng(0), cfg.vocab_size)
+    counters = tuple(per_layer)
+    dropped = torch.zeros((), dtype=torch.int64,
+                          device=params["embed"].device)
+    moe.moe_mlp.dropped = dropped
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            replies, eng, stats, wall, step_s = serve_main_path(
+                cfg, params, n_slots=B, n_blocks=n_blocks, reqs=reqs,
+                spill_path=str(Path(tmp) / "kv.spill"), counters=counters)
+    finally:
+        moe.moe_mlp.dropped = None
+    launches = {f.__name__: f.launches for f in counters}
+    steps = eng.stats.steps
+    out = {"arch": cfg.arch_id, "steps": steps,
+           "tokens_out": stats.tokens_out, "wall_s": wall,
+           "tokens_per_s": stats.tokens_out / wall,
+           "mean_step_ms": 1e3 * statistics.mean(step_s),
+           "median_step_ms": 1e3 * statistics.median(step_s),
+           "occupancy": eng.stats.occupancy(),
+           "prefix_hits": eng.pool.stats.prefix_hits,
+           "prefill_saved": eng.stats.prefill_steps_saved,
+           "arena_bytes": sum(a.numel() * a.element_size()
+                              for a in eng.arenas.values()),
+           "launches": launches}
+    drops = ""
+    if cfg.family == Family.MOE:
+        out["dropped"] = int(dropped)     # the one read of the count
+        out["assignments"] = steps * B * cfg.top_k * cfg.n_layers
+        drops = (f"; capacity dropped {out['dropped']} of "
+                 f"{out['assignments']} token-expert assignments (inactive "
+                 f"slots included)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"main path {cfg.arch_id}: {len(replies)} requests answered with "
+          f"their budgets, tokens_out={out['tokens_out']} wall={wall:.3f} s "
+          f"tokens/s={out['tokens_per_s']:.1f} steps={steps} "
+          f"mean_step_ms={out['mean_step_ms']:.3f} "
+          f"median_step_ms={out['median_step_ms']:.3f} "
+          f"occupancy={out['occupancy']:.2f} "
+          f"prefix_hits={out['prefix_hits']} "
+          f"prefill_saved={out['prefill_saved']} "
+          f"arena={out['arena_bytes'] / 1e9:.2f} GB{drops}; "
+          f"launches={launches}", flush=True)
+    check_replies(reqs, replies, cfg.vocab_size)
+    check(out["prefix_hits"] > 0, f"{cfg.arch_id}: the shared prefix never "
+          f"hit")
+    for f, per in per_layer.items():
+        want = per * cfg.n_layers * steps
+        check(launches[f.__name__] == want, f"{cfg.arch_id}: {f.__name__} "
+              f"launched {launches[f.__name__]} times, expected {want}")
+    check(all(np.isfinite(step_s)), "step times")
+    return out
+
+
 # ------------------------------------------------ phase 5: dense path ---
 
 def make_dense_requests(rng, vocab: int):
@@ -814,11 +949,15 @@ def attention_layers(cfg) -> int:
 
 
 def dense_path_phase(torch, cfg, params):
-    """Phase 5 (and 10, 13): the three dense servers at full width.
-    Returns a dict of per-run results and K2's launches per run."""
+    """Phase 5 (and 10, 13, 16): the three dense servers at full width.
+    Returns a dict of per-run results and K2's launches per run. An MoE
+    model also launches K6 three times per layer and dispatch, and counts
+    the assignments its capacity drops (none in a one-row step)."""
     import numpy as np
 
+    from repro_torch.config import Family
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
 
     prompts, budgets = make_dense_requests(np.random.default_rng(5),
                                            cfg.vocab_size)
@@ -826,15 +965,23 @@ def dense_path_phase(torch, cfg, params):
               for i, (b, p) in enumerate(zip(budgets, prompts))]
     counters = (ops.decode_attention, ops.update_kv_buffer,
                 ops.paged_decode_attention, ops.mamba2_ssd_fwd,
-                ops.rwkv6_wkv_fwd)
+                ops.rwkv6_wkv_fwd, ops.gmm_fwd)
     n_attn = attention_layers(cfg)
+    n_gmm = 3 * cfg.n_layers if cfg.family == Family.MOE else 0
     runs = {}
     for mode, reqs, max_tokens in (("eager", prompts, EAGER_TOKENS),
                                    ("bucketed", tagged, max(budgets)),
                                    ("cpu", prompts, EAGER_TOKENS)):
-        replies, stats, wall, step_s = serve_dense(
-            torch, cfg, params, mode, reqs, max_tokens=max_tokens,
-            counters=counters)
+        dropped = torch.zeros((), dtype=torch.int64,
+                              device=params["embed"].device)
+        moe.moe_mlp.dropped = dropped
+        try:
+            replies, stats, wall, step_s = serve_dense(
+                torch, cfg, params, mode, reqs, max_tokens=max_tokens,
+                counters=counters)
+        finally:
+            moe.moe_mlp.dropped = None
+        n_dropped = int(dropped)
         launches = {f.__name__: f.launches for f in counters}
         dispatches = len(step_s)
         if mode == "bucketed":
@@ -863,11 +1010,17 @@ def dense_path_phase(torch, cfg, params):
               and launches["mamba2_ssd_fwd"] == 0
               and launches["rwkv6_wkv_fwd"] == 0,
               f"{mode}: the paged kernel or a scan ran on the dense path")
+        check(launches["gmm_fwd"] == n_gmm * dispatches,
+              f"{mode}: gmm_fwd launched {launches['gmm_fwd']} times, "
+              f"expected {n_gmm} x {dispatches} dispatches")
+        check(mode == "bucketed" or n_dropped == 0, f"{mode}: a one-row "
+              f"step dropped {n_dropped} assignments")
         run = {"replies": gens, "tokens_out": tokens, "wall_s": wall,
                "tokens_per_s": tokens / wall, "dispatches": dispatches,
                "mean_step_ms": 1e3 * statistics.mean(step_s),
                "median_step_ms": 1e3 * statistics.median(step_s),
-               "launches": launches["decode_attention"]}
+               "launches": launches["decode_attention"],
+               "gmm_launches": launches["gmm_fwd"], "dropped": n_dropped}
         runs[mode] = run
         print(f"dense path {cfg.arch_id} [{mode}]: {len(reqs)} requests "
               f"answered with their budgets, tokens_out={tokens} "
@@ -875,11 +1028,13 @@ def dense_path_phase(torch, cfg, params):
               f"tokens/s={run['tokens_per_s']:.1f} dispatches={dispatches} "
               f"mean_step_ms={run['mean_step_ms']:.3f} "
               f"median_step_ms={run['median_step_ms']:.3f} "
-              f"launches={launches}", flush=True)
+              f"launches={launches} dropped={n_dropped}", flush=True)
     check(sorted(runs["eager"]["replies"]) == sorted(runs["cpu"]["replies"]),
           "GENESYS eager and the CPU baseline returned different tokens")
-    # bucketed rows decode in a batch of 8 (other bf16 GEMM shapes), so
-    # their tokens may part from eager's at a near tie: reported, not gated
+    # bucketed rows decode in a batch of 8 (other bf16 GEMM shapes, and an
+    # MoE capacity shared by the bucket), so their tokens may part from
+    # eager's at a near tie: reported, not gated (phase 16 holds an MoE
+    # bucket's logits to its rows alone where it drops nothing)
     eager_by_first = {tuple(g[:8]) for g in runs["eager"]["replies"]}
     same = sum(tuple(g[:8]) in eager_by_first
                for g in runs["bucketed"]["replies"])
@@ -1179,20 +1334,23 @@ def flash_kernel_phase(torch, dev, flush):
 
 KERNEL_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd",
                    "mamba2_ssd_fwd", "mamba2_ssd_bwd",
-                   "rwkv6_wkv_fwd", "rwkv6_wkv_bwd",
+                   "rwkv6_wkv_fwd", "rwkv6_wkv_bwd", "gmm_fwd", "gmm_bwd",
                    "paged_decode_attention", "decode_attention",
                    "update_kv_buffer")
 
 
 def model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
-    """Model FLOPs of one training step: 6 per non-embedding parameter and
-    token, causal attention forward and backward (6 H hd S^2 per sequence
-    and attention layer), a hybrid's SSD scan (three times its forward,
-    2c(cN + cP + 2NP) per head and chunk) and rwkv6's WKV (three times its
-    forward, 2c(2 hd^2 + c hd) per head and chunk)."""
+    """Model FLOPs of one training step: 6 per non-embedding parameter a
+    token uses and token (an MoE layer's token uses top_k of its experts:
+    ``cfg.active_param_count()``'s basis), causal attention forward and
+    backward (6 H hd S^2 per sequence and attention layer), a hybrid's SSD
+    scan (three times its forward, 2c(cN + cP + 2NP) per head and chunk)
+    and rwkv6's WKV (three times its forward, 2c(2 hd^2 + c hd) per head
+    and chunk)."""
     from repro_torch.config import Family
     embed = cfg.padded_vocab * cfg.d_model     # a gather, no products
-    out = 6.0 * (n_params - embed) * batch * seq
+    idle = cfg.param_count() - cfg.active_param_count()   # 0 but for MoE
+    out = 6.0 * (n_params - idle - embed) * batch * seq
     out += 6.0 * attention_layers(cfg) * cfg.n_heads * cfg.hd * seq * seq \
         * batch
     if cfg.family == Family.HYBRID:
@@ -1345,7 +1503,7 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict):
 
 def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
                          control: dict, control_label: str, prepare=None,
-                         bf16_seeds=()):
+                         bf16_seeds=(), pin_routing: bool = False):
     """Phase 7b (and 9b, 12b): the training phase's step (2 microbatches of
     1 x 4096 tokens) at ``layers`` layers of full width, from the same
     weights, with the kernels, with the plain versions (``plain``: the
@@ -1356,7 +1514,13 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
     plain versions again on each seed of ``bf16_seeds`` (weights, prepared
     weights and tokens all drawn from it). Each gradient is read from the
     step's first moments, which a fresh state leaves at (1 - beta1) *
-    min(1, clip / grad_norm) * g."""
+    min(1, clip / grad_norm) * g. With ``pin_routing`` (phase 17b), the
+    bf16 plain and control steps take the kernel step's top-k expert
+    choices (:class:`PinnedTopK`): one ulp of difference flips a near-tied
+    choice (:func:`routing_flips` counts them), which moves the flipped
+    token's gradients by O(1) and is no fault of a kernel; pinned, both
+    steps follow one routing and the gradients are compared as phase 7b
+    compares them. f32 routes alike without the pin."""
     import numpy as np
 
     from repro_torch.checkpoint.ckpt import flatten
@@ -1413,9 +1577,16 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
 
         base, batch = weights(3, 9), batch_of(7)
         names = leaf_paths(base)
-        ref = one_step(base, batch, plain)
-        kern = against_plain(one_step(base, batch, {}), ref)
-        ctrl = against_plain(one_step(base, batch, control), ref)
+        pin = PinnedTopK() if pin_routing and compute == "bfloat16" \
+            else None
+        with pin.record() if pin else contextlib.nullcontext():
+            got = one_step(base, batch, {})
+        with pin.replay() if pin else contextlib.nullcontext():
+            ref = one_step(base, batch, plain)
+        kern = against_plain(got, ref)
+        with pin.replay() if pin else contextlib.nullcontext():
+            ctrl = against_plain(one_step(base, batch, control), ref)
+        del got
         print(f"train step kernels vs plain ({cfg.arch_id}, {compute} "
               f"compute, {layers} layers full width, {TRAIN_BATCH}x"
               f"{TRAIN_SEQ} in {TRAIN_MICRO} microbatches): loss "
@@ -1428,7 +1599,9 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
               f"vs {ref[1]:.6f}; control ({control_label}): |loss diff| "
               f"{ctrl['loss_abs_diff']:.3e} grad leaves "
               f"{ctrl['grad_leaf_max_rel_norm_diff']:.3e} at "
-              f"{ctrl['grad_leaf_max']}", flush=True)
+              f"{ctrl['grad_leaf_max']}"
+              + ("; routing pinned to the kernel step's" if pin else ""),
+              flush=True)
         check(kern["pass"], f"{compute} step, kernels vs plain: {kern}")
         check(not ctrl["pass"], f"{compute} step: the control "
               f"({control_label}) passes the comparison: {ctrl}")
@@ -1458,6 +1631,50 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
             gc.collect()
             torch.cuda.empty_cache()
     return out
+
+
+class PinnedTopK:
+    """Phase 17b's bf16 routing pin: a ``record`` run keeps every
+    ``moe.top_k`` choice in call order (forward, and remat's forward
+    again in the backward); a ``replay`` run, which makes the same calls
+    in the same order, takes those indices back with its own probabilities
+    at them, so its gates, capacity and gradients follow the recorded
+    routing."""
+
+    def __init__(self):
+        self.picks = []
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from repro_torch.models import moe
+        orig = moe.top_k
+        moe.top_k = fn
+        try:
+            yield
+        finally:
+            moe.top_k = orig
+
+    def record(self):
+        from repro_torch.models import moe
+        orig = moe.top_k
+
+        def top_k(probs, k):
+            vals, idx = orig(probs, k)
+            self.picks.append(idx)
+            return vals, idx
+        return self._patched(top_k)
+
+    @contextlib.contextmanager
+    def replay(self):
+        picks = iter(self.picks)
+
+        def top_k(probs, k):
+            idx = next(picks)
+            return probs.gather(-1, idx), idx
+        with self._patched(top_k):
+            yield
+        check(next(picks, None) is None, "a pinned step routed fewer times "
+              "than the step it replays")
 
 
 def leaf_paths(tree, prefix: str = "") -> list[str]:
@@ -1928,6 +2145,332 @@ def log_w_reading(got, want, w) -> dict:
             "rule": "w * dw to 2**-13 of its largest"}
 
 
+# ----------------------------------------- phase 14: the grouped matmul --
+
+def gmm_inputs(torch, dev, gen, E, G, K, N, dtype):
+    """x [E G, K], w [E, K, N] (std K^-1/2), dy [E G, N] and a tile table
+    of one tile of G rows per expert, the experts in a random order."""
+    x = torch.randn(E * G, K, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(E, K, N, generator=gen, device=dev)
+         * K ** -0.5).to(dtype)
+    dy = torch.randn(E * G, N, generator=gen, device=dev).to(dtype)
+    te = torch.randperm(E, generator=gen, device=dev).to(torch.int32)
+    return x, w, dy, te
+
+
+def shifted(tile_expert, n_experts: int):
+    """The controls' tile table: tile 1's expert id moved to the next
+    expert."""
+    bad = tile_expert.clone()
+    bad[1] = (bad[1] + 1) % n_experts
+    return bad
+
+
+def shifted_gmm(x, w, tile_expert, tile_m):
+    """Phase 17b's control: the plain grouped matmul over the shifted
+    tile table."""
+    from repro_torch.kernels.moe_gmm import gmm_plain
+    return gmm_plain(x, w, shifted(tile_expert, w.shape[0]), tile_m)
+
+
+def gmm_kernel_phase(torch, mcfg, dev, flush):
+    """K6 (forward) and K6b (dx and dw) against their plain versions at
+    the MoE model's expert shapes (E groups, d_model -> d_ff): the
+    training step's 512 rows a group and the decode step's 4, in bf16 and
+    f32, each output element held to phase 6's rule; a control (tile 1's
+    expert id shifted) must fail it in out, dx and dw. Timed against the
+    plain versions, ``torch.bmm`` over the same equal groups as the
+    library yardstick, and the bound. Then ``ops.moe_gmm_apply`` (sort,
+    pad, tile ids on the device) through K6 and, by autograd, K6b against
+    the same through the plain versions at ``test_kernels.py``'s ragged
+    shapes: random experts with one left empty, and every token on one
+    expert."""
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    E, D, F = mcfg.n_experts, mcfg.d_model, mcfg.d_ff
+    cases = {"fwd": [], "bwd": []}
+    for label, G in (("decode", 4), ("train", 512)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            r = FA_REL[name]
+            x, w, dy, te = gmm_inputs(torch, dev, gen, E, G, D, F, dtype)
+            got = {"out": mg.gmm_fwd(x, w, te, G)}
+            got["dx"], got["dw"] = mg.gmm_bwd(x, w, te, G, dy)
+            want = {"out": mg.gmm_plain(x, w, te, G)}
+            want["dx"], want["dw"] = mg.gmm_backward_plain(x, w, te, G, dy)
+            bad = shifted(te, E)
+            ctl = {"out": mg.gmm_fwd(x, w, bad, G)}
+            ctl["dx"], ctl["dw"] = mg.gmm_bwd(x, w, bad, G, dy)
+            torch.cuda.synchronize()
+            errs = {n: fa_reading(got[n], want[n], r) for n in got}
+            control = {n: fa_reading(ctl[n], want[n], r) for n in ctl}
+            for n in got:
+                check(errs[n]["worst"] <= 1.0, f"gmm [{label}-{name}] {n}: "
+                      f"error up to {errs[n]['worst']:.3g} x its bound "
+                      f"(max abs {errs[n]['max_abs_err']:.3g})")
+                check(control[n]["worst"] > 1.0, f"gmm control [{label}-"
+                      f"{name}]: {n} with tile 1's expert shifted passes")
+            del got, want, ctl
+            torch.cuda.empty_cache()
+            T, esz = E * G, x.element_size()
+            flops = 2.0 * T * D * F
+            fwd_bytes = (T * D + E * D * F + T * F) * esz
+            bwd_bytes = (2 * T * D + 2 * E * D * F + T * F) * esz
+            bounds = {"fwd": bound_ms(fwd_bytes, flops, name),
+                      "bwd": bound_ms(bwd_bytes, 2 * flops, name)}
+            reps = 10 if name == "bfloat16" else 3
+            ms_f, host_f = cuda_ms(torch, lambda: mg.gmm_fwd(x, w, te, G),
+                                   reps=reps, flush=flush)
+            ms_b, host_b = cuda_ms(torch, lambda: mg.gmm_bwd(
+                x, w, te, G, dy), reps=reps, flush=flush)
+            plain_f, _ = cuda_ms(torch, lambda: mg.gmm_plain(x, w, te, G),
+                                 reps=3, flush=flush)
+            plain_b, _ = cuda_ms(torch, lambda: mg.gmm_backward_plain(
+                x, w, te, G, dy), reps=3, flush=flush)
+            xg, dyg = x.view(E, G, D), dy.view(E, G, F)
+
+            def bmm_bwd():      # yardstick only, never on the path
+                return (torch.bmm(dyg, w.transpose(1, 2)),
+                        torch.bmm(xg.transpose(1, 2), dyg))
+            lib_f, _ = cuda_ms(torch, lambda: torch.bmm(xg, w), reps=reps,
+                               flush=flush)
+            lib_b, _ = cuda_ms(torch, bmm_bwd, reps=reps, flush=flush)
+            for kind, ms, host, plain, lib, outs in (
+                    ("fwd", ms_f, host_f, plain_f, lib_f, ("out",)),
+                    ("bwd", ms_b, host_b, plain_b, lib_b, ("dx", "dw"))):
+                bnd, by = bounds[kind]
+                cases[kind].append({
+                    "case": f"{label}-E{E}x{G}-D{D}-F{F}-{name}",
+                    "max_abs_err": max(errs[n]["max_abs_err"] for n in outs),
+                    "ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": bnd, "bound_by": by, "host_call_ms": host,
+                    "rule_r": r, "errors": {n: errs[n] for n in outs},
+                    "control_tile_shifted": {n: control[n] for n in outs}})
+            print(f"kernel gmm[{label}-E{E}x{G}-{name}]: errors (max abs, "
+                  f"worst ratio to the bound r={r:g}) "
+                  + " ".join(f"{n}=({e['max_abs_err']:.3e}, "
+                             f"{e['worst']:.3f})" for n, e in errs.items())
+                  + " control (tile 1 shifted): " + " ".join(
+                      f"{n}={e['worst']:.3g}" for n, e in control.items())
+                  + f" | fwd ms={ms_f:.4f} plain_ms={plain_f:.4f} "
+                  f"bmm_ms={lib_f:.4f} bound_ms={bounds['fwd'][0]:.4f} "
+                  f"({bounds['fwd'][1]}) | bwd ms={ms_b:.4f} plain_ms="
+                  f"{plain_b:.4f} bmm_ms={lib_b:.4f} bound_ms="
+                  f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]})", flush=True)
+            del x, w, dy, xg, dyg
+            torch.cuda.empty_cache()
+
+    ragged = []
+    for T, Dr, Fr, Er, skew in ((512, 128, 256, 8, False),
+                                (256, 256, 128, 4, False),
+                                (256, 64, 64, 8, True)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            r = FA_REL[name]
+            x = torch.randn(T, Dr, generator=gen, device=dev).to(dtype)
+            w = (0.05 * torch.randn(Er, Dr, Fr, generator=gen,
+                                    device=dev)).to(dtype)
+            dy = torch.randn(T, Fr, generator=gen, device=dev).to(dtype)
+            if skew:
+                ids = torch.full((T,), 3, dtype=torch.int32, device=dev)
+            else:
+                ids = torch.randint(0, Er, (T,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                ids[ids == 1] = 2           # expert 1 gets no token
+            outs = {}
+            for tag, fn in (("kernel", None), ("plain", mg.gmm_plain)):
+                xr, wr = (t.clone().requires_grad_(True) for t in (x, w))
+                o = ops.moe_gmm_apply(xr, wr, ids, n_experts=Er, gmm_fn=fn)
+                o.backward(dy)
+                outs[tag] = {"out": o.detach(), "dx": xr.grad,
+                             "dw": wr.grad}
+            torch.cuda.synchronize()
+            errs = {n: fa_reading(outs["kernel"][n], outs["plain"][n], r)
+                    for n in ("out", "dx", "dw")}
+            per_token = torch.einsum("td,tdf->tf", x.float(),
+                                     w.float()[ids.long()])
+            tok_err = (outs["kernel"]["out"].float() - per_token).abs().max()
+            label = (f"apply-T{T}-D{Dr}-F{Fr}-E{Er}"
+                     f"{'-skewed' if skew else ''}-{name}")
+            print(f"kernel gmm[{label}]: errors (max abs, worst) "
+                  + " ".join(f"{n}=({e['max_abs_err']:.3e}, "
+                             f"{e['worst']:.3f})" for n, e in errs.items())
+                  + f"; against the per-token product {tok_err.item():.3e}",
+                  flush=True)
+            for n, e in errs.items():
+                check(e["worst"] <= 1.0, f"gmm [{label}] {n}: error up to "
+                      f"{e['worst']:.3g} x its bound")
+            ragged.append({"case": label, "errors": errs,
+                           "per_token_max_abs_err": tok_err.item()})
+    cases["ragged"] = ragged
+    return cases
+
+
+# --------------------------------------- phases 15-17: the MoE family ----
+
+def moe_main_path_phase(torch, mcfg, dev):
+    """Phase 15: the MoE model at full width served through the paged
+    engine as phase 3 serves starcoder2 (its requests, 8 slots), over an
+    arena of MOE_N_BLOCKS blocks beside the weights; the capacity's drops
+    counted on the device and read once, at the end; then one decode step
+    alone against the bytes bound of the weights it reads (all but the
+    embedding table, of which it gathers 8 rows). Returns (the weights,
+    the phase's numbers)."""
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    params = transformer.init(mcfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    weights_bytes = sum(t.numel() * t.element_size()
+                        for t in flatten(params))
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+    print(f"main path: {mcfg.arch_id} full width, {mcfg.n_layers} layers, "
+          f"{mcfg.n_experts} experts top-{mcfg.top_k}, bf16 weights from "
+          f"seed 0 in {time.perf_counter() - t0:.1f} s "
+          f"({weights_bytes / 1e9:.2f} GB), "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          flush=True)
+    out = main_path_run(torch, mcfg, params, n_blocks=MOE_N_BLOCKS,
+                        per_layer={ops.paged_decode_attention: 1,
+                                   ops.update_kv_buffer: 1, ops.gmm_fwd: 3,
+                                   ops.gmm_bwd: 0})
+
+    # one decode step alone, the host plane's threads stopped
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    arenas, bt, cl, tok = paged_state(torch, mcfg, dev, gen,
+                                      n_blocks=MOE_N_BLOCKS, max_len=1024)
+
+    def one_step():
+        with torch.no_grad():
+            transformer.forward(params, mcfg, tok, cache_len=cl,
+                                paged_cache=(arenas["k"], arenas["v"], bt))
+    alone_ms = host_ms(torch, one_step, reps=5)
+    busy_ms = device_busy_ms(torch, one_step, top=8)
+    bound = (weights_bytes - embed_bytes) / HBM_BYTES_PER_S * 1e3
+    busy = "not measured" if busy_ms is None else f"{busy_ms:.3f}"
+    print(f"step alone {mcfg.arch_id} (8 rows, cached lens {cl.tolist()}): "
+          f"host_ms={alone_ms:.3f} device_busy_ms={busy} (bytes bound of "
+          f"the weights it reads {bound:.3f} ms)", flush=True)
+    host_ops(torch, one_step, top=8)
+    del arenas, bt, cl, tok
+    torch.cuda.empty_cache()
+    return params, dict(out, weights_bytes=weights_bytes,
+                        step_alone_ms=alone_ms, step_device_busy_ms=busy_ms,
+                        step_bytes_bound_ms=bound)
+
+
+def routing_flips(torch, mcfg, dev, *, layers: int) -> dict:
+    """Phase 17b's reading of the routing: the no-cache forward of phase
+    17b's first microbatch (its weights and tokens, ``layers`` layers)
+    with the grouped-matmul kernels and with their plain versions, in
+    bf16 and in f32 compute, counting the (token, layer) pairs whose top-k
+    experts differ between the two (``moe.route`` tapped)."""
+    import numpy as np
+
+    from repro_torch.kernels.moe_gmm import gmm_plain
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_api
+
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 500, size=(TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)[:1, :-1]
+    out = {}
+    route = moe.route
+    for compute in ("bfloat16", "float32"):
+        scfg = dataclasses.replace(mcfg, n_layers=layers,
+                                   compute_dtype=compute)
+        params = get_api(scfg).init(scfg, seed=3, device=dev, master=True)
+        picks = {}
+        for tag, gmm in (("kernels", None), ("plain", gmm_plain)):
+            seen = []
+
+            def tapped(*args, **kw):
+                res = route(*args, **kw)
+                seen.append(torch.sort(res[1], dim=-1).values)
+                return res
+            moe.route = tapped
+            try:
+                with torch.no_grad():
+                    get_api(scfg).forward(params, scfg, toks, gmm=gmm)
+            finally:
+                moe.route = route
+            picks[tag] = seen
+        flips = sum(int((a != b).any(-1).sum())
+                    for a, b in zip(picks["kernels"], picks["plain"]))
+        out[compute] = {"flips": flips, "routed": layers * toks.numel()}
+        print(f"routing {mcfg.arch_id} ({compute}, {layers} layers, "
+              f"{toks.numel()} tokens): top-{mcfg.top_k} sets differ "
+              f"between kernels and plain versions at {flips} of "
+              f"{layers * toks.numel()} (token, layer) pairs", flush=True)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_bucket_vs_eager(torch, mcfg, params, dev) -> dict:
+    """Phase 16's gate on the bucketed server: one dense decode step of a
+    bucket of 8 rows (phase 5's prompts' last tokens, cache empty) against
+    each row's step alone. A row alone is one token (capacity 4, nothing
+    dropped). Rows of a bucket meet only in the MoE layers' capacity, so a
+    row none of whose assignments the bucket dropped, in any layer, must
+    give the logits it gives alone: held to MOE_BUCKET_ULPS bf16 ulps of
+    the largest |logit| (batch-of-8 and batch-of-1 products round apart).
+    The rows with a drop are reported (``moe.route`` tapped: a token's
+    assignments kept are its nonzero ``combine`` slots)."""
+    import numpy as np
+
+    from repro_torch.models import moe, transformer
+
+    prompts, _ = make_dense_requests(np.random.default_rng(5),
+                                     mcfg.vocab_size)
+    last = torch.tensor([p[-1] for p in prompts[:8]], dtype=torch.int32,
+                        device=dev)[:, None]
+    zero = torch.zeros((8,), dtype=torch.int32, device=dev)
+
+    def logits_of(tokens, rows):
+        cache = transformer.init_cache(mcfg, rows, DENSE_LEN, device=dev)
+        with torch.no_grad():
+            lg, _ = transformer.forward(params, mcfg, tokens,
+                                        cache_len=zero[:rows], cache=cache)
+        return lg[:, -1]
+
+    route, short = moe.route, []
+
+    def tapped(*args, **kw):             # per token: assignments dropped
+        res = route(*args, **kw)
+        kept = (res[0] > 0).sum(dim=(-1, -2)).reshape(-1)
+        short.append(mcfg.top_k - kept)
+        return res
+    moe.route = tapped
+    try:
+        bucket = logits_of(last, 8)
+    finally:
+        moe.route = route
+    alone = torch.cat([logits_of(last[i:i + 1], 1) for i in range(8)])
+    lost = torch.stack(short).sum(dim=0)             # [8] over the layers
+    clean = lost == 0
+    amax = alone.abs().max().item()
+    tol = MOE_BUCKET_ULPS * 2.0 ** (math.floor(math.log2(amax)) - 7)
+    diff = (bucket - alone).abs().amax(dim=-1)
+    held = diff[clean].max().item() if bool(clean.any()) else 0.0
+    agree = (bucket.argmax(-1) == alone.argmax(-1)).tolist()
+    print(f"bucketed vs eager {mcfg.arch_id} (one step, 8 rows): "
+          f"assignments dropped per row {lost.tolist()}; logits max_abs_diff "
+          f"per row {[round(x, 4) for x in diff.tolist()]} (held to {tol:g} "
+          f"on the {int(clean.sum())} rows without a drop, |logit| up to "
+          f"{amax:.2f}); argmax equal {agree}", flush=True)
+    check(held <= tol, f"{mcfg.arch_id}: a bucket row without a dropped "
+          f"assignment differs from its step alone by {held}")
+    return {"dropped_per_row": lost.tolist(), "clean_rows": int(clean.sum()),
+            "logits_max_abs_diff_per_row": diff.tolist(), "tol": tol,
+            "held_max_abs_diff": held, "argmax_equal": agree}
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -1954,12 +2497,17 @@ def main() -> int:
 
 
 def run(torch) -> int:
-    import numpy as np
-
     t_start = time.perf_counter()
+    phase_end_s = {}
+
+    def mark(phase: str) -> None:       # wall time since the start
+        phase_end_s[phase] = time.perf_counter() - t_start
+        print(f"[{phase_end_s[phase]:.1f} s] phase {phase} done", flush=True)
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import mamba2_scan as ms
+    from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import rwkv6_scan as wr
     from repro_torch.models import layers as L
     from repro_torch.models import transformer
@@ -1985,12 +2533,17 @@ def run(torch) -> int:
 
     # phase 2: each kernel against its plain version at the path's shapes
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    decode_cases, append = kernel_phase(torch, dev, flush)
+    mcfg = get_config("moonshot-v1-16b-a3b")
+    moe_heads = (mcfg.n_heads, mcfg.n_kv_heads, mcfg.hd)
+    decode_cases, append = kernel_phase(torch, dev, flush, moe_heads)
+    mark("2")
     # phase 2b: the dense kernel against its plain version
     zcfg = get_config("zamba2-2.7b")
     dense_cases, hybrid_appends = dense_kernel_phase(
-        torch, dev, flush, (zcfg.n_heads, zcfg.n_kv_heads, zcfg.hd))
+        torch, dev, flush, (zcfg.n_heads, zcfg.n_kv_heads, zcfg.hd),
+        moe_heads)
     del flush
+    mark("2b")
     torch.cuda.empty_cache()
 
     # phase 3: the main path at full width
@@ -2004,34 +2557,9 @@ def run(torch) -> int:
           f"{time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
           flush=True)
-    reqs = make_requests(np.random.default_rng(0), cfg.vocab_size)
-    counters = (ops.paged_decode_attention, ops.update_kv_buffer)
-    with tempfile.TemporaryDirectory() as tmp:
-        replies, eng, stats, wall, step_s = serve_main_path(
-            cfg, params, n_slots=8, n_blocks=N_BLOCKS, reqs=reqs,
-            spill_path=str(Path(tmp) / "kv.spill"), counters=counters)
-    launches = {f.__name__: f.launches for f in counters}
-    steps = eng.stats.steps
-    check_replies(reqs, replies, cfg.vocab_size)
-    hits = eng.pool.stats.prefix_hits
-    print(f"main path: {len(replies)} requests answered with their budgets, "
-          f"tokens_out={stats.tokens_out} wall={wall:.3f} s "
-          f"tokens/s={stats.tokens_out / wall:.1f} steps={steps} "
-          f"mean_step_ms={1e3 * statistics.mean(step_s):.3f} "
-          f"median_step_ms={1e3 * statistics.median(step_s):.3f} "
-          f"occupancy={eng.stats.occupancy():.2f} prefix_hits={hits} "
-          f"prefill_saved={eng.stats.prefill_steps_saved} "
-          f"launches={launches}", flush=True)
-    check(hits > 0, "the shared prefix never hit")
-    for name, n in launches.items():
-        check(n == cfg.n_layers * steps, f"{name} launched {n} times, "
-              f"expected {cfg.n_layers} x {steps} steps")
-    check(all(np.isfinite(step_s)), "step times")
-    occupancy = eng.stats.occupancy()
-    arenas_bytes = sum(a.numel() * a.element_size()
-                       for a in eng.arenas.values())
-    del eng
-    gc.collect()
+    main = main_path_run(torch, cfg, params, n_blocks=N_BLOCKS, per_layer={
+        ops.paged_decode_attention: 1, ops.update_kv_buffer: 1})
+    mark("3")
 
     # phase 4a: one step's logits, kernels vs plain, full width bf16
     gen = torch.Generator(device=dev)
@@ -2082,6 +2610,7 @@ def run(torch) -> int:
           "whose top-2 margin exceeds 1e-3")
     del params32, state
     torch.cuda.empty_cache()
+    mark("4")
 
     # phase 5: the dense path at full width, phase 3's weights
     dense_runs = dense_path_phase(torch, cfg, params)
@@ -2101,13 +2630,15 @@ def run(torch) -> int:
     del params, lk, lp
     gc.collect()
     torch.cuda.empty_cache()
+    mark("5")
 
     # phase 6: the flash-attention kernels against their plain versions
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     flash_cases = flash_kernel_phase(torch, dev, flush)
     del flush
     torch.cuda.empty_cache()
-    # phase 7: training at full width, 8 layers; 7b: kernels vs plain
+    mark("6")
+    # phase 7: training at full width, 4 layers; 7b: kernels vs plain
     tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
     per = TRAIN_MICRO * (TRAIN_STEPS + RESUME_STEPS)
     train = train_path_phase(torch, tcfg, dev, expected={
@@ -2117,19 +2648,23 @@ def run(torch) -> int:
         torch, cfg, dev, layers=2, plain={"attend": L.flash_attention_xla},
         control={"attend": dropped_tile},
         control_label=f"keys {CONTROL_KEYS[0]}-{CONTROL_KEYS[1] - 1} zeroed")
+    mark("7")
 
-    # the hybrid family: zamba2-2.7b, all 54 layers at full width
+    # the hybrid family: zamba2-2.7b at full width (served at all 54
+    # layers, trained at 6)
     # phase 8: the SSD scan kernels against their plain versions
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     ssd_cases = ssd_kernel_phase(torch, zcfg, dev, flush)
     del flush
     torch.cuda.empty_cache()
-    # phase 9: training; the mamba layers run twice under remat, the
-    # shared block once
-    n_attn = attention_layers(zcfg)
-    ztrain = train_path_phase(torch, zcfg, dev, expected={
-        "mamba2_ssd_fwd": 2 * zcfg.n_layers * per,
-        "mamba2_ssd_bwd": zcfg.n_layers * per,
+    mark("8")
+    # phase 9: training, one of 9 groups; the mamba layers run twice under
+    # remat, the shared block once
+    ztcfg = dataclasses.replace(zcfg, n_layers=HYBRID_TRAIN_LAYERS)
+    n_attn = attention_layers(ztcfg)
+    ztrain = train_path_phase(torch, ztcfg, dev, expected={
+        "mamba2_ssd_fwd": 2 * ztcfg.n_layers * per,
+        "mamba2_ssd_bwd": ztcfg.n_layers * per,
         "flash_attention_fwd": n_attn * per,
         "flash_attention_bwd": n_attn * per})
     # phase 9b: one group (6 mamba layers and the shared block), kernels
@@ -2142,42 +2677,90 @@ def run(torch) -> int:
         control_label="the SSD carry into chunk 32 dropped",
         prepare=lambda p, seed: set_mamba2_decay(torch, p, seed=seed),
         bf16_seeds=(21, 22, 23))
+    mark("9")
     # phase 10: serving
     zserve = recurrent_serve_phase(
         torch, zcfg, dev, prefill_launches={
             "mamba2_ssd_fwd": zcfg.n_layers,
             "flash_attention_fwd": attention_layers(zcfg)},
         control={"ssd": carry_dropped(ms.ssd_chunked_plain)})
+    mark("10")
 
-    # the SSM family: rwkv6-3b, all 32 layers at full width
+    # the SSM family: rwkv6-3b at full width (served at all 32 blocks,
+    # trained at 4)
     # phase 11: the WKV kernels against their plain versions
     rcfg = get_config("rwkv6-3b")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     wkv_cases = wkv_kernel_phase(torch, rcfg, dev, flush)
     del flush
     torch.cuda.empty_cache()
-    # phase 12: training; every block runs the WKV twice under remat
-    rtrain = train_path_phase(torch, rcfg, dev, expected={
-        "rwkv6_wkv_fwd": 2 * rcfg.n_layers * per,
-        "rwkv6_wkv_bwd": rcfg.n_layers * per})
+    mark("11")
+    # phase 12: training, 4 of 32 blocks; every block runs the WKV twice
+    # under remat
+    rtcfg = dataclasses.replace(rcfg, n_layers=SSM_TRAIN_LAYERS)
+    rtrain = train_path_phase(torch, rtcfg, dev, expected={
+        "rwkv6_wkv_fwd": 2 * rtcfg.n_layers * per,
+        "rwkv6_wkv_bwd": rtcfg.n_layers * per})
     # phase 12b: two blocks, kernels vs plain, with RWKV-6's decay init
     rtrain["step_kernel_vs_plain"] = step_kernel_vs_plain(
         torch, rcfg, dev, layers=2, plain={"wkv": wr.wkv6_chunked_plain},
         control={"wkv": carry_dropped(wr.wkv6_chunked_plain)},
         control_label="the WKV carry into chunk 32 dropped",
         prepare=lambda p, seed: set_rwkv6_init(torch, p))
+    mark("12")
     # phase 13: serving (no kernel: the decode recurrence is plain torch)
     rserve = recurrent_serve_phase(
         torch, rcfg, dev, prefill_launches={"rwkv6_wkv_fwd": rcfg.n_layers},
         control={"wkv": carry_dropped(wr.wkv6_chunked_plain)},
         prepare=lambda p: set_rwkv6_init(torch, p))
+    mark("13")
+
+    # the MoE family: moonshot-v1-16b-a3b at full width
+    # phase 14: the grouped-matmul kernels against their plain versions
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    gmm_cases = gmm_kernel_phase(torch, mcfg, dev, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("14")
+    # phase 15: the main path, all 48 layers, over the paged engine
+    mparams, mserve = moe_main_path_phase(torch, mcfg, dev)
+    mark("15")
+    # phase 16: the dense servers, and a bucket against its rows alone
+    mserve["dense_path"] = dense_path_phase(torch, mcfg, mparams)
+    mserve["bucket_vs_eager"] = moe_bucket_vs_eager(torch, mcfg, mparams,
+                                                    dev)
+    mark("16")
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 17: training, 4 of 48 layers (the one cut); 17b: kernels vs
+    # plain on two layers
+    mtcfg = dataclasses.replace(mcfg, n_layers=MOE_TRAIN_LAYERS)
+    mtrain = train_path_phase(torch, mtcfg, dev, expected={
+        "flash_attention_fwd": 2 * MOE_TRAIN_LAYERS * per,
+        "flash_attention_bwd": MOE_TRAIN_LAYERS * per,
+        "gmm_fwd": 3 * 2 * MOE_TRAIN_LAYERS * per,        # remat: twice
+        "gmm_bwd": 3 * MOE_TRAIN_LAYERS * per})
+    mark("17")
+    mtrain["routing_flips"] = routing_flips(torch, mcfg, dev, layers=2)
+    mtrain["step_kernel_vs_plain"] = step_kernel_vs_plain(
+        torch, mcfg, dev, layers=2, plain={"gmm": mg.gmm_plain},
+        control={"gmm": shifted_gmm},
+        control_label="tile 1's expert id shifted in every expert product",
+        pin_routing=True)
+    mark("17b")
 
     bf16 = decode_cases[0]
     kernels = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/decode_attention.py:169",
-         "launches": launches["paged_decode_attention"],
+         "launches": main["launches"]["paged_decode_attention"]
+         + mserve["launches"]["paged_decode_attention"],
+         "launches_by_run": {
+             cfg.arch_id: main["launches"]["paged_decode_attention"],
+             mcfg.arch_id: mserve["launches"]["paged_decode_attention"]},
          "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
          "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
          "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
@@ -2185,7 +2768,11 @@ def run(torch) -> int:
         {"name": "update_kv_buffer", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/ops.py:71",
-         "launches": launches["update_kv_buffer"],
+         "launches": main["launches"]["update_kv_buffer"]
+         + mserve["launches"]["update_kv_buffer"],
+         "launches_by_run": {
+             cfg.arch_id: main["launches"]["update_kv_buffer"],
+             mcfg.arch_id: mserve["launches"]["update_kv_buffer"]},
          "max_abs_err": append["max_abs_err"], "ms": append["ms"],
          "plain_ms": append["plain_ms"], "bound_ms": append["bound_ms"],
          "bound_by": append["bound_by"], "library_ms": append["library_ms"],
@@ -2194,11 +2781,13 @@ def run(torch) -> int:
          "source": "src/repro_torch/kernels/csrc/dense_decode.cu",
          "replaces": "src/repro/kernels/decode_attention.py:83",
          "launches": sum(r["launches"] for runs in (
-             dense_runs, zserve["dense_path"]) for r in runs.values()),
+             dense_runs, zserve["dense_path"], mserve["dense_path"])
+             for r in runs.values()),
          "launches_by_run": {f"{arch}-{m}": r["launches"]
                              for arch, runs in (
                                  (cfg.arch_id, dense_runs),
-                                 (zcfg.arch_id, zserve["dense_path"]))
+                                 (zcfg.arch_id, zserve["dense_path"]),
+                                 (mcfg.arch_id, mserve["dense_path"]))
                              for m, r in runs.items()},
          "max_abs_err": dense_cases[0]["max_abs_err"],
          "ms": dense_cases[0]["ms"], "plain_ms": dense_cases[0]["plain_ms"],
@@ -2214,9 +2803,11 @@ def run(torch) -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-            "launches": train["launches"][name] + ztrain["launches"][name],
+            "launches": train["launches"][name] + ztrain["launches"][name]
+            + mtrain["launches"][name],
             "launches_by_run": {cfg.arch_id: train["launches"][name],
-                                zcfg.arch_id: ztrain["launches"][name]},
+                                zcfg.arch_id: ztrain["launches"][name],
+                                mcfg.arch_id: mtrain["launches"][name]},
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -2243,21 +2834,37 @@ def run(torch) -> int:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "pass": True, "cases": wkv_cases[kind]})
-    print(json.dumps({"kernels": kernels, "main_path": {
-        "arch": cfg.arch_id, "steps": steps, "tokens_out": stats.tokens_out,
-        "wall_s": wall, "tokens_per_s": stats.tokens_out / wall,
-        "mean_step_ms": 1e3 * statistics.mean(step_s),
-        "occupancy": occupancy, "prefix_hits": hits,
-        "arena_bytes": arenas_bytes, "build_s": build_s,
-        "logits_bf16_max_abs_diff": d_bf16, "step_alone_ms": alone_ms,
-        "step_device_busy_ms": busy_ms, "poller_spin": POLLER_SPIN,
-        "poller_max_sleep_s": POLLER_MAX_SLEEP_S,
-        "logits_f32_max_abs_diff": d_f32}, "dense_path": dict(
+    # K6 on its main path (phase 15's decode: 4 rows a group), K6b on its
+    # (phase 17's training: 512 rows a group); bf16
+    for kind, name, main, launched in (
+            ("fwd", "gmm_fwd", gmm_cases["fwd"][0],
+             mserve["launches"]["gmm_fwd"]),
+            ("bwd", "gmm_bwd", gmm_cases["bwd"][2],
+             mtrain["launches"]["gmm_bwd"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm.py:40",
+            "launches": launched,
+            "launches_by_run": {
+                f"{mcfg.arch_id}-serve": mserve["launches"][name],
+                f"{mcfg.arch_id}-train": mtrain["launches"][name]},
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "pass": True, "cases": gmm_cases[kind]
+            + ([{"ragged": gmm_cases["ragged"]}] if kind == "fwd" else [])})
+    print(json.dumps({"kernels": kernels, "main_path": dict(
+        main, build_s=build_s, logits_bf16_max_abs_diff=d_bf16,
+        step_alone_ms=alone_ms, step_device_busy_ms=busy_ms,
+        poller_spin=POLLER_SPIN, poller_max_sleep_s=POLLER_MAX_SLEEP_S,
+        logits_f32_max_abs_diff=d_f32), "dense_path": dict(
         dense_runs, logits_bf16_max_abs_diff=d_dense),
         "train_path": train, "hybrid": {"train_path": ztrain,
                                          "serve": zserve},
         "ssm": {"train_path": rtrain, "serve": rserve},
-        "wall_s": time.perf_counter() - t_start}),
+        "moe": {"serve": mserve, "train_path": mtrain},
+        "phase_end_s": phase_end_s, "wall_s": time.perf_counter() - t_start}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

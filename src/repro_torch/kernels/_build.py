@@ -44,6 +44,8 @@ SIGNATURES = {
     "mamba2_ssd_bwd_launch": ([_ptr] * 18 + [_int] * 7 + [_ptr], _int),
     "rwkv6_wkv_fwd_launch": ([_ptr] * 9 + [_int] * 6 + [_ptr], _int),
     "rwkv6_wkv_bwd_launch": ([_ptr] * 16 + [_int] * 6 + [_ptr], _int),
+    "gmm_fwd_launch": ([_ptr] * 4 + [_int] * 7 + [_ptr], _int),
+    "gmm_dw_launch": ([_ptr] * 4 + [_int] * 6 + [_ptr], _int),
     "genesys_kernels_error_string": ([_int], ctypes.c_char_p),
 }
 

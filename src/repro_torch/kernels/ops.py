@@ -3,10 +3,12 @@
 decode attention (K2), the paged KV append, :func:`flash_attention`,
 the no-cache attention with its gradient (K3a forward, K3b backward),
 :func:`mamba2_ssd`, the chunked SSD scan with its gradient (K4 forward,
-K4b backward), and :func:`rwkv6_wkv`, the chunked RWKV-6 WKV with its
-gradient (K5 forward, K5b backward); each launches hand-written CUDA
-kernels on CUDA tensors and runs its plain PyTorch version on CPU
-tensors.
+K4b backward), :func:`rwkv6_wkv`, the chunked RWKV-6 WKV with its
+gradient (K5 forward, K5b backward), and :func:`gmm`, the grouped matmul
+of the MoE experts with its gradient (K6 forward, K6b backward), with
+:func:`moe_gmm_apply` around it for tokens in any order; each launches
+hand-written CUDA kernels on CUDA tensors and runs its plain PyTorch
+version on CPU tensors.
 
 :func:`update_kv_buffer` replaces ``repro.kernels.ops.update_kv_buffer``
 (a jnp scatter with ``mode="drop"``). Unlike the reference it updates the
@@ -32,6 +34,9 @@ from repro_torch.kernels.decode_attention import (  # noqa: F401
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain,
+)
+from repro_torch.kernels.moe_gmm import (  # noqa: F401
+    gmm_backward_plain, gmm_bwd, gmm_fwd, gmm_plain,
 )
 from repro_torch.kernels.mamba2_scan import (  # noqa: F401
     mamba2_ssd_bwd, mamba2_ssd_fwd, ssd_backward_plain, ssd_chunked_plain,
@@ -122,6 +127,73 @@ def rwkv6_wkv(r, k, v, w, u):
     tensors (see ``kernels.rwkv6_scan``)."""
     return _Rwkv6Wkv.apply(r.contiguous(), k.contiguous(), v.contiguous(),
                            w.contiguous(), u.contiguous())
+
+
+class _Gmm(torch.autograd.Function):
+    """The grouped matmul with its gradient: the forward keeps its inputs,
+    the backward runs K6b on them."""
+
+    @staticmethod
+    def forward(ctx, x, w, tile_expert, tile_m):
+        ctx.save_for_backward(x, w, tile_expert)
+        ctx.tile_m = tile_m
+        return gmm_fwd(x, w, tile_expert, tile_m)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, tile_expert = ctx.saved_tensors
+        dx, dw = gmm_bwd(x, w, tile_expert, ctx.tile_m, dy.contiguous())
+        return dx, dw, None, None
+
+
+def gmm(x, w, tile_expert, tile_m: int):
+    """x [T, K] in tiles of ``tile_m`` rows, tile t times ``w[tile_expert
+    [t]]`` of w [E, K, N] -> [T, N] in x's dtype, differentiable in x and
+    w: K6 forward and K6b backward on CUDA tensors, their plain versions
+    on CPU tensors (see ``kernels.moe_gmm``). Without gradients (a decode
+    step: 3 calls a layer) it calls K6 directly, past the autograd
+    function's bookkeeping."""
+    x, w = x.contiguous(), w.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Gmm.apply(x, w, tile_expert, tile_m)
+    return gmm_fwd(x, w, tile_expert, tile_m)
+
+
+def moe_gmm_apply(x, w, expert_of_token, *, n_experts: int,
+                  tile_m: int = 128, gmm_fn=None):
+    """The ragged expert matmul with its sort/pad bookkeeping on the
+    device (the reference's ``moe_gmm_apply``): x [T, D]; w [E, D, F];
+    expert_of_token [T] int -> [T, F] in the input's token order.
+
+    Tokens are sorted stably by expert, each group is padded to a multiple
+    of ``tile_m`` rows in a buffer of ``Tp = (ceil(T / tile_m) + E)
+    tile_m`` zero rows, every tile gets its expert's id (tiles past the
+    last group the last expert's, as the reference clips them), and
+    ``gmm_fn`` (default :func:`gmm`) multiplies the tiles. No step reads a
+    count back to the host."""
+    T, D = x.shape
+    E = n_experts
+    ids = expert_of_token.long()
+    order = torch.argsort(ids, stable=True)
+    sorted_ids = ids[order]
+    group_sizes = torch.zeros(E, dtype=torch.long, device=x.device)
+    group_sizes.scatter_add_(0, ids, torch.ones_like(ids))
+    padded = (group_sizes + tile_m - 1) // tile_m * tile_m
+    ends = torch.cumsum(padded, 0)
+    Tp = (-(-T // tile_m) + E) * tile_m
+    rank = torch.arange(T, device=x.device) - (
+        torch.cumsum(group_sizes, 0) - group_sizes)[sorted_ids]
+    slot = (ends - padded)[sorted_ids] + rank
+    xp = x.new_zeros((Tp, D))
+    xp[slot] = x[order]
+    tile_start = torch.arange(0, Tp, tile_m, device=x.device)
+    tile_ids = torch.searchsorted(ends, tile_start, right=True)
+    tile_ids = tile_ids.clamp(0, E - 1).to(torch.int32)
+    out_p = (gmm_fn or gmm)(xp, w, tile_ids, tile_m)
+    out = torch.empty((T, out_p.shape[1]), dtype=out_p.dtype,
+                      device=x.device)
+    out[order] = out_p[slot]
+    return out
 
 
 def update_kv_buffer_plain(k_pages, v_pages, k_new, v_new, slots):

@@ -6,10 +6,12 @@ network (and, with ``--continuous``, memory) syscalls of
       --port 9111 --reply-port 9112 [--batches 4] [--batch-decode] \\
       [--continuous] [--device cpu] [--reduced]
 
-``--arch`` names a dense, VLM, hybrid or SSM model (zamba2-2.7b decodes
-through its recurrent state and the shared block's dense KV cache,
-rwkv6-3b through its WKV state and token shifts; ``--continuous`` takes
-the transformer only, as the reference's paged step does). Weights are
+``--arch`` names a dense, VLM, MoE, hybrid or SSM model
+(moonshot-v1-16b-a3b runs its expert FFNs through the grouped-matmul
+kernel; zamba2-2.7b decodes through its recurrent state and the shared
+block's dense KV cache, rwkv6-3b through its WKV state and token shifts;
+``--continuous`` takes the dense and MoE transformers only, as the
+reference's paged step does). Weights are
 random, drawn from seed 0. Requests are int32 datagrams (``[budget, tag,
 prompt...]`` with ``--per-request-tokens``),
 each answered with its greedy continuation. Without ``--continuous`` the loop
@@ -127,8 +129,8 @@ def main(argv=None) -> None:
     if args.reduced:
         cfg = cfg.reduced()
     if args.continuous and cfg.family not in DECODER_FAMILIES:
-        ap.error(f"--continuous takes the transformer only: {cfg.arch_id}'s "
-                 f"recurrent state is not block-addressable")
+        ap.error(f"--continuous takes the dense and MoE transformers only: "
+                 f"{cfg.arch_id}'s recurrent state is not block-addressable")
     # pollers park after one empty round and sleep up to 50 ms (a
     # submission's edge wakes them): an eager decode step is hundreds of
     # small PyTorch calls, and a spinning or often-woken poller takes the

@@ -5,9 +5,11 @@
       --reduced --steps 100 --batch 8 --seq 128 [--data tokens.bin] \\
       [--ckpt-dir DIR [--ckpt-every N] [--resume]] [--device cpu]
 
-``--arch`` names any model of the dense, VLM, hybrid or SSM family
-(zamba2-2.7b trains through the chunked SSD scan, rwkv6-3b through the
-chunked WKV; the sequence must then be a multiple of 64, or at most 64).
+``--arch`` names any model of the dense, VLM, MoE, hybrid or SSM family
+(moonshot-v1-16b-a3b trains its experts through the grouped-matmul
+kernels; zamba2-2.7b trains through the chunked SSD scan, rwkv6-3b through
+the chunked WKV; the sequence must then be a multiple of 64, or at most
+64).
 
 Weights are random, drawn from seed 0 and held as float32 master weights.
 Batches come from a uint32 token shard through ``GenesysDataLoader``

@@ -259,9 +259,9 @@ def attention(p, cfg, x, *, step: AttentionStep, paged_cache=None,
 
 # ------------------------------------------------------------------ mlp -----
 
-def init_mlp(pb, cfg):
+def init_mlp(pb, cfg, prefix: str = "mlp"):
     D, F_ = cfg.d_model, cfg.d_ff
-    m = pb.sub("mlp")
+    m = pb.sub(prefix)
     if cfg.mlp_kind == "swiglu":
         m.param("wi_gate", (D, F_))
     m.param("wi_up", (D, F_))

@@ -164,7 +164,8 @@ def _groups(cfg: ModelConfig) -> tuple[int, int]:
 
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
-            cache_len=None, cache=None, attend=None, ssd=None, wkv=None):
+            cache_len=None, cache=None, attend=None, ssd=None, wkv=None,
+            gmm=None):
     """The hybrid over ``tokens [B,S]`` int: without a cache, the training
     and prefill forward; with one, one decode step.
 
@@ -187,8 +188,9 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
 
     ``embeds`` is a VLM's patch prefix (``models.transformer.forward``),
     taken so the families share one signature; the hybrid has none and
-    refuses one. ``wkv`` is rwkv6's (``models.rwkv6.forward``), which the
-    hybrid ignores."""
+    refuses one. ``wkv`` is rwkv6's (``models.rwkv6.forward``) and ``gmm``
+    an MoE layer's grouped matmul (``models.transformer.forward``), which
+    the hybrid ignores."""
     if embeds is not None:
         raise ValueError(f"{cfg.arch_id} takes no embeds prefix")
     x = params["embed"][tokens.long()].to(

@@ -2,9 +2,10 @@
 ``repro.models.registry``): family -> (init, forward, init_cache).
 
 The port has the dense transformer, the VLM's backbone (the same decoder;
-the patch-embed prefix is precomputed), the zamba2 hybrid and the SSM
-(rwkv6). MoE and the encoder-decoder are the other-families slice of the
-port, and :func:`get_api` refuses them.
+the patch-embed prefix is precomputed), the MoE transformer (the same
+decoder with ``moe_mlp`` for the MLP), the zamba2 hybrid and the SSM
+(rwkv6). The encoder-decoder is the other-families slice of the port,
+and :func:`get_api` refuses it.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ _BY_FAMILY = {
                            transformer.init_cache),
     Family.VLM: ModelApi(transformer.init, transformer.forward,
                          transformer.init_cache),
+    Family.MOE: ModelApi(transformer.init, transformer.forward,
+                         transformer.init_cache),
     Family.HYBRID: ModelApi(mamba2.init, mamba2.forward, mamba2.init_cache),
     Family.SSM: ModelApi(rwkv6.init, rwkv6.forward, rwkv6.init_cache),
 }
@@ -39,6 +42,7 @@ def get_api(cfg: ModelConfig) -> ModelApi:
     if api is None:
         raise ValueError(
             f"the port has the dense transformer, the VLM backbone, the "
-            f"zamba2 hybrid and the rwkv6 SSM, not {cfg.family}: MoE and "
-            f"the encoder-decoder are the other-families slice of the port")
+            f"MoE transformer, the zamba2 hybrid and the rwkv6 SSM, not "
+            f"{cfg.family}: the encoder-decoder is the other-families slice "
+            f"of the port")
     return api

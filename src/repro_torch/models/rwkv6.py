@@ -167,7 +167,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
-            cache_len=None, cache=None, attend=None, ssd=None, wkv=None):
+            cache_len=None, cache=None, attend=None, ssd=None, wkv=None,
+            gmm=None):
     """rwkv6 over ``tokens [B,S]`` int: without a cache, the training and
     prefill forward; with one, one decode step.
 
@@ -182,10 +183,10 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     reference returns new arrays) and the cache returned. Returns
     ``(logits [B,1,V] float32, cache)``.
 
-    ``embeds``, ``positions``, ``cache_len``, ``attend`` and ``ssd`` are
-    taken so the families share one signature: rwkv6 has no patch prefix
-    and refuses one, and needs no positions and no attention or SSD
-    scan."""
+    ``embeds``, ``positions``, ``cache_len``, ``attend``, ``ssd`` and
+    ``gmm`` are taken so the families share one signature: rwkv6 has no
+    patch prefix and refuses one, and needs no positions and no attention,
+    SSD scan or grouped matmul."""
     if embeds is not None:
         raise ValueError(f"{cfg.arch_id} takes no embeds prefix")
     x = params["embed"][tokens.long()].to(

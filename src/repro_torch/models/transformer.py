@@ -1,9 +1,10 @@
-"""Dense decoder-only transformer LM of the PyTorch port (the counterpart of
-``repro.models.transformer``): ``init``, ``forward`` without a cache
-(training and prefill, with the config's rematerialisation) or as a decode
-step over a paged arena or a carried dense cache, ``init_paged_arena`` and
-``init_cache``. The reference's ``lax.scan`` over stacked layers is a
-Python loop over views of the stacked ``[L, ...]`` parameters here.
+"""Decoder-only transformer LM of the PyTorch port, dense or with MoE FFNs
+(the counterpart of ``repro.models.transformer``): ``init``, ``forward``
+without a cache (training and prefill, with the config's
+rematerialisation) or as a decode step over a paged arena or a carried
+dense cache, ``init_paged_arena`` and ``init_cache``. The reference's
+``lax.scan`` over stacked layers is a Python loop over views of the
+stacked ``[L, ...]`` parameters here.
 """
 from __future__ import annotations
 
@@ -15,13 +16,14 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import weights
 from repro_torch.config import Family, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.module import (
     ParamBuilder, layer_slice, stack_layers, unstack_layers,
 )
 
-# families whose decoder is this dense transformer (llava's backbone takes
-# the same tokens-only decode, paged or dense); MoE waits for its port
-DECODER_FAMILIES = (Family.DENSE, Family.VLM)
+# families whose decoder is this transformer (llava's backbone takes the
+# same tokens-only decode, paged or dense; MoE swaps the MLP for moe_mlp)
+DECODER_FAMILIES = (Family.DENSE, Family.VLM, Family.MOE)
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
@@ -31,16 +33,18 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     norms in params dtype; with ``master`` (training), all in params
     dtype."""
     if cfg.family not in DECODER_FAMILIES:
-        raise ValueError(f"the port has the dense transformer only, not "
-                         f"{cfg.family} (other model families are a later "
-                         f"slice of the port)")
+        raise ValueError(f"the transformer takes the dense, VLM and MoE "
+                         f"families, not {cfg.family}")
     dtype_of = partial(weights.held_dtype, cfg=cfg, master=master)
     pb = ParamBuilder(seed, dtype_of, device)
     pb.param("embed", (cfg.padded_vocab, cfg.d_model), scale=1.0)
 
     def one(lpb: ParamBuilder, i: int):
         L.init_attention(lpb, cfg)
-        L.init_mlp(lpb, cfg)
+        if cfg.family == Family.MOE:
+            MOE.init_moe(lpb, cfg)
+        else:
+            L.init_mlp(lpb, cfg)
         lpb.param("ln_attn", (cfg.d_model,), init="ones")
         lpb.param("ln_mlp", (cfg.d_model,), init="ones")
     pb.params["blocks"] = stack_layers(seed, dtype_of, device, cfg.n_layers,
@@ -51,10 +55,12 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     return pb.params
 
 
-def _block(cfg, p, x, *, step, attend, **cache):
+def _block(cfg, p, x, *, step, attend, gmm, **cache):
     h = L.attention(p["attn"], cfg, L.rmsnorm(x, p["ln_attn"]), step=step,
                     attend=attend, **cache)
     x = x + h
+    if cfg.family == Family.MOE:
+        return x + MOE.moe_mlp(p, cfg, L.rmsnorm(x, p["ln_mlp"]), gmm=gmm)
     return x + L.mlp(p["mlp"], L.rmsnorm(x, p["ln_mlp"]))
 
 
@@ -88,7 +94,7 @@ def _logits(params, cfg, x):
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
             cache_len=None, paged_cache=None, cache=None, attend=None,
-            ssd=None, wkv=None):
+            ssd=None, wkv=None, gmm=None):
     """The model over ``tokens [B,S]`` int. Without a cache, the training
     and prefill forward; with one of two caches, one decode step.
 
@@ -117,15 +123,18 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     kernel wrapper of the branch; the plain versions for comparisons).
     Returns ``(logits [B,1,V] float32, {"k": k, "v": v})``.
 
-    ``ssd`` is the hybrid's scan (``models.mamba2.forward``) and ``wkv``
-    rwkv6's (``models.rwkv6.forward``), taken so the families share one
-    signature; a transformer has neither and ignores them."""
+    ``gmm`` is an MoE layer's grouped matmul (default ``ops.gmm``, K6/K6b
+    on CUDA tensors; ``kernels.moe_gmm.gmm_plain`` is the plain version;
+    a dense transformer ignores it). ``ssd`` is the hybrid's scan
+    (``models.mamba2.forward``) and ``wkv`` rwkv6's
+    (``models.rwkv6.forward``), taken so the families share one signature;
+    a transformer has neither and ignores them."""
     if paged_cache is not None and cache is not None:
         raise ValueError("give at most one of paged_cache and cache")
     x = _embed(params, cfg, tokens)
     if paged_cache is None and cache is None:
         return _forward_nocache(params, cfg, x, embeds, positions,
-                                attend), None
+                                attend, gmm), None
     S = x.shape[1]
     positions = cache_len[:, None] + torch.arange(
         S, dtype=cache_len.dtype, device=x.device)
@@ -142,18 +151,19 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     blocks = params["blocks"]
     for i, layer_cache in enumerate(layer_caches):
         x = _block(cfg, layer_slice(blocks, i), x, step=step, attend=attend,
-                   **layer_cache)
+                   gmm=gmm, **layer_cache)
     return _logits(params, cfg, x), {"k": k, "v": v}
 
 
-def _forward_nocache(params, cfg, x, embeds, positions, attend):
+def _forward_nocache(params, cfg, x, embeds, positions, attend, gmm):
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     step = L.nocache_step(cfg, positions)
-    block = _remat(partial(_block, cfg, step=step, attend=attend), cfg)
+    block = _remat(partial(_block, cfg, step=step, attend=attend, gmm=gmm),
+                   cfg)
     for layer in unstack_layers(params["blocks"], cfg.n_layers):
         x = block(layer, x)
     return _logits(params, cfg, x)

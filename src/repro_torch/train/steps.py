@@ -36,13 +36,14 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
 
 
 def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig, attend=None,
-            ssd=None, wkv=None):
+            ssd=None, wkv=None, gmm=None):
     """The no-cache forward and :func:`cross_entropy` over the text
     positions (a VLM's logits over its patch prefix are dropped). Returns
     ``(loss, {"nll": nll})``."""
     logits, _ = get_api(cfg).forward(params, cfg, batch["tokens"],
                                      embeds=batch.get("embeds"),
-                                     attend=attend, ssd=ssd, wkv=wkv)
+                                     attend=attend, ssd=ssd, wkv=wkv,
+                                     gmm=gmm)
     if cfg.family == Family.VLM and batch.get("embeds") is not None:
         logits = logits[:, batch["embeds"].shape[1]:]
     loss, nll = cross_entropy(logits, batch["labels"], tc.z_loss)
@@ -50,7 +51,7 @@ def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig, attend=None,
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None,
-                    ssd=None, wkv=None):
+                    ssd=None, wkv=None, gmm=None):
     """``(train_step, opt)``: ``train_step(params, opt_state, batch) ->
     (params, opt_state, metrics)`` with ``loss``, ``grad_norm`` and
     ``nll`` as 0-d tensors.
@@ -86,7 +87,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None,
         for i in range(n_mb):
             mb = {k: v.reshape(n_mb, rows // n_mb, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, aux = loss_fn(params, cfg, mb, tc, attend, ssd, wkv)
+            loss, aux = loss_fn(params, cfg, mb, tc, attend, ssd, wkv, gmm)
             loss.backward()
             losses.append(loss.detach())
             nlls.append(aux["nll"].detach())
@@ -111,7 +112,8 @@ def _grads(params):
     return params.grad
 
 
-def make_prefill_step(cfg: ModelConfig, attend=None, ssd=None, wkv=None):
+def make_prefill_step(cfg: ModelConfig, attend=None, ssd=None, wkv=None,
+                      gmm=None):
     """``prefill_step(params, batch) -> (logits [B,S,V] float32,
     next_token [B] int32)``: the no-cache forward without gradients."""
     forward = get_api(cfg).forward
@@ -120,13 +122,13 @@ def make_prefill_step(cfg: ModelConfig, attend=None, ssd=None, wkv=None):
     def prefill_step(params, batch):
         logits, _ = forward(params, cfg, batch["tokens"],
                             embeds=batch.get("embeds"), attend=attend,
-                            ssd=ssd, wkv=wkv)
+                            ssd=ssd, wkv=wkv, gmm=gmm)
         return logits, torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, attend=None):
+def make_serve_step(cfg: ModelConfig, attend=None, gmm=None):
     """One decode step over the family's carried dense cache (its
     ``init_cache``: ``{k,v: [L,B,S,KV,hd]}`` for the transformer, ``{kv,
     ssm, conv}`` for the hybrid, ``{wkv, shift1, shift2}`` for rwkv6):
@@ -137,20 +139,22 @@ def make_serve_step(cfg: ModelConfig, attend=None):
     dense attention: ``None`` takes the CUDA kernel wrapper
     ``kernels.ops.decode_attention`` (its plain version on CPU tensors);
     ``kernels.ops.decode_attention_plain`` forces the plain version, for
-    comparisons. The cache is updated in place and returned."""
+    comparisons. ``gmm`` is an MoE layer's grouped matmul (default
+    ``ops.gmm``). The cache is updated in place and returned."""
     forward = get_api(cfg).forward
 
     @torch.no_grad()
     def serve_step(params, cache, token, cache_len):
         logits, new_cache = forward(params, cfg, token, attend=attend,
-                                    cache_len=cache_len, cache=cache)
+                                    cache_len=cache_len, cache=cache,
+                                    gmm=gmm)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, new_cache
 
     return serve_step
 
 
-def make_paged_serve_step(cfg: ModelConfig, attend=None):
+def make_paged_serve_step(cfg: ModelConfig, attend=None, gmm=None):
     """One paged decode step over the genesys.pagedkv arena:
     ``(params, arenas {k,v: [L,NB,BS,KV,hd]}, block_tables [B,MB],
     token [B,1], cache_len [B]) -> (next_token [B] int32, arenas)``.
@@ -159,22 +163,26 @@ def make_paged_serve_step(cfg: ModelConfig, attend=None):
     paged attention: ``None`` takes the CUDA kernel wrapper
     ``kernels.ops.paged_decode_attention`` (its plain version on CPU
     tensors); ``kernels.ops.paged_decode_attention_plain`` forces the
-    plain version, for comparisons. The arenas are updated in place and
+    plain version, for comparisons. ``gmm`` is an MoE layer's grouped
+    matmul (default ``ops.gmm``). The arenas are updated in place and
     returned. The batch shape is the engine's fixed slot count: admitting
-    or retiring a request changes only row contents, never a shape.
+    or retiring a request changes only row contents, never a shape (an MoE
+    layer's capacity then counts the inactive slots' tokens too, as the
+    reference's step does).
     """
     if cfg.family not in transformer.DECODER_FAMILIES:
         raise ValueError(
-            f"paged decode in the port supports the dense transformer, not "
-            f"{cfg.family} (MoE is a later slice of the port; SSM/hybrid "
-            f"state is not block-addressable)")
+            f"paged decode in the port supports the dense and MoE "
+            f"transformers, not {cfg.family} (SSM/hybrid state is not "
+            f"block-addressable; the encoder-decoder is a later slice of "
+            f"the port)")
 
     @torch.no_grad()
     def paged_serve_step(params, arenas, block_tables, token, cache_len):
         logits, new_arenas = transformer.forward(
             params, cfg, token, cache_len=cache_len,
             paged_cache=(arenas["k"], arenas["v"], block_tables),
-            attend=attend)
+            attend=attend, gmm=gmm)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, new_arenas
 

@@ -2,8 +2,11 @@
 
 Parameters are nested dicts of tensors in the JAX package's layout
 (``transformer.init``, ``mamba2.init``, ``rwkv6.init``): ``embed [V,D]``,
-per-layer leaves stacked ``[L, ...]`` under ``blocks``, the hybrid's
-``shared`` block, ``final_norm [D]``, ``lm_head [D,V]``.
+per-layer leaves stacked ``[L, ...]`` under ``blocks`` (an MoE layer's
+``moe/router [D,E]``, ``moe/wi_gate``, ``moe/wi_up [E,D,F]`` and
+``moe/wo [E,F,D]``, and arctic's ``dense_mlp``), the hybrid's ``shared``
+block, ``final_norm [D]``, ``lm_head [D,V]``; the encoder-decoder's
+``encoder`` and ``decoder`` stacks and ``enc_norm``.
 
 Held dtype: the reference keeps every parameter in ``params_dtype``
 (float32) and casts each matrix to ``compute_dtype`` right before its only
@@ -17,7 +20,12 @@ float32; the mamba blocks' ``ln`` and gated ``mamba/norm`` among them) and
 the mamba blocks' ``mamba/A_log`` and ``mamba/dt_bias``, which enter the
 scan's decay in float32, and the rwkv6 blocks' ``ln1``, ``ln2`` and
 ``tmix/ln_x`` (norm scales) and ``tmix/decay_base`` and ``tmix/bonus``,
-which enter the WKV's decay and bonus in float32. They are told by their path, not by a name alone
+which enter the WKV's decay and bonus in float32, and the
+encoder-decoder's ``decoder/ln_self``, ``decoder/ln_cross`` and
+``enc_norm`` (norm scales). An MoE layer's router is held in the compute
+dtype like the expert matrices: the reference casts it to the compute
+dtype before the routing einsum. They are told by their path, not by a
+name alone
 (:data:`FLOAT32_PATH`). For training (``master=True``) every
 parameter is held in ``params_dtype``, as the reference holds it: AdamW
 updates the float32 values, and a bf16-held weight would lose most of each
@@ -31,11 +39,13 @@ import numpy as np
 import torch
 
 # the leaves held in params_dtype for serving: the transformer's norm
-# scales anywhere; a mamba block's own ln (a leaf of a layer, "blocks/" in
+# scales anywhere (the encoder-decoder's ln_self, ln_cross and enc_norm
+# among them); a mamba block's own ln (a leaf of a layer, "blocks/" in
 # the stacked tree, "layer<i>/" while it is built) and its gated norm,
 # A_log and dt_bias; an rwkv6 block's ln1, ln2 and time-mix ln_x (norm
 # scales) and its decay_base and bonus (read as float32 into the WKV)
-FLOAT32_PATH = re.compile(r"(^|/)(ln_attn|ln_mlp|final_norm"
+FLOAT32_PATH = re.compile(r"(^|/)(ln_attn|ln_mlp|ln_self|ln_cross"
+                          r"|final_norm|enc_norm"
                           r"|(blocks|layer\d+)/(ln|ln1|ln2)"
                           r"|mamba/(norm|A_log|dt_bias)"
                           r"|tmix/(ln_x|decay_base|bonus))$")
@@ -61,10 +71,10 @@ def held_dtype(path: str, cfg, master: bool = False) -> torch.dtype:
 def from_jax_params(params_np, cfg, device="cuda", path: str = "", *,
                     master: bool = False) -> dict:
     """Turn the JAX parameter tree (dicts whose leaves are numpy arrays, as
-    ``np.asarray`` gives them from ``repro.models.transformer.init`` or
-    ``repro.models.mamba2.init``) into
-    the port's parameters on ``device``, each in its held dtype
-    (``master``: see :func:`held_dtype`)."""
+    ``np.asarray`` gives them from ``repro.models.transformer.init`` of a
+    dense, VLM or MoE config, ``repro.models.mamba2.init`` or
+    ``repro.models.rwkv6.init``) into the port's parameters on ``device``,
+    each in its held dtype (``master``: see :func:`held_dtype`)."""
     out = {}
     for name, leaf in params_np.items():
         p = f"{path}/{name}"
