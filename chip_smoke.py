@@ -61,9 +61,8 @@ The training path (the third slice) adds:
     output element is held to a bound relative to its own size and its
     head vector's (and the kernel's outputs made 3% off in half their
     rows must fail that rule);
-7.  training at full width: starcoder2-7b with 4 of its 32 layers (its
-    f32 training state at 32 layers, 118 GB, does not fit the card; 8
-    until the MoE phases needed the smoke's time), f32
+7.  training at full width: starcoder2-7b with 8 of its 32 layers (its
+    f32 training state at 32 layers, 118 GB, does not fit the card), f32
     master weights from seed 0, bf16 compute, ``remat="full"``; batches of
     2 x 4096 tokens read by ``GenesysDataLoader`` from a shard of ids in
     [0, 500) synthesised from seed 0, 2 microbatches a step;
@@ -97,11 +96,12 @@ seed):
     run on the two halves of the sequence apart (the middle carry
     dropped) must fail; timed against the plain versions and the
     operations bound (no PyTorch call computes the scan);
-9.  training at full width and 6 of the 54 layers (one of 9 groups of 6
-    mamba layers and the shared block; cut to keep the smoke within its
-    time) as phase 7 trains: K4 launched twice per mamba layer and
-    microbatch (remat runs the forward again), K4b once, K3a and K3b
-    once per shared-block application and microbatch;
+9.  training at full width and 18 of the 54 layers (3 of 9 groups of 6
+    mamba layers and the shared block, so the shared weights are trained
+    through 3 applications; cut to keep the smoke within its time) as
+    phase 7 trains: K4 launched twice per mamba layer and microbatch
+    (remat runs the forward again), K4b once, K3a and K3b once per
+    shared-block application and microbatch;
 9b. phase 9's step on one group (6 mamba layers and the shared block),
     kernels against plain in bf16 and f32 (bf16 again on three more
     seeds of weights, decay and tokens), and a control that drops the
@@ -129,7 +129,7 @@ mix and channel mix, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536;
     fail (all but du, which the carry does not reach); timed against the
     plain versions and the operations bound (no PyTorch call computes the
     WKV);
-12. training at full width and 4 of the 32 blocks (cut to keep the smoke
+12. training at full width and 8 of the 32 blocks (cut to keep the smoke
     within its time) as phase 7 trains: K5 launched twice per block and
     microbatch (remat), K5b once, every other kernel never;
 12b. phase 12's step on 2 blocks, kernels against plain in bf16 and f32,
@@ -224,8 +224,8 @@ MAX_LEN = 4096
 # the dense path: the launcher's cache of one row and 256 positions,
 # tiled to a power-of-two bucket by the bucketed loop
 DENSE_LEN, N_DENSE_REQS, EAGER_TOKENS = 256, 16, 16
-# the training path: starcoder2-7b at full width, depth cut to 4 layers
-TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4, 4096, 2, 2
+# the training path: starcoder2-7b at full width, depth cut to 8 layers
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 8, 4096, 2, 2
 TRAIN_STEPS, RESUME_STEPS = 4, 2
 # K3 vs plain, each element of o, dq, dk and dv:
 #   |got - ref| <= r * (|ref| + rms_vec + rms / 16)
@@ -294,10 +294,10 @@ MOE_TRAIN_LAYERS = 4
 # the recurrent families' training depth (phases 9 and 12), cut from 54
 # and 32 so the smoke keeps within its time with the MoE phases: at full
 # depth their checkpoints (29 and 37 GB) took 56-95 s each to save and
-# restore; one of zamba2's 9 groups (6 mamba layers and the shared
-# block), 4 of rwkv6's 32 blocks
-HYBRID_TRAIN_LAYERS = 6
-SSM_TRAIN_LAYERS = 4
+# restore; 3 of zamba2's 9 groups (6 mamba layers and the shared block,
+# which is then trained through 3 applications), 8 of rwkv6's 32 blocks
+HYBRID_TRAIN_LAYERS = 18
+SSM_TRAIN_LAYERS = 8
 # phase 16: a bucket row that lost no assignment against its step alone:
 # 8 bf16 ulps of the largest |logit|, as phase 4a holds starcoder2's
 # logits (0.25 at |logit| ~5)
@@ -787,16 +787,10 @@ def main_path_run(torch, cfg, params, *, n_blocks: int,
 
     reqs = make_requests(np.random.default_rng(0), cfg.vocab_size)
     counters = tuple(per_layer)
-    dropped = torch.zeros((), dtype=torch.int64,
-                          device=params["embed"].device)
-    moe.moe_mlp.dropped = dropped
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            replies, eng, stats, wall, step_s = serve_main_path(
-                cfg, params, n_slots=B, n_blocks=n_blocks, reqs=reqs,
-                spill_path=str(Path(tmp) / "kv.spill"), counters=counters)
-    finally:
-        moe.moe_mlp.dropped = None
+    with moe.CountDrops() as counted, tempfile.TemporaryDirectory() as tmp:
+        replies, eng, stats, wall, step_s = serve_main_path(
+            cfg, params, n_slots=B, n_blocks=n_blocks, reqs=reqs,
+            spill_path=str(Path(tmp) / "kv.spill"), counters=counters)
     launches = {f.__name__: f.launches for f in counters}
     steps = eng.stats.steps
     out = {"arch": cfg.arch_id, "steps": steps,
@@ -812,7 +806,7 @@ def main_path_run(torch, cfg, params, *, n_blocks: int,
            "launches": launches}
     drops = ""
     if cfg.family == Family.MOE:
-        out["dropped"] = int(dropped)     # the one read of the count
+        out["dropped"] = counted.read()   # the one read of the count
         out["assignments"] = steps * B * cfg.top_k * cfg.n_layers
         drops = (f"; capacity dropped {out['dropped']} of "
                  f"{out['assignments']} token-expert assignments (inactive "
@@ -972,16 +966,11 @@ def dense_path_phase(torch, cfg, params):
     for mode, reqs, max_tokens in (("eager", prompts, EAGER_TOKENS),
                                    ("bucketed", tagged, max(budgets)),
                                    ("cpu", prompts, EAGER_TOKENS)):
-        dropped = torch.zeros((), dtype=torch.int64,
-                              device=params["embed"].device)
-        moe.moe_mlp.dropped = dropped
-        try:
+        with moe.CountDrops() as drops:
             replies, stats, wall, step_s = serve_dense(
                 torch, cfg, params, mode, reqs, max_tokens=max_tokens,
                 counters=counters)
-        finally:
-            moe.moe_mlp.dropped = None
-        n_dropped = int(dropped)
+        n_dropped = drops.read()
         launches = {f.__name__: f.launches for f in counters}
         dispatches = len(step_s)
         if mode == "bucketed":
@@ -1108,8 +1097,9 @@ def dense_logits_kernel_vs_plain(torch, cfg, params, dev, gen):
     for attend in (None, ops.decode_attention_plain):
         c = {n: t.clone() for n, t in cache.items()}
         with torch.no_grad():
-            logits, _ = transformer.forward(params, cfg, tok, cache_len=cl,
-                                            cache=c, attend=attend)
+            logits, _ = transformer.forward(
+                params, cfg, tok, cache_len=cl, cache=c,
+                kernels=ops.Kernels(attend=attend))
         out.append(logits[:, -1])
         del c
     return out, cl.tolist()
@@ -1187,7 +1177,8 @@ def logits_kernel_vs_plain(torch, cfg, params, state):
         with torch.no_grad():
             logits, _ = transformer.forward(
                 params, cfg, tok, cache_len=cl,
-                paged_cache=(ar["k"], ar["v"], bt), attend=attend)
+                paged_cache=(ar["k"], ar["v"], bt),
+                kernels=ops.Kernels(attend=attend))
         out.append(logits[:, -1])
         del ar
     return out
@@ -1501,13 +1492,13 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict):
     return out
 
 
-def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
-                         control: dict, control_label: str, prepare=None,
+def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain,
+                         control, control_label: str, prepare=None,
                          bf16_seeds=(), pin_routing: bool = False):
     """Phase 7b (and 9b, 12b): the training phase's step (2 microbatches of
     1 x 4096 tokens) at ``layers`` layers of full width, from the same
-    weights, with the kernels, with the plain versions (``plain``: the
-    step's ``attend``, ``ssd`` or ``wkv``), and with a control that must
+    weights, with the kernels, with the plain versions (``plain``: an
+    ``ops.Kernels`` of the step's), and with a control that must
     fail the comparison (``control``: a plain version that drops one tile
     or one chunk's carry). bf16 and f32 compute. ``prepare(params, seed)`` may
     set weights before the runs. In bf16, the kernels are held to the
@@ -1516,7 +1507,7 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
     step's first moments, which a fresh state leaves at (1 - beta1) *
     min(1, clip / grad_norm) * g. With ``pin_routing`` (phase 17b), the
     bf16 plain and control steps take the kernel step's top-k expert
-    choices (:class:`PinnedTopK`): one ulp of difference flips a near-tied
+    choices (:class:`PinnedRouting`): one ulp of difference flips a near-tied
     choice (:func:`routing_flips` counts them), which moves the flipped
     token's gradients by O(1) and is no fault of a kernel; pinned, both
     steps follow one routing and the gradients are compared as phase 7b
@@ -1525,6 +1516,7 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
 
     from repro_torch.checkpoint.ckpt import flatten
     from repro_torch.config import TrainConfig
+    from repro_torch.kernels import ops
     from repro_torch.models.registry import get_api
     from repro_torch.train.steps import make_train_step
 
@@ -1552,8 +1544,8 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
                 prepare(base, prepare_seed)
             return base
 
-        def one_step(base, batch, kw):
-            step, opt = make_train_step(scfg, tc, **kw)
+        def one_step(base, batch, kernels):
+            step, opt = make_train_step(scfg, tc, kernels)
             params = clone(base)
             _, state, metrics = step(params, opt.init(params), batch)
             gnorm = float(metrics["grad_norm"])
@@ -1577,10 +1569,10 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
 
         base, batch = weights(3, 9), batch_of(7)
         names = leaf_paths(base)
-        pin = PinnedTopK() if pin_routing and compute == "bfloat16" \
+        pin = PinnedRouting() if pin_routing and compute == "bfloat16" \
             else None
         with pin.record() if pin else contextlib.nullcontext():
-            got = one_step(base, batch, {})
+            got = one_step(base, batch, ops.KERNELS)
         with pin.replay() if pin else contextlib.nullcontext():
             ref = one_step(base, batch, plain)
         kern = against_plain(got, ref)
@@ -1616,7 +1608,8 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
         for seed in bf16_seeds:
             base, batch = weights(seed, seed), batch_of(seed)
             ref = one_step(base, batch, plain)
-            kern = dict(against_plain(one_step(base, batch, {}), ref),
+            kern = dict(against_plain(one_step(base, batch, ops.KERNELS),
+                                      ref),
                         seed=seed)
             print(f"train step kernels vs plain ({cfg.arch_id}, {compute}, "
                   f"seed {seed}): |loss diff| {kern['loss_abs_diff']:.3e} "
@@ -1633,45 +1626,30 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain: dict,
     return out
 
 
-class PinnedTopK:
-    """Phase 17b's bf16 routing pin: a ``record`` run keeps every
-    ``moe.top_k`` choice in call order (forward, and remat's forward
-    again in the backward); a ``replay`` run, which makes the same calls
-    in the same order, takes those indices back with its own probabilities
-    at them, so its gates, capacity and gradients follow the recorded
-    routing."""
+class PinnedRouting:
+    """Phase 17b's bf16 routing pin: :meth:`record` is a routing tap that
+    keeps every route's top-k choices in call order (forward, and remat's
+    forward again in the backward); under :meth:`replay`, a run that makes
+    the same calls in the same order takes those choices back and gates
+    them with its own probabilities, so its gates, capacity and gradients
+    follow the recorded routing."""
 
     def __init__(self):
         self.picks = []
 
-    @contextlib.contextmanager
-    def _patched(self, fn):
-        from repro_torch.models import moe
-        orig = moe.top_k
-        moe.top_k = fn
-        try:
-            yield
-        finally:
-            moe.top_k = orig
-
     def record(self):
         from repro_torch.models import moe
-        orig = moe.top_k
 
-        def top_k(probs, k):
-            vals, idx = orig(probs, k)
+        def choose(idx):
             self.picks.append(idx)
-            return vals, idx
-        return self._patched(top_k)
+            return idx
+        return moe.RoutingTap(choose=choose)
 
     @contextlib.contextmanager
     def replay(self):
+        from repro_torch.models import moe
         picks = iter(self.picks)
-
-        def top_k(probs, k):
-            idx = next(picks)
-            return probs.gather(-1, idx), idx
-        with self._patched(top_k):
+        with moe.RoutingTap(choose=lambda idx: next(picks)):
             yield
         check(next(picks, None) is None, "a pinned step routed fewer times "
               "than the step it replays")
@@ -1867,15 +1845,15 @@ def set_mamba2_decay(torch, params, seed: int) -> None:
 # --------------------------------- phases 10 and 13: recurrent serving ---
 
 def recurrent_serve_phase(torch, cfg, dev, *, prefill_launches: dict,
-                          control: dict, prepare=None) -> dict:
+                          control, prepare=None) -> dict:
     """A recurrent family (zamba2-2.7b, rwkv6-3b) served at full width in
     bf16 by the three dense servers (phase 5's requests), back-to-back
     eager requests against each alone, and, in f32, ``make_prefill_step``
     over 256 tokens against the same tokens fed one at a time through
     ``make_serve_step``; ``prefill_launches`` are the prefill's kernel
     launches (every other counter stays 0), ``control`` the prefill
-    step's keywords for a scan that drops the carry into chunk 2, which
-    must fail, and ``prepare(params)`` sets the f32 weights' decay so
+    step's ``ops.Kernels`` with a scan that drops the carry into chunk 2,
+    which must fail, and ``prepare(params)`` sets the f32 weights' decay so
     that the carry reaches across chunks."""
     import numpy as np
 
@@ -1937,7 +1915,7 @@ def recurrent_serve_phase(torch, cfg, dev, *, prefill_launches: dict,
     for name, n in launches.items():
         check(n == prefill_launches.get(name, 0), f"prefill: {name} launched "
               f"{n} times, expected {prefill_launches.get(name, 0)}")
-    ctrl, _ = make_prefill_step(fcfg, **control)(fparams, {"tokens": toks})
+    ctrl, _ = make_prefill_step(fcfg, control)(fparams, {"tokens": toks})
     cache = api.init_cache(fcfg, 1, PREFILL_LEN, device=dev)
     step = make_serve_step(fcfg)
     decoded = []
@@ -2370,9 +2348,10 @@ def routing_flips(torch, mcfg, dev, *, layers: int) -> dict:
     17b's first microbatch (its weights and tokens, ``layers`` layers)
     with the grouped-matmul kernels and with their plain versions, in
     bf16 and in f32 compute, counting the (token, layer) pairs whose top-k
-    experts differ between the two (``moe.route`` tapped)."""
+    experts differ between the two (read through a ``moe.RoutingTap``)."""
     import numpy as np
 
+    from repro_torch.kernels import ops
     from repro_torch.kernels.moe_gmm import gmm_plain
     from repro_torch.models import moe
     from repro_torch.models.registry import get_api
@@ -2380,7 +2359,6 @@ def routing_flips(torch, mcfg, dev, *, layers: int) -> dict:
     toks = torch.from_numpy(np.random.default_rng(7).integers(
         0, 500, size=(TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)[:1, :-1]
     out = {}
-    route = moe.route
     for compute in ("bfloat16", "float32"):
         scfg = dataclasses.replace(mcfg, n_layers=layers,
                                    compute_dtype=compute)
@@ -2388,17 +2366,10 @@ def routing_flips(torch, mcfg, dev, *, layers: int) -> dict:
         picks = {}
         for tag, gmm in (("kernels", None), ("plain", gmm_plain)):
             seen = []
-
-            def tapped(*args, **kw):
-                res = route(*args, **kw)
-                seen.append(torch.sort(res[1], dim=-1).values)
-                return res
-            moe.route = tapped
-            try:
-                with torch.no_grad():
-                    get_api(scfg).forward(params, scfg, toks, gmm=gmm)
-            finally:
-                moe.route = route
+            with moe.RoutingTap(routed=lambda idx, keep: seen.append(
+                    torch.sort(idx, dim=-1).values)), torch.no_grad():
+                get_api(scfg).forward(params, scfg, toks,
+                                      kernels=ops.Kernels(gmm=gmm))
             picks[tag] = seen
         flips = sum(int((a != b).any(-1).sum())
                     for a, b in zip(picks["kernels"], picks["plain"]))
@@ -2420,8 +2391,8 @@ def moe_bucket_vs_eager(torch, mcfg, params, dev) -> dict:
     row none of whose assignments the bucket dropped, in any layer, must
     give the logits it gives alone: held to MOE_BUCKET_ULPS bf16 ulps of
     the largest |logit| (batch-of-8 and batch-of-1 products round apart).
-    The rows with a drop are reported (``moe.route`` tapped: a token's
-    assignments kept are its nonzero ``combine`` slots)."""
+    The rows with a drop are reported (read through a
+    ``moe.RoutingTap``)."""
     import numpy as np
 
     from repro_torch.models import moe, transformer
@@ -2439,18 +2410,10 @@ def moe_bucket_vs_eager(torch, mcfg, params, dev) -> dict:
                                         cache_len=zero[:rows], cache=cache)
         return lg[:, -1]
 
-    route, short = moe.route, []
-
-    def tapped(*args, **kw):             # per token: assignments dropped
-        res = route(*args, **kw)
-        kept = (res[0] > 0).sum(dim=(-1, -2)).reshape(-1)
-        short.append(mcfg.top_k - kept)
-        return res
-    moe.route = tapped
-    try:
+    short = []                           # per token: assignments dropped
+    with moe.RoutingTap(routed=lambda idx, keep: short.append(
+            (~keep).sum(-1).reshape(-1))):
         bucket = logits_of(last, 8)
-    finally:
-        moe.route = route
     alone = torch.cat([logits_of(last[i:i + 1], 1) for i in range(8)])
     lost = torch.stack(short).sum(dim=0)             # [8] over the layers
     clean = lost == 0
@@ -2557,7 +2520,7 @@ def run(torch) -> int:
           f"{time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
           flush=True)
-    main = main_path_run(torch, cfg, params, n_blocks=N_BLOCKS, per_layer={
+    sc_main = main_path_run(torch, cfg, params, n_blocks=N_BLOCKS, per_layer={
         ops.paged_decode_attention: 1, ops.update_kv_buffer: 1})
     mark("3")
 
@@ -2638,27 +2601,28 @@ def run(torch) -> int:
     del flush
     torch.cuda.empty_cache()
     mark("6")
-    # phase 7: training at full width, 4 layers; 7b: kernels vs plain
+    # phase 7: training at full width, 8 layers; 7b: kernels vs plain
     tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
     per = TRAIN_MICRO * (TRAIN_STEPS + RESUME_STEPS)
     train = train_path_phase(torch, tcfg, dev, expected={
         "flash_attention_fwd": 2 * TRAIN_LAYERS * per,   # remat: twice
         "flash_attention_bwd": TRAIN_LAYERS * per})
     train["step_kernel_vs_plain"] = step_kernel_vs_plain(
-        torch, cfg, dev, layers=2, plain={"attend": L.flash_attention_xla},
-        control={"attend": dropped_tile},
+        torch, cfg, dev, layers=2,
+        plain=ops.Kernels(attend=L.flash_attention_xla),
+        control=ops.Kernels(attend=dropped_tile),
         control_label=f"keys {CONTROL_KEYS[0]}-{CONTROL_KEYS[1] - 1} zeroed")
     mark("7")
 
     # the hybrid family: zamba2-2.7b at full width (served at all 54
-    # layers, trained at 6)
+    # layers, trained at 18)
     # phase 8: the SSD scan kernels against their plain versions
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     ssd_cases = ssd_kernel_phase(torch, zcfg, dev, flush)
     del flush
     torch.cuda.empty_cache()
     mark("8")
-    # phase 9: training, one of 9 groups; the mamba layers run twice under
+    # phase 9: training, 3 of 9 groups; the mamba layers run twice under
     # remat, the shared block once
     ztcfg = dataclasses.replace(zcfg, n_layers=HYBRID_TRAIN_LAYERS)
     n_attn = attention_layers(ztcfg)
@@ -2671,9 +2635,10 @@ def run(torch) -> int:
     # vs plain, with the decay of Mamba2's initialisation
     ztrain["step_kernel_vs_plain"] = step_kernel_vs_plain(
         torch, zcfg, dev, layers=zcfg.shared_attn_period,
-        plain={"attend": L.flash_attention_xla, "ssd": ms.ssd_chunked_plain},
-        control={"attend": L.flash_attention_xla,
-                 "ssd": carry_dropped(ms.ssd_chunked_plain)},
+        plain=ops.Kernels(attend=L.flash_attention_xla,
+                          ssd=ms.ssd_chunked_plain),
+        control=ops.Kernels(attend=L.flash_attention_xla,
+                            ssd=carry_dropped(ms.ssd_chunked_plain)),
         control_label="the SSD carry into chunk 32 dropped",
         prepare=lambda p, seed: set_mamba2_decay(torch, p, seed=seed),
         bf16_seeds=(21, 22, 23))
@@ -2683,11 +2648,11 @@ def run(torch) -> int:
         torch, zcfg, dev, prefill_launches={
             "mamba2_ssd_fwd": zcfg.n_layers,
             "flash_attention_fwd": attention_layers(zcfg)},
-        control={"ssd": carry_dropped(ms.ssd_chunked_plain)})
+        control=ops.Kernels(ssd=carry_dropped(ms.ssd_chunked_plain)))
     mark("10")
 
     # the SSM family: rwkv6-3b at full width (served at all 32 blocks,
-    # trained at 4)
+    # trained at 8)
     # phase 11: the WKV kernels against their plain versions
     rcfg = get_config("rwkv6-3b")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -2695,7 +2660,7 @@ def run(torch) -> int:
     del flush
     torch.cuda.empty_cache()
     mark("11")
-    # phase 12: training, 4 of 32 blocks; every block runs the WKV twice
+    # phase 12: training, 8 of 32 blocks; every block runs the WKV twice
     # under remat
     rtcfg = dataclasses.replace(rcfg, n_layers=SSM_TRAIN_LAYERS)
     rtrain = train_path_phase(torch, rtcfg, dev, expected={
@@ -2703,15 +2668,16 @@ def run(torch) -> int:
         "rwkv6_wkv_bwd": rtcfg.n_layers * per})
     # phase 12b: two blocks, kernels vs plain, with RWKV-6's decay init
     rtrain["step_kernel_vs_plain"] = step_kernel_vs_plain(
-        torch, rcfg, dev, layers=2, plain={"wkv": wr.wkv6_chunked_plain},
-        control={"wkv": carry_dropped(wr.wkv6_chunked_plain)},
+        torch, rcfg, dev, layers=2,
+        plain=ops.Kernels(wkv=wr.wkv6_chunked_plain),
+        control=ops.Kernels(wkv=carry_dropped(wr.wkv6_chunked_plain)),
         control_label="the WKV carry into chunk 32 dropped",
         prepare=lambda p, seed: set_rwkv6_init(torch, p))
     mark("12")
     # phase 13: serving (no kernel: the decode recurrence is plain torch)
     rserve = recurrent_serve_phase(
         torch, rcfg, dev, prefill_launches={"rwkv6_wkv_fwd": rcfg.n_layers},
-        control={"wkv": carry_dropped(wr.wkv6_chunked_plain)},
+        control=ops.Kernels(wkv=carry_dropped(wr.wkv6_chunked_plain)),
         prepare=lambda p: set_rwkv6_init(torch, p))
     mark("13")
 
@@ -2745,8 +2711,8 @@ def run(torch) -> int:
     mark("17")
     mtrain["routing_flips"] = routing_flips(torch, mcfg, dev, layers=2)
     mtrain["step_kernel_vs_plain"] = step_kernel_vs_plain(
-        torch, mcfg, dev, layers=2, plain={"gmm": mg.gmm_plain},
-        control={"gmm": shifted_gmm},
+        torch, mcfg, dev, layers=2, plain=ops.Kernels(gmm=mg.gmm_plain),
+        control=ops.Kernels(gmm=shifted_gmm),
         control_label="tile 1's expert id shifted in every expert product",
         pin_routing=True)
     mark("17b")
@@ -2756,10 +2722,10 @@ def run(torch) -> int:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/decode_attention.py:169",
-         "launches": main["launches"]["paged_decode_attention"]
+         "launches": sc_main["launches"]["paged_decode_attention"]
          + mserve["launches"]["paged_decode_attention"],
          "launches_by_run": {
-             cfg.arch_id: main["launches"]["paged_decode_attention"],
+             cfg.arch_id: sc_main["launches"]["paged_decode_attention"],
              mcfg.arch_id: mserve["launches"]["paged_decode_attention"]},
          "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
          "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
@@ -2768,10 +2734,10 @@ def run(torch) -> int:
         {"name": "update_kv_buffer", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/ops.py:71",
-         "launches": main["launches"]["update_kv_buffer"]
+         "launches": sc_main["launches"]["update_kv_buffer"]
          + mserve["launches"]["update_kv_buffer"],
          "launches_by_run": {
-             cfg.arch_id: main["launches"]["update_kv_buffer"],
+             cfg.arch_id: sc_main["launches"]["update_kv_buffer"],
              mcfg.arch_id: mserve["launches"]["update_kv_buffer"]},
          "max_abs_err": append["max_abs_err"], "ms": append["ms"],
          "plain_ms": append["plain_ms"], "bound_ms": append["bound_ms"],
@@ -2798,7 +2764,7 @@ def run(torch) -> int:
     ]
     for kind, name, line in (("fwd", "flash_attention_fwd", 76),
                              ("bwd", "flash_attention_bwd", 205)):
-        main = flash_cases[kind][0]          # S=4096, bf16: the path's case
+        case = flash_cases[kind][0]          # S=4096, bf16: the path's case
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2808,35 +2774,35 @@ def run(torch) -> int:
             "launches_by_run": {cfg.arch_id: train["launches"][name],
                                 zcfg.arch_id: ztrain["launches"][name],
                                 mcfg.arch_id: mtrain["launches"][name]},
-            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "pass": True, "cases": flash_cases[kind]})
     for kind, name in (("fwd", "mamba2_ssd_fwd"), ("bwd", "mamba2_ssd_bwd")):
-        main = ssd_cases[kind][0]            # L=4096, bf16: the path's case
+        case = ssd_cases[kind][0]            # L=4096, bf16: the path's case
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
             "replaces": "src/repro/kernels/mamba2_scan.py:67",
             "launches": ztrain["launches"][name],
-            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": None,
             "pass": True, "cases": ssd_cases[kind]})
     for kind, name in (("fwd", "rwkv6_wkv_fwd"), ("bwd", "rwkv6_wkv_bwd")):
-        main = wkv_cases[kind][0]            # L=4096, bf16: the path's case
+        case = wkv_cases[kind][0]            # L=4096, bf16: the path's case
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
             "replaces": "src/repro/kernels/rwkv6_scan.py:65",
             "launches": rtrain["launches"][name],
-            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": None,
             "pass": True, "cases": wkv_cases[kind]})
     # K6 on its main path (phase 15's decode: 4 rows a group), K6b on its
     # (phase 17's training: 512 rows a group); bf16
-    for kind, name, main, launched in (
+    for kind, name, case, launched in (
             ("fwd", "gmm_fwd", gmm_cases["fwd"][0],
              mserve["launches"]["gmm_fwd"]),
             ("bwd", "gmm_bwd", gmm_cases["bwd"][2],
@@ -2849,13 +2815,13 @@ def run(torch) -> int:
             "launches_by_run": {
                 f"{mcfg.arch_id}-serve": mserve["launches"][name],
                 f"{mcfg.arch_id}-train": mtrain["launches"][name]},
-            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "pass": True, "cases": gmm_cases[kind]
             + ([{"ragged": gmm_cases["ragged"]}] if kind == "fwd" else [])})
     print(json.dumps({"kernels": kernels, "main_path": dict(
-        main, build_s=build_s, logits_bf16_max_abs_diff=d_bf16,
+        sc_main, build_s=build_s, logits_bf16_max_abs_diff=d_bf16,
         step_alone_ms=alone_ms, step_device_busy_ms=busy_ms,
         poller_spin=POLLER_SPIN, poller_max_sleep_s=POLLER_MAX_SLEEP_S,
         logits_f32_max_abs_diff=d_f32), "dense_path": dict(

@@ -24,6 +24,9 @@ with the host (boolean-mask filtering in PyTorch would).
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
 
 from repro_torch.kernels import _build
@@ -44,6 +47,26 @@ from repro_torch.kernels.mamba2_scan import (  # noqa: F401
 from repro_torch.kernels.rwkv6_scan import (  # noqa: F401
     rwkv6_wkv_bwd, rwkv6_wkv_fwd, wkv6_backward_plain, wkv6_chunked_plain,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernels:
+    """What a model's forward runs in place of its kernels, for
+    comparisons; each None takes the kernel's wrapper (its plain version
+    on CPU tensors). A family reads the fields it has and ignores the
+    rest: ``attend`` the layers' attention, in the signature of the
+    forward's branch (:func:`flash_attention` without a cache,
+    :func:`paged_decode_attention` or :func:`decode_attention` with one),
+    ``ssd`` the hybrid's scan (:func:`mamba2_ssd`), ``wkv`` rwkv6's WKV
+    (:func:`rwkv6_wkv`) and ``gmm`` an MoE layer's grouped matmul
+    (:func:`gmm`)."""
+    attend: Callable | None = None
+    ssd: Callable | None = None
+    wkv: Callable | None = None
+    gmm: Callable | None = None
+
+
+KERNELS = Kernels()     # every kernel its own
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -164,33 +164,33 @@ def _groups(cfg: ModelConfig) -> tuple[int, int]:
 
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
-            cache_len=None, cache=None, attend=None, ssd=None, wkv=None,
-            gmm=None):
+            cache_len=None, cache=None,
+            kernels: ops.Kernels = ops.KERNELS):
     """The hybrid over ``tokens [B,S]`` int: without a cache, the training
     and prefill forward; with one, one decode step.
 
     No cache: ``positions [B,S]`` default to 0, 1, ...; the mamba layers run
-    the chunked scan through ``ssd`` (:func:`mamba_block`), each under
+    the chunked scan through ``kernels.ssd`` (:func:`mamba_block`), each
+    under
     activation checkpointing unless ``cfg.remat`` is "none" (the
     reference's ``jax.checkpoint(inner)``, for "full" and "dots" alike;
     the shared block is not checkpointed), and the shared block attends
-    causally through ``attend`` (default ``ops.flash_attention``).
+    causally through ``kernels.attend`` (default
+    ``ops.flash_attention``).
     Returns ``(logits [B,S,V] float32, None)``.
 
     Decode: tokens [B,1], cache_len [B] int32 and ``cache``
     (:func:`init_cache`): ``kv {k,v: [R,B,S,KV,hd]}`` of the R shared-block
     applications, ``ssm [L,B,h,n,p]`` float32 and ``conv
     [L,B,k-1,Din+2N]``. Application ``g`` of the shared block attends
-    ``kv[g]`` through the carried dense-cache branch (``attend`` default
-    ``ops.decode_attention``). Every leaf is updated IN PLACE (the
+    ``kv[g]`` through the carried dense-cache branch (``kernels.attend``
+    default ``ops.decode_attention``). Every leaf is updated IN PLACE (the
     reference returns new arrays) and the cache returned. Returns
     ``(logits [B,1,V] float32, cache)``.
 
     ``embeds`` is a VLM's patch prefix (``models.transformer.forward``),
     taken so the families share one signature; the hybrid has none and
-    refuses one. ``wkv`` is rwkv6's (``models.rwkv6.forward``) and ``gmm``
-    an MoE layer's grouped matmul (``models.transformer.forward``), which
-    the hybrid ignores."""
+    refuses one. The other fields of ``kernels`` are other families'."""
     if embeds is not None:
         raise ValueError(f"{cfg.arch_id} takes no embeds prefix")
     x = params["embed"][tokens.long()].to(
@@ -208,7 +208,7 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
             positions = torch.arange(S, device=x.device).expand(B, S)
         step = L.nocache_step(cfg, positions)
         layer_fn = checkpoint_layer(
-            cfg, lambda lp, h: mamba_block(lp, cfg, h, ssd=ssd)[0])
+            cfg, lambda lp, h: mamba_block(lp, cfg, h, ssd=kernels.ssd)[0])
         layers = unstack_layers(params["blocks"], cfg.n_layers)
 
     for g in range(n_groups):
@@ -224,7 +224,7 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
                 x = layer_fn(layers[li], x)
         if cfg.shared_attn_period:
             x = _shared_attn(params["shared"], cfg, x, step=step,
-                             attend=attend,
+                             attend=kernels.attend,
                              carried_cache=(kc, vc, g) if decode else None)
 
     x = L.rmsnorm(x, params["final_norm"])

@@ -49,13 +49,55 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+class RoutingTap:
+    """A tap on the routing of every MoE layer, installed for the span of
+    a ``with`` block. One at a time, module-wide (not per thread: the
+    serving engine runs its steps on its own threads). ``choose(gate_idx
+    [n,g,K])`` may return other top-k choices for the route to take, and
+    the route then gates them with its own probabilities; ``routed(gate_idx,
+    keep [n,g,K])`` sees the choices taken and whether each fitted under
+    its expert's capacity. Either left out changes nothing."""
+
+    def __init__(self, *, choose=None, routed=None):
+        self.choose = choose or (lambda gate_idx: gate_idx)
+        self.routed = routed or (lambda gate_idx, keep: None)
+
+    def __enter__(self):
+        global _tap
+        if _tap is not None:
+            raise RuntimeError("a routing tap is already installed")
+        _tap = self
+        return self
+
+    def __exit__(self, *exc):
+        global _tap
+        _tap = None
+
+
+_tap: RoutingTap | None = None
+
+
+class CountDrops(RoutingTap):
+    """Counts the token-expert assignments that the capacity dropped, on
+    the device: nothing is read back until :meth:`read`."""
+
+    def __init__(self):
+        super().__init__(routed=self._count)
+        self.dropped = None
+
+    def _count(self, gate_idx, keep):
+        n = (~keep).sum()
+        self.dropped = n if self.dropped is None else self.dropped + n
+
+    def read(self) -> int:
+        return 0 if self.dropped is None else int(self.dropped)
+
+
 def route(mp, cfg, xg):
     """The reference's routing of xg [n, g, D]: the f32 router softmax,
     the top-k renormalised, and the GShard k-loop's positions (token order
     inside a group, every token's first choice before any second). Returns
-    ``(combine [n,g,E,C] float32, gate_idx [n,g,K], counts [n,1,E]
-    int32)``, ``counts`` the assignments each expert received, kept or
-    not.
+    ``(combine [n,g,E,C] float32, gate_idx [n,g,K])``.
 
     The k-loop is taken in one pass: choice j of token t sits at position
     (its expert's choices < j over the group) + (its expert's choice j
@@ -67,7 +109,12 @@ def route(mp, cfg, xg):
     n, g, _ = xg.shape
     logits = torch.einsum("ngd,de->nge", xg,
                           mp["router"].to(xg.dtype)).float()
-    gate_vals, gate_idx = top_k(torch.softmax(logits, dim=-1), K)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = top_k(probs, K)
+    if _tap is not None:
+        picked = _tap.choose(gate_idx)
+        if picked is not gate_idx:
+            gate_idx, gate_vals = picked, probs.gather(-1, picked)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
     C = _capacity(cfg, g)
@@ -77,11 +124,13 @@ def route(mp, cfg, xg):
     earlier = torch.cumsum(per_choice, dim=2) - per_choice
     pos = ((torch.cumsum(oh, dim=1) - 1 + earlier) * oh).sum(-1)  # [n,g,K]
     keep = pos < C
+    if _tap is not None:
+        _tap.routed(gate_idx, keep)
     slot = gate_idx * C + torch.clamp(pos, max=C - 1)
     combine = torch.zeros((n, g, E * C), dtype=torch.float32,
                           device=xg.device).scatter_add(
         2, slot, torch.where(keep, gate_vals, 0.0)).view(n, g, E, C)
-    return combine, gate_idx, per_choice.sum(dim=2)
+    return combine, gate_idx
 
 
 def moe_mlp(p, cfg, x, *, gmm=None):
@@ -89,10 +138,8 @@ def moe_mlp(p, cfg, x, *, gmm=None):
 
     ``gmm(x, w, tile_expert, tile_m)`` runs the three expert products
     (default ``ops.gmm``, K6/K6b on CUDA tensors;
-    ``kernels.moe_gmm.gmm_plain`` is the plain version). Where
-    ``moe_mlp.dropped`` is a tensor, the number of token-expert
-    assignments the capacity dropped is added to it in place, on its
-    device (a diagnostic; nothing is read back)."""
+    ``kernels.moe_gmm.gmm_plain`` is the plain version). A
+    :class:`RoutingTap` sees (and may pin) the routing."""
     dt = x.dtype
     mp = p["moe"]
     B, S, D = x.shape
@@ -101,10 +148,8 @@ def moe_mlp(p, cfg, x, *, gmm=None):
     g = min(GROUP_SIZE, T)      # group across ALL tokens (decode: T=B)
     n = T // g
     xg = x.reshape(n, g, D)
-    combine, _, counts = route(mp, cfg, xg)
+    combine, _ = route(mp, cfg, xg)
     C = combine.shape[-1]
-    if moe_mlp.dropped is not None:     # assignments past their capacity
-        moe_mlp.dropped.add_((counts - C).clamp(min=0).sum())
     dispatch = (combine > 0).to(dt)                        # [n,g,E,C]
 
     # dispatched rows, one table tile of n C rows per expert
@@ -119,9 +164,6 @@ def moe_mlp(p, cfg, x, *, gmm=None):
     if cfg.dense_residual:
         y = y + L.mlp(p["dense_mlp"], x)
     return y
-
-
-moe_mlp.dropped = None
 
 
 def load_balance_loss(logits_f32, gate_idx, n_experts: int):

@@ -167,15 +167,15 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
-            cache_len=None, cache=None, attend=None, ssd=None, wkv=None,
-            gmm=None):
+            cache_len=None, cache=None,
+            kernels: ops.Kernels = ops.KERNELS):
     """rwkv6 over ``tokens [B,S]`` int: without a cache, the training and
     prefill forward; with one, one decode step.
 
     No cache: every block from a zero token shift and WKV state, the WKV
-    through ``wkv`` (:func:`time_mix`), each block under activation
-    checkpointing unless ``cfg.remat`` is "none" (the reference's
-    ``jax.checkpoint(body)``). Returns ``(logits [B,S,V] float32, None)``.
+    through ``kernels.wkv`` (:func:`time_mix`), each block under
+    activation checkpointing unless ``cfg.remat`` is "none" (the
+    reference's ``jax.checkpoint(body)``). Returns ``(logits [B,S,V] float32, None)``.
 
     Decode: tokens [B,1] and ``cache`` (:func:`init_cache`): ``wkv
     [L,B,H,hd,hd]`` float32, ``shift1`` and ``shift2 [L,B,1,D]`` (the time
@@ -183,10 +183,10 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     reference returns new arrays) and the cache returned. Returns
     ``(logits [B,1,V] float32, cache)``.
 
-    ``embeds``, ``positions``, ``cache_len``, ``attend``, ``ssd`` and
-    ``gmm`` are taken so the families share one signature: rwkv6 has no
-    patch prefix and refuses one, and needs no positions and no attention,
-    SSD scan or grouped matmul."""
+    ``embeds``, ``positions`` and ``cache_len`` are taken so the families
+    share one signature: rwkv6 has no patch prefix and refuses one, and
+    needs no positions. The other fields of ``kernels`` are other
+    families'."""
     if embeds is not None:
         raise ValueError(f"{cfg.arch_id} takes no embeds prefix")
     x = params["embed"][tokens.long()].to(
@@ -210,7 +210,7 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
 
         def block(lp, h):
             tm, _, _ = time_mix(lp, cfg, L.rmsnorm(h, lp["ln1"]),
-                                shift_state=zero1, wkv=wkv)
+                                shift_state=zero1, wkv=kernels.wkv)
             h = h + tm
             cm, _ = channel_mix(lp, cfg, L.rmsnorm(h, lp["ln2"]),
                                 shift_state=zero1)

@@ -15,6 +15,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch import weights
 from repro_torch.config import Family, ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.module import (
@@ -55,12 +56,13 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     return pb.params
 
 
-def _block(cfg, p, x, *, step, attend, gmm, **cache):
+def _block(cfg, p, x, *, step, kernels, **cache):
     h = L.attention(p["attn"], cfg, L.rmsnorm(x, p["ln_attn"]), step=step,
-                    attend=attend, **cache)
+                    attend=kernels.attend, **cache)
     x = x + h
     if cfg.family == Family.MOE:
-        return x + MOE.moe_mlp(p, cfg, L.rmsnorm(x, p["ln_mlp"]), gmm=gmm)
+        return x + MOE.moe_mlp(p, cfg, L.rmsnorm(x, p["ln_mlp"]),
+                               gmm=kernels.gmm)
     return x + L.mlp(p["mlp"], L.rmsnorm(x, p["ln_mlp"]))
 
 
@@ -93,18 +95,18 @@ def _logits(params, cfg, x):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
-            cache_len=None, paged_cache=None, cache=None, attend=None,
-            ssd=None, wkv=None, gmm=None):
+            cache_len=None, paged_cache=None, cache=None,
+            kernels: ops.Kernels = ops.KERNELS):
     """The model over ``tokens [B,S]`` int. Without a cache, the training
     and prefill forward; with one of two caches, one decode step.
 
     No cache: ``embeds [B,P,D]`` (a VLM's precomputed prefix) goes before
     the tokens' embeddings; ``positions [B,P+S]`` default to 0, 1, ...;
     every layer attends causally over the whole sequence through
-    ``attend`` (default: ``ops.flash_attention``, the K3a/K3b kernels on
-    CUDA tensors) and runs under ``cfg.remat``. The layers are taken apart
-    from their ``[L, ...]`` stacks once (``unstack_layers``). Returns
-    ``(logits [B,P+S,V] float32, None)``.
+    ``kernels.attend`` (default: ``ops.flash_attention``, the K3a/K3b
+    kernels on CUDA tensors) and runs under ``cfg.remat``. The layers are
+    taken apart from their ``[L, ...]`` stacks once (``unstack_layers``).
+    Returns ``(logits [B,P+S,V] float32, None)``.
 
     Decode: tokens [B,1]; cache_len [B] int32 (positions already cached
     per row).
@@ -119,22 +121,19 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     new token, then writes the token at ``cache_len`` (dropped from S on).
 
     Either is updated IN PLACE (the reference returns new arrays) and
-    returned. ``attend`` is the layers' attention (default: the CUDA
-    kernel wrapper of the branch; the plain versions for comparisons).
-    Returns ``(logits [B,1,V] float32, {"k": k, "v": v})``.
+    returned. ``kernels.attend`` is the layers' attention (default: the
+    CUDA kernel wrapper of the branch; the plain versions for
+    comparisons). Returns ``(logits [B,1,V] float32, {"k": k, "v": v})``.
 
-    ``gmm`` is an MoE layer's grouped matmul (default ``ops.gmm``, K6/K6b
-    on CUDA tensors; ``kernels.moe_gmm.gmm_plain`` is the plain version;
-    a dense transformer ignores it). ``ssd`` is the hybrid's scan
-    (``models.mamba2.forward``) and ``wkv`` rwkv6's
-    (``models.rwkv6.forward``), taken so the families share one signature;
-    a transformer has neither and ignores them."""
+    ``kernels.gmm`` is an MoE layer's grouped matmul (default ``ops.gmm``,
+    K6/K6b on CUDA tensors; ``kernels.moe_gmm.gmm_plain`` is the plain
+    version). The other fields of ``kernels`` are other families'."""
     if paged_cache is not None and cache is not None:
         raise ValueError("give at most one of paged_cache and cache")
     x = _embed(params, cfg, tokens)
     if paged_cache is None and cache is None:
         return _forward_nocache(params, cfg, x, embeds, positions,
-                                attend, gmm), None
+                                kernels), None
     S = x.shape[1]
     positions = cache_len[:, None] + torch.arange(
         S, dtype=cache_len.dtype, device=x.device)
@@ -150,20 +149,19 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
                         for i in range(cfg.n_layers)]
     blocks = params["blocks"]
     for i, layer_cache in enumerate(layer_caches):
-        x = _block(cfg, layer_slice(blocks, i), x, step=step, attend=attend,
-                   gmm=gmm, **layer_cache)
+        x = _block(cfg, layer_slice(blocks, i), x, step=step,
+                   kernels=kernels, **layer_cache)
     return _logits(params, cfg, x), {"k": k, "v": v}
 
 
-def _forward_nocache(params, cfg, x, embeds, positions, attend, gmm):
+def _forward_nocache(params, cfg, x, embeds, positions, kernels):
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     step = L.nocache_step(cfg, positions)
-    block = _remat(partial(_block, cfg, step=step, attend=attend, gmm=gmm),
-                   cfg)
+    block = _remat(partial(_block, cfg, step=step, kernels=kernels), cfg)
     for layer in unstack_layers(params["blocks"], cfg.n_layers):
         x = block(layer, x)
     return _logits(params, cfg, x)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import Family, ModelConfig, TrainConfig
+from repro_torch.kernels import ops
 from repro_torch.models import transformer
 from repro_torch.models.registry import get_api
 from repro_torch.optim import AdamW
@@ -35,23 +36,22 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
     return (nll + zl).sum() / denom, nll.sum() / denom
 
 
-def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig, attend=None,
-            ssd=None, wkv=None, gmm=None):
+def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig,
+            kernels: ops.Kernels = ops.KERNELS):
     """The no-cache forward and :func:`cross_entropy` over the text
     positions (a VLM's logits over its patch prefix are dropped). Returns
     ``(loss, {"nll": nll})``."""
     logits, _ = get_api(cfg).forward(params, cfg, batch["tokens"],
                                      embeds=batch.get("embeds"),
-                                     attend=attend, ssd=ssd, wkv=wkv,
-                                     gmm=gmm)
+                                     kernels=kernels)
     if cfg.family == Family.VLM and batch.get("embeds") is not None:
         logits = logits[:, batch["embeds"].shape[1]:]
     loss, nll = cross_entropy(logits, batch["labels"], tc.z_loss)
     return loss, {"nll": nll}
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None,
-                    ssd=None, wkv=None, gmm=None):
+def make_train_step(cfg: ModelConfig, tc: TrainConfig,
+                    kernels: ops.Kernels = ops.KERNELS):
     """``(train_step, opt)``: ``train_step(params, opt_state, batch) ->
     (params, opt_state, metrics)`` with ``loss``, ``grad_norm`` and
     ``nll`` as 0-d tensors.
@@ -63,12 +63,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None,
     microbatches' means. Then AdamW updates ``params`` and ``opt_state``
     IN PLACE (``optim.adamw``) and they are returned. ``params`` are the
     port's master weights (``init(..., master=True)`` of the family's
-    model); the step marks them as requiring grad. ``attend`` is the
-    layers' attention (default: ``ops.flash_attention``;
-    ``layers.flash_attention_xla`` is the plain version), ``ssd`` a hybrid's
-    scan (default: ``ops.mamba2_ssd``; ``mamba2_scan.ssd_chunked_plain`` is
-    the plain version), ``wkv`` rwkv6's WKV (default: ``ops.rwkv6_wkv``;
-    ``rwkv6_scan.wkv6_chunked_plain`` is the plain version)."""
+    model); the step marks them as requiring grad. ``kernels`` replaces
+    the forward's kernels for comparisons (``ops.Kernels``; the plain
+    versions are ``layers.flash_attention_xla``,
+    ``mamba2_scan.ssd_chunked_plain``, ``rwkv6_scan.wkv6_chunked_plain``
+    and ``moe_gmm.gmm_plain``)."""
     get_api(cfg)
     opt = AdamW(lr=tc.lr, beta1=tc.beta1, beta2=tc.beta2,
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
@@ -87,7 +86,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, attend=None,
         for i in range(n_mb):
             mb = {k: v.reshape(n_mb, rows // n_mb, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, aux = loss_fn(params, cfg, mb, tc, attend, ssd, wkv, gmm)
+            loss, aux = loss_fn(params, cfg, mb, tc, kernels)
             loss.backward()
             losses.append(loss.detach())
             nlls.append(aux["nll"].detach())
@@ -112,8 +111,7 @@ def _grads(params):
     return params.grad
 
 
-def make_prefill_step(cfg: ModelConfig, attend=None, ssd=None, wkv=None,
-                      gmm=None):
+def make_prefill_step(cfg: ModelConfig, kernels: ops.Kernels = ops.KERNELS):
     """``prefill_step(params, batch) -> (logits [B,S,V] float32,
     next_token [B] int32)``: the no-cache forward without gradients."""
     forward = get_api(cfg).forward
@@ -121,50 +119,49 @@ def make_prefill_step(cfg: ModelConfig, attend=None, ssd=None, wkv=None,
     @torch.no_grad()
     def prefill_step(params, batch):
         logits, _ = forward(params, cfg, batch["tokens"],
-                            embeds=batch.get("embeds"), attend=attend,
-                            ssd=ssd, wkv=wkv, gmm=gmm)
+                            embeds=batch.get("embeds"), kernels=kernels)
         return logits, torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, attend=None, gmm=None):
+def make_serve_step(cfg: ModelConfig, kernels: ops.Kernels = ops.KERNELS):
     """One decode step over the family's carried dense cache (its
     ``init_cache``: ``{k,v: [L,B,S,KV,hd]}`` for the transformer, ``{kv,
     ssm, conv}`` for the hybrid, ``{wkv, shift1, shift2}`` for rwkv6):
     ``(params, cache, token [B,1], cache_len [B]) -> (next_token [B]
     int32, cache)``.
 
-    ``attend(q [B,H,hd], k, v [B,S,KV,hd], lens, k_new, v_new)`` is the
-    dense attention: ``None`` takes the CUDA kernel wrapper
+    ``kernels.attend(q [B,H,hd], k, v [B,S,KV,hd], lens, k_new, v_new)``
+    is the dense attention: ``None`` takes the CUDA kernel wrapper
     ``kernels.ops.decode_attention`` (its plain version on CPU tensors);
     ``kernels.ops.decode_attention_plain`` forces the plain version, for
-    comparisons. ``gmm`` is an MoE layer's grouped matmul (default
+    comparisons. ``kernels.gmm`` is an MoE layer's grouped matmul (default
     ``ops.gmm``). The cache is updated in place and returned."""
     forward = get_api(cfg).forward
 
     @torch.no_grad()
     def serve_step(params, cache, token, cache_len):
-        logits, new_cache = forward(params, cfg, token, attend=attend,
-                                    cache_len=cache_len, cache=cache,
-                                    gmm=gmm)
+        logits, new_cache = forward(params, cfg, token, cache_len=cache_len,
+                                    cache=cache, kernels=kernels)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, new_cache
 
     return serve_step
 
 
-def make_paged_serve_step(cfg: ModelConfig, attend=None, gmm=None):
+def make_paged_serve_step(cfg: ModelConfig,
+                          kernels: ops.Kernels = ops.KERNELS):
     """One paged decode step over the genesys.pagedkv arena:
     ``(params, arenas {k,v: [L,NB,BS,KV,hd]}, block_tables [B,MB],
     token [B,1], cache_len [B]) -> (next_token [B] int32, arenas)``.
 
-    ``attend(q [B,H,hd], k_pages, v_pages, block_tables, lens)`` is the
-    paged attention: ``None`` takes the CUDA kernel wrapper
+    ``kernels.attend(q [B,H,hd], k_pages, v_pages, block_tables, lens)`` is
+    the paged attention: ``None`` takes the CUDA kernel wrapper
     ``kernels.ops.paged_decode_attention`` (its plain version on CPU
     tensors); ``kernels.ops.paged_decode_attention_plain`` forces the
-    plain version, for comparisons. ``gmm`` is an MoE layer's grouped
-    matmul (default ``ops.gmm``). The arenas are updated in place and
+    plain version, for comparisons. ``kernels.gmm`` is an MoE layer's
+    grouped matmul (default ``ops.gmm``). The arenas are updated in place and
     returned. The batch shape is the engine's fixed slot count: admitting
     or retiring a request changes only row contents, never a shape (an MoE
     layer's capacity then counts the inactive slots' tokens too, as the
@@ -182,7 +179,7 @@ def make_paged_serve_step(cfg: ModelConfig, attend=None, gmm=None):
         logits, new_arenas = transformer.forward(
             params, cfg, token, cache_len=cache_len,
             paged_cache=(arenas["k"], arenas["v"], block_tables),
-            attend=attend, gmm=gmm)
+            kernels=kernels)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, new_arenas
 

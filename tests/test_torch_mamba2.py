@@ -391,7 +391,7 @@ def test_train_step_matches_jax(microbatches, mesh11):
 
 
 def test_train_step_takes_the_scan_it_is_given():
-    """``ssd`` reaches every mamba layer of the no-cache forward (the
+    """``Kernels.ssd`` reaches every mamba layer of the no-cache forward (the
     smoke's kernels-vs-plain comparison relies on it), once per layer and
     microbatch, twice under remat."""
     cfg = dataclasses.replace(get_config(ARCH).reduced(), remat="full",
@@ -404,7 +404,7 @@ def test_train_step_takes_the_scan_it_is_given():
     _, tb = _batch(cfg, 13)
     params = tm.init(cfg, seed=0, device="cpu", master=True)
     ts, opt = tsteps.make_train_step(cfg, TrainConfig(microbatches=2),
-                                     ssd=counting)
+                                     tops.Kernels(ssd=counting))
     ts(params, opt.init(params), tb)
     assert len(calls) == 2 * cfg.n_layers * 2
     assert calls[0] == (2, 64, cfg.ssm_heads, cfg.ssm_head_dim)

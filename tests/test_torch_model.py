@@ -245,8 +245,8 @@ def test_dense_step_with_plain_attend_is_the_default_on_cpu():
         cache = ttr.init_cache(cfg, 2, 8, device="cpu")
         assert cache["k"].shape == (cfg.n_layers, 2, 8, cfg.n_kv_heads,
                                     cfg.hd)
-        outs.append(make_serve_step(cfg, attend=attend)(params, cache, tok,
-                                                        cl))
+        outs.append(make_serve_step(cfg, tops.Kernels(attend=attend))(
+            params, cache, tok, cl))
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1]["k"], outs[1][1]["k"])
 

@@ -221,7 +221,7 @@ def test_capacity_drops_the_reference_assignments(mesh11):
     tokens in one group (capacity 80 per expert) put 128 first choices on
     expert 0 and 128 second choices on expert 1, so the last 48 tokens of
     each lose both. The kept set, read from signature experts, is the
-    reference's, and ``moe_mlp.dropped`` counts the 96 drops."""
+    reference's, and ``moe.CountDrops`` counts the 96 drops."""
     jcfg, cfg, np_params = _moe_params("moonshot-v1-16b-a3b", "float32")
     np_params = _signature_experts(np_params, cfg)
     router = 0.01 * np.random.default_rng(1).standard_normal(
@@ -233,17 +233,13 @@ def test_capacity_drops_the_reference_assignments(mesh11):
     x[..., 0] = 4.0 + np.abs(x[..., 0])        # every token prefers 0, 1
     x[..., 1:] = np.abs(x[..., 1:])            # signatures need x >= 0
     want = _jax_moe(jcfg, np_params, x, mesh11)
-    counter = torch.zeros((), dtype=torch.int64)
-    tmoe.moe_mlp.dropped = counter
-    try:
+    with tmoe.CountDrops() as drops:
         got = _port_moe(cfg, np_params, x)
-    finally:
-        tmoe.moe_mlp.dropped = None
     kept_j = np.abs(want[0, :, :cfg.n_experts]) > 1e-6
     kept_t = np.abs(got[0, :, :cfg.n_experts]) > 1e-6
     np.testing.assert_array_equal(kept_t, kept_j)
     assert kept_j.sum() == 2 * 80 and not kept_j[80:].any()
-    assert counter.item() == 2 * 128 - kept_j.sum() == 96
+    assert drops.read() == 2 * 128 - kept_j.sum() == 96
     np.testing.assert_allclose(got, want, atol=F32_REL * np.abs(want).max())
 
 

@@ -423,7 +423,7 @@ def test_train_step_matches_jax(microbatches, mesh11):
 
 
 def test_train_step_takes_the_wkv_it_is_given():
-    """``wkv`` reaches every block of the no-cache forward (the smoke's
+    """``Kernels.wkv`` reaches every block of the no-cache forward (the smoke's
     kernels-vs-plain comparison relies on it), once per block and
     microbatch, twice under remat."""
     cfg = dataclasses.replace(get_config(ARCH).reduced(), remat="full",
@@ -436,7 +436,7 @@ def test_train_step_takes_the_wkv_it_is_given():
     _, tb = _batch(cfg, 13)
     params = tr.init(cfg, seed=0, device="cpu", master=True)
     ts, opt = tsteps.make_train_step(cfg, TrainConfig(microbatches=2),
-                                     wkv=counting)
+                                     tops.Kernels(wkv=counting))
     ts(params, opt.init(params), tb)
     assert len(calls) == 2 * cfg.n_layers * 2
     assert calls[0] == (2, 64, cfg.n_heads, cfg.hd)
