@@ -53,14 +53,18 @@ The training path (the third slice) adds:
 
 6.  the flash-attention kernels, forward (K3a) and backward (K3b), against
     their plain versions at the training shapes (B=1, H=36, KV=4, hd=128,
-    S=4096, causal) in bf16 and f32, and at S=1000 in bf16 (a tail that is
-    no multiple of 64): o, lse, dq, dk and dv, timed against the plain
-    versions, ``F.scaled_dot_product_attention(..., is_causal=True,
+    S=4096, causal) in bf16 and f32, at S=1000 in bf16 (a tail that is no
+    multiple of the tiles), at moonshot's H = KV = 16 and (later slices)
+    zamba2's hd 80, and at seamless-m4t-medium's encoder self-attention
+    (non-causal, S=4096, H = KV = 16, hd 64) and cross-attention (1024
+    queries over 4096 keys): o, lse, dq, dk and dv, timed against the
+    plain versions, ``F.scaled_dot_product_attention(...,
     enable_gqa=True)`` forward and forward+backward as the library
-    yardstick, and the operations bound at the bf16 / f32 peak; each
-    output element is held to a bound relative to its own size and its
-    head vector's (and the kernel's outputs made 3% off in half their
-    rows must fail that rule);
+    yardstick, and the operations bound at the bf16 / f32 peak, K3b also
+    as its three launches (delta, dq, dk/dv); each output element is held
+    to a bound relative to its own size and its head vector's (and the
+    kernel's outputs made 3% off in half their rows must fail that rule),
+    and two backward calls on the same inputs must give the same bits;
 7.  training at full width: starcoder2-7b with 8 of its 32 layers (its
     f32 training state at 32 layers, 118 GB, does not fit the card), f32
     master weights from seed 0, bf16 compute, ``remat="full"``; batches of
@@ -1201,38 +1205,65 @@ def fa_reading(got, want, r: float) -> dict:
             "frob": (diff.norm() / w.norm()).item()}
 
 
-def flash_kernel_phase(torch, dev, flush):
-    """K3a and K3b against their plain versions at the training shapes
-    (starcoder2-7b's, and zamba2's shared block at hd 80). The backward
-    kernel and its plain version take the same o and lse
-    (the plain forward's), so each comparison sees one kernel. At S=4096
-    in bf16 a control holds the kernel's outputs, 3% off in the second
-    half of the rows (keys for dk, dv), to the same rule: it must fail."""
+def flash_cases_of(torch):
+    """Phase 6's cases: (label, Sq, Skv, dtype, (H, KV, hd), causal). The
+    training shapes (starcoder2-7b's in bf16 and f32, a ragged S = 1000,
+    zamba2's shared block at hd 80, moonshot's H = KV = 16) and
+    seamless-m4t-medium's attention as an encoder-decoder would run it:
+    non-causal self-attention over its 4096 frames and cross-attention of
+    1024 decoder positions over them (hd 64)."""
     from repro_torch.configs import get_config
+
+    def heads(arch):
+        c = get_config(arch)
+        return c.n_heads, c.n_kv_heads, c.hd
+    enc = get_config("seamless-m4t-medium")
+    bf, f32 = torch.bfloat16, torch.float32
+    return (
+        ("S4096-bfloat16", TRAIN_SEQ, TRAIN_SEQ, bf, (H, KV, HD), True),
+        ("S4096-float32", TRAIN_SEQ, TRAIN_SEQ, f32, (H, KV, HD), True),
+        ("S1000-tail-bfloat16", 1000, 1000, bf, (H, KV, HD), True),
+        ("S4096-hd80-bfloat16", TRAIN_SEQ, TRAIN_SEQ, bf,
+         heads("zamba2-2.7b"), True),
+        ("S4096-moonshot-bfloat16", TRAIN_SEQ, TRAIN_SEQ, bf,
+         heads("moonshot-v1-16b-a3b"), True),
+        ("S4096-encoder-hd64-bfloat16", enc.n_frame_tokens,
+         enc.n_frame_tokens, bf, heads("seamless-m4t-medium"), False),
+        ("Sq1024-Skv4096-cross-hd64-bfloat16", 1024, enc.n_frame_tokens, bf,
+         heads("seamless-m4t-medium"), False))
+
+
+def flash_kernel_phase(torch, dev, flush):
+    """K3a and K3b against their plain versions at the shapes they serve
+    (flash_cases_of). The backward kernel and its plain version take the
+    same o and lse (the plain forward's), so each comparison sees one
+    kernel; two calls of the backward kernel must give the same bits. K3b
+    is timed whole and as its launches (delta, dq, dk/dv). At S=4096 in
+    bf16 a control holds the kernel's outputs, 3% off in the second half
+    of the rows (keys for dk, dv), to the same rule: it must fail."""
     from repro_torch.kernels import flash_attention as fa
 
     F = torch.nn.functional
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     cases = {"fwd": [], "bwd": []}
-    zamba = get_config("zamba2-2.7b")    # its shared block: hd 80, G = 1
-    for label, s, dt, (nh, nkv, hd) in (
-            ("S4096-bfloat16", TRAIN_SEQ, torch.bfloat16, (H, KV, HD)),
-            ("S4096-float32", TRAIN_SEQ, torch.float32, (H, KV, HD)),
-            ("S1000-tail-bfloat16", 1000, torch.bfloat16, (H, KV, HD)),
-            ("S4096-hd80-bfloat16", TRAIN_SEQ, torch.bfloat16,
-             (zamba.n_heads, zamba.n_kv_heads, zamba.hd))):
+    for label, sq, skv, dt, (nh, nkv, hd), causal in flash_cases_of(torch):
         name = str(dt).split(".")[-1]
-        q, do = (torch.randn(1, s, nh, hd, generator=gen, device=dev).to(dt)
+        q, do = (torch.randn(1, sq, nh, hd, generator=gen, device=dev).to(dt)
                  for _ in range(2))
-        k, v = (torch.randn(1, s, nkv, hd, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(1, skv, nkv, hd, generator=gen, device=dev).to(dt)
                 for _ in range(2))
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, causal=True)
-        grads = fa.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal=True)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+        grads = fa.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal)
+        again = fa.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal)
         grads_p = fa.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do,
-                                               causal=True)
+                                               causal=causal)
         torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+        check(bit_equal, f"flash attention [{label}]: two backward calls on "
+              f"the same inputs differ")
+        del again
         r = FA_REL[name]
         errs, control = {}, {}
         for n, got, want in (("o", o, o_p), ("dq", grads[0], grads_p[0]),
@@ -1247,7 +1278,7 @@ def flash_kernel_phase(torch, dev, flush):
                   f"{e['frob']:.3g} (tol {FA_FROB[name]})")
             if label == "S4096-bfloat16":
                 off = got.clone()
-                off[:, s // 2:] *= FA_CONTROL_SCALE
+                off[:, off.shape[1] // 2:] *= FA_CONTROL_SCALE
                 control[n] = fa_reading(off, want, r)
                 check(control[n]["worst"] > 1.0, f"flash attention control: "
                       f"{n} 3% off in half its rows passes the rule")
@@ -1257,30 +1288,42 @@ def flash_kernel_phase(torch, dev, flush):
               f"{lse_err} > {FA_LSE_ATOL}")
         del o_p, lse_p, grads_p, o, grads
         torch.cuda.empty_cache()
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-        # what causal attention needs: s(s+1)/2 (query, key) pairs per head
-        pairs = nh * s * (s + 1) / 2
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        # (query, key) pairs the attention needs per head: s(s+1)/2 causal
+        pairs = nh * (sq * (sq + 1) / 2 if causal else sq * skv)
         esz = q.element_size()
-        io_fwd = (2 * s * nh + 2 * s * nkv) * hd * esz + 4 * nh * s
-        io_bwd = (4 * s * nh + 4 * s * nkv) * hd * esz + 4 * nh * s
+        io_fwd = (2 * sq * nh + 2 * skv * nkv) * hd * esz + 4 * nh * sq
+        io_bwd = (4 * sq * nh + 4 * skv * nkv) * hd * esz + 4 * nh * sq
         bounds = {"fwd": bound_ms(io_fwd, 4.0 * pairs * hd, name),
                   "bwd": bound_ms(io_bwd, 10.0 * pairs * hd, name)}
         reps = 10 if name == "bfloat16" else 3
         ms_f, host_f = cuda_ms(torch, lambda: fa.flash_attention_fwd(
-            q, k, v, causal=True), reps=reps, flush=flush)
+            q, k, v, causal=causal), reps=reps, flush=flush)
         ms_b, host_b = cuda_ms(torch, lambda: fa.flash_attention_bwd(
-            q, k, v, o, lse, do, causal=True), reps=reps, flush=flush)
+            q, k, v, o, lse, do, causal=causal), reps=reps, flush=flush)
+        # K3b's launches alone, on buffers of one call (delta first: dq
+        # and dk/dv read the stats it writes)
+        bufs = (tuple(torch.empty_like(x) for x in (q, k, v)),
+                *fa.bwd_scratch(q, k))
+
+        def launch(parts):
+            fa.bwd_launch(q, k, v, o, lse, do, *bufs, causal=causal,
+                          parts=parts)
+        split = {part: cuda_ms(torch, lambda: launch(bit), reps=reps,
+                               flush=flush)[0]
+                 for part, bit in (("delta", 1), ("dq", 2), ("dkv", 4))}
+        del bufs
         plain_f, _ = cuda_ms(torch, lambda: fa.flash_attention_fwd_plain(
-            q, k, v, causal=True), reps=3, flush=flush)
+            q, k, v, causal=causal), reps=3, flush=flush)
         plain_b, _ = cuda_ms(torch, lambda: fa.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal=True), reps=3, flush=flush)
+            q, k, v, o, lse, do, causal=causal), reps=3, flush=flush)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
         dot = do.transpose(1, 2)
 
         def sdpa():     # yardstick only, never on the path
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         lib_f, _ = cuda_ms(torch, sdpa, reps=reps, flush=flush)
         lib_fb, _ = cuda_ms(torch, lambda: sdpa().backward(dot), reps=reps,
                             flush=flush)
@@ -1290,8 +1333,8 @@ def flash_kernel_phase(torch, dev, flush):
                 ("bwd", ms_b, host_b, plain_b, lib_fb - lib_f)):
             bnd, by = bounds[kind]
             outs = ("o",) if kind == "fwd" else ("dq", "dk", "dv")
-            case = {"case": label, "heads": nh, "kv_heads": nkv,
-                    "head_dim": hd,
+            case = {"case": label, "sq": sq, "skv": skv, "causal": causal,
+                    "heads": nh, "kv_heads": nkv, "head_dim": hd,
                     "max_abs_err": max(errs[n]["max_abs_err"] for n in outs),
                     "ms": ms, "plain_ms": plain, "library_ms": lib,
                     "bound_ms": bnd, "bound_by": by, "host_call_ms": host,
@@ -1301,8 +1344,11 @@ def flash_kernel_phase(torch, dev, flush):
                 case["control_3pct"] = control
             if kind == "bwd":
                 case["library_fwd_bwd_ms"] = lib_fb
+                case["launches_ms"] = split
+                case["bit_equal_twice"] = bit_equal
             cases[kind].append(case)
-        print(f"kernel flash_attention[{label}]: errors (max abs, worst "
+        print(f"kernel flash_attention[{label}] H={nh} KV={nkv} hd={hd} "
+              f"{'causal' if causal else 'full'}: errors (max abs, worst "
               f"ratio to the bound r={r:g}, relative Frobenius tol "
               f"{FA_FROB[name]:g}) "
               + " ".join(f"{n}=({e['max_abs_err']:.3e}, {e['worst']:.3f}, "
@@ -1313,9 +1359,11 @@ def flash_kernel_phase(torch, dev, flush):
               + f" lse={lse_err:.2e} | fwd ms={ms_f:.4f} plain_ms="
               f"{plain_f:.4f} sdpa_ms={lib_f:.4f} bound_ms="
               f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) | bwd ms="
-              f"{ms_b:.4f} plain_ms={plain_b:.4f} sdpa_fwd_bwd_ms="
-              f"{lib_fb:.4f} bound_ms={bounds['bwd'][0]:.4f} "
-              f"({bounds['bwd'][1]})", flush=True)
+              f"{ms_b:.4f} (delta {split['delta']:.4f}, dq "
+              f"{split['dq']:.4f}, dkv {split['dkv']:.4f}) plain_ms="
+              f"{plain_b:.4f} sdpa_fwd_bwd_ms={lib_fb:.4f} bound_ms="
+              f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}) bit-equal "
+              f"twice: {bit_equal}", flush=True)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return cases

@@ -1,10 +1,11 @@
 // Hand-written Hopper (sm_90a) kernels of the no-cache attention: the flash
 // attention forward (K3a) and backward (K3b).
 //
-//   fa_fwd_mma / fa_fwd_f32        replace the Pallas `flash_attention_fwd` /
+//   fa_fwd_wgmma / fa_fwd_f32      replace the Pallas `flash_attention_fwd` /
 //                                  `_fwd_kernel`
-//   fa_dq_mma, fa_dkv_mma /        replace `flash_attention_bwd` /
-//   fa_dq_f32, fa_dkv_f32          `_dq_kernel`, `_dkv_kernel`
+//   fa_delta, fa_dq_wgmma,         replace `flash_attention_bwd` /
+//   fa_dkv_wgmma (+ fa_dkv_reduce) `_dq_kernel`, `_dkv_kernel`, and (bf16)
+//   / fa_dq_f32, fa_dkv_f32        the delta = rowsum(do * o) it takes
 //                                  (src/repro/kernels/flash_attention.py)
 //
 // and on the training and prefill paths the XLA `flash_attention_xla` of
@@ -12,54 +13,81 @@
 //
 // Layout: the path's own, read and written through row strides with no
 // transpose: q, o, do, dq [B, Sq, H, hd]; k, v, dk, dv [B, Skv, KV, hd];
-// lse and delta [B, H, Sq] f32. Query head h reads KV head h / G, G = H / KV.
-// Causal masking keeps key j for query i when i >= j (Sq == Skv; the
-// wrapper refuses causal attention with Sq != Skv). Every position is
-// covered: a tile that runs past Sq or Skv masks its tail (the Pallas grids
-// take Sq // 128 and Skv // 128 tiles and leave the rest unwritten).
+// lse [B, H, Sq] f32. Query head h reads KV head h / G, G = H / KV. Causal
+// masking keeps key j for query i when i >= j (Sq == Skv; the wrapper
+// refuses causal attention with Sq != Skv). Every position is covered: a
+// tile that runs past Sq or Skv is zero-filled by TMA and masked (the Pallas
+// grids take Sq // 128 and Skv // 128 tiles and leave the rest unwritten).
 //
 // What bounds them: operations. A causal forward does 2 * B * H * S^2 * hd
 // FLOPs (two products over half the score matrix) for 2 * B * S * (H + KV)
 // * hd elements read and written, hundreds of FLOPs per byte; the backward
-// does five products, 5 * B * H * S^2 * hd. So the design keeps the score
-// matrix out of device memory and puts the products on the tensor cores:
-//   * bf16 (the path's compute dtype, hd 64, 80 or 128): every product is
-//     mma.sync m16n8k16 with f32 accumulation. Each warp owns 16 rows of
-//     the tile it accumulates (query rows in the forward and in dq, key rows
-//     in dk/dv) and keeps them in registers; the operand it streams (K and V
-//     tiles, or Q and dO tiles) passes through shared memory. Softmax
-//     weights and dS are rounded to bf16 for the products that take them as
-//     an operand, as the reference rounds p to V's dtype before PV; the
-//     running max, the sums and lse stay f32.
-//   * The forward keeps one online softmax per row (FlashAttention-2): the
-//     scores of a 64-key tile never leave registers, and the row's max and
-//     sum live in the four lanes that hold it.
-//   * The backward recomputes p = exp(s * scale - lse) from the forward's
-//     lse, with delta = rowsum(do * o) computed before the launch. dq loops
-//     over KV tiles per query tile; dk and dv loop over the G heads and the
-//     query tiles per KV tile, accumulating in registers, so the sum over the
-//     G heads needs no atomics (the Pallas `_dkv_kernel` revisits its block).
-//   * Tiles wholly above the diagonal are skipped (the `live` predicate of
-//     the Pallas kernels), and causal forward and dq grids start with the
-//     query tiles that have the most keys.
-//   * f32 (f32 models) takes CUDA-core kernels: a lane per key (forward, dq)
-//     or per query row (dk/dv) for the dot products, a lane per head
-//     dimension for the accumulators (at hd 80 lanes 16-31 own two, the
-//     others three), tiles in shared memory.
-// Not done yet: cp.async or TMA to overlap loads with the products, wgmma,
-// ldmatrix, warp specialisation, a persistent grid.
+// needs five products, 5 * B * H * S^2 * hd. So the score matrix stays out
+// of device memory and, in bf16 (the path's compute dtype), every product
+// runs on wgmma, the only way to the card's full tensor-core rate:
+//   * Warp specialisation, one CTA per SM (384 threads, 100-165 KB of
+//     shared memory). Warpgroup 2 is the producer: it gives up its
+//     registers (setmaxnreg 24) and one of its threads issues every TMA
+//     load, the CTA's own tile once, then the streamed operand through a
+//     ring of kStages stages on full/empty mbarriers, so the next tile
+//     lands while this one's products run. Consumer warpgroups 0 and 1
+//     (setmaxnreg 240) own 64 rows each of the CTA's 128 and issue the
+//     products; two warpgroups on one SM overlap one's softmax with the
+//     other's wgmma.
+//   * Operands come from TMA as column slabs swizzled for wgmma
+//     (hopper_common.cuh) and are read K-major for the score products and
+//     MN-major for the products over keys or queries (the descriptor's
+//     transpose): no scalar loads, no transposed copy. p and dS go from the
+//     accumulator fragment to A-operand registers.
+//   * K3a (fa_fwd_wgmma): a CTA per 128 query rows and head, K and V tiles
+//     of fwd_keys streamed; the online softmax in registers in the log2
+//     domain (exp2 of scores prescaled by scale * log2 e), f32 max, sum and
+//     lse.
+//   * K3b is three launches, each sum in a fixed order (no atomics: two
+//     calls give the same bits): fa_delta (delta from one bf16 read of o
+//     and do, and lse * log2 e, into rows padded to 128 so that the tiles
+//     read no tail); fa_dq_wgmma (a CTA per 128 query rows and head, 64-key
+//     K/V tiles streamed: S, dP, dq += dS K); fa_dkv_wgmma (a CTA per 128
+//     keys and query head, H x Skv / 128 CTAs, 64-row Q/dO/lse/delta tiles
+//     streamed: S^T, dP^T, dv += P^T dO, dk += dS^T Q). dq recomputes S and
+//     dP so that no launch sums across CTAs; with G > 1, fa_dkv_reduce sums
+//     the G heads' f32 partials into bf16 dk and dv.
+//   * Registers: the consumers hold 64 x hd f32 accumulators beside the
+//     score tiles. Where ptxas spilled and serialised the wgmmas (it
+//     reported 168 registers, whatever setmaxnreg's 240), the tiles
+//     shrink: 64-key forward tiles at hd 128, and dk/dv at hd 128 in two
+//     passes over the query tiles (dv, then dk; S^T twice).
+//   * Causal: key tiles past the diagonal are not loaded (the Pallas `live`
+//     predicate), only tiles that cross the diagonal or the end of the keys
+//     are masked, and the grid starts with the longest tiles (query tiles
+//     nearest the end in the forward and dq, key tile 0 in dk/dv).
+//   * Rounding: p to bf16 once for PV and for dv, dS once for dq and dk,
+//     relative to the running max in the forward; everything else f32.
+//   * hd 80: a 160-byte row is wider than one 128-byte swizzle span, so a
+//     tile is a 64-column slab (128-byte swizzle) and a 16-column slab
+//     (32-byte swizzle, its own tensor map), each read by its own
+//     descriptors: one 16-deep step and an m64n16 product more, no padding.
+//   * f32 (f32 models, no speed target) takes CUDA-core kernels: a lane per
+//     key (forward, dq) or per query row (dk/dv) for the dot products, a
+//     lane per head dimension for the accumulators (at hd 80 lanes 16-31
+//     own two, the others three), tiles in shared memory; delta comes from
+//     the wrapper, summed as the plain version sums it.
+// Not done yet: overlap of a warpgroup's softmax with its own next product
+// (issuing the next S before this tile's P V made ptxas serialise every
+// wgmma, C7514, and the forward slower), TMA stores of the outputs, a
+// persistent grid, fp8.
 //
 // Built with the other csrc/*.cu files by src/repro_torch/kernels/_build.py
 // and bound through ctypes (plain C entry points below: raw device pointers,
 // PyTorch's current stream, return cudaGetLastError(), allocate nothing,
-// never synchronise).
+// never synchronise). Tensor maps are encoded on the host for each call.
 
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 
 namespace {
 
-constexpr int kFaThreads = 128;  // 4 warps per CTA
-constexpr int kFaRows = 64;      // mma kernels: rows a CTA owns, 16 per warp
+constexpr int kFaThreads = 128;  // f32 kernels: 4 warps per CTA
 
 using bf16 = __nv_bfloat16;
 
@@ -67,446 +95,729 @@ __device__ __forceinline__ bool keep(int key, int row, int Skv, int causal) {
   return key < Skv && (!causal || key <= row);
 }
 
-// ---- forward, tensor cores ---------------------------------------------------
+// ---- bf16: wgmma + TMA, warp-specialised ------------------------------------
 
-// One CTA: query rows [q0, q0 + 64) of head h of row b; warp w owns rows
-// q0 + 16w .. +16, lane (gid, tig) rows r0 = q0 + 16w + gid and r1 = r0 + 8.
-// Q stays in registers as A fragments; each 64-key tile of K and V passes
-// through shared memory.
+constexpr int kWsThreads = 384;  // 2 consumer warpgroups + a producer one
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg
+constexpr int kRows = 128;       // fwd, dq: query rows a CTA owns; dkv: keys
+constexpr int kDqKeys = 64;      // dq: keys per streamed tile
+constexpr int kDkvRows = 64;     // dkv: query rows per streamed tile
+constexpr int kStages = 2;       // ring depth of every streamed operand
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// Columns of an hd-wide bf16 row as shared-memory slabs (hopper_common.cuh):
+// kFull slabs of 64, 128-byte swizzled, and at hd 80 a 16-column tail slab,
+// 32-byte swizzled.
 template <int HD>
-__global__ void __launch_bounds__(kFaThreads) fa_fwd_mma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-    int H, int KV, int Sq, int Skv, float scale, int causal) {
-  constexpr int KT = 64;       // keys per tile
-  constexpr int STR = HD + 8;  // shared row stride (bf16): conflict padding
-  __shared__ __align__(16) bf16 ks[KT * STR];
-  __shared__ __align__(16) bf16 vs[KT * STR];
-  const int nqt = (Sq + kFaRows - 1) / kFaRows;
-  const int q0 = (causal ? nqt - 1 - (int)blockIdx.x : (int)blockIdx.x) *
-                 kFaRows;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r0 = q0 + 16 * warp + gid, r1 = r0 + 8;
-  const size_t qs_ = (size_t)H * HD, ks_ = (size_t)KV * HD;
-  const bf16* qb = q + (size_t)b * Sq * qs_ + (size_t)h * HD;
-  const bf16* kb = k + (size_t)b * Skv * ks_ + (size_t)kvh * HD;
-  const bf16* vb = v + (size_t)b * Skv * ks_ + (size_t)kvh * HD;
+struct Cols {
+  static constexpr int kFull = HD / 64;
+  static constexpr int kTail = HD % 64;
+  static_assert(kTail == 0 || kTail == 16, "head_dim 64, 80 or 128");
+};
 
-  uint32_t qa[HD / 16][4];
+// forward: keys per streamed tile. 64 at hd 128, where a 128-key score
+// tile (64 registers a thread) beside the 64 x 128 accumulator made ptxas
+// spill and serialise the wgmmas.
+template <int HD>
+__host__ __device__ constexpr int fwd_keys() {
+  return HD == 128 ? 64 : 128;
+}
+
+template <int HD, int R>
+__host__ __device__ constexpr int tile_bytes() {
+  return R * HD * 2;
+}
+
+// f32 accumulator of a 64 x HD product, per slab (the m64n64 fragment) and
+// for the tail (m64n16).
+template <int HD>
+struct AccHD {
+  float s[Cols<HD>::kFull][32];
+  float t[8];
+};
+
+template <int HD>
+__device__ __forceinline__ void zero(AccHD<HD>& a) {
 #pragma unroll
-  for (int s = 0; s < HD / 16; ++s) {
-    const int c = 16 * s + 2 * tig;
-    qa[s][0] = r0 < Sq ? ld_pair(qb + r0 * qs_ + c) : 0u;
-    qa[s][1] = r1 < Sq ? ld_pair(qb + r1 * qs_ + c) : 0u;
-    qa[s][2] = r0 < Sq ? ld_pair(qb + r0 * qs_ + c + 8) : 0u;
-    qa[s][3] = r1 < Sq ? ld_pair(qb + r1 * qs_ + c + 8) : 0u;
+  for (int s = 0; s < Cols<HD>::kFull; ++s)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) a.s[s][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) a.t[i] = 0.f;
+}
+
+template <int HD>
+__device__ __forceinline__ void fence_acc(AccHD<HD>& a) {
+#pragma unroll
+  for (int s = 0; s < Cols<HD>::kFull; ++s) fence_regs(a.s[s]);
+  if (Cols<HD>::kTail) fence_regs(a.t);
+}
+
+// Element (i of the m64n64 fragment, slab s) of an AccHD -> its column.
+__device__ __forceinline__ int frag_col(int i, int tig) {
+  return 8 * (i / 4) + 2 * tig + (i & 1);
+}
+
+// The R-row tile at head `head`, rows [row0, row0 + R) of batch row b, into
+// `dst` (its slabs), counted on `bar`.
+template <int HD, int R>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* m,
+                                          const CUtensorMap* tail,
+                                          uint64_t* bar, int head, int row0,
+                                          int b) {
+#pragma unroll
+  for (int s = 0; s < Cols<HD>::kFull; ++s)
+    tma_load_4d(dst + s * R * 128, m, bar, 64 * s, head, row0, b);
+  if (Cols<HD>::kTail)
+    tma_load_4d(dst + Cols<HD>::kFull * R * 128, tail, bar,
+                64 * Cols<HD>::kFull, head, row0, b);
+}
+
+// d = A B^T over hd: A is rows [a_row0, a_row0 + 64) of an RA-row tile, B
+// the whole N-row tile, both K-major (hd is the depth). N = 64 or 128.
+template <int HD, int RA, int N>
+__device__ __forceinline__ void mma_rows(float (&d)[N / 2],
+                                         const uint8_t* a_tile, int a_row0,
+                                         const uint8_t* b_tile) {
+  constexpr int kFull = Cols<HD>::kFull;
+  const uint32_t a = smem_u32(a_tile), b = smem_u32(b_tile);
+#pragma unroll
+  for (int k = 0; k < HD / 16; ++k) {
+    uint64_t da, db;
+    if (k < 4 * kFull) {
+      const int s = k / 4, c = 32 * (k % 4);
+      da = gmma_desc(a + s * RA * 128 + a_row0 * 128 + c, 16, 1024, kSw128);
+      db = gmma_desc(b + s * N * 128 + c, 16, 1024, kSw128);
+    } else {  // the tail slab: one 16-deep step
+      da = gmma_desc(a + kFull * RA * 128 + a_row0 * 32, 16, 256, kSw32);
+      db = gmma_desc(b + kFull * N * 128, 16, 256, kSw32);
+    }
+    if constexpr (N == 128)
+      wgmma_ss_n128(d, da, db, k > 0);
+    else
+      wgmma_ss_n64(d, da, db, k > 0);
   }
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+}
 
-  const int kv_end = causal ? min(Skv, q0 + kFaRows) : Skv;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += KT) {
-    __syncthreads();  // the previous tile is consumed
-    for (int c = tid; c < KT * (HD / 8); c += kFaThreads) {
-      const int r = c / (HD / 8), w = c % (HD / 8);
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = kr;
-      if (kv0 + r < Skv) {
-        kr = __ldg(reinterpret_cast<const uint4*>(kb + (kv0 + r) * ks_) + w);
-        vr = __ldg(reinterpret_cast<const uint4*>(vb + (kv0 + r) * ks_) + w);
-      }
-      *reinterpret_cast<uint4*>(ks + r * STR + 8 * w) = kr;
-      *reinterpret_cast<uint4*>(vs + r * STR + 8 * w) = vr;
+// acc += P B: P [64 x KR] as register fragments (p[k]: depth 16 k .. 16 k +
+// 15), B the whole KR-row tile read MN-major (its hd columns are N).
+template <int HD, int KR>
+__device__ __forceinline__ void mma_cols(AccHD<HD>& acc,
+                                         const uint32_t (&p)[KR / 16][4],
+                                         const uint8_t* b_tile) {
+  constexpr int kFull = Cols<HD>::kFull;
+  const uint32_t b = smem_u32(b_tile);
+#pragma unroll
+  for (int k = 0; k < KR / 16; ++k) {
+#pragma unroll
+    for (int s = 0; s < kFull; ++s)
+      wgmma_rs_n64(acc.s[s], p[k],
+                   gmma_desc(b + s * KR * 128 + k * 16 * 128, KR * 128, 1024,
+                             kSw128),
+                   1);
+    if (Cols<HD>::kTail)
+      wgmma_rs_n16(acc.t, p[k],
+                   gmma_desc(b + kFull * KR * 128 + k * 16 * 32, 256, 256,
+                             kSw32),
+                   1);
+  }
+}
+
+// The D fragment of a 64 x 16 K product (d[8 k .. 8 k + 7]) as the bf16 A
+// fragment of depth step k.
+template <int NF>
+__device__ __forceinline__ void to_frags(uint32_t (&f)[NF / 8][4],
+                                         const float (&d)[NF]) {
+#pragma unroll
+  for (int k = 0; k < NF / 8; ++k) {
+    f[k][0] = pack_f32(d[8 * k + 0], d[8 * k + 1]);
+    f[k][1] = pack_f32(d[8 * k + 2], d[8 * k + 3]);
+    f[k][2] = pack_f32(d[8 * k + 4], d[8 * k + 5]);
+    f[k][3] = pack_f32(d[8 * k + 6], d[8 * k + 7]);
+  }
+}
+
+// Two adjacent output elements, bf16 or f32.
+__device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack_f32(x, y);
+}
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// One fragment group (elements x0, x1 of row lo and x2, x3 of row lo + 8,
+// at column c), times `mul_lo` / `mul_hi`.
+template <typename T>
+__device__ __forceinline__ void store_group(T* base, size_t ld, int c,
+                                            float x0, float x1, float x2,
+                                            float x3, bool lo_ok, bool hi_ok,
+                                            float mul_lo, float mul_hi) {
+  if (lo_ok) store_pair(base + c, x0 * mul_lo, x1 * mul_lo);
+  if (hi_ok) store_pair(base + 8 * ld + c, x2 * mul_hi, x3 * mul_hi);
+}
+
+// Rows lo (fragment elements e < 2) and hi = lo + 8 of an AccHD, times
+// `mul`, into row-major rows of stride `ld` (elements) from `base`.
+template <int HD, typename T>
+__device__ __forceinline__ void store_rows(T* base, size_t ld,
+                                           const AccHD<HD>& a, bool lo_ok,
+                                           bool hi_ok, float mul_lo,
+                                           float mul_hi, int tig) {
+#pragma unroll
+  for (int s = 0; s < Cols<HD>::kFull; ++s)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      store_group(base, ld, 64 * s + 8 * j + 2 * tig, a.s[s][4 * j],
+                  a.s[s][4 * j + 1], a.s[s][4 * j + 2], a.s[s][4 * j + 3],
+                  lo_ok, hi_ok, mul_lo, mul_hi);
+  if (Cols<HD>::kTail)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      store_group(base, ld, 64 * Cols<HD>::kFull + 8 * j + 2 * tig,
+                  a.t[4 * j], a.t[4 * j + 1], a.t[4 * j + 2], a.t[4 * j + 3],
+                  lo_ok, hi_ok, mul_lo, mul_hi);
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// A tile map for the column slabs and one for the tail (a copy of the first
+// when hd has none).
+struct TileMaps {
+  CUtensorMap m, tail;
+};
+
+// ---- forward ----------------------------------------------------------------
+
+// One CTA: query rows [q0, q0 + 128) of head h of batch row b. The
+// producer warpgroup's thread loads the Q tile once and streams K and V
+// tiles (fwd_keys) through a ring of kStages stages (full/empty mbarriers;
+// K and V on separate full barriers, so S = Q K^T starts before V has
+// landed). Consumer warpgroup w owns query rows q0 + 64 w .. + 64: per key
+// tile S = Q K^T on wgmma (both operands in shared memory), the online
+// softmax in registers in the log2 domain (scores times scale * log2 e,
+// exp2), P rounded to bf16 once relative to the running max and turned
+// into A fragments in registers, and O += P V on wgmma with V read
+// MN-major. Only tiles that cross the diagonal or the end of the keys are
+// masked; key tiles past the diagonal are not loaded.
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fa_fwd_wgmma(const __grid_constant__ TileMaps tq,
+                 const __grid_constant__ TileMaps tk,
+                 const __grid_constant__ TileMaps tv, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H, int KV, int Sq, int Skv,
+                 float scale_log2, int causal) {
+  constexpr int kFwdKeys = fwd_keys<HD>();
+  constexpr int QB = tile_bytes<HD, kRows>(), KB = tile_bytes<HD, kFwdKeys>();
+  extern __shared__ uint8_t fa_smem[];
+  uint8_t* sq = align_1024(fa_smem);
+  uint8_t* sk = sq + QB;
+  uint8_t* sv = sk + kStages * KB;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sv + kStages * KB);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
+
+  const int nqt = (Sq + kRows - 1) / kRows;
+  const int q0 = (causal ? nqt - 1 - (int)blockIdx.z : (int)blockIdx.z) * kRows;
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / (H / KV);
+  const int kv_end = causal ? min(Skv, q0 + kRows) : Skv;
+  const int n_tiles = (kv_end + kFwdKeys - 1) / kFwdKeys;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 256);
     }
-    __syncthreads();
-    // scores of the warp's 16 rows against the tile's 64 keys
-    float sc[KT / 8][4];
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-      for (int s = 0; s < HD / 16; ++s) {
-        const bf16* kr = ks + (8 * j + gid) * STR + 16 * s + 2 * tig;
-        const uint32_t kf[2] = {ld_pair(kr), ld_pair(kr + 8)};
-        mma_bf16(sc[j], qa[s], kf);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup index through a shuffle: provably warp-uniform, as the
+  // branches around setmaxnreg must be
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 2) {
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_q, QB);
+      load_tile<HD, kRows>(sq, &tq.m, &tq.tail, bar_q, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full_k[st], KB);
+        load_tile<HD, kFwdKeys>(sk + st * KB, &tk.m, &tk.tail, &full_k[st],
+                                kvh, t * kFwdKeys, b);
+        mbar_expect_tx(&full_v[st], KB);
+        load_tile<HD, kFwdKeys>(sv + st * KB, &tv.m, &tv.tail, &full_v[st],
+                                kvh, t * kFwdKeys, b);
       }
     }
-    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+  } else {
+    regs_alloc<kConsumerRegs>();
+    const int cw = wg, t128 = threadIdx.x % 128;
+    const int warp = t128 / 32, lane = t128 % 32, gid = lane / 4,
+              tig = lane % 4;
+    const int wg_row0 = q0 + 64 * cw;
+    const int r_lo = wg_row0 + 16 * warp + gid, r_hi = r_lo + 8;
+    AccHD<HD> acc;
+    zero(acc);
+    float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.f, l_hi = 0.f;
+    mbar_wait(bar_q, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kStages;
+      const uint32_t par = (t / kStages) & 1;
+      const int kv0 = t * kFwdKeys;
+      float s[kFwdKeys / 2];
+      mbar_wait(&full_k[st], par);
+      wgmma_fence();
+      mma_rows<HD, kRows, kFwdKeys>(s, sq, 64 * cw, sk + st * KB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      const bool edge = kv0 + kFwdKeys > Skv ||
+                        (causal && kv0 + kFwdKeys - 1 > wg_row0);
+      float mx_lo = -CUDART_INF_F, mx_hi = -CUDART_INF_F;
 #pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + 8 * j + 2 * tig + (e & 1);
-        const float x = keep(key, e < 2 ? r0 : r1, Skv, causal)
-                            ? sc[j][e] * scale
-                            : -CUDART_INF_F;
-        sc[j][e] = x;
-        if (e < 2)
-          mx0 = fmaxf(mx0, x);
+      for (int i = 0; i < kFwdKeys / 2; ++i) {
+        float x = s[i] * scale_log2;
+        if (edge) {
+          const int key = kv0 + frag_col(i, tig);
+          const int row = (i & 2) ? r_hi : r_lo;
+          if (key >= Skv || (causal && key > row)) x = -CUDART_INF_F;
+        }
+        s[i] = x;
+        if (i & 2)
+          mx_hi = fmaxf(mx_hi, x);
         else
-          mx1 = fmaxf(mx1, x);
+          mx_lo = fmaxf(mx_lo, x);
       }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      // a row with no key yet keeps max -inf: exponentiate against 0
+      const float base_lo = mn_lo == -CUDART_INF_F ? 0.f : mn_lo;
+      const float base_hi = mn_hi == -CUDART_INF_F ? 0.f : mn_hi;
+      const float c_lo = exp2f(m_lo - base_lo), c_hi = exp2f(m_hi - base_hi);
+      float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+      for (int i = 0; i < kFwdKeys / 2; ++i) {
+        if (i & 2) {
+          s[i] = exp2f(s[i] - base_hi);
+          ps_hi += s[i];
+        } else {
+          s[i] = exp2f(s[i] - base_lo);
+          ps_lo += s[i];
+        }
+      }
+      l_lo = l_lo * c_lo + ps_lo;  // this lane's part of the row sum
+      l_hi = l_hi * c_hi + ps_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+#pragma unroll
+      for (int sl = 0; sl < Cols<HD>::kFull; ++sl)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc.s[sl][i] *= (i & 2) ? c_hi : c_lo;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc.t[i] *= (i & 2) ? c_hi : c_lo;
+      uint32_t pf[kFwdKeys / 16][4];
+      to_frags(pf, s);
+      mbar_wait(&full_v[st], par);
+      wgmma_fence();
+      mma_cols<HD, kFwdKeys>(acc, pf, sv + st * KB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(&empty[st]);
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    // a row with no key yet keeps max -inf: exponentiate against 0 instead
-    const float base0 = mn0 == -CUDART_INF_F ? 0.f : mn0;
-    const float base1 = mn1 == -CUDART_INF_F ? 0.f : mn1;
-    const float c0 = expf(m0 - base0), c1 = expf(m1 - base1);
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      sc[j][0] = expf(sc[j][0] - base0);
-      sc[j][1] = expf(sc[j][1] - base0);
-      sc[j][2] = expf(sc[j][2] - base1);
-      sc[j][3] = expf(sc[j][3] - base1);
-      ps0 += sc[j][0] + sc[j][1];
-      ps1 += sc[j][2] + sc[j][3];
+    const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
+    const size_t ld = (size_t)H * HD;
+    store_rows<HD>(o + ((size_t)b * Sq + r_lo) * ld + (size_t)h * HD, ld, acc,
+                   r_lo < Sq, r_hi < Sq, 1.f / d_lo, 1.f / d_hi, tig);
+    if (tig == 0) {
+      float* lb = lse + ((size_t)b * H + h) * Sq;
+      if (r_lo < Sq) lb[r_lo] = (m_lo + log2f(d_lo)) * kLn2;
+      if (r_hi < Sq) lb[r_hi] = (m_hi + log2f(d_hi)) * kLn2;
     }
-    l0 = l0 * c0 + ps0;  // this lane's part of the row sum
-    l1 = l1 * c1 + ps1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      acc[n][0] *= c0;
-      acc[n][1] *= c0;
-      acc[n][2] *= c1;
-      acc[n][3] *= c1;
-    }
-    // o += P V, P rounded to bf16 (V's dtype), 16 keys per product
-#pragma unroll
-    for (int s = 0; s < KT / 16; ++s) {
-      const uint32_t pa[4] = {pack_f32(sc[2 * s][0], sc[2 * s][1]),
-                              pack_f32(sc[2 * s][2], sc[2 * s][3]),
-                              pack_f32(sc[2 * s + 1][0], sc[2 * s + 1][1]),
-                              pack_f32(sc[2 * s + 1][2], sc[2 * s + 1][3])};
-      const bf16* vr = vs + (16 * s + 2 * tig) * STR + gid;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const bf16* vc = vr + 8 * n;
-        const uint32_t vf[2] = {pack_pair(vc[0], vc[STR]),
-                                pack_pair(vc[8 * STR], vc[9 * STR])};
-        mma_bf16(acc[n], pa, vf);
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  bf16* ob = o + (size_t)b * Sq * qs_ + (size_t)h * HD;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = 8 * n + 2 * tig;
-    if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * qs_ + c) =
-          pack_f32(acc[n][0] / d0, acc[n][1] / d0);
-    if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * qs_ + c) =
-          pack_f32(acc[n][2] / d1, acc[n][3] / d1);
-  }
-  if (tig == 0) {
-    float* lb = lse + ((size_t)b * H + h) * Sq;
-    if (r0 < Sq) lb[r0] = m0 + logf(d0);
-    if (r1 < Sq) lb[r1] = m1 + logf(d1);
   }
 }
 
-// ---- backward, tensor cores: dq ----------------------------------------------
+// ---- backward: delta, dq, dk/dv ---------------------------------------------
 
-// One CTA: query rows [q0, q0 + 64) of head h of row b, as in the forward;
-// Q and dO stay in registers, 32-key tiles of K and V pass through shared
-// memory. Per tile: S = Q K^T and dP = dO V^T, p = exp(S * scale - lse),
-// dS = p * (dP - delta) * scale, dq += dS K.
-template <int HD>
-__global__ void __launch_bounds__(kFaThreads) fa_dq_mma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int H, int KV, int Sq, int Skv, float scale,
-    int causal) {
-  constexpr int KT = 32;
-  constexpr int STR = HD + 8;
-  __shared__ __align__(16) bf16 ks[KT * STR];
-  __shared__ __align__(16) bf16 vs[KT * STR];
-  const int nqt = (Sq + kFaRows - 1) / kFaRows;
-  const int q0 = (causal ? nqt - 1 - (int)blockIdx.x : (int)blockIdx.x) *
-                 kFaRows;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r0 = q0 + 16 * warp + gid, r1 = r0 + 8;
-  const size_t qs_ = (size_t)H * HD, ks_ = (size_t)KV * HD;
-  const size_t qoff = (size_t)b * Sq * qs_ + (size_t)h * HD;
-  const bf16* kb = k + (size_t)b * Skv * ks_ + (size_t)kvh * HD;
-  const bf16* vb = v + (size_t)b * Skv * ks_ + (size_t)kvh * HD;
-
-  uint32_t qa[HD / 16][4], da[HD / 16][4];
-#pragma unroll
-  for (int s = 0; s < HD / 16; ++s) {
-    const int c = 16 * s + 2 * tig;
-    const bf16* qr0 = q + qoff + r0 * qs_ + c;
-    const bf16* qr1 = q + qoff + r1 * qs_ + c;
-    const bf16* dr0 = dout + qoff + r0 * qs_ + c;
-    const bf16* dr1 = dout + qoff + r1 * qs_ + c;
-    qa[s][0] = r0 < Sq ? ld_pair(qr0) : 0u;
-    qa[s][1] = r1 < Sq ? ld_pair(qr1) : 0u;
-    qa[s][2] = r0 < Sq ? ld_pair(qr0 + 8) : 0u;
-    qa[s][3] = r1 < Sq ? ld_pair(qr1 + 8) : 0u;
-    da[s][0] = r0 < Sq ? ld_pair(dr0) : 0u;
-    da[s][1] = r1 < Sq ? ld_pair(dr1) : 0u;
-    da[s][2] = r0 < Sq ? ld_pair(dr0 + 8) : 0u;
-    da[s][3] = r1 < Sq ? ld_pair(dr1 + 8) : 0u;
+// delta = rowsum(do * o) in f32 from one bf16 read of each (a warp per row
+// of one head, 4 elements a lane), and lse2 = lse * log2 e, both into [B,
+// H, pitch] rows (pitch: Sq rounded up to 128); the kernels read whole
+// tiles of rows, and a row past Sq gets lse2 = +inf and delta = 0, so its
+// p is exactly 0.
+__global__ void __launch_bounds__(256) fa_delta(
+    const bf16* __restrict__ o, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ lse2,
+    float* __restrict__ delta, int B, int H, int Sq, int HD, int pitch) {
+  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= (long long)B * pitch * H) return;
+  const int h = (int)(w % H);
+  const int s = (int)((w / H) % pitch);
+  const int b = (int)(w / ((long long)H * pitch));
+  const size_t out = ((size_t)b * H + h) * pitch + s;
+  if (s >= Sq) {
+    if (lane == 0) {
+      lse2[out] = CUDART_INF_F;
+      delta[out] = 0.f;
+    }
+    return;
   }
-  const float* lb = lse + ((size_t)b * H + h) * Sq;
-  const float* db = delta + ((size_t)b * H + h) * Sq;
-  const float lse0 = r0 < Sq ? lb[r0] : 0.f, lse1 = r1 < Sq ? lb[r1] : 0.f;
-  const float dl0 = r0 < Sq ? db[r0] : 0.f, dl1 = r1 < Sq ? db[r1] : 0.f;
-  float acc[HD / 8][4];
+  float acc = 0.f;
+  if (lane < HD / 4) {
+    const size_t off = (((size_t)b * Sq + s) * H + h) * HD + 4 * lane;
+    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(o + off);
+    const __nv_bfloat162* y =
+        reinterpret_cast<const __nv_bfloat162*>(dout + off);
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int kv_end = causal ? min(Skv, q0 + kFaRows) : Skv;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += KT) {
-    __syncthreads();
-    for (int c = tid; c < KT * (HD / 8); c += kFaThreads) {
-      const int r = c / (HD / 8), w = c % (HD / 8);
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = kr;
-      if (kv0 + r < Skv) {
-        kr = __ldg(reinterpret_cast<const uint4*>(kb + (kv0 + r) * ks_) + w);
-        vr = __ldg(reinterpret_cast<const uint4*>(vb + (kv0 + r) * ks_) + w);
-      }
-      *reinterpret_cast<uint4*>(ks + r * STR + 8 * w) = kr;
-      *reinterpret_cast<uint4*>(vs + r * STR + 8 * w) = vr;
-    }
-    __syncthreads();
-    float sc[KT / 8][4], dp[KT / 8][4];
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-      for (int s = 0; s < HD / 16; ++s) {
-        const int off = (8 * j + gid) * STR + 16 * s + 2 * tig;
-        const uint32_t kf[2] = {ld_pair(ks + off), ld_pair(ks + off + 8)};
-        const uint32_t vf[2] = {ld_pair(vs + off), ld_pair(vs + off + 8)};
-        mma_bf16(sc[j], qa[s], kf);
-        mma_bf16(dp[j], da[s], vf);
-      }
-    }
-    // dS, in place of the scores
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + 8 * j + 2 * tig + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const float p = (row < Sq && keep(key, row, Skv, causal))
-                            ? expf(sc[j][e] * scale - (e < 2 ? lse0 : lse1))
-                            : 0.f;
-        sc[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1)) * scale;
-      }
-    }
-    // dq += dS K, 16 keys per product
-#pragma unroll
-    for (int s = 0; s < KT / 16; ++s) {
-      const uint32_t dsa[4] = {pack_f32(sc[2 * s][0], sc[2 * s][1]),
-                               pack_f32(sc[2 * s][2], sc[2 * s][3]),
-                               pack_f32(sc[2 * s + 1][0], sc[2 * s + 1][1]),
-                               pack_f32(sc[2 * s + 1][2], sc[2 * s + 1][3])};
-      const bf16* kr = ks + (16 * s + 2 * tig) * STR + gid;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const bf16* kc = kr + 8 * n;
-        const uint32_t kf[2] = {pack_pair(kc[0], kc[STR]),
-                                pack_pair(kc[8 * STR], kc[9 * STR])};
-        mma_bf16(acc[n], dsa, kf);
-      }
+    for (int i = 0; i < 2; ++i) {
+      const float2 a = __bfloat1622float2(x[i]), c = __bfloat1622float2(y[i]);
+      acc += a.x * c.x + a.y * c.y;
     }
   }
-  bf16* dqb = dq + qoff;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = 8 * n + 2 * tig;
-    if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(dqb + r0 * qs_ + c) =
-          pack_f32(acc[n][0], acc[n][1]);
-    if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(dqb + r1 * qs_ + c) =
-          pack_f32(acc[n][2], acc[n][3]);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    delta[out] = acc;
+    lse2[out] = lse[((size_t)b * H + h) * Sq + s] * kLog2e;
   }
 }
 
-// ---- backward, tensor cores: dk, dv ------------------------------------------
-
-// One CTA: keys [k0, k0 + 64) of KV head kvh of row b; warp w owns keys
-// k0 + 16w .. +16 (lane rows kr0 = k0 + 16w + gid and kr1 = kr0 + 8), whose
-// dk and dv stay in registers. The K and V tile sits in shared memory;
-// 16-row tiles of Q and dO of each of the G heads stream through. Per
-// tile, transposed: S^T = K Q^T, dP^T = V dO^T, p = exp(S^T * scale - lse),
-// dS^T = p * (dP^T - delta) * scale, dv += P^T dO, dk += dS^T Q.
+// One CTA: query rows [q0, q0 + 128) of head h, as in the forward; Q and dO
+// are loaded once, 64-key K and V tiles stream through the ring. Per tile,
+// in each consumer warpgroup's 64 rows: S = Q K^T and dP = dO V^T (wgmma,
+// shared memory), p = exp2(S scale log2 e - lse2), dS = p (dP - delta)
+// scale rounded to bf16 once, dq += dS K with the same K tile read MN-major.
 template <int HD>
-__global__ void __launch_bounds__(kFaThreads) fa_dkv_mma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KV, int Sq,
-    int Skv, float scale, int causal) {
-  constexpr int QT = 16;  // query rows per streamed tile
-  constexpr int STR = HD + 8;
-  __shared__ __align__(16) bf16 ks[kFaRows * STR];
-  __shared__ __align__(16) bf16 vs[kFaRows * STR];
-  __shared__ __align__(16) bf16 qs[QT * STR];
-  __shared__ __align__(16) bf16 dos[QT * STR];
-  __shared__ float lse_s[QT], dl_s[QT];
-  const int G = H / KV;
-  const int k0 = blockIdx.x * kFaRows;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int kr0 = k0 + 16 * warp + gid, kr1 = kr0 + 8;
-  const size_t qs_ = (size_t)H * HD, ks_ = (size_t)KV * HD;
-  const size_t koff = (size_t)b * Skv * ks_ + (size_t)kvh * HD;
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fa_dq_wgmma(const __grid_constant__ TileMaps tq,
+                const __grid_constant__ TileMaps tdo,
+                const __grid_constant__ TileMaps tk,
+                const __grid_constant__ TileMaps tv,
+                const float* __restrict__ lse2,
+                const float* __restrict__ delta, bf16* __restrict__ dq, int H,
+                int KV, int Sq, int Skv, int pitch, float scale,
+                float scale_log2, int causal) {
+  constexpr int QB = tile_bytes<HD, kRows>(), KB = tile_bytes<HD, kDqKeys>();
+  extern __shared__ uint8_t fa_smem[];
+  uint8_t* sq = align_1024(fa_smem);
+  uint8_t* sdo = sq + QB;
+  uint8_t* sk = sdo + QB;
+  uint8_t* sv = sk + kStages * KB;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sv + kStages * KB);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
 
-  for (int c = tid; c < kFaRows * (HD / 8); c += kFaThreads) {
-    const int r = c / (HD / 8), w = c % (HD / 8);
-    uint4 kr = make_uint4(0, 0, 0, 0), vr = kr;
-    if (k0 + r < Skv) {
-      kr = __ldg(reinterpret_cast<const uint4*>(k + koff + (k0 + r) * ks_) + w);
-      vr = __ldg(reinterpret_cast<const uint4*>(v + koff + (k0 + r) * ks_) + w);
+  const int nqt = (Sq + kRows - 1) / kRows;
+  const int q0 = (causal ? nqt - 1 - (int)blockIdx.z : (int)blockIdx.z) * kRows;
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / (H / KV);
+  const int kv_end = causal ? min(Skv, q0 + kRows) : Skv;
+  const int n_tiles = (kv_end + kDqKeys - 1) / kDqKeys;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 256);
     }
-    *reinterpret_cast<uint4*>(ks + r * STR + 8 * w) = kr;
-    *reinterpret_cast<uint4*>(vs + r * STR + 8 * w) = vr;
+    mbar_fence_init();
   }
-  float dka[HD / 8][4], dva[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
-  // query rows below k0 see none of this CTA's keys
-  const int i_begin = causal ? (k0 / QT) * QT : 0;
-  const bf16* kw = ks + (16 * warp + gid) * STR + 2 * tig;
-  const bf16* vw = vs + (16 * warp + gid) * STR + 2 * tig;
+  __syncthreads();
 
+  // the warpgroup index through a shuffle: provably warp-uniform, as the
+  // branches around setmaxnreg must be
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 2) {
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_q, 2 * QB);
+      load_tile<HD, kRows>(sq, &tq.m, &tq.tail, bar_q, h, q0, b);
+      load_tile<HD, kRows>(sdo, &tdo.m, &tdo.tail, bar_q, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full_k[st], KB);
+        load_tile<HD, kDqKeys>(sk + st * KB, &tk.m, &tk.tail, &full_k[st],
+                               kvh, t * kDqKeys, b);
+        mbar_expect_tx(&full_v[st], KB);
+        load_tile<HD, kDqKeys>(sv + st * KB, &tv.m, &tv.tail, &full_v[st],
+                               kvh, t * kDqKeys, b);
+      }
+    }
+  } else {
+    regs_alloc<kConsumerRegs>();
+    const int cw = wg, t128 = threadIdx.x % 128;
+    const int warp = t128 / 32, lane = t128 % 32, gid = lane / 4,
+              tig = lane % 4;
+    const int wg_row0 = q0 + 64 * cw;
+    const int r_lo = wg_row0 + 16 * warp + gid, r_hi = r_lo + 8;
+    const size_t srow = ((size_t)b * H + h) * pitch;  // r_hi < pitch
+    const float l2_lo = lse2[srow + r_lo], l2_hi = lse2[srow + r_hi];
+    const float dl_lo = delta[srow + r_lo], dl_hi = delta[srow + r_hi];
+    AccHD<HD> acc;
+    zero(acc);
+    mbar_wait(bar_q, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kStages;
+      const uint32_t par = (t / kStages) & 1;
+      const int kv0 = t * kDqKeys;
+      float s[kDqKeys / 2], dp[kDqKeys / 2];
+      mbar_wait(&full_k[st], par);
+      wgmma_fence();
+      mma_rows<HD, kRows, kDqKeys>(s, sq, 64 * cw, sk + st * KB);
+      mbar_wait(&full_v[st], par);
+      wgmma_fence();
+      mma_rows<HD, kRows, kDqKeys>(dp, sdo, 64 * cw, sv + st * KB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      const bool edge = kv0 + kDqKeys > Skv ||
+                        (causal && kv0 + kDqKeys - 1 > wg_row0);
+#pragma unroll
+      for (int i = 0; i < kDqKeys / 2; ++i) {
+        const bool hi = i & 2;
+        float p = exp2f(s[i] * scale_log2 - (hi ? l2_hi : l2_lo));
+        if (edge) {
+          const int key = kv0 + frag_col(i, tig);
+          if (key >= Skv || (causal && key > (hi ? r_hi : r_lo))) p = 0.f;
+        }
+        s[i] = p * (dp[i] - (hi ? dl_hi : dl_lo)) * scale;
+      }
+      uint32_t dsf[kDqKeys / 16][4];
+      to_frags(dsf, s);
+      wgmma_fence();
+      mma_cols<HD, kDqKeys>(acc, dsf, sk + st * KB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(&empty[st]);
+    }
+    const size_t ld = (size_t)H * HD;
+    store_rows<HD>(dq + ((size_t)b * Sq + r_lo) * ld + (size_t)h * HD, ld,
+                   acc, r_lo < Sq, r_hi < Sq, 1.f, 1.f, tig);
+  }
+}
+
+// One pass of a dk/dv consumer warpgroup over the n streamed query tiles
+// (ring uses u0 .. u0 + n - 1), for the warpgroup's 64 keys (rows wg_row0
+// .. + 63 of the K and V tiles): dv += P^T dO if kDv, dk += dS^T Q if kDk.
+// Keys are the rows of every product: S^T = K Q^T and, for dk, dP^T = V
+// dO^T (wgmma, shared memory), p = exp2(S^T scale log2 e - lse2), dS^T = p
+// (dP^T - delta) scale; p and dS are rounded to bf16 once and multiply the
+// dO and Q tiles read MN-major.
+template <int HD, bool kDv, bool kDk>
+__device__ __forceinline__ void dkv_pass(AccHD<HD>& dva, AccHD<HD>& dka,
+                                         const uint8_t* sk,
+                                         const uint8_t* sv,
+                                         const uint8_t* ring, uint64_t* full,
+                                         uint64_t* empty, int u0, int n,
+                                         int i_begin, int wg_row0, int key_lo,
+                                         int tig, float scale,
+                                         float scale_log2, int causal) {
+  constexpr int QB = tile_bytes<HD, kDkvRows>(), kStage = 2 * QB + 1024;
+  if (kDv) zero(dva);
+  if (kDk) zero(dka);
+  for (int t = 0; t < n; ++t) {
+    const int u = u0 + t, st = u % kStages;
+    const int i0 = i_begin + t * kDkvRows;
+    const uint8_t* stage = ring + st * kStage;
+    const float* sl2 = reinterpret_cast<const float*>(stage + 2 * QB);
+    const float* sdl = reinterpret_cast<const float*>(stage + 2 * QB + 512);
+    float s[kDkvRows / 2], dp[kDkvRows / 2];
+    mbar_wait(&full[st], (u / kStages) & 1);
+    wgmma_fence();
+    mma_rows<HD, kRows, kDkvRows>(s, sk, wg_row0, stage);
+    if (kDk) mma_rows<HD, kRows, kDkvRows>(dp, sv, wg_row0, stage + QB);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (kDk) fence_regs(dp);
+    // the warpgroup's last key (key_lo | 63) after the tile's first row
+    const bool edge = causal && (key_lo | 63) > i0;
+#pragma unroll
+    for (int i = 0; i < kDkvRows / 2; ++i) {
+      const int c = frag_col(i, tig);
+      float p = exp2f(s[i] * scale_log2 - sl2[c]);
+      if (edge && key_lo + ((i & 2) ? 8 : 0) > i0 + c) p = 0.f;
+      s[i] = p;
+      if (kDk) dp[i] = p * (dp[i] - sdl[c]) * scale;
+    }
+    uint32_t pf[kDkvRows / 16][4], dsf[kDkvRows / 16][4];
+    if (kDv) to_frags(pf, s);
+    if (kDk) to_frags(dsf, dp);
+    wgmma_fence();
+    if (kDv) mma_cols<HD, kDkvRows>(dva, pf, stage + QB);
+    if (kDk) mma_cols<HD, kDkvRows>(dka, dsf, stage);
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (kDv) fence_acc(dva);
+    if (kDk) fence_acc(dka);
+    mbar_arrive(&empty[st]);
+  }
+}
+
+// A dk/dv consumer's 64 x hd accumulator for keys key_lo, key_lo + 8 (and
+// the warpgroup's others): bf16 into out [B, Skv, KV, hd] when G = 1, else
+// f32 into head h of the partials [B, Skv, H, hd].
+template <int HD>
+__device__ __forceinline__ void store_dkv(bf16* out, float* partial,
+                                          const AccHD<HD>& a, int b,
+                                          int key_lo, int h, int H, int KV,
+                                          int Skv, int tig) {
+  const bool lo_ok = key_lo < Skv, hi_ok = key_lo + 8 < Skv;
+  if (H == KV) {
+    const size_t ld = (size_t)KV * HD;
+    store_rows<HD>(out + ((size_t)b * Skv + key_lo) * ld + (size_t)h * HD,
+                   ld, a, lo_ok, hi_ok, 1.f, 1.f, tig);
+  } else {
+    const size_t ld = (size_t)H * HD;
+    store_rows<HD>(partial + ((size_t)b * Skv + key_lo) * ld + (size_t)h * HD,
+                   ld, a, lo_ok, hi_ok, 1.f, 1.f, tig);
+  }
+}
+
+// One CTA: keys [k0, k0 + 128) of KV head h / G against query head h of
+// batch row b (H x Skv / 128 CTAs, not KV x ...: the G heads of a KV head
+// run in parallel). K and V are loaded once; 64-row tiles of Q, dO, lse2
+// and delta of head h stream through the ring. Consumer warpgroup w owns
+// keys k0 + 64 w .. + 64 (dkv_pass). At hd 64 and 80 it accumulates dk and
+// dv together in one pass over the tiles (four products). At hd 128 two
+// 64 x 128 accumulators beside S^T and dP^T are more registers than ptxas
+// gave a consumer (it spilled 772 bytes and serialised the wgmmas), so the
+// tiles stream twice: dv in the first pass, dk in the second, one product
+// more (S^T twice) for one accumulator at a time. Causal: query tiles
+// before k0 are skipped; grid z is the key tile, so the CTAs with the most
+// query tiles (k0 = 0) start first. With G = 1 the CTA writes bf16 dk and
+// dv; with G > 1 it writes its head's f32 partials [B, Skv, H, hd], summed
+// over the G heads in a fixed order by fa_dkv_reduce (no atomics: two calls
+// give the same bits).
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fa_dkv_wgmma(const __grid_constant__ TileMaps tk,
+                 const __grid_constant__ TileMaps tv,
+                 const __grid_constant__ TileMaps tq,
+                 const __grid_constant__ TileMaps tdo,
+                 const __grid_constant__ CUtensorMap tlse2,
+                 const __grid_constant__ CUtensorMap tdelta,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 float* __restrict__ dkp, float* __restrict__ dvp, int H,
+                 int KV, int Sq, int Skv, float scale, float scale_log2,
+                 int causal) {
+  constexpr int KB = tile_bytes<HD, kRows>(),
+                QB = tile_bytes<HD, kDkvRows>();
+  constexpr int kStage = 2 * QB + 1024;  // Q, dO, then lse2 and delta
+  extern __shared__ uint8_t fa_smem[];
+  uint8_t* sk = align_1024(fa_smem);
+  uint8_t* sv = sk + KB;
+  uint8_t* ring = sv + KB;
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kStages;
+
+  constexpr int kPasses = HD == 128 ? 2 : 1;  // see above
+  const int k0 = blockIdx.z * kRows;
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / (H / KV);
+  const int i_begin = causal ? k0 : 0;  // query rows < k0 see none
+  const int n_tiles =
+      i_begin < Sq ? (Sq - i_begin + kDkvRows - 1) / kDkvRows : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup index through a shuffle: provably warp-uniform, as the
+  // branches around setmaxnreg must be
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 2) {
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_kv, 2 * KB);
+      load_tile<HD, kRows>(sk, &tk.m, &tk.tail, bar_kv, kvh, k0, b);
+      load_tile<HD, kRows>(sv, &tv.m, &tv.tail, bar_kv, kvh, k0, b);
+      for (int u = 0; u < kPasses * n_tiles; ++u) {  // once per pass
+        const int st = u % kStages;
+        const int i0 = i_begin + (u % n_tiles) * kDkvRows;
+        if (u >= kStages) mbar_wait(&empty[st], ((u / kStages) & 1) ^ 1);
+        uint8_t* stage = ring + st * kStage;
+        mbar_expect_tx(&full[st], 2 * QB + 2 * kDkvRows * 4);
+        load_tile<HD, kDkvRows>(stage, &tq.m, &tq.tail, &full[st], h, i0, b);
+        load_tile<HD, kDkvRows>(stage + QB, &tdo.m, &tdo.tail, &full[st], h,
+                                i0, b);
+        tma_load_2d(stage + 2 * QB, &tlse2, &full[st], i0, b * H + h);
+        tma_load_2d(stage + 2 * QB + 512, &tdelta, &full[st], i0, b * H + h);
+      }
+    }
+  } else {
+    regs_alloc<kConsumerRegs>();
+    const int t128 = threadIdx.x % 128;
+    const int warp = t128 / 32, lane = t128 % 32, gid = lane / 4,
+              tig = lane % 4;
+    const int key_lo = k0 + 64 * wg + 16 * warp + gid;
+    mbar_wait(bar_kv, 0);
+    AccHD<HD> dva, dka;
+    if (kPasses == 1)
+      dkv_pass<HD, true, true>(dva, dka, sk, sv, ring, full, empty, 0,
+                               n_tiles, i_begin, 64 * wg, key_lo, tig, scale,
+                               scale_log2, causal);
+    else
+      dkv_pass<HD, true, false>(dva, dka, sk, sv, ring, full, empty, 0,
+                                n_tiles, i_begin, 64 * wg, key_lo, tig, scale,
+                                scale_log2, causal);
+    store_dkv<HD>(dv, dvp, dva, b, key_lo, h, H, KV, Skv, tig);
+    if (kPasses == 2)
+      dkv_pass<HD, false, true>(dva, dka, sk, sv, ring, full, empty, n_tiles,
+                                n_tiles, i_begin, 64 * wg, key_lo, tig, scale,
+                                scale_log2, causal);
+    store_dkv<HD>(dk, dkp, dka, b, key_lo, h, H, KV, Skv, tig);
+  }
+}
+
+// dk[b, s, g', :] = sum over g < G of dkp[b, s, g' G + g, :] in order g = 0,
+// 1, ... (and dv from dvp), rounded to bf16 once: 4 elements a thread.
+__global__ void __launch_bounds__(256) fa_dkv_reduce(
+    const float* __restrict__ dkp, const float* __restrict__ dvp,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, long long n4, int KV, int G,
+    int HD) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const int d = (int)(i % (HD / 4)) * 4;
+  const long long row = i / (HD / 4);  // b * Skv * KV + s * KV + kvh
+  const size_t src = (size_t)(row * G) * HD + d;  // head kvh * G of (b, s)
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
   for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const size_t qoff = (size_t)b * Sq * qs_ + (size_t)h * HD;
-    const float* lb = lse + ((size_t)b * H + h) * Sq;
-    const float* db = delta + ((size_t)b * H + h) * Sq;
-    for (int i0 = i_begin; i0 < Sq; i0 += QT) {
-      __syncthreads();  // the previous query tile is consumed
-      for (int c = tid; c < QT * (HD / 8); c += kFaThreads) {
-        const int r = c / (HD / 8), w = c % (HD / 8);
-        uint4 qr = make_uint4(0, 0, 0, 0), dr = qr;
-        if (i0 + r < Sq) {
-          qr = __ldg(reinterpret_cast<const uint4*>(q + qoff +
-                                                    (i0 + r) * qs_) + w);
-          dr = __ldg(reinterpret_cast<const uint4*>(dout + qoff +
-                                                    (i0 + r) * qs_) + w);
-        }
-        *reinterpret_cast<uint4*>(qs + r * STR + 8 * w) = qr;
-        *reinterpret_cast<uint4*>(dos + r * STR + 8 * w) = dr;
-      }
-      if (tid < QT) {
-        lse_s[tid] = i0 + tid < Sq ? lb[i0 + tid] : 0.f;
-        dl_s[tid] = i0 + tid < Sq ? db[i0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float st[2][4], dpt[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-        dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-      }
-#pragma unroll
-      for (int s = 0; s < HD / 16; ++s) {
-        const int c = 16 * s;
-        const uint32_t ka[4] = {ld_pair(kw + c), ld_pair(kw + 8 * STR + c),
-                                ld_pair(kw + c + 8),
-                                ld_pair(kw + 8 * STR + c + 8)};
-        const uint32_t va[4] = {ld_pair(vw + c), ld_pair(vw + 8 * STR + c),
-                                ld_pair(vw + c + 8),
-                                ld_pair(vw + 8 * STR + c + 8)};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int off = (8 * j + gid) * STR + c + 2 * tig;
-          const uint32_t qf[2] = {ld_pair(qs + off), ld_pair(qs + off + 8)};
-          const uint32_t df[2] = {ld_pair(dos + off), ld_pair(dos + off + 8)};
-          mma_bf16(st[j], ka, qf);
-          mma_bf16(dpt[j], va, df);
-        }
-      }
-      // P^T in st, dS^T in dpt
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int li = 8 * j + 2 * tig + (e & 1), row = i0 + li;
-          const int key = e < 2 ? kr0 : kr1;
-          const float p = (row < Sq && keep(key, row, Skv, causal))
-                              ? expf(st[j][e] * scale - lse_s[li])
-                              : 0.f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - dl_s[li]) * scale;
-        }
-      }
-      const uint32_t pa[4] = {pack_f32(st[0][0], st[0][1]),
-                              pack_f32(st[0][2], st[0][3]),
-                              pack_f32(st[1][0], st[1][1]),
-                              pack_f32(st[1][2], st[1][3])};
-      const uint32_t dsa[4] = {pack_f32(dpt[0][0], dpt[0][1]),
-                               pack_f32(dpt[0][2], dpt[0][3]),
-                               pack_f32(dpt[1][0], dpt[1][1]),
-                               pack_f32(dpt[1][2], dpt[1][3])};
-      const bf16* dr = dos + (2 * tig) * STR + gid;
-      const bf16* qr = qs + (2 * tig) * STR + gid;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const bf16* dc = dr + 8 * n;
-        const bf16* qc = qr + 8 * n;
-        const uint32_t df[2] = {pack_pair(dc[0], dc[STR]),
-                                pack_pair(dc[8 * STR], dc[9 * STR])};
-        const uint32_t qf[2] = {pack_pair(qc[0], qc[STR]),
-                                pack_pair(qc[8 * STR], qc[9 * STR])};
-        mma_bf16(dva[n], pa, df);
-        mma_bf16(dka[n], dsa, qf);
-      }
-    }
+    const float4 x = *reinterpret_cast<const float4*>(dkp + src + g * HD);
+    const float4 y = *reinterpret_cast<const float4*>(dvp + src + g * HD);
+    a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
+    c.x += y.x, c.y += y.y, c.z += y.z, c.w += y.w;
   }
-  bf16* dkb = dk + koff;
-  bf16* dvb = dv + koff;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = 8 * n + 2 * tig;
-    if (kr0 < Skv) {
-      *reinterpret_cast<uint32_t*>(dkb + kr0 * ks_ + c) =
-          pack_f32(dka[n][0], dka[n][1]);
-      *reinterpret_cast<uint32_t*>(dvb + kr0 * ks_ + c) =
-          pack_f32(dva[n][0], dva[n][1]);
-    }
-    if (kr1 < Skv) {
-      *reinterpret_cast<uint32_t*>(dkb + kr1 * ks_ + c) =
-          pack_f32(dka[n][2], dka[n][3]);
-      *reinterpret_cast<uint32_t*>(dvb + kr1 * ks_ + c) =
-          pack_f32(dva[n][2], dva[n][3]);
-    }
-  }
+  const size_t dst = (size_t)row * HD + d;
+  *reinterpret_cast<uint2*>(dk + dst) =
+      make_uint2(pack_f32(a.x, a.y), pack_f32(a.z, a.w));
+  *reinterpret_cast<uint2*>(dv + dst) =
+      make_uint2(pack_f32(c.x, c.y), pack_f32(c.z, c.w));
 }
 
-// ---- f32, CUDA cores ----------------------------------------------------------
+// ---- f32, CUDA cores --------------------------------------------------------
 
 constexpr int kF32Rows = 16;     // forward: query rows per CTA, 4 per warp
 constexpr int kF32DqRows = 8;    // dq: query rows per CTA, 2 per warp
@@ -799,54 +1110,130 @@ bool fa_args_ok(int B, int H, int KV, int Sq, int Skv, int hd, int causal,
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// The column-slab maps of one [B, S, N, hd] bf16 tensor, boxes of `rows`.
+cudaError_t tile_maps(TileMaps* t, const void* p, int B, int S, int N, int hd,
+                      int rows) {
+  const cudaError_t e = encode_rows_map(&t->m, p, B, S, N, hd, 64, rows, 128);
+  if (e != cudaSuccess || hd % 64 == 0) {
+    t->tail = t->m;
+    return e;
+  }
+  return encode_rows_map(&t->tail, p, B, S, N, hd, 16, rows, 32);
+}
+
+template <typename K>
+cudaError_t opt_in_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
 template <int HD>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int H, int KV, int Sq, int Skv, float scale,
                int causal, int dtype, cudaStream_t st) {
-  if (dtype == kBF16) {
-    fa_fwd_mma<HD><<<dim3(cdiv(Sq, kFaRows), H, B), kFaThreads, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KV, Sq,
-        Skv, scale, causal);
-  } else {
+  if (dtype == kF32) {
     fa_fwd_f32<HD><<<dim3(cdiv(Sq, kF32Rows), H, B), kFaThreads, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, Sq,
         Skv, scale, causal);
+    return cudaGetLastError();
   }
+  TileMaps tq, tk, tv;
+  cudaError_t e = tile_maps(&tq, q, B, Sq, H, HD, kRows);
+  if (e == cudaSuccess) e = tile_maps(&tk, k, B, Skv, KV, HD, fwd_keys<HD>());
+  if (e == cudaSuccess) e = tile_maps(&tv, v, B, Skv, KV, HD, fwd_keys<HD>());
+  const int smem = 1024 + tile_bytes<HD, kRows>() +
+                   2 * kStages * tile_bytes<HD, fwd_keys<HD>()>() +
+                   8 * (1 + 3 * kStages);
+  if (e == cudaSuccess) e = opt_in_smem(fa_fwd_wgmma<HD>, smem);
+  if (e != cudaSuccess) return e;
+  fa_fwd_wgmma<HD><<<dim3(H, B, cdiv(Sq, kRows)), kWsThreads, smem, st>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, H, KV, Sq, Skv,
+      scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 template <int HD>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dq, void* dk,
-               void* dv, int B, int H, int KV, int Sq, int Skv, float scale,
-               int causal, int dtype, cudaStream_t st) {
-  if (dtype == kBF16) {
-    fa_dq_mma<HD><<<dim3(cdiv(Sq, kFaRows), H, B), kFaThreads, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dq), H, KV, Sq, Skv, scale, causal);
-    const int err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    fa_dkv_mma<HD><<<dim3(cdiv(Skv, kFaRows), KV, B), kFaThreads, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KV, Sq, Skv,
-        scale, causal);
-  } else {
-    fa_dq_f32<HD><<<dim3(cdiv(Sq, kF32DqRows), H, B), kFaThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), H, KV, Sq, Skv, scale, causal);
-    const int err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    fa_dkv_f32<HD><<<dim3(cdiv(Skv, kF32KvRows), KV, B), kFaThreads, 0,
-                     st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), H, KV, Sq,
-        Skv, scale, causal);
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* stats,
+               float* partial, void* dq, void* dk, void* dv, int B, int H,
+               int KV, int Sq, int Skv, int pitch, float scale, int causal,
+               int dtype, int parts, cudaStream_t st) {
+  float* lse2 = stats;
+  float* delta = stats + (size_t)B * H * pitch;
+  if ((parts & 1) && dtype == kBF16) {
+    const long long threads = 32LL * B * pitch * H;
+    fa_delta<<<(int)((threads + 255) / 256), 256, 0, st>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+        lse2, delta, B, H, Sq, HD, pitch);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (dtype == kF32) {
+    if (parts & 2) {
+      fa_dq_f32<HD><<<dim3(cdiv(Sq, kF32DqRows), H, B), kFaThreads, 0, st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+          delta, static_cast<float*>(dq), H, KV, Sq, Skv, scale, causal);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+    if (parts & 4)
+      fa_dkv_f32<HD><<<dim3(cdiv(Skv, kF32KvRows), KV, B), kFaThreads, 0,
+                       st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+          delta, static_cast<float*>(dk), static_cast<float*>(dv), H, KV, Sq,
+          Skv, scale, causal);
+    return cudaGetLastError();
+  }
+  if (parts & 2) {
+    TileMaps tq, tdo, tk, tv;
+    cudaError_t e = tile_maps(&tq, q, B, Sq, H, HD, kRows);
+    if (e == cudaSuccess) e = tile_maps(&tdo, dout, B, Sq, H, HD, kRows);
+    if (e == cudaSuccess) e = tile_maps(&tk, k, B, Skv, KV, HD, kDqKeys);
+    if (e == cudaSuccess) e = tile_maps(&tv, v, B, Skv, KV, HD, kDqKeys);
+    const int smem = 1024 + 2 * tile_bytes<HD, kRows>() +
+                     2 * kStages * tile_bytes<HD, kDqKeys>() +
+                     8 * (1 + 3 * kStages);
+    if (e == cudaSuccess) e = opt_in_smem(fa_dq_wgmma<HD>, smem);
+    if (e != cudaSuccess) return e;
+    fa_dq_wgmma<HD><<<dim3(H, B, cdiv(Sq, kRows)), kWsThreads, smem, st>>>(
+        tq, tdo, tk, tv, lse2, delta, static_cast<bf16*>(dq), H, KV, Sq, Skv,
+        pitch, scale, scale * kLog2e, causal);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (parts & 4) {
+    const int G = H / KV;
+    float* dkp = partial;
+    float* dvp = G > 1 ? partial + (size_t)B * Skv * H * HD : nullptr;
+    TileMaps tk, tv, tq, tdo;
+    CUtensorMap tl, td;
+    cudaError_t e = tile_maps(&tk, k, B, Skv, KV, HD, kRows);
+    if (e == cudaSuccess) e = tile_maps(&tv, v, B, Skv, KV, HD, kRows);
+    if (e == cudaSuccess) e = tile_maps(&tq, q, B, Sq, H, HD, kDkvRows);
+    if (e == cudaSuccess) e = tile_maps(&tdo, dout, B, Sq, H, HD, kDkvRows);
+    if (e == cudaSuccess)
+      e = encode_f32_rows_map(&tl, lse2, B * H, pitch, kDkvRows);
+    if (e == cudaSuccess)
+      e = encode_f32_rows_map(&td, delta, B * H, pitch, kDkvRows);
+    const int smem = 1024 + 2 * tile_bytes<HD, kRows>() +
+                     kStages * (2 * tile_bytes<HD, kDkvRows>() + 1024) +
+                     8 * (1 + 2 * kStages);
+    if (e == cudaSuccess) e = opt_in_smem(fa_dkv_wgmma<HD>, smem);
+    if (e != cudaSuccess) return e;
+    fa_dkv_wgmma<HD><<<dim3(H, B, cdiv(Skv, kRows)), kWsThreads, smem, st>>>(
+        tk, tv, tq, tdo, tl, td, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), dkp, dvp, H, KV, Sq, Skv, scale,
+        scale * kLog2e, causal);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || G == 1) return e;
+    const long long n4 = (long long)B * Skv * KV * HD / 4;
+    fa_dkv_reduce<<<(int)((n4 + 255) / 256), 256, 0, st>>>(
+        dkp, dvp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n4, KV, G,
+        HD);
   }
   return cudaGetLastError();
 }
@@ -875,26 +1262,37 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                          dtype, st);
 }
 
-// The forward's inputs, do [B,Sq,H,hd] (same dtype), its lse and delta =
-// rowsum(do * o) [B,H,Sq] f32; writes dq [B,Sq,H,hd] and dk, dv
-// [B,Skv,KV,hd] in the inputs' dtype (two kernels on the stream).
+// The forward's inputs, its o and lse, do [B,Sq,H,hd] (same dtype); writes
+// dq [B,Sq,H,hd] and dk, dv [B,Skv,KV,hd] in the inputs' dtype. Scratch:
+// stats [2, B, H, pitch] f32 (bf16: lse * log2 e and delta, written by the
+// delta launch, pitch a multiple of 128 at least Sq; f32: pitch = Sq and
+// stats[1] holds delta on entry) and, for bf16 with H > KV, partial [2, B,
+// Skv, H, hd] f32 (the dk and dv of each query head). parts selects the
+// launches (1 delta, 2 dq, 4 dk/dv; 7 for the whole backward), so that each
+// can be timed alone.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
-                               const void* dout, const float* lse,
-                               const float* delta, void* dq, void* dk,
-                               void* dv, int B, int H, int KV, int Sq, int Skv,
-                               int hd, float scale, int causal, int dtype,
+                               const void* o, const void* dout,
+                               const float* lse, float* stats, float* partial,
+                               void* dq, void* dk, void* dv, int B, int H,
+                               int KV, int Sq, int Skv, int hd, int pitch,
+                               float scale, int causal, int dtype, int parts,
                                void* stream) {
-  if (!fa_args_ok(B, H, KV, Sq, Skv, hd, causal, dtype))
+  if (!fa_args_ok(B, H, KV, Sq, Skv, hd, causal, dtype) ||
+      (dtype == kF32 ? pitch != Sq : pitch % 128 != 0 || pitch < Sq) ||
+      (dtype == kBF16 && H != KV && partial == nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
-    return launch_bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, Sq,
-                          Skv, scale, causal, dtype, st);
+    return launch_bwd<64>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
+                          H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,
+                          st);
   if (hd == 80)
-    return launch_bwd<80>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, Sq,
-                          Skv, scale, causal, dtype, st);
-  return launch_bwd<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, Sq,
-                         Skv, scale, causal, dtype, st);
+    return launch_bwd<80>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
+                          H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,
+                          st);
+  return launch_bwd<128>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
+                         H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,
+                         st);
 }
 
 }  // extern "C"

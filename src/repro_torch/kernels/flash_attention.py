@@ -3,15 +3,21 @@ a wrapper around hand-written CUDA kernels beside its plain PyTorch
 version.
 
 * :func:`flash_attention_fwd` returns ``(o, lse)``; its kernels
-  (``csrc/flash_attention.cu``: ``fa_fwd_mma`` for bf16, ``fa_fwd_f32``)
+  (``csrc/flash_attention.cu``: ``fa_fwd_wgmma`` for bf16, ``fa_fwd_f32``)
   replace the Pallas ``flash_attention_fwd`` / ``_fwd_kernel`` of
   ``src/repro/kernels/flash_attention.py``.
 * :func:`flash_attention_bwd` returns ``(dq, dk, dv)`` from the forward's
-  inputs, ``o``, ``lse`` and ``do``; its kernels (``fa_dq_*`` and
-  ``fa_dkv_*``) replace the Pallas ``flash_attention_bwd`` /
-  ``_dq_kernel``, ``_dkv_kernel``. ``delta = rowsum(do * o)`` is a
-  PyTorch op before the launch, as the reference computes it outside its
-  kernels.
+  inputs, ``o``, ``lse`` and ``do``; its kernels replace the Pallas
+  ``flash_attention_bwd`` / ``_dq_kernel``, ``_dkv_kernel`` and (bf16) the
+  delta = rowsum(do * o) the reference computes before them. In bf16 it
+  is three launches (:func:`bwd_launch`): ``fa_delta`` (delta from one
+  read of ``o`` and ``do``), ``fa_dq_wgmma`` (a CTA per 128 query rows
+  and head) and ``fa_dkv_wgmma`` (a CTA per 128 keys and *query* head, so
+  the G heads of a KV head run in parallel), then with G > 1
+  ``fa_dkv_reduce``, which sums the G heads' f32 partials in a fixed
+  order. No atomics: two calls on the same inputs give the same bits. f32
+  takes CUDA-core ``fa_dq_f32`` and ``fa_dkv_f32``, with delta summed in
+  PyTorch as the plain version sums it (f32 is no speed target).
 
 Layout: the path's own, ``q, o, do [B,Sq,H,hd]`` and ``k, v [B,Skv,KV,hd]``
 (the Pallas kernels take ``[B,H,S,hd]``), ``lse [B,H,Sq]`` float32; query
@@ -22,16 +28,22 @@ only, where that is also the Pallas kernels' mask and ``attention_ref``'s).
 Every query row and key is covered; the Pallas kernels leave rows from
 ``(Sq // 128) * 128`` on unwritten when S is not a multiple of the tile.
 
-Bound on an H100: operations (see ``csrc/flash_attention.cu``), 2 * B * H *
-S^2 * hd FLOPs for a causal forward, 5 * B * H * S^2 * hd for the backward,
-at the bf16 or f32 peak.
+Bound on an H100: operations, 2 * B * H * S^2 * hd FLOPs for a causal
+forward, 5 * B * H * S^2 * hd for the backward, at the bf16 or f32 peak.
+The bf16 kernels put every product on ``wgmma`` with operands brought by
+TMA through rings of shared-memory stages (warp specialised: one producer
+warpgroup, two consumer warpgroups of 64 rows each). The TMA tensor maps
+are encoded for each call from the shapes (:func:`tma_strides` checks what
+TMA takes); at hd 80 a row is a 64-column and a 16-column slab, each with
+its own map and swizzle (see ``csrc/flash_attention.cu``).
 
 Precision: the plain versions compute in float32 throughout, except that
 the forward rounds the softmax weights to V's dtype before the PV product,
 as ``flash_attention_xla`` does. The bf16 kernels accumulate in f32 on the
-tensor cores and round their operands p and dS to bf16 (p relative to the
-running max, not the final one); ``chip_smoke.py`` holds them to the plain
-versions within a tolerance relative to the largest |output|.
+tensor cores and round p (relative to the running max in the forward, not
+the final one) and dS to bf16 once each for the products that take them;
+``chip_smoke.py`` holds them to the plain versions within a tolerance
+relative to each output vector's size.
 """
 from __future__ import annotations
 
@@ -41,6 +53,8 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 128)
+STATS_ROWS = 128       # bf16 kernels' query tile: stats rows pad to it
+BWD_PARTS = 1 | 2 | 4  # the backward's launches: delta, dq, dk/dv
 
 
 def _grouped(t, KV):
@@ -133,12 +147,90 @@ flash_attention_fwd.launches = 0
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal, scale=None):
     """Flash attention backward, same contract as
     :func:`flash_attention_bwd_plain`. CPU tensors take the plain version;
-    CUDA tensors launch the kernels (dq, then dk/dv, one call), or raise on
-    what they do not take. ``flash_attention_bwd.launches`` counts
-    calls."""
+    CUDA tensors launch the kernels (:func:`bwd_launch`: delta, dq, then
+    dk/dv, one call), or raise on what they do not take.
+    ``flash_attention_bwd.launches`` counts calls."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale)
+    _check_bwd(q, k, v, o, lse, do, causal)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    bwd_launch(q, k, v, o, lse, do, grads, *bwd_scratch(q, k), causal=causal,
+               scale=scale)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+flash_attention_bwd.launches = 0
+
+
+def stats_pitch(Sq, dtype):
+    """Row length of the backward's stats scratch (lse * log2 e and delta,
+    ``[2, B, H, pitch]`` float32): the bf16 kernels read whole tiles of
+    ``STATS_ROWS`` query rows, so their rows are padded to a multiple of it
+    (a padded row has lse = +inf and delta = 0: its p is 0); the f32 kernels
+    index rows of ``Sq``."""
+    if dtype == torch.float32:
+        return Sq
+    return -(-Sq // STATS_ROWS) * STATS_ROWS
+
+
+def bwd_scratch(q, k):
+    """The backward's float32 scratch on q's device: ``stats [2, B, H,
+    stats_pitch]`` and, for bf16 with G = H // KV > 1, ``partial [2, B, Skv,
+    H, hd]`` (each query head's dk and dv before the sum over its KV head's
+    G heads), else an empty tensor."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    kw = {"dtype": torch.float32, "device": q.device}
+    stats = torch.empty((2, B, H, stats_pitch(Sq, q.dtype)), **kw)
+    grouped = q.dtype == torch.bfloat16 and H != KV
+    partial = torch.empty((2, B, Skv, H, hd) if grouped else (0,), **kw)
+    return stats, partial
+
+
+def bwd_launch(q, k, v, o, lse, do, grads, stats, partial, *, causal,
+               scale=None, parts=BWD_PARTS):
+    """Launch the backward's kernels on checked CUDA inputs, writing
+    ``grads = (dq, dk, dv)`` (``torch.empty_like`` of q, k, v) with the
+    scratch of :func:`bwd_scratch`. ``parts`` selects the launches (1 delta,
+    2 dq, 4 dk/dv), so that each can be timed alone; dq and dk/dv read the
+    stats that the delta launch wrote. Counts nothing."""
+    B, Sq, H, hd = q.shape
+    dq, dk, dv = grads
+    if q.dtype == torch.float32 and parts & 1:
+        # the f32 kernels take delta summed as the plain version sums it:
+        # dS = p (dP - delta) cancels where dP ~ delta, and another order
+        # of the same f32 sum moved dq past phase 6's f32 rule (2**-13)
+        stats[1].copy_((do * o).sum(dim=-1).transpose(1, 2))
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+            partial.data_ptr() if partial.numel() else None, dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, k.shape[2], Sq, k.shape[1],
+            hd, stats.shape[-1], hd ** -0.5 if scale is None else scale,
+            int(causal), _DTYPE_CODE[q.dtype], parts, stream)
+    _build.check(err, "flash_attention_bwd")
+
+
+def tma_strides(shape, itemsize):
+    """Byte strides of the 4-D TMA tensor map the bf16 kernels put over a
+    contiguous ``[B, S, N, hd]`` tensor (dims hd, N, S, B): a head, a row,
+    a batch row. TMA takes only multiples of 16 bytes: raise on others
+    before any launch."""
+    B, S, N, hd = shape
+    strides = (hd * itemsize, N * hd * itemsize, S * N * hd * itemsize)
+    if any(st % 16 for st in strides):
+        raise ValueError(f"a TMA tensor map over {tuple(shape)} with "
+                         f"{itemsize}-byte elements needs strides that are "
+                         f"multiples of 16 bytes, got {strides}")
+    return strides
+
+
+def _check_bwd(q, k, v, o, lse, do, causal):
     B, Sq, H, hd = _check(q, k, v, causal, (q, k, v, o, lse, do))
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
@@ -148,30 +240,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal, scale=None):
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse [B,H,Sq] float32 expected, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, k.shape[2], Sq, k.shape[1], hd,
-            hd ** -0.5 if scale is None else scale, int(causal),
-            _DTYPE_CODE[q.dtype], stream)
-    _build.check(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
-
-
-flash_attention_bwd.launches = 0
 
 
 def _check(q, k, v, causal, tensors):
     """What the kernels take: q [B,Sq,H,hd], k and v [B,Skv,KV,hd] with H
     a multiple of KV and hd in ``HEAD_DIMS``, all float32 or all bfloat16,
-    every input on q's device, contiguous and 16-byte aligned; causal only
-    with Sq == Skv. Returns (B, Sq, H, hd)."""
+    every input on q's device, contiguous and 16-byte aligned (bf16: with
+    :func:`tma_strides`); causal only with Sq == Skv. Returns (B, Sq, H,
+    hd)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q [B,Sq,H,hd] and k, v [B,Skv,KV,hd] expected, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -195,4 +271,7 @@ def _check(q, k, v, causal, tensors):
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in tensors):
         raise ValueError("all inputs must be contiguous and 16-byte aligned")
+    if q.dtype == torch.bfloat16:
+        tma_strides(q.shape, q.element_size())
+        tma_strides(k.shape, k.element_size())
     return B, Sq, H, hd

@@ -2,13 +2,15 @@
 attention forward and backward (what the K3a/K3b CUDA kernels are held to
 on the GPU by ``chip_smoke.py``) against ``layers.flash_attention_xla``,
 the Pallas ``flash_attention`` in interpret mode (forward, its lse, and
-``jax.vjp``) and torch autograd through a naive attention, on the shapes
-of ``tests/test_kernels.py``; the differentiable ``ops.flash_attention``
-against ``jax.grad`` of the Pallas op and against autograd; the Pallas
-tail at S = 192 (a deliberate difference, ROADMAP Queue 3); and what the
-kernel wrappers refuse. Inputs come from numpy with a seed; the same
-arrays go to both packages in the port's layout [B,S,H,hd] (transposed
-for Pallas' [B,H,S,hd])."""
+``jax.vjp``) and torch autograd through a naive attention, on the shapes of
+``tests/test_kernels.py``; the differentiable ``ops.flash_attention``
+against ``jax.grad`` of the Pallas op and against autograd; the Pallas tail
+at S = 192 (a deliberate difference, ROADMAP Queue 3); non-causal attention
+of 128 queries over 256 keys at hd 64 (an encoder-decoder's
+cross-attention, cut to whole Pallas tiles); and what the kernel wrappers
+refuse, with the shapes and strides they compute for the launches. Inputs
+come from numpy with a seed; the same arrays go to both packages in the
+port's layout [B,S,H,hd] (transposed for Pallas' [B,H,S,hd])."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,11 +44,14 @@ BF16_REL = 2e-2
 GRAD_F32_ATOL = 5e-5
 
 
-def _inputs(B, H, KV, S, hd, dtype, seed=0):
+def _inputs(B, H, KV, S, hd, dtype, seed=0, Skv=None):
     """q, k, v, do in both packages' dtype, same values: numpy f32 rounded
-    once to ``dtype``. Returns (jax arrays, torch tensors), [B,S,*,hd]."""
+    once to ``dtype``. Returns (jax arrays, torch tensors), [B,S,*,hd]
+    (k and v over ``Skv`` positions when given)."""
     rng = np.random.default_rng(seed)
-    shapes = [(B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)]
+    Skv = S if Skv is None else Skv
+    shapes = [(B, S, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd),
+              (B, S, H, hd)]
     jx = [jnp.asarray(rng.standard_normal(s, dtype=np.float32)).astype(
         jnp.dtype(dtype)) for s in shapes]
     tx = [torch.tensor(np.asarray(a.astype(jnp.float32))).to(
@@ -242,3 +247,96 @@ def test_plain_at_the_hybrid_head_dim_matches_xla(dtype):
     for g, w in zip(grads, vjp(jdo)):
         _close(g, w, dtype, atol=GRAD_F32_ATOL)
     assert tfa._check(tq, tk, tv, True, (tq, tk, tv)) == (1, 128, 4, 80)
+
+
+# cross-attention: Sq 128 over Skv 256, H = KV = 4, hd 64, non-causal, in
+# whole Pallas tiles (block_q 64, block_k 128: Pallas drops a partial one)
+CROSS = (1, 4, 4, 128, 256, 64, 64, 128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_cross_attention_matches_xla_and_pallas(dtype):
+    """Non-causal attention with Sq != Skv, the shape the card's phase 6
+    checks the kernels at (seamless-m4t-medium's cross-attention, cut): the
+    plain forward against ``flash_attention_xla`` and the Pallas forward in
+    interpret mode (o and lse), its backward against ``jax.vjp`` of both."""
+    B, H, KV, Sq, Skv, hd, bq, bk = CROSS
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(B, H, KV, Sq, hd, dtype,
+                                                    seed=4, Skv=Skv)
+    o, lse = tfa.flash_attention_fwd_plain(tq, tk, tv, causal=False)
+    assert o.shape == (B, Sq, H, hd) and lse.shape == (B, H, Sq)
+    want, xla_vjp = jax.vjp(lambda q, k, v: jlayers.flash_attention_xla(
+        q, k, v, causal=False), jq, jk, jv)
+    _close(o, want, dtype)
+    po, plse = jfa.flash_attention_fwd(_t(jq), _t(jk), _t(jv), causal=False,
+                                       block_q=bq, block_k=bk, interpret=True)
+    _close(o, _t(po), dtype)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(plse), atol=F32_ATOL)
+    grads = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo,
+                                          causal=False)
+    _, pallas_vjp = jax.vjp(lambda q, k, v: jops.flash_attention(
+        q, k, v, False, bq, bk, True), _t(jq), _t(jk), _t(jv))
+    for g, w, pw, x in zip(grads, xla_vjp(jdo), pallas_vjp(_t(jdo)),
+                           (tq, tk, tv)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        _close(g, w, dtype, atol=GRAD_F32_ATOL)
+        _close(g, _t(pw), dtype, atol=GRAD_F32_ATOL)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(128, 256), (1000, 333), (1, 4096)])
+def test_wrappers_take_cross_attention_shapes(Sq, Skv):
+    """The bf16 kernels' checks (their TMA strides included) take
+    non-causal Sq != Skv, ragged or not, at every head dim, and refuse it
+    causal, as the mma.sync kernels' did: the new wrappers refuse no input
+    the old ones took."""
+    for hd in tfa.HEAD_DIMS:
+        q = torch.zeros(1, Sq, 4, hd, dtype=torch.bfloat16)
+        k = torch.zeros(1, Skv, 2, hd, dtype=torch.bfloat16)
+        assert tfa._check(q, k, k, False, (q, k, k)) == (1, Sq, 4, hd)
+        with pytest.raises(ValueError):
+            tfa._check(q, k, k, True, (q, k, k))
+
+
+@pytest.mark.parametrize("shape,itemsize,want", [
+    ((1, 4096, 36, 128), 2, (256, 9216, 37748736)),
+    ((2, 1000, 32, 80), 2, (160, 5120, 5120000)),
+    ((1, 128, 4, 64), 2, (128, 512, 65536)),
+    ((3, 5, 1, 64), 4, (256, 256, 1280))])
+def test_tma_strides_of_the_kernels_tensor_maps(shape, itemsize, want):
+    """The byte strides (head, row, batch row) of the 4-D tensor map over a
+    contiguous [B, S, N, hd] tensor."""
+    assert tfa.tma_strides(shape, itemsize) == want
+
+
+@pytest.mark.parametrize("shape,itemsize", [
+    ((1, 8, 4, 36), 2), ((1, 8, 1, 4), 2), ((1, 8, 2, 4), 1)])
+def test_tma_strides_refuse_what_tma_does_not_take(shape, itemsize):
+    """A stride that is not a multiple of 16 bytes raises before a launch
+    (hd 36 in bf16: 72-byte heads; 8-byte heads; 4-byte heads)."""
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tfa.tma_strides(shape, itemsize)
+
+
+@pytest.mark.parametrize("Sq,dtype,want", [
+    (4096, torch.bfloat16, 4096), (1000, torch.bfloat16, 1024),
+    (1, torch.bfloat16, 128), (129, torch.bfloat16, 256),
+    (1000, torch.float32, 1000), (4096, torch.float32, 4096)])
+def test_stats_pitch(Sq, dtype, want):
+    """The backward's lse/delta rows: padded to the bf16 kernels' 128-row
+    tiles (a multiple of 16 bytes, as their TMA map needs), Sq for f32."""
+    assert tfa.stats_pitch(Sq, dtype) == want
+
+
+@pytest.mark.parametrize("dtype,H,KV,partial_shape", [
+    (torch.bfloat16, 8, 2, (2, 2, 100, 8, 64)),
+    (torch.bfloat16, 4, 4, (0,)),
+    (torch.float32, 8, 2, (0,))])
+def test_bwd_scratch_shapes(dtype, H, KV, partial_shape):
+    """Scratch of the backward: stats [2, B, H, pitch] f32 always; the f32
+    partials of dk and dv per query head only for bf16 with G > 1."""
+    q = torch.zeros(2, 60, H, 64, dtype=dtype)
+    k = torch.zeros(2, 100, KV, 64, dtype=dtype)
+    stats, partial = tfa.bwd_scratch(q, k)
+    assert stats.shape == (2, 2, H, tfa.stats_pitch(60, dtype))
+    assert stats.dtype == partial.dtype == torch.float32
+    assert tuple(partial.shape) == partial_shape
