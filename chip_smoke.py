@@ -157,13 +157,17 @@ random weights from a seed):
 14. the grouped-matmul kernels, forward (K6) and gradient (K6b: dx and
     dw), against their plain versions at the expert products' shapes (64
     groups of d_model 2048 -> d_ff 1408) with 512 rows a group (training)
-    and 4 (a decode step's capacity), in bf16 and f32, each output
-    element held to phase 6's rule, which a control (tile 1's expert id
-    shifted) must fail; timed against the plain versions, ``torch.bmm``
-    over the same equal groups and the bound; and ``ops.moe_gmm_apply``
-    (sort, pad and tile ids on the device) through K6 and K6b against the
-    plain versions at the reference's ragged test shapes (random experts
-    with one left empty; every token on one expert);
+    and 4 (a decode step's capacity), in bf16 and f32, the
+    down-projection (1408 -> 2048) at 512 rows in bf16, and 9 tiles of 200
+    rows over 8 experts with one tile's id out of range and one expert
+    without tiles in bf16 (both must read zero), each output element held
+    to phase 6's rule, which a control (tile 1's expert id shifted) must
+    fail, and K6b bit-equal across two calls; timed (K6b whole and as its
+    dx and dw launches) against the plain versions, ``torch.bmm`` over
+    the same tiles and the bound; and ``ops.moe_gmm_apply`` (sort, pad and
+    tile ids on the device) through K6 and K6b against the plain versions
+    at the reference's ragged test shapes (random experts with one left
+    empty; every token on one expert);
 15. the main path at full width and all 48 layers in bf16: phase 3's
     requests through the paged engine over a 1024-block arena (6.4 GB
     beside 56.1 GB of weights), K1 and the append once and K6 three times
@@ -1500,7 +1504,7 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict):
         batch = {k: torch.from_numpy(x).to(dev)
                  for k, x in loader.next_batch().items()}
         busy_ms = device_busy_ms(torch, lambda: inner(tr.params, tr.opt_state,
-                                                      batch), top=8)
+                                                      batch), top=12)
         loader.close()
     finally:
         gsys.shutdown()
@@ -2199,18 +2203,144 @@ def shifted_gmm(x, w, tile_expert, tile_m):
     return gmm_plain(x, w, shifted(tile_expert, w.shape[0]), tile_m)
 
 
+def gmm_case(torch, mg, flush, label, x, w, dy, te, tm, *, reps):
+    """One phase-14 case: K6 and K6b (dx, dw) against their plain versions
+    by phase 6's rule, a control (tile 1's expert id shifted) that must
+    fail it, K6b twice to the same bits; times of the kernels (K6b whole
+    and as its dx and dw launches), the plain versions, ``torch.bmm`` over
+    the same tiles (each tile's weight gathered beforehand) and the bound.
+    A tile whose expert id lies outside [0, E) must come out zero from K6
+    and from dx and add nothing to dw; the plain reference takes such a
+    tile as zero rows of expert 0. An expert without tiles must get a zero
+    dw. Returns the fwd and bwd entries of the kernels line."""
+    E, K, N = w.shape
+    name = str(x.dtype).split(".")[-1]
+    r = FA_REL[name]
+    nt = te.shape[0]
+    bad = (te < 0) | (te >= E)
+    rows_bad = bad.repeat_interleave(tm)
+    te_ref = torch.where(bad, torch.zeros_like(te), te)
+    x_ref, dy_ref = x.clone(), dy.clone()
+    x_ref[rows_bad] = 0
+    dy_ref[rows_bad] = 0
+    got = {"out": mg.gmm_fwd(x, w, te, tm)}
+    got["dx"], got["dw"] = mg.gmm_bwd(x, w, te, tm, dy)
+    again = mg.gmm_bwd(x, w, te, tm, dy)
+    want = {"out": mg.gmm_plain(x_ref, w, te_ref, tm)}
+    want["dx"], want["dw"] = mg.gmm_backward_plain(x_ref, w, te_ref, tm,
+                                                   dy_ref)
+    bad_te = shifted(te, E)
+    ctl = {"out": mg.gmm_fwd(x, w, bad_te, tm)}
+    ctl["dx"], ctl["dw"] = mg.gmm_bwd(x, w, bad_te, tm, dy)
+    torch.cuda.synchronize()
+    errs = {n: fa_reading(got[n], want[n], r) for n in got}
+    control = {n: fa_reading(ctl[n], want[n], r) for n in ctl}
+    for n in got:
+        check(errs[n]["worst"] <= 1.0, f"gmm [{label}] {n}: error up to "
+              f"{errs[n]['worst']:.3g} x its bound (max abs "
+              f"{errs[n]['max_abs_err']:.3g})")
+        check(control[n]["worst"] > 1.0, f"gmm control [{label}]: {n} "
+              f"with tile 1's expert shifted passes")
+    same_bits = all(torch.equal(a, b)
+                    for a, b in zip(again, (got["dx"], got["dw"])))
+    check(same_bits, f"gmm [{label}]: two K6b calls differ")
+    used = sorted(set(te_ref[~bad].tolist()))
+    empty = [e for e in range(E) if e not in used]
+    zeros = {"out_of_range_tiles": int(bad.sum()), "empty_experts": empty}
+    if bad.any():
+        check(bool((got["out"][rows_bad] == 0).all())
+              and bool((got["dx"][rows_bad] == 0).all()),
+              f"gmm [{label}]: a tile whose expert id is out of range is "
+              f"not zero")
+    if empty:
+        check(bool((got["dw"][empty] == 0).all()),
+              f"gmm [{label}]: an expert without tiles has a nonzero dw")
+    del got, want, ctl, again
+    torch.cuda.empty_cache()
+
+    # the bound: what this table needs (no work for an out-of-range tile;
+    # the weights of the experts it uses read once, dw written whole)
+    esz = x.element_size()
+    T, Tv = nt * tm, int((~bad).sum()) * tm
+    flops = 2.0 * Tv * K * N
+    w_used = len(used) * K * N
+    bounds = {
+        "fwd": bound_ms((T * K + w_used + T * N) * esz, flops, name),
+        "dx": bound_ms((T * N + w_used + T * K) * esz, flops, name),
+        "dw": bound_ms((T * K + T * N + E * K * N) * esz, flops, name),
+        "bwd": bound_ms((2 * T * K + T * N + w_used + E * K * N) * esz,
+                        2 * flops, name)}
+    xg, dyg = x.view(nt, tm, K), dy.view(nt, tm, N)
+    wg = w[te_ref.long()]
+
+    def bmm_dx():       # yardsticks only, never on the path
+        return torch.bmm(dyg, wg.transpose(1, 2))
+
+    def bmm_dw():
+        return torch.bmm(xg.transpose(1, 2), dyg)
+    timed = {
+        "fwd": (lambda: mg.gmm_fwd(x, w, te, tm), reps),
+        "dx": (lambda: mg._launch_fwd(dy, w, te, tm, True, "dx"), reps),
+        "dw": (lambda: mg._launch_dw(x, dy, te, tm, E), reps),
+        "bwd": (lambda: mg.gmm_bwd(x, w, te, tm, dy), reps),
+        "plain_fwd": (lambda: mg.gmm_plain(x_ref, w, te_ref, tm), 3),
+        "plain_bwd": (lambda: mg.gmm_backward_plain(x_ref, w, te_ref, tm,
+                                                    dy_ref), 3),
+        "bmm_fwd": (lambda: torch.bmm(xg, wg), reps),
+        "bmm_dx": (bmm_dx, reps),
+        "bmm_dw": (bmm_dw, reps),
+        "bmm_bwd": (lambda: (bmm_dx(), bmm_dw()), reps)}
+    ms = {}
+    for key, (fn, n) in timed.items():
+        ms[key], host = cuda_ms(torch, fn, reps=n, flush=flush)
+        if key in ("fwd", "bwd"):
+            ms[f"host_{key}"] = host
+    del x_ref, dy_ref, wg
+    torch.cuda.empty_cache()
+    print(f"kernel gmm[{label}]: errors (max abs, worst ratio to the bound "
+          f"r={r:g}) " + " ".join(f"{n}=({e['max_abs_err']:.3e}, "
+                                  f"{e['worst']:.3f})"
+                                  for n, e in errs.items())
+          + " control (tile 1 shifted): " + " ".join(
+              f"{n}={e['worst']:.3g}" for n, e in control.items())
+          + f"; K6b bit-equal twice; zeros {zeros} | "
+          + " | ".join(f"{k} ms={ms[k]:.4f} bmm_ms={ms['bmm_' + k]:.4f} "
+                       f"bound_ms={bounds[k][0]:.4f} ({bounds[k][1]})"
+                       for k in ("fwd", "dx", "dw", "bwd"))
+          + f" | plain fwd_ms={ms['plain_fwd']:.4f} bwd_ms="
+          f"{ms['plain_bwd']:.4f}", flush=True)
+    case = f"{label}-E{E}x{tm}-K{K}-N{N}-{name}"
+    entries = {}
+    for kind, outs in (("fwd", ("out",)), ("bwd", ("dx", "dw"))):
+        entries[kind] = {
+            "case": case,
+            "max_abs_err": max(errs[n]["max_abs_err"] for n in outs),
+            "ms": ms[kind], "plain_ms": ms[f"plain_{kind}"],
+            "library_ms": ms[f"bmm_{kind}"], "bound_ms": bounds[kind][0],
+            "bound_by": bounds[kind][1], "host_call_ms": ms[f"host_{kind}"],
+            "rule_r": r, "errors": {n: errs[n] for n in outs},
+            "control_tile_shifted": {n: control[n] for n in outs},
+            "zeros": zeros}
+    entries["bwd"].update(bit_equal_twice=same_bits, parts={
+        p: {"ms": ms[p], "library_ms": ms[f"bmm_{p}"],
+            "bound_ms": bounds[p][0], "bound_by": bounds[p][1]}
+        for p in ("dx", "dw")})
+    return entries
+
+
 def gmm_kernel_phase(torch, mcfg, dev, flush):
     """K6 (forward) and K6b (dx and dw) against their plain versions at
-    the MoE model's expert shapes (E groups, d_model -> d_ff): the
-    training step's 512 rows a group and the decode step's 4, in bf16 and
-    f32, each output element held to phase 6's rule; a control (tile 1's
-    expert id shifted) must fail it in out, dx and dw. Timed against the
-    plain versions, ``torch.bmm`` over the same equal groups as the
-    library yardstick, and the bound. Then ``ops.moe_gmm_apply`` (sort,
-    pad, tile ids on the device) through K6 and, by autograd, K6b against
-    the same through the plain versions at ``test_kernels.py``'s ragged
-    shapes: random experts with one left empty, and every token on one
-    expert."""
+    the MoE model's expert shapes (E groups, d_model -> d_ff, the
+    up-projections): the training step's 512 rows a group and the decode
+    step's 4, in bf16 and f32; the down-projection (d_ff -> d_model) at
+    512 rows in bf16; and a table of 200-row tiles (no multiple of the
+    kernels' 128-row tiles, so boxes run past each tile's end) over 8
+    experts with one tile's id out of range and one expert without tiles,
+    in bf16. Each case by :func:`gmm_case`. Then ``ops.moe_gmm_apply``
+    (sort, pad, tile ids on the device) through K6 and, by autograd, K6b
+    against the same through the plain versions at ``test_kernels.py``'s
+    ragged shapes: random experts with one left empty, and every token on
+    one expert."""
     from repro_torch.kernels import moe_gmm as mg
     from repro_torch.kernels import ops
 
@@ -2218,76 +2348,35 @@ def gmm_kernel_phase(torch, mcfg, dev, flush):
     gen.manual_seed(14)
     E, D, F = mcfg.n_experts, mcfg.d_model, mcfg.d_ff
     cases = {"fwd": [], "bwd": []}
-    for label, G in (("decode", 4), ("train", 512)):
-        for dtype in (torch.bfloat16, torch.float32):
-            name = str(dtype).split(".")[-1]
-            r = FA_REL[name]
-            x, w, dy, te = gmm_inputs(torch, dev, gen, E, G, D, F, dtype)
-            got = {"out": mg.gmm_fwd(x, w, te, G)}
-            got["dx"], got["dw"] = mg.gmm_bwd(x, w, te, G, dy)
-            want = {"out": mg.gmm_plain(x, w, te, G)}
-            want["dx"], want["dw"] = mg.gmm_backward_plain(x, w, te, G, dy)
-            bad = shifted(te, E)
-            ctl = {"out": mg.gmm_fwd(x, w, bad, G)}
-            ctl["dx"], ctl["dw"] = mg.gmm_bwd(x, w, bad, G, dy)
-            torch.cuda.synchronize()
-            errs = {n: fa_reading(got[n], want[n], r) for n in got}
-            control = {n: fa_reading(ctl[n], want[n], r) for n in ctl}
-            for n in got:
-                check(errs[n]["worst"] <= 1.0, f"gmm [{label}-{name}] {n}: "
-                      f"error up to {errs[n]['worst']:.3g} x its bound "
-                      f"(max abs {errs[n]['max_abs_err']:.3g})")
-                check(control[n]["worst"] > 1.0, f"gmm control [{label}-"
-                      f"{name}]: {n} with tile 1's expert shifted passes")
-            del got, want, ctl
-            torch.cuda.empty_cache()
-            T, esz = E * G, x.element_size()
-            flops = 2.0 * T * D * F
-            fwd_bytes = (T * D + E * D * F + T * F) * esz
-            bwd_bytes = (2 * T * D + 2 * E * D * F + T * F) * esz
-            bounds = {"fwd": bound_ms(fwd_bytes, flops, name),
-                      "bwd": bound_ms(bwd_bytes, 2 * flops, name)}
-            reps = 10 if name == "bfloat16" else 3
-            ms_f, host_f = cuda_ms(torch, lambda: mg.gmm_fwd(x, w, te, G),
-                                   reps=reps, flush=flush)
-            ms_b, host_b = cuda_ms(torch, lambda: mg.gmm_bwd(
-                x, w, te, G, dy), reps=reps, flush=flush)
-            plain_f, _ = cuda_ms(torch, lambda: mg.gmm_plain(x, w, te, G),
-                                 reps=3, flush=flush)
-            plain_b, _ = cuda_ms(torch, lambda: mg.gmm_backward_plain(
-                x, w, te, G, dy), reps=3, flush=flush)
-            xg, dyg = x.view(E, G, D), dy.view(E, G, F)
-
-            def bmm_bwd():      # yardstick only, never on the path
-                return (torch.bmm(dyg, w.transpose(1, 2)),
-                        torch.bmm(xg.transpose(1, 2), dyg))
-            lib_f, _ = cuda_ms(torch, lambda: torch.bmm(xg, w), reps=reps,
-                               flush=flush)
-            lib_b, _ = cuda_ms(torch, bmm_bwd, reps=reps, flush=flush)
-            for kind, ms, host, plain, lib, outs in (
-                    ("fwd", ms_f, host_f, plain_f, lib_f, ("out",)),
-                    ("bwd", ms_b, host_b, plain_b, lib_b, ("dx", "dw"))):
-                bnd, by = bounds[kind]
-                cases[kind].append({
-                    "case": f"{label}-E{E}x{G}-D{D}-F{F}-{name}",
-                    "max_abs_err": max(errs[n]["max_abs_err"] for n in outs),
-                    "ms": ms, "plain_ms": plain, "library_ms": lib,
-                    "bound_ms": bnd, "bound_by": by, "host_call_ms": host,
-                    "rule_r": r, "errors": {n: errs[n] for n in outs},
-                    "control_tile_shifted": {n: control[n] for n in outs}})
-            print(f"kernel gmm[{label}-E{E}x{G}-{name}]: errors (max abs, "
-                  f"worst ratio to the bound r={r:g}) "
-                  + " ".join(f"{n}=({e['max_abs_err']:.3e}, "
-                             f"{e['worst']:.3f})" for n, e in errs.items())
-                  + " control (tile 1 shifted): " + " ".join(
-                      f"{n}={e['worst']:.3g}" for n, e in control.items())
-                  + f" | fwd ms={ms_f:.4f} plain_ms={plain_f:.4f} "
-                  f"bmm_ms={lib_f:.4f} bound_ms={bounds['fwd'][0]:.4f} "
-                  f"({bounds['fwd'][1]}) | bwd ms={ms_b:.4f} plain_ms="
-                  f"{plain_b:.4f} bmm_ms={lib_b:.4f} bound_ms="
-                  f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]})", flush=True)
-            del x, w, dy, xg, dyg
-            torch.cuda.empty_cache()
+    plan = [("decode", 4, D, F, torch.bfloat16),
+            ("decode", 4, D, F, torch.float32),
+            ("train", 512, D, F, torch.bfloat16),
+            ("train", 512, D, F, torch.float32),
+            ("train-wo", 512, F, D, torch.bfloat16)]
+    for label, G, K, N, dtype in plan:
+        x, w, dy, te = gmm_inputs(torch, dev, gen, E, G, K, N, dtype)
+        reps = 10 if dtype == torch.bfloat16 else 3
+        entries = gmm_case(torch, mg, flush, label, x, w, dy, te, G,
+                           reps=reps)
+        for kind in cases:
+            cases[kind].append(entries[kind])
+        del x, w, dy, te
+        torch.cuda.empty_cache()
+    # 9 table tiles of 200 rows over 8 experts: expert 3 twice, tile 2's id
+    # out of range, expert 4 without tiles
+    Ep, tm = 8, 200
+    te = torch.tensor([3, 0, Ep + 1, 5, 3, 7, 1, 2, 6], dtype=torch.int32,
+                      device=dev)
+    x = torch.randn(9 * tm, D, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(Ep, D, F, generator=gen, device=dev)
+         * D ** -0.5).bfloat16()
+    dy = torch.randn(9 * tm, F, generator=gen, device=dev).bfloat16()
+    entries = gmm_case(torch, mg, flush, "partial", x, w, dy, te, tm,
+                       reps=10)
+    for kind in cases:
+        cases[kind].append(entries[kind])
+    del x, w, dy, te
+    torch.cuda.empty_cache()
 
     ragged = []
     for T, Dr, Fr, Er, skew in ((512, 128, 256, 8, False),

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels that run on
-// wgmma and TMA: shared-memory matrix descriptors and the wgmma.mma_async /
-// fence / commit_group / wait_group wrappers, mbarriers, TMA tensor loads
-// (cp.async.bulk.tensor) from a __grid_constant__ CUtensorMap, setmaxnreg,
+// wgmma and TMA (flash_attention.cu, moe_gmm.cu): shared-memory matrix
+// descriptors and the wgmma.mma_async / fence / commit_group / wait_group
+// wrappers, mbarriers, TMA tensor loads and stores (cp.async.bulk.tensor)
+// through a __grid_constant__ CUtensorMap, named barriers, setmaxnreg,
 // and on the host the encoding of tensor maps through libcuda's
 // cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint so that the
 // library needs no -lcuda. Inline PTX throughout (PTX ISA 8.x: "Asynchronous
@@ -20,9 +21,12 @@
 //     SBO = 8 * row bytes apart; a 16-deep step is the next 32 bytes of the
 //     row (the swizzle is a function of the address, so the step is a plain
 //     offset from a 1024-aligned slab);
-//   MN-major (the slab's rows are the depth, its columns the output's N):
-//     8-row groups SBO = 8 * row bytes apart, a 16-deep step 16 rows down;
-//     LBO (the next 64 columns) is unused while N is one slab wide.
+//   MN-major (the slab's rows are the depth, its columns the output's M or
+//     N): 8-row groups SBO = 8 * row bytes apart, a 16-deep step 16 rows
+//     down; LBO is the distance to the slab holding the next 64 columns,
+//     unused while the operand is one slab wide (K3's V and Q tiles) and
+//     read when it spans several (the grouped matmul's 128-column B tiles,
+//     two slabs of 64 depth rows stored 8 KB apart: LBO 8192).
 // The wgmma D fragment of an m64nN product: thread t of the warpgroup (warp
 // w = t / 32, lane = 4 gid + tig) holds d[4 j + e] = D[16 w + gid + 8 (e /
 // 2)][8 j + 2 tig + e % 2], j < N / 8: the layout of mma.m16n8 per warp, so
@@ -115,6 +119,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -123,6 +138,46 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// Box at coordinates (c0, c1, c2) of a 3-D tensor map from shared memory at
+// `src`, as one bulk group of this thread (commit with bulk_commit); what
+// lies outside the tensor is not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are still reading
+// their shared memory (bulk_wait_read) or pending at all (bulk_wait).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the async proxy (a
+// TMA store that reads them); follow with a barrier before the store.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `n` threads, a multiple of 32.
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---- setmaxnreg -------------------------------------------------------------
@@ -174,7 +229,8 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 // D (+)= A B for a 64-row A, bf16 in, f32 accumulate; scale_d = 0 starts D
-// from zero. wgmma_ss_*: A and B from shared memory, both K-major.
+// from zero. wgmma_ss_*: A and B from shared memory, K-major, or in n128
+// MN-major where TA / TB (the instruction's transpose immediates) are 1.
 // wgmma_rs_*: A from registers (the m16n8k16 A fragment of the thread's
 // warp, rows 16 w .. 16 w + 15), B from shared memory MN-major.
 
@@ -199,6 +255,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
                                              uint64_t b, int scale_d) {
   asm volatile(
@@ -212,7 +269,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -229,7 +286,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
@@ -317,6 +374,30 @@ cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int B, int S,
       strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A map over a row-major [d2, d1, d0] bf16 tensor (contiguous; d0 * 2 and
+// d1 * d0 * 2 bytes multiples of 16) whose box is {64, box1, 1}: 64
+// elements (128 bytes, 128-byte swizzled) of box1 consecutive rows of one
+// d2 index. Coordinates (element, row, d2 index); what lies outside the
+// tensor reads as zeros and is not stored, so a box of rows that runs past
+// d1 stops at the end of its d2 index and never touches the next one's.
+cudaError_t encode_bf16_3d_map(CUtensorMap* map, const void* base,
+                               long long d0, long long d1, long long d2,
+                               int box1) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
+                              (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2, (cuuint64_t)d0 * d1 * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box1, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

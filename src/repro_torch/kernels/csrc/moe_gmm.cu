@@ -1,55 +1,80 @@
 // Hand-written Hopper (sm_90a) kernels of the grouped (ragged) matmul of the
 // MoE expert FFNs: the forward (K6) and its gradient (K6b).
 //
-//   K6  gmm_mma (bf16 on mma.sync m16n8k16, f32 accumulate) and gmm_f32 (f32
-//       on CUDA cores) in forward mode replace the Pallas `gmm` / `_kernel`
+//   K6  gmm_wgmma<kFwd> (bf16, tm > 16), gmm_mma (bf16 decode, tm <= 16)
+//       and gmm_f32 (f32 on CUDA cores) replace the Pallas `gmm` / `_kernel`
 //       (src/repro/kernels/moe_gmm.py) and, on the MoE paths, the three
 //       expert einsums of `moe_mlp` (src/repro/models/moe.py)
-//   K6b the same kernels twice: dx = dy w[e]^T (forward mode with the weight
-//       read transposed through its strides, no transposed copy) and
-//       dw[e] = x_e^T dy_e (weight-gradient mode); the JAX package takes
-//       that gradient from XLA autodiff of the einsums
+//   K6b dx = dy w[e]^T (gmm_wgmma<kDx>, or gmm_mma at tm <= 16: the weight
+//       read transposed, no transposed copy) and dw[e] = x_e^T dy_e
+//       (gmm_wgmma<kDw>; gmm_f32 in f32); the JAX package takes that
+//       gradient from XLA autodiff of the einsums
 //
 // Layout. x [T, K] holds its rows in a table of tiles of tm rows: table tile
 // t is rows [t tm, (t+1) tm) and belongs to expert tile_expert[t], an int32
 // array on the device that every CTA reads for itself (the Pallas kernel's
 // scalar prefetch). w is [E, K, N], or [E, N, K] read transposed; out [T, N]
-// in x's dtype. tm is any positive size: a CTA covers at most BM rows of one
-// table tile and masks the rest, so groups of 4 rows (a decode step's
-// capacity) need no padding. In weight-gradient mode x [T, M] and dy [T, N]
-// give dw [E, M, N]: a CTA owns one (expert, M tile, N tile) and walks the
-// table tiles of its expert in order, so each dw element is one f32 sum in a
-// fixed order (no atomics: deterministic), and an expert without rows gets
-// zeros.
+// in x's dtype. tm is any positive size. In weight-gradient mode x [T, M]
+// and dy [T, N] give dw [E, M, N].
 //
-// Both operands are seen as 2-D strided views, A (row m, depth k) and B
-// (column n, depth k), staged per 32-deep slab in shared memory as they lie
-// in memory, in 16-byte vectors: [i][k] where the depth is contiguous (x
-// as A, w [E, N, K] read transposed as B), its fragments read in pairs;
-// [k][i] where the other axis is (w [E, K, N] as B, and x and dy in
-// weight-gradient mode), its fragments read with ldmatrix.trans. Each CTA
-// issues the next slab's loads into registers before the current slab's
-// products.
+// What bounds them on an H100 SXM (data sheet). Training (64 groups of 512
+// rows, 2048 -> 1408) is 189 GFLOP a product against 0.6 GB moved:
+// operations bound (0.19 ms at 989 TFLOP/s), so the bf16 kernels at tm > 16
+// and dw run on wgmma, the only way to the card's full tensor-core rate, fed
+// by TMA (gmm_wgmma, one template for the three products):
+//   * Warp specialisation, one persistent CTA per SM (384 threads, 225 KB
+//     of shared memory) walking 128 x 128 output tiles in a fixed order
+//     (tile blockIdx.x, then every gridDim.x-th). Warpgroup 2 is the
+//     producer: one thread issues every TMA load, 64-deep slabs of A and B
+//     (32 KB) through a ring of 6 stages on full/empty mbarriers, running on
+//     into the next tiles. Consumer warpgroups 0 and 1 take the CTA's tiles
+//     in turn (ping-pong): each computes a whole tile (two m64n128k16
+//     products a 16-deep step, one slab's group in flight behind the next),
+//     and the main loops take turns on a pair of mbarriers, so one
+//     warpgroup's epilogue runs beside the other's main loop.
+//   * Operands land 128-byte swizzled and are read by wgmma's descriptors as
+//     they lie in memory: x and dy rows K-major; w [E, K, N] in the forward,
+//     and x^T and dy in dw, MN-major (the transpose immediates; B spans two
+//     64-column slabs through LBO); w read as [E, N, K] for dx K-major. No
+//     register round trip, no transposed copy.
+//   * The epilogue rounds the f32 accumulators once to bf16 into a swizzled
+//     staging buffer, 64 rows at a time, and one thread stores them with TMA.
+//   * Tile edges by the tensor maps, not by masks: x, dy and out are seen as
+//     3-D [n_tiles, tm, *] maps, dw as [E, M, N] and w as [E, K, N], so a
+//     128-row box over a 4- or 200-row table tile reads zeros past the
+//     tile's end (the next tile belongs to another expert), in the forward's
+//     rows and in dw's depth alike, and the store clips rows past the tile
+//     (or M); depths and columns past K or N read zeros and are not stored.
+//   * Expert ids: the producer reads tile_expert[t] and uses it as the
+//     weight map's expert coordinate. A tile whose id lies outside [0, E)
+//     issues no load and stores zeros; in dw an expert without tiles stores
+//     zeros.
+//   * Determinism: each output element is one f32 sum in a fixed order
+//     (the depth in order; dw walks its expert's table tiles in table
+//     order, 64 rows a slab), rounded once to bf16. No atomics, no split
+//     depth: two calls give the same bits.
+// A decode step (tm = 4 rows per expert) reads every expert's weight once,
+// E K N bf16 elements for a few rows of products: bytes bound
+// (moonshot-v1-16b-a3b: 369 MB, 0.110 ms per product at 3.35 TB/s). Its
+// variant (gmm_mma, BM = 16, 4 warps, a 16 x 128 output tile on mma.sync
+// m16n8k16) keeps the wasted rows of the m16 products at 12 of 16 and many
+// CTAs resident to keep the weight stream in flight; it stages 32-deep
+// slabs in registers then shared memory, reading a [k][n] weight with
+// ldmatrix.trans. f32 (no speed target) runs on CUDA cores.
 //
-// Bounds on an H100 SXM (data sheet): a decode step (tm = 4 rows per
-// expert) reads every expert's weight once, E K N bf16 elements for a few
-// rows of products: bytes bound (moonshot-v1-16b-a3b: 369 MB, 0.110 ms per
-// product at 3.35 TB/s). The small-tile variant (BM = 16, 4 warps, a
-// 16 x 128 output tile) keeps the wasted rows of the m16 products at 12 of
-// 16 and many CTAs resident to keep the weight stream in flight. Training
-// (64 groups of 512 rows, K 2048, N 1408) is 189 GFLOP a product:
-// operations bound (0.19 ms at 989 TFLOP/s); the large variant (128 x 128
-// output tile, 8 warps of 64 x 32) reuses each staged slab 16 (A) and 32
-// (B) times. Neither pipelines its loads beyond what resident CTAs overlap:
-// cp.async or TMA stages and wgmma are later work.
+// Built with the other csrc/*.cu files by src/repro_torch/kernels/_build.py
+// and bound through ctypes (plain C entry points below: raw device pointers,
+// PyTorch's current stream, return cudaGetLastError(), allocate nothing,
+// never synchronise). Tensor maps are encoded on the host for each call.
 
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBK = 32;           // depth of one staged slab (mma path)
+constexpr int kBK = 32;           // depth of one staged slab (decode path)
 constexpr int kFB = 64;           // f32 path: 64 x 64 output tile
 constexpr int kFK = 16;           // f32 path: slab depth
 constexpr int kFThreads = 256;
@@ -110,10 +135,10 @@ __device__ __forceinline__ Job<T> make_job(const GmmArgs& g) {
   return j;
 }
 
-// The 32-deep slabs of a CTA's depth, in order: forward, [0, K) in steps
-// of kBK; weight gradient, the rows of every table tile of its expert, in
-// table order, each tile's last slab cut at its end. next() gives the
-// slab's first depth and its length, or false past the last one.
+// The slabs of a CTA's depth, in order: forward, [0, K) in steps of BK;
+// weight gradient, the rows of every table tile of its expert, in table
+// order, each tile's last slab cut at its end. next() gives the slab's
+// first depth and its length, or false past the last one.
 template <int BK>
 struct Slabs {
   int t = 0;
@@ -140,11 +165,13 @@ struct Slabs {
   }
 };
 
+// ---- bf16 decode (tm <= 16): mma.sync -----------------------------------
+
 // A bf16 operand's slab in shared memory: R rows (i) by kBK depths, held
 // as the view lies in memory so that every copy is a 16-byte vector: [i][k]
 // (depth contiguous, KI false; fragments read in pairs) or [k][i] (KI
-// true; fragments read with ldmatrix.trans). The padding keeps the
-// fragment reads of 8 rows on distinct banks.
+// true, the weight [E, K, N]; fragments read with ldmatrix.trans). The
+// padding keeps the fragment reads of 8 rows on distinct banks.
 template <int R, bool KI, int NT>
 struct Slab {
   static constexpr int LD = KI ? R + 8 : kBK + 8;
@@ -197,23 +224,17 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(a));
 }
 
-// The A fragment (16 x 16, rows m0.., depths kk..) of a slab (mma_common's
-// layout). [k][m]: matrix q of ldmatrix.x4 is rows (m) 8 (q & 1) and depths
-// 8 (q >> 1) on, each read transposed.
-template <bool KI, int LD>
+// The A fragment (16 x 16, rows m0.., depths kk..) of an [m][k] slab
+// (mma_common's layout).
+template <int LD>
 __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s,
                                        int m0, int kk, int lane) {
   const int gid = lane / 4, tig = lane % 4;
-  if (KI) {
-    const int q = lane / 8, r = lane % 8;
-    ldsm_x4_trans(a, s + (kk + (q >> 1) * 8 + r) * LD + m0 + (q & 1) * 8);
-  } else {
-    const bf16* p = s + (m0 + gid) * LD + kk + 2 * tig;
-    a[0] = ld_pair(p);
-    a[1] = ld_pair(p + 8 * LD);
-    a[2] = ld_pair(p + 8);
-    a[3] = ld_pair(p + 8 * LD + 8);
-  }
+  const bf16* p = s + (m0 + gid) * LD + kk + 2 * tig;
+  a[0] = ld_pair(p);
+  a[1] = ld_pair(p + 8 * LD);
+  a[2] = ld_pair(p + 8);
+  a[3] = ld_pair(p + 8 * LD + 8);
 }
 
 // The B fragments of two neighbouring 8-column tiles (columns n0..n0+15,
@@ -235,16 +256,16 @@ __device__ __forceinline__ void frag_b2(uint32_t (&b)[4], const bf16* s,
   }
 }
 
-// bf16: a BM x BN output tile per CTA, WM x WN warps, each warp (BM / WM) x
-// (BN / WN) as m16n8k16 products with f32 accumulators. A_KI / B_KI: the
-// operand's depth is strided in memory (its slab is held [k][i]). The next
-// slab's loads are issued before the current one's products.
-template <int BM, int BN, int WM, int WN, bool A_KI, bool B_KI>
+// bf16 forward: a BM x BN output tile per CTA, WM x WN warps, each warp
+// (BM / WM) x (BN / WN) as m16n8k16 products with f32 accumulators. B_KI:
+// the weight's depth is strided in memory (its slab is held [k][n]). The
+// next slab's loads are issued before the current one's products.
+template <int BM, int BN, int WM, int WN, bool B_KI>
 __global__ void __launch_bounds__(WM * WN * 32) gmm_mma(GmmArgs g) {
   constexpr int NT = WM * WN * 32;
   constexpr int TM = BM / WM / 16, TN = BN / WN / 8;
   static_assert(TN % 2 == 0, "B fragments come in pairs of 8-column tiles");
-  using SA = Slab<BM, A_KI, NT>;
+  using SA = Slab<BM, false, NT>;
   using SB = Slab<BN, B_KI, NT>;
   __shared__ __align__(16) bf16 sA[SA::SIZE];
   __shared__ __align__(16) bf16 sB[SB::SIZE];
@@ -284,7 +305,7 @@ __global__ void __launch_bounds__(WM * WN * 32) gmm_mma(GmmArgs g) {
       uint32_t a[TM][4];
 #pragma unroll
       for (int mt = 0; mt < TM; ++mt)
-        frag_a<A_KI, SA::LD>(a[mt], sA, wm0 + mt * 16, kk, lane);
+        frag_a<SA::LD>(a[mt], sA, wm0 + mt * 16, kk, lane);
 #pragma unroll
       for (int nt = 0; nt < TN; nt += 2) {
         uint32_t b[4];
@@ -314,6 +335,263 @@ __global__ void __launch_bounds__(WM * WN * 32) gmm_mma(GmmArgs g) {
             pack_f32(acc[mt][nt][2], acc[mt][nt][3]);
     }
 }
+
+// ---- bf16 at tm > 16 and dw: wgmma + TMA, warp-specialised, persistent ---
+
+enum Mode { kFwd = 0, kDx = 1, kDw = 2 };
+
+constexpr int kWgThreads = 384;   // 2 consumer warpgroups + a producer one
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // setmaxnreg
+constexpr int kBM = 128;          // output rows of a tile
+constexpr int kBN = 128;          // output columns of a tile
+constexpr int kSlab = 64;         // depth of one staged slab
+constexpr int kStages = 6;        // ring depth
+constexpr int kABytes = kBM * 128;                 // A: 128 x 64 bf16
+constexpr int kBBytes = kBN * 128;                 // B: kBN x 64 bf16
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kEpiBytes = 64 * kBN * 2;            // 64 rows of a tile
+constexpr int kWgSmem =
+    1024 + kStages * kStageBytes + 2 * kEpiBytes + 8 * (2 * kStages + 2);
+
+// The grid's walk. Forward and dx: the output tiles of table tile t,
+// column tile c and row sub-tile s (rows [128 s, 128 s + 128) of the
+// tile), s fastest, so neighbouring CTAs share the weight slab; dw: expert
+// e, row tile s of M and column tile c, c fastest, so neighbouring CTAs
+// share the x slab.
+struct WgArgs {
+  void* out;
+  const int* tile_expert;
+  int n_tiles, tm, n_experts;
+  int depth;                      // forward and dx: the product's depth
+  int rows;                       // dw: M, the rows of each expert's dw
+  int cols;                       // the output's width
+  int n_sub, n_col, n_work;
+};
+
+struct Work {
+  int t;                          // table tile (forward, dx) or expert (dw)
+  int m0, n0;                     // the tile's first row and column
+};
+
+template <int MODE>
+__device__ __forceinline__ Work work_of(const WgArgs& g, int w) {
+  Work k;
+  if (MODE != kDw) {
+    k.m0 = (w % g.n_sub) * kBM;
+    w /= g.n_sub;
+    k.n0 = (w % g.n_col) * kBN;
+    k.t = w / g.n_col;
+  } else {
+    k.n0 = (w % g.n_col) * kBN;
+    w /= g.n_col;
+    k.m0 = (w % g.n_sub) * kBM;
+    k.t = w / g.n_sub;
+  }
+  return k;
+}
+
+// The number of 64-deep slabs of work k, counted alike by the producer
+// and the consumers: the depth's (0 for a tile whose expert id lies
+// outside [0, E)), or in dw 64-row slabs of each table tile of the
+// expert. `cache` keeps the last dw expert (x), its slab count (y) and its
+// first table tile (z): consecutive dw tiles share their expert.
+template <int MODE>
+__device__ __forceinline__ int slabs_of(const WgArgs& g, const Work& k,
+                                        int3& cache) {
+  if (MODE != kDw) {
+    const int e = g.tile_expert[k.t];
+    return e < 0 || e >= g.n_experts ? 0 : (g.depth + kSlab - 1) / kSlab;
+  }
+  if (cache.x != k.t) {
+    int n = 0, first = g.n_tiles;
+    for (int t = g.n_tiles - 1; t >= 0; --t)
+      if (g.tile_expert[t] == k.t) {
+        ++n;
+        first = t;
+      }
+    cache = make_int3(k.t, n * ((g.tm + kSlab - 1) / kSlab), first);
+  }
+  return cache.y;
+}
+
+// The shared-memory descriptors of k16 step kk of a staged slab, for rows
+// [64 h, 64 h + 64) of the tile. A: forward and dx, rows of x or dy K-major
+// (64 of the slab's 128 rows of 128 bytes); dw, x^T MN-major (64 columns
+// of M, one slab of 64 depth rows). B: forward and dw, MN-major
+// over kBN / 64 slabs of 64 depth rows (LBO: the slab stride); dx, the
+// weight's kBN rows K-major.
+template <int MODE>
+__device__ __forceinline__ uint64_t desc_a(uint32_t a, int h, int kk) {
+  return MODE == kDw
+             ? gmma_desc(a + h * 8192 + kk * 2048, 8192, 1024, kSw128)
+             : gmma_desc(a + h * 8192 + kk * 32, 16, 1024, kSw128);
+}
+
+template <int MODE>
+__device__ __forceinline__ uint64_t desc_b(uint32_t b, int kk) {
+  return MODE == kDx ? gmma_desc(b + kk * 32, 16, 1024, kSw128)
+                     : gmma_desc(b + kk * 2048, 8192, 1024, kSw128);
+}
+
+// One CTA per SM walking output tiles (see the file's note). Maps: ta over
+// A (forward and dx: x or dy as [n_tiles, tm, depth], boxes of 128 rows;
+// dw: x as [n_tiles, tm, M], boxes of 64 rows), tb over B (forward: w
+// [E, K, N], boxes of 64 rows of K; dx: w as [E, K rows, N depth], boxes
+// of kBN rows; dw: dy as [n_tiles, tm, N], boxes of 64 rows), to over the
+// output (forward and dx: [n_tiles, tm, cols]; dw: [E, M, N]), boxes of
+// 64 rows.
+template <int MODE>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    gmm_wgmma(const __grid_constant__ CUtensorMap ta,
+              const __grid_constant__ CUtensorMap tb,
+              const __grid_constant__ CUtensorMap to, WgArgs g) {
+  extern __shared__ uint8_t gmm_smem[];
+  uint8_t* ring = gmm_smem + ((1024 - (smem_u32(gmm_smem) & 1023)) & 1023);
+  uint8_t* epi = ring + kStages * kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + 2 * kEpiBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* done = empty + kStages;  // a warpgroup's main loop has ended
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init(&done[0], 128);
+    mbar_init(&done[1], 128);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup index through a shuffle: provably warp-uniform, as the
+  // branches around setmaxnreg must be
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 2) {
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x != 256) return;
+    uint32_t it = 0;
+    int3 cache = make_int3(-1, 0, 0);
+    for (int w = blockIdx.x; w < g.n_work; w += gridDim.x) {
+      const Work k = work_of<MODE>(g, w);
+      const int ns = slabs_of<MODE>(g, k, cache);
+      int t = cache.z, r0 = 0;    // dw: the table tile and row of a slab
+      for (int s = 0; s < ns; ++s, ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        uint8_t* a = ring + st * kStageBytes;
+        uint8_t* b = a + kABytes;
+        mbar_expect_tx(&full[st], kStageBytes);
+        if (MODE != kDw) {
+          const int d0 = s * kSlab, e = g.tile_expert[k.t];
+          tma_load_3d(a, &ta, &full[st], d0, k.m0, k.t);
+          if (MODE == kFwd) {
+#pragma unroll
+            for (int c = 0; c < kBN / 64; ++c)
+              tma_load_3d(b + c * 8192, &tb, &full[st], k.n0 + 64 * c, d0,
+                          e);
+          } else {
+            tma_load_3d(b, &tb, &full[st], d0, k.n0, e);
+          }
+        } else {
+          if (r0 >= g.tm) {       // the expert's next table tile
+            do ++t; while (g.tile_expert[t] != k.t);
+            r0 = 0;
+          }
+          tma_load_3d(a, &ta, &full[st], k.m0, r0, t);
+          tma_load_3d(a + 8192, &ta, &full[st], k.m0 + 64, r0, t);
+#pragma unroll
+          for (int c = 0; c < kBN / 64; ++c)
+            tma_load_3d(b + c * 8192, &tb, &full[st], k.n0 + 64 * c, r0, t);
+          r0 += kSlab;
+        }
+      }
+    }
+  } else {
+    regs_alloc<kConsumerRegs>();
+    const int cw = wg, t128 = threadIdx.x % 128;
+    const int warp = t128 / 32, lane = t128 % 32, gid = lane / 4,
+              tig = lane % 4;
+    constexpr int TA = MODE == kDw, TB = MODE != kDx;
+    uint8_t* eb = epi + cw * kEpiBytes;   // this warpgroup's staging buffer
+    uint32_t it = 0;                      // the ring's slab count
+    uint32_t n = 0;                       // this warpgroup's tiles so far
+    int3 cache = make_int3(-1, 0, 0);
+    for (int w = blockIdx.x, i = 0; w < g.n_work; w += gridDim.x, ++i) {
+      const Work k = work_of<MODE>(g, w);
+      const int ns = slabs_of<MODE>(g, k, cache);
+      if ((i & 1) != cw) {                // the other warpgroup's tile
+        it += ns;
+        continue;
+      }
+      // The main loops take turns in tile order: this one starts when the
+      // previous tile's (the other warpgroup's) has waited for all its
+      // slabs, so every slab before this tile's has landed and a full
+      // barrier's parity names one phase; the other's epilogue then runs
+      // beside this main loop.
+      if (i > 0) mbar_wait(&done[cw ^ 1], (cw == 0 ? n - 1 : n) & 1);
+      float acc[2][kBN / 2];              // rows 0-63 and 64-127
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < kBN / 2; ++q) acc[h][q] = 0.f;
+      for (int s = 0; s < ns; ++s, ++it) {
+        const int st = it % kStages;
+        mbar_wait(&full[st], (it / kStages) & 1);
+        const uint32_t a = smem_u32(ring + st * kStageBytes);
+        const uint32_t b = a + kABytes;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSlab / 16; ++kk) {
+          const uint64_t db = desc_b<MODE>(b, kk);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            wgmma_ss_n128<TA, TB>(acc[h], desc_a<MODE>(a, h, kk), db, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();          // the previous slab's products are done
+        if (s > 0) mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+      mbar_arrive(&done[cw]);
+      ++n;
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      if (ns > 0) mbar_arrive(&empty[(it - 1) % kStages]);
+
+      // The epilogue, 64 rows at a time: rounded once to bf16 into the
+      // warpgroup's staging buffer as the store map's boxes lie (kBN / 64
+      // slabs of 64 rows of 128 bytes, 128-byte swizzled: chunk j % 8 of
+      // row r at chunk (j % 8) ^ (r % 8), r % 8 = gid), then one thread
+      // stores them with TMA, while the other warpgroup computes. The map
+      // clips rows past the table tile (or M) and columns past the width.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (t128 == 0) bulk_wait_read<0>();   // the last store has read eb
+        named_bar_sync(1 + cw, 128);
+        uint8_t* row = eb + (16 * warp + gid) * 128 + 4 * tig;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          uint8_t* p = row + (j / 8) * 8192 + (((j % 8) ^ gid) << 4);
+          *reinterpret_cast<uint32_t*>(p) =
+              pack_f32(acc[h][4 * j], acc[h][4 * j + 1]);
+          *reinterpret_cast<uint32_t*>(p + 8 * 128) =
+              pack_f32(acc[h][4 * j + 2], acc[h][4 * j + 3]);
+        }
+        fence_proxy_async();
+        named_bar_sync(1 + cw, 128);
+        if (t128 == 0) {
+#pragma unroll
+          for (int c = 0; c < kBN / 64; ++c)
+            tma_store_3d(&to, eb + c * 8192, k.n0 + 64 * c, k.m0 + 64 * h,
+                         k.t);
+          bulk_commit();
+        }
+      }
+    }
+    if (t128 == 0) bulk_wait<0>();
+  }
+}
+
+// ---- f32: CUDA cores ------------------------------------------------------
 
 // One R x kFK slab of an f32 view into s[kFK][R + 4] (i contiguous), out of
 // range elements zero; consecutive threads walk the view's contiguous axis.
@@ -372,7 +650,46 @@ __global__ void __launch_bounds__(kFThreads) gmm_f32(GmmArgs g) {
     }
 }
 
+// ---- host -----------------------------------------------------------------
+
 int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// gmm_wgmma<MODE> over maps already encoded: one CTA per SM, or per tile
+// where there are fewer.
+template <int MODE>
+int launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb, WgArgs g,
+                 cudaStream_t st) {
+  g.n_col = cdiv(g.cols, kBN);
+  g.n_sub = cdiv(MODE == kDw ? g.rows : g.tm, kBM);
+  const int outer = MODE == kDw ? g.n_experts : g.n_tiles;
+  const long long work = (long long)outer * g.n_sub * g.n_col;
+  const int sms = sm_count();
+  if (work > 0x7fffffff || sms == 0) return cudaErrorInvalidValue;
+  g.n_work = (int)work;
+  CUtensorMap to;
+  cudaError_t e = encode_bf16_3d_map(&to, g.out, g.cols,
+                                     MODE == kDw ? g.rows : g.tm, outer, 64);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gmm_wgmma<MODE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kWgSmem);
+  if (e != cudaSuccess) return e;
+  gmm_wgmma<MODE><<<min(g.n_work, sms), kWgThreads, kWgSmem, st>>>(ta, tb,
+                                                                    to, g);
+  return cudaGetLastError();
+}
 
 int launch(const GmmArgs& g, int dtype, cudaStream_t st) {
   if (dtype == kF32) {
@@ -381,24 +698,13 @@ int launch(const GmmArgs& g, int dtype, cudaStream_t st) {
                     g.dw ? g.n_experts : 1);
     if (grid.y > 65535) return cudaErrorInvalidValue;
     gmm_f32<<<grid, kFThreads, 0, st>>>(g);
-  } else if (!g.dw && g.tm <= 16) {     // decode: a few rows per expert
+  } else {                              // decode: a few rows per expert
     const dim3 grid(cdiv(g.N, 128), g.n_tiles);
     if (grid.y > 65535) return cudaErrorInvalidValue;
     if (g.b.sj == 1)                    // w read transposed (dx)
-      gmm_mma<16, 128, 1, 4, false, false><<<grid, 128, 0, st>>>(g);
+      gmm_mma<16, 128, 1, 4, false><<<grid, 128, 0, st>>>(g);
     else
-      gmm_mma<16, 128, 1, 4, false, true><<<grid, 128, 0, st>>>(g);
-  } else {
-    const dim3 grid(cdiv(g.N, 128),
-                    g.dw ? cdiv(g.M, 128) : g.n_tiles * cdiv(g.tm, 128),
-                    g.dw ? g.n_experts : 1);
-    if (grid.y > 65535) return cudaErrorInvalidValue;
-    if (g.dw)                           // x and dy both read across rows
-      gmm_mma<128, 128, 2, 4, true, true><<<grid, 256, 0, st>>>(g);
-    else if (g.b.sj == 1)
-      gmm_mma<128, 128, 2, 4, false, false><<<grid, 256, 0, st>>>(g);
-    else
-      gmm_mma<128, 128, 2, 4, false, true><<<grid, 256, 0, st>>>(g);
+      gmm_mma<16, 128, 1, 4, true><<<grid, 128, 0, st>>>(g);
   }
   return cudaGetLastError();
 }
@@ -420,6 +726,18 @@ int gmm_fwd_launch(const void* x, const void* w, const int* tile_expert,
                    void* out, int n_tiles, int tm, int E, int K, int N,
                    int w_trans, int dtype, void* stream) {
   if (!args_ok(n_tiles, tm, E, K, N, dtype)) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16 && tm > 16) {
+    CUtensorMap ta, tb;
+    cudaError_t e = encode_bf16_3d_map(&ta, x, K, tm, n_tiles, kBM);
+    if (e == cudaSuccess)
+      e = w_trans ? encode_bf16_3d_map(&tb, w, K, N, E, kBN)
+                  : encode_bf16_3d_map(&tb, w, N, K, E, kSlab);
+    if (e != cudaSuccess) return e;
+    const WgArgs g{out, tile_expert, n_tiles, tm, E, K, 0, N, 0, 0, 0};
+    return w_trans ? launch_wgmma<kDx>(ta, tb, g, st)
+                   : launch_wgmma<kFwd>(ta, tb, g, st);
+  }
   GmmArgs g{};
   g.a = View{x, K, 1};
   g.b = w_trans ? View{w, K, 1} : View{w, 1, N};
@@ -433,7 +751,7 @@ int gmm_fwd_launch(const void* x, const void* w, const int* tile_expert,
   g.M = 0;
   g.N = N;
   g.dw = 0;
-  return launch(g, dtype, static_cast<cudaStream_t>(stream));
+  return launch(g, dtype, st);
 }
 
 // K6b's weight gradient: x [n_tiles tm, M] and dy [n_tiles tm, N] give dw
@@ -444,6 +762,16 @@ int gmm_dw_launch(const void* x, const void* dy, const int* tile_expert,
                   int dtype, void* stream) {
   if (!args_ok(n_tiles, tm, E, kBK, N, dtype) || M <= 0 || M % 8 != 0)
     return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    CUtensorMap ta, tb;
+    cudaError_t e = encode_bf16_3d_map(&ta, x, M, tm, n_tiles, kSlab);
+    if (e == cudaSuccess)
+      e = encode_bf16_3d_map(&tb, dy, N, tm, n_tiles, kSlab);
+    if (e != cudaSuccess) return e;
+    const WgArgs g{dw, tile_expert, n_tiles, tm, E, 0, M, N, 0, 0, 0};
+    return launch_wgmma<kDw>(ta, tb, g, st);
+  }
   GmmArgs g{};
   g.a = View{x, 1, M};
   g.b = View{dy, 1, N};
@@ -457,7 +785,7 @@ int gmm_dw_launch(const void* x, const void* dy, const int* tile_expert,
   g.M = M;
   g.N = N;
   g.dw = 1;
-  return launch(g, dtype, static_cast<cudaStream_t>(stream));
+  return launch(g, dtype, st);
 }
 
 }  // extern "C"

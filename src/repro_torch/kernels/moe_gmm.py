@@ -17,11 +17,23 @@ tile of its n·C dispatched rows, which need not be a multiple of anything
   dy_t`` over the tiles of each expert in float32;
   :func:`gmm_backward_plain` is the gradient from both.
 * :func:`gmm_fwd` (K6) and :func:`gmm_bwd` (K6b: dx by K6's kernels over
-  the transposed weight, no copy of it, and dw) launch the kernels of
-  ``csrc/moe_gmm.cu`` on CUDA tensors; bounds on an H100 are there.
+  the transposed weight, no copy of it, then dw) launch the kernels of
+  ``csrc/moe_gmm.cu`` on CUDA tensors, one launch each for the forward,
+  dx and dw. In bf16 a tile of more than 16 rows, and every dw, runs on
+  the card's tensor cores through ``wgmma`` fed by TMA: at the training
+  shape a product is bound by operations (0.19 ms at 989 TFLOP/s), a
+  decode step's (4 rows) by reading every expert's weight, which its
+  ``mma.sync`` variant streams; f32 runs on CUDA cores. The file's note
+  has the design.
 
-K must be a multiple of 32 and N of 8 (the reference asserts that its 128
-tiles divide T, D and F; the kernels mask any row count).
+Tile edges: the kernels see x, dy and the output as ``[tiles, tile_m,
+*]``, so rows past a tile's end read as zeros and are not written, for
+any ``tile_m``. A tile whose expert id lies outside [0, E) gives zero
+rows and adds nothing to dw; an expert without tiles gets a zero dw.
+Each output element is one float32 sum in a fixed order (dw over its
+expert's tiles in table order), rounded once: two calls give the same
+bits. K must be a multiple of 32 and N of 8, and the tensors 16-byte
+aligned (the reference asserts that its 128 tiles divide T, D and F).
 """
 from __future__ import annotations
 
@@ -113,6 +125,21 @@ def _launch_fwd(x, w, tile_expert, tile_m, transpose_w, what):
     return out
 
 
+def _launch_dw(x, dy, tile_expert, tile_m, n_experts):
+    nt = x.shape[0] // tile_m
+    M, N = x.shape[1], dy.shape[1]
+    dw = torch.empty((n_experts, M, N), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gmm_dw_launch(
+            x.data_ptr(), dy.data_ptr(), tile_expert.data_ptr(),
+            dw.data_ptr(), nt, tile_m, n_experts, M, N, _DTYPE_CODE[x.dtype],
+            stream)
+    _build.check(err, "gmm_bwd (dw)")
+    return dw
+
+
 def gmm_fwd(x, w, tile_expert, tile_m: int, *, transpose_w: bool = False):
     """K6, same contract as :func:`gmm_plain`. CPU tensors take the plain
     version; CUDA tensors launch the kernel, or raise on what it does not
@@ -137,19 +164,12 @@ def gmm_bwd(x, w, tile_expert, tile_m: int, dy):
     counts calls that launch."""
     if x.device.type == "cpu":
         return gmm_backward_plain(x, w, tile_expert, tile_m, dy)
-    nt, E, K, N = _check(x, w, tile_expert, tile_m, False, (dy,))
+    _, E, _, N = _check(x, w, tile_expert, tile_m, False, (dy,))
     if dy.shape != (x.shape[0], N) or dy.dtype != x.dtype:
         raise ValueError(f"dy must be {x.dtype} [{x.shape[0]}, {N}], got "
                          f"{dy.dtype} {tuple(dy.shape)}")
     dx = _launch_fwd(dy, w, tile_expert, tile_m, True, "gmm_bwd (dx)")
-    dw = torch.empty_like(w)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.gmm_dw_launch(
-            x.data_ptr(), dy.data_ptr(), tile_expert.data_ptr(),
-            dw.data_ptr(), nt, tile_m, E, K, N, _DTYPE_CODE[x.dtype], stream)
-    _build.check(err, "gmm_bwd (dw)")
+    dw = _launch_dw(x, dy, tile_expert, tile_m, E)
     gmm_bwd.launches += 1
     return dx, dw
 

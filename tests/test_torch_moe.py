@@ -55,7 +55,8 @@ def _t(a, dtype=None):
 # ------------------------------------------------------- grouped matmul ----
 
 @pytest.mark.parametrize("T,D,F,E,tile", [(512, 128, 256, 8, 128),
-                                          (256, 256, 128, 4, 128)])
+                                          (256, 256, 128, 4, 128),
+                                          (384, 384, 256, 4, 128)])
 def test_gmm_plain_matches_pallas_gmm(T, D, F, E, tile):
     """Every tile of sorted rows times its expert's weight, in f32."""
     rng = np.random.default_rng(5)
@@ -128,9 +129,37 @@ def test_gmm_plain_backward_matches_autograd(tile_m):
     torch.testing.assert_close(wr.grad, dw)
 
 
+@pytest.mark.parametrize("tile_m", [128, 200])
+def test_gmm_plain_down_projection_matches_autograd(tile_m):
+    """The down-projection's orientation (depth K > width N, as d_ff ->
+    d_model) with tiles of 128 rows and of 200 (no multiple of the
+    kernels' 128-row tiles, which the Pallas ``gmm`` does not take; the
+    card holds its kernels to this plain version at that shape): the
+    forward against each tile's product, dx and dw against autograd of
+    the plain forward, with experts left without tiles."""
+    rng = np.random.default_rng(9)
+    E, K, N, nt = 4, 384, 256, 3
+    x = rng.standard_normal((nt * tile_m, K), dtype=np.float32)
+    w = 0.05 * rng.standard_normal((E, K, N), dtype=np.float32)
+    dy = _t(rng.standard_normal((nt * tile_m, N), dtype=np.float32))
+    tile_expert = np.array([2, 0, 2], np.int32)          # 1 and 3 unused
+    got = tgm.gmm_plain(_t(x), _t(w), _t(tile_expert), tile_m)
+    want = np.concatenate([x[t * tile_m:(t + 1) * tile_m] @ w[e]
+                           for t, e in enumerate(tile_expert)])
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4)
+    xr, wr = _t(x).requires_grad_(), _t(w).requires_grad_()
+    (tgm.gmm_plain(xr, wr, _t(tile_expert), tile_m) * dy).sum().backward()
+    dx, dw = tgm.gmm_backward_plain(_t(x), _t(w), _t(tile_expert), tile_m,
+                                    dy)
+    torch.testing.assert_close(dx, xr.grad, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dw, wr.grad, rtol=1e-5, atol=1e-4)
+    assert dw[[1, 3]].abs().max() == 0
+
+
 @pytest.mark.parametrize("case,exc", [
     ("depth", ValueError), ("columns", ValueError), ("rows", ValueError),
     ("ids", ValueError), ("dtype", TypeError), ("device", ValueError),
+    ("alignment", ValueError),
 ])
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(case, exc):
     """The wrapper's checks, which run before any launch, called on CPU
@@ -151,6 +180,8 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(case, exc):
         w = w.bfloat16()
     elif case == "device":
         te = torch.zeros(4, dtype=torch.int32, device="meta")
+    elif case == "alignment":       # TMA reads from 16-byte boundaries
+        x = torch.zeros(4 * tm * K + 2)[2:].view(4 * tm, K)
     with pytest.raises(exc):
         tgm._check(x, w, te, tm, False)
 
