@@ -10,9 +10,14 @@ Phases, each fatal on failure:
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes (starcoder2-7b: B=8, H=36, KV=4, hd=128, BS=16, table width
    1024, ragged lens up to 4096; paged decode in bf16, f32 and on an int8
-   arena; the paged KV append with an out-of-range slot), and time kernel,
-   plain version, one PyTorch library call as a yardstick, and the bytes
-   bound at the H100 SXM's 3.35 TB/s (data sheet, 700 W limit);
+   arena, and in bf16 at the main path's own rows: 8 of 16-288 positions
+   over phase 3's and phase 15's tables, and of up to 1024 as their step
+   alone holds; the paged KV append with an
+   out-of-range slot), each K1/K2 case named by the kernel variant it ran
+   and every bf16 one bit-equal across two calls, and time kernel,
+   plain version, one PyTorch library call as a yardstick, one plain read
+   of the same bytes, and the bytes bound at the H100 SXM's 3.35 TB/s
+   (data sheet, 700 W limit);
 3. drive the main path at full width: starcoder2-7b with random weights
    from a seed, bf16, served by ``GenesysUdpServer(use_tenants=True)``
    through the continuous-batching engine over a 2048-block paged arena
@@ -31,7 +36,8 @@ The dense-cache path (the second slice) adds:
     at B=8, H=36, KV=4, hd=128, S=4096 with ragged lens up to 4096, on a
     cache whose S is not a multiple of 512 (nor of 64), and at the shape
     the bucketed serve loop gives it (a bucket of 8 rows, the server's
-    largest poll batch, of the 256-position cache);
+    largest poll batch, of the 256-position cache) and the eager loop's
+    one row of it, and at seamless-m4t-medium's decoder (H=KV=16, hd 64);
     timed against the plain version, one masked
     ``F.scaled_dot_product_attention(..., enable_gqa=True)`` as the
     library yardstick, and the bytes bound;
@@ -376,18 +382,20 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 # ------------------------------------------------------ phase 2: kernels --
 
-def decode_inputs(torch, dev, gen, q_dtype, kv_dtype, heads=(H, KV, HD)):
+def decode_inputs(torch, dev, gen, q_dtype, kv_dtype, heads=(H, KV, HD), *,
+                  lens_range=(1, MAX_LEN), table_width=TABLE_WIDTH):
     """Ragged rows: row b holds lens[b] positions on distinct random
     blocks; the rest of its table points at the null block. ``heads`` =
-    (query heads, KV heads, hd)."""
+    (query heads, KV heads, hd); lens are drawn from ``lens_range`` with
+    row 0 at its top."""
     h, kv, hd = heads
-    lens = torch.randint(1, MAX_LEN + 1, (B,), generator=gen, device=dev,
-                         dtype=torch.int32)
-    lens[0] = MAX_LEN
+    lens = torch.randint(lens_range[0], lens_range[1] + 1, (B,),
+                         generator=gen, device=dev, dtype=torch.int32)
+    lens[0] = lens_range[1]
     pages = [(int(n) + BS - 1) // BS for n in lens.tolist()]
     n_blocks = max(N_BLOCKS, 1 + sum(pages))
     order = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
-    bt = torch.zeros((B, TABLE_WIDTH), dtype=torch.int32, device=dev)
+    bt = torch.zeros((B, table_width), dtype=torch.int32, device=dev)
     at = 0
     for b, n in enumerate(pages):
         bt[b, :n] = order[at:at + n].to(torch.int32)
@@ -403,6 +411,26 @@ def decode_inputs(torch, dev, gen, q_dtype, kv_dtype, heads=(H, KV, HD)):
         kp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
         vp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
     return q, kp, vp, bt, lens, pages
+
+
+def read_ms(torch, nbytes: int, flush) -> float:
+    """Device time of one plain contiguous read of ``nbytes`` (a bf16 sum)
+    under the same flush as the kernels: what the memory gives a call that
+    reads as many bytes, beside the bound (the flush leaves L2 full of
+    dirty lines, so a read also pays their write-back)."""
+    buf = torch.ones(max(nbytes // 2, 1), dtype=torch.bfloat16,
+                     device=flush.device)
+    ms, _ = cuda_ms(torch, lambda: buf.sum(dtype=torch.float32), reps=10,
+                    flush=flush)
+    return ms
+
+
+def same_bits(torch, fn) -> bool:
+    """Two calls of ``fn`` give the same bits (the kernels' merges run in a
+    fixed order)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    return torch.equal(a, b)
 
 
 def library_attention(torch, q, kp, vp, bt, lens, n_pages):
@@ -423,25 +451,42 @@ def library_attention(torch, q, kp, vp, bt, lens, n_pages):
 
 def kernel_phase(torch, dev, flush, moe):
     """K1 at starcoder2's shape in bf16, f32 and int8, and at the MoE
-    model's (``moe`` = (H, KV, hd)) in bf16; the KV append."""
+    model's (``moe`` = (H, KV, hd)) in bf16, over rows of up to MAX_LEN
+    positions; then both at the main path's own rows (8 of 16-288
+    positions: phase 3's prompts of 16-256 tokens and budgets of 8-32, over
+    the tables make_engine gives phases 3 and 15) and at the rows of up to
+    1024 positions of phases 4 and 15's step alone; the KV append."""
+    from repro_torch.kernels import decode_attention as tda
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = []
-    for name, q_dtype, kv_dtype, heads in (
-            ("bfloat16", torch.bfloat16, torch.bfloat16, (H, KV, HD)),
-            ("float32", torch.float32, torch.float32, (H, KV, HD)),
-            ("int8", torch.bfloat16, torch.int8, (H, KV, HD)),
-            ("moe-bfloat16", torch.bfloat16, torch.bfloat16, moe)):
+    serving = {"lens_range": (16, 288)}
+    step = {"lens_range": (16, 1024)}
+    for name, q_dtype, kv_dtype, heads, rows in (
+            ("bfloat16", torch.bfloat16, torch.bfloat16, (H, KV, HD), {}),
+            ("float32", torch.float32, torch.float32, (H, KV, HD), {}),
+            ("int8", torch.bfloat16, torch.int8, (H, KV, HD), {}),
+            ("moe-bfloat16", torch.bfloat16, torch.bfloat16, moe, {}),
+            ("serve-bfloat16", torch.bfloat16, torch.bfloat16, (H, KV, HD),
+             dict(serving, table_width=N_BLOCKS // 2)),
+            ("moe-serve-bfloat16", torch.bfloat16, torch.bfloat16, moe,
+             dict(serving, table_width=MOE_N_BLOCKS // 2)),
+            ("step-bfloat16", torch.bfloat16, torch.bfloat16, (H, KV, HD),
+             dict(step, table_width=N_BLOCKS // 2)),
+            ("moe-step-bfloat16", torch.bfloat16, torch.bfloat16, moe,
+             dict(step, table_width=MOE_N_BLOCKS // 2))):
         h, kv, hd = heads
         q, kp, vp, bt, lens, pages = decode_inputs(torch, dev, gen, q_dtype,
-                                                   kv_dtype, heads)
+                                                   kv_dtype, heads, **rows)
         got = ops.paged_decode_attention(q, kp, vp, bt, lens)
         want = ops.paged_decode_attention_plain(q, kp, vp, bt, lens)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = tolerance(name, want)
+        bits = same_bits(torch, lambda: ops.paged_decode_attention(
+            q, kp, vp, bt, lens))
         n_pos = int(lens.sum())
         nbytes = (2 * n_pos * kv * hd * kp.element_size()
                   + 2 * q.numel() * q.element_size()
@@ -456,21 +501,26 @@ def kernel_phase(torch, dev, flush, moe):
         library_ms, _ = cuda_ms(torch, lambda: library_attention(
             torch, q, kp, vp, bt, lens, max(pages)), reps=10, flush=flush)
         case = {
-            "case": name, "heads": list(heads), "max_abs_err": err,
-            "tol": tol, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "case": name, "heads": list(heads),
+            "variant": tda.variant(q_dtype, hd),
+            "table_width": bt.shape[1], "max_abs_err": err,
+            "tol": tol, "same_bits": bits, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "read_ms": read_ms(torch, nbytes, flush),
             "bound_ms": bnd, "bound_by": by, "kv_bytes": nbytes,
             "host_call_ms": host_ms_k, "lens": lens.tolist(),
         }
         cases.append(case)
-        print(f"kernel paged_decode_attention[{name}]: max_abs_err="
-              f"{err:.3e} (tol {tol:g}) ms={case['ms']:.4f} "
-              f"plain_ms={case['plain_ms']:.4f} "
+        print(f"kernel paged_decode_attention[{name}] ({case['variant']}): "
+              f"max_abs_err={err:.3e} (tol {tol:g}) same_bits={bits} "
+              f"ms={case['ms']:.4f} plain_ms={case['plain_ms']:.4f} "
               f"library_ms(gather+sdpa)={case['library_ms']:.4f} "
+              f"read_ms={case['read_ms']:.4f} "
               f"bound_ms={bnd:.4f} ({by}, {nbytes} B) "
               f"host_call_ms={host_ms_k:.4f}", flush=True)
         check(err <= tol, f"paged_decode_attention[{name}] error "
               f"{err} > {tol}")
+        check(bits or q_dtype != torch.bfloat16, f"paged_decode_attention["
+              f"{name}] gave other bits on a second call")
         del q, kp, vp, bt, lens, got, want
 
     # the paged KV append: one layer's arena, 8 rows, the last out of range
@@ -575,12 +625,13 @@ def library_dense_attention(torch, q, k, v, lens):
         attn_mask=mask, enable_gqa=True)[:, :, 0]
 
 
-def dense_kernel_phase(torch, dev, flush, hybrid, moe):
+def dense_kernel_phase(torch, dev, flush, hybrid, moe, seamless):
     """K2 against its plain version at starcoder2's shapes, at the
-    hybrid's shared attention (``hybrid`` = (H, KV, hd), G = 1, which
-    takes K2's CUDA-core variant) and at the MoE model's attention
-    (``moe``, G = 1, hd 128), and the KV append at the hybrid's dense
-    cache. Returns (K2's cases, the append's cases)."""
+    hybrid's shared attention (``hybrid`` = (H, KV, hd), G = 1, hd 80), at
+    the MoE model's attention (``moe``, G = 1, hd 128) and at seamless's
+    decoder (``seamless``, G = 1, hd 64), and the KV append at the hybrid's
+    dense cache. Returns (K2's cases, the append's cases)."""
+    from repro_torch.kernels import decode_attention as tda
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev)
@@ -592,16 +643,21 @@ def dense_kernel_phase(torch, dev, flush, hybrid, moe):
     # (label, rows, cache positions, largest len, heads): the kernel
     # check's sizes; a cache of 1000 positions (1000 % 512 and 1000 % 64
     # are not 0) with a row past capacity; the bucketed serve loop's
-    # shape; then the hybrid's decode, eager (one row, bf16, and f32 as
-    # phase 10's decode against prefill runs it) and bucketed
+    # shape; the eager serve loop's row (the launcher's cache of 256);
+    # then the hybrid's decode, eager (one row, bf16, and f32 as phase
+    # 10's decode against prefill runs it) and bucketed; the MoE model's;
+    # seamless's decoder row
     shapes = [("S4096", B, MAX_LEN, MAX_LEN, heads, d) for d in dtypes]
     shapes += [("S1000-tail", B, 1000, 1005, heads, dtypes[0]),
                ("bucket8-S256", 8, DENSE_LEN, 40, heads, dtypes[0]),
+               ("B1-S256", 1, DENSE_LEN, DENSE_LEN, heads, dtypes[0]),
                ("hybrid-B1-S256", 1, DENSE_LEN, DENSE_LEN, hybrid, dtypes[0]),
                ("hybrid-B1-S256", 1, DENSE_LEN, DENSE_LEN, hybrid, dtypes[1]),
                ("hybrid-bucket8-S256", 8, DENSE_LEN, 40, hybrid, dtypes[0]),
                ("moe-B1-S256", 1, DENSE_LEN, DENSE_LEN, moe, dtypes[0]),
-               ("moe-bucket8-S256", 8, DENSE_LEN, 40, moe, dtypes[0])]
+               ("moe-bucket8-S256", 8, DENSE_LEN, 40, moe, dtypes[0]),
+               ("seamless-B1-S256", 1, DENSE_LEN, DENSE_LEN, seamless,
+                dtypes[0])]
     cases = []
     for label, b, s, max_len, (h, kv, hd), (name, q_dtype, kv_dtype) \
             in shapes:
@@ -616,6 +672,8 @@ def dense_kernel_phase(torch, dev, flush, hybrid, moe):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = tolerance(name, want)
+            bits = same_bits(torch, lambda: ops.decode_attention(
+                q, k, v, lens, *extra))
             nbytes = (2 * n_pos * kv * hd * k.element_size()
                       + 2 * q.numel() * q.element_size() + 4 * b
                       + (2 * k_new.numel() * k_new.element_size()
@@ -633,20 +691,25 @@ def dense_kernel_phase(torch, dev, flush, hybrid, moe):
                     torch, q, k, v, lens), reps=10, flush=flush)
             case = {
                 "case": f"{label}-{name}-{'new' if new else 'cache'}",
-                "max_abs_err": err, "tol": tol, "ms": ms,
+                "heads": [h, kv, hd], "variant": tda.variant(q_dtype, hd),
+                "max_abs_err": err, "tol": tol, "same_bits": bits, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
+                "read_ms": read_ms(torch, nbytes, flush),
                 "bound_ms": bnd, "bound_by": by, "kv_bytes": nbytes,
                 "host_call_ms": host_ms_k, "lens": lens.tolist(),
             }
             cases.append(case)
             lib = "null" if library_ms is None else f"{library_ms:.4f}"
-            print(f"kernel decode_attention[{case['case']}]: max_abs_err="
-                  f"{err:.3e} (tol {tol:g}) ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} library_ms(sdpa)={lib} "
+            print(f"kernel decode_attention[{case['case']}] "
+                  f"({case['variant']}): max_abs_err={err:.3e} (tol {tol:g}) "
+                  f"same_bits={bits} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms(sdpa)={lib} read_ms={case['read_ms']:.4f} "
                   f"bound_ms={bnd:.4f} ({by}, {nbytes} B) "
                   f"host_call_ms={host_ms_k:.4f}", flush=True)
             check(err <= tol, f"decode_attention[{case['case']}] error "
                   f"{err} > {tol}")
+            check(bits or q_dtype != torch.bfloat16, f"decode_attention["
+                  f"{case['case']}] gave other bits on a second call")
         del q, k, v, lens, k_new, v_new, got, want
     # the hybrid's KV append: a bucket's cache of one application of the
     # shared block (slots as layers.dense_step makes them; one row at
@@ -2639,9 +2702,10 @@ def run(torch) -> int:
     mark("2")
     # phase 2b: the dense kernel against its plain version
     zcfg = get_config("zamba2-2.7b")
+    scfg = get_config("seamless-m4t-medium")
     dense_cases, hybrid_appends = dense_kernel_phase(
         torch, dev, flush, (zcfg.n_heads, zcfg.n_kv_heads, zcfg.hd),
-        moe_heads)
+        moe_heads, (scfg.n_heads, scfg.n_kv_heads, scfg.hd))
     del flush
     mark("2b")
     torch.cuda.empty_cache()

@@ -1,40 +1,68 @@
 // Device code shared by the paged (K1, paged_decode.cu) and dense (K2,
 // dense_decode.cu) flash-decode kernels: one query token per row against a
-// K/V store whose rows are cut into pages of BS tokens.
+// K/V store of one token row ([KV, hd]) per position.
 //
-// Where a page lives is the only difference between the two, so the split
+// Where a position lives is the only difference between the two, so the
 // kernels take it as a policy, `Rows`, with
-//   int cap;                                 positions a row can hold
-//   __device__ int page_start(int b, int p)  flat token index of row b's
-//                                            page p (token t of it is at
-//                                            (page_start + t) * KV * hd)
-// PagedRows reads a block table (K1); DenseRows computes b * S + p * BS
-// (K2: the carried cache [B,S,KV,hd] viewed as pages of 64 tokens).
+//   int BS, cap;                             page size; positions a row holds
+//   __device__ int token(int b, int pos)     flat token index of row b's
+//                                            position pos (its K row is at
+//                                            (token * KV + kvh) * hd)
+//   __device__ int page_start(int b, int p)  token(b, p * BS)
+// PagedRows reads a block table (K1); DenseRows computes b * S + pos (K2:
+// the carried cache [B,S,KV,hd], no transpose).
 //
 // What bounds both is bytes: every valid K/V position is read once per
 // step (2 * sum(min(lens, cap)) * KV * hd * itemsize bytes) for 4 * hd * G
 // FLOPs, G = H / KV, about G FLOPs per byte in bf16 against the ~295 the
-// card needs to be compute-bound. So the design moves each byte once:
-//   * one CTA per (row, KV head, split of pages) loads each page once into
-//     shared memory and serves all G query heads of that KV head from it
-//     (the Pallas index maps fetch the same block once per query head);
-//   * pages arrive in tiles of 64 tokens, each thread's 16-byte loads of a
-//     tile issued together, so a tile costs one memory round trip; only
-//     positions below the row's length are loaded;
-//   * a CTA walks only the pages below ceil(min(lens[b], cap) / BS), not
-//     the whole row (the Pallas grids walk every block and mask);
-//   * a row is cut into splits of a few pages, and a grid sized to the card
-//     strides over them, so a long row spreads over many SMs and a short
-//     one costs few idle CTAs; the merge reads only the splits that ran.
-// Accumulation is f32 throughout. With bf16 queries (bf16 or int8 K/V) at
-// head_dim 128 both products run on the tensor cores (mma.sync m16n8k16,
-// the G heads padded to M = 16); otherwise (f32 models) on the CUDA cores
-// in f32. Loads are not overlapped with compute yet (no cp.async or TMA
-// ring), and the tensor-core path is mma.sync, not wgmma.
-//
-// The merge takes an optional extra partial: the new token of a dense
-// decode step (K2's two-part softmax), with m = q . k_new * scale, l = 1
-// and o = v_new, so attending it costs no pass over the cache.
+// card needs to be compute-bound; and at serving's rows of a few hundred
+// positions, latency: a call is a few dependent memory round trips. So:
+//   * one CTA per (row, KV head, split of the row) reads each position
+//     once and serves all G query heads of that KV head from it (the Pallas
+//     index maps fetch the same block once per query head), and reads only
+//     positions below the row's length (the Pallas grids walk the whole
+//     table and mask);
+//   * decode_ring, bf16 queries on bf16 or int8 K/V at head dim 64, 80 or
+//     128 (every config's), keeps loads in flight while it computes: each
+//     of its 4 warps owns a ring of kStages (3-4) stripes of 16 positions in
+//     shared memory, filled by cp.async 16-byte copies in commit groups, and
+//     takes the stripes [16 w, 16 w + 16) of the split's 64-position tiles
+//     in turn, so the next stripes' bytes are in flight while the current
+//     one is in the products. cp.async, not TMA: K1's positions sit on
+//     16-token pages anywhere in the arena (one TMA box each), a copy's
+//     src-size of 0 writes the zeros that mask a row's end without another
+//     pass, and a call encodes no tensor map on the host, which serving,
+//     bound by its host, would pay every step. A warp's ring is its own, so
+//     the only barriers are __syncwarp until the split's end;
+//   * both products on the tensor cores (mma.sync m16n8k16, the G heads
+//     padded to M = 16; at about G FLOPs per byte a 64-row wgmma would only
+//     pad more), the softmax in registers: each warp keeps its own running
+//     (m, l, o) over the whole head for the positions it took, and the four
+//     are merged once per split, in warp order, in shared memory (the ring's
+//     space, drained by then). bf16 K and V are read by ldmatrix (V
+//     transposed); int8 K and V land in the ring as raw bytes, half of
+//     bf16's, and become bf16 in registers as the fragments are formed
+//     (exactly: |q| <= 128), with the dims of the products permuted so that
+//     each thread reads whole words; 1 / QSCALE scales the f32 scores and
+//     outputs instead (a power of two: the same numbers);
+//   * a K1 stripe's block-table reads are issued together, before its
+//     copies, so a stripe waits for one page lookup, not one per copy;
+//   * every CTA reads all the call's lengths and cuts each row into at most
+//     NS splits of whole 64-position tiles, long enough that the call makes
+//     about as many splits as the card holds CTAs at once (`target`), and
+//     at least min_split positions (merging costs more than a shorter split
+//     saves); a row of one split is normalised and written by its CTA, so a
+//     call of short rows is one launch. The splits of a longer row are
+//     merged by the CTA that takes the row's last ticket (a counter per
+//     (row, KV head), released and acquired with the partials, that it
+//     resets), in split order, so two calls on the same inputs give the
+//     same bits. The merge folds in K2's new token (the two-part softmax),
+//     as a partial with m = q . k_new * scale, l = 1 and o = v_new, so
+//     attending it costs no pass over the cache.
+// Everything else (f32 queries, other head dims) runs decode_split on the
+// CUDA cores in f32: pages in tiles of 64 tokens loaded as f32 into shared
+// memory, one thread per (head, token) score, a grid of CTAs striding over
+// fixed splits, then decode_merge. Accumulation is f32 throughout.
 
 #pragma once
 
@@ -50,8 +78,14 @@
 namespace {
 
 constexpr int kThreads = 128;         // 4 warps per CTA
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 16;         // query heads per KV head in one CTA
+constexpr int kMaxSplits = 64;        // split slots of a row (ring kernel)
 constexpr int kMaxDimsPerThread = 2;  // head_dim <= 256
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The two kernels a call can take (the wrapper picks, decode_attention.py).
+enum Variant { kRing = 0, kCudaCore = 1 };
 
 // Positions of row b that are attended: lens[b] clipped to [0, cap].
 __device__ __forceinline__ int valid_len(const int* lens, int b, int cap) {
@@ -68,18 +102,29 @@ __device__ __forceinline__ int valid_pages(int len, int BS) {
 struct PagedRows {
   const int* bt;
   int MB, BS, cap;  // cap = MB * BS
+  int shift;        // log2(BS) when BS is a power of two, else -1
   __device__ __forceinline__ int page_start(int b, int p) const {
     return bt[(size_t)b * MB + p] * BS;
   }
+  __device__ __forceinline__ int token(int b, int pos) const {
+    return shift >= 0 ? page_start(b, pos >> shift) + (pos & (BS - 1))
+                      : page_start(b, pos / BS) + pos % BS;
+  }
 };
 
-// K2: row b's S positions are contiguous from token b * S.
+// K2: row b's S positions are contiguous from token b * S (pages of BS = 64
+// for the CUDA-core kernel).
 struct DenseRows {
   int S, BS, cap;  // cap = S
   __device__ __forceinline__ int page_start(int b, int p) const {
     return b * S + p * BS;
   }
+  __device__ __forceinline__ int token(int b, int pos) const {
+    return b * S + pos;
+  }
 };
+
+// ---- the CUDA-core split kernel: f32 queries, other head dims ---------------
 
 // 16 bytes of a K/V row -> kElems floats times `scale`, stored to shared
 // memory as float4s (dst is 16-byte aligned).
@@ -331,254 +376,6 @@ __global__ void __launch_bounds__(kThreads) decode_split(
   }  // splits
 }
 
-// ---- tensor-core split kernel: bf16 queries on bf16 or int8 K/V ------------
-
-// Head dim, query rows (G padded to the mma's M) and bf16 row strides of the
-// shared-memory tiles of the tensor-core kernel.
-constexpr int kMmaHd = 128;
-constexpr int kMmaRows = 16;
-constexpr int kKvStride = kMmaHd + 8;        // K/V tile rows, bf16
-constexpr int kScoreStride = kTileTokens + 4;  // score rows, f32
-constexpr int kProbStride = kTileTokens + 8;   // softmax-weight rows, bf16
-
-// One 16-byte chunk of a K/V row into a bf16 shared-memory row: bf16 is
-// copied as it is, int8 dequantised (q / QSCALE is exact in bf16).
-template <typename KT>
-__device__ __forceinline__ void stage_bf16(const uint4& r, __nv_bfloat16* dst,
-                                           float s);
-template <>
-__device__ __forceinline__ void stage_bf16<__nv_bfloat16>(
-    const uint4& r, __nv_bfloat16* dst, float) {
-  *reinterpret_cast<uint4*>(dst) = r;
-}
-template <>
-__device__ __forceinline__ void stage_bf16<int8_t>(const uint4& r,
-                                                   __nv_bfloat16* dst,
-                                                   float s) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-  uint32_t out[8];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    out[2 * k] = pack_pair(__float2bfloat16(Chunk<int8_t>::b(w[k], 0) * s),
-                           __float2bfloat16(Chunk<int8_t>::b(w[k], 1) * s));
-    out[2 * k + 1] =
-        pack_pair(__float2bfloat16(Chunk<int8_t>::b(w[k], 2) * s),
-                  __float2bfloat16(Chunk<int8_t>::b(w[k], 3) * s));
-  }
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  d[0] = make_uint4(out[0], out[1], out[2], out[3]);
-  d[1] = make_uint4(out[4], out[5], out[6], out[7]);
-}
-
-// The same split walk as decode_split, with both products on the tensor
-// cores (mma.sync m16n8k16): the G query heads of a KV head are the M = 16
-// rows (padded with zeros), the tile's 64 tokens the N of QK^T and the K
-// of PV. Warp w scores tokens [16w, 16w+16) and owns output dims
-// [32w, 32w+32); scores meet in shared memory for the softmax, whose
-// weights go back as bf16 (as the reference rounds them to V's dtype).
-// Takes hd = 128, G <= 16 and BS dividing 64.
-template <typename KT, typename Rows>
-__global__ void __launch_bounds__(kThreads) decode_split_mma(
-    const __nv_bfloat16* __restrict__ q, const KT* __restrict__ kp,
-    const KT* __restrict__ vp, const Rows rows, const int* __restrict__ lens,
-    float* __restrict__ part_o, float* __restrict__ part_ml, int H, int KV,
-    int pps, int NS, float scale, float kv_scale) {
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int BS = rows.BS;
-  const int len = valid_len(lens, b, rows.cap);
-  const int p_end = valid_pages(len, BS);
-  const int n_run = (p_end + pps - 1) / pps;  // splits with valid pages
-  if ((int)blockIdx.x >= n_run) return;
-
-  constexpr int E = Chunk<KT>::kElems;
-  constexpr int cpr = kMmaHd / E;  // 16-byte chunks per K/V row
-  const int G = H / KV;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
-  const int TP = kTileTokens / BS;
-
-  __shared__ __align__(16) __nv_bfloat16 ks[kTileTokens * kKvStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTileTokens * kKvStride];
-  __shared__ __align__(16) float ss[kMmaRows * kScoreStride];
-  __shared__ __align__(16) __nv_bfloat16 ps[kMmaRows * kProbStride];
-  __shared__ float m_s[kMmaRows], l_s[kMmaRows], c_s[kMmaRows];
-  __shared__ int blk_s[kTileTokens];
-
-  // the query rows as A fragments, one per 16-wide slice of head_dim
-  const __nv_bfloat16* qrow = q + ((size_t)b * H + (size_t)kvh * G) * kMmaHd;
-  uint32_t qa[kMmaHd / 16][4];
-#pragma unroll
-  for (int s = 0; s < kMmaHd / 16; ++s) {
-    const int c = 16 * s + 2 * tig;
-    qa[s][0] = gid < G ? ld_pair(qrow + gid * kMmaHd + c) : 0u;
-    qa[s][1] = gid + 8 < G ? ld_pair(qrow + (gid + 8) * kMmaHd + c) : 0u;
-    qa[s][2] = gid < G ? ld_pair(qrow + gid * kMmaHd + c + 8) : 0u;
-    qa[s][3] = gid + 8 < G ? ld_pair(qrow + (gid + 8) * kMmaHd + c + 8) : 0u;
-  }
-
-  const size_t tok_stride = (size_t)KV * kMmaHd;
-  for (int split = blockIdx.x; split < n_run; split += gridDim.x) {
-    const int p0 = split * pps;
-    const int p1 = p0 + pps < p_end ? p0 + pps : p_end;
-    if (tid < kMmaRows) {  // only thread tid touches m_s[tid] / l_s[tid] here
-      m_s[tid] = -CUDART_INF_F;
-      l_s[tid] = 0.f;
-    }
-    float o[4][4];  // this warp's 32 output dims as four 8-wide C fragments
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) o[j][k] = 0.f;
-
-    for (int p = p0; p < p1; p += TP) {
-      const int n_tok = (p1 - p < TP ? p1 - p : TP) * BS;  // tile's extent
-      const int live = len - p * BS;                  // >= 1 on a valid page
-      const int n_live = live < n_tok ? live : n_tok;  // tokens below len
-      __syncthreads();  // the previous tile's ks, vs, ss and ps are consumed
-      if (tid < n_tok / BS) blk_s[tid] = rows.page_start(b, p + tid);
-      __syncthreads();
-      const int n_chunks = n_live * cpr;
-      for (int c0 = 0; c0 < n_chunks; c0 += kThreads * kLoadIters) {
-        uint4 kr[kLoadIters], vr[kLoadIters];
-#pragma unroll
-        for (int u = 0; u < kLoadIters; ++u) {
-          const int c = c0 + u * kThreads + tid;
-          if (c < n_chunks) {
-            const int r = c / cpr, w = c - r * cpr;
-            const size_t off =
-                (size_t)(blk_s[r / BS] + r % BS) * tok_stride +
-                (size_t)kvh * kMmaHd + (size_t)w * E;
-            kr[u] = __ldg(reinterpret_cast<const uint4*>(kp + off));
-            vr[u] = __ldg(reinterpret_cast<const uint4*>(vp + off));
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kLoadIters; ++u) {
-          const int c = c0 + u * kThreads + tid;
-          if (c < n_chunks) {
-            const int r = c / cpr, w = c - r * cpr;
-            stage_bf16<KT>(kr[u], ks + r * kKvStride + w * E, kv_scale);
-            stage_bf16<KT>(vr[u], vs + r * kKvStride + w * E, kv_scale);
-          }
-        }
-      }
-      // rows past the loaded tokens are zero, so that 0-weight x stale
-      // shared memory cannot make a NaN in the PV product
-      for (int i = n_live * (kKvStride / 8) + tid;
-           i < kTileTokens * (kKvStride / 8); i += kThreads) {
-        reinterpret_cast<uint4*>(ks)[i] = make_uint4(0, 0, 0, 0);
-        reinterpret_cast<uint4*>(vs)[i] = make_uint4(0, 0, 0, 0);
-      }
-      __syncthreads();
-      // scores of this warp's 16 tokens: two 8-token C fragments
-      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int s = 0; s < kMmaHd / 16; ++s) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const __nv_bfloat16* kr =
-              ks + (16 * warp + 8 * j + gid) * kKvStride + 16 * s + 2 * tig;
-          const uint32_t kb[2] = {ld_pair(kr), ld_pair(kr + 8)};
-          mma_bf16(sc[j], qa[s], kb);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int t = 16 * warp + 8 * j + 2 * tig;
-        const bool in0 = t < n_live, in1 = t + 1 < n_live;
-        *reinterpret_cast<float2*>(ss + gid * kScoreStride + t) = make_float2(
-            in0 ? sc[j][0] * scale : -CUDART_INF_F,
-            in1 ? sc[j][1] * scale : -CUDART_INF_F);
-        *reinterpret_cast<float2*>(ss + (gid + 8) * kScoreStride + t) =
-            make_float2(in0 ? sc[j][2] * scale : -CUDART_INF_F,
-                        in1 ? sc[j][3] * scale : -CUDART_INF_F);
-      }
-      __syncthreads();
-      // online softmax, one warp per query row, lanes across the 64 tokens;
-      // padding rows (>= G) get zero weights
-      for (int r = warp; r < kMmaRows; r += kThreads / 32) {
-        const float* sr = ss + r * kScoreStride;
-        __nv_bfloat16* pr = ps + r * kProbStride;
-        if (r >= G) {
-          for (int t = lane; t < kTileTokens; t += 32)
-            pr[t] = __float2bfloat16(0.f);
-          if (lane == 0) c_s[r] = 0.f;
-          continue;
-        }
-        float mx = -CUDART_INF_F;
-        for (int t = lane; t < kTileTokens; t += 32) mx = fmaxf(mx, sr[t]);
-        mx = warp_max(mx);
-        const float m_old = m_s[r];
-        const float m_new = fmaxf(m_old, mx);
-        float sum = 0.f;
-        for (int t = lane; t < kTileTokens; t += 32) {
-          const float e = expf(sr[t] - m_new);  // masked (-inf) -> 0
-          pr[t] = __float2bfloat16(e);
-          sum += e;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float c = expf(m_old - m_new);  // m_old = -inf -> 0
-          l_s[r] = l_s[r] * c + sum;
-          m_s[r] = m_new;
-          c_s[r] = c;
-        }
-      }
-      __syncthreads();
-      // o = o * c + P V over the tile's 64 tokens, 16 at a time
-      const float c_lo = c_s[gid], c_hi = c_s[gid + 8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        o[j][0] *= c_lo;
-        o[j][1] *= c_lo;
-        o[j][2] *= c_hi;
-        o[j][3] *= c_hi;
-      }
-#pragma unroll
-      for (int s = 0; s < kTileTokens / 16; ++s) {
-        const __nv_bfloat16* pr = ps + 16 * s + 2 * tig;
-        const uint32_t pa[4] = {
-            ld_pair(pr + gid * kProbStride),
-            ld_pair(pr + (gid + 8) * kProbStride),
-            ld_pair(pr + gid * kProbStride + 8),
-            ld_pair(pr + (gid + 8) * kProbStride + 8)};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const __nv_bfloat16* vr =
-              vs + (16 * s + 2 * tig) * kKvStride + 32 * warp + 8 * j + gid;
-          const uint32_t vb[2] = {
-              pack_pair(vr[0], vr[kKvStride]),
-              pack_pair(vr[8 * kKvStride], vr[9 * kKvStride])};
-          mma_bf16(o[j], pa, vb);
-        }
-      }
-    }
-
-    const int h0 = kvh * G;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = 32 * warp + 8 * j + 2 * tig;
-      if (gid < G) {
-        float* od = part_o + (((size_t)b * H + h0 + gid) * NS + split) *
-                                 kMmaHd + d;
-        od[0] = o[j][0];
-        od[1] = o[j][1];
-      }
-      if (gid + 8 < G) {
-        float* od = part_o + (((size_t)b * H + h0 + gid + 8) * NS + split) *
-                                 kMmaHd + d;
-        od[0] = o[j][2];
-        od[1] = o[j][3];
-      }
-    }
-    if (tid < G) {
-      float* ml = part_ml + (((size_t)b * H + h0 + tid) * NS + split) * 2;
-      ml[0] = m_s[tid];
-      ml[1] = l_s[tid];
-    }
-  }  // splits
-}
-
 // One CTA per (row, query head): log-sum-exp merge of the splits that ran,
 // and of the new token (k_new, v_new [B,KV,hd] in q's dtype) when given:
 // its partial is m = q . k_new * scale, l = 1, o = v_new. A row with no
@@ -628,68 +425,832 @@ __global__ void __launch_bounds__(kThreads) decode_merge(
   }
 }
 
-// Split kernels, then the merge, on `stream`; returns the first launch
-// error. k_new/v_new may be null (no new token).
+// ---- the ring kernel: bf16 queries on bf16 or int8 K/V, hd 64 / 80 / 128 ---
+
+constexpr int kStripe = 16;  // positions a warp takes from each 64-wide tile
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   shared_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory (lane l gives the address of
+// row l % 8 of matrix l / 8); .trans hands each thread a column pair.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(shared_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(shared_addr(p)));
+}
+
+// Takes a ticket: atomic add of 1, returning the old count, with release
+// (the writes this thread has seen happen before it at GPU scope) and
+// acquire (what the earlier tickets released is seen after it).
+__device__ __forceinline__ int ticket_acq_rel(int* counter) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(counter)
+               : "memory");
+  return old;
+}
+
+// Byte k of a word of int8 biased by 128 (w ^ 0x80808080) as an exact f32:
+// the bits 0x4B0000uu are 2^23 + uu.
+__device__ __forceinline__ float s8_f32(uint32_t biased, int k) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | k)) -
+         8388736.f;
+}
+// Two f32 that bf16 holds exactly (integers of at most 8 bits) as one
+// bf16 pair: their upper halves.
+__device__ __forceinline__ uint32_t bf16x2_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+__device__ __forceinline__ uint32_t s8x2_bf16x2(uint32_t biased, int k0,
+                                                int k1) {
+  return bf16x2_exact(s8_f32(biased, k0), s8_f32(biased, k1));
+}
+// Four (two) int8 from shared memory as a word biased by 128.
+__device__ __forceinline__ uint32_t biased4(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+}
+__device__ __forceinline__ uint32_t biased2(const uint8_t* p) {
+  return *reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
+}
+
+__device__ __forceinline__ void add_scores(float (&sc)[2][4],
+                                           const float (&odd)[2][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] += odd[j][e];
+}
+
+// Shared-memory layout of a warp's ring: each stage holds a stripe's 16 K
+// rows, then its 16 V rows. Row strides are padded so that the reads of a
+// stripe touch distinct banks: an odd number of 16-byte units for bf16
+// (ldmatrix: 8 rows of 16 bytes) and for int8 V (4-byte words of rows 2
+// apart), an odd number of 32-byte units for int8 K (8-byte words of 4
+// rows).
+template <typename KT, int HD>
+struct RingShape {
+  static constexpr int kRowBytes = HD * (int)sizeof(KT);
+  static constexpr int kChunks = kRowBytes / 16;  // 16-byte copies per row
+  static constexpr int kVStride =
+      kChunks % 2 == 0 ? kRowBytes + 16 : kRowBytes;
+  static constexpr int kK32 = (kRowBytes + 31) / 32 * 32;
+  static constexpr int kKStride =
+      std::is_same<KT, int8_t>::value ? (kK32 % 64 == 0 ? kK32 + 32 : kK32)
+                                      : kVStride;
+  static constexpr int kStageBytes = kStripe * (kKStride + kVStride);
+  // four stages where two CTAs still fit an SM, else three
+  static constexpr int kStages =
+      kWarps * 4 * kStageBytes <= 100 * 1024 ? 4 : 3;
+  static constexpr int kSmem = kWarps * kStages * kStageBytes;
+  // the split's merge reuses the ring: [kWarps][G][HD] o, [kWarps][G][2] ml
+  static_assert(kWarps * kMaxGroup * (HD + 2) * 4 <= kSmem, "merge space");
+  // ... and the last CTA's merge of the splits: (m, l) of every split and
+  // at least one split's o rows (merge_splits)
+  static_assert((2 * kMaxGroup * kMaxSplits + 2 * kMaxGroup + 4) * 4 +
+                        kMaxGroup * HD * 4 <=
+                    kSmem,
+                "split merge space");
+  static_assert(HD % 16 == 0 && kRowBytes % 16 == 0, "whole copies");
+};
+
+// How a stripe's K and V become mma fragments, per K/V dtype. q_col(s, tig,
+// half) is the head dim of Q's A-fragment column pair (a0/a1 for half 0,
+// a2/a3 for half 1) in k-step s, o_dim(f, tig, e) the head dim of column
+// 2 tig + e of output fragment f; scores() and pv() run a stripe's two
+// products. The 16-token stripe is the scores' N (two 8-token fragments)
+// and PV's K: P's A fragment is the score fragments, packed to bf16.
+template <typename KT, int HD>
+struct RingFrags;
+
+// bf16: ldmatrix reads K as it lies and V transposed; dims in order.
+template <int HD>
+struct RingFrags<__nv_bfloat16, HD> {
+  using Shape = RingShape<__nv_bfloat16, HD>;
+  __device__ __forceinline__ static int q_col(int s, int tig, int half) {
+    return 16 * s + 2 * tig + 8 * half;
+  }
+  __device__ __forceinline__ static int o_dim(int f, int tig, int e) {
+    return 8 * f + 2 * tig + e;
+  }
+  // matrix l / 8 of k-step s: tokens 8 (l / 16) + [0, 8), dims 16 s + 8
+  // ((l / 8) % 2) + [0, 8): the B fragments (b0, b1) of both score halves
+  __device__ __forceinline__ static void scores(const uint8_t* ks,
+                                                const uint32_t (&qa)[HD / 16][4],
+                                                float (&sc)[2][4], int lane) {
+    const uint8_t* row = ks + ((lane >> 4) * 8 + (lane & 7)) * Shape::kKStride +
+                         ((lane >> 3) & 1) * 16;
+    float odd[2][4] = {};  // odd k-steps: two shorter chains of products
+#pragma unroll
+    for (int s = 0; s < HD / 16; ++s) {
+      uint32_t r[4];
+      ldsm_x4(r, row + 32 * s);
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_bf16(s % 2 ? odd[0] : sc[0], qa[s], b0);
+      mma_bf16(s % 2 ? odd[1] : sc[1], qa[s], b1);
+    }
+    add_scores(sc, odd);
+  }
+  // matrix l / 8 of dims 16 p: tokens 8 ((l / 8) % 2) + [0, 8), dims 16 p +
+  // 8 (l / 16) + [0, 8), transposed: (b0, b1) of fragments 2p and 2p + 1
+  __device__ __forceinline__ static void pv(const uint8_t* vs,
+                                            const uint32_t (&pa)[4],
+                                            float (&o)[HD / 8][4], int lane) {
+    const uint8_t* row = vs +
+                         (((lane >> 3) & 1) * 8 + (lane & 7)) * Shape::kVStride +
+                         (lane >> 4) * 16;
+#pragma unroll
+    for (int p = 0; p < HD / 16; ++p) {
+      uint32_t r[4];
+      ldsm_x4_t(r, row + 32 * p);
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_bf16(o[2 * p], pa, b0);
+      mma_bf16(o[2 * p + 1], pa, b1);
+    }
+  }
+};
+
+// int8: each thread reads whole words of a row and the products' dims are
+// permuted to fit (the same permutation on both sides of each product).
+// QK^T: in a 32-dim block c, thread (gid, tig) reads dims 32 c + 8 tig +
+// [0, 8) of token gid (8 bytes): k-step 2c takes dims +0..3, 2c + 1 dims
+// +4..7; a last block of 16 (hd 80) takes 4 bytes, 32 c + 4 tig + [0, 4).
+// PV: column n of output fragment 4 c + i is dim 32 c + 4 n + i, so thread
+// (gid, tig) reads dims 32 c + 4 gid + [0, 4) of its tokens 2 tig, 2 tig + 1,
+// 2 tig + 8 and 2 tig + 9 (a last block of 16: 2 bytes, 32 c + 2 gid + i).
+template <int HD>
+struct RingFrags<int8_t, HD> {
+  using Shape = RingShape<int8_t, HD>;
+  static constexpr int kFull = HD / 32;  // whole 32-dim blocks
+  static constexpr bool kTail = HD % 32 != 0;
+  __device__ __forceinline__ static int q_col(int s, int tig, int half) {
+    return s < 2 * kFull ? 32 * (s / 2) + 8 * tig + 4 * (s % 2) + 2 * half
+                         : 32 * kFull + 4 * tig + 2 * half;
+  }
+  __device__ __forceinline__ static int o_dim(int f, int tig, int e) {
+    return f < 4 * kFull ? 32 * (f / 4) + 8 * tig + 4 * e + f % 4
+                         : 32 * kFull + 4 * tig + 2 * e + f % 4;
+  }
+  __device__ __forceinline__ static void scores(const uint8_t* ks,
+                                                const uint32_t (&qa)[HD / 16][4],
+                                                float (&sc)[2][4], int lane) {
+    const int gid = lane >> 2, tig = lane & 3;
+    float odd[2][4] = {};  // odd k-steps: two shorter chains of products
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint8_t* row = ks + (8 * j + gid) * Shape::kKStride;
+#pragma unroll
+      for (int c = 0; c < kFull; ++c) {
+        const uint2 w = *reinterpret_cast<const uint2*>(row + 32 * c + 8 * tig);
+        const uint32_t x = w.x ^ 0x80808080u, y = w.y ^ 0x80808080u;
+        const uint32_t b0[2] = {s8x2_bf16x2(x, 0, 1), s8x2_bf16x2(x, 2, 3)};
+        const uint32_t b1[2] = {s8x2_bf16x2(y, 0, 1), s8x2_bf16x2(y, 2, 3)};
+        mma_bf16(sc[j], qa[2 * c], b0);
+        mma_bf16(odd[j], qa[2 * c + 1], b1);
+      }
+      if constexpr (kTail) {
+        const uint32_t x = biased4(row + 32 * kFull + 4 * tig);
+        const uint32_t b[2] = {s8x2_bf16x2(x, 0, 1), s8x2_bf16x2(x, 2, 3)};
+        mma_bf16(sc[j], qa[2 * kFull], b);
+      }
+    }
+    add_scores(sc, odd);
+  }
+  __device__ __forceinline__ static void pv(const uint8_t* vs,
+                                            const uint32_t (&pa)[4],
+                                            float (&o)[HD / 8][4], int lane) {
+    const int gid = lane >> 2, tig = lane & 3;
+    const uint8_t* r0 = vs + 2 * tig * Shape::kVStride;  // tokens 2tig, +1
+    const uint8_t* r2 = r0 + 8 * Shape::kVStride;        // tokens 2tig+8, +9
+#pragma unroll
+    for (int c = 0; c < kFull; ++c) {
+      const int off = 32 * c + 4 * gid;
+      const uint32_t w0 = biased4(r0 + off);
+      const uint32_t w1 = biased4(r0 + Shape::kVStride + off);
+      const uint32_t w2 = biased4(r2 + off);
+      const uint32_t w3 = biased4(r2 + Shape::kVStride + off);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t b[2] = {bf16x2_exact(s8_f32(w0, i), s8_f32(w1, i)),
+                               bf16x2_exact(s8_f32(w2, i), s8_f32(w3, i))};
+        mma_bf16(o[4 * c + i], pa, b);
+      }
+    }
+    if constexpr (kTail) {
+      const int off = 32 * kFull + 2 * gid;
+      const uint32_t w0 = biased2(r0 + off);
+      const uint32_t w1 = biased2(r0 + Shape::kVStride + off);
+      const uint32_t w2 = biased2(r2 + off);
+      const uint32_t w3 = biased2(r2 + Shape::kVStride + off);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t b[2] = {bf16x2_exact(s8_f32(w0, i), s8_f32(w1, i)),
+                               bf16x2_exact(s8_f32(w2, i), s8_f32(w3, i))};
+        mma_bf16(o[4 * kFull + i], pa, b);
+      }
+    }
+  }
+};
+
+// How long the splits of a call are: at least min_split positions, and long
+// enough that the call's P valid positions over KV heads make about
+// `target` splits (the CTAs the card holds at once), whole 64-position
+// tiles. Every CTA computes it from all the rows' lengths, so a call of few
+// long rows cuts them finely and a call that fills the card does not.
+__host__ __device__ __forceinline__ int split_length(long long P, int KV,
+                                                     int target,
+                                                     int min_split) {
+  const long long fill = (P * KV + target - 1) / target;
+  const long long len = (fill + kTileTokens - 1) / kTileTokens * kTileTokens;
+  return len > min_split ? (int)len : min_split;
+}
+
+// The splits of a row of len positions: at most NS, each about `split`
+// positions (unless the row is shorter), as even as whole 64-position tiles
+// allow. Returns how many run; a row with nothing to attend runs one, which
+// writes its output (0, or the new token alone). decode_attention.py's
+// split_length and row_splits are the same rules.
+__host__ __device__ __forceinline__ int row_splits(int len, int NS, int split,
+                                                   int* split_len) {
+  if (len <= 0) {
+    *split_len = kTileTokens;
+    return 1;
+  }
+  int n = (len + split - 1) / split;
+  if (n > NS) n = NS;
+  const int per = (len + n - 1) / n;
+  *split_len = (per + kTileTokens - 1) / kTileTokens * kTileTokens;
+  return (len + *split_len - 1) / *split_len;
+}
+
+// The valid positions of all B rows, summed by the whole CTA (every
+// thread gets the total).
+__device__ __forceinline__ long long call_positions(const int* lens, int B,
+                                                    int cap) {
+  __shared__ long long warp_total[kWarps];
+  long long n = 0;
+  for (int b = threadIdx.x; b < B; b += kThreads) n += valid_len(lens, b, cap);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+  if ((threadIdx.x & 31) == 0) warp_total[threadIdx.x >> 5] = n;
+  __syncthreads();
+  long long total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) total += warp_total[w];
+  return total;
+}
+
+// Weight of a partial of max m_i (log2 units) under the merged max m (0 for
+// an empty one).
+__device__ __forceinline__ float part_weight(float m_i, float m) {
+  return m_i == -CUDART_INF_F ? 0.f : exp2f(m_i - m);
+}
+
+// The CTA's kWarps partials of one query head in shared memory: warp i's
+// (m, l) at ml[i * ml_stride], its unnormalised o at o[i * o_stride], read
+// scaled by `scale` (1 / QSCALE for an int8 cache).
+struct WarpParts {
+  const float* o;
+  const float* ml;
+  int o_stride, ml_stride;
+  float scale;
+  __device__ __forceinline__ float m(int i) const { return ml[i * ml_stride]; }
+  __device__ __forceinline__ float l(int i) const {
+    return ml[i * ml_stride + 1];
+  }
+  __device__ __forceinline__ float o_at(int i, int d) const {
+    return o[i * o_stride + d] * scale;
+  }
+  __device__ __forceinline__ float max_m() const {
+    float m_max = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) m_max = fmaxf(m_max, m(i));
+    return m_max;
+  }
+};
+
+// One warp: the partials merged in warp order into the split's partial
+// (lane d of the head dims), stored to o_dst [hd] and ml_dst [2].
+__device__ __forceinline__ void store_partial(const WarpParts& p,
+                                              float* o_dst, float* ml_dst,
+                                              int hd, int lane) {
+  const float m = p.max_m();
+  float l = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) l += p.l(i) * part_weight(p.m(i), m);
+  for (int d = lane; d < hd; d += 32) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i)
+      acc = fmaf(p.o_at(i, d), part_weight(p.m(i), m), acc);
+    o_dst[d] = acc;
+  }
+  if (lane == 0) {
+    ml_dst[0] = m;
+    ml_dst[1] = l;
+  }
+}
+
+// One warp: the normalised output of one (row, query head) of a row of one
+// split, with the new token (kn, vn [hd], its score q . kn * scale) when kn
+// is given. qk_log2 = scale * log2(e). No position and no new token gives 0.
+__device__ __forceinline__ void finish_head(const WarpParts& p,
+                                            const __nv_bfloat16* qh,
+                                            const __nv_bfloat16* kn,
+                                            const __nv_bfloat16* vn,
+                                            __nv_bfloat16* oh, int hd,
+                                            float qk_log2, int lane) {
+  float m = p.max_m();
+  float s_new = -CUDART_INF_F;
+  if (kn != nullptr) {
+    float dot = 0.f;
+    for (int d = lane; d < hd; d += 32)
+      dot = fmaf(to_float(qh[d]), to_float(kn[d]), dot);
+    s_new = warp_sum(dot) * qk_log2;
+    m = fmaxf(m, s_new);
+  }
+  float den = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) den += p.l(i) * part_weight(p.m(i), m);
+  const float p_new = kn != nullptr ? exp2f(s_new - m) : 0.f;
+  den += p_new;
+  const float inv = 1.f / fmaxf(den, 1e-30f);
+  for (int d = lane; d < hd; d += 32) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i)
+      acc = fmaf(p.o_at(i, d), part_weight(p.m(i), m), acc);
+    if (vn != nullptr) acc = fmaf(p_new, to_float(vn[d]), acc);
+    oh[d] = __float2bfloat16(acc * inv);
+  }
+}
+
+// The CTA that takes the last ticket of a (row, KV head): the n splits'
+// partials of its G heads (rows bh0 + g of part_o [*, NS, HD] and part_ml
+// [*, NS, 2]) merged in split order, with the new token (kn, vn) when given,
+// into out. Every (m, l) comes in by one load of its own; the o rows go
+// through shared memory by cp.async, as many splits at a time as `smem`
+// holds (all of them at the shapes served), so each batch costs one round
+// trip to L2 instead of one per split.
+template <int HD>
+__device__ __forceinline__ void merge_splits(
+    uint8_t* smem, int smem_bytes, const float* part_o, const float* part_ml,
+    size_t bh0, int G, int n, int NS, const __nv_bfloat16* q,
+    const __nv_bfloat16* kn, const __nv_bfloat16* vn, __nv_bfloat16* out,
+    float qk_log2) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* ws = reinterpret_cast<float*>(smem);  // [G][n] m, then the weight
+  float* ls = ws + G * n;                       // [G][n] l
+  float* hs = ls + G * n;                       // [G][2] 1 / den, p_new
+  float* os = ws + ((2 * G * n + 2 * G + 3) & ~3);  // [G][chunk][HD]
+  const int chunk =
+      (smem_bytes - (int)(reinterpret_cast<uint8_t*>(os) - smem)) /
+      (G * HD * 4);
+  // splits [i0, i0 + nc) of every head's o rows into os
+  auto stage = [&](int i0, int nc) {
+    for (int c = tid; c < G * nc * (HD / 4); c += kThreads) {
+      const int r = c / (HD / 4), piece = c - r * (HD / 4);  // r = g nc + i
+      const int g = r / nc, i = r - g * nc;
+      cp_async16(os + r * HD + 4 * piece,
+                 part_o + ((bh0 + g) * NS + i0 + i) * HD + 4 * piece, true);
+    }
+    cp_async_commit();
+  };
+  stage(0, chunk < n ? chunk : n);  // in flight while (m, l) come in
+  for (int x = tid; x < G * n; x += kThreads) {
+    const int g = x / n, i = x - g * n;
+    const float* ml = part_ml + ((bh0 + g) * NS + i) * 2;
+    ws[x] = __ldcg(ml);
+    ls[x] = __ldcg(ml + 1);
+  }
+  __syncthreads();
+  for (int g = warp; g < G; g += kWarps) {  // one warp per head
+    float m = -CUDART_INF_F;
+    for (int i = lane; i < n; i += 32) m = fmaxf(m, ws[g * n + i]);
+    m = warp_max(m);
+    float s_new = -CUDART_INF_F;
+    if (kn != nullptr) {
+      float dot = 0.f;
+      for (int d = lane; d < HD; d += 32)
+        dot = fmaf(to_float(q[(bh0 + g) * HD + d]), to_float(kn[d]), dot);
+      s_new = warp_sum(dot) * qk_log2;
+      m = fmaxf(m, s_new);
+    }
+    float den = 0.f;
+    for (int i = lane; i < n; i += 32) {
+      const float w = part_weight(ws[g * n + i], m);
+      ws[g * n + i] = w;
+      den += ls[g * n + i] * w;
+    }
+    den = warp_sum(den);
+    const float p_new = kn != nullptr ? exp2f(s_new - m) : 0.f;
+    if (lane == 0) {
+      hs[2 * g] = 1.f / fmaxf(den + p_new, 1e-30f);
+      hs[2 * g + 1] = p_new;
+    }
+  }
+  constexpr int kOut = (kMaxGroup * HD + kThreads - 1) / kThreads;
+  float acc[kOut];
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) acc[j] = 0.f;
+  for (int i0 = 0; i0 < n; i0 += chunk) {
+    const int nc = chunk < n - i0 ? chunk : n - i0;
+    if (i0 > 0) stage(i0, nc);
+    cp_async_wait<0>();
+    __syncthreads();  // the batch has landed, and the weights are in place
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) {
+      const int x = tid + j * kThreads;
+      if (x < G * HD) {
+        const int g = x / HD, d = x - g * HD;
+        for (int i = 0; i < nc; ++i)
+          acc[j] = fmaf(os[(g * nc + i) * HD + d], ws[g * n + i0 + i], acc[j]);
+      }
+    }
+    __syncthreads();  // the batch is consumed
+  }
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) {
+    const int x = tid + j * kThreads;
+    if (x < G * HD) {
+      const int g = x / HD, d = x - g * HD;
+      float a = acc[j];
+      if (vn != nullptr) a = fmaf(hs[2 * g + 1], to_float(vn[d]), a);
+      out[(bh0 + g) * HD + d] = __float2bfloat16(a * hs[2 * g]);
+    }
+  }
+}
+
+// One CTA: row b (blockIdx.y), KV head kvh (blockIdx.x), split z
+// (blockIdx.z) of row_splits(len, NS, split_length(...)). Warp w walks the
+// split's
+// 64-position tiles, taking positions [16 w, 16 w + 16) of each through its
+// ring: stripe k + kStages - 1 is copied while stripe k is in the products.
+// Then the warps' (m, l, o) are merged in shared memory; a row of one split
+// is written here, normalised; otherwise each split stores its partial and
+// the CTA that takes the last ticket of (b, kvh) merges them in order and
+// resets the ticket. qk_log2 = hd^-0.5 * log2(e); kv_scale scales cached K
+// and V (1 / QSCALE for int8), not the new token.
+template <typename KT, int HD, typename Rows>
+__global__ void __launch_bounds__(kThreads) decode_ring(
+    const __nv_bfloat16* __restrict__ q, const KT* __restrict__ kc,
+    const KT* __restrict__ vc, const Rows rows, const int* __restrict__ lens,
+    const __nv_bfloat16* __restrict__ k_new,
+    const __nv_bfloat16* __restrict__ v_new, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part_o, float* __restrict__ part_ml,
+    int* __restrict__ tickets, int B, int H, int KV, int NS, int min_split,
+    int target, float qk_log2, float kv_scale) {
+  using Shape = RingShape<KT, HD>;
+  using Frags = RingFrags<KT, HD>;
+  constexpr int S = Shape::kStages;
+  const int kvh = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int len = valid_len(lens, b, rows.cap);
+  const int split =
+      split_length(call_positions(lens, B, rows.cap), KV, target, min_split);
+  int split_len;
+  const int n_run = row_splits(len, NS, split, &split_len);
+  if (z >= n_run) return;
+
+  const int G = H / KV;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int t0 = z * split_len;               // the split's positions [t0, t1)
+  const int t1 = t0 + split_len < len ? t0 + split_len : len;
+  const int n_tiles = (t1 - t0 + kTileTokens - 1) / kTileTokens;
+
+  extern __shared__ __align__(128) uint8_t ring_smem[];
+  uint8_t* ring = ring_smem + warp * S * Shape::kStageBytes;
+
+  // the G query rows as A fragments, one per 16-deep k-step (rows >= G: 0)
+  const __nv_bfloat16* qrow = q + ((size_t)b * H + (size_t)kvh * G) * HD;
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int s = 0; s < HD / 16; ++s) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = Frags::q_col(s, tig, half);
+      qa[s][2 * half] = gid < G ? ld_pair(qrow + gid * HD + c) : 0u;
+      qa[s][2 * half + 1] =
+          gid + 8 < G ? ld_pair(qrow + (gid + 8) * HD + c) : 0u;
+    }
+  }
+
+  // stripe k: positions t0 + 64 k + 16 warp + [0, 16) into stage k % S, the
+  // ones at or past t1 as zeros; always one commit group
+  const size_t tok_bytes = (size_t)KV * Shape::kRowBytes;
+  const uint8_t* kbase =
+      reinterpret_cast<const uint8_t*>(kc) + (size_t)kvh * Shape::kRowBytes;
+  const uint8_t* vbase =
+      reinterpret_cast<const uint8_t*>(vc) + (size_t)kvh * Shape::kRowBytes;
+  // the rows' addresses first (K1: reads of the block table, all in flight
+  // together), then the copies
+  constexpr int kCopies = (kStripe * Shape::kChunks + 31) / 32;  // per lane
+  auto issue = [&](int k) {
+    const int p0 = t0 + k * kTileTokens + warp * kStripe;
+    if (p0 < t1) {
+      uint8_t* ks = ring + (k % S) * Shape::kStageBytes;
+      uint8_t* vs = ks + kStripe * Shape::kKStride;
+      size_t off[kCopies];
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i) {
+        const int c = lane + 32 * i, r = c / Shape::kChunks;
+        off[i] = c < kStripe * Shape::kChunks && p0 + r < t1
+                     ? (size_t)rows.token(b, p0 + r) * tok_bytes +
+                           16 * (c - r * Shape::kChunks)
+                     : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i) {
+        const int c = lane + 32 * i, r = c / Shape::kChunks;
+        if (c < kStripe * Shape::kChunks) {
+          const int w = c - r * Shape::kChunks;
+          const bool ok = p0 + r < t1;
+          cp_async16(ks + r * Shape::kKStride + 16 * w, kbase + off[i], ok);
+          cp_async16(vs + r * Shape::kVStride + 16 * w, vbase + off[i], ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int f = 0; f < HD / 8; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[f][e] = 0.f;
+  float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F;  // rows gid, gid + 8
+  float l_lo = 0.f, l_hi = 0.f;  // this thread's share of the row sums
+  const float sc_log2 = qk_log2 * kv_scale;
+
+#pragma unroll
+  for (int k = 0; k < S - 1; ++k) issue(k);
+  for (int k = 0; k < n_tiles; ++k) {
+    cp_async_wait<S - 2>();  // stripe k has landed (this thread's copies)
+    __syncwarp();            // ... all lanes', and stage k - 1 is consumed
+    issue(k + S - 1);
+    const int live = t1 - (t0 + k * kTileTokens + warp * kStripe);
+    if (live <= 0) continue;  // the split ends before this warp's stripe
+    const uint8_t* ks = ring + (k % S) * Shape::kStageBytes;
+    float sc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    Frags::scores(ks, qa, sc, lane);
+    // scale to log2 units, mask past the split's end, then the row maxima
+    // over the quad that holds each row
+    float mx_lo = -CUDART_INF_F, mx_hi = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = 8 * j + 2 * tig + (e & 1) < live;
+        sc[j][e] = in ? sc[j][e] * sc_log2 : -CUDART_INF_F;
+        if (e < 2)
+          mx_lo = fmaxf(mx_lo, sc[j][e]);
+        else
+          mx_hi = fmaxf(mx_hi, sc[j][e]);
+      }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, x));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, x));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    // the base of the exponent: 0 while a row has seen nothing (all -inf)
+    const float base_lo = mn_lo == -CUDART_INF_F ? 0.f : mn_lo;
+    const float base_hi = mn_hi == -CUDART_INF_F ? 0.f : mn_hi;
+    const float c_lo = exp2f(m_lo - base_lo), c_hi = exp2f(m_hi - base_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      sc[j][0] = exp2f(sc[j][0] - base_lo);
+      sc[j][1] = exp2f(sc[j][1] - base_lo);
+      sc[j][2] = exp2f(sc[j][2] - base_hi);
+      sc[j][3] = exp2f(sc[j][3] - base_hi);
+      sum_lo += sc[j][0] + sc[j][1];
+      sum_hi += sc[j][2] + sc[j][3];
+    }
+    l_lo = l_lo * c_lo + sum_lo;
+    l_hi = l_hi * c_hi + sum_hi;
+#pragma unroll
+    for (int f = 0; f < HD / 8; ++f) {
+      o[f][0] *= c_lo;
+      o[f][1] *= c_lo;
+      o[f][2] *= c_hi;
+      o[f][3] *= c_hi;
+    }
+    // the weights, rounded to bf16, as PV's A fragment (k = stripe token)
+    const uint32_t pa[4] = {pack_f32(sc[0][0], sc[0][1]),
+                            pack_f32(sc[0][2], sc[0][3]),
+                            pack_f32(sc[1][0], sc[1][1]),
+                            pack_f32(sc[1][2], sc[1][3])};
+    Frags::pv(ks + kStripe * Shape::kKStride, pa, o, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every ring is drained: its space holds the merge
+
+  // the warps' partials, rows < G: mo [kWarps][G][HD], mml [kWarps][G][2]
+  float* mo = reinterpret_cast<float*>(ring_smem);
+  float* mml = mo + kWarps * G * HD;
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, x);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
+  }
+#pragma unroll
+  for (int f = 0; f < HD / 8; ++f)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = Frags::o_dim(f, tig, e);
+      if (gid < G) mo[(warp * G + gid) * HD + d] = o[f][e];
+      if (gid + 8 < G) mo[(warp * G + gid + 8) * HD + d] = o[f][2 + e];
+    }
+  if (tig == 0) {
+    if (gid < G) {
+      mml[(warp * G + gid) * 2] = m_lo;
+      mml[(warp * G + gid) * 2 + 1] = l_lo;
+    }
+    if (gid + 8 < G) {
+      mml[(warp * G + gid + 8) * 2] = m_hi;
+      mml[(warp * G + gid + 8) * 2 + 1] = l_hi;
+    }
+  }
+  __syncthreads();
+
+  const size_t kv_row = ((size_t)b * KV + kvh) * HD;
+  const __nv_bfloat16* kn = k_new != nullptr ? k_new + kv_row : nullptr;
+  const __nv_bfloat16* vn = v_new != nullptr ? v_new + kv_row : nullptr;
+  if (n_run == 1) {
+    for (int g = warp; g < G; g += kWarps) {
+      const size_t bh = (size_t)b * H + kvh * G + g;
+      finish_head(WarpParts{mo + g * HD, mml + 2 * g, G * HD, 2 * G, kv_scale},
+                  q + bh * HD, kn, vn, out + bh * HD, HD, qk_log2, lane);
+    }
+    return;
+  }
+  for (int g = warp; g < G; g += kWarps) {
+    const size_t bh = (size_t)b * H + kvh * G + g;
+    store_partial(WarpParts{mo + g * HD, mml + 2 * g, G * HD, 2 * G, kv_scale},
+                  part_o + (bh * NS + z) * HD, part_ml + (bh * NS + z) * 2,
+                  HD, lane);
+  }
+  // the CTA's partials, seen by thread 0 through the barrier, are released
+  // to the GPU with its ticket; the last ticket acquires every split's
+  __syncthreads();
+  __shared__ int last;
+  if (tid == 0) last = ticket_acq_rel(tickets + b * KV + kvh) == n_run - 1;
+  __syncthreads();
+  if (!last) return;
+  merge_splits<HD>(ring_smem, Shape::kSmem, part_o, part_ml,
+                   (size_t)b * H + kvh * G, G, n_run, NS, q, kn, vn, out,
+                   qk_log2);
+  if (tid == 0) tickets[b * KV + kvh] = 0;  // ready for the next call
+}
+
+template <typename KT, int HD, typename Rows>
+cudaError_t launch_ring(const void* q, const void* kp, const void* vp,
+                        const Rows rows, const int* lens, const void* k_new,
+                        const void* v_new, void* out, float* part_o,
+                        float* part_ml, int* tickets, int B, int H, int KV,
+                        int NS, int min_split, int target, float qk_log2,
+                        float kv_scale, cudaStream_t stream) {
+  constexpr int smem = RingShape<KT, HD>::kSmem;
+  // once per instantiation: the most shared memory an SM can give (so two
+  // CTAs fit), and the opt-in above 48 KB
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_ring<KT, HD, Rows>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(decode_ring<KT, HD, Rows>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  decode_ring<KT, HD, Rows><<<dim3(KV, B, NS), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(kp),
+      static_cast<const KT*>(vp), rows, lens,
+      static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new),
+      static_cast<__nv_bfloat16*>(out), part_o, part_ml, tickets, B, H, KV, NS,
+      min_split, target, qk_log2, kv_scale);
+  return cudaGetLastError();
+}
+
+__host__ __device__ __forceinline__ bool ring_head_dim(int hd) {
+  return hd == 64 || hd == 80 || hd == 128;
+}
+
+// One call on `stream`: the ring kernel, or the CUDA-core split kernel and
+// the merge; returns the first launch error. k_new/v_new may be null (no
+// new token). split_tokens: the ring's shortest split, or the CUDA-core
+// kernel's split (a multiple of rows.BS); NS split slots per (row, KV
+// head); grid_x CTAs per (row, KV head) (the ring's: NS); target: the
+// splits the ring aims a call at (the CTAs the card holds at once).
 template <typename QT, typename KT, typename Rows>
 cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
                           const Rows rows, const int* lens, const void* k_new,
                           const void* v_new, void* out, float* part_o,
-                          float* part_ml, int B, int H, int KV, int hd,
-                          int pps, int NS, int grid_x, float scale,
-                          float kv_scale, cudaStream_t stream) {
-  const dim3 grid(grid_x, KV, B);
-  bool mma = false;
-  if constexpr (std::is_same<QT, __nv_bfloat16>::value &&
-                !std::is_same<KT, float>::value) {
-    // bf16 queries on bf16 or int8 K/V at hd 128: the tensor-core kernel
-    mma = hd == kMmaHd && H / KV <= kMmaRows && kTileTokens % rows.BS == 0;
-    if (mma)
-      decode_split_mma<KT, Rows><<<grid, kThreads, 0, stream>>>(
-          static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(kp),
-          static_cast<const KT*>(vp), rows, lens, part_o, part_ml, H, KV, pps,
-          NS, scale, kv_scale);
-  }
-  if (!mma) {
-    const size_t smem = split_smem_bytes(H / KV, hd, rows.BS);
-    // once per instantiation: the most shared memory an SM can give (so
-    // several CTAs fit at once), and opt in to the largest size asked for
-    static size_t opted_in = 0;
-    if (smem > opted_in) {
-      cudaError_t e = cudaFuncSetAttribute(
-          decode_split<QT, KT, Rows>,
-          cudaFuncAttributePreferredSharedMemoryCarveout,
-          cudaSharedmemCarveoutMaxShared);
-      if (e == cudaSuccess && smem > 48 * 1024)
-        e = cudaFuncSetAttribute(decode_split<QT, KT, Rows>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (e != cudaSuccess) return e;
-      opted_in = smem;
+                          float* part_ml, int* tickets, int B, int H, int KV,
+                          int hd, int variant, int split_tokens, int NS,
+                          int grid_x, int target, float scale, float kv_scale,
+                          cudaStream_t stream) {
+  if (variant == kRing) {
+    if constexpr (std::is_same<QT, __nv_bfloat16>::value &&
+                  !std::is_same<KT, float>::value) {
+      const float qk_log2 = scale * kLog2e;
+#define GENESYS_RING(HD)                                                      \
+  return launch_ring<KT, HD, Rows>(q, kp, vp, rows, lens, k_new, v_new, out, \
+                                   part_o, part_ml, tickets, B, H, KV, NS,   \
+                                   split_tokens, target, qk_log2, kv_scale,  \
+                                   stream)
+      if (hd == 64) GENESYS_RING(64);
+      if (hd == 80) GENESYS_RING(80);
+      if (hd == 128) GENESYS_RING(128);
+#undef GENESYS_RING
     }
-    decode_split<QT, KT, Rows><<<grid, kThreads, smem, stream>>>(
-        static_cast<const QT*>(q), static_cast<const KT*>(kp),
-        static_cast<const KT*>(vp), rows, lens, part_o, part_ml, H, KV, hd,
-        pps, NS, scale, kv_scale);
+    return cudaErrorInvalidValue;
   }
+  const size_t smem = split_smem_bytes(H / KV, hd, rows.BS);
+  // once per instantiation: the most shared memory an SM can give (so
+  // several CTAs fit at once), and opt in to the largest size asked for
+  static size_t opted_in = 0;
+  if (smem > opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_split<QT, KT, Rows>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess && smem > 48 * 1024)
+      e = cudaFuncSetAttribute(decode_split<QT, KT, Rows>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (e != cudaSuccess) return e;
+    opted_in = smem;
+  }
+  decode_split<QT, KT, Rows><<<dim3(grid_x, KV, B), kThreads, smem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(kp),
+      static_cast<const KT*>(vp), rows, lens, part_o, part_ml, H, KV, hd,
+      split_tokens / rows.BS, NS, scale, kv_scale);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   decode_merge<QT><<<B * H, kThreads, 0, stream>>>(
       part_o, part_ml, lens, static_cast<const QT*>(q),
       static_cast<const QT*>(k_new), static_cast<const QT*>(v_new),
-      static_cast<QT*>(out), H, KV, hd, rows.cap, pps * rows.BS, NS, scale);
+      static_cast<QT*>(out), H, KV, hd, rows.cap, split_tokens, NS, scale);
   return cudaGetLastError();
 }
 
 // Checks shared by both entry points: shapes the kernels take, 16-byte
-// aligned K/V (every load is 16 bytes wide).
-inline bool decode_args_ok(int B, int H, int KV, int hd, int BS, int pps,
-                           int NS, int n_pages, int grid_x, const void* k,
-                           const void* v) {
-  return B > 0 && KV > 0 && H % KV == 0 && H / KV <= kMaxGroup && hd > 0 &&
-         hd % 16 == 0 && hd <= kThreads * kMaxDimsPerThread && BS > 0 &&
-         pps > 0 && NS * pps >= n_pages && grid_x > 0 && grid_x <= NS &&
-         reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+// aligned K/V (every load is 16 bytes wide); for the ring a head dim it has
+// and one CTA per split slot, for the CUDA-core kernel splits of whole
+// pages that cover the row and a tile that fits shared memory.
+inline bool decode_args_ok(int B, int H, int KV, int hd, int BS, int variant,
+                           int split_tokens, int NS, int cap, int grid_x,
+                           int target, const void* k, const void* v) {
+  const bool common =
+      B > 0 && B <= 65535 && KV > 0 && H % KV == 0 && H / KV <= kMaxGroup &&
+      hd > 0 && hd % 16 == 0 && hd <= kThreads * kMaxDimsPerThread && BS > 0 &&
+      split_tokens > 0 && NS > 0 && NS <= 65535 && grid_x > 0 &&
+      grid_x <= NS && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  if (!common) return false;
+  if (variant == kRing)
+    return ring_head_dim(hd) && split_tokens % kTileTokens == 0 &&
+           grid_x == NS && NS <= kMaxSplits && target > 0;
+  return variant == kCudaCore && split_tokens % BS == 0 &&
+         (long long)NS * split_tokens >= cap &&
          split_smem_bytes(H / KV, hd, BS) <= 227 * 1024;
 }
 

@@ -1,8 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels of the paged decode step.
 //
-//   decode_split (CUDA cores) or decode_split_mma (tensor cores, bf16
-//   queries at head_dim 128) over PagedRows, then decode_merge (all in
-//   decode_common.cuh, shared with the dense K2 of dense_decode.cu)
+//   decode_ring (bf16 queries on bf16 or int8 pages at head_dim 64, 80 or
+//   128: tensor cores, a cp.async ring per warp, one launch) or
+//   decode_split + decode_merge (CUDA cores: f32 queries, other head dims)
+//   over PagedRows (all in decode_common.cuh, shared with the dense K2 of
+//   dense_decode.cu)
 //       replace the Pallas split-KV paged flash-decode
 //       `paged_decode_attention` / `_paged_kernel`
 //       (src/repro/kernels/decode_attention.py).
@@ -16,8 +18,9 @@
 // interface, take raw device pointers and PyTorch's current stream, launch,
 // and return cudaGetLastError(). They allocate nothing and never synchronise.
 //
-// The decode kernels are bound by bytes; decode_common.cuh says how their
-// design moves each byte once.
+// The decode kernels are bound by bytes and, on short rows, by latency;
+// decode_common.cuh says how their design moves each byte once and keeps
+// the loads in flight.
 
 #include "decode_common.cuh"
 
@@ -65,27 +68,33 @@ const char* genesys_kernels_error_string(int err) {
 
 // q [B,H,hd] (q_dtype); k/v pages [NB,BS,KV,hd] (kv_dtype); block_tables
 // [B,MB] int32; lens [B] int32; out [B,H,hd] (q_dtype); part_o
-// [B,H,NS,hd] f32 and part_ml [B,H,NS,2] f32 scratch, NS = ceil(MB / pps)
-// splits; grid_x CTAs per (row, KV head) stride over a row's splits.
-// kv_scale multiplies every K/V element after its conversion to f32
-// (1/QSCALE for int8 pages).
+// [B,H,NS,hd] f32 and part_ml [B,H,NS,2] f32 scratch for NS split slots;
+// tickets [B*KV] int32, all 0 (the ring kernel leaves them 0).
+// variant: kRing (bf16 q, hd 64/80/128; split_tokens is the shortest split, a
+// multiple of 64, grid_x == NS <= 64, and target the splits to aim a call
+// at) or kCudaCore (split_tokens a multiple of BS, NS * split_tokens >=
+// MB * BS, grid_x CTAs per (row, KV head) striding over the splits).
+// kv_scale multiplies every K/V element (1/QSCALE for int8 pages).
 int paged_decode_attention_launch(const void* q, const void* k_pages,
                                   const void* v_pages, const int* block_tables,
                                   const int* lens, void* out, float* part_o,
-                                  float* part_ml, int B, int H, int KV, int hd,
-                                  int BS, int MB, int pps, int NS, int grid_x,
-                                  float scale, float kv_scale, int q_dtype,
-                                  int kv_dtype, void* stream) {
-  if (MB <= 0 ||
-      !decode_args_ok(B, H, KV, hd, BS, pps, NS, MB, grid_x, k_pages, v_pages))
+                                  float* part_ml, int* tickets, int B, int H,
+                                  int KV, int hd, int BS, int MB, int variant,
+                                  int split_tokens, int NS, int grid_x,
+                                  int target, float scale, float kv_scale,
+                                  int q_dtype, int kv_dtype, void* stream) {
+  if (MB <= 0 || (long long)MB * BS >= (1LL << 31) ||
+      !decode_args_ok(B, H, KV, hd, BS, variant, split_tokens, NS, MB * BS,
+                      grid_x, target, k_pages, v_pages))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PagedRows rows{block_tables, MB, BS, MB * BS};
-#define GENESYS_DECODE(QT, KT)                                              \
-  return launch_decode<QT, KT, PagedRows>(q, k_pages, v_pages, rows, lens,  \
-                                          nullptr, nullptr, out, part_o,    \
-                                          part_ml, B, H, KV, hd, pps, NS,   \
-                                          grid_x, scale, kv_scale, st)
+  const PagedRows rows{block_tables, MB, BS, MB * BS,
+                       (BS & (BS - 1)) == 0 ? __builtin_ctz(BS) : -1};
+#define GENESYS_DECODE(QT, KT)                                               \
+  return launch_decode<QT, KT, PagedRows>(                                   \
+      q, k_pages, v_pages, rows, lens, nullptr, nullptr, out, part_o,        \
+      part_ml, tickets, B, H, KV, hd, variant, split_tokens, NS, grid_x,     \
+      target, scale, kv_scale, st)
   if (q_dtype == kF32 && kv_dtype == kF32) GENESYS_DECODE(float, float);
   if (q_dtype == kBF16 && kv_dtype == kBF16)
     GENESYS_DECODE(__nv_bfloat16, __nv_bfloat16);

@@ -17,28 +17,41 @@ PyTorch version.
   the JAX package's ``decode_attention_xla`` without the new token and
   ``decode_attention_two_part`` with it.
 
-Bound on an H100: bytes. A call reads each valid K/V position once,
-``2 * sum(lens) * KV * hd * itemsize`` bytes, for about ``4 * hd * G``
-FLOPs per position and KV head (G = H / KV query heads share it): some G
-FLOPs per byte in bf16, far below the ~295 at which the card turns
-compute-bound. The kernels therefore load each page (K2: each 64-token
-stretch of a row) once per (row, KV head) for all G heads, in tiles of
-64 tokens whose 16-byte loads are all in flight together, and with bf16
-queries at head_dim 128 do both products on the tensor cores
-(``mma.sync``, the G heads padded to 16 rows; f32 models take a CUDA-core
-variant); stop at the row's length instead of walking the whole table or
-cache; and split a row into pieces (``PAGES_PER_SPLIT`` pages,
-``TOKENS_PER_SPLIT`` positions) so that long rows spread over the SMs,
-with a grid sized to the card (``CTAS_PER_SM``) whose CTAs stride over
-the splits. A second small kernel merges the splits by log-sum-exp, and
-K2's new token with them.
+Bound on an H100: bytes, and at serving's short rows latency. A call
+reads each valid K/V position once, ``2 * sum(lens) * KV * hd * itemsize``
+bytes, for about ``4 * hd * G`` FLOPs per position and KV head (G = H / KV
+query heads share it): some G FLOPs per byte in bf16, far below the ~295
+at which the card turns compute-bound. Both kernels read each position
+once per (row, KV head) for all G heads and stop at the row's length
+instead of walking the whole table or cache. :func:`variant` picks the
+kernel of a call:
 
-Precision: the kernels accumulate in f32; their tensor-core path rounds
-the unnormalised softmax weights to bf16 before the PV product, the plain
+* ``"ring"``: bf16 queries on bf16 or int8 K/V at head dim 64, 80 or 128
+  (``RING_HEAD_DIMS``, every config's). Tensor cores (``mma.sync``, the G
+  heads padded to 16 rows), each warp fed by its own ring of cp.async
+  copies so that loads stay in flight while it computes, the softmax in
+  registers, int8 converted in registers. One launch: every CTA reads
+  all the call's lens and cuts each row into at most NS splits
+  (:func:`ring_splits`) of a length (:func:`split_length`,
+  :func:`row_splits`) that spreads the call over the CTAs the card holds
+  at once (``RING_RESIDENT_PER_SM``) but holds at least the positions
+  of ``MIN_SPLIT_BYTES`` of bf16 K and V; a row of one split is written
+  by its CTA, the splits of a longer one are merged, in a fixed order, by
+  the CTA that takes the row's last ticket once its partial is stored
+  (:func:`_tickets`, left at 0 by every call).
+* ``"cuda-core"``: everything else (f32 models, other head dims), in f32
+  on the CUDA cores, over fixed splits (``PAGES_PER_SPLIT`` pages,
+  ``TOKENS_PER_SPLIT`` positions) that a grid sized to the card
+  (``CTAS_PER_SM``) strides over, then a second small kernel that merges
+  them, and K2's new token with them, by log-sum-exp.
+
+Precision: the kernels accumulate in f32; the ring kernel rounds the
+unnormalised softmax weights to bf16 before the PV product, the plain
 versions (like the references) the normalised ones (two-part: the weights
 normalised by the running max, not yet by the sum). In bf16 the two land
 about one bf16 ulp apart (``chip_smoke.py`` holds them to two ulps of the
-largest |output|); in f32 to 1e-4.
+largest |output|); in f32 to 1e-4. Two calls on the same inputs give the
+same bits.
 
 A row with nothing to attend (``lens == 0`` and no new token) gives 0 in
 both kernels and both plain versions; the XLA references give NaN there.
@@ -53,14 +66,30 @@ from repro_torch.kernels import _build
 
 # static symmetric int8 KV quantization scale (repro.models.layers.QSCALE)
 QSCALE = 16.0
-# pages in one split of a row: 8 pages of 16 tokens
+# bf16 queries at these head dims take the ring kernel; the rest the
+# CUDA-core kernel
+RING_HEAD_DIMS = (64, 80, 128)
+# the ring kernel's splits: each holds at least the positions of this many
+# bf16 K and V bytes of a KV head (fewer, and merging them costs more than
+# spreading them saves; an int8 split takes as many positions, since its
+# conversion in registers costs about what the bytes it saves did)
+MIN_SPLIT_BYTES = 160 * 1024
+# ring-kernel CTAs an SM holds at once (45-104 KB of shared memory each):
+# a call's splits aim at that many over the card
+RING_RESIDENT_PER_SM = 2
+# split slots of its grid per SM (CTAs without a split exit at once), and
+# the most splits of a row (kMaxSplits in decode_common.cuh)
+RING_SLOTS_PER_SM = 8
+RING_MAX_SPLITS = 64
+# the CUDA-core kernel's splits: 8 pages of a paged row, 128 positions of a
+# dense one (a multiple of 64), and the CTAs per SM its grid aims for; its
+# CTAs stride over a row's splits
 PAGES_PER_SPLIT = 8
-# cache positions in one split of a dense row (a multiple of 64)
 TOKENS_PER_SPLIT = 128
-# split-kernel CTAs to aim for per SM; CTAs stride over a row's splits
 CTAS_PER_SM = 8
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_VARIANT_CODE = {"ring": 0, "cuda-core": 1}
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lens):
@@ -171,6 +200,84 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def variant(q_dtype, hd: int) -> str:
+    """The kernel a call takes: ``"ring"`` for bf16 queries (on bf16 or
+    int8 K/V) at a head dim of ``RING_HEAD_DIMS``, else ``"cuda-core"``."""
+    if q_dtype == torch.bfloat16 and hd in RING_HEAD_DIMS:
+        return "ring"
+    return "cuda-core"
+
+
+def min_split(hd: int) -> int:
+    """The ring kernel's shortest split, in positions: ``MIN_SPLIT_BYTES``
+    of bf16 K and V of one KV head, in whole 64-position tiles."""
+    return -(-MIN_SPLIT_BYTES // (2 * hd * 2 * 64)) * 64
+
+
+def ring_splits(B: int, KV: int, cap: int, n_sm: int, shortest: int) -> int:
+    """Split slots per (row, KV head) of the ring kernel, NS (its grid is
+    KV x B x NS): ``RING_SLOTS_PER_SM`` per SM over the B*KV pairs, at
+    least 1, and no more than a row of ``cap`` positions can fill with
+    splits of ``shortest`` or ``RING_MAX_SPLITS``."""
+    fill = RING_SLOTS_PER_SM * n_sm // (B * KV)
+    return max(1, min(-(-cap // shortest), fill, RING_MAX_SPLITS))
+
+
+def split_length(P: int, KV: int, target: int, shortest: int) -> int:
+    """The ring kernel's split of a call (the rule of ``split_length`` in
+    ``decode_common.cuh``, which every CTA applies to the call's lens): at
+    least ``shortest`` positions, and long enough that the call's P valid
+    positions over KV heads make about ``target`` splits, in whole
+    64-position tiles."""
+    fill = -(-P * KV // target)
+    return max(shortest, -(-fill // 64) * 64)
+
+
+def row_splits(n: int, NS: int, split: int):
+    """How the ring kernel cuts a row of ``n`` valid positions (the rule of
+    ``row_splits`` in ``decode_common.cuh``): at most NS splits of about
+    ``split`` positions, as even as whole 64-position tiles allow. Returns
+    (splits that run, positions per split); a row with nothing to attend
+    runs one, which writes its output."""
+    if n <= 0:
+        return 1, 64
+    per = -(-n // min(NS, -(-n // split)))
+    length = -(-per // 64) * 64
+    return -(-n // length), length
+
+
+def plan(q_dtype, hd: int, B: int, KV: int, cap: int, cuda_core_split: int,
+         n_sm: int):
+    """(variant, split_tokens, NS, grid_x, target) of a call over B rows of
+    ``cap`` positions: the ring kernel takes its shortest split, NS = grid_x
+    = :func:`ring_splits` and a target of ``RING_RESIDENT_PER_SM`` CTAs
+    per SM; the CUDA-core kernel splits of ``cuda_core_split`` positions
+    and ``CTAS_PER_SM`` CTAs per SM striding over them."""
+    kind = variant(q_dtype, hd)
+    if kind == "ring":
+        shortest = min_split(hd)
+        ns = ring_splits(B, KV, cap, n_sm, shortest)
+        return kind, shortest, ns, ns, RING_RESIDENT_PER_SM * n_sm
+    ns = -(-cap // cuda_core_split)
+    return (kind, cuda_core_split, ns,
+            min(ns, -(-CTAS_PER_SM * n_sm // (B * KV))), 0)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    """The ring kernel's ticket counters of one device, at least ``n``
+    int32 zeros (one per (row, KV head)). Every call leaves them 0 (the CTA
+    that takes a row's last ticket resets it), so one array serves all
+    calls, which run in order on the current stream."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
 def _check(q, KV, k, v, what, tensors):
     """What both kernels take: H a multiple of KV with at most 16 heads
     per KV head, hd a multiple of 16 up to 256, f32 or bf16 queries, K/V
@@ -191,15 +298,17 @@ def _check(q, KV, k, v, what, tensors):
         raise ValueError("all inputs must be contiguous")
 
 
-def _buffers(q, KV, NS):
-    """The output, the split partials (o [B,H,NS,hd], (m, l) [B,H,NS,2]
-    f32) and the split kernels' grid width: CTAS_PER_SM CTAs per SM over
-    the B*KV (row, KV head) pairs, at most NS."""
+def _scratch(q, KV, cap, cuda_core_split):
+    """The call's plan, output and scratch: split partials (o [B,H,NS,hd],
+    (m, l) [B,H,NS,2] f32) and the ticket counters."""
     B, H, hd = q.shape
-    grid_x = min(NS, -(-CTAS_PER_SM * _sm_count(q.device) // (B * KV)))
-    part_o = torch.empty((B, H, NS, hd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B, H, NS, 2), dtype=torch.float32, device=q.device)
-    return torch.empty_like(q), part_o, part_ml, grid_x
+    kind, *how = plan(q.dtype, hd, B, KV, cap, cuda_core_split,
+                      _sm_count(q.device))
+    ns = how[1]
+    part_o = torch.empty((B, H, ns, hd), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, H, ns, 2), dtype=torch.float32, device=q.device)
+    return ((_VARIANT_CODE[kind], *how), torch.empty_like(q), part_o,
+            part_ml, _tickets(q.device, B * KV))
 
 
 def _launch(q, k_pages, v_pages, block_tables, lens):
@@ -222,8 +331,8 @@ def _launch(q, k_pages, v_pages, block_tables, lens):
     _check(q, KV, k_pages, v_pages, "pages",
            (q, k_pages, v_pages, block_tables, lens))
     MB = block_tables.shape[1]
-    NS = -(-MB // PAGES_PER_SPLIT)
-    out, part_o, part_ml, grid_x = _buffers(q, KV, NS)
+    how, out, part_o, part_ml, tickets = _scratch(q, KV, MB * BS,
+                                                  PAGES_PER_SPLIT * BS)
     kv_scale = 1.0 / QSCALE if k_pages.dtype == torch.int8 else 1.0
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -231,8 +340,8 @@ def _launch(q, k_pages, v_pages, block_tables, lens):
         err = lib.paged_decode_attention_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            part_o.data_ptr(), part_ml.data_ptr(), B, H, KV, hd, BS, MB,
-            PAGES_PER_SPLIT, NS, grid_x, hd ** -0.5, kv_scale,
+            part_o.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), B, H,
+            KV, hd, BS, MB, *how, hd ** -0.5, kv_scale,
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], stream)
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
@@ -266,8 +375,7 @@ def _launch_dense(q, k, v, lens, k_new, v_new):
                             f"{k_new.dtype}/{v_new.dtype}")
         tensors += [k_new, v_new]
     _check(q, KV, k, v, "cache", tensors)
-    NS = -(-S // TOKENS_PER_SPLIT)
-    out, part_o, part_ml, grid_x = _buffers(q, KV, NS)
+    how, out, part_o, part_ml, tickets = _scratch(q, KV, S, TOKENS_PER_SPLIT)
     kv_scale = 1.0 / QSCALE if k.dtype == torch.int8 else 1.0
     new = (0, 0) if k_new is None else (k_new.data_ptr(), v_new.data_ptr())
     lib = _build.library()
@@ -275,8 +383,8 @@ def _launch_dense(q, k, v, lens, k_new, v_new):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dense_decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *new, lens.data_ptr(),
-            out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), B, H, KV,
-            hd, S, TOKENS_PER_SPLIT, NS, grid_x, hd ** -0.5, kv_scale,
+            out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
+            tickets.data_ptr(), B, H, KV, hd, S, *how, hd ** -0.5, kv_scale,
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1

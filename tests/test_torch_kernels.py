@@ -376,3 +376,173 @@ def test_row_with_nothing_to_attend_gives_zero(layout):
     mean_v = np.repeat(v_row0.mean(axis=0), G, axis=0)      # [H, hd]
     np.testing.assert_allclose(np.asarray(pallas)[0], mean_v, atol=1e-5)
     np.testing.assert_allclose(port[1], np.asarray(xla)[1], atol=F32_ATOL)
+
+
+# ------------------------------------------ one query head per KV head ----
+
+# the configs whose attention has G = 1: zamba2-2.7b's shared block (32
+# heads of 80), seamless-m4t-medium's decoder (16 of 64), moonshot's (16 of
+# 128); narrowed to 4 heads and a few pages
+G1_HEAD_DIMS = pytest.mark.parametrize("hd", [80, 64, 128],
+                                       ids=["zamba2", "seamless", "moonshot"])
+
+
+@G1_HEAD_DIMS
+def test_plain_paged_decode_at_g1_matches_xla_and_pallas(hd):
+    q, kp, vp, bt, lens = _case(2, 4, 4, 64, hd, 16, seed=hd)
+    got = tops.paged_decode_attention(*_t(q, kp, vp, bt, lens)).numpy()
+    xla = jlayers.paged_attention_xla(
+        jnp.asarray(q)[:, None], jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(bt), jnp.asarray(lens))[:, 0]
+    pallas = jops.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(lens), n_splits=2, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(xla), atol=F32_ATOL)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=F32_ATOL)
+
+
+@G1_HEAD_DIMS
+def test_plain_dense_decode_at_g1_matches_pallas_and_xla(hd):
+    q, k, v, lens, _, _ = _dense(2, 4, 4, 128, hd, seed=hd + 1)
+    got = tops.decode_attention(*_t(q, k, v, lens)).numpy()
+    pallas = jops.decode_attention(jnp.asarray(q), _pallas_layout(k),
+                                   _pallas_layout(v), jnp.asarray(lens),
+                                   block_k=64, interpret=True)
+    xla = jlayers.decode_attention_xla(jnp.asarray(q)[:, None],
+                                       jnp.asarray(k), jnp.asarray(v),
+                                       jnp.asarray(lens))[:, 0]
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=F32_ATOL)
+    np.testing.assert_allclose(got, np.asarray(xla), atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("qdt", [np.float32, "bfloat16"])
+def test_plain_dense_decode_with_new_token_at_hd80(qdt):
+    """zamba2's decode: G = 1, hd 80, the new token beside the cache (one
+    row at 0 positions, one past capacity)."""
+    q, k, v, lens, kn, vn = _dense(3, 4, 4, 48, 80, seed=80, lens_lo=0)
+    lens[0], lens[1] = 0, 51
+    args = [q, k, v, lens, kn, vn]
+    jargs = [jnp.asarray(a) for a in args]
+    targs = _t(*args)
+    if qdt == "bfloat16":
+        for i in (0, 1, 2, 4, 5):
+            jargs[i] = jargs[i].astype(jnp.bfloat16)
+            targs[i] = targs[i].to(torch.bfloat16)
+    got = tops.decode_attention(*targs).float().numpy()
+    jq, jk, jv, jl, jkn, jvn = jargs
+    want = jlayers.decode_attention_two_part(
+        jq[:, None], jk, jv, jkn[:, None], jvn[:, None], jl)[:, 0]
+    # bf16: both round one output to bf16 from f32 sums in other orders
+    atol = F32_ATOL if qdt == np.float32 else 2e-2
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=atol)
+
+
+# ------------------------------- the wrappers' plan of a call (host side) --
+
+@pytest.mark.parametrize("q_dtype,hd,want", [
+    (torch.bfloat16, 128, "ring"), (torch.bfloat16, 80, "ring"),
+    (torch.bfloat16, 64, "ring"), (torch.bfloat16, 96, "cuda-core"),
+    (torch.bfloat16, 256, "cuda-core"), (torch.float32, 128, "cuda-core"),
+    (torch.float32, 80, "cuda-core")])
+def test_variant_of_a_call(q_dtype, hd, want):
+    """bf16 queries at every config's head dim take the ring kernel (on
+    bf16 or int8 K/V alike); f32 and other head dims the CUDA cores."""
+    assert tda.variant(q_dtype, hd) == want
+
+
+@pytest.mark.parametrize("hd,want", [(128, 320), (80, 512), (64, 640),
+                                     (96, 448), (16, 2560)])
+def test_min_split_holds_min_split_bytes_of_bf16(hd, want):
+    """The ring kernel's shortest split: the positions of MIN_SPLIT_BYTES
+    (160 KB) of bf16 K and V of one KV head (int8 takes as many), in whole
+    64-position tiles."""
+    assert tda.MIN_SPLIT_BYTES == 160 * 1024
+    assert tda.min_split(hd) == want
+
+
+@pytest.mark.parametrize("B,KV,cap,shortest,want", [
+    (8, 4, 16384, 320, 33),     # starcoder2's table: 33 slots by the card
+    (8, 16, 8192, 320, 8),      # moonshot's: 1056 slots over 128 pairs
+    (1, 32, 256, 512, 1),       # zamba2's one row of 256: one split
+    (8, 4, 4096, 320, 13),      # by the cap
+    (1, 1, 10 ** 6, 320, 64),   # RING_MAX_SPLITS
+    (64, 64, 4096, 320, 1)])    # more pairs than slots: still one
+def test_ring_splits_fill_the_grid_and_stop_at_the_row(B, KV, cap, shortest,
+                                                       want):
+    """NS on a card of 132 SMs: RING_SLOTS_PER_SM (8) per SM over the B*KV
+    pairs, no more than cap / shortest or RING_MAX_SPLITS (64), at least
+    1."""
+    assert (tda.RING_SLOTS_PER_SM, tda.RING_MAX_SPLITS) == (8, 64)
+    assert tda.ring_splits(B, KV, cap, 132, shortest) == want
+
+
+@pytest.mark.parametrize("P,KV,target,shortest,want", [
+    (2410, 16, 264, 320, 320),    # moonshot's step: the shortest split
+    (17600, 16, 264, 320, 1088),  # long rows that fill the card
+    (17600, 4, 264, 320, 320),
+    (256, 32, 264, 512, 512),     # zamba2's row
+    (0, 4, 264, 320, 320)])
+def test_split_length_spreads_a_call_over_the_card(P, KV, target, shortest,
+                                                   want):
+    """A call's split: at least the shortest, and long enough that its P
+    positions over KV heads make about ``target`` splits, whole tiles."""
+    assert tda.split_length(P, KV, target, shortest) == want
+
+
+@pytest.mark.parametrize("n,NS,split", [
+    (n, ns, split) for n in (1, 16, 63, 64, 288, 511, 512, 513, 1000, 4096,
+                             16384)
+    for ns in (1, 3, 8, 64) for split in (320, 512, 1088)])
+def test_row_splits_cover_the_row_once(n, NS, split):
+    """The ring kernel's splits of a row: at most NS and no more than
+    splits of the call's length need, whole 64-position tiles, every
+    position in exactly one split and no split empty."""
+    runs, length = tda.row_splits(n, NS, split)
+    assert 1 <= runs <= min(NS, -(-n // split))
+    assert length % 64 == 0 and (runs - 1) * length < n <= runs * length
+
+
+def test_row_splits_of_an_empty_row_run_one():
+    """Nothing to attend still runs one CTA, which writes 0 (or the new
+    token alone)."""
+    assert tda.row_splits(0, 8, 320) == (1, 64)
+    assert tda.row_splits(-5, 8, 320) == (1, 64)
+
+
+@pytest.mark.parametrize("q_dtype,hd,B,KV,cap,split", [
+    (torch.bfloat16, 128, 8, 4, 16384, 128),
+    (torch.bfloat16, 64, 1, 16, 256, 128),
+    (torch.bfloat16, 80, 1, 32, 256, 128),
+    (torch.float32, 128, 8, 4, 4096, 128),
+    (torch.float32, 80, 1, 32, 256, 128),
+    (torch.bfloat16, 96, 8, 8, 16384, 128)])
+def test_plan_of_a_call(q_dtype, hd, B, KV, cap, split):
+    """(variant, split_tokens, NS, grid_x, target): the ring takes its
+    shortest split, one CTA per split slot and RING_RESIDENT_PER_SM CTAs
+    per SM to aim at; the CUDA-core kernel fixed splits over the cap and
+    CTAS_PER_SM CTAs per SM striding over them."""
+    kind, split_tokens, ns, grid_x, target = tda.plan(
+        q_dtype, hd, B, KV, cap, split, 132)
+    assert kind == tda.variant(q_dtype, hd)
+    if kind == "ring":
+        shortest = tda.min_split(hd)
+        slots = tda.ring_splits(B, KV, cap, 132, shortest)
+        assert (split_tokens, ns, grid_x, target) == (
+            shortest, slots, slots, tda.RING_RESIDENT_PER_SM * 132)
+    else:
+        assert split_tokens == split and ns == -(-cap // split)
+        assert grid_x == min(ns, -(-tda.CTAS_PER_SM * 132 // (B * KV)))
+
+
+def test_tickets_are_zero_and_shared_per_device():
+    """The ring kernel's ticket counters: int32 zeros, at least one per
+    (row, KV head), one array per device, grown when a call needs more."""
+    dev = torch.device("cpu")
+    tda._TICKETS.pop(dev, None)
+    t = tda._tickets(dev, 32)
+    assert t.dtype == torch.int32 and t.numel() >= 32 and not t.any()
+    assert tda._tickets(dev, 16) is t
+    big = tda._tickets(dev, t.numel() + 1)
+    assert big.numel() > t.numel() and not big.any()
+    assert tda._tickets(dev, 8) is big
+    tda._TICKETS.pop(dev, None)
