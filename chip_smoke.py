@@ -217,6 +217,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate (data sheet, 700 W)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per dtype
+TF32_FLOPS = 495e12                # dense TF32 tensor-core rate (data sheet)
 F32_ATOL = 1e-4                    # kernel vs plain, f32 outputs
 # one bf16 step, kernels vs plain: the attention outputs differ by about
 # one bf16 ulp, and 32 layers of random weights carry that into logits of
@@ -270,12 +271,21 @@ STEP_GRAD_REL = {"bfloat16": 2e-2, "float32": 1e-4}
 CONTROL_KEYS = (2048, 2112)
 # K4/K4b vs plain, each output element by phase 6's rule (fa_reading):
 #   |got - ref| <= r * (|ref| + rms_vec + rms / 16)
-# with rms_vec over the last axis (P, N or the heads). Both sides compute
-# in f32 from the same inputs and differ in the order of their sums (the
-# kernels' chunk products, the running sum of dt A) only: r = 2**-13 for
-# an f32 output. A bf16 output (y and dx when x is bf16) is rounded once
-# from those f32 values on each side, so the two may land one bf16 ulp
-# apart (<= 2**-7 of it): r = 2**-6, as in phase 6.
+# with rms_vec over the last axis (P, N or the heads). The plain version
+# computes in f32; the kernels' products run on the tensor cores in split
+# TF32 (a_hi b_hi + a_hi b_lo + a_lo b_hi, each part rounded to tf32 and
+# accumulated in f32: a few 2**-24 of each product's size, where an f32
+# product rounds once; a bf16 operand is exact and its lo part zero), the
+# chunk's scores C B^T in a three-part split summed in f64, and the running
+# sum of dt A in the plain version's order: the two differ by the order of
+# their sums and those products' last bits. r = 2**-13 for an f32 output,
+# as for phase 6's f32 kernels; this phase is what holds the kernels to it
+# (tests/test_torch_mamba2.py emulates the operands' rounding on the CPU,
+# not the tensor core's sums, and shows one tf32 product per product
+# failing it: why the products split). A bf16 output (y and dx
+# when x is bf16) is rounded once from those f32 values on each side, so
+# the two may land one bf16 ulp apart (<= 2**-7 of it): r = 2**-6, as in
+# phase 6.
 SSD_REL = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -13}
 # the control, the kernels run on the two halves of the sequence apart
 # (the carry across the middle boundary dropped), must fail that rule in
@@ -1849,14 +1859,113 @@ def carry_dropped(plain):
     return lambda *ins: (halves(plain, ins), None)
 
 
+def launch_split_ms(torch, fn, flush, total_ms: float, reps: int = 10,
+                    tries: int = 3, within: float = 0.05):
+    """Device ms of each kernel ``fn`` launches, by kernel name (with its
+    template arguments; torch.profiler, CUPTI), per call, and their sum.
+    One profiled call counts each name's launches a call; then ``reps``
+    calls, each after the L2 flush, give each name's mean per launch (its
+    device time over the launches the profiler recorded) times its
+    launches a call. Only the scans' kernels (``ssd``) and ``sum_mid`` are
+    kept, not the flush's. In the smoke's run the profiler has lost some
+    launches and read others short (PERF.md §6), so a split is kept only
+    where every launch was recorded and the split sums to within
+    ``within`` of ``total_ms``, the call's time by CUDA events: of up to
+    ``tries`` profiles, the first that does. Otherwise ``ms`` is None and
+    ``sums`` holds what each profile summed to. None where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(calls):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if "ssd" not in e.key and "sum_mid" not in e.key:
+                continue
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ").strip()
+            t, n = out.get(name, (0.0, 0))
+            out[name] = (t + e.self_device_time_total / 1e3, n + e.count)
+        return out
+
+    sums = []
+    try:
+        once = profiled(1)
+        for _ in range(tries):
+            runs = profiled(reps)
+            if not runs or not all(t > 0 for t, _ in runs.values()):
+                return None
+            per_call = {k: max(once.get(k, (0, 0))[1], round(n / reps), 1)
+                        for k, (_, n) in runs.items()}
+            split = {k: t / n * per_call[k] for k, (t, n) in runs.items()}
+            sums.append(sum(split.values()))
+            if all(n == reps * per_call[k] for k, (_, n) in runs.items()) \
+                    and abs(sums[-1] - total_ms) <= within * total_ms:
+                return {"ms": split, "sum_ms": sums[-1], "sums": sums}
+    except (RuntimeError, AttributeError) as e:
+        print(f"launch split: not measured ({e})", flush=True)
+        return None
+    return {"ms": None, "sum_ms": None, "sums": sums}
+
+
+def split_text(split) -> str:
+    """launch_split_ms's reading for a log line."""
+    if not split:
+        return ""
+    if split["ms"] is None:
+        return " launches not kept (profiles summed to " + ", ".join(
+            f"{v:.4f}" for v in split["sums"]) + ")"
+    return f" launches (sum {split['sum_ms']:.4f}) " + " ".join(
+        f"{n}={v:.4f}" for n, v in split["ms"].items())
+
+
+def ssd_work(B: int, L: int, H: int, P: int, N: int, f32_x: bool):
+    """Multiply-add flops of K4 and K4b at their least: as f32 products
+    (the plain version's) and as the split-TF32 design's tf32 products. A
+    chunk of c positions forms its scores C B^T (2 c^2 N) once for all
+    heads (ngroups = 1). Each head then runs, forward: the intra-chunk
+    output (2 c^2 P, on x), the carried state's output (2 c N P) and the
+    chunk's state (2 c N P, on x); backward: D = dy u^T (2 c^2 P, on dy
+    and x), the intra-chunk dx (2 c^2 P, on dy), dCm's and dBm's intra
+    terms (2 c^2 N each), and five [N, P] products: the state and its
+    cotangent W (on x and dy), dCm's carried term (on dy), dx's (on the
+    state cotangent) and dBm's (on x). A split-TF32 product costs one tf32
+    product for each pair of parts but lo x lo: 3 for two f32 operands, 2
+    where one is a bf16 x or dy (exact in tf32), 1 for dy x^T in bf16."""
+    c = min(64, L)
+    chunks = B * (L // c)
+    xp = 2 if f32_x else 1                 # tf32 parts of x and dy
+
+    def parts(a, b):
+        return a * b - (a == b == 2)
+    cc, cn = 2 * c * c, 2 * c * N * P
+    fwd = [(cc * N / H, 2, 2), (cc * P, xp, 2), (cn, 2, 2), (cn, xp, 2)]
+    bwd = [(cc * N / H, 2, 2), (cc * P, xp, xp), (cc * P, xp, 2),
+           (cc * N, 2, 2), (cc * N, 2, 2), (cn, xp, 2), (cn, xp, 2),
+           (cn, xp, 2), (cn, 2, 2), (cn, xp, 2)]
+    f32, tf32 = {}, {}
+    for k, terms in (("fwd", fwd), ("bwd", bwd)):
+        f32[k] = chunks * H * sum(f for f, _, _ in terms)
+        tf32[k] = chunks * H * sum(f * parts(a, b) for f, a, b in terms)
+    return f32, tf32
+
+
 def ssd_kernel_phase(torch, zcfg, dev, flush):
     """K4 and K4b against their plain versions at zamba2's shape (B = 1, L
-    = 4096, H 80, P 64, N 64) with x in bf16 and in f32, at L = 48 (one
-    chunk of 48), and at B = 4, L = 256 (the launcher's batches put several
-    rows in one call). Each output element is held to SSD_REL of its own
-    size and its vector's; at L = 4096 in bf16 the kernels' outputs with
-    the carry across the middle chunk boundary dropped must fail that
-    rule."""
+    = 4096, H 80, P 64, N 64) with x in bf16 and in f32, at L = 48 and L =
+    40 (one chunk of 48, and of 40: no multiple of 16), and at B = 4, L =
+    256 (the launcher's batches put several rows in one call). Each output
+    element is held to SSD_REL of its own size and its vector's; at L =
+    4096 in bf16 the kernels' outputs with the carry across the middle
+    chunk boundary dropped must fail that rule. Two K4b calls on the same
+    inputs must give the same bits. At L = 4096 each launch is also timed
+    apart (launch_split_ms)."""
     from repro_torch.kernels import mamba2_scan as ms
 
     gen = torch.Generator(device=dev)
@@ -1867,11 +1976,17 @@ def ssd_kernel_phase(torch, zcfg, dev, flush):
             ("L4096-bfloat16", 1, TRAIN_SEQ, torch.bfloat16),
             ("L4096-float32", 1, TRAIN_SEQ, torch.float32),
             ("L48-one-chunk-bfloat16", 1, 48, torch.bfloat16),
-            ("B4-L256-bfloat16", 4, 256, torch.bfloat16)):
+            ("B4-L256-bfloat16", 4, 256, torch.bfloat16),
+            ("L40-one-chunk-bfloat16", 1, 40, torch.bfloat16)):
         ins, dy = ssd_inputs(torch, zcfg, dev, gen, batch, length, dt)
         got = ms.mamba2_ssd_fwd(*ins) + ms.mamba2_ssd_bwd(*ins, dy)
+        again = ms.mamba2_ssd_bwd(*ins, dy)
         want = ms.ssd_chunked_plain(*ins) + ms.ssd_backward_plain(*ins, dy)
         torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got[2:], again))
+        check(bit_equal, f"SSD scan [{label}]: two backward calls on the "
+              f"same inputs differ")
+        del again
         errs, control = {}, {}
         for n, g, w in zip(names, got, want):
             errs[n] = fa_reading(g, w, SSD_REL[str(g.dtype).split(".")[-1]])
@@ -1900,12 +2015,14 @@ def ssd_kernel_phase(torch, zcfg, dev, flush):
                                           + B * H * N * P)
         io_b = 4 * x.numel() * esz + 4 * (2 * B * L * H + 2 * H
                                           + 4 * B * L * N)
-        units = B * H * (L // c)
-        bounds = {
-            "fwd": bound_ms(io_f, units * 2 * c * (c * N + c * P + 2 * N * P),
-                            "float32"),
-            "bwd": bound_ms(io_b, units * 2 * c * (3 * c * N + 2 * c * P
-                                                   + 5 * N * P), "float32")}
+        flops, tf32_flops = ssd_work(B, L, H, P, N, x.dtype == torch.float32)
+        io = {"fwd": io_f, "bwd": io_b}
+        # the split-TF32 design's bound (tf32 products at the TF32
+        # tensor-core rate) and, beside it, the f32 CUDA-core one
+        bounds = {k: max((io[k] / HBM_BYTES_PER_S * 1e3, "bytes"),
+                         (tf32_flops[k] / TF32_FLOPS * 1e3, "operations"))
+                  for k in flops}
+        bounds_f32 = {k: bound_ms(io[k], flops[k], "float32") for k in flops}
         ms_f, host_f = cuda_ms(torch, lambda: ms.mamba2_ssd_fwd(*ins),
                                reps=10, flush=flush)
         ms_b, host_b = cuda_ms(torch, lambda: ms.mamba2_ssd_bwd(*ins, dy),
@@ -1914,6 +2031,14 @@ def ssd_kernel_phase(torch, zcfg, dev, flush):
                              reps=3, flush=flush)
         plain_b, _ = cuda_ms(torch, lambda: ms.ssd_backward_plain(*ins, dy),
                              reps=3, flush=flush)
+        split = {}
+        if length == TRAIN_SEQ:
+            split = {"fwd": launch_split_ms(
+                         torch, lambda: ms.mamba2_ssd_fwd(*ins), flush,
+                         ms_f),
+                     "bwd": launch_split_ms(
+                         torch, lambda: ms.mamba2_ssd_bwd(*ins, dy), flush,
+                         ms_b)}
         for kind, t, host, plain, outs in (
                 ("fwd", ms_f, host_f, plain_f, ("y", "s_final")),
                 ("bwd", ms_b, host_b, plain_b,
@@ -1922,8 +2047,17 @@ def ssd_kernel_phase(torch, zcfg, dev, flush):
             case = {"case": label, "max_abs_err": max(
                         errs[n]["max_abs_err"] for n in outs),
                     "ms": t, "plain_ms": plain, "library_ms": None,
-                    "bound_ms": bnd, "bound_by": by, "host_call_ms": host,
+                    "bound_ms": bnd, "bound_by": by,
+                    "bound_f32_ms": bounds_f32[kind][0],
+                    "bound_f32_by": bounds_f32[kind][1],
+                    "host_call_ms": host,
                     "errors": {n: errs[n] for n in outs}}
+            if split.get(kind):
+                case["launches_ms"] = split[kind]["ms"]
+                case["launches_sum_ms"] = split[kind]["sum_ms"]
+                case["launches_profiles_summed"] = split[kind]["sums"]
+            if kind == "bwd":
+                case["bit_equal_twice"] = bit_equal
             if control:
                 case["control_middle_carry_dropped"] = {
                     n: control[n] for n in outs if n in control}
@@ -1935,10 +2069,14 @@ def ssd_kernel_phase(torch, zcfg, dev, flush):
               + (" control (middle carry dropped): " + " ".join(
                   f"{n}=({e['worst']:.3f}, {e['frob']:.3e})"
                   for n, e in control.items()) if control else "")
-              + f" | fwd ms={ms_f:.4f} plain_ms={plain_f:.4f} bound_ms="
-              f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) | bwd ms="
-              f"{ms_b:.4f} plain_ms={plain_b:.4f} bound_ms="
-              f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]})", flush=True)
+              + "".join(
+                  f" | {k} ms={t:.4f} plain_ms={p:.4f} bound_ms="
+                  f"{bounds[k][0]:.4f} ({bounds[k][1]}, split TF32) "
+                  f"{bounds_f32[k][0]:.4f} ({bounds_f32[k][1]}, f32)"
+                  + split_text(split.get(k))
+                  for k, t, p in (("fwd", ms_f, plain_f),
+                                  ("bwd", ms_b, plain_b)))
+              + f" bit-equal twice: {bit_equal}", flush=True)
         del ins, dy, x
         torch.cuda.empty_cache()
     return cases
@@ -2989,6 +3127,9 @@ def run(torch) -> int:
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
+            "bound_f32_ms": case["bound_f32_ms"],
+            "launches_ms": case.get("launches_ms"),
+            "launches_sum_ms": case.get("launches_sum_ms"),
             "pass": True, "cases": ssd_cases[kind]})
     for kind, name in (("fwd", "rwkv6_wkv_fwd"), ("bwd", "rwkv6_wkv_bwd")):
         case = wkv_cases[kind][0]            # L=4096, bf16: the path's case

@@ -429,27 +429,6 @@ __global__ void __launch_bounds__(kThreads) decode_merge(
 
 constexpr int kStripe = 16;  // positions a warp takes from each 64-wide tile
 
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   shared_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Waits until at most N of this thread's commit groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Four 8x8 bf16 matrices from shared memory (lane l gives the address of
 // row l % 8 of matrix l / 8); .trans hands each thread a column pair.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

@@ -1,7 +1,7 @@
 // Small device helpers shared by every kernel of the port: dtype codes,
-// f32 <-> bf16 conversion, warp reductions, and the tensor-core product
-// (mma.sync m16n8k16, bf16 inputs, f32 accumulate) with the register
-// packing its fragments need. The decode kernels (decode_common.cuh) and
+// f32 <-> bf16 conversion, warp reductions, cp.async copies, and the
+// tensor-core product (mma.sync m16n8k16, bf16 inputs, f32 accumulate)
+// with the register packing its fragments need. The decode kernels (decode_common.cuh) and
 // the flash-attention kernels (flash_attention.cu) include it.
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
@@ -63,6 +63,27 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   shared_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Two adjacent bf16 (the lower address in the low half), as one register.

@@ -6,7 +6,7 @@ wrapper around hand-written CUDA kernels beside its plain PyTorch version.
 * :func:`ssd_backward_plain` is its gradient by autograd, with the final
   state's cotangent zero.
 * :func:`mamba2_ssd_fwd` (K4) returns ``(y, s_final)``; its kernels
-  (``csrc/mamba2_scan.cu``: ``ssd_chunk_state``, ``ssd_state_pass``,
+  (``csrc/mamba2_scan.cu``: ``ssd_chunk_state``, ``ssd_carry``,
   ``ssd_chunk_out``) replace the Pallas ``mamba2_ssd`` / ``_kernel`` of
   ``src/repro/kernels/mamba2_scan.py`` and, on the training and prefill
   paths, the XLA ``ssd_chunked``.
@@ -17,24 +17,34 @@ Shapes (ngroups = 1): ``x [B,L,H,P]`` in the compute dtype, ``dt [B,L,H]``
 float32 (positive, after softplus), ``A [H]`` float32 (negative), ``Bm``
 and ``Cm [B,L,N]`` float32, shared by all heads. ``y [B,L,H,P]`` in x's
 dtype and the final state ``[B,H,N,P]`` float32. The chunk is ``min(64,
-L)`` and L must be a multiple of it. All arithmetic is float32, as in the
-reference; within a chunk ``cs`` is the running sum of ``dt * A``, and the
-decay ``exp(cs_i - cs_j)`` is formed only for ``j <= i`` (masked before the
-exponential: for ``j > i`` it could overflow, and inf * 0 is NaN).
+L)`` and L must be a multiple of it. The plain versions compute in float32,
+as the reference; within a chunk ``cs`` is the running sum of ``dt * A``,
+and the decay ``exp(cs_i - cs_j)`` is formed only for ``j <= i`` (masked
+before the exponential: for ``j > i`` it could overflow, and inf * 0 is
+NaN).
 
 The kernels take the carried ``[N,P]`` state (the Pallas grid's VMEM
 scratch, walked chunk after chunk by one program per head) in three
-launches that fill the card: a parallel pass over (row, head, chunk) for
-each chunk's own state contribution, a short sequential pass over chunks
-per state element for the carried states, and a parallel pass for the
-outputs. K4b recomputes the carried states (it does not keep K4's: 84 MB a
-layer and microbatch at zamba2's shape), runs the state cotangent backwards
-over chunks the same way, and reduces ``dBm``, ``dCm`` and ``dA`` over the
-heads from per-head partials in a second pass, without atomics, so the
-gradient is deterministic. Bounds on an H100 are in
-``csrc/mamba2_scan.cu``.
+launches that fill the card: a parallel pass over (row, chunk, head group)
+for each chunk's own state contribution, a streaming pass over chunks per
+state element for the carried states, and a parallel pass for the outputs.
+Their products run on the tensor cores in split TF32 (each f32 operand as
+a tf32 high and low part, three products; a bf16 x or dy is exact in tf32
+and takes fewer), which holds the f32 reference's accuracy where one tf32
+product does not. A CTA takes one chunk for a group of heads
+(:func:`plan`): it loads the chunk's Bm and Cm once and forms their scores
+``C B^T`` once for the group. K4b recomputes the carried states (it does
+not keep K4's: 84 MB a layer and microbatch at zamba2's shape), runs the
+state cotangent backwards over chunks in the same launch, and reduces
+``dBm`` and ``dCm`` over the heads from one partial per head group (summed
+in registers over the group's heads) and ``dA`` from per-(head, chunk)
+partials in a second pass, without atomics, so the gradient is
+deterministic. Design notes and bounds on an H100 are in
+``csrc/mamba2_scan.cu`` and ``csrc/tf32_tiles.cuh``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -43,6 +53,7 @@ from repro_torch.kernels import _build
 CHUNK = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_NP = 64          # the kernels' largest state and head width
+GROUPS = (8, 4, 2)   # heads to a CTA, largest first (kernels take any)
 
 
 def _chunk(L: int, chunk: int = CHUNK) -> int:
@@ -129,6 +140,40 @@ def _check(x, dt, A, Bm, Cm, extra=()):
     return B, L, H, P, N, _chunk(L)
 
 
+class Plan(NamedTuple):
+    """How the kernels cut one call: ``group`` heads to a CTA (one chunk
+    each), the ``grid`` of the per-chunk kernels (chunks, head groups, B),
+    and the shapes of the scratch the wrappers allocate."""
+    chunk: int
+    group: int
+    grid: tuple
+    states: tuple       # carried states (and cotangents) per chunk
+    decay: tuple        # exp(cs_last) per (row, head, chunk)
+    parts: tuple        # dBm and dCm partials, one per head group
+    dA_part: tuple
+
+
+def plan(B: int, L: int, H: int, P: int, N: int, sms: int) -> Plan:
+    """The head group is the largest of GROUPS that still gives the
+    backward's chunk kernel (one CTA per SM) two CTAs for each of the
+    card's ``sms`` SMs: zamba2's training shape (B 1, L 4096, H 80) takes
+    8 heads, 640 CTAs, on an H100's 132. Larger groups share a chunk's
+    Bm/Cm tiles and scores among more heads and write fewer partials, but
+    leave SMs idle in the last wave; short sequences (one chunk) take
+    groups of 2, one head to each of a CTA's two teams."""
+    c = _chunk(L)
+    nc = L // c
+    group = next((g for g in GROUPS if B * nc * -(-H // g) >= 2 * sms),
+                 GROUPS[-1])
+    ngroups = -(-H // group)
+    return Plan(c, group, (nc, ngroups, B), (B, H, nc, N, P), (B, H, nc),
+                (B, ngroups, L, N), (H, B, nc))
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def mamba2_ssd_fwd(x, dt, A, Bm, Cm):
     """The SSD scan forward, same contract as :func:`ssd_chunked_plain`
     without ``s0``. CPU tensors take the plain version; CUDA tensors
@@ -137,18 +182,20 @@ def mamba2_ssd_fwd(x, dt, A, Bm, Cm):
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, A, Bm, Cm)
     B, L, H, P, N, c = _check(x, dt, A, Bm, Cm)
+    pl = plan(B, L, H, P, N, _sms(x.device))
+    f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
-    s_fin = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
-    states = torch.empty((B, H, L // c, N, P), dtype=torch.float32,
-                         device=x.device)
-    cs = torch.empty((B, H, L), dtype=torch.float32, device=x.device)
+    s_fin = torch.empty((B, H, N, P), **f32)
+    states = torch.empty(pl.states, **f32)
+    decay = torch.empty(pl.decay, **f32)
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mamba2_ssd_fwd_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), s_fin.data_ptr(), states.data_ptr(),
-            cs.data_ptr(), B, L, H, P, N, c, _DTYPE_CODE[x.dtype], stream)
+            decay.data_ptr(), B, L, H, P, N, c, pl.group,
+            _DTYPE_CODE[x.dtype], stream)
     _build.check(err, "mamba2_ssd_fwd")
     mamba2_ssd_fwd.launches += 1
     return y, s_fin
@@ -168,33 +215,32 @@ def mamba2_ssd_bwd(x, dt, A, Bm, Cm, dy):
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy must match x {tuple(x.shape)} {x.dtype}, got "
                          f"{tuple(dy.shape)} {dy.dtype}")
-    nc = L // c
-    dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
+    pl = plan(B, L, H, P, N, _sms(x.device))
+    f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     ddt = torch.empty((B, L, H), **f32)
     dA = torch.empty((H,), **f32)
     dBm = torch.empty((B, L, N), **f32)
     dCm = torch.empty((B, L, N), **f32)
     # scratch: carried states and state cotangents per chunk, the chunks'
-    # running sums, per-head partials of dBm and dCm and per-chunk ones of dA
-    states = torch.empty((B, H, nc, N, P), **f32)
-    gstates = torch.empty((B, H, nc, N, P), **f32)
-    s_fin = torch.empty((B, H, N, P), **f32)
-    cs = torch.empty((B, H, L), **f32)
-    dB_part = torch.empty((B, H, L, N), **f32)
-    dC_part = torch.empty((B, H, L, N), **f32)
-    dA_part = torch.empty((H, B, nc), **f32)
+    # decays, per-head-group partials of dBm and dCm and per-(head, chunk)
+    # ones of dA
+    states = torch.empty(pl.states, **f32)
+    gstates = torch.empty(pl.states, **f32)
+    decay = torch.empty(pl.decay, **f32)
+    dB_part = torch.empty(pl.parts, **f32)
+    dC_part = torch.empty(pl.parts, **f32)
+    dA_part = torch.empty(pl.dA_part, **f32)
     lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mamba2_ssd_bwd_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
             dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), states.data_ptr(),
-            gstates.data_ptr(), s_fin.data_ptr(), cs.data_ptr(),
-            dB_part.data_ptr(), dC_part.data_ptr(), dA_part.data_ptr(),
-            B, L, H, P, N, c, _DTYPE_CODE[x.dtype], stream)
+            gstates.data_ptr(), decay.data_ptr(), dB_part.data_ptr(),
+            dC_part.data_ptr(), dA_part.data_ptr(), B, L, H, P, N, c,
+            pl.group, _DTYPE_CODE[x.dtype], stream)
     _build.check(err, "mamba2_ssd_bwd")
     mamba2_ssd_bwd.launches += 1
     return dx, ddt, dA, dBm, dCm

@@ -160,6 +160,180 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
                    Bm[:, :100].contiguous(), Cm[:, :100].contiguous())
 
 
+# --------------------------------------- the kernels' products, emulated ----
+
+# chip_smoke.py's rule for K4/K4b against their plain versions: each element
+# within r * (|ref| + RMS of its last-axis vector + RMS of the tensor / 16),
+# r = 2**-6 for a bf16 output and 2**-13 for an f32 one
+SSD_REL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -13}
+
+
+def _rule_ratio(got, want):
+    """The largest ratio of an element's error to its bound (the rule holds
+    while it is at most 1)."""
+    g, w = got.double(), want.double()
+    rms_vec = w.square().mean(dim=-1, keepdim=True).sqrt()
+    bound = SSD_REL[want.dtype] * (w.abs() + rms_vec
+                                   + w.square().mean().sqrt() / 16)
+    return ((g - w).abs() / bound).max().item()
+
+
+def _tf32(t):
+    """t rounded to tf32 (10 mantissa bits), to nearest with ties away from
+    zero, by masking its bits as the kernels do."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(a, b, split):
+    """a @ b with each operand rounded to tf32: one product, or the split
+    a_hi b_hi + a_hi b_lo + a_lo b_hi (lo = tf32 of the remainder), each
+    summed in float64 and rounded once.
+
+    This models the operands' rounding only. It leaves out the tensor
+    core's own f32 sums, which drop the bits below the largest addend of
+    each depth step: summed in place over a long product they moved the
+    kernels' f32 y past the rule on the card, where this emulation would
+    have passed them. It also splits the scores C B^T in two parts where
+    the kernels split each operand in three. So it shows what the split
+    is for, not that the kernels hold the rule: chip_smoke.py's phase 8
+    holds them to it on the card."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah.double() @ bh.double()
+    if split:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = out + ah.double() @ bl.double() + al.double() @ bh.double()
+    return out.float()
+
+
+class _Tf32Matmul(torch.autograd.Function):
+    """A matmul whose forward and both backward products round their
+    operands to tf32 (split or not), as the kernels' products do."""
+
+    @staticmethod
+    def forward(ctx, a, b, split):
+        ctx.save_for_backward(a, b)
+        ctx.split = split
+        return _product(a, b, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return (_product(g, b.transpose(-1, -2), ctx.split),
+                _product(a.transpose(-1, -2), g, ctx.split), None)
+
+
+def _ssd_tf32(x, dt, A, Bm, Cm, split, chunk=64):
+    """``ssd_chunked_plain``'s y with its four products (scores, the
+    intra-chunk output, the chunk states, the carried state's output)
+    through _Tf32Matmul; the rest in f32, as the plain version."""
+    b, l, h, p = x.shape
+    n = Bm.shape[-1]
+    c = min(chunk, l)
+    nc = l // c
+    mm = lambda u, v: _Tf32Matmul.apply(u, v, split)    # noqa: E731
+    xc = x.reshape(b, nc, c, h, p).float().permute(0, 1, 3, 2, 4)
+    dtc = dt.reshape(b, nc, c, h).float().permute(0, 1, 3, 2)  # [b,z,h,c]
+    Bc = Bm.reshape(b, nc, c, n).float()
+    Cc = Cm.reshape(b, nc, c, n).float()
+    cs = torch.cumsum(dtc * A.float()[None, None, :, None], dim=-1)
+    tri = torch.ones(c, c, dtype=torch.bool).tril()
+    Lm = torch.exp(torch.where(tri, cs[..., :, None] - cs[..., None, :],
+                               float("-inf")))            # [b,z,h,i,j]
+    scores = mm(Cc, Bc.transpose(-1, -2))[:, :, None]     # [b,z,1,i,j]
+    y_diag = mm(scores * Lm, xc * dtc[..., None])          # [b,z,h,i,p]
+    w = torch.exp(cs[..., -1:] - cs) * dtc                 # [b,z,h,c]
+    states = mm((Bc[:, :, None] * w[..., None]).transpose(-1, -2), xc)
+    s = torch.zeros(b, h, n, p)
+    prevs = []
+    for z in range(nc):
+        prevs.append(s)
+        s = s * torch.exp(cs[:, z, :, -1])[..., None, None] + states[:, z]
+    y_off = mm(Cc[:, :, None] * torch.exp(cs)[..., None],
+               torch.stack(prevs, dim=1))
+    y = (y_diag + y_off).permute(0, 1, 3, 2, 4).reshape(b, l, h, p)
+    return y.to(x.dtype), s
+
+
+def _decay_inputs(seed, b=1, l=256, h=8, p=64, n=64, x_dtype=torch.bfloat16):
+    """chip_smoke.py phase 8's draw on numpy: A = -U[1, 16], dt =
+    softplus(N(0, 1) + dt_bias) with dt_bias the inverse softplus of a
+    log-uniform draw in [1e-3, 1e-1], x, dy, Bm, Cm N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    a = 1 + 15 * rng.random(h)
+    d = np.exp(np.log(1e-3) + np.log(100) * rng.random(h))
+    dt_bias = d + np.log(-np.expm1(-d))
+    f = lambda *s: torch.from_numpy(                      # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    x, dy = f(b, l, h, p).to(x_dtype), f(b, l, h, p).to(x_dtype)
+    dt = torch.nn.functional.softplus(
+        f(b, l, h) + torch.from_numpy(dt_bias.astype(np.float32)))
+    A = torch.from_numpy(-a.astype(np.float32))
+    return (x, dt, A, f(b, l, n), f(b, l, n)), dy
+
+
+def _tf32_readings(split, x_dtype):
+    """The rule's worst ratio for each output of the scan with emulated
+    products against the f32 plain version (y, s_final; the gradients by
+    autograd through the emulated products)."""
+    ins, dy = _decay_inputs(8, x_dtype=x_dtype)
+    want = tms.ssd_chunked_plain(*ins) + tms.ssd_backward_plain(*ins, dy)
+    leaves_ = [t.detach().clone().requires_grad_(True) for t in ins]
+    y, s = _ssd_tf32(*leaves_, split=split)
+    got = (y.detach(), s.detach()) + torch.autograd.grad(y, leaves_, dy)
+    names = ("y", "s_final", "dx", "ddt", "dA", "dBm", "dCm")
+    return {k: _rule_ratio(g, w) for k, g, w in zip(names, got, want)}
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_split_tf32_products_hold_the_smokes_rule(x_dtype):
+    """The kernels' split-TF32 products (each operand as tf32 hi and lo
+    parts, three products), emulated in every product of the forward and
+    of autograd's backward: every output holds chip_smoke.py's rule
+    against the f32 plain version at zamba2's heads, phase 8's decays.
+    The operands' rounding only (_product says what it leaves out)."""
+    ratios = _tf32_readings(True, x_dtype)
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+def test_one_tf32_product_does_not_hold_the_smokes_rule():
+    """One tf32 product per product (no lo parts): the f32 outputs fail
+    the rule by far, which is why the kernels split."""
+    ratios = _tf32_readings(False, torch.bfloat16)
+    assert sum(r > 1 for r in ratios.values()) >= 4, ratios
+    assert max(ratios[k] for k in ("s_final", "ddt", "dBm", "dCm")) > 4
+
+
+@pytest.mark.parametrize("shape,group,grid,parts", [
+    ((1, 4096, 80, 64, 64), 8, (64, 10, 1), (1, 10, 4096, 64)),
+    ((1, 48, 80, 64, 64), 2, (1, 40, 1), (1, 40, 48, 64)),
+    ((4, 256, 80, 64, 64), 4, (4, 20, 4), (4, 20, 256, 64)),
+    ((1, 4096, 30, 64, 64), 4, (64, 8, 1), (1, 8, 4096, 64)),
+    ((2, 128, 3, 8, 5), 2, (2, 2, 2), (2, 2, 128, 5))])
+def test_plan_groups_heads_and_sizes_the_scratch(shape, group, grid, parts):
+    """The head group is the largest that leaves the backward's chunk
+    kernel (one CTA per SM) two CTAs for each of the H100's 132 SMs:
+    zamba2's training call takes 8 heads (640 CTAs), one chunk 2; 30 heads
+    in groups of 4 leave a last group of 2 (masked in the kernels). The
+    scratch: states [B,H,nc,N,P], decays [B,H,nc], dBm/dCm partials per
+    head group, dA per (head, row, chunk)."""
+    B, L, H, P, N = shape
+    pl = tms.plan(*shape, sms=132)
+    nc = L // pl.chunk
+    assert (pl.group, pl.grid, pl.parts) == (group, grid, parts)
+    assert pl.chunk == min(64, L)
+    assert pl.states == (B, H, nc, N, P) and pl.decay == (B, H, nc)
+    assert pl.dA_part == (H, B, nc)
+    assert pl.grid[1] * pl.group >= H > (pl.grid[1] - 1) * pl.group
+
+
+def test_plan_takes_the_largest_group_on_a_card_of_few_sms():
+    """The wrappers pass the card's SM count: on a card of fewer SMs the
+    same call fills it with larger groups."""
+    assert tms.plan(1, 48, 80, 64, 64, sms=1).group == 8
+    assert tms.plan(1, 48, 80, 64, 64, sms=10).group == 4
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_ssd_decode_step_matches_jax_and_chunked_equals_recurrence(seed):
     """``test_models.py``'s property on the port: the chunked scan equals
