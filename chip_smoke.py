@@ -142,9 +142,10 @@ mix and channel mix, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536;
 12. training at full width and 8 of the 32 blocks (cut to keep the smoke
     within its time) as phase 7 trains: K5 launched twice per block and
     microbatch (remat), K5b once, every other kernel never;
-12b. phase 12's step on 2 blocks, kernels against plain in bf16 and f32,
-    with RWKV-6's decay and bonus init, and a control that drops the WKV
-    carry into chunk 32;
+12b. phase 12's step on 2 blocks, kernels against plain in bf16 and f32
+    (bf16 again on three more seeds of weights and tokens), with RWKV-6's
+    decay and bonus init, and a control that drops the WKV carry into
+    chunk 32;
 13. serving at full width in bf16 through phase 5's three dense servers
     (no kernel: the decode recurrence is plain torch, as in the
     reference), back-to-back eager requests, and in f32 (with RWKV-6's
@@ -218,6 +219,11 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate (data sheet, 700 W)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per dtype
 TF32_FLOPS = 495e12                # dense TF32 tensor-core rate (data sheet)
+# exponentials (ex2.approx) a second on the card's special-function units:
+# experiments/torch_mma_rate.py read 3.94e12-4.16e12 on an H100 80GB HBM3
+# at 700 W (lg2.approx the same; the CUDA guide gives 16 a clock per SM
+# for compute capability 9.0); the highest is the bound's rate
+SFU_OPS_PER_S = 4.16e12
 F32_ATOL = 1e-4                    # kernel vs plain, f32 outputs
 # one bf16 step, kernels vs plain: the attention outputs differ by about
 # one bf16 ulp, and 32 layers of random weights carry that into logits of
@@ -292,8 +298,15 @@ SSD_REL = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -13}
 # these outputs
 SSD_CONTROL_FAILS = ("y", "dx", "dBm", "dCm")
 # K5/K5b vs plain, each output element by the same rule and for the same
-# reason (f32 sums in another order; a bf16 output rounded once on each
-# side): o, dr, dk, dv in r's dtype, the final state, dw and du in f32
+# reason: the kernels' products run on the tensor cores in split TF32 as
+# K4's do (a bf16 r, k, v or do exact, its lo part zero), the decays of a
+# pair of 16-row blocks factored around a reference point and the
+# diagonal blocks' decays formed per element, cs summed in the plain
+# version's order: the two differ by the order of their sums and those
+# products' last bits (tests/test_torch_rwkv6.py emulates the operands'
+# rounding and shows one tf32 product per product failing the rule). o,
+# dr, dk, dv in r's dtype (a bf16 output rounded once on each side), the
+# final state, dw and du in f32
 WKV_REL = SSD_REL
 # the halves control must fail the rule in every output the carry reaches:
 # du (sum_t (do_t . v_t) r_t k_t) does not depend on the state
@@ -322,6 +335,9 @@ MOE_TRAIN_LAYERS = 4
 # which is then trained through 3 applications), 8 of rwkv6's 32 blocks
 HYBRID_TRAIN_LAYERS = 18
 SSM_TRAIN_LAYERS = 8
+# phase 12b's bf16 step again on these seeds of weights and tokens (phase
+# 9b's are 21-23)
+WKV_STEP_SEEDS = (31, 32, 33)
 # phase 16: a bucket row that lost no assignment against its step alone:
 # 8 bf16 ulps of the largest |logit|, as phase 4a holds starcoder2's
 # logits (0.25 at |logit| ~5)
@@ -1859,6 +1875,10 @@ def carry_dropped(plain):
     return lambda *ins: (halves(plain, ins), None)
 
 
+# the scans' kernels that launch_split_ms keeps, by a part of their names
+SPLIT_KERNELS = ("ssd", "wkv", "carry", "sum_mid")
+
+
 def launch_split_ms(torch, fn, flush, total_ms: float, reps: int = 10,
                     tries: int = 3, within: float = 0.05):
     """Device ms of each kernel ``fn`` launches, by kernel name (with its
@@ -1866,14 +1886,14 @@ def launch_split_ms(torch, fn, flush, total_ms: float, reps: int = 10,
     One profiled call counts each name's launches a call; then ``reps``
     calls, each after the L2 flush, give each name's mean per launch (its
     device time over the launches the profiler recorded) times its
-    launches a call. Only the scans' kernels (``ssd``) and ``sum_mid`` are
-    kept, not the flush's. In the smoke's run the profiler has lost some
-    launches and read others short (PERF.md §6), so a split is kept only
-    where every launch was recorded and the split sums to within
-    ``within`` of ``total_ms``, the call's time by CUDA events: of up to
-    ``tries`` profiles, the first that does. Otherwise ``ms`` is None and
-    ``sums`` holds what each profile summed to. None where the profiler
-    records no device time."""
+    launches a call. Only the scans' kernels (names holding one of
+    SPLIT_KERNELS) are kept, not the flush's. In the smoke's run the
+    profiler has lost some launches and read others short (PERF.md §6),
+    so a split is kept only where every launch was recorded and the split
+    sums to within ``within`` of ``total_ms``, the call's time by CUDA
+    events: of up to ``tries`` profiles, the first that does. Otherwise
+    ``ms`` is None and ``sums`` holds what each profile summed to. None
+    where the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     def profiled(calls):
@@ -1886,7 +1906,7 @@ def launch_split_ms(torch, fn, flush, total_ms: float, reps: int = 10,
             torch.cuda.synchronize()
         out = {}
         for e in prof.key_averages():
-            if "ssd" not in e.key and "sum_mid" not in e.key:
+            if not any(n in e.key for n in SPLIT_KERNELS):
                 continue
             name = e.key.replace("(anonymous namespace)::", "")
             name = name.split("(")[0].removeprefix("void ").strip()
@@ -2259,14 +2279,80 @@ def wkv_inputs(torch, rcfg, dev, gen, batch: int, length: int, dtype,
     return (r, k, v, w, bonus[1].reshape(H, hd).contiguous()), do
 
 
+def wkv_work(B: int, L: int, H: int, hd: int, f32_in: bool):
+    """The work of K5 and K5b in their design (csrc/rwkv6_scan.cu), per
+    call: (f32 flops, split-TF32 tf32 flops, exponentials and logarithms),
+    each a dict over "fwd" and "bwd". A chunk of c rows is cut into blocks
+    of 16 (the last may be shorter); the nb (nb - 1) / 2 pairs of a T-block
+    above an S-block are products of factors formed once a chunk, the nb
+    diagonal blocks sums on the CUDA cores with one exponential per (t, s <
+    t, channel). Per (head, chunk), forward: the chunk's state (k, v: 2 c
+    D^2), the pairs' scores (2 16^2 D each), their product with v (2 16
+    (a + 1) 16 D for T-block a) and the carried state's term (2 c D^2);
+    backward: the state and its cotangent W (2 c D^2 each), dA's diagonal
+    blocks (once a team, both teams) and pairs (do v^T), dr's state term
+    (do S^T), each pair's dA k~ product, dk's and dv's state terms (v G^T,
+    k~ G), each pair's A^T, dv's A^T do over the T-blocks at and above each
+    S-block, each pair's dA^T and dA^T r~. A split-TF32 product costs one
+    tf32 product for each pair of parts but lo x lo: 3 for two f32
+    operands, 2 where one is a bf16 r, k, v or do (exact in tf32), 1 for
+    two. The f32 flops are the plain version's least (PR 15's count: 2c(2D^2
+    + cD) forward and 2c(5D^2 + 5cD/2) backward). Exponentials and
+    logarithms: the log of each w once (the state kernel forms cs), the
+    decays, each factor of the design (the state kernels' k and r factors,
+    block_factors' r and k factors and per-channel vectors, the backward's
+    per-element rescalings of dr and dk), the diagonal blocks' pairs."""
+    c = min(64, L)
+    units = B * H * (L // c)
+    D = hd
+    xp = 2 if f32_in else 1
+    rows = [min(16, c - 16 * a) for a in range((c + 15) // 16)]
+    nb = len(rows)
+
+    def parts(a, b):
+        return a * b - (a == b == 2)
+    cd2 = 2 * c * D * D
+    pair_blk = sum(2 * ra * rows[b] * D for a, ra in enumerate(rows)
+                   for b in range(a))                # T-block a, S-block b
+    upto = sum(2 * ra * 16 * (a + 1) * D for a, ra in enumerate(rows))
+    from_s = sum(2 * rows[b] * (c - 16 * b) * D for b in range(nb))
+    diag_blk = sum(2 * r * r * D for r in rows)
+    fwd = [(cd2, 2, xp), (pair_blk, 2, 2), (upto, 2, xp), (cd2, 2, 2)]
+    bwd = [(cd2, 2, xp), (cd2, 2, xp), (2 * diag_blk, xp, xp), (cd2, xp, 2),
+           (cd2, xp, 2), (cd2, 2, 2), (pair_blk, xp, xp), (pair_blk, 2, 2),
+           (pair_blk, 2, 2), (from_s, 2, xp), (pair_blk, xp, xp),
+           (pair_blk, 2, 2)]
+    diag = sum(r * (r - 1) // 2 for r in rows) * D
+    pairs = nb * (nb - 1) // 2
+    cd = c * D
+    # forward: cs (the state kernel's, which the out kernel reads), the
+    # state's k factor, the decays, the diagonal blocks, the r and k
+    # factors, f_ab and g_a; backward: cs, the state's k and r factors, the
+    # decays, the diagonal blocks, the r and k factors, f_ab, g_a and h_b,
+    # dr's and dk's rescalings, exp(cs_last) for (G o S)
+    sfu = {"fwd": cd + cd + D + diag + 2 * cd + (pairs + nb) * D,
+           "bwd": cd + 2 * cd + D + diag + 2 * cd
+           + (pairs + 2 * nb) * D + 2 * cd + D}
+    f32 = {"fwd": units * 2 * c * (2 * D * D + c * D),
+           "bwd": units * 2 * c * (5 * D * D + 2.5 * c * D)}
+    tf32 = {k: units * sum(f * parts(a, b) for f, a, b in terms)
+            for k, terms in (("fwd", fwd), ("bwd", bwd))}
+    return f32, tf32, {k: units * v for k, v in sfu.items()}
+
+
 def wkv_kernel_phase(torch, rcfg, dev, flush):
     """K5 and K5b against their plain versions at rwkv6-3b's shape (B = 1,
-    L = 4096, H 40, hd 64) with r, k, v in bf16 and in f32, at L = 48 (one
-    chunk of 48), at B = 4, L = 256, and with w near the clip (both sides
-    must stay finite). Each output element is held to WKV_REL of its own
-    size and its vector's (dw near the clip as WKV_CLIP_REL says); at L =
-    4096 in bf16 the kernels' outputs with the carry across the middle
-    chunk boundary dropped must fail that rule."""
+    L = 4096, H 40, hd 64) with r, k, v in bf16 and in f32, at L = 48 and
+    L = 40 (one chunk of 48, and of 40: no multiple of 16), at B = 4, L =
+    256, and with w near the clip (both sides must stay finite). Each
+    output element is held to WKV_REL of its own size and its vector's (dw
+    near the clip as WKV_CLIP_REL says); at L = 4096 in bf16 the kernels'
+    outputs with the carry across the middle chunk boundary dropped must
+    fail that rule. Two K5b calls on the same inputs must give the same
+    bits. Each case prints three bounds (split-TF32 products at the TF32
+    rate, exponentials and logarithms at the card's SFU rate, bytes at the
+    memory's) and takes the largest; at L = 4096 each launch is also timed
+    apart (launch_split_ms)."""
     from repro_torch.kernels import rwkv6_scan as rs
 
     gen = torch.Generator(device=dev)
@@ -2279,13 +2365,19 @@ def wkv_kernel_phase(torch, rcfg, dev, flush):
             ("L48-one-chunk-bfloat16", 1, 48, torch.bfloat16, False),
             ("B4-L256-bfloat16", 4, 256, torch.bfloat16, False),
             ("L4096-near-clip-bfloat16", 1, TRAIN_SEQ, torch.bfloat16,
-             True)):
+             True),
+            ("L40-one-chunk-bfloat16", 1, 40, torch.bfloat16, False)):
         ins, do = wkv_inputs(torch, rcfg, dev, gen, batch, length, dt,
                              near_clip)
         got = rs.rwkv6_wkv_fwd(*ins) + rs.rwkv6_wkv_bwd(*ins, do)
+        again = rs.rwkv6_wkv_bwd(*ins, do)
         want = rs.wkv6_chunked_plain(*ins) + rs.wkv6_backward_plain(*ins,
                                                                     do)
         torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got[2:], again))
+        check(bit_equal, f"WKV [{label}]: two backward calls on the same "
+              f"inputs differ")
+        del again
         errs, control = {}, {}
         for n, g, w in zip(names, got, want):
             check(bool(torch.isfinite(g).all()) and
@@ -2315,17 +2407,22 @@ def wkv_kernel_phase(torch, rcfg, dev, flush):
         torch.cuda.empty_cache()
         r = ins[0]
         B, L, H, hd = r.shape
-        c = min(64, L)
         esz = r.element_size()
-        io_f = r.numel() * (4 * esz + 4) + 4 * (H * hd + B * H * hd * hd)
-        io_b = r.numel() * (7 * esz + 8) + 4 * 2 * H * hd
-        units = B * H * (L // c)
-        bounds = {
-            "fwd": bound_ms(io_f, units * 2 * c * (2 * hd * hd + c * hd),
-                            "float32"),
-            "bwd": bound_ms(io_b, units * 2 * c * (5 * hd * hd
-                                                   + 2.5 * c * hd),
-                            "float32")}
+        io = {"fwd": r.numel() * (4 * esz + 4) + 4 * (H * hd
+                                                      + B * H * hd * hd),
+              "bwd": r.numel() * (7 * esz + 8) + 4 * 2 * H * hd}
+        flops, tf32_flops, sfu = wkv_work(B, L, H, hd,
+                                          r.dtype == torch.float32)
+        # three bounds, the largest taken: split-TF32 products at the TF32
+        # rate, exponentials and logarithms at the SFU's, bytes at the
+        # memory's; beside them the f32 CUDA-core one (PR 15's)
+        three = {k: {"tf32": tf32_flops[k] / TF32_FLOPS * 1e3,
+                     "sfu": sfu[k] / SFU_OPS_PER_S * 1e3,
+                     "bytes": io[k] / HBM_BYTES_PER_S * 1e3} for k in io}
+        bounds = {k: max((v["bytes"], "bytes"), (v["tf32"], "operations"),
+                         (v["sfu"], "operations"))
+                  for k, v in three.items()}
+        bounds_f32 = {k: bound_ms(io[k], flops[k], "float32") for k in io}
         ms_f, host_f = cuda_ms(torch, lambda: rs.rwkv6_wkv_fwd(*ins),
                                reps=10, flush=flush)
         ms_b, host_b = cuda_ms(torch, lambda: rs.rwkv6_wkv_bwd(*ins, do),
@@ -2334,6 +2431,13 @@ def wkv_kernel_phase(torch, rcfg, dev, flush):
                              reps=3, flush=flush)
         plain_b, _ = cuda_ms(torch, lambda: rs.wkv6_backward_plain(*ins, do),
                              reps=3, flush=flush)
+        split = {}
+        if length == TRAIN_SEQ:
+            split = {"fwd": launch_split_ms(
+                         torch, lambda: rs.rwkv6_wkv_fwd(*ins), flush, ms_f),
+                     "bwd": launch_split_ms(
+                         torch, lambda: rs.rwkv6_wkv_bwd(*ins, do), flush,
+                         ms_b)}
         for kind, t, host, plain, outs in (
                 ("fwd", ms_f, host_f, plain_f, ("o", "s_final")),
                 ("bwd", ms_b, host_b, plain_b, ("dr", "dk", "dv", "dw",
@@ -2342,8 +2446,20 @@ def wkv_kernel_phase(torch, rcfg, dev, flush):
             case = {"case": label, "max_abs_err": max(
                         errs[n]["max_abs_err"] for n in outs),
                     "ms": t, "plain_ms": plain, "library_ms": None,
-                    "bound_ms": bnd, "bound_by": by, "host_call_ms": host,
+                    "bound_ms": bnd, "bound_by": by,
+                    "bound_tf32_ms": three[kind]["tf32"],
+                    "bound_sfu_ms": three[kind]["sfu"],
+                    "bound_bytes_ms": three[kind]["bytes"],
+                    "bound_f32_ms": bounds_f32[kind][0],
+                    "bound_f32_by": bounds_f32[kind][1],
+                    "host_call_ms": host,
                     "errors": {n: errs[n] for n in outs}}
+            if split.get(kind):
+                case["launches_ms"] = split[kind]["ms"]
+                case["launches_sum_ms"] = split[kind]["sum_ms"]
+                case["launches_profiles_summed"] = split[kind]["sums"]
+            if kind == "bwd":
+                case["bit_equal_twice"] = bit_equal
             if control:
                 case["control_middle_carry_dropped"] = {
                     n: control[n] for n in outs if n in control}
@@ -2355,10 +2471,14 @@ def wkv_kernel_phase(torch, rcfg, dev, flush):
               + (" control (middle carry dropped): " + " ".join(
                   f"{n}=({e['worst']:.3f}, {e['frob']:.3e})"
                   for n, e in control.items()) if control else "")
-              + f" | fwd ms={ms_f:.4f} plain_ms={plain_f:.4f} bound_ms="
-              f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) | bwd ms="
-              f"{ms_b:.4f} plain_ms={plain_b:.4f} bound_ms="
-              f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]})", flush=True)
+              + "".join(
+                  f" | {k} ms={t:.4f} plain_ms={p:.4f} bound_ms="
+                  f"{bounds[k][0]:.4f} (split TF32 {three[k]['tf32']:.4f}, "
+                  f"SFU {three[k]['sfu']:.4f}, bytes {three[k]['bytes']:.4f};"
+                  f" f32 {bounds_f32[k][0]:.4f})" + split_text(split.get(k))
+                  for k, t, p in (("fwd", ms_f, plain_f),
+                                  ("bwd", ms_b, plain_b)))
+              + f" bit-equal twice: {bit_equal}", flush=True)
         del ins, do, r
         torch.cuda.empty_cache()
     return cases
@@ -3011,7 +3131,8 @@ def run(torch) -> int:
         plain=ops.Kernels(wkv=wr.wkv6_chunked_plain),
         control=ops.Kernels(wkv=carry_dropped(wr.wkv6_chunked_plain)),
         control_label="the WKV carry into chunk 32 dropped",
-        prepare=lambda p, seed: set_rwkv6_init(torch, p))
+        prepare=lambda p, seed: set_rwkv6_init(torch, p),
+        bf16_seeds=WKV_STEP_SEEDS)
     mark("12")
     # phase 13: serving (no kernel: the decode recurrence is plain torch)
     rserve = recurrent_serve_phase(
@@ -3141,6 +3262,12 @@ def run(torch) -> int:
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
+            "bound_tf32_ms": case["bound_tf32_ms"],
+            "bound_sfu_ms": case["bound_sfu_ms"],
+            "bound_bytes_ms": case["bound_bytes_ms"],
+            "bound_f32_ms": case["bound_f32_ms"],
+            "launches_ms": case.get("launches_ms"),
+            "launches_sum_ms": case.get("launches_sum_ms"),
             "pass": True, "cases": wkv_cases[kind]})
     # K6 on its main path (phase 15's decode: 4 rows a group), K6b on its
     # (phase 17's training: 512 rows a group); bf16

@@ -1,4 +1,5 @@
-"""The tensor cores' mma.sync rate on the card, for tf32 and bf16 operands.
+"""The tensor cores' mma.sync rate on the card, for tf32 and bf16 operands,
+and the special-function units' rate of exponentials and logarithms.
 
     python3 experiments/torch_mma_rate.py [--out DIR]
 
@@ -8,7 +9,11 @@ independent accumulators, launches it at 128, 256 and 512 threads a CTA
 (4 CTAs an SM), and prints the rate in TFLOP/s and in products a clock per
 SM at the card's boost clock: the ceiling of the split-TF32 scan kernels
 (csrc/tf32_tiles.cuh), which issue mma.sync, beside the data sheet's TF32
-rate (495 TFLOP/s), reached only by wgmma. Writes OUT/mma_rate.json (OUT:
+rate (495 TFLOP/s), reached only by wgmma. The same launches time eight
+independent chains of ``ex2.approx.f32`` (what ``__expf`` issues, after
+one multiply) and of ``lg2.approx.f32`` (``__logf``'s) a thread, in
+operations a second and a clock per SM: the rate that bounds the scans'
+decays (chip_smoke.py's SFU_OPS_PER_S). Writes OUT/mma_rate.json (OUT:
 build/mma_rate unless --out).
 """
 from __future__ import annotations
@@ -54,10 +59,29 @@ __global__ void bench(float* out, int iters, uint32_t seed) {
     for (int e = 0; e < 4; ++e) s += acc[n][e];
   if (s == 1.2345f) out[threadIdx.x] = s;   // keeps the products alive
 }
+template <int KIND>
+__global__ void sfu(float* out, int iters) {
+  float x[8];
+  for (int n = 0; n < 8; ++n) x[n] = -1e-3f * (threadIdx.x + n);
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (KIND == 0)
+        asm volatile("ex2.approx.f32 %0, %0;\n" : "+f"(x[n]));
+      else
+        asm volatile("lg2.approx.f32 %0, %0;\n" : "+f"(x[n]));
+    }
+  }
+  float s = 0;
+  for (int n = 0; n < 8; ++n) s += x[n];
+  if (s == 1.2345f) out[threadIdx.x] = s;
+}
 extern "C" int run_bench(int kind, float* out, int blocks, int threads,
                          int iters) {
   if (kind == 0) bench<0><<<blocks, threads>>>(out, iters, 1234);
-  else bench<1><<<blocks, threads>>>(out, iters, 1234);
+  else if (kind == 1) bench<1><<<blocks, threads>>>(out, iters, 1234);
+  else if (kind == 2) sfu<0><<<blocks, threads>>>(out, iters);
+  else sfu<1><<<blocks, threads>>>(out, iters);
   return cudaGetLastError();
 }
 """
@@ -86,7 +110,9 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for kind, name, flop in ((0, "tf32 m16n8k8", 2 * 16 * 8 * 8),
-                             (1, "bf16 m16n8k16", 2 * 16 * 8 * 16)):
+                             (1, "bf16 m16n8k16", 2 * 16 * 8 * 16),
+                             (2, "ex2.approx.f32", 1),
+                             (3, "lg2.approx.f32", 1)):
         for threads in (128, 256, 512):
             blocks, iters = sms * 4, 2000
             fn(kind, out.data_ptr(), blocks, threads, 10)
@@ -98,13 +124,17 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             ms = start.elapsed_time(end)
-            n = blocks * threads // 32 * iters * 8
+            # a warp's instruction: one product, or 32 lanes' operations
+            n = blocks * threads // 32 * iters * 8 * (32 if kind >= 2 else 1)
             row = {"product": name, "threads": threads, "ms": ms,
                    "tflops": n * flop / ms / 1e9,
                    "per_clock_per_sm": n / sms / (ms * 1e-3 * BOOST_GHZ * 1e9)}
+            if kind >= 2:
+                row["ops_per_s"] = n / (ms * 1e-3)
             rows.append(row)
-            print(f"{name} threads {threads}: {ms:.3f} ms, "
-                  f"{row['tflops']:.1f} TFLOP/s, "
+            rate = (f"{row['ops_per_s']:.4g} a second" if kind >= 2
+                    else f"{row['tflops']:.1f} TFLOP/s")
+            print(f"{name} threads {threads}: {ms:.3f} ms, {rate}, "
                   f"{row['per_clock_per_sm']:.3f} a clock per SM", flush=True)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "mma_rate.json").write_text(json.dumps(

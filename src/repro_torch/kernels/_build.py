@@ -42,7 +42,7 @@ SIGNATURES = {
         [_ptr] * 11 + [_int] * 7 + [_f32, _int, _int, _int, _ptr], _int),
     "mamba2_ssd_fwd_launch": ([_ptr] * 9 + [_int] * 8 + [_ptr], _int),
     "mamba2_ssd_bwd_launch": ([_ptr] * 17 + [_int] * 8 + [_ptr], _int),
-    "rwkv6_wkv_fwd_launch": ([_ptr] * 9 + [_int] * 6 + [_ptr], _int),
+    "rwkv6_wkv_fwd_launch": ([_ptr] * 10 + [_int] * 6 + [_ptr], _int),
     "rwkv6_wkv_bwd_launch": ([_ptr] * 16 + [_int] * 6 + [_ptr], _int),
     "gmm_fwd_launch": ([_ptr] * 4 + [_int] * 7 + [_ptr], _int),
     "gmm_dw_launch": ([_ptr] * 4 + [_int] * 6 + [_ptr], _int),

@@ -1,11 +1,11 @@
 // Hand-written Hopper (sm_90a) kernels of the chunked Mamba2 SSD scan: the
 // forward (K4) and its gradient (K4b).
 //
-//   K4  ssd_chunk_state, ssd_carry, ssd_chunk_out   replace the Pallas
+//   K4  ssd_chunk_state, chunk_carry, ssd_chunk_out   replace the Pallas
 //       `mamba2_ssd` / `_kernel` (src/repro/kernels/mamba2_scan.py) and, on
 //       the training and prefill paths, the XLA `ssd_chunked`
 //       (src/repro/models/mamba2.py)
-//   K4b ssd_chunk_state<with W>, ssd_carry (both directions), ssd_chunk_bwd
+//   K4b ssd_chunk_state<with W>, chunk_carry (both directions), ssd_chunk_bwd
 //       and sum_mid: the gradient the JAX package takes from XLA autodiff
 //       of `ssd_chunked`
 //
@@ -24,13 +24,13 @@
 // next, sequentially per head. Here:
 //   1. ssd_chunk_state (grid chunks x head groups x B): each chunk's own
 //      contribution to the next state, and exp(cs_last) per (head, chunk);
-//   2. ssd_carry: the carry over chunks, one thread per four state
-//      elements, leaving S_z in place of chunk z's contribution and S_L in
-//      the final state;
+//   2. chunk_carry (scan_common.cuh, shared with K5): the carry over
+//      chunks, one thread per four state elements, leaving S_z in place of
+//      chunk z's contribution and S_L in the final state;
 //   3. ssd_chunk_out: y from the chunk's inputs and S_z.
 // The backward recomputes 1 and 2 (it keeps nothing of the forward): its
 // ssd_chunk_state also forms each chunk's state cotangent W_z = sum_i
-// exp(cs_i) C_i (x) dy_i, and one ssd_carry launch runs S forwards and the
+// exp(cs_i) C_i (x) dy_i, and one chunk_carry launch runs S forwards and the
 // cotangent backwards (G_z = exp(cs_last) G_{z+1} + W_z, G_L = 0, leaving
 // G_{z+1} in place of W_z). Then
 //   4. ssd_chunk_bwd: per chunk, dx and ddt, the head group's sums of dBm
@@ -85,7 +85,7 @@
 //   phase 9b) to the edge of their rule.
 // - Loads are 16-byte pieces: cp.async for f32 tiles, 16-byte loads
 //   converted in registers for bf16, all issued before the team waits.
-// - ssd_carry issues the next eight chunks' loads before this eight's
+// - chunk_carry issues the next eight chunks' loads before this eight's
 //   stores, and the backward's runs both directions in one launch.
 //
 // What bounds them (zamba2: B 1, L 4096, H 80, P 64, N 64, c 64; the
@@ -104,7 +104,7 @@
 // (PERF.md): ssd_chunk_bwd runs one CTA of 8 warps per SM (181 KB of
 // shared memory, ~250 registers a thread), too few to hide the latency of
 // each warp's chains of loads, splits and mma; the carried states' round
-// trips through HBM (ssd_carry) are at the memory's rate.
+// trips through HBM (chunk_carry) are at the memory's rate.
 // Not done yet: wgmma (its tf32 operands must be K-major, and half of these
 // products read a tile the other way), a fused carry (chunk z's CTA waiting
 // on chunk z - 1's state), TMA, prefetching a team's next head.
@@ -270,68 +270,6 @@ __global__ void __launch_bounds__(kSsdThreads, 2) ssd_chunk_state(
     }
     team_sync(cx.team);
   }
-}
-
-// ---- K4 pass 2 (K4b: both directions in one launch): the carry --------------
-
-__device__ __forceinline__ float4 ld_v(const float* p, float4) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float ld_v(const float* p, float) { return *p; }
-__device__ __forceinline__ void st_v(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void st_v(float* p, float v) { *p = v; }
-__device__ __forceinline__ float4 carry_step(float4 s, float d, float4 v) {
-  return make_float4(s.x * d + v.x, s.y * d + v.y, s.z * d + v.z,
-                     s.w * d + v.w);
-}
-__device__ __forceinline__ float carry_step(float s, float d, float v) {
-  return s * d + v;
-}
-
-// blockIdx.y < H: forwards over v, S_0 = 0, v_z <- S_z, S_{z+1} = d_z S_z +
-// v_z, S_nc to fin (when given). blockIdx.y >= H: backwards over g, G_nc =
-// 0, g_z <- G_{z+1}, G_z = d_z G_{z+1} + g_z. d_z = decay[b, h, z]. V is
-// float4 (N P % 4 == 0) or float; each thread takes one V of every chunk.
-// The next eight chunks' loads are issued before this eight's stores.
-template <typename V>
-__global__ void __launch_bounds__(kScanThreads) ssd_carry(
-    float* __restrict__ v, float* __restrict__ g,
-    const float* __restrict__ decay, float* __restrict__ fin, int H, int nc,
-    int NP) {
-  constexpr int kW = sizeof(V) / sizeof(float), kU = 8;
-  const int e = (blockIdx.x * kScanThreads + threadIdx.x) * kW;
-  if (e >= NP) return;
-  const bool rev = blockIdx.y >= H;
-  const int h = rev ? blockIdx.y - H : blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  float* base = (rev ? g : v) + bh * nc * NP + e;
-  const float* d = decay + bh * nc;
-  V cur[kU], nxt[kU];
-  V s{};
-#pragma unroll
-  for (int u = 0; u < kU; ++u)
-    if (u < nc) cur[u] = ld_v(base + (size_t)(rev ? nc - 1 - u : u) * NP, V{});
-  for (int t0 = 0; t0 < nc; t0 += kU) {
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int t = t0 + kU + u;
-      if (t < nc) nxt[u] = ld_v(base + (size_t)(rev ? nc - 1 - t : t) * NP,
-                                V{});
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int t = t0 + u;
-      if (t >= nc) break;
-      const int z = rev ? nc - 1 - t : t;
-      st_v(base + (size_t)z * NP, s);
-      s = carry_step(s, d[z], cur[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) cur[u] = nxt[u];
-  }
-  if (!rev && fin) st_v(fin + bh * NP + e, s);
 }
 
 // ---- K4 pass 3: the outputs -------------------------------------------------
@@ -727,18 +665,6 @@ constexpr size_t kOutSmem = (6 * kTileF + 2 * 3 * kVec) * sizeof(float);
 constexpr size_t kBwdSmem =
     (11 * kTileF + 2 * ((kBwdVecs + 1) * kVec + 16)) * sizeof(float);
 
-int launch_carry(float* v, float* g, const float* decay, float* fin, int B,
-                 int H, int nc, int NP, int dirs, cudaStream_t st) {
-  const dim3 grid4(cdiv(NP, 4 * kScanThreads), dirs * H, B);
-  if (NP % 4 == 0)
-    ssd_carry<float4><<<grid4, kScanThreads, 0, st>>>(v, g, decay, fin, H,
-                                                      nc, NP);
-  else
-    ssd_carry<float><<<dim3(cdiv(NP, kScanThreads), dirs * H, B),
-                       kScanThreads, 0, st>>>(v, g, decay, fin, H, nc, NP);
-  return cudaGetLastError();
-}
-
 template <typename TX>
 int launch_fwd(const void* x, const float* dt, const float* A,
                const float* Bm, const float* Cm, void* y, float* fin,
@@ -755,7 +681,8 @@ int launch_fwd(const void* x, const float* dt, const float* A,
       G);
   err = cudaGetLastError();
   if (err == cudaSuccess)
-    err = launch_carry(states, nullptr, decay, fin, B, H, nc, N * P, 1, st);
+    err = launch_carry(states, nullptr, decay, fin, B, H, nc, N * P, 1, 1,
+                       st);
   if (err != cudaSuccess) return err;
   ssd_chunk_out<TX><<<grid, kSsdThreads, kOutSmem, st>>>(
       xt, dt, A, Bm, Cm, states, static_cast<TX*>(y), L, H, P, N, c, G);
@@ -780,7 +707,7 @@ int launch_bwd(const void* x, const float* dt, const float* A,
       xt, dt, A, Bm, Cm, dyt, states, gstates, decay, L, H, P, N, c, G);
   err = cudaGetLastError();
   if (err == cudaSuccess)
-    err = launch_carry(states, gstates, decay, nullptr, B, H, nc, N * P, 2,
+    err = launch_carry(states, gstates, decay, nullptr, B, H, nc, N * P, 1, 2,
                        st);
   if (err != cudaSuccess) return err;
   ssd_chunk_bwd<TX><<<grid, kSsdThreads, kBwdSmem, st>>>(

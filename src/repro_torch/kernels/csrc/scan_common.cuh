@@ -1,7 +1,7 @@
-// Helpers of the chunked-scan kernels (mamba2_scan.cu, rwkv6_scan.cu): one
-// CTA of 256 threads per chunk holds its operands as 64 x 64 f32 tiles in
-// shared memory (rows and columns past the chunk or the width zero), each
-// thread accumulating a 4 x 4 block of a 64 x 64 product on the CUDA cores.
+// Helpers of the chunked-scan kernels (mamba2_scan.cu, rwkv6_scan.cu): the
+// carry of each chunk's state over the chunks (both directions), the
+// deterministic sum of per-CTA partials, and the launch helpers. The
+// products and the tiles are tf32_tiles.cuh's.
 
 #pragma once
 
@@ -9,50 +9,72 @@
 
 namespace {
 
-constexpr int kT = 64;           // tile edge: chunk, N and P padded to it
-constexpr int kLd = kT + 1;      // shared row stride (floats): no conflicts
-constexpr int kTile = kT * kLd;  // floats per tile
 constexpr int kScanThreads = 256;
 
 using bf16 = __nv_bfloat16;
 
-// acc[r][s] = sum_{k < K} a(i_r, k) * b(k, j_s) for rows i_r = ty + 16 r and
-// columns j_s = tx + 16 s of a 64 x 64 product (ty, tx = thread / 16, % 16).
-template <typename FA, typename FB>
-__device__ __forceinline__ void mm(float (&acc)[4][4], int K, FA a, FB b) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) acc[r][s] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) av[r] = a(ty + 16 * r, k);
-#pragma unroll
-    for (int s = 0; s < 4; ++s) bv[s] = b(k, tx + 16 * s);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(av[r], bv[s], acc[r][s]);
-  }
+__device__ __forceinline__ float4 ld_v(const float* p, float4) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float ld_v(const float* p, float) { return *p; }
+__device__ __forceinline__ void st_v(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st_v(float* p, float v) { *p = v; }
+__device__ __forceinline__ float4 carry_step(float4 s, float d, float4 v) {
+  return make_float4(s.x * d + v.x, s.y * d + v.y, s.z * d + v.z,
+                     s.w * d + v.w);
+}
+__device__ __forceinline__ float carry_step(float s, float d, float v) {
+  return s * d + v;
 }
 
-// The sum of v over the 16 threads that share a row of mm's layout (one
-// half-warp), in every one of them.
-__device__ __forceinline__ float row_sum16(float v) {
+// The carry over chunks. Each (row b, head h, chunk z) holds a state of n
+// floats in `rows` rows of n / rows; the decay of row q over chunk z is
+// d_z = decay[((b H + h) nc + z) rows + q] (Mamba2: one row, the whole
+// state; RWKV-6: a row per key channel). blockIdx.y < H: forwards over v,
+// S_0 = 0, v_z <- S_z, S_{z+1} = d_z S_z + v_z, S_nc to fin (when given).
+// blockIdx.y >= H: backwards over g, G_nc = 0, g_z <- G_{z+1}, G_z = d_z
+// G_{z+1} + g_z. V is float4 (a row's length a multiple of 4) or float;
+// each thread takes one V of every chunk, in one row. The next eight
+// chunks' loads are issued before this eight's stores.
+template <typename V>
+__global__ void __launch_bounds__(kScanThreads) chunk_carry(
+    float* __restrict__ v, float* __restrict__ g,
+    const float* __restrict__ decay, float* __restrict__ fin, int H, int nc,
+    int n, int rows) {
+  constexpr int kW = sizeof(V) / sizeof(float), kU = 8;
+  const int e = (blockIdx.x * kScanThreads + threadIdx.x) * kW;
+  if (e >= n) return;
+  const bool rev = blockIdx.y >= H;
+  const int h = rev ? blockIdx.y - H : blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  float* base = (rev ? g : v) + bh * nc * n + e;
+  const float* d = decay + bh * nc * rows + e / (n / rows);
+  V cur[kU], nxt[kU];
+  V s{};
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// dst[i][j] = f(i, j) for i < rows and j < cols, 0 elsewhere in the tile.
-template <typename F>
-__device__ __forceinline__ void fill(float* dst, int rows, int cols, F f) {
-  for (int e = threadIdx.x; e < kT * kT; e += kScanThreads) {
-    const int i = e / kT, j = e % kT;
-    dst[i * kLd + j] = (i < rows && j < cols) ? f(i, j) : 0.f;
+  for (int u = 0; u < kU; ++u)
+    if (u < nc) cur[u] = ld_v(base + (size_t)(rev ? nc - 1 - u : u) * n, V{});
+  for (int t0 = 0; t0 < nc; t0 += kU) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int t = t0 + kU + u;
+      if (t < nc) nxt[u] = ld_v(base + (size_t)(rev ? nc - 1 - t : t) * n,
+                                V{});
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int t = t0 + u;
+      if (t >= nc) break;
+      const int z = rev ? nc - 1 - t : t;
+      st_v(base + (size_t)z * n, s);
+      s = carry_step(s, d[(size_t)z * rows], cur[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) cur[u] = nxt[u];
   }
+  if (!rev && fin) st_v(fin + bh * n + e, s);
 }
 
 // out[o][i] = sum_m in[o][m][i], m in order: a sum across CTAs from their
@@ -70,6 +92,21 @@ __global__ void __launch_bounds__(kScanThreads) sum_mid(
 }
 
 int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
+
+// chunk_carry over states v (forwards) and, with dirs = 2, g (backwards) in
+// one launch: B rows, H heads, nc chunks of n floats in `rows` rows each.
+int launch_carry(float* v, float* g, const float* decay, float* fin, int B,
+                 int H, int nc, int n, int rows, int dirs, cudaStream_t st) {
+  if ((n / rows) % 4 == 0)
+    chunk_carry<float4><<<dim3(cdiv(n, 4 * kScanThreads), dirs * H, B),
+                          kScanThreads, 0, st>>>(v, g, decay, fin, H, nc, n,
+                                                 rows);
+  else
+    chunk_carry<float><<<dim3(cdiv(n, kScanThreads), dirs * H, B),
+                         kScanThreads, 0, st>>>(v, g, decay, fin, H, nc, n,
+                                                rows);
+  return cudaGetLastError();
+}
 
 // Above 48 KB a kernel must opt in to its dynamic shared memory.
 template <typename K>

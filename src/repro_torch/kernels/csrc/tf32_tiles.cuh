@@ -1,5 +1,5 @@
 // Split-TF32 tensor-core products on 64 x 64 f32 tiles in shared memory,
-// for the chunked Mamba2 scan (mamba2_scan.cu).
+// for the chunked scans (mamba2_scan.cu, rwkv6_scan.cu).
 //
 // Split TF32. An f32 operand a is taken as a_hi = tf32(a) and a_lo =
 // tf32(a - a_hi) (each rounded as cvt.rna rounds), formed in registers as

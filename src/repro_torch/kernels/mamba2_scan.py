@@ -6,7 +6,7 @@ wrapper around hand-written CUDA kernels beside its plain PyTorch version.
 * :func:`ssd_backward_plain` is its gradient by autograd, with the final
   state's cotangent zero.
 * :func:`mamba2_ssd_fwd` (K4) returns ``(y, s_final)``; its kernels
-  (``csrc/mamba2_scan.cu``: ``ssd_chunk_state``, ``ssd_carry``,
+  (``csrc/mamba2_scan.cu``: ``ssd_chunk_state``, ``chunk_carry``,
   ``ssd_chunk_out``) replace the Pallas ``mamba2_ssd`` / ``_kernel`` of
   ``src/repro/kernels/mamba2_scan.py`` and, on the training and prefill
   paths, the XLA ``ssd_chunked``.

@@ -7,7 +7,7 @@ around hand-written CUDA kernels beside its plain PyTorch version.
 * :func:`wkv6_backward_plain` is its gradient by autograd, with the final
   state's cotangent zero.
 * :func:`rwkv6_wkv_fwd` (K5) returns ``(o, s_final)``; its kernels
-  (``csrc/rwkv6_scan.cu``: ``wkv_chunk_state``, ``wkv_state_pass``,
+  (``csrc/rwkv6_scan.cu``: ``wkv_chunk_state``, ``chunk_carry``,
   ``wkv_chunk_out``) replace the Pallas ``rwkv6_wkv`` / ``_kernel`` of
   ``src/repro/kernels/rwkv6_scan.py`` and, on the training and prefill
   paths, the XLA ``wkv6_chunked``.
@@ -32,14 +32,24 @@ model (``exp(-exp(.))``) reaches such w whenever its exponent passes 0.2.
 The kernels take the carried ``[hd,hd]`` state (the Pallas grid's VMEM
 scratch, walked chunk after chunk) in three launches that fill the card: a
 parallel pass over (row, head, chunk) for each chunk's own state and its
-decay, a short sequential pass over chunks per state element (the decay is
-a vector over the key channel), and a parallel pass for the outputs. K5b
+decay, a carry over chunks that streams each state element through them
+(the decay a vector over the key channel), and a parallel pass for the
+outputs. Within a chunk every product runs on the tensor cores in split
+TF32. The pairwise decays ``exp(cp[t] - cs[s])`` differ per channel, so
+the scores are no plain product: the chunk is cut into blocks of 16 rows
+(:func:`plan`), and for a block of rows t above a block of rows s the
+decay factors around reference points (cs at the row before the t-block
+and at the s-block's last row) into factors of at most 1, on r, on k and
+per channel, which makes the block a product; only the diagonal blocks
+keep one exponential per (t, s, channel). K5b
 recomputes the carried states, runs the state cotangent backwards over
-chunks the same way, and takes ``du`` from per-chunk partials summed in a
-fixed order, so the gradient is deterministic. Bounds on an H100 are in
-``csrc/rwkv6_scan.cu``.
+chunks in the same launch, and takes ``du`` from per-chunk partials
+summed in a fixed order, so the gradient is deterministic. Bounds on an
+H100 are in ``csrc/rwkv6_scan.cu``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -49,6 +59,7 @@ CHUNK = 64
 CLIP = 1e-6                  # the reference's clip of w before its log
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HD = 64                  # the kernels' largest head width
+BLOCK = 16                   # rows of a sub-block of the chunk
 
 
 def _chunk(L: int, chunk: int = CHUNK) -> int:
@@ -136,6 +147,29 @@ def _check(r, k, v, w, u, extra=()):
     return B, L, H, hd, _chunk(L)
 
 
+class Plan(NamedTuple):
+    """How the kernels cut one call: the chunk, its sub-blocks of BLOCK
+    rows (the last may be shorter), the ``grid`` of the per-chunk kernels
+    (chunks, heads, B), and the shapes of the scratch the wrappers
+    allocate."""
+    chunk: int
+    blocks: int
+    grid: tuple
+    states: tuple       # carried states (and cotangents) per chunk
+    decays: tuple       # exp(cs_last) per (row, head, chunk, key channel)
+    cs: tuple           # the running sums of log w, for the chunk kernels
+    du_part: tuple      # du's partial per (head, row, chunk)
+
+
+def plan(B: int, L: int, H: int, hd: int) -> Plan:
+    """One CTA per (chunk, head, row) of the chunk kernels; a chunk of c
+    positions is ceil(c / 16) sub-blocks, each taken by one warp."""
+    c = _chunk(L)
+    nc = L // c
+    return Plan(c, -(-c // BLOCK), (nc, H, B), (B, H, nc, hd, hd),
+                (B, H, nc, hd), (B, L, H, hd), (H, B, nc, hd))
+
+
 def rwkv6_wkv_fwd(r, k, v, w, u):
     """The WKV forward, same contract as :func:`wkv6_chunked_plain`
     without ``s0``. CPU tensors take the plain version; CUDA tensors
@@ -144,21 +178,23 @@ def rwkv6_wkv_fwd(r, k, v, w, u):
     if r.device.type == "cpu":
         return wkv6_chunked_plain(r, k, v, w, u)
     B, L, H, hd, c = _check(r, k, v, w, u)
-    nc = L // c
+    pl = plan(B, L, H, hd)
     f32 = dict(dtype=torch.float32, device=r.device)
     o = torch.empty_like(r)
     s_fin = torch.empty((B, H, hd, hd), **f32)
-    # scratch: each chunk's own state (then the state entering it) and its
-    # decay exp(cs[-1]) per key channel
-    states = torch.empty((B, H, nc, hd, hd), **f32)
-    decays = torch.empty((B, H, nc, hd), **f32)
+    # scratch: each chunk's own state (then the state entering it), its
+    # decay exp(cs[-1]) per key channel, and cs
+    states = torch.empty(pl.states, **f32)
+    decays = torch.empty(pl.decays, **f32)
+    cs = torch.empty(pl.cs, **f32)
     lib = _build.library()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.rwkv6_wkv_fwd_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), o.data_ptr(), s_fin.data_ptr(), states.data_ptr(),
-            decays.data_ptr(), B, L, H, hd, c, _DTYPE_CODE[r.dtype], stream)
+            decays.data_ptr(), cs.data_ptr(), B, L, H, hd, c,
+            _DTYPE_CODE[r.dtype], stream)
     _build.check(err, "rwkv6_wkv_fwd")
     rwkv6_wkv_fwd.launches += 1
     return o, s_fin
@@ -178,18 +214,18 @@ def rwkv6_wkv_bwd(r, k, v, w, u, do):
     if do.shape != r.shape or do.dtype != r.dtype:
         raise ValueError(f"do must match r {tuple(r.shape)} {r.dtype}, got "
                          f"{tuple(do.shape)} {do.dtype}")
-    nc = L // c
+    pl = plan(B, L, H, hd)
     f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty((B, L, H, hd), **f32)
     du = torch.empty((H, hd), **f32)
     # scratch: carried states and state cotangents per chunk, the chunks'
-    # decays, the final state, per-chunk partials of du
-    states = torch.empty((B, H, nc, hd, hd), **f32)
-    gstates = torch.empty((B, H, nc, hd, hd), **f32)
-    decays = torch.empty((B, H, nc, hd), **f32)
-    s_fin = torch.empty((B, H, hd, hd), **f32)
-    du_part = torch.empty((H, B, nc, hd), **f32)
+    # decays, cs, per-chunk partials of du
+    states = torch.empty(pl.states, **f32)
+    gstates = torch.empty(pl.states, **f32)
+    decays = torch.empty(pl.decays, **f32)
+    cs = torch.empty(pl.cs, **f32)
+    du_part = torch.empty(pl.du_part, **f32)
     lib = _build.library()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -197,7 +233,7 @@ def rwkv6_wkv_bwd(r, k, v, w, u, do):
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), do.data_ptr(), dr.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dw.data_ptr(), du.data_ptr(), states.data_ptr(),
-            gstates.data_ptr(), decays.data_ptr(), s_fin.data_ptr(),
+            gstates.data_ptr(), decays.data_ptr(), cs.data_ptr(),
             du_part.data_ptr(), B, L, H, hd, c, _DTYPE_CODE[r.dtype], stream)
     _build.check(err, "rwkv6_wkv_bwd")
     rwkv6_wkv_bwd.launches += 1

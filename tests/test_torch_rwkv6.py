@@ -42,7 +42,7 @@ from repro_torch.train import steps as tsteps
 from repro_torch.weights import from_jax_params, to_numpy_tree
 from test_torch_mamba2 import (
     BF16_REL, LOSS_ATOL, REL, _assert_params_close, _assert_tree_close,
-    _batch, _close,
+    _batch, _close, _rule_ratio, _Tf32Matmul,
 )
 
 torch.set_num_threads(1)
@@ -207,6 +207,210 @@ def test_reference_chunked_form_overflows_where_the_port_does_not(w_value):
     assert np.isfinite(port).all()
     np.testing.assert_allclose(port, rec, rtol=0,
                                atol=1e-4 * np.abs(rec).max())
+
+
+# ------------------------------- the kernels' sub-blocks and products ----
+
+def _subblock_pairs(cs, cp, c):
+    """The pairs of the kernels' sub-block form over a chunk of c rows cut
+    into blocks of 16: for each T-block a above an S-block b, (rows t,
+    rows s, exp(cp_t - ref), exp(ref - cs_s)) with ref = cs at block b's
+    last row; cs, cp [..., c, d]. Both factors are at most 1."""
+    starts = list(range(0, c, trs.BLOCK))
+    rows = [slice(a, min(a + trs.BLOCK, c)) for a in starts]
+    out = []
+    for a, ta in enumerate(rows):
+        for sb in rows[:a]:
+            ref = cs[..., sb.stop - 1:sb.stop, :]
+            out.append((ta, sb, torch.exp(cp[..., ta, :] - ref),
+                        torch.exp(ref - cs[..., sb, :])))
+    return rows, out
+
+
+def _chunk_views(r, k, v, w, c):
+    """r, k, v as [b, z, h, c, d] float, and cs, cp of the chunks."""
+    b, l, h, d = r.shape
+    nc = l // c
+    rr, kk, vv = (t.reshape(b, nc, c, h, d).permute(0, 1, 3, 2, 4)
+                  .to(torch.float64 if t.dtype == torch.float64
+                      else torch.float32) for t in (r, k, v))
+    lw = torch.log(w.clamp(trs.CLIP, 1.0)).reshape(b, nc, c, h, d)
+    cs = torch.cumsum(lw.permute(0, 1, 3, 2, 4), dim=3)
+    cp = torch.cat([torch.zeros_like(cs[..., :1, :]), cs[..., :-1, :]], 3)
+    return rr, kk, vv, cs, cp
+
+
+def _subblock_scores(rr, kk, cs, cp, c, mm=torch.matmul):
+    """A [b, z, h, t, s] (s < t) in the sub-block form: each pair as the
+    product ``mm`` of r~ = r exp(cp - ref) and k~ = k exp(ref - cs), each
+    diagonal block with one exponential per (t, s, channel)."""
+    rows, pairs = _subblock_pairs(cs, cp, c)
+    blocks = {}
+    for ta, sb, ft, fs in pairs:
+        blocks[ta.start, sb.start] = mm(rr[..., ta, :] * ft,
+                                        (kk[..., sb, :] * fs).transpose(-1,
+                                                                        -2))
+    strips = []
+    for ta in rows:
+        n = ta.stop - ta.start
+        tri = torch.ones(n, n, dtype=torch.bool).tril(-1)
+        e = torch.exp(torch.where(
+            tri[:, :, None], cp[..., ta, None, :] - cs[..., None, ta, :],
+            float("-inf")))
+        diag = torch.einsum("...td,...tsd,...sd->...ts", rr[..., ta, :], e,
+                            kk[..., ta, :])
+        parts = [blocks[ta.start, sb.start] for sb in rows
+                 if sb.start < ta.start] + [diag]
+        width = sum(p.shape[-1] for p in parts)
+        parts.append(diag.new_zeros(*diag.shape[:-1], c - width))
+        strips.append(torch.cat(parts, dim=-1))
+    return torch.cat(strips, dim=-2)
+
+
+def _wkv_subblocks(r, k, v, w, u, split, chunk=64):
+    """``wkv6_chunked_plain``'s (o, s_final) in the kernels' form: the
+    scores' pairs, A v, the chunk states and the carried state's term as
+    products through _Tf32Matmul (split TF32, or one tf32 product), the
+    diagonal blocks exact, the rest in f32 as the plain version.
+    Differentiable: autograd's backward runs each product's two backward
+    products through _Tf32Matmul too, which is the kernels' backward
+    (dA k~ and dA^T r~ for the pairs, do v^T, A^T do, the state terms)."""
+    b, l, h, d = r.shape
+    c = min(chunk, l)
+    nc = l // c
+    mm = lambda x, y: _Tf32Matmul.apply(x, y, split)      # noqa: E731
+    rr, kk, vv, cs, cp = _chunk_views(r, k, v, w, c)
+    A = _subblock_scores(rr, kk, cs, cp, c, mm)
+    bonus = (rr * u.float()[None, None, :, None, :] * kk).sum(-1)
+    o = mm(A, vv) + bonus[..., None] * vv
+    kd = kk * torch.exp(cs[..., -1:, :] - cs)
+    states = mm(kd.transpose(-1, -2), vv)                  # [b,z,h,d,d]
+    g = torch.exp(cs[..., -1, :])                          # [b,z,h,d]
+    s = torch.zeros(b, h, d, d)
+    prevs = []
+    for z in range(nc):
+        prevs.append(s)
+        s = s * g[:, z, :, :, None] + states[:, z]
+    o = o + mm(rr * torch.exp(cp), torch.stack(prevs, dim=1))
+    return o.permute(0, 1, 3, 2, 4).reshape(b, l, h, d).to(r.dtype), s
+
+
+def _rwkv6_wkv_inputs(seed, near_clip, dtype, b=1, l=256, h=4, d=64):
+    """chip_smoke.py phase 11's draw on numpy: r, k, v, do N(0, 1) in
+    ``dtype``; w = exp(-exp(x)), x uniform in [-6, -1] (RWKV-6's decay
+    init), or near the clip log-uniform in [1e-6, 0.2]; u the bonus at a
+    middle layer (RWKV-6's init)."""
+    rng = np.random.default_rng(seed)
+    f = lambda: torch.from_numpy(                          # noqa: E731
+        rng.standard_normal((b, l, h, d)).astype(np.float32)).to(dtype)
+    r, k, v, do = f(), f(), f(), f()
+    x = rng.random((b, l, h, d))
+    w = (np.exp(np.log(1e-6) + np.log(0.2 / 1e-6) * x) if near_clip
+         else np.exp(-np.exp(-6 + 5 * x)))
+    n = np.arange(h * d) / (h * d - 1)
+    u = 0.5 * (1 - n) + ((np.arange(h * d) + 1) % 3 - 1) * 0.1
+    return (r, k, v, torch.from_numpy(w.astype(np.float32)),
+            torch.from_numpy(u.reshape(h, d).astype(np.float32))), do
+
+
+def _wkv_readings(split, near_clip, dtype):
+    """The smoke's rule's worst ratio for each output of the sub-block form
+    with emulated products against the plain version (o, s_final; the
+    gradients by autograd through the emulated products). dw near the clip
+    is read as phase 11 reads it: w dw to 2**-13 of its largest."""
+    ins, do = _rwkv6_wkv_inputs(11, near_clip, dtype)
+    want = trs.wkv6_chunked_plain(*ins) + trs.wkv6_backward_plain(*ins, do)
+    leaves_ = [t.detach().clone().requires_grad_(True) for t in ins]
+    o, s = _wkv_subblocks(*leaves_, split=split)
+    got = (o.detach(), s.detach()) + torch.autograd.grad(o, leaves_, do)
+    names = ("o", "s_final", "dr", "dk", "dv", "dw", "du")
+    out = {n: _rule_ratio(g, w_) for n, g, w_ in zip(names, got, want)}
+    if near_clip:
+        wdw, ref = (got[5] * ins[3]).double(), (want[5] * ins[3]).double()
+        out["dw"] = ((wdw - ref).abs().max()
+                     / (2.0 ** -13 * ref.abs().max())).item()
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("near_clip", [False, True])
+def test_split_tf32_subblocks_hold_the_smokes_rule(near_clip, dtype):
+    """The kernels' form of the WKV: the scores' pairs of 16-row blocks as
+    products around a reference point and every product (forward, and
+    autograd's backward) in split TF32, the diagonal blocks exact: every
+    output holds chip_smoke.py phase 11's rule against the f32 plain
+    version, at RWKV-6's decays and near the clip, for bf16 and f32 r, k,
+    v. This models the operands' rounding only (test_torch_mamba2's
+    _product says what it leaves out: the tensor core's own truncating
+    sums); phase 11 holds the kernels to the rule on the card."""
+    ratios = _wkv_readings(True, near_clip, dtype)
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+def test_one_tf32_product_fails_the_smokes_rule():
+    """One tf32 product per product (no lo parts) fails s_final and dw at
+    bf16 by more than 4x: why the kernels' products split."""
+    ratios = _wkv_readings(False, False, torch.bfloat16)
+    assert min(ratios["s_final"], ratios["dw"]) > 4, ratios
+
+
+def test_subblock_scores_equal_the_per_element_form():
+    """The reference-point identity: in f64, the scores of the sub-block
+    form (r~ k~^T around cs at each S-block's last row) equal sum_i r k
+    exp(cp_t - cs_s) formed per element, including a chunk of 40 rows (no
+    multiple of 16)."""
+    for l in (128, 40):
+        (r, k, v, w, u), _ = _rwkv6_wkv_inputs(3, False, torch.float64, l=l,
+                                              h=2, d=16)
+        c = min(64, l)
+        rr, kk, _, cs, cp = _chunk_views(r, k, v, w.double(), c)
+        got = _subblock_scores(rr, kk, cs, cp, c)
+        tri = torch.ones(c, c, dtype=torch.bool).tril(-1)
+        e = torch.exp(torch.where(tri[:, :, None],
+                                  cp[..., :, None, :] - cs[..., None, :, :],
+                                  float("-inf")))
+        want = torch.einsum("...td,...tsd,...sd->...ts", rr, e, kk)
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_subblock_factors_stay_within_one_at_the_clip():
+    """At w = 1e-6 (the clip) a 64-row chunk decays by e^-884: the
+    reference's exp(-cs) overflows, but every factor of the sub-block form,
+    exp(cp_t - ref) and exp(ref - cs_s), lies in [0, 1], and the form's
+    outputs are finite."""
+    (r, k, v, _, u), _ = _rwkv6_wkv_inputs(4, False, torch.float32, l=64,
+                                          h=2, d=16)
+    w = torch.full_like(r, 1e-6)
+    _, _, _, cs, cp = _chunk_views(r, k, v, w, 64)
+    _, pairs = _subblock_pairs(cs, cp, 64)
+    assert len(pairs) == 6
+    for _, _, ft, fs in pairs:
+        for f in (ft, fs):
+            assert bool(((f >= 0) & (f <= 1)).all())
+    o, s = _wkv_subblocks(r, k, v, w, u, split=True)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+
+
+@pytest.mark.parametrize("shape,blocks,grid,states,du_part", [
+    ((1, 4096, 40, 64), 4, (64, 40, 1), (1, 40, 64, 64, 64), (40, 1, 64, 64)),
+    ((1, 48, 40, 64), 3, (1, 40, 1), (1, 40, 1, 64, 64), (40, 1, 1, 64)),
+    ((1, 40, 40, 64), 3, (1, 40, 1), (1, 40, 1, 64, 64), (40, 1, 1, 64)),
+    ((4, 256, 40, 64), 4, (4, 40, 4), (4, 40, 4, 64, 64), (40, 4, 4, 64)),
+    ((2, 128, 3, 8), 4, (2, 3, 2), (2, 3, 2, 8, 8), (3, 2, 2, 8))])
+def test_plan_cuts_the_chunk_and_sizes_the_scratch(shape, blocks, grid,
+                                                   states, du_part):
+    """One CTA per (chunk, head, row); a chunk of c rows is ceil(c / 16)
+    sub-blocks (40 rows: 3, the last of 8); the scratch: states
+    [B,H,nc,hd,hd], decays [B,H,nc,hd], cs [B,L,H,hd], du's partials
+    [H,B,nc,hd]."""
+    pl = trs.plan(*shape)
+    B, L, H, hd = shape
+    assert pl.chunk == min(64, L)
+    assert (pl.blocks, pl.grid, pl.states, pl.du_part) == (blocks, grid,
+                                                          states, du_part)
+    assert pl.decays == states[:-1] and pl.cs == shape
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        trs.plan(1, 100, 2, 8)
 
 
 # ------------------------------------------------------------ the model ----
