@@ -191,6 +191,20 @@ random weights from a seed):
 17b. two layers' train step with K6/K6b against their plain versions in
     bf16 and f32, and a control (tile 1's expert id shifted) that must
     fail.
+18. device-initiated syscalls: ``Genesys.invoke`` on CUDA tensors (the
+    kernel of ``csrc/genesys_invoke.cu`` posting GENESYS's slots into
+    mapped host memory) against the plain host entry (the same calls on
+    CPU tensors), at the reference's sizes: the quickstart's pread with
+    ``tie``; Fig. 5's preads of 1, 4 and 16 MB at work-item (4 KB pages),
+    work-group (64 pages) and kernel granularity, every retval and byte
+    equal to the plain entry's and the file's, interrupts one a row or a
+    call; Fig. 6's four ordering x blocking modes over 16 pwritten blocks
+    of 8 KB after 1, 8 and 32 permutations on the card; Fig. 7's 64-row
+    batches of 4, 64 and 512 KB without and with coalescing (bundles of 1,
+    and of 2-8); the ring (``via_ring``); both rule errors with nothing
+    launched; a control (offsets one page on) that must fail; round trips
+    of one blocking CLOCK_GETTIME at each granularity and of 64 rows; and,
+    with the host's poller stopped, a call that gives up after its bound.
 
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
@@ -203,6 +217,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
 import socket
 import statistics
@@ -2892,6 +2907,485 @@ def moe_bucket_vs_eager(torch, mcfg, params, dev) -> dict:
             "held_max_abs_diff": held, "argmax_equal": agree}
 
 
+# ------------------------------- phase 18: device-initiated syscalls ----
+
+PAGE = 4096
+FIG5_MB = (1, 4, 16)
+FIG6_GROUPS, FIG6_BLOCK, FIG6_ITERS = 16, 8192, (1, 8, 32)
+FIG7_CALLS, FIG7_KB = 64, (4, 64, 512)
+INVOKE_REPS = 3              # host-clock reps of each Fig. 5-7 workload
+ROUND_TRIP_REPS = 30         # reps of each round-trip timing
+TIMEOUT_CHECK_S = 2.0        # the bound of phase 18's timeout check
+
+
+def invoke_phase(torch, dev) -> dict:
+    """Phase 18: ``Genesys.invoke`` on the card against its plain host
+    entry (the same call on CPU tensors), at the reference's sizes: the
+    quickstart's read, Fig. 5's granularities, Fig. 6's orderings, Fig.
+    7's coalescing and the ring, the rule errors, a control, a timeout."""
+    import numpy as np
+    from repro_torch.core.genesys import (Genesys, GenesysConfig,
+                                          Granularity as Gr, Ordering as Or,
+                                          Sys)
+    from repro_torch.core.genesys.invoke import pack_args
+    from repro_torch.kernels import genesys_invoke as gi
+
+    work = ROOT / "build" / "smoke_invoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cpu = torch.device("cpu")
+    out = {"reps": INVOKE_REPS}
+    gi.post_rows.launches = 0
+    calls = [0]                  # device invocations of the main drive
+    max_err = [0]                # |device retval - plain retval|, all calls
+
+    def make_file(name: str, nbytes: int, seed: int) -> Path:
+        path = work / name
+        np.random.default_rng(seed).integers(
+            0, 256, nbytes, dtype=np.uint8).tofile(path)
+        return path
+
+    def open_ro(g, path: Path) -> int:
+        fd = g.call(Sys.OPEN, g.heap.register_bytes(str(path).encode()),
+                    os.O_RDONLY, 0)
+        check(fd >= 0, f"open {path}: {fd}")
+        return fd
+
+    def heap_bytes(g, h) -> bytes:
+        return np.asarray(g.heap.resolve(h)).tobytes()
+
+    def same_rets(got, want, what: str) -> None:
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        check(got.shape == want.shape, f"{what}: retval shape {got.shape} "
+              f"vs {want.shape}")
+        max_err[0] = max(max_err[0], int(np.abs(
+            got.astype(np.int64) - want.astype(np.int64)).max(initial=0)))
+        check((got == want).all(), f"{what}: retvals differ from the plain "
+              f"entry's: {got.ravel()[:8]} vs {want.ravel()[:8]}")
+
+    def timed(fn, reps: int = INVOKE_REPS) -> tuple[float, object]:
+        ts, res = [], None
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ts), res
+
+    # the quickstart (examples/quickstart.py): a work-group pread with no
+    # pre-dependency, its result tied into the step's output
+    g = Genesys(GenesysConfig(n_workers=2, coalesce_window_us=100,
+                              coalesce_max=8))
+    try:
+        path = work / "quickstart.f32"
+        np.arange(256, dtype=np.float32).tofile(path)
+        fd = open_ro(g, path)
+        rets = {}
+        for where in (dev, cpu):
+            buf = g.heap.new_buffer(1024)
+            x = torch.ones(4, device=where)
+            res = g.invoke(Sys.PREAD64, pack_args(fd, buf, 1024, 0,
+                                                  device=where),
+                           granularity=Gr.WORK_GROUP,
+                           ordering=Or.RELAXED_CONSUMER, blocking=True,
+                           deps=x)
+            y, n = res.tie(x * 2.0), res.ret64()
+            rets[where.type] = res.retval
+            check(bool((y.cpu() == 2.0).all()), f"quickstart {where}: y {y}")
+            check(int(n) == 1024, f"quickstart {where}: pread returned {n}")
+            check(heap_bytes(g, buf) == path.read_bytes(),
+                  f"quickstart {where}: the buffer is not the file")
+            g.heap.release(buf)
+        calls[0] += 1
+        same_rets(rets["cuda"], rets["cpu"], "quickstart")
+        g.call(Sys.CLOSE, fd)
+        plane = g.device_plane(dev)
+        out["device_attributes"] = plane.attributes
+        print(f"phase 18: {torch.cuda.get_device_name(0)} "
+              f"cudaDevAttrHostNativeAtomicSupported="
+              f"{plane.attributes['host_native_atomics']} "
+              f"(the protocol relies on it either way: no); "
+              f"{plane.area.n_slots} slots in mapped host memory", flush=True)
+    finally:
+        g.shutdown()
+
+    # Fig. 5: pread of 1, 4 and 16 MB at work-item (4 KB pages), work-group
+    # (64 pages) and kernel granularity (benchmarks/fig5_granularity.py)
+    fig5 = []
+    g = Genesys(GenesysConfig(n_workers=4, coalesce_window_us=100,
+                              coalesce_max=16))
+    try:
+        for mb in FIG5_MB:
+            nbytes = mb << 20
+            path = make_file(f"fig5_{mb}MB.bin", nbytes, seed=mb)
+            want = path.read_bytes()
+            fd = open_ro(g, path)
+            for gran, chunk in ((Gr.WORK_ITEM, PAGE),
+                                (Gr.WORK_GROUP, 64 * PAGE),
+                                (Gr.KERNEL, nbytes)):
+                n_chunks = nbytes // chunk
+                row = {"MB": mb, "granularity": gran.value, "calls": 1 if
+                       gran == Gr.WORK_ITEM else n_chunks, "rows": n_chunks}
+                rets = {}
+                for where in (dev, cpu):
+                    bh = g.heap.new_buffer(nbytes)
+                    x = torch.zeros(1, device=where)
+                    if gran == Gr.WORK_ITEM:
+                        args = torch.stack([pack_args(
+                            fd, bh, chunk, i * chunk, i * chunk,
+                            device="cpu") for i in range(n_chunks)]).to(where)
+
+                        def step():
+                            return g.invoke(
+                                Sys.PREAD64, args, granularity=gran,
+                                ordering=Or.STRONG, blocking=True).ret64()
+                    else:
+                        packed = [pack_args(fd, bh, chunk, i * chunk,
+                                            i * chunk, device=where)
+                                  for i in range(n_chunks)]
+
+                        def step():
+                            return torch.stack([g.invoke(
+                                Sys.PREAD64, a, granularity=gran,
+                                ordering=Or.RELAXED_CONSUMER, blocking=True,
+                                deps=x).ret64() for a in packed])
+                    g.drain()
+                    irq0 = g.executor.stats.interrupts
+                    ms, ret = timed(step)
+                    g.drain()
+                    irqs = g.executor.stats.interrupts - irq0
+                    check(irqs == INVOKE_REPS * n_chunks,
+                          f"fig5 {mb} MB {gran.value} on {where.type}: "
+                          f"{irqs} interrupts for {INVOKE_REPS} x "
+                          f"{n_chunks} rows")
+                    check(bool((ret.cpu() == chunk).all()),
+                          f"fig5 {mb} MB {gran.value} on {where.type}: "
+                          f"retvals {ret.cpu()[:4]}")
+                    check(heap_bytes(g, bh) == want,
+                          f"fig5 {mb} MB {gran.value} on {where.type}: the "
+                          f"buffer is not the file")
+                    rets[where.type] = ret
+                    row[f"{where.type}_ms"] = ms
+                    row[f"{where.type}_interrupts"] = irqs // INVOKE_REPS
+                    g.heap.release(bh)
+                calls[0] += INVOKE_REPS * row["calls"]
+                same_rets(rets["cuda"], rets["cpu"],
+                          f"fig5 {mb} MB {gran.value}")
+                print(f"fig5 pread {mb} MB {gran.value}: {row['rows']} rows "
+                      f"in {row['calls']} calls, device {row['cuda_ms']:.3f} "
+                      f"ms, plain {row['cpu_ms']:.3f} ms, interrupts "
+                      f"{row['cuda_interrupts']} a run", flush=True)
+                fig5.append(row)
+            g.call(Sys.CLOSE, fd)
+    finally:
+        g.shutdown()
+    out["fig5"] = fig5
+
+    # Fig. 6: 16 blocks of 8 KB permuted on the card, then pwritten at
+    # work-group granularity in the four {strong, weak} x {blocking,
+    # non-blocking} modes (benchmarks/fig6_ordering.py)
+    fig6 = []
+    g = Genesys(GenesysConfig(n_workers=4))
+    try:
+        path = work / "fig6.bin"
+        fd = g.call(Sys.OPEN, g.heap.register_bytes(str(path).encode()),
+                    os.O_CREAT | os.O_WRONLY, 0o644)
+        out_h = g.heap.new_buffer(FIG6_GROUPS * FIG6_BLOCK)
+        perm = torch.as_tensor(np.random.default_rng(0).permutation(
+            FIG6_BLOCK), device=dev)
+        data = torch.as_tensor(np.random.default_rng(1).integers(
+            0, 255, size=(FIG6_GROUPS, FIG6_BLOCK), dtype=np.uint8).astype(
+                np.float32), device=dev)
+        packed = [pack_args(fd, out_h, FIG6_BLOCK, i * FIG6_BLOCK,
+                            i * FIG6_BLOCK, device=dev)
+                  for i in range(FIG6_GROUPS)]
+        modes = {"strong-block": (Or.STRONG, True),
+                 "strong-nonblock": (Or.STRONG, False),
+                 "weak-block": (Or.RELAXED_PRODUCER, True),
+                 "weak-nonblock": (Or.RELAXED_PRODUCER, False)}
+        for iters in FIG6_ITERS:
+            for name, (ordering, blocking) in modes.items():
+                def step():
+                    y = data
+                    for _ in range(iters):
+                        y = y[:, perm]
+                    outs, rets = y.sum(), []
+                    for a in packed:
+                        res = g.invoke(Sys.PWRITE64, a,
+                                       granularity=Gr.WORK_GROUP,
+                                       ordering=ordering, blocking=blocking,
+                                       deps=y)
+                        if blocking:
+                            outs = res.tie(outs)
+                            rets.append(res.ret64())
+                    return outs, rets
+
+                def once():
+                    res = step()
+                    g.drain()
+                    return res
+                os.truncate(path, 0)
+                ms, (outs, rets) = timed(once)
+                check(path.stat().st_size == FIG6_GROUPS * FIG6_BLOCK,
+                      f"fig6 {name} x{iters}: the file holds "
+                      f"{path.stat().st_size} bytes")
+                check(bool(torch.isfinite(outs)), f"fig6 {name}: {outs}")
+                check(all(int(r) == FIG6_BLOCK for r in rets),
+                      f"fig6 {name}: pwrite returned {rets}")
+                calls[0] += INVOKE_REPS * FIG6_GROUPS
+                fig6.append({"iters": iters, "mode": name, "ms": ms,
+                             "us_per_iter": 1e3 * ms / iters})
+                print(f"fig6 iters {iters} {name}: {ms:.3f} ms", flush=True)
+        g.call(Sys.CLOSE, fd)
+    finally:
+        g.shutdown()
+    out["fig6"] = fig6
+
+    # Fig. 7: 64-row work-item preads of 4, 64 and 512 KB without and with
+    # interrupt coalescing (benchmarks/fig7_coalescing.py)
+    fig7 = []
+    for label, kw in (("nocoalesce", dict(coalesce_window_us=0,
+                                          coalesce_max=1)),
+                      ("coalesce8", dict(coalesce_window_us=300,
+                                         coalesce_max=8))):
+        gs = {w: Genesys(GenesysConfig(n_workers=2, **kw))
+              for w in ("cuda", "cpu")}
+        try:
+            path = make_file(f"fig7_{label}.bin", 8 << 20, seed=7)
+            fds = {w: open_ro(gw, path) for w, gw in gs.items()}
+            for kb in FIG7_KB:
+                nb = kb << 10
+                rets, bufs, row = {}, {}, {"coalesce": label, "KB": kb}
+                for where in (dev, cpu):
+                    gw = gs[where.type]
+                    bh = gw.heap.new_buffer(nb * FIG7_CALLS)
+                    args = torch.stack([pack_args(
+                        fds[where.type], bh, nb, i * nb, i * nb,
+                        device="cpu") for i in range(FIG7_CALLS)]).to(where)
+                    ms, ret = timed(lambda: gw.invoke(
+                        Sys.PREAD64, args, granularity=Gr.WORK_ITEM,
+                        ordering=Or.STRONG, blocking=True).ret64())
+                    rets[where.type] = ret
+                    bufs[where.type] = heap_bytes(gw, bh)
+                    row[f"{where.type}_ms"] = ms
+                    gw.heap.release(bh)
+                calls[0] += INVOKE_REPS
+                same_rets(rets["cuda"], rets["cpu"], f"fig7 {label} {kb} KB")
+                check(bufs["cuda"] == bufs["cpu"],
+                      f"fig7 {label} {kb} KB: the buffers differ")
+                fig7.append(row)
+            for w, gw in gs.items():
+                gw.drain()
+                hist = dict(gw.executor.stats.coalesce_hist)
+                fig7.append({"coalesce": label, "entry": w,
+                             "coalesce_hist": hist,
+                             "mean_bundle": gw.executor.stats.mean_coalesce()})
+                if w == "cuda" and label == "nocoalesce":
+                    check(max(hist) == 1, f"fig7 nocoalesce: bundles {hist}")
+                if w == "cuda" and label == "coalesce8":
+                    check(1 < max(hist) <= 8, f"fig7 coalesce8: bundles "
+                          f"{hist}")
+                print(f"fig7 {label} {w}: bundles {sorted(hist.items())}, "
+                      f"mean {gw.executor.stats.mean_coalesce():.2f}",
+                      flush=True)
+            for w, gw in gs.items():
+                gw.call(Sys.CLOSE, fds[w])
+        finally:
+            for gw in gs.values():
+                gw.shutdown()
+    for row in fig7:
+        if "KB" in row:
+            print(f"fig7 {row['coalesce']} {row['KB']} KB x {FIG7_CALLS}: "
+                  f"device {row['cuda_ms']:.3f} ms, plain "
+                  f"{row['cpu_ms']:.3f} ms", flush=True)
+    out["fig7"] = fig7
+
+    # the ring (tests/test_uring.py's invoke via_ring case), blocking and
+    # not: the same results and ring counters as the plain entry's
+    ring = {}
+    g = Genesys(GenesysConfig(n_workers=2, coalesce_window_us=100,
+                              coalesce_max=8))
+    try:
+        path = work / "ring.bin"
+        path.write_bytes(bytes(range(64)))
+        fd = open_ro(g, path)
+        for blocking in (True, False):
+            rets = {}
+            for where in (dev, cpu):
+                bh = g.heap.new_buffer(64)
+                args = torch.stack([pack_args(fd, bh, 16, 16 * i, 16 * i,
+                                              device="cpu")
+                                    for i in range(4)]).to(where)
+                g.drain()
+                s0 = g.executor.counters.snapshot()
+                res = g.invoke(Sys.PREAD64, args,
+                               granularity=Gr.WORK_ITEM,
+                               ordering=Or.STRONG, blocking=blocking,
+                               via_ring=True)
+                g.drain()
+                s1 = g.executor.counters.snapshot()
+                d = {k: s1[k] - s0[k] for k in ("interrupts", "processed",
+                                                 "ring_processed")}
+                check(d == {"interrupts": 0, "processed": 4,
+                            "ring_processed": 4},
+                      f"ring on {where.type}: counters moved by {d}")
+                check(heap_bytes(g, bh) == bytes(range(64)),
+                      f"ring on {where.type}: the buffer is not the file")
+                check((res.retval is None) == (not blocking),
+                      f"ring on {where.type}: retval {res.retval}")
+                rets[where.type] = res.retval
+                ring[f"{where.type}_{'block' if blocking else 'nonblock'}"] \
+                    = d
+                g.heap.release(bh)
+            calls[0] += 1
+            if blocking:
+                same_rets(rets["cuda"], rets["cpu"], "ring")
+                check(rets["cuda"][:, 0].tolist() == [16] * 4,
+                      f"ring: retvals {rets['cuda']}")
+        out["ring"] = ring
+        launches = gi.post_rows.launches
+        check(launches == calls[0], f"phase 18 launched the kernel "
+              f"{launches} times for {calls[0]} device calls")
+
+        # the rules, raised before anything is launched
+        irq0 = g.executor.stats.interrupts
+        one = pack_args(0, device=dev)
+        for what, kw in (("deadlock", dict(granularity=Gr.KERNEL,
+                                           ordering=Or.STRONG)),
+                         ("implicit strong", dict(
+                             granularity=Gr.WORK_ITEM,
+                             ordering=Or.RELAXED_PRODUCER)),
+                         ("batched args", dict(
+                             granularity=Gr.WORK_GROUP,
+                             ordering=Or.RELAXED_CONSUMER))):
+            a = one[None] if what == "batched args" else one
+            try:
+                g.invoke(Sys.CLOCK_GETTIME, a, **kw)
+            except ValueError as e:
+                check(what in str(e), f"rule {what}: raised {e}")
+            else:
+                raise SmokeFailure(f"rule {what}: nothing raised")
+        check(gi.post_rows.launches == launches
+              and g.executor.stats.interrupts == irq0,
+              "a refused call launched or rang")
+
+        # the control: Fig. 5's 1 MB work-item batch, every file offset one
+        # page on, must fail the byte comparison
+        path = work / "fig5_1MB.bin"
+        want = path.read_bytes()
+        fd1 = open_ro(g, path)
+        bh = g.heap.new_buffer(1 << 20)
+        args = torch.stack([pack_args(fd1, bh, PAGE, (i + 1) * PAGE,
+                                      i * PAGE, device="cpu")
+                            for i in range(256)]).to(dev)
+        ret = g.invoke(Sys.PREAD64, args, granularity=Gr.WORK_ITEM,
+                       ordering=Or.STRONG, blocking=True).ret64().cpu()
+        control_equal = heap_bytes(g, bh) == want
+        check(not control_equal, "control: pages read one page on still "
+              "equal the file")
+        out["control"] = {"bytes_equal": control_equal,
+                          "retvals_0": int((ret == 0).sum())}
+        g.heap.release(bh)
+        g.call(Sys.CLOSE, fd1)
+        g.call(Sys.CLOSE, fd)
+    finally:
+        g.shutdown()
+
+    # round trips of one blocking CLOCK_GETTIME at each granularity, and of
+    # a 64-row work-item batch; device time from CUDA events around the
+    # call, host time of the call and a sync; the plain entry's host time
+    rt = []
+    g = Genesys(GenesysConfig(n_workers=2))
+    try:
+        for label, gran, ordering, n in (
+                ("work_item", Gr.WORK_ITEM, Or.STRONG, 1),
+                ("work_group", Gr.WORK_GROUP, Or.STRONG, 0),
+                ("kernel", Gr.KERNEL, Or.RELAXED_CONSUMER, 0),
+                ("work_item_64", Gr.WORK_ITEM, Or.STRONG, 64)):
+            row = {"call": label, "rows": max(n, 1)}
+            for where in (dev, cpu):
+                a = pack_args(0, device=where)
+                if n:
+                    a = a.expand(n, 6, 2).contiguous()
+                dev_ms, host_ms = [], []
+                for _ in range(ROUND_TRIP_REPS):
+                    if where.type == "cuda":
+                        torch.cuda.synchronize()
+                        s, e = (torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True))
+                        t0 = time.perf_counter()
+                        s.record()
+                        res = g.invoke(Sys.CLOCK_GETTIME, a,
+                                       granularity=gran, ordering=ordering)
+                        e.record()
+                        torch.cuda.synchronize()
+                        host_ms.append(1e3 * (time.perf_counter() - t0))
+                        dev_ms.append(s.elapsed_time(e))
+                    else:
+                        t0 = time.perf_counter()
+                        res = g.invoke(Sys.CLOCK_GETTIME, a,
+                                       granularity=gran, ordering=ordering)
+                        host_ms.append(1e3 * (time.perf_counter() - t0))
+                    check(bool((res.retval[..., 1].cpu() >= 0).all()
+                               and (res.ret64().cpu() != 0).any()),
+                          f"round trip {label}: retval {res.retval}")
+                if where.type == "cuda":
+                    row["ms"] = statistics.median(dev_ms)
+                    row["host_ms"] = statistics.median(host_ms)
+                else:
+                    row["plain_ms"] = statistics.median(host_ms)
+            # the bytes a call must move: its args read, a slot line
+            # written and its retval written, per row
+            row["bound_ms"] = bound_ms(row["rows"] * (48 + 64 + 8), 0,
+                                       "float32")[0]
+            rt.append(row)
+            print(f"round trip {label} ({row['rows']} rows): device "
+                  f"{row['ms']:.4f} ms, with launch and sync "
+                  f"{row['host_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms",
+                  flush=True)
+    finally:
+        g.shutdown()
+    out["round_trip"] = rt
+
+    # the bound: with the poller stopped, a blocking call gives up after
+    # its bound, returns -ETIMEDOUT and the next barrier raises
+    g = Genesys(GenesysConfig(n_workers=2))
+    try:
+        plane = g.device_plane(dev)
+        plane.timeout_s = TIMEOUT_CHECK_S
+        plane.poller.stop()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = g.invoke(Sys.CLOCK_GETTIME, pack_args(0, device=dev),
+                       granularity=Gr.WORK_GROUP, ordering=Or.STRONG)
+        torch.cuda.synchronize()
+        waited = time.perf_counter() - t0
+        ret = int(res.ret64())
+        try:
+            g.drain()
+        except TimeoutError as e:
+            raised = str(e)
+        else:
+            raised = None
+        check(raised is not None, "timeout: drain did not raise")
+        check(ret == -gi.ETIMEDOUT, f"timeout: retval {ret}")
+        check(TIMEOUT_CHECK_S <= waited < TIMEOUT_CHECK_S + 3.0,
+              f"timeout: the call took {waited:.2f} s for a "
+              f"{TIMEOUT_CHECK_S} s bound")
+        out["timeout"] = {"bound_s": TIMEOUT_CHECK_S, "waited_s": waited,
+                          "retval": ret, "raised": raised}
+        print(f"timeout check: the call gave up after {waited:.3f} s "
+              f"(bound {TIMEOUT_CHECK_S} s), retval {ret}, drain raised "
+              f"'{raised}'", flush=True)
+    finally:
+        g.shutdown()
+    shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = launches
+    out["max_abs_err"] = max_err[0]
+    return out
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -3176,6 +3670,9 @@ def run(torch) -> int:
         control_label="tile 1's expert id shifted in every expert product",
         pin_routing=True)
     mark("17b")
+    # phase 18: device-initiated syscalls, Genesys.invoke on the card
+    invoke = invoke_phase(torch, dev)
+    mark("18")
 
     bf16 = decode_cases[0]
     kernels = [
@@ -3289,6 +3786,22 @@ def run(torch) -> int:
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "pass": True, "cases": gmm_cases[kind]
             + ([{"ragged": gmm_cases["ragged"]}] if kind == "fwd" else [])})
+    # the device entry of Genesys.invoke: one blocking CLOCK_GETTIME at
+    # work-group granularity, the device's round trip against the plain
+    # host entry's; the call is latency, so the bytes bound is no roofline
+    wg = next(r for r in invoke["round_trip"] if r["call"] == "work_group")
+    kernels.append({
+        "name": "genesys_invoke", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/genesys_invoke.cu",
+        "replaces": "src/repro/core/genesys/invoke.py:568",
+        "launches": invoke["launches"],
+        "max_abs_err": invoke["max_abs_err"], "ms": wg["ms"],
+        "plain_ms": wg["plain_ms"], "bound_ms": wg["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "bound_note": "latency: a PCIe round trip and the host's dispatch "
+                      "of the call, which no bytes or operations bound "
+                      "describes",
+        "pass": True, "cases": invoke["round_trip"]})
     print(json.dumps({"kernels": kernels, "main_path": dict(
         sc_main, build_s=build_s, logits_bf16_max_abs_diff=d_bf16,
         step_alone_ms=alone_ms, step_device_busy_ms=busy_ms,
@@ -3299,6 +3812,7 @@ def run(torch) -> int:
                                          "serve": zserve},
         "ssm": {"train_path": rtrain, "serve": rserve},
         "moe": {"serve": mserve, "train_path": mtrain},
+        "invoke": invoke,
         "phase_end_s": phase_end_s, "wall_s": time.perf_counter() - t_start}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

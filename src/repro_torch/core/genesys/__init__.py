@@ -1,7 +1,9 @@
 """GENESYS: generic device-initiated system calls (Vesely et al., 2017),
-host plane of the PyTorch port (a copy of ``repro.core.genesys`` whose
-``invoke`` module keeps the host side only: the device-initiated entry
-``Genesys.invoke`` is the next slice of the port).
+in the PyTorch port on a CUDA card: a copy of ``repro.core.genesys``
+whose ``invoke`` module takes the device-initiated entry to the card
+(``Genesys.invoke`` on CUDA tensors runs a hand-written kernel that posts
+the slots into mapped host memory; ``device.py`` holds the slot area and
+the host thread that answers it; CPU tensors take the host entry).
 
 The public façade is :class:`repro_torch.core.genesys.invoke.Genesys`; semantics
 knobs mirror the paper: invocation granularity (WORK_ITEM / WORK_GROUP /

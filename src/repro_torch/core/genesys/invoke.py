@@ -1,23 +1,34 @@
-"""The GENESYS host façade: slot area, executor, rings, tenants, telemetry.
+"""The GENESYS invocation façade: granularity x ordering x blocking.
 
-This is the host side of ``repro.core.genesys.invoke`` (the JAX package),
-kept without its device-initiated entry. The invocation design space of
-the paper (§4.1) is still named here, because the host plane's callers
-and the later device entry share it:
+Paper §4.1's design space, mapped to PyTorch on a CUDA card:
 
-  granularity   WORK_ITEM   one slot per element of a batched request
-                WORK_GROUP  one slot per device shard
-                KERNEL      one slot per step
+  granularity   WORK_ITEM   one slot per row of a batched request
+                WORK_GROUP  one slot per call of a work-group
+                KERNEL      one slot per call of a kernel
 
   ordering      STRONG            pre- AND post-dependency (barriers both sides)
                 RELAXED_PRODUCER  pre-dependency only (write/send-like calls)
                 RELAXED_CONSUMER  post-dependency only (read/recv-like calls)
 
-The device-initiated entry (``pack_args``, ``InvokeResult`` and
-``Genesys.invoke``) is the next slice of the port: ``Genesys.invoke``
-raises ``NotImplementedError`` until then. Syscall args travel as
-``(lo, hi)`` int32 pairs on that path; the packing helpers below stay
-because the host plane joins such rows.
+  blocking      True   retval returned as a tensor
+                False  fire-and-forget; Genesys.drain() is the §8.3 barrier
+
+Constraints enforced before anything runs (paper §4.1):
+  * WORK_ITEM supports only (implicit) STRONG ordering;
+  * KERNEL granularity forbids STRONG ordering — on the GPU it deadlocks the
+    hardware (not all work-items fit on the machine).
+
+Syscall args travel as (lo, hi) int32 pairs: shape [6, 2] (or [n, 6, 2]
+for WORK_ITEM batches), as in the JAX package, whose ``invoke`` reaches the
+host through a host callback inside the jitted step. Here args on the CPU
+take that same host entry (``Genesys._host_entry``); args on a CUDA card
+take the device entry (``core/genesys/device.py``): a hand-written kernel
+(``kernels/csrc/genesys_invoke.cu``) posts the slots into mapped host
+memory, one thread a row, and a host thread rings the executor. On the
+card a stream carries the barriers: STRONG and RELAXED_PRODUCER calls
+launch on the caller's current stream, after all earlier work;
+RELAXED_CONSUMER calls launch on a side stream that does not wait for it,
+and a blocking one makes the caller's stream wait for the call.
 """
 from __future__ import annotations
 
@@ -26,8 +37,10 @@ from dataclasses import dataclass
 from enum import Enum
 
 import numpy as np
+import torch
+from torch.utils import _pytree as pytree
 
-from repro_torch.core.genesys.area import SyscallArea, Ticket
+from repro_torch.core.genesys.area import FLAG_BLOCKING, SyscallArea, Ticket
 from repro_torch.core.genesys.completion import Completion
 from repro_torch.core.genesys.executor import Executor
 from repro_torch.core.genesys.heap import HostHeap
@@ -105,6 +118,32 @@ def _join64(lo, hi) -> int:
     return ((int(hi) & 0xFFFFFFFF) << 32) | (int(lo) & 0xFFFFFFFF)
 
 
+# set on a pack_args result whose values were copied to the card
+# synchronously: a call with no pre-dependency need not wait for them
+_ARGS_READY = "_genesys_args_ready"
+
+
+def pack_args(*vals, device="cuda") -> torch.Tensor:
+    """Pack up to 6 syscall args into a [6, 2] int32 tensor on ``device``.
+    Python ints split into (lo, hi); a 0-d tensor packs into the lo word,
+    as a traced scalar does in the JAX package."""
+    if len(vals) > 6:
+        raise ValueError(f"a syscall takes at most 6 args, got {len(vals)}")
+    words = np.zeros((6, 2), dtype=np.int32)
+    scalars = []
+    for i, v in enumerate(vals):
+        if isinstance(v, (int, np.integer)):
+            words[i] = _split64(int(v))
+        else:
+            scalars.append((i, v))
+    out = torch.from_numpy(words).to(device)
+    for i, v in scalars:
+        out[i, 0] = torch.as_tensor(v).to(out.device, torch.int32)
+    if not scalars and out.device.type == "cuda":
+        setattr(out, _ARGS_READY, True)
+    return out
+
+
 def _np_join_batch(rows: np.ndarray) -> np.ndarray:
     """Vectorized arg-join: ``[k, 6, 2]`` int32 (lo, hi) pairs ->
     ``[k, 6]`` uint64 in two numpy ops — no per-call, per-arg Python
@@ -114,6 +153,49 @@ def _np_join_batch(rows: np.ndarray) -> np.ndarray:
     lo = r[..., 0].astype(np.uint64) & m32
     hi = r[..., 1].astype(np.uint64) & m32
     return (hi << np.uint64(32)) | lo
+
+
+# ---------- data-dependency "barriers" ----------------------------------------
+
+def _fold(tree) -> torch.Tensor:
+    """Reduce a pytree of tensors to a zero-valued f32 scalar that still
+    depends on every leaf (the pre-barrier)."""
+    leaves = [l for l in pytree.tree_leaves(tree)
+              if isinstance(l, torch.Tensor) or hasattr(l, "dtype")]
+    z = None
+    for l in leaves:
+        lf = torch.as_tensor(l)
+        term = lf.reshape(-1)[0].to(torch.float32) * 0.0
+        z = term if z is None else z + term.to(z.device)
+    return torch.zeros((), dtype=torch.float32) if z is None else z
+
+
+def _tie(tree, tag: torch.Tensor):
+    """Return `tree` with every leaf made dependent on `tag` (==0)."""
+    def one(l):
+        lf = torch.as_tensor(l)
+        return lf + tag.to(lf.device, lf.dtype)
+    return pytree.tree_map(one, tree)
+
+
+@dataclass
+class InvokeResult:
+    """Outcome of a GENESYS invocation, on the args' device."""
+    retval: torch.Tensor | None   # int32 [2] (lo,hi) or [n,2]; None if non-blocking
+    _tag: torch.Tensor | None
+
+    def ret64(self) -> torch.Tensor | None:
+        """Return value as (lo) int32 — sufficient for sizes/fds/errnos."""
+        if self.retval is None:
+            return None
+        return self.retval[..., 0]
+
+    def tie(self, tree):
+        """Make `tree` depend on syscall completion (the post-barrier).
+        Identity for relaxed-producer / non-blocking invocations."""
+        if self._tag is None:
+            return tree
+        return _tie(tree, self._tag)
 
 
 class Genesys:
@@ -151,6 +233,9 @@ class Genesys:
         # time-series registry (the metrics property)
         self._ext_stats: dict[str, object] = {}
         self._metrics = None
+        # the device entry's slot area and poller (created on the first
+        # invocation with args on a card; see device.py)
+        self._device = None
         if config.trace:
             self._tracer_locked()
 
@@ -197,6 +282,11 @@ class Genesys:
         return self.area.wait(ticket, timeout=timeout)
 
     def drain(self) -> None:
+        device = self._device
+        if device is not None:
+            # calls the card has posted, or will post once its stream gets
+            # there, reach the executor first
+            device.drain()
         self.executor.drain()
 
     def shutdown(self) -> None:
@@ -204,6 +294,14 @@ class Genesys:
             ring, self._ring = self._ring, None
             tenants, self._tenants = dict(self._tenants), {}
             sched, self._sched = self._sched, None
+            device, self._device = self._device, None
+        try:
+            if device is not None:
+                device.close()
+        finally:
+            self._shutdown_host(ring, tenants, sched)
+
+    def _shutdown_host(self, ring, tenants, sched) -> None:
         if sched is not None:
             sched.stop()
         for t in tenants.values():
@@ -469,10 +567,136 @@ class Genesys:
         return self.ring.reap(max_n, timeout=timeout)
 
     # ------------- device-initiated entry ----------------------------------
-    def invoke(self, sysno, args, **kwargs):
-        """Invoke a system call from inside a device computation: the
-        next slice of the port (the device-initiated entry, with its
-        granularity, ordering and blocking rules). Not available yet."""
-        raise NotImplementedError(
-            "Genesys.invoke (device-initiated syscalls) is the next slice "
-            "of the PyTorch port; this package has the host plane only")
+    def _host_entry(self, blocking: bool, via_ring: bool,
+                    sysno_np, args_np, hw_np):
+        """The host entry: post slot(s), ring doorbell or SQ, maybe wait."""
+        sysno = int(np.asarray(sysno_np).reshape(()))
+        hw = int(np.asarray(hw_np).reshape(()))
+        a = np.asarray(args_np)
+        batched = a.ndim == 3
+        rows = a if batched else a[None]
+        # vectorized arg-join: [k,6,2] (lo,hi) int32 -> [k,6] uint64 in two
+        # numpy ops, shared by both delivery paths
+        joined = _np_join_batch(rows)
+        if via_ring:
+            comps = self.ring.submit_np(sysno, joined, hw_id=hw)
+            if not blocking:
+                return np.zeros((len(rows), 2) if batched else (2,), np.int32)
+            rets = np.array([_split64(c.result()) for c in comps],
+                            dtype=np.int32)
+            return rets if batched else rets[0]
+        tickets = []
+        for r in joined:
+            t = self.area.acquire(hw)
+            self.area.post(t, sysno, r, blocking)
+            self.executor.interrupt(t.slot)
+            tickets.append(t)
+        if not blocking:
+            return np.zeros((len(rows), 2) if batched else (2,), np.int32)
+        rets = np.array([_split64(self.area.wait(t)) for t in tickets],
+                        dtype=np.int32)
+        return rets if batched else rets[0]
+
+    def device_plane(self, device):
+        """The device entry's plane on ``device`` (created on first use:
+        the mapped slot area, the owner words, the poller)."""
+        from repro_torch.core.genesys.device import DevicePlane
+        device = torch.device(device)
+        with self._lock:
+            if self._device is None:
+                self._device = DevicePlane(self, device)
+            plane = self._device
+        if plane.device.type != device.type or (
+                device.index is not None
+                and plane.device.index != device.index):
+            raise ValueError(f"this Genesys invokes from {plane.device}, "
+                             f"not {device}")
+        return plane
+
+    def _device_entry(self, sysno: int, args: torch.Tensor, *, blocking,
+                      via_ring, hw_id: int, ordering):
+        """The device entry: a kernel posts one slot per row into mapped
+        host memory. Returns the retval tensor and the post-barrier's tag,
+        both written by the kernel (None, None if non-blocking): nothing
+        more is queued on the caller's stream after the launch, where each
+        PyTorch call would hand the GIL to the host plane's threads while
+        they answer the card."""
+        from repro_torch.core.genesys import device as dv
+        plane = self.device_plane(args.device)
+        flags = ((FLAG_BLOCKING if blocking else 0)
+                 | (dv.FLAG_RING if via_ring else 0))
+        rows = (args if args.dim() == 3 else args[None]).contiguous()
+        out = tag = None
+        if blocking:
+            out = torch.empty(args.shape[:-2] + (2,), dtype=torch.int32,
+                              device=args.device)
+            tag = torch.empty((), dtype=torch.float32, device=args.device)
+        current = torch.cuda.current_stream(args.device)
+        if ordering != Ordering.RELAXED_CONSUMER:
+            plane.post(rows, sysno=sysno, flags=flags, hw_id=hw_id,
+                       stream=current, out=out, tag=tag)
+            return out, tag
+        # no pre-dependency: the side stream waits only for args that may
+        # still be in flight on the caller's stream
+        if not getattr(args, _ARGS_READY, False):
+            plane.side.wait_stream(current)
+        plane.post(rows, sysno=sysno, flags=flags, hw_id=hw_id,
+                   stream=plane.side, out=out, tag=tag)
+        rows.record_stream(plane.side)
+        if blocking:
+            current.wait_stream(plane.side)
+        return out, tag
+
+    def invoke(self, sysno, args: torch.Tensor, *,
+               granularity: Granularity = Granularity.WORK_GROUP,
+               ordering: Ordering = Ordering.STRONG,
+               blocking: bool = True,
+               deps=None, hw_id=0, via_ring: bool = False) -> InvokeResult:
+        """Invoke a system call from a device computation.
+
+        ``args``: [6,2] int32 from :func:`pack_args` (or [n,6,2] for
+        WORK_ITEM batches — one slot per row). Args on the CPU take the
+        host entry; args on a CUDA card take the device entry (a kernel,
+        one thread a row), which returns once the call is queued on the
+        card: the retval tensor fills when the kernel ends.
+
+        ``via_ring=True`` routes the call through the genesys.uring
+        submission ring instead of the doorbell-interrupt path: batched
+        WORK_ITEM rows become one multi-entry submission, and blocking
+        results are reaped out of order via Completion futures.
+        """
+        if granularity == Granularity.WORK_ITEM and ordering != Ordering.STRONG:
+            raise ValueError(
+                "work-item granularity supports only implicit strong ordering "
+                "(paper §4.1)")
+        if granularity == Granularity.KERNEL and ordering == Ordering.STRONG:
+            raise ValueError(
+                "strong ordering at kernel granularity can deadlock the "
+                "machine (paper §4.1) — use a relaxed ordering")
+        ready = getattr(args, _ARGS_READY, False)
+        args = torch.as_tensor(args).to(torch.int32)
+        batched = args.dim() == 3
+        if batched and granularity != Granularity.WORK_ITEM:
+            raise ValueError("batched args require WORK_ITEM granularity")
+
+        # pre-barrier: producers (and strong) must wait for prior work
+        if deps is not None and ordering in (Ordering.STRONG,
+                                             Ordering.RELAXED_PRODUCER):
+            args = args + _fold(deps).to(args.device, torch.int32)
+        elif ready:
+            setattr(args, _ARGS_READY, True)
+
+        sysno, hw_id = int(sysno), int(hw_id)
+        if args.device.type == "cpu":
+            ret = torch.from_numpy(self._host_entry(
+                blocking, via_ring, np.asarray(sysno, np.int32), args.numpy(),
+                np.asarray(hw_id)))
+            tag = ret.sum().to(torch.float32) * 0.0 if blocking else None
+        else:
+            ret, tag = self._device_entry(
+                sysno, args, blocking=blocking, via_ring=via_ring,
+                hw_id=hw_id, ordering=ordering)
+        # post-barrier: consumers (and strong) gate downstream work on retval
+        if blocking and ordering in (Ordering.STRONG, Ordering.RELAXED_CONSUMER):
+            return InvokeResult(retval=ret, _tag=tag)
+        return InvokeResult(retval=ret if blocking else None, _tag=None)

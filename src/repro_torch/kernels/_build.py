@@ -46,6 +46,14 @@ SIGNATURES = {
     "rwkv6_wkv_bwd_launch": ([_ptr] * 16 + [_int] * 6 + [_ptr], _int),
     "gmm_fwd_launch": ([_ptr] * 4 + [_int] * 7 + [_ptr], _int),
     "gmm_dw_launch": ([_ptr] * 4 + [_int] * 6 + [_ptr], _int),
+    "genesys_mapped_alloc": (
+        [_ll, ctypes.POINTER(_ptr), ctypes.POINTER(_ptr)], _int),
+    "genesys_mapped_free": ([_ptr], _int),
+    "genesys_device_attributes": ([_int, ctypes.POINTER(_int)], _int),
+    "genesys_invoke_launch": (
+        [_ptr, _ptr, _int, _int, _ptr] + [_int] * 4
+        + [_ptr, _ptr, _ptr, _ll, _ptr],
+        _int),
     "genesys_kernels_error_string": ([_int], ctypes.c_char_p),
 }
 
