@@ -203,8 +203,38 @@ random weights from a seed):
     batches of 4, 64 and 512 KB without and with coalescing (bundles of 1,
     and of 2-8); the ring (``via_ring``); both rule errors with nothing
     launched; a control (offsets one page on) that must fail; round trips
-    of one blocking CLOCK_GETTIME at each granularity and of 64 rows; and,
+    of one blocking CLOCK_GETTIME at each granularity and of 64 rows, and
+    of one blocking row answered by a bare host responder (the same slot
+    protocol with no executor: the device entry's floor, its bound); and,
     with the host's poller stopped, a call that gives up after its bound.
+
+The encoder-decoder (the eighth slice) adds, for seamless-m4t-medium (12
+encoder and 12 decoder layers, d_model 1024, 16 heads of 64, d_ff 4096,
+vocab 256206; 0.877 B parameters; random weights from a seed; 4096 frames
+a row, AR(1) stand-in audio features from a seeded generator):
+
+19a. the decode step's cross-attention alone (4 rows, one query each over
+    4096 encoder positions) through K2, its route, and through K3a at Sq =
+    1, against the plain version, SDPA and the bytes bound; then serving
+    at the step level, as the reference's test serves this family: 4
+    requests of 4096 frames, ``encode`` once, prompts of 16-64 tokens fed
+    one a step through ``make_serve_step(cfg)(params, cache, tok,
+    cache_len, enc_out)`` over a carried cache of 256 positions, then 32
+    greedy tokens each, the rows' cache lengths ragged. K2 launched 24
+    times a step (12 self-attention, 12 cross-attention), the append 12,
+    K3a 12 for the encode and 36 for a no-cache forward, nothing else; the
+    served tokens equal a teacher-forced replay's argmax; decode against
+    the no-cache forward in bf16 (0.25) and, at 2 + 2 layers in f32, greedy
+    tokens where the margin exceeds 1e-3; one decode step and one no-cache
+    forward with the kernels against the plain attention, and a control
+    (the cross-attention cut to 2048 positions) that must fail;
+19b. training at full width and all 24 layers as phase 7 trains (2 rows
+    of 4096 frames and 1024 text tokens a step, the frames added to the
+    loader's batches), K3a twice and K3b once per attention (12 + 24) per
+    microbatch; the train step at 2 + 2 layers against the plain attention
+    with phase 7b's control, at the frames' scale and at a scale where the
+    encoder's output hardly varies over its positions (K3b's delta from
+    the unrounded o).
 
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
@@ -353,6 +383,22 @@ SSM_TRAIN_LAYERS = 8
 # phase 12b's bf16 step again on these seeds of weights and tokens (phase
 # 9b's are 21-23)
 WKV_STEP_SEEDS = (31, 32, 33)
+# phase 19, the encoder-decoder (seamless-m4t-medium, all 12 + 12 layers):
+# 4 requests of 4096 frames each, prompts of 16-64 tokens and budgets of
+# 32, fed one token a step over a carried cache of 256 positions; training
+# rows of 4096 frames beside 1024 text tokens. The frames are AR(1) stand-in
+# audio features that decorrelate over FRAME_CORR frames, FRAME_STD an
+# element: at 1 (the token embeddings' scale) a random-weight encoder's
+# non-causal attention adds nearly one vector to every position, its output
+# hardly varies over positions, and no logit check can see which positions
+# the decoder's cross-attention reads (cutting it to 2048 of 4096 moved the
+# logits by 0.088, under the 0.25 rule; 1.625 at FRAME_STD 32, on an H100);
+# the train step is also held to its plain version at FRAME_STD 1, where
+# K3b's dq and dk need delta from the unrounded o. The control cuts the
+# decode step's cross-attention to its first ENCDEC_CUT_LENS positions
+ENCDEC_ROWS, ENCDEC_PROMPTS, ENCDEC_BUDGET = 4, (16, 64), 32
+ENCDEC_CACHE, ENCDEC_TEXT, ENCDEC_CUT_LENS = 256, 1024, 2048
+FRAME_CORR, FRAME_STD = 256, 32.0
 # phase 16: a bucket row that lost no assignment against its step alone:
 # 8 bf16 ulps of the largest |logit|, as phase 4a holds starcoder2's
 # logits (0.25 at |logit| ~5)
@@ -1348,7 +1394,11 @@ def flash_kernel_phase(torch, dev, flush):
     kernel; two calls of the backward kernel must give the same bits. K3b
     is timed whole and as its launches (delta, dq, dk/dv). At S=4096 in
     bf16 a control holds the kernel's outputs, 3% off in the second half
-    of the rows (keys for dk, dv), to the same rule: it must fail."""
+    of the rows (keys for dk, dv), to the same rule: it must fail. In bf16
+    the training mode too (``ops.flash_attention`` with a gradient): K3a
+    also writing its f32 output, which must round to its bf16 one, and K3b
+    taking delta from an f32 o (the plain forward's, on both sides), each
+    held to the same rule and timed."""
     from repro_torch.kernels import flash_attention as fa
 
     F = torch.nn.functional
@@ -1394,6 +1444,32 @@ def flash_kernel_phase(torch, dev, flush):
         lse_err = (lse - lse_p).abs().max().item()
         check(lse_err <= FA_LSE_ATOL, f"flash attention [{label}] lse error "
               f"{lse_err} > {FA_LSE_ATOL}")
+        f32_out = {}
+        if name == "bfloat16":      # training's mode
+            o32, o32_p = (torch.empty(q.shape, dtype=torch.float32,
+                                      device=dev) for _ in range(2))
+            o_t, _ = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                            out_f32=o32)
+            fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                         out_f32=o32_p)
+            g32 = fa.flash_attention_bwd(q, k, v, o32_p, lse_p, do,
+                                         causal=causal)
+            g32_p = fa.flash_attention_bwd_plain(q, k, v, o32_p, lse_p, do,
+                                                 causal=causal)
+            torch.cuda.synchronize()
+            check(torch.equal(o_t, o) and torch.equal(o32.to(dt), o),
+                  f"flash attention [{label}]: the f32 output does not "
+                  f"round to the bf16 one")
+            f32_out["errors"] = {
+                n: fa_reading(got, want, r) for n, got, want in (
+                    ("o32", o32, o32_p), ("dq", g32[0], g32_p[0]),
+                    ("dk", g32[1], g32_p[1]), ("dv", g32[2], g32_p[2]))}
+            for n, e in f32_out["errors"].items():
+                check(e["worst"] <= 1.0 and e["frob"] <= FA_FROB[name],
+                      f"flash attention [{label}] {n} with delta from the "
+                      f"f32 o: error up to {e['worst']:.3g} x its bound, "
+                      f"relative Frobenius {e['frob']:.3g}")
+            del o_t, o32_p, g32, g32_p
         del o_p, lse_p, grads_p, o, grads
         torch.cuda.empty_cache()
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
@@ -1409,6 +1485,15 @@ def flash_kernel_phase(torch, dev, flush):
             q, k, v, causal=causal), reps=reps, flush=flush)
         ms_b, host_b = cuda_ms(torch, lambda: fa.flash_attention_bwd(
             q, k, v, o, lse, do, causal=causal), reps=reps, flush=flush)
+        if f32_out:
+            f32_out["fwd_ms"], _ = cuda_ms(torch, lambda: (
+                fa.flash_attention_fwd(q, k, v, causal=causal,
+                                       out_f32=o32)), reps=reps, flush=flush)
+            f32_out["bwd_ms"], _ = cuda_ms(torch, lambda: (
+                fa.flash_attention_bwd(q, k, v, o32, lse, do,
+                                       causal=causal)), reps=reps,
+                flush=flush)
+            del o32
         # K3b's launches alone, on buffers of one call (delta first: dq
         # and dk/dv read the stats it writes)
         bufs = (tuple(torch.empty_like(x) for x in (q, k, v)),
@@ -1454,6 +1539,9 @@ def flash_kernel_phase(torch, dev, flush):
                 case["library_fwd_bwd_ms"] = lib_fb
                 case["launches_ms"] = split
                 case["bit_equal_twice"] = bit_equal
+            if f32_out:
+                case["f32_out_ms"] = f32_out[f"{kind}_ms"]
+                case["f32_out_errors"] = f32_out["errors"]
             cases[kind].append(case)
         print(f"kernel flash_attention[{label}] H={nh} KV={nkv} hd={hd} "
               f"{'causal' if causal else 'full'}: errors (max abs, worst "
@@ -1471,7 +1559,12 @@ def flash_kernel_phase(torch, dev, flush):
               f"{split['dq']:.4f}, dkv {split['dkv']:.4f}) plain_ms="
               f"{plain_b:.4f} sdpa_fwd_bwd_ms={lib_fb:.4f} bound_ms="
               f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}) bit-equal "
-              f"twice: {bit_equal}", flush=True)
+              f"twice: {bit_equal}"
+              + (f" | with the f32 output: fwd ms={f32_out['fwd_ms']:.4f} "
+                 f"bwd ms={f32_out['bwd_ms']:.4f}, worst ratios "
+                 + " ".join(f"{n}={e['worst']:.3f}"
+                            for n, e in f32_out["errors"].items())
+                 if f32_out else ""), flush=True)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return cases
@@ -1486,15 +1579,18 @@ KERNEL_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd",
                    "update_kv_buffer")
 
 
-def model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+def model_flops(cfg, n_params: int, batch: int, seq: int,
+                frames: int = 0) -> float:
     """Model FLOPs of one training step: 6 per non-embedding parameter a
     token uses and token (an MoE layer's token uses top_k of its experts:
     ``cfg.active_param_count()``'s basis), causal attention forward and
     backward (6 H hd S^2 per sequence and attention layer), a hybrid's SSD
     scan (three times its forward, 2c(cN + cP + 2NP) per head and chunk)
     and rwkv6's WKV (three times its forward, 2c(2 hd^2 + c hd) per head
-    and chunk)."""
+    and chunk). The encoder-decoder: :func:`encdec_flops`."""
     from repro_torch.config import Family
+    if cfg.family == Family.ENCDEC:
+        return encdec_flops(cfg, batch, seq, frames)
     embed = cfg.padded_vocab * cfg.d_model     # a gather, no products
     idle = cfg.param_count() - cfg.active_param_count()   # 0 but for MoE
     out = 6.0 * (n_params - idle - embed) * batch * seq
@@ -1511,11 +1607,78 @@ def model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     return out
 
 
-def train_path_phase(torch, tcfg, dev, *, expected: dict):
+def encdec_flops(cfg, batch: int, seq: int, frames: int) -> float:
+    """Model FLOPs of one encoder-decoder training step over ``frames``
+    frames and ``seq`` text tokens a row: 6 per weight a position passes
+    and position (the encoder's layers over the frames; the decoder's
+    self-attention, cross-attention queries and outputs, MLP and lm_head
+    over the text; the cross-attention's K and V projections over the
+    frames), and attention forward and backward: 12 H hd S^2 a non-causal
+    encoder layer, 6 H hd S^2 a causal decoder layer, 12 H hd S_text
+    S_enc a cross-attention."""
+    D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                       cfg.d_ff)
+    attn = 2 * D * H * hd + 2 * D * KV * hd
+    mlp = (3 if cfg.mlp_kind == "swiglu" else 2) * D * F
+    weights = (cfg.n_enc_layers * (attn + mlp) * frames
+               + cfg.n_layers * ((attn + 2 * D * H * hd + mlp) * seq
+                                 + 2 * D * KV * hd * frames)
+               + D * cfg.padded_vocab * seq)
+    scores = (2 * cfg.n_enc_layers * frames * frames
+              + cfg.n_layers * (seq * seq + 2 * seq * frames))
+    return 6.0 * batch * (weights + H * hd * scores)
+
+
+def ar1_frames(torch, gen, rows: int, length: int, d: int, device,
+               std: float = FRAME_STD):
+    """Stand-in audio features [rows, length, d] float32 from ``gen``: an
+    AR(1) process along time, x_t = a x_{t-1} + sqrt(1 - a^2) e_t with
+    a = exp(-1 / FRAME_CORR) and e_t of standard deviation ``std``, so
+    that neighbouring frames are alike and far ones are not (as speech
+    features are). Summed as a log-depth scan: after the pass of shift k
+    each frame holds its last 2k terms."""
+    a = math.exp(-1.0 / FRAME_CORR)
+    x = torch.randn((rows, length, d), generator=gen, device=device) * std
+    x[:, 1:] *= math.sqrt(1 - a * a)
+    k = 1
+    while k < length:
+        x = torch.cat([x[:, :k], x[:, k:] + a ** k * x[:, :-k]], dim=1)
+        k *= 2
+    return x
+
+
+class FramesLoader:
+    """Smoke scaffolding for the encoder-decoder's training (the reference
+    has no frame loader): a ``GenesysDataLoader`` whose every batch also
+    carries ``embeds`` [rows, n_frames, D] float32, AR(1) frames
+    (:func:`ar1_frames`) from a seed, one seed a batch."""
+
+    def __init__(self, loader, n_frames: int, d: int, seed: int):
+        self.loader, self.n_frames, self.d = loader, n_frames, d
+        self.seed = seed
+
+    def next_batch(self) -> dict:
+        import torch
+        batch = self.loader.next_batch()
+        gen = torch.Generator()
+        gen.manual_seed(self.seed)
+        self.seed += 1
+        batch["embeds"] = ar1_frames(torch, gen, len(batch["tokens"]),
+                                     self.n_frames, self.d, "cpu").numpy()
+        return batch
+
+    def close(self) -> None:
+        self.loader.close()
+
+
+def train_path_phase(torch, tcfg, dev, *, expected: dict,
+                     seq: int = TRAIN_SEQ, frames: int = 0):
     """Train ``tcfg`` at full width through the port's Trainer,
     GenesysDataLoader and CheckpointManager; resume in a fresh Trainer.
     ``expected`` maps kernel counters to their launches over the run (every
-    other counter must stay 0). Returns the phase's numbers."""
+    other counter must stay 0). Rows of ``seq`` tokens; with ``frames``
+    (the encoder-decoder), each row also carries that many frames
+    (:class:`FramesLoader`). Returns the phase's numbers."""
     import numpy as np
 
     from repro_torch.checkpoint.ckpt import CheckpointManager, flatten
@@ -1557,7 +1720,9 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict):
             gnorms.append(float(out[2]["grad_norm"]))
             return out
         loader = GenesysDataLoader(gsys, [shard], batch=TRAIN_BATCH,
-                                   seq=TRAIN_SEQ)
+                                   seq=seq)
+        if frames:
+            loader = FramesLoader(loader, frames, tcfg.d_model, seed=0)
         cm = CheckpointManager(gsys, str(work / "ckpt"), keep=1)
         counters = [getattr(ops, n) for n in KERNEL_COUNTERS]
         for c in counters:
@@ -1614,14 +1779,14 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict):
         gsys.shutdown()
         shutil.rmtree(work, ignore_errors=True)
 
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = TRAIN_BATCH * seq
     steady = step_s[1:]      # the first step builds the allocator's pools
     step_ms = 1e3 * statistics.median(steady)
-    flops = model_flops(tcfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    flops = model_flops(tcfg, n_params, TRAIN_BATCH, seq, frames)
     steps = TRAIN_STEPS + RESUME_STEPS
     out = {
         "arch": tcfg.arch_id, "layers": tcfg.n_layers, "params": n_params,
-        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+        "batch": TRAIN_BATCH, "seq": seq, "microbatches": TRAIN_MICRO,
         "steps": steps, "losses": losses, "grad_norms": gnorms,
         "step_ms": [1e3 * x for x in step_s], "median_step_ms": step_ms,
         "tokens_per_s": tokens / (step_ms / 1e3), "peak_mem_gb": peak_gb,
@@ -1632,14 +1797,22 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict):
             flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
         "launches": launches,
     }
+    layers, row = f"{tcfg.n_layers} layers", f"{seq}"
+    if frames:
+        out.update(frames=frames, enc_layers=tcfg.n_enc_layers,
+                   frames_per_s=TRAIN_BATCH * frames / (step_ms / 1e3))
+        layers = f"{tcfg.n_enc_layers} + {tcfg.n_layers} layers"
+        row = f"({frames} frames + {seq} text)"
     busy = "not measured" if busy_ms is None else f"{busy_ms:.1f}"
-    print(f"train path: {tcfg.arch_id} full width, {tcfg.n_layers} layers "
+    print(f"train path: {tcfg.arch_id} full width, {layers} "
           f"({n_params / 1e9:.3f} B params, f32 master, bf16 compute, remat "
-          f"full), {TRAIN_BATCH}x{TRAIN_SEQ} tokens/step in {TRAIN_MICRO} "
+          f"full), {TRAIN_BATCH}x{row} tokens/step in {TRAIN_MICRO} "
           f"microbatches: losses {[round(x, 4) for x in losses]} grad_norms "
           f"{[round(x, 4) for x in gnorms]} step_ms "
           f"{[round(1e3 * x, 1) for x in step_s]} median {step_ms:.1f} "
-          f"tokens/s={out['tokens_per_s']:.0f} peak_mem={peak_gb:.2f} GB "
+          f"tokens/s={out['tokens_per_s']:.0f}"
+          + (f" frames/s={out['frames_per_s']:.0f}" if frames else "")
+          + f" peak_mem={peak_gb:.2f} GB "
           f"device_busy_ms={busy} checkpoint {state_bytes} B saved in "
           f"{save_s:.1f} s (disk free before {free_gb:.1f} GB), restored in "
           f"{restore_s:.1f} s, bit-equal; model flops/step "
@@ -1650,7 +1823,9 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict):
 
 def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain,
                          control, control_label: str, prepare=None,
-                         bf16_seeds=(), pin_routing: bool = False):
+                         bf16_seeds=(), pin_routing: bool = False,
+                         seq: int = TRAIN_SEQ, frames: int = 0,
+                         frame_std: float = FRAME_STD):
     """Phase 7b (and 9b, 12b): the training phase's step (2 microbatches of
     1 x 4096 tokens) at ``layers`` layers of full width, from the same
     weights, with the kernels, with the plain versions (``plain``: an
@@ -1667,7 +1842,9 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain,
     choice (:func:`routing_flips` counts them), which moves the flipped
     token's gradients by O(1) and is no fault of a kernel; pinned, both
     steps follow one routing and the gradients are compared as phase 7b
-    compares them. f32 routes alike without the pin."""
+    compares them. f32 routes alike without the pin. The encoder-decoder
+    (``frames``: AR(1) frames of ``frame_std`` a row beside ``seq`` text
+    tokens) runs ``layers`` encoder and ``layers`` decoder layers."""
     import numpy as np
 
     from repro_torch.checkpoint.ckpt import flatten
@@ -1683,15 +1860,25 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain,
 
     def batch_of(seed):
         toks = torch.from_numpy(np.random.default_rng(seed).integers(
-            0, 500, size=(TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
-        return {"tokens": toks[:, :-1].contiguous(),
-                "labels": toks[:, 1:].contiguous()}
+            0, 500, size=(TRAIN_BATCH, seq + 1))).to(dev)
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous()}
+        if frames:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            batch["embeds"] = ar1_frames(torch, gen, TRAIN_BATCH, frames,
+                                         cfg.d_model, dev, frame_std)
+        return batch
 
     tc = TrainConfig(microbatches=TRAIN_MICRO)
+    with_frames = (f" (+ {frames} frames of std {frame_std:g})" if frames
+                   else "")
     out = {}
     for compute in ("bfloat16", "float32"):
         scfg = dataclasses.replace(cfg, n_layers=layers,
                                    compute_dtype=compute)
+        if frames:
+            scfg = dataclasses.replace(scfg, n_enc_layers=layers)
 
         def weights(seed, prepare_seed):
             base = get_api(scfg).init(scfg, seed=seed, device=dev,
@@ -1737,7 +1924,8 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain,
         del got
         print(f"train step kernels vs plain ({cfg.arch_id}, {compute} "
               f"compute, {layers} layers full width, {TRAIN_BATCH}x"
-              f"{TRAIN_SEQ} in {TRAIN_MICRO} microbatches): loss "
+              f"{seq}{with_frames} in "
+              f"{TRAIN_MICRO} microbatches): loss "
               f"{kern['loss']:.6f} vs {ref[0]:.6f} (|diff| "
               f"{kern['loss_abs_diff']:.3e}, tol {STEP_LOSS_ATOL[compute]}) "
               f"grad leaves max relative norm diff "
@@ -2915,6 +3103,7 @@ FIG6_GROUPS, FIG6_BLOCK, FIG6_ITERS = 16, 8192, (1, 8, 32)
 FIG7_CALLS, FIG7_KB = 64, (4, 64, 512)
 INVOKE_REPS = 3              # host-clock reps of each Fig. 5-7 workload
 ROUND_TRIP_REPS = 30         # reps of each round-trip timing
+BARE_SLOTS = 64              # slots of the bare responder's area
 TIMEOUT_CHECK_S = 2.0        # the bound of phase 18's timeout check
 
 
@@ -3347,6 +3536,7 @@ def invoke_phase(torch, dev) -> dict:
     finally:
         g.shutdown()
     out["round_trip"] = rt
+    out["bare_round_trip"] = bare_round_trip(torch, dev)
 
     # the bound: with the poller stopped, a blocking call gives up after
     # its bound, returns -ETIMEDOUT and the next barrier raises
@@ -3384,6 +3574,392 @@ def invoke_phase(torch, dev) -> dict:
     out["launches"] = launches
     out["max_abs_err"] = max_err[0]
     return out
+
+
+def bare_round_trip(torch, dev) -> dict:
+    """The floor of any device entry's round trip, ``Genesys.invoke``'s
+    bound: one blocking row posted by the invoke kernel into a mapped area
+    of its own, through the same 64-byte slot protocol, and answered by a
+    bare host responder (``genesys_bare_respond`` in
+    ``csrc/genesys_invoke.cu``: READY rows marked FINISHED at once, with
+    no executor, dispatcher or handler) spinning in C on a thread of its
+    own, the GIL released. Device time from CUDA events around the call,
+    median of ``ROUND_TRIP_REPS``."""
+    import ctypes
+
+    from repro_torch.core.genesys import Sys
+    from repro_torch.core.genesys.area import SLOT_BYTES
+    from repro_torch.core.genesys.device import DeviceSyscallArea
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import genesys_invoke as gi
+
+    # a CDLL handle releases the GIL for the call (the library's own
+    # PyDLL handle keeps it)
+    respond = ctypes.CDLL(str(_build.build())).genesys_bare_respond
+    respond.argtypes, respond.restype = _build.SIGNATURES[
+        "genesys_bare_respond"]
+    nbytes = (BARE_SLOTS + 1) * SLOT_BYTES
+    host, dev_ptr = gi.alloc_mapped(nbytes, dev)
+    launches = gi.post_rows.launches
+    try:
+        area = DeviceSyscallArea(
+            BARE_SLOTS, (ctypes.c_uint8 * nbytes).from_address(host),
+            dev_ptr=dev_ptr)
+        owner = torch.zeros(BARE_SLOTS, dtype=torch.int32, device=dev)
+        rows = torch.zeros((1, 6, 2), dtype=torch.int32, device=dev)
+        stop, answered = ctypes.c_int(0), ctypes.c_longlong(0)
+        responder = threading.Thread(target=respond, args=(
+            host, BARE_SLOTS, ctypes.byref(stop), int(120e9),
+            ctypes.byref(answered)), daemon=True)
+        responder.start()
+        ms = []
+        try:
+            for i in range(ROUND_TRIP_REPS + 2):      # 2 warm-up calls
+                torch.cuda.synchronize()
+                s, e = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                s.record()
+                ret = gi.post_rows(area, owner, rows, base=i,
+                                   sysno=int(Sys.CLOCK_GETTIME), flags=1,
+                                   hw_id=0, timeout_s=2.0)
+                e.record()
+                torch.cuda.synchronize()
+                check(int(area.status[0]) == 0 and not bool(ret.any()),
+                      f"bare round trip {i}: status {area.status[:2]}, "
+                      f"retval {ret.tolist()}")
+                if i >= 2:
+                    ms.append(s.elapsed_time(e))
+        finally:
+            stop.value = 1
+            responder.join(timeout=10)
+        check(not responder.is_alive(), "the bare responder did not stop")
+        check(answered.value == ROUND_TRIP_REPS + 2, f"the bare responder "
+              f"answered {answered.value} rows of {ROUND_TRIP_REPS + 2}")
+    finally:
+        gi.free_mapped(host)
+    gi.post_rows.launches = launches      # measurement, not the path
+    out = {"ms": statistics.median(ms), "min_ms": min(ms),
+           "reps": ROUND_TRIP_REPS, "rows": 1}
+    print(f"bare round trip (1 blocking row, host responder without "
+          f"executor): device {out['ms']:.4f} ms (min {out['min_ms']:.4f})",
+          flush=True)
+    return out
+
+
+# ---------------------------------------- phase 19: the encoder-decoder --
+
+def cut_cross(q, k, v, lens, k_new=None, v_new=None):
+    """Phase 19a's control: the plain decode attention, with the
+    cross-attention (the call without a new token) cut to the first
+    ENCDEC_CUT_LENS encoder positions."""
+    from repro_torch.kernels import ops
+    if k_new is None:
+        lens = lens.clamp(max=ENCDEC_CUT_LENS)
+    return ops.decode_attention_plain(q, k, v, lens, k_new, v_new)
+
+
+def cross_attention_case(torch, cfg, dev, flush) -> dict:
+    """The decode step's cross-attention at seamless's shape: one query
+    row a request over the encoder's 4096 positions (B = 4, H = KV = 16, hd
+    64, bf16), through K2 (``ops.decode_attention`` with no new token, the
+    path's route) and through K3a at Sq = 1 (the alternative), against the
+    plain version, SDPA, and the bytes bound (K and V read once)."""
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    B, S, h, kv, hd = (ENCDEC_ROWS, cfg.n_frame_tokens, cfg.n_heads,
+                       cfg.n_kv_heads, cfg.hd)
+    q = torch.randn(B, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, S, kv, hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn(B, S, kv, hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    want = ops.decode_attention_plain(q, k, v, lens)
+    got = ops.decode_attention(q, k, v, lens)
+    fa = ops.flash_attention_fwd(q[:, None], k, v, causal=False)[0][:, 0]
+    torch.cuda.synchronize()
+    tol = tolerance("bfloat16", want)
+    err = (got.float() - want.float()).abs().max().item()
+    fa_err = (fa.float() - want.float()).abs().max().item()
+    check(err <= tol, f"cross-attention K2 error {err} > {tol}")
+    check(fa_err <= tol, f"cross-attention K3a (Sq 1) error {fa_err} > {tol}")
+    nbytes = 2 * B * S * kv * hd * 2 + 2 * q.numel() * 2
+    bnd, by = bound_ms(nbytes, 4.0 * B * S * h * hd, "bfloat16")
+    ms, _ = cuda_ms(torch, lambda: ops.decode_attention(q, k, v, lens),
+                    reps=20, flush=flush)
+    fa_ms, _ = cuda_ms(torch, lambda: ops.flash_attention_fwd(
+        q[:, None], k, v, causal=False), reps=20, flush=flush)
+    plain_ms, _ = cuda_ms(torch, lambda: ops.decode_attention_plain(
+        q, k, v, lens), reps=5, flush=flush)
+    library_ms, _ = cuda_ms(torch, lambda: library_dense_attention(
+        torch, q, k, v, lens), reps=10, flush=flush)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = tda.ring_splits(B, kv, S, n_sm, tda.min_split(hd))
+    case = {"case": f"seamless-cross-B{B}-S{S}-bfloat16-cache",
+            "heads": [h, kv, hd], "variant": tda.variant(q.dtype, hd),
+            "splits_per_row": splits, "max_abs_err": err, "tol": tol,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bnd, "bound_by": by, "kv_bytes": nbytes,
+            "flash_fwd_sq1_ms": fa_ms, "flash_fwd_sq1_max_abs_err": fa_err,
+            "lens": lens.tolist()}
+    print(f"kernel decode_attention[{case['case']}] ({case['variant']}, "
+          f"{splits} splits a row and KV head): max_abs_err={err:.3e} (tol "
+          f"{tol:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(sdpa)="
+          f"{library_ms:.4f} bound_ms={bnd:.4f} ({by}, {nbytes} B); K3a at "
+          f"Sq 1: ms={fa_ms:.4f} max_abs_err={fa_err:.3e}", flush=True)
+    return case
+
+
+def encdec_serve_phase(torch, cfg, dev) -> dict:
+    """Phase 19a: seamless-m4t-medium served at the step level, as the
+    reference's own test serves it (its servers do not take this family):
+    ``encode`` once over ENCDEC_ROWS requests of 4096 frames, then every
+    prompt fed one token a step through ``make_serve_step(cfg)(params,
+    cache, tok, cache_len, enc_out)`` over a carried cache, and decoded
+    greedily to its budget. A row that has spent its budget stays where it
+    is (same token, same cache_len) until the longest is done, so the rows'
+    cache lengths are ragged. Gates: the launches as predicted; the served
+    tokens equal a teacher-forced replay's argmax; decode equals prefill
+    (bf16 logits within LOGITS_ATOL_BF16, and greedy tokens at 2 + 2 layers
+    in f32 wherever the margin exceeds MARGIN_F32); one decode step and one
+    no-cache forward with the kernels against the plain attention, and a
+    control (the cross-attention cut to ENCDEC_CUT_LENS positions) that
+    must fail that check."""
+    import numpy as np
+
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as L
+    from repro_torch.train.steps import make_serve_step
+
+    counters = [getattr(ops, n) for n in KERNEL_COUNTERS]
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def read():
+        return {c.__name__: c.launches for c in counters}
+
+    R, budget = ENCDEC_ROWS, ENCDEC_BUDGET
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = encdec.init(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    frames = ar1_frames(torch, gen, R, cfg.n_frame_tokens, cfg.d_model,
+                        dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    weights_gib = sum(x.numel() * x.element_size()
+                      for x in flatten(params)) / 2**30
+    print(f"encoder-decoder: {cfg.arch_id} full width, {cfg.n_enc_layers} + "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, bf16 weights from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s, {weights_gib:.2f} GiB",
+          flush=True)
+    rng = np.random.default_rng(19)
+    plen = rng.integers(ENCDEC_PROMPTS[0], ENCDEC_PROMPTS[1] + 1, R)
+    prompts = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (R, ENCDEC_PROMPTS[1]))).to(dev, torch.int32)
+    T = plen + budget - 1            # the steps row b takes
+    n_steps = int(T.max())
+    at = np.arange(n_steps)[:, None]
+    active = torch.from_numpy(at < T[None]).to(dev)
+    prompted = torch.from_numpy(at < plen[None]).to(dev)
+    serve = make_serve_step(cfg)
+    cache = encdec.init_cache(cfg, R, ENCDEC_CACHE, device=dev)
+    fed = torch.empty((n_steps, R), dtype=torch.int32, device=dev)
+    cls = torch.empty_like(fed)
+    out = torch.empty_like(fed)
+
+    # warm up (first launches, the BLAS library's plans) on a scratch cache
+    with torch.no_grad():
+        warm = encdec.encode(params, cfg, frames)
+    serve(params, encdec.init_cache(cfg, R, ENCDEC_CACHE, device=dev),
+          prompts[:, :1], torch.zeros(R, dtype=torch.int32, device=dev), warm)
+    del warm
+    # the counted run: encode once, then every step
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc_out = encdec.encode(params, cfg, frames)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok = prompts[:, 0]
+    cl = torch.zeros(R, dtype=torch.int32, device=dev)
+    nxt = tok
+    for t in range(n_steps):
+        if t:
+            new = torch.where(prompted[t], prompts[:, min(
+                t, ENCDEC_PROMPTS[1] - 1)], nxt)
+            tok = torch.where(active[t], new, tok)
+            cl = torch.where(active[t], t, cl)
+        fed[t], cls[t] = tok, cl
+        nxt, cache = serve(params, cache, tok[:, None], cl, enc_out)
+        out[t] = nxt
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read()
+    expected = {"flash_attention_fwd": cfg.n_enc_layers,
+                "decode_attention": 2 * cfg.n_layers * n_steps,
+                "update_kv_buffer": cfg.n_layers * n_steps}
+    for name, n in launches.items():
+        check(n == expected.get(name, 0), f"{cfg.arch_id} serving: {name} "
+              f"launched {n} times, expected {expected.get(name, 0)}")
+    served = [out[plen[b] - 1:T[b], b].tolist() for b in range(R)]
+    check(all(len(x) == budget for x in served), "a request missed its "
+          "budget")
+    encode_ms, loop_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+    res = {"rows": R, "frames": cfg.n_frame_tokens,
+           "prompt_tokens": plen.tolist(), "budget": budget,
+           "steps": n_steps, "cache_len_end": cl.tolist(),
+           "encode_wall_ms": encode_ms, "decode_wall_ms": loop_ms,
+           "tokens_per_s": R * budget / ((t2 - t0)),
+           "decode_tokens_per_s": R * budget / (t2 - t1),
+           "launches": launches,
+           "launches_per_step": {n: launches[n] / n_steps for n in (
+               "decode_attention", "update_kv_buffer")}}
+
+    # one step and one encode alone: host clock against device busy
+    def one_step():
+        serve(params, cache, tok[:, None], cl, enc_out)
+
+    def one_encode():
+        with torch.no_grad():
+            encdec.encode(params, cfg, frames)
+    res["step_host_ms"] = host_ms(torch, one_step, reps=10)
+    res["step_device_busy_ms"] = device_busy_ms(torch, one_step, top=6)
+    res["encode_host_ms"] = host_ms(torch, one_encode, reps=3)
+    res["encode_device_busy_ms"] = device_busy_ms(torch, one_encode, top=6)
+    busy = {k: "not measured" if res[k] is None else f"{res[k]:.3f}"
+            for k in ("step_device_busy_ms", "encode_device_busy_ms")}
+    print(f"encdec serving: {R} requests x {cfg.n_frame_tokens} frames, "
+          f"prompts {plen.tolist()}, budgets {budget}: {n_steps} steps, "
+          f"tokens/s={res['tokens_per_s']:.1f} (decode alone "
+          f"{res['decode_tokens_per_s']:.1f}); encode wall {encode_ms:.1f} "
+          f"ms, alone {res['encode_host_ms']:.3f} ms host vs "
+          f"{busy['encode_device_busy_ms']} device busy; decode step "
+          f"{loop_ms / n_steps:.3f} ms in the loop, alone "
+          f"{res['step_host_ms']:.3f} ms host vs "
+          f"{busy['step_device_busy_ms']} device busy; launches per step "
+          f"{res['launches_per_step']}, encode {launches}", flush=True)
+
+    # the served tokens against a teacher-forced replay's logits
+    replay = encdec.init_cache(cfg, R, ENCDEC_CACHE, device=dev)
+    dec = torch.empty((R, n_steps, cfg.padded_vocab), dtype=torch.float32,
+                      device=dev)
+    with torch.no_grad():
+        for t in range(n_steps):
+            lg, replay = encdec.forward(params, cfg, fed[t][:, None],
+                                        cache=replay, cache_len=cls[t],
+                                        enc_out=enc_out)
+            dec[:, t] = lg[:, 0]
+    check(torch.equal(dec.argmax(-1).to(torch.int32), out.T),
+          "the served tokens differ from a replay's argmax")
+    del replay
+    # decode equals prefill: the no-cache forward over the same tokens
+    # (row b's first T[b] positions; the rest are a finished row's repeats)
+    valid = torch.from_numpy(np.arange(n_steps)[None] < T[:, None]).to(dev)
+    zero()
+    with torch.no_grad():
+        pre, _ = encdec.forward(params, cfg, fed.T.contiguous(),
+                                frames=frames)
+    nocache_launches = read()
+    check(nocache_launches["flash_attention_fwd"]
+          == cfg.n_enc_layers + 2 * cfg.n_layers
+          and sum(nocache_launches.values())
+          == nocache_launches["flash_attention_fwd"],
+          f"no-cache forward launches {nocache_launches}")
+    d_pre = (pre - dec).abs()[valid].max().item()
+    agree = (pre.argmax(-1) == dec.argmax(-1))[valid].float().mean().item()
+    del dec
+    print(f"encdec decode vs prefill (bf16, {int(valid.sum())} positions): "
+          f"max_abs_diff={d_pre:.4f} (tol {LOGITS_ATOL_BF16}) "
+          f"logit_absmax={pre.abs().max().item():.3f} argmax_agree="
+          f"{agree:.4f}; no-cache launches {nocache_launches}", flush=True)
+    check(bool(torch.isfinite(pre).all()), "non-finite prefill logits")
+    check(d_pre <= LOGITS_ATOL_BF16, f"decode differs from prefill by "
+          f"{d_pre}")
+    res.update(decode_vs_prefill_max_abs_diff=d_pre,
+               decode_vs_prefill_argmax_agree=agree,
+               nocache_launches=nocache_launches)
+
+    # the no-cache forward, kernels vs plain
+    with torch.no_grad():
+        pre_plain, _ = encdec.forward(
+            params, cfg, fed.T.contiguous(), frames=frames,
+            kernels=ops.Kernels(attend=L.flash_attention_xla))
+    d_nc = (pre - pre_plain).abs().max().item()
+    del pre, pre_plain
+    torch.cuda.empty_cache()
+    # one decode step from the served state (ragged cache lengths), kernels
+    # vs plain, and the control
+
+    def step_logits(kernels):
+        c = {n: x.clone() for n, x in cache.items()}
+        with torch.no_grad():
+            lg, _ = encdec.forward(params, cfg, tok[:, None], cache=c,
+                                   cache_len=cl, enc_out=enc_out,
+                                   kernels=kernels)
+        return lg[:, 0]
+    lk = step_logits(ops.KERNELS)
+    lp = step_logits(ops.Kernels(attend=ops.decode_attention_plain))
+    lc = step_logits(ops.Kernels(attend=cut_cross))
+    d_step = (lk - lp).abs().max().item()
+    d_ctrl = (lc - lp).abs().max().item()
+    print(f"encdec kernels vs plain (bf16): no-cache forward max_abs_diff="
+          f"{d_nc:.4f}, decode step (cache lens {cl.tolist()}) "
+          f"max_abs_diff={d_step:.4f} (tol {LOGITS_ATOL_BF16}); control "
+          f"(cross-attention cut to {ENCDEC_CUT_LENS} of "
+          f"{cfg.n_frame_tokens} positions) {d_ctrl:.4f}", flush=True)
+    check(d_nc <= LOGITS_ATOL_BF16, f"no-cache logits, kernels vs plain, "
+          f"differ by {d_nc}")
+    check(d_step <= LOGITS_ATOL_BF16, f"decode logits, kernels vs plain, "
+          f"differ by {d_step}")
+    check(d_ctrl > LOGITS_ATOL_BF16, f"the control passes the decode "
+          f"check: {d_ctrl}")
+    res.update(nocache_kernel_vs_plain_max_abs_diff=d_nc,
+               step_kernel_vs_plain_max_abs_diff=d_step,
+               control_max_abs_diff=d_ctrl)
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, cache, enc_out, lk, lp, lc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2 + 2 layers in f32: greedy decode against prefill
+    cfg32 = dataclasses.replace(cfg, n_layers=2, n_enc_layers=2,
+                                params_dtype="float32",
+                                compute_dtype="float32",
+                                kv_cache_dtype="float32")
+    p32 = encdec.init(cfg32, seed=2, device=dev)
+    with torch.no_grad():
+        enc32 = encdec.encode(p32, cfg32, frames.float())
+        c32 = encdec.init_cache(cfg32, R, ENCDEC_CACHE, device=dev)
+        dec32 = []
+        for t in range(n_steps):
+            lg, c32 = encdec.forward(p32, cfg32, fed[t][:, None], cache=c32,
+                                     cache_len=cls[t], enc_out=enc32)
+            dec32.append(lg[:, 0].argmax(-1))
+        pre32, _ = encdec.forward(p32, cfg32, fed.T.contiguous(),
+                                  frames=frames.float())
+    top2 = pre32.topk(2, dim=-1).values
+    decided = valid & ((top2[..., 0] - top2[..., 1]) > MARGIN_F32)
+    same = pre32.argmax(-1) == torch.stack(dec32, dim=1)
+    print(f"encdec f32 (2 + 2 layers) greedy decode vs prefill: "
+          f"{int((same & valid).sum())}/{int(valid.sum())} equal, "
+          f"decided {int(decided.sum())}", flush=True)
+    check(bool(same[decided].all()), "f32 greedy decode differs from "
+          "prefill at a position whose top-2 margin exceeds 1e-3")
+    res["f32_greedy_equal"] = [int((same & valid).sum()),
+                               int(valid.sum()), int(decided.sum())]
+    del p32, enc32, c32, pre32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 # ------------------------------------------------------------------ main --
@@ -3674,6 +4250,32 @@ def run(torch) -> int:
     invoke = invoke_phase(torch, dev)
     mark("18")
 
+    # the encoder-decoder: seamless-m4t-medium at full width and depth
+    # phase 19a: the decode step's cross-attention alone, then serving at
+    # the step level
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    cross_case = cross_attention_case(torch, scfg, dev, flush)
+    del flush
+    eserve = encdec_serve_phase(torch, scfg, dev)
+    mark("19a")
+    # phase 19b: training, all 12 + 12 layers (remat runs every attention
+    # forward twice); kernels vs plain on 2 + 2 layers
+    n_attn = scfg.n_enc_layers + 2 * scfg.n_layers
+    etrain = train_path_phase(torch, scfg, dev, expected={
+        "flash_attention_fwd": 2 * n_attn * per,
+        "flash_attention_bwd": n_attn * per},
+        seq=ENCDEC_TEXT, frames=scfg.n_frame_tokens)
+    for key, std in (("step_kernel_vs_plain", FRAME_STD),
+                     ("step_kernel_vs_plain_alike_frames", 1.0)):
+        etrain[key] = step_kernel_vs_plain(
+            torch, scfg, dev, layers=2,
+            plain=ops.Kernels(attend=L.flash_attention_xla),
+            control=ops.Kernels(attend=dropped_tile),
+            control_label=f"keys {CONTROL_KEYS[0]}-{CONTROL_KEYS[1] - 1} "
+                          f"zeroed",
+            seq=ENCDEC_TEXT, frames=scfg.n_frame_tokens, frame_std=std)
+    mark("19")
+
     bf16 = decode_cases[0]
     kernels = [
         {"name": "paged_decode_attention", "route": "cuda",
@@ -3692,10 +4294,13 @@ def run(torch) -> int:
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/ops.py:71",
          "launches": sc_main["launches"]["update_kv_buffer"]
-         + mserve["launches"]["update_kv_buffer"],
+         + mserve["launches"]["update_kv_buffer"]
+         + eserve["launches"]["update_kv_buffer"],
          "launches_by_run": {
              cfg.arch_id: sc_main["launches"]["update_kv_buffer"],
-             mcfg.arch_id: mserve["launches"]["update_kv_buffer"]},
+             mcfg.arch_id: mserve["launches"]["update_kv_buffer"],
+             f"{scfg.arch_id}-serve":
+                 eserve["launches"]["update_kv_buffer"]},
          "max_abs_err": append["max_abs_err"], "ms": append["ms"],
          "plain_ms": append["plain_ms"], "bound_ms": append["bound_ms"],
          "bound_by": append["bound_by"], "library_ms": append["library_ms"],
@@ -3705,19 +4310,22 @@ def run(torch) -> int:
          "replaces": "src/repro/kernels/decode_attention.py:83",
          "launches": sum(r["launches"] for runs in (
              dense_runs, zserve["dense_path"], mserve["dense_path"])
-             for r in runs.values()),
-         "launches_by_run": {f"{arch}-{m}": r["launches"]
-                             for arch, runs in (
-                                 (cfg.arch_id, dense_runs),
-                                 (zcfg.arch_id, zserve["dense_path"]),
-                                 (mcfg.arch_id, mserve["dense_path"]))
-                             for m, r in runs.items()},
+             for r in runs.values())
+         + eserve["launches"]["decode_attention"],
+         "launches_by_run": dict({f"{arch}-{m}": r["launches"]
+                                  for arch, runs in (
+                                      (cfg.arch_id, dense_runs),
+                                      (zcfg.arch_id, zserve["dense_path"]),
+                                      (mcfg.arch_id, mserve["dense_path"]))
+                                  for m, r in runs.items()},
+                                 **{f"{scfg.arch_id}-serve":
+                                    eserve["launches"]["decode_attention"]}),
          "max_abs_err": dense_cases[0]["max_abs_err"],
          "ms": dense_cases[0]["ms"], "plain_ms": dense_cases[0]["plain_ms"],
          "bound_ms": dense_cases[0]["bound_ms"],
          "bound_by": dense_cases[0]["bound_by"],
          "library_ms": dense_cases[0]["library_ms"],
-         "pass": True, "cases": dense_cases},
+         "pass": True, "cases": dense_cases + [cross_case]},
     ]
     for kind, name, line in (("fwd", "flash_attention_fwd", 76),
                              ("bwd", "flash_attention_bwd", 205)):
@@ -3727,13 +4335,18 @@ def run(torch) -> int:
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
             "launches": train["launches"][name] + ztrain["launches"][name]
-            + mtrain["launches"][name],
+            + mtrain["launches"][name] + etrain["launches"][name]
+            + eserve["launches"][name],
             "launches_by_run": {cfg.arch_id: train["launches"][name],
                                 zcfg.arch_id: ztrain["launches"][name],
-                                mcfg.arch_id: mtrain["launches"][name]},
+                                mcfg.arch_id: mtrain["launches"][name],
+                                scfg.arch_id: etrain["launches"][name],
+                                f"{scfg.arch_id}-serve":
+                                    eserve["launches"][name]},
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
+            "f32_out_ms": case["f32_out_ms"],
             "pass": True, "cases": flash_cases[kind]})
     for kind, name in (("fwd", "mamba2_ssd_fwd"), ("bwd", "mamba2_ssd_bwd")):
         case = ssd_cases[kind][0]            # L=4096, bf16: the path's case
@@ -3788,7 +4401,8 @@ def run(torch) -> int:
             + ([{"ragged": gmm_cases["ragged"]}] if kind == "fwd" else [])})
     # the device entry of Genesys.invoke: one blocking CLOCK_GETTIME at
     # work-group granularity, the device's round trip against the plain
-    # host entry's; the call is latency, so the bytes bound is no roofline
+    # host entry's; the call is latency, bound by the same protocol's round
+    # trip through a bare host responder
     wg = next(r for r in invoke["round_trip"] if r["call"] == "work_group")
     kernels.append({
         "name": "genesys_invoke", "route": "cuda",
@@ -3796,12 +4410,11 @@ def run(torch) -> int:
         "replaces": "src/repro/core/genesys/invoke.py:568",
         "launches": invoke["launches"],
         "max_abs_err": invoke["max_abs_err"], "ms": wg["ms"],
-        "plain_ms": wg["plain_ms"], "bound_ms": wg["bound_ms"],
-        "bound_by": "bytes", "library_ms": None,
-        "bound_note": "latency: a PCIe round trip and the host's dispatch "
-                      "of the call, which no bytes or operations bound "
-                      "describes",
-        "pass": True, "cases": invoke["round_trip"]})
+        "plain_ms": wg["plain_ms"],
+        "bound_ms": invoke["bare_round_trip"]["ms"],
+        "bound_by": "latency", "library_ms": None,
+        "pass": True, "cases": invoke["round_trip"]
+        + [dict(invoke["bare_round_trip"], call="bare_responder")]})
     print(json.dumps({"kernels": kernels, "main_path": dict(
         sc_main, build_s=build_s, logits_bf16_max_abs_diff=d_bf16,
         step_alone_ms=alone_ms, step_device_busy_ms=busy_ms,
@@ -3813,6 +4426,7 @@ def run(torch) -> int:
         "ssm": {"train_path": rtrain, "serve": rserve},
         "moe": {"serve": mserve, "train_path": mtrain},
         "invoke": invoke,
+        "encdec": {"serve": eserve, "train_path": etrain},
         "phase_end_s": phase_end_s, "wall_s": time.perf_counter() - t_start}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

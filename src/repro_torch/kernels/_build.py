@@ -37,9 +37,10 @@ SIGNATURES = {
         [_ptr] * 10 + [_int] * 10 + [_f32, _f32, _int, _int, _ptr], _int),
     "kv_append_launch": ([_ptr] * 5 + [_int, _ll, _ll, _ptr], _int),
     "flash_attention_fwd_launch": (
-        [_ptr] * 5 + [_int] * 6 + [_f32, _int, _int, _ptr], _int),
+        [_ptr] * 6 + [_int] * 6 + [_f32, _int, _int, _ptr], _int),
     "flash_attention_bwd_launch": (
-        [_ptr] * 11 + [_int] * 7 + [_f32, _int, _int, _int, _ptr], _int),
+        [_ptr] * 11 + [_int] * 7 + [_f32, _int, _int, _int, _int, _ptr],
+        _int),
     "mamba2_ssd_fwd_launch": ([_ptr] * 9 + [_int] * 8 + [_ptr], _int),
     "mamba2_ssd_bwd_launch": ([_ptr] * 17 + [_int] * 8 + [_ptr], _int),
     "rwkv6_wkv_fwd_launch": ([_ptr] * 10 + [_int] * 6 + [_ptr], _int),
@@ -54,6 +55,8 @@ SIGNATURES = {
         [_ptr, _ptr, _int, _int, _ptr] + [_int] * 4
         + [_ptr, _ptr, _ptr, _ll, _ptr],
         _int),
+    "genesys_bare_respond": (
+        [_ptr, _int, _ptr, _ll, ctypes.POINTER(_ll)], _int),
     "genesys_kernels_error_string": ([_int], ctypes.c_char_p),
 }
 

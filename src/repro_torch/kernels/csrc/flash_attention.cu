@@ -44,9 +44,9 @@
 //     domain (exp2 of scores prescaled by scale * log2 e), f32 max, sum and
 //     lse.
 //   * K3b is three launches, each sum in a fixed order (no atomics: two
-//     calls give the same bits): fa_delta (delta from one bf16 read of o
-//     and do, and lse * log2 e, into rows padded to 128 so that the tiles
-//     read no tail); fa_dq_wgmma (a CTA per 128 query rows and head, 64-key
+//     calls give the same bits): fa_delta (delta from one read of o and do,
+//     and lse * log2 e, into rows padded to 128 so that the tiles read no
+//     tail); fa_dq_wgmma (a CTA per 128 query rows and head, 64-key
 //     K/V tiles streamed: S, dP, dq += dS K); fa_dkv_wgmma (a CTA per 128
 //     keys and query head, H x Skv / 128 CTAs, 64-row Q/dO/lse/delta tiles
 //     streamed: S^T, dP^T, dv += P^T dO, dk += dS^T Q). dq recomputes S and
@@ -306,8 +306,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     fa_fwd_wgmma(const __grid_constant__ TileMaps tq,
                  const __grid_constant__ TileMaps tk,
                  const __grid_constant__ TileMaps tv, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int KV, int Sq, int Skv,
-                 float scale_log2, int causal) {
+                 float* __restrict__ o32, float* __restrict__ lse, int H,
+                 int KV, int Sq, int Skv, float scale_log2, int causal) {
   constexpr int kFwdKeys = fwd_keys<HD>();
   constexpr int QB = tile_bytes<HD, kRows>(), KB = tile_bytes<HD, kFwdKeys>();
   extern __shared__ uint8_t fa_smem[];
@@ -441,8 +441,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     }
     const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
     const size_t ld = (size_t)H * HD;
-    store_rows<HD>(o + ((size_t)b * Sq + r_lo) * ld + (size_t)h * HD, ld, acc,
-                   r_lo < Sq, r_hi < Sq, 1.f / d_lo, 1.f / d_hi, tig);
+    const size_t row = ((size_t)b * Sq + r_lo) * ld + (size_t)h * HD;
+    store_rows<HD>(o + row, ld, acc, r_lo < Sq, r_hi < Sq, 1.f / d_lo,
+                   1.f / d_hi, tig);
+    if (o32 != nullptr)      // the same values before rounding (see fa_delta)
+      store_rows<HD>(o32 + row, ld, acc, r_lo < Sq, r_hi < Sq, 1.f / d_lo,
+                     1.f / d_hi, tig);
     if (tig == 0) {
       float* lb = lse + ((size_t)b * H + h) * Sq;
       if (r_lo < Sq) lb[r_lo] = (m_lo + log2f(d_lo)) * kLn2;
@@ -453,13 +457,27 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 
 // ---- backward: delta, dq, dk/dv ---------------------------------------------
 
-// delta = rowsum(do * o) in f32 from one bf16 read of each (a warp per row
-// of one head, 4 elements a lane), and lse2 = lse * log2 e, both into [B,
-// H, pitch] rows (pitch: Sq rounded up to 128); the kernels read whole
-// tiles of rows, and a row past Sq gets lse2 = +inf and delta = 0, so its
-// p is exactly 0.
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(x[0]), c = __bfloat1622float2(x[1]);
+  return make_float4(a.x, a.y, c.x, c.y);
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// delta = rowsum(do * o) in f32 from one read of each (a warp per row of
+// one head, 4 elements a lane), and lse2 = lse * log2 e, both into [B, H,
+// pitch] rows (pitch: Sq rounded up to 128); the kernels read whole tiles
+// of rows, and a row past Sq gets lse2 = +inf and delta = 0, so its p is
+// exactly 0. o is bf16 or, from the forward's o32, the f32 values before
+// rounding: delta is the sum of p dP over the keys that dS = p (dP -
+// delta) cancels against, and o rounded to bf16 moves it by 2^-9 of |o|
+// |do|, which dq and dk then carry at full size where the keys are alike
+// (a cross-attention over an encoder output that varies little).
+template <typename TO>
 __global__ void __launch_bounds__(256) fa_delta(
-    const bf16* __restrict__ o, const bf16* __restrict__ dout,
+    const TO* __restrict__ o, const bf16* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ lse2,
     float* __restrict__ delta, int B, int H, int Sq, int HD, int pitch) {
   const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
@@ -479,14 +497,8 @@ __global__ void __launch_bounds__(256) fa_delta(
   float acc = 0.f;
   if (lane < HD / 4) {
     const size_t off = (((size_t)b * Sq + s) * H + h) * HD + 4 * lane;
-    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(o + off);
-    const __nv_bfloat162* y =
-        reinterpret_cast<const __nv_bfloat162*>(dout + off);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float2 a = __bfloat1622float2(x[i]), c = __bfloat1622float2(y[i]);
-      acc += a.x * c.x + a.y * c.y;
-    }
+    const float4 a = load4(o + off), c = load4(dout + off);
+    acc = a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
   }
   acc = warp_sum(acc);
   if (lane == 0) {
@@ -1130,8 +1142,8 @@ cudaError_t opt_in_smem(K kernel, int bytes) {
 
 template <int HD>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int H, int KV, int Sq, int Skv, float scale,
-               int causal, int dtype, cudaStream_t st) {
+               float* o32, float* lse, int B, int H, int KV, int Sq, int Skv,
+               float scale, int causal, int dtype, cudaStream_t st) {
   if (dtype == kF32) {
     fa_fwd_f32<HD><<<dim3(cdiv(Sq, kF32Rows), H, B), kFaThreads, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1149,7 +1161,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   if (e == cudaSuccess) e = opt_in_smem(fa_fwd_wgmma<HD>, smem);
   if (e != cudaSuccess) return e;
   fa_fwd_wgmma<HD><<<dim3(H, B, cdiv(Sq, kRows)), kWsThreads, smem, st>>>(
-      tq, tk, tv, static_cast<bf16*>(o), lse, H, KV, Sq, Skv,
+      tq, tk, tv, static_cast<bf16*>(o), o32, lse, H, KV, Sq, Skv,
       scale * kLog2e, causal);
   return cudaGetLastError();
 }
@@ -1159,14 +1171,20 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* stats,
                float* partial, void* dq, void* dk, void* dv, int B, int H,
                int KV, int Sq, int Skv, int pitch, float scale, int causal,
-               int dtype, int parts, cudaStream_t st) {
+               int dtype, int parts, int o_f32, cudaStream_t st) {
   float* lse2 = stats;
   float* delta = stats + (size_t)B * H * pitch;
   if ((parts & 1) && dtype == kBF16) {
     const long long threads = 32LL * B * pitch * H;
-    fa_delta<<<(int)((threads + 255) / 256), 256, 0, st>>>(
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
-        lse2, delta, B, H, Sq, HD, pitch);
+    const int blocks = (int)((threads + 255) / 256);
+    if (o_f32)
+      fa_delta<float><<<blocks, 256, 0, st>>>(
+          static_cast<const float*>(o), static_cast<const bf16*>(dout), lse,
+          lse2, delta, B, H, Sq, HD, pitch);
+    else
+      fa_delta<bf16><<<blocks, 256, 0, st>>>(
+          static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+          lse2, delta, B, H, Sq, HD, pitch);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -1244,25 +1262,28 @@ extern "C" {
 
 // q [B,Sq,H,hd], k/v [B,Skv,KV,hd] (dtype: 0 f32, 1 bf16), contiguous and
 // 16-byte aligned; o [B,Sq,H,hd] in the same dtype and lse [B,H,Sq] f32 are
-// written. hd is 64, 80 or 128; causal needs Sq == Skv.
+// written, and (bf16, if o32 is not null) o32 [B,Sq,H,hd] f32, the output
+// before its rounding to bf16. hd is 64, 80 or 128; causal needs Sq == Skv.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
-                               void* o, float* lse, int B, int H, int KV,
-                               int Sq, int Skv, int hd, float scale,
+                               void* o, float* o32, float* lse, int B, int H,
+                               int KV, int Sq, int Skv, int hd, float scale,
                                int causal, int dtype, void* stream) {
-  if (!fa_args_ok(B, H, KV, Sq, Skv, hd, causal, dtype))
+  if (!fa_args_ok(B, H, KV, Sq, Skv, hd, causal, dtype) ||
+      (o32 != nullptr && dtype != kBF16))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
-    return launch_fwd<64>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal,
-                          dtype, st);
+    return launch_fwd<64>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
+                          causal, dtype, st);
   if (hd == 80)
-    return launch_fwd<80>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal,
-                          dtype, st);
-  return launch_fwd<128>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal,
-                         dtype, st);
+    return launch_fwd<80>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
+                          causal, dtype, st);
+  return launch_fwd<128>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
+                         causal, dtype, st);
 }
 
-// The forward's inputs, its o and lse, do [B,Sq,H,hd] (same dtype); writes
+// The forward's inputs, its o (bf16: or, with o_f32, its o32) and lse, do
+// [B,Sq,H,hd] (the inputs' dtype); writes
 // dq [B,Sq,H,hd] and dk, dv [B,Skv,KV,hd] in the inputs' dtype. Scratch:
 // stats [2, B, H, pitch] f32 (bf16: lse * log2 e and delta, written by the
 // delta launch, pitch a multiple of 128 at least Sq; f32: pitch = Sq and
@@ -1276,23 +1297,24 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                void* dq, void* dk, void* dv, int B, int H,
                                int KV, int Sq, int Skv, int hd, int pitch,
                                float scale, int causal, int dtype, int parts,
-                               void* stream) {
+                               int o_f32, void* stream) {
   if (!fa_args_ok(B, H, KV, Sq, Skv, hd, causal, dtype) ||
       (dtype == kF32 ? pitch != Sq : pitch % 128 != 0 || pitch < Sq) ||
-      (dtype == kBF16 && H != KV && partial == nullptr))
+      (dtype == kBF16 && H != KV && partial == nullptr) ||
+      (o_f32 && dtype != kBF16))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return launch_bwd<64>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
                           H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,
-                          st);
+                          o_f32, st);
   if (hd == 80)
     return launch_bwd<80>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
                           H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,
-                          st);
+                          o_f32, st);
   return launch_bwd<128>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
                          H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,
-                         st);
+                         o_f32, st);
 }
 
 }  // extern "C"

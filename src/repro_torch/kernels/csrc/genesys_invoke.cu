@@ -18,12 +18,16 @@
 //
 // What bounds it: latency, not bytes or operations. A call writes 64 bytes
 // a row over PCIe and reads a state word back until the host answers; the
-// host's dispatch of the call takes the rest.
+// host's dispatch of the call takes the rest. genesys_bare_respond below
+// answers the same protocol with nothing behind it: its round trip is the
+// floor of any device entry (chip_smoke.py phase 18).
 //
 // Built by src/repro_torch/kernels/_build.py and bound through ctypes: the
 // entry points at the bottom have a plain C interface and return a CUDA
 // error code.
 
+#include <atomic>
+#include <chrono>
 #include <cstring>
 
 #include "genesys_protocol.cuh"
@@ -128,6 +132,40 @@ int genesys_invoke_launch(void* area, int* owner, int n_slots, int base,
       (uint32_t)sysno, (uint32_t)flags, (uint32_t)hw_id, retval, tag, status,
       (uint64_t)timeout_ns);
   return cudaGetLastError();
+}
+
+// The floor of any device entry's round trip: a bare host responder over
+// n_slots slots of mapped host memory (host address) that marks each READY
+// row answered at once (args[0] = 0; FINISHED for a blocking row, FREE for
+// a non-blocking one), with no executor, dispatcher or handler. It spins on
+// the calling thread until *stop is non-zero or timeout_ns has passed, and
+// writes the rows it answered to *answered. Measurement only: a caller runs
+// it on a thread of its own, through a handle that releases the GIL.
+int genesys_bare_respond(void* host_area, int n_slots, const int* stop,
+                         long long timeout_ns, long long* answered) {
+  volatile genesys::Slot* slots = static_cast<genesys::Slot*>(host_area);
+  const volatile int* halt = stop;
+  const auto t0 = std::chrono::steady_clock::now();
+  long long n = 0;
+  for (unsigned round = 0; !*halt; ++round) {
+    for (int i = 0; i < n_slots; ++i) {
+      volatile genesys::Slot* s = slots + i;
+      if (s->state != genesys::kReady) continue;
+      std::atomic_thread_fence(std::memory_order_acquire);
+      const uint32_t flags = s->flags;
+      s->args[0] = 0;
+      std::atomic_thread_fence(std::memory_order_release);
+      s->state = (flags & genesys::kBlocking) ? genesys::kFinished
+                                              : genesys::kFree;
+      ++n;
+    }
+    if ((round & 1023) == 0 &&
+        std::chrono::steady_clock::now() - t0 >
+            std::chrono::nanoseconds(timeout_ns))
+      break;
+  }
+  *answered = n;
+  return 0;
 }
 
 }  // extern "C"

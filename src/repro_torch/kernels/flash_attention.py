@@ -5,12 +5,19 @@ version.
 * :func:`flash_attention_fwd` returns ``(o, lse)``; its kernels
   (``csrc/flash_attention.cu``: ``fa_fwd_wgmma`` for bf16, ``fa_fwd_f32``)
   replace the Pallas ``flash_attention_fwd`` / ``_fwd_kernel`` of
-  ``src/repro/kernels/flash_attention.py``.
+  ``src/repro/kernels/flash_attention.py``. For bf16 inputs it can also
+  write ``out_f32``, the output before its rounding to bf16.
 * :func:`flash_attention_bwd` returns ``(dq, dk, dv)`` from the forward's
   inputs, ``o``, ``lse`` and ``do``; its kernels replace the Pallas
   ``flash_attention_bwd`` / ``_dq_kernel``, ``_dkv_kernel`` and (bf16) the
-  delta = rowsum(do * o) the reference computes before them. In bf16 it
-  is three launches (:func:`bwd_launch`): ``fa_delta`` (delta from one
+  delta = rowsum(do * o) the reference computes before them. ``o`` may be
+  that float32 output: the reference takes delta from ``o`` rounded to
+  bf16, which moves delta by 2^-9 of ``|o| |do|``, and ``dS = p (dP -
+  delta)`` cancels against delta, so where the keys are alike (a
+  cross-attention over an encoder output that varies little) dq and dk
+  come out wrong at full size; the differentiable ``ops.flash_attention``
+  therefore keeps the float32 output for its backward. In bf16 it is
+  three launches (:func:`bwd_launch`): ``fa_delta`` (delta from one
   read of ``o`` and ``do``), ``fa_dq_wgmma`` (a CTA per 128 query rows
   and head) and ``fa_dkv_wgmma`` (a CTA per 128 keys and *query* head, so
   the G heads of a KV head run in parallel), then with G > 1
@@ -69,13 +76,16 @@ def _causal_keep(Sq, Skv, q_offset, device):
     return qpos[:, None] >= torch.arange(Skv, device=device)[None, :]
 
 
-def flash_attention_fwd_plain(q, k, v, *, causal, scale=None, q_offset=0):
+def flash_attention_fwd_plain(q, k, v, *, causal, scale=None, q_offset=0,
+                              out_f32=None):
     """q [B,Sq,H,hd]; k, v [B,Skv,KV,hd] -> (o [B,Sq,H,hd] in q's dtype,
     lse [B,H,Sq] float32). Scores in float32 from the inputs, masked with
     -inf (causal: query ``q_offset + i`` sees keys ``j <= q_offset + i``),
     softmax weights rounded to V's dtype before the PV product, as in the
     JAX package's ``flash_attention_xla``; lse = max + log(sum) as the
-    Pallas kernel gives it. The kernel takes ``q_offset = 0`` only."""
+    Pallas kernel gives it. ``out_f32``, a float32 tensor of q's shape if
+    given, receives o before its cast to q's dtype. The kernel takes
+    ``q_offset = 0`` only."""
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
     scale = hd ** -0.5 if scale is None else scale
@@ -89,15 +99,18 @@ def flash_attention_fwd_plain(q, k, v, *, causal, scale=None, q_offset=0):
     o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(), v.float())
     o = o / denom.permute(0, 3, 1, 2)[..., None]
     lse = m[..., 0] + torch.log(denom)
-    return (o.reshape(B, Sq, H, hd).to(q.dtype).contiguous(),
-            lse.reshape(B, H, Sq).contiguous())
+    o = o.reshape(B, Sq, H, hd)
+    if out_f32 is not None:
+        out_f32.copy_(o)
+    return o.to(q.dtype).contiguous(), lse.reshape(B, H, Sq).contiguous()
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal, scale=None):
     """The Pallas backward's arithmetic in float32: p = exp(s * scale -
     lse) (0 where masked), delta = rowsum(do * o), dv = p^T do, dS = p *
     (do v^T - delta) * scale, dq = dS k, dk = dS^T q, dk and dv summed over
-    the G query heads of each KV head. Returns (dq, dk, dv) in the inputs'
+    the G query heads of each KV head. ``o`` is in q's dtype or, the
+    forward's ``out_f32``, float32. Returns (dq, dk, dv) in the inputs'
     dtypes."""
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
@@ -117,15 +130,23 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal, scale=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_fwd(q, k, v, *, causal, scale=None):
+def flash_attention_fwd(q, k, v, *, causal, scale=None, out_f32=None):
     """Flash attention forward, same contract as
-    :func:`flash_attention_fwd_plain` (``q_offset = 0``). CPU tensors take
-    the plain version; CUDA tensors launch the kernel, or raise on what it
+    :func:`flash_attention_fwd_plain` (``q_offset = 0``; ``out_f32`` for
+    bf16 inputs only, contiguous on q's device). CPU tensors take the
+    plain version; CUDA tensors launch the kernel, or raise on what it
     does not take. ``flash_attention_fwd.launches`` counts kernel
     launches."""
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale,
+                                         out_f32=out_f32)
     B, Sq, H, hd = _check(q, k, v, causal, (q, k, v))
+    if out_f32 is not None and (
+            q.dtype != torch.bfloat16 or out_f32.shape != q.shape
+            or out_f32.dtype != torch.float32 or out_f32.device != q.device
+            or not out_f32.is_contiguous()):
+        raise ValueError(f"out_f32 must be a contiguous float32 "
+                         f"{tuple(q.shape)} on {q.device}, for bf16 inputs")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _build.library()
@@ -133,6 +154,7 @@ def flash_attention_fwd(q, k, v, *, causal, scale=None):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if out_f32 is None else out_f32.data_ptr(),
             lse.data_ptr(), B, H, k.shape[2], Sq, k.shape[1], hd,
             hd ** -0.5 if scale is None else scale, int(causal),
             _DTYPE_CODE[q.dtype], stream)
@@ -212,7 +234,8 @@ def bwd_launch(q, k, v, o, lse, do, grads, stats, partial, *, causal,
             partial.data_ptr() if partial.numel() else None, dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, k.shape[2], Sq, k.shape[1],
             hd, stats.shape[-1], hd ** -0.5 if scale is None else scale,
-            int(causal), _DTYPE_CODE[q.dtype], parts, stream)
+            int(causal), _DTYPE_CODE[q.dtype], parts,
+            int(o.dtype != q.dtype), stream)
     _build.check(err, "flash_attention_bwd")
 
 
@@ -232,11 +255,12 @@ def tma_strides(shape, itemsize):
 
 def _check_bwd(q, k, v, o, lse, do, causal):
     B, Sq, H, hd = _check(q, k, v, causal, (q, k, v, o, lse, do))
-    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+    if o.shape != q.shape or do.shape != q.shape \
+            or o.dtype not in (q.dtype, torch.float32) \
             or do.dtype != q.dtype:
-        raise ValueError(f"o and do must match q {tuple(q.shape)} "
-                         f"{q.dtype}, got {tuple(o.shape)} {o.dtype} / "
-                         f"{tuple(do.shape)} {do.dtype}")
+        raise ValueError(f"o (q's dtype or float32) and do must match q "
+                         f"{tuple(q.shape)} {q.dtype}, got {tuple(o.shape)} "
+                         f"{o.dtype} / {tuple(do.shape)} {do.dtype}")
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse [B,H,Sq] float32 expected, got "
                          f"{tuple(lse.shape)} {lse.dtype}")

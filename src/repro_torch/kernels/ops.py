@@ -55,11 +55,14 @@ class Kernels:
     comparisons; each None takes the kernel's wrapper (its plain version
     on CPU tensors). A family reads the fields it has and ignores the
     rest: ``attend`` the layers' attention, in the signature of the
-    forward's branch (:func:`flash_attention` without a cache,
-    :func:`paged_decode_attention` or :func:`decode_attention` with one),
-    ``ssd`` the hybrid's scan (:func:`mamba2_ssd`), ``wkv`` rwkv6's WKV
-    (:func:`rwkv6_wkv`) and ``gmm`` an MoE layer's grouped matmul
-    (:func:`gmm`)."""
+    forward's branch (:func:`flash_attention` without a cache, the
+    encoder-decoder's encoder and cross-attention included, at Sq != Skv
+    for the latter; :func:`paged_decode_attention` or
+    :func:`decode_attention` with one, the encoder-decoder's decode-time
+    cross-attention included: :func:`decode_attention` of the new row over
+    the encoder's positions, with no new token), ``ssd`` the hybrid's scan
+    (:func:`mamba2_ssd`), ``wkv`` rwkv6's WKV (:func:`rwkv6_wkv`) and
+    ``gmm`` an MoE layer's grouped matmul (:func:`gmm`)."""
     attend: Callable | None = None
     ssd: Callable | None = None
     wkv: Callable | None = None
@@ -71,12 +74,19 @@ KERNELS = Kernels()     # every kernel its own
 
 class _FlashAttention(torch.autograd.Function):
     """The reference's ``custom_vjp`` (``repro.kernels.ops``): the forward
-    keeps ``(q, k, v, o, lse)``, the backward runs K3b on them."""
+    keeps ``(q, k, v, o, lse)``, the backward runs K3b on them. For bf16
+    inputs that need a gradient the kept ``o`` is the forward's float32
+    output before its rounding, which K3b takes delta = rowsum(do * o)
+    from (the reference takes it from the bf16 ``o``; see
+    ``kernels.flash_attention``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o32 = None
+        if q.dtype != torch.float32 and any(ctx.needs_input_grad[:3]):
+            o32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, out_f32=o32)
+        ctx.save_for_backward(q, k, v, o if o32 is None else o32, lse)
         ctx.causal = causal
         return o
 

@@ -1,8 +1,9 @@
 """Shared model layers of the PyTorch port (the counterpart of
 ``repro.models.layers``): RMSNorm, RoPE, the SwiGLU and GELU MLPs, and
-three branches of GQA attention: the no-cache one (training and prefill)
-and two decode branches, the paged one and the carried dense-cache one.
-Parameters come from
+the branches of GQA attention: the no-cache one (training and prefill;
+causal, non-causal, or cross-attention over another source), two decode
+branches, the paged one and the carried dense-cache one, and decode-time
+cross-attention. Parameters come from
 ``models.module.ParamBuilder`` subtrees; one device, so the reference's
 sharding constraints and Megatron KV replication (``kv_rep``) are gone.
 """
@@ -23,7 +24,8 @@ __all__ = ["QSCALE", "rmsnorm", "rope_tables", "apply_rope", "rope",
            "flash_attention_xla", "paged_attention_xla",
            "decode_attention_xla", "decode_attention_two_part",
            "AttentionStep", "nocache_step", "paged_step", "dense_step",
-           "init_attention", "attention", "init_mlp", "mlp", "proj"]
+           "cross_step", "init_attention", "attention", "init_mlp", "mlp",
+           "proj"]
 
 
 # ----------------------------------------------------------------- norms ----
@@ -108,9 +110,9 @@ def decode_attention_two_part(q, k_cache, v_cache, k_new, v_new, cache_len):
                                   k_new[:, 0], v_new[:, 0])[:, None]
 
 
-def init_attention(pb, cfg):
+def init_attention(pb, cfg, prefix: str = "attn"):
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    a = pb.sub("attn")
+    a = pb.sub(prefix)
     a.param("wq", (D, H, hd))
     a.param("wk", (D, KV, hd))
     a.param("wv", (D, KV, hd))
@@ -136,15 +138,17 @@ class AttentionStep:
     computes these inside every layer and XLA folds the repeats; eager
     PyTorch would launch them once per layer, so the port computes them
     once per step (:func:`nocache_step`, :func:`paged_step`,
-    :func:`dense_step`)."""
-    cos: torch.Tensor     # [B,S,1,hd/2] float32
-    sin: torch.Tensor
+    :func:`dense_step`, and :func:`cross_step` for cross-attention, which
+    has no rotary tables)."""
+    cos: torch.Tensor | None     # [B,S,1,hd/2] float32
+    sin: torch.Tensor | None
     # [B] int32. paged: block_tables[b, cl // BS] * BS + cl % BS in the
     # arena; dense: b * S + cl in a layer's [B*S] cache, B * S (dropped)
     # where cl >= S; None without a cache
     slots: torch.Tensor | None = None
     # [B] int32. paged: cache_len + 1 (the token is written first);
-    # dense: cache_len (the token is attended apart); None without a cache
+    # dense: cache_len (the token is attended apart); decode-time
+    # cross-attention: the source's length; None without a cache
     lens: torch.Tensor | None = None
 
 
@@ -183,6 +187,17 @@ def dense_step(cfg, positions, cache_len, max_len: int) -> AttentionStep:
                          cache_len.to(torch.int32))
 
 
+def cross_step(kv_x, *, decode: bool) -> AttentionStep:
+    """kv_x [B,S_src,D]: the step of cross-attention over it. Without
+    rotary tables (the reference applies no rope to cross-attention); when
+    decoding, every row attends all S_src positions (``lens``)."""
+    if not decode:
+        return AttentionStep(None, None)
+    B, S_src, _ = kv_x.shape
+    return AttentionStep(None, None, lens=torch.full(
+        (B,), S_src, dtype=torch.int32, device=kv_x.device))
+
+
 def _quantise(t, dtype):
     """The new K or V as the cache stores it: int8 by
     ``clip(round(t * QSCALE))``, else a cast."""
@@ -191,16 +206,28 @@ def _quantise(t, dtype):
     return t.to(dtype)
 
 
-def attention(p, cfg, x, *, step: AttentionStep, paged_cache=None,
-              carried_cache=None, attend=None):
+def attention(p, cfg, x, *, step: AttentionStep, kv_x=None, causal=True,
+              paged_cache=None, carried_cache=None, attend=None):
     """GQA attention: the no-cache, paged or carried branch of the
-    reference's ``attention``. x [B,S,D]; returns [B,S,D].
+    reference's ``attention``, or cross-attention. x [B,S,D]; returns
+    [B,S,D].
 
     No cache (training and prefill), ``step`` from :func:`nocache_step`
-    over the S positions of each row: causal attention of the S tokens
-    among themselves via ``attend(q, k, v, causal=True)`` (default: the
-    differentiable ``ops.flash_attention``, K3a/K3b on CUDA tensors;
+    over the S positions of each row: attention of the S tokens among
+    themselves, causal unless ``causal=False`` (an encoder's), via
+    ``attend(q, k, v, causal=causal)`` (default: the differentiable
+    ``ops.flash_attention``, K3a/K3b on CUDA tensors;
     :func:`flash_attention_xla` is the plain version).
+
+    ``kv_x`` [B,S_src,D], ``step`` from :func:`cross_step`:
+    cross-attention, K and V projected from ``kv_x``, neither q nor k
+    rotated, never causal. Without a cache (``step.lens`` None) it is the
+    no-cache branch at Sq = S and Skv = S_src; when decoding (S = 1,
+    ``step.lens`` the source's length) one query row a request attends
+    the S_src positions via ``attend(q [B,H,hd], k, v [B,S_src,KV,hd],
+    lens)`` with no new token (default: the CUDA kernel wrapper
+    ``ops.decode_attention``, K2; ``ops.decode_attention_plain`` is the
+    plain version), the same signature as the carried branch's.
 
     The two decode branches take ONE new token per row (S = 1).
 
@@ -221,21 +248,33 @@ def attention(p, cfg, x, *, step: AttentionStep, paged_cache=None,
     token's K/V (int8: quantised) at ``[layer, b, cache_len[b]]`` in
     place, dropping rows at ``cache_len >= S``."""
     B, S, _ = x.shape
-    if S != 1 and (paged_cache is not None or carried_cache is not None):
+    if kv_x is not None and (paged_cache is not None
+                             or carried_cache is not None):
+        raise ValueError("cross-attention takes no cache")
+    decode = (paged_cache is not None or carried_cache is not None
+              or (kv_x is not None and step.lens is not None))
+    if S != 1 and decode:
         raise ValueError(f"decode takes one token per row, got S={S}")
+    kv_src = x if kv_x is None else kv_x
     q = proj(x, p["wq"])
-    k = proj(x, p["wk"])
-    v = proj(x, p["wv"])
+    k = proj(kv_src, p["wk"])
+    v = proj(kv_src, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = apply_rope(q, step.cos, step.sin)
-    k = apply_rope(k, step.cos, step.sin)
+    if kv_x is None:
+        q = apply_rope(q, step.cos, step.sin)
+        k = apply_rope(k, step.cos, step.sin)
     wo = p["wo"].reshape(-1, p["wo"].shape[-1])
-    if paged_cache is None and carried_cache is None:
-        out = (attend or ops.flash_attention)(q, k, v, causal=True)
+    if not decode:
+        out = (attend or ops.flash_attention)(
+            q, k, v, causal=causal and kv_x is None)
         return proj(out.reshape(B, S, -1), wo)
+    if kv_x is not None:
+        out = (attend or ops.decode_attention)(q[:, 0].contiguous(), k, v,
+                                               step.lens)
+        return proj(out.reshape(B, 1, -1), wo)
 
     q1, k1, v1 = (t[:, 0].contiguous() for t in (q, k, v))
     if paged_cache is not None:

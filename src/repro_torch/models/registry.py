@@ -1,11 +1,11 @@
 """Model-family registry of the PyTorch port (the counterpart of
 ``repro.models.registry``): family -> (init, forward, init_cache).
 
-The port has the dense transformer, the VLM's backbone (the same decoder;
-the patch-embed prefix is precomputed), the MoE transformer (the same
-decoder with ``moe_mlp`` for the MLP), the zamba2 hybrid and the SSM
-(rwkv6). The encoder-decoder is the other-families slice of the port,
-and :func:`get_api` refuses it.
+The port has every family of the reference: the dense transformer, the
+VLM's backbone (the same decoder; the patch-embed prefix is precomputed),
+the MoE transformer (the same decoder with ``moe_mlp`` for the MLP), the
+zamba2 hybrid, the SSM (rwkv6) and the encoder-decoder (seamless; the
+audio frontend is precomputed frame embeddings).
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.config import Family, ModelConfig
-from repro_torch.models import mamba2, rwkv6, transformer
+from repro_torch.models import encdec, mamba2, rwkv6, transformer
 
 
 @dataclass(frozen=True)
@@ -32,17 +32,10 @@ _BY_FAMILY = {
                          transformer.init_cache),
     Family.HYBRID: ModelApi(mamba2.init, mamba2.forward, mamba2.init_cache),
     Family.SSM: ModelApi(rwkv6.init, rwkv6.forward, rwkv6.init_cache),
+    Family.ENCDEC: ModelApi(encdec.init, encdec.forward, encdec.init_cache),
 }
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
-    """The family's functions, or ValueError for a family the port does
-    not have yet."""
-    api = _BY_FAMILY.get(cfg.family)
-    if api is None:
-        raise ValueError(
-            f"the port has the dense transformer, the VLM backbone, the "
-            f"MoE transformer, the zamba2 hybrid and the rwkv6 SSM, not "
-            f"{cfg.family}: the encoder-decoder is the other-families slice "
-            f"of the port")
-    return api
+    """The family's functions."""
+    return _BY_FAMILY[cfg.family]

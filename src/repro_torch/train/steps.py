@@ -6,7 +6,8 @@ step and the dense-cache serve step, each over the family's model from
 Batch dict convention (the reference's):
   tokens  [B, S_text] int32        (always)
   labels  [B, S_text] int32        (train; -100 = masked)
-  embeds  [B, P, D]   compute_dtype (vlm patch stub, optional)
+  embeds  [B, P, D]   compute_dtype (vlm patch / audio frame stub, optional;
+                                     the encoder-decoder's frames)
 """
 from __future__ import annotations
 
@@ -36,14 +37,23 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
     return (nll + zl).sum() / denom, nll.sum() / denom
 
 
+def _call_forward(params, cfg: ModelConfig, batch, kernels):
+    """The family's no-cache forward over a batch: the encoder-decoder
+    takes ``embeds`` as its frames, the other families as a prefix."""
+    forward = get_api(cfg).forward
+    if cfg.family == Family.ENCDEC:
+        return forward(params, cfg, batch["tokens"],
+                       frames=batch.get("embeds"), kernels=kernels)
+    return forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"),
+                   kernels=kernels)
+
+
 def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig,
             kernels: ops.Kernels = ops.KERNELS):
     """The no-cache forward and :func:`cross_entropy` over the text
     positions (a VLM's logits over its patch prefix are dropped). Returns
     ``(loss, {"nll": nll})``."""
-    logits, _ = get_api(cfg).forward(params, cfg, batch["tokens"],
-                                     embeds=batch.get("embeds"),
-                                     kernels=kernels)
+    logits, _ = _call_forward(params, cfg, batch, kernels)
     if cfg.family == Family.VLM and batch.get("embeds") is not None:
         logits = logits[:, batch["embeds"].shape[1]:]
     loss, nll = cross_entropy(logits, batch["labels"], tc.z_loss)
@@ -68,7 +78,6 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     versions are ``layers.flash_attention_xla``,
     ``mamba2_scan.ssd_chunked_plain``, ``rwkv6_scan.wkv6_chunked_plain``
     and ``moe_gmm.gmm_plain``)."""
-    get_api(cfg)
     opt = AdamW(lr=tc.lr, beta1=tc.beta1, beta2=tc.beta2,
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
     n_mb = tc.microbatches
@@ -114,12 +123,9 @@ def _grads(params):
 def make_prefill_step(cfg: ModelConfig, kernels: ops.Kernels = ops.KERNELS):
     """``prefill_step(params, batch) -> (logits [B,S,V] float32,
     next_token [B] int32)``: the no-cache forward without gradients."""
-    forward = get_api(cfg).forward
-
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = forward(params, cfg, batch["tokens"],
-                            embeds=batch.get("embeds"), kernels=kernels)
+        logits, _ = _call_forward(params, cfg, batch, kernels)
         return logits, torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     return prefill_step
@@ -127,23 +133,29 @@ def make_prefill_step(cfg: ModelConfig, kernels: ops.Kernels = ops.KERNELS):
 
 def make_serve_step(cfg: ModelConfig, kernels: ops.Kernels = ops.KERNELS):
     """One decode step over the family's carried dense cache (its
-    ``init_cache``: ``{k,v: [L,B,S,KV,hd]}`` for the transformer, ``{kv,
-    ssm, conv}`` for the hybrid, ``{wkv, shift1, shift2}`` for rwkv6):
-    ``(params, cache, token [B,1], cache_len [B]) -> (next_token [B]
-    int32, cache)``.
+    ``init_cache``: ``{k,v: [L,B,S,KV,hd]}`` for the transformer and the
+    encoder-decoder's decoder, ``{kv, ssm, conv}`` for the hybrid, ``{wkv,
+    shift1, shift2}`` for rwkv6): ``(params, cache, token [B,1], cache_len
+    [B], enc_out=None) -> (next_token [B] int32, cache)``. The
+    encoder-decoder takes ``enc_out [B,S_enc,D]`` (``encdec.encode``); the
+    other families ignore it, as the reference's step does.
 
     ``kernels.attend(q [B,H,hd], k, v [B,S,KV,hd], lens, k_new, v_new)``
-    is the dense attention: ``None`` takes the CUDA kernel wrapper
-    ``kernels.ops.decode_attention`` (its plain version on CPU tensors);
-    ``kernels.ops.decode_attention_plain`` forces the plain version, for
-    comparisons. ``kernels.gmm`` is an MoE layer's grouped matmul (default
-    ``ops.gmm``). The cache is updated in place and returned."""
+    is the dense attention (and, without ``k_new``, the encoder-decoder's
+    cross-attention of the new row over ``enc_out``): ``None`` takes the
+    CUDA kernel wrapper ``kernels.ops.decode_attention`` (its plain version
+    on CPU tensors); ``kernels.ops.decode_attention_plain`` forces the
+    plain version, for comparisons. ``kernels.gmm`` is an MoE layer's
+    grouped matmul (default ``ops.gmm``). The cache is updated in place
+    and returned."""
     forward = get_api(cfg).forward
 
     @torch.no_grad()
-    def serve_step(params, cache, token, cache_len):
-        logits, new_cache = forward(params, cfg, token, cache_len=cache_len,
-                                    cache=cache, kernels=kernels)
+    def serve_step(params, cache, token, cache_len, enc_out=None):
+        kw = dict(cache_len=cache_len, cache=cache, kernels=kernels)
+        if cfg.family == Family.ENCDEC:
+            kw["enc_out"] = enc_out
+        logits, new_cache = forward(params, cfg, token, **kw)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, new_cache
 
@@ -169,10 +181,8 @@ def make_paged_serve_step(cfg: ModelConfig,
     """
     if cfg.family not in transformer.DECODER_FAMILIES:
         raise ValueError(
-            f"paged decode in the port supports the dense and MoE "
-            f"transformers, not {cfg.family} (SSM/hybrid state is not "
-            f"block-addressable; the encoder-decoder is a later slice of "
-            f"the port)")
+            f"paged decode supports transformer-family archs, not "
+            f"{cfg.family} (SSM/hybrid state is not block-addressable)")
 
     @torch.no_grad()
     def paged_serve_step(params, arenas, block_tables, token, cache_len):

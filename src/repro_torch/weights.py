@@ -1,12 +1,16 @@
 """Weight layout of the PyTorch port, and the bridge from the JAX package.
 
 Parameters are nested dicts of tensors in the JAX package's layout
-(``transformer.init``, ``mamba2.init``, ``rwkv6.init``): ``embed [V,D]``,
+(``transformer.init``, ``mamba2.init``, ``rwkv6.init``, ``encdec.init``):
+``embed [V,D]``,
 per-layer leaves stacked ``[L, ...]`` under ``blocks`` (an MoE layer's
 ``moe/router [D,E]``, ``moe/wi_gate``, ``moe/wi_up [E,D,F]`` and
 ``moe/wo [E,F,D]``, and arctic's ``dense_mlp``), the hybrid's ``shared``
 block, ``final_norm [D]``, ``lm_head [D,V]``; the encoder-decoder's
-``encoder`` and ``decoder`` stacks and ``enc_norm``.
+``encoder`` stack ``[n_enc_layers, ...]`` (``attn``, ``mlp``, ``ln_attn``,
+``ln_mlp``), ``decoder`` stack ``[n_layers, ...]`` (``self_attn``,
+``cross_attn``, ``mlp``, ``ln_self``, ``ln_cross``, ``ln_mlp``) and
+``enc_norm``.
 
 Held dtype: the reference keeps every parameter in ``params_dtype``
 (float32) and casts each matrix to ``compute_dtype`` right before its only
@@ -72,9 +76,11 @@ def from_jax_params(params_np, cfg, device="cuda", path: str = "", *,
                     master: bool = False) -> dict:
     """Turn the JAX parameter tree (dicts whose leaves are numpy arrays, as
     ``np.asarray`` gives them from ``repro.models.transformer.init`` of a
-    dense, VLM or MoE config, ``repro.models.mamba2.init`` or
-    ``repro.models.rwkv6.init``) into the port's parameters on ``device``,
-    each in its held dtype (``master``: see :func:`held_dtype`)."""
+    dense, VLM or MoE config, ``repro.models.mamba2.init``,
+    ``repro.models.rwkv6.init`` or ``repro.models.encdec.init``) into the
+    port's parameters on ``device``, each in its held dtype (``master``:
+    see :func:`held_dtype`). Every family's tree goes through unchanged:
+    same paths, same shapes."""
     out = {}
     for name, leaf in params_np.items():
         p = f"{path}/{name}"

@@ -125,11 +125,13 @@ def test_port_init_is_seeded_and_held_in_compute_dtype():
 
 def test_paged_step_rejects_moe():
     """The paged step refused MoE until the port had its family; it now
-    takes MoE (as the reference's does) and refuses the encoder-decoder,
-    the family still to come."""
+    takes MoE (as the reference's does) and refuses the encoder-decoder
+    for the reference's reason: paged decode is for the transformer
+    families."""
     assert callable(make_paged_serve_step(
         get_config("moonshot-v1-16b-a3b").reduced()))
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(ValueError, match="paged decode supports "
+                       "transformer-family archs, not Family.ENCDEC"):
         make_paged_serve_step(get_config("seamless-m4t-medium").reduced())
 
 
@@ -252,5 +254,8 @@ def test_dense_step_with_plain_attend_is_the_default_on_cpu():
 
 
 def test_dense_step_rejects_other_families():
-    with pytest.raises(ValueError, match="other-families slice"):
-        make_serve_step(get_config("seamless-m4t-medium").reduced())
+    """The dense step refused the encoder-decoder until the port had its
+    family; it now builds for it and takes ``enc_out`` (its parity with
+    the JAX package is in ``test_torch_encdec.py``)."""
+    assert callable(make_serve_step(
+        get_config("seamless-m4t-medium").reduced()))

@@ -6,8 +6,8 @@ bias) and internlm2-20b (SwiGLU): ``cross_entropy`` with IGNORE labels,
 updated parameters, moments and count), AdamW alone (f32 and bf16
 moments), and ``make_prefill_step``. Within the port: microbatches=4
 against 1 (``test_system.py``'s), decode through the carried cache against
-prefill (``test_models.py``'s), the remat modes, and the families
-the port does not train. Comparisons run in float32 compute unless a test
+prefill (``test_models.py``'s), the remat modes, and the families the
+port once refused to train. Comparisons run in float32 compute unless a test
 says otherwise; the weights are the JAX package's, bridged as float32
 master weights."""
 import dataclasses
@@ -271,15 +271,10 @@ def test_master_weights_are_float32_and_serving_weights_compute_dtype():
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium",
                                   "moonshot-v1-16b-a3b"])
 def test_steps_reject_families_the_port_does_not_train(arch):
-    """The encoder-decoder is refused. MoE was refused until the port had
-    its family; its case now checks that both steps build for it (its
-    parity with the JAX package is in ``test_torch_moe_serve.py``)."""
+    """The port once refused these families; it now trains every family
+    of the reference, so both steps build for each (their parity with the
+    JAX package is in ``test_torch_encdec.py`` and
+    ``test_torch_moe_serve.py``)."""
     cfg = get_config(arch).reduced()
-    if arch == "moonshot-v1-16b-a3b":
-        assert callable(tsteps.make_train_step(cfg, TrainConfig())[0])
-        assert callable(tsteps.make_prefill_step(cfg))
-        return
-    with pytest.raises(ValueError, match="other-families slice"):
-        tsteps.make_train_step(cfg, TrainConfig())
-    with pytest.raises(ValueError, match="other-families slice"):
-        tsteps.make_prefill_step(cfg)
+    assert callable(tsteps.make_train_step(cfg, TrainConfig())[0])
+    assert callable(tsteps.make_prefill_step(cfg))
