@@ -236,6 +236,34 @@ a row, AR(1) stand-in audio features from a seeded generator):
     encoder's output hardly varies over its positions (K3b's delta from
     the unrounded o).
 
+The multi-device and planning tools (the ninth slice) add, with no new
+kernel:
+
+20a. remat="dots" at full width: starcoder2-7b at 4 of its 32 layers,
+    phase 7's batch (2 x 4096 tokens in 2 microbatches, bf16 compute with
+    the kernels, f32 master weights from one seed), two steps each under
+    "none", "full" and "dots" (the second timed): dots' first loss and
+    every gradient held to
+    "none"'s and "full"'s by phase 7b's rule (and whether they are
+    bit-equal), peak memory above each step's start ordered none > dots >
+    full, K3a launched twice a layer and microbatch under full and dots
+    (once under none) and K3b once, the products dots keeps (the weight
+    products: q, k, v, o and the MLP's) a layer times layers times
+    microbatches; the control, dots with a policy that keeps nothing,
+    must give full's peak and keep nothing, failing that count;
+20b. the dry run (``repro_torch.launch.dryrun.run_cell``) of
+    seamless-m4t-medium decode_32k on the 2 x 16 x 16 mesh and
+    starcoder2-7b decode_32k on the 16 x 16 one, over fake worlds of 512
+    and 256 ranks in a subprocess that sees no card: status, H100
+    roofline terms, peak GiB a device, collectives by op;
+20c. a real mesh over the card (NCCL, world 1, ``make_host_mesh``):
+    ``rules_for`` every arch gives kv_rep 1 and every parameter
+    replicated; 8 greedy starcoder2-7b decode steps (32 layers, bf16)
+    give the same tokens with the rules as without; int8_ef of 20a's
+    gradient tree on the card equals the CPU's bit for bit (timed); a
+    compressed all-reduce (bf16, int8_ef) over the group returns the
+    dequantised tree.
+
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
 is visible or the port's sources are not beside this script.
@@ -399,6 +427,13 @@ WKV_STEP_SEEDS = (31, 32, 33)
 ENCDEC_ROWS, ENCDEC_PROMPTS, ENCDEC_BUDGET = 4, (16, 64), 32
 ENCDEC_CACHE, ENCDEC_TEXT, ENCDEC_CUT_LENS = 256, 1024, 2048
 FRAME_CORR, FRAME_STD = 256, 32.0
+# phase 20: remat "dots" at 4 of starcoder2-7b's 32 layers; the control's
+# peak (a policy that keeps nothing) within 2% of "full"'s; the dry run's
+# subprocess gets this long; greedy decode steps with and without the rules
+DOTS_LAYERS = 4
+DOTS_CONTROL_PEAK_REL = 0.02
+DRYRUN_TIMEOUT_S = 300
+HOST_MESH_STEPS = 8
 # phase 16: a bucket row that lost no assignment against its step alone:
 # 8 bf16 ulps of the largest |logit|, as phase 4a holds starcoder2's
 # logits (0.25 at |logit| ~5)
@@ -3962,6 +3997,306 @@ def encdec_serve_phase(torch, cfg, dev) -> dict:
     return res
 
 
+# --------------------------- phase 20: the multi-device and planning tools --
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def remat_modes_phase(torch, cfg, dev) -> dict:
+    """Phase 20a: one train step of ``cfg`` at DOTS_LAYERS layers of full
+    width (phase 7's batch: 2 x 4096 tokens in 2 microbatches, bf16
+    compute with the kernels, f32 master weights from one seed) under
+    remat "none", "full" and "dots", and under "dots" with a policy that
+    keeps nothing (the control). Each step's peak is read above the
+    memory held when it starts. Returns the readings, with the dots
+    step's gradients (``"grads"``) for phase 20c."""
+    import numpy as np
+    from torch.utils import checkpoint as ckpt
+
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import module
+    from repro_torch.models.registry import get_api
+    from repro_torch.train.steps import make_train_step
+
+    def keep_nothing(ctx, op, *args, **kwargs):
+        return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+    tcfg = dataclasses.replace(cfg, n_layers=DOTS_LAYERS)
+    check(tcfg.params_dtype == "float32" and tcfg.compute_dtype ==
+          "bfloat16", f"{cfg.arch_id}'s training dtypes changed")
+    base = get_api(tcfg).init(tcfg, seed=3, device=dev, master=True)
+    names = leaf_paths(base)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 500, size=(TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    tc = TrainConfig(microbatches=TRAIN_MICRO)
+    counters = [getattr(ops, n) for n in KERNEL_COUNTERS]
+    per_layer = 4 + (3 if cfg.mlp_kind == "swiglu" else 2)
+    runs = {}
+    for label, remat, kernels in (
+            ("none", "none", ops.KERNELS), ("full", "full", ops.KERNELS),
+            ("dots", "dots", ops.KERNELS),
+            ("control", "dots", ops.Kernels(dots_policy=keep_nothing))):
+        step, opt = make_train_step(dataclasses.replace(tcfg, remat=remat),
+                                    tc, kernels)
+        params = _clone_tree(base)
+        state = opt.init(params)
+        gc.collect()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        module.save_products.saved = 0
+        _, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - start
+        launches = {f.__name__: f.launches for f in counters}
+        saved = module.save_products.saved
+        gnorm = float(metrics["grad_norm"])
+        scale = (1 - tc.beta1) * min(1.0, tc.grad_clip / max(gnorm, 1e-9))
+        grads = [m.clone().div_(scale) for m in flatten(state.m)]
+        # a second step, timed: the first one's time has the allocator's
+        # growth in it
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        runs[label] = {
+            "loss": float(metrics["loss"]), "grad_norm": gnorm,
+            "grads": grads, "step_ms": 1e3 * (time.perf_counter() - t0),
+            "peak_gb": peak / 1e9, "saved_products": saved,
+            "launches": launches}
+        del params, state, step, opt, grads
+    del base
+
+    def against(got, ref):
+        rels = [(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30)).item()
+                for a, b in zip(got["grads"], ref["grads"])]
+        rel = max(rels)
+        return {"loss_abs_diff": abs(got["loss"] - ref["loss"]),
+                "grad_leaf_max_rel_norm_diff": rel,
+                "grad_leaf_max": names[rels.index(rel)],
+                "bit_equal": got["loss"] == ref["loss"] and all(
+                    torch.equal(a, b)
+                    for a, b in zip(got["grads"], ref["grads"]))}
+
+    L_, mb = DOTS_LAYERS, TRAIN_MICRO
+    expected = {"none": (L_ * mb, 0), "full": (2 * L_ * mb, 0),
+                "dots": (2 * L_ * mb, per_layer * L_ * mb),
+                "control": (2 * L_ * mb, per_layer * L_ * mb)}
+    out = {"layers": L_, "weight_products_per_layer": per_layer}
+    for label, r in runs.items():
+        fwd, saved = expected[label]
+        out[label] = {k: v for k, v in r.items() if k != "grads"}
+        out[label]["launches_ok"] = (
+            r["launches"]["flash_attention_fwd"] == fwd
+            and r["launches"]["flash_attention_bwd"] == L_ * mb
+            and sum(r["launches"].values()) == fwd + L_ * mb)
+        out[label]["saved_ok"] = r["saved_products"] == saved
+        print(f"remat {label} ({cfg.arch_id}, {L_} layers full width, bf16 "
+              f"with the kernels, {TRAIN_BATCH}x{TRAIN_SEQ} in {mb} "
+              f"microbatches): loss {r['loss']:.6f} grad_norm "
+              f"{r['grad_norm']:.6f} step_ms (second step) "
+              f"{r['step_ms']:.1f} peak "
+              f"{r['peak_gb']:.3f} GB above the step's start, products kept "
+              f"{r['saved_products']} (dots keeps {per_layer} a layer and "
+              f"microbatch: {saved}), launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }",
+              flush=True)
+    for ref in ("none", "full"):
+        cmp = against(runs["dots"], runs[ref])
+        out[f"dots_vs_{ref}"] = cmp
+        print(f"remat dots vs {ref}: |loss diff| {cmp['loss_abs_diff']:.3e} "
+              f"(tol {STEP_LOSS_ATOL['bfloat16']}) grad leaves max relative "
+              f"norm diff {cmp['grad_leaf_max_rel_norm_diff']:.3e} at "
+              f"{cmp['grad_leaf_max']} (tol {STEP_GRAD_REL['bfloat16']}); "
+              f"bit-equal: {cmp['bit_equal']}", flush=True)
+        check(cmp["loss_abs_diff"] <= STEP_LOSS_ATOL["bfloat16"]
+              and cmp["grad_leaf_max_rel_norm_diff"]
+              <= STEP_GRAD_REL["bfloat16"], f"dots vs {ref}: {cmp}")
+    for label in ("none", "full", "dots"):
+        check(out[label]["launches_ok"], f"remat {label}: launches "
+              f"{runs[label]['launches']}, expected K3a {expected[label][0]}"
+              f" and K3b {L_ * mb}")
+        check(out[label]["saved_ok"], f"remat {label}: kept "
+              f"{runs[label]['saved_products']} products, expected "
+              f"{expected[label][1]}")
+    pk = {k: runs[k]["peak_gb"] for k in runs}
+    check(pk["none"] > pk["dots"] > pk["full"], f"peak memory not ordered "
+          f"none > dots > full: {pk}")
+    # the control must fail: it keeps nothing, as "full" does, and its
+    # peak is full's
+    ctrl_like_full = (runs["control"]["saved_products"] == 0 and abs(
+        pk["control"] - pk["full"]) <= DOTS_CONTROL_PEAK_REL * pk["full"])
+    out["control_fails"] = ctrl_like_full and not out["control"]["saved_ok"]
+    print(f"remat control (a policy that keeps nothing): products kept "
+          f"{runs['control']['saved_products']}, peak {pk['control']:.3f} GB "
+          f"against full's {pk['full']:.3f}; fails the dots check: "
+          f"{out['control_fails']}", flush=True)
+    check(out["control_fails"], f"the remat control passed the dots check "
+          f"or differs from full: {out['control']}")
+    out["grads"] = runs["dots"]["grads"]
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+DRYRUN_CELLS = (("seamless-m4t-medium", "decode_32k", True),
+                ("starcoder2-7b", "decode_32k", False))
+
+
+def dryrun_phase() -> dict:
+    """Phase 20b: the port's dry run of DRYRUN_CELLS in a subprocess that
+    sees no card (its fake world of 256 or 512 ranks stays out of this
+    process): status, H100 roofline terms, peak GiB per device and the
+    collectives by op."""
+    code = ("import json, sys\n"
+            "from repro_torch.launch.dryrun import run_cell\n"
+            f"cells = {DRYRUN_CELLS!r}\n"
+            "out = [run_cell(*c) for c in cells]\n"
+            "print('DRYRUN ' + json.dumps(out), flush=True)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("DRYRUN ")]
+    check(r.returncode == 0 and bool(line), f"the dry run failed (rc "
+          f"{r.returncode}): {r.stdout[-1500:]} {r.stderr[-3000:]}")
+    cells = json.loads(line[0][len("DRYRUN "):])
+    for c in cells:
+        rl, mem = c["roofline"], c["memory"]
+        check(c["status"] == "ok" and rl["bottleneck"] in (
+            "compute", "memory", "collective"), f"dry-run cell {c}")
+        print(f"dry run {c['arch']} {c['shape']} on {c['mesh']} ({c['chips']} "
+              f"fake ranks, traced in {c['lower_s']} s): H100 roofline "
+              f"compute {rl['compute_s'] * 1e3:.3f} ms, memory "
+              f"{rl['memory_s'] * 1e3:.3f} ms, collective "
+              f"{rl['collective_s'] * 1e3:.3f} ms -> {rl['bottleneck']}; "
+              f"peak {mem['peak_bytes_dev'] / 2**30:.3f} GiB a device "
+              f"(arguments {mem['argument_bytes_dev'] / 2**30:.3f}); "
+              f"collectives {c['collectives']['by_op']}", flush=True)
+    return {"cells": cells, "wall_s": wall}
+
+
+def host_mesh_phase(torch, cfg, dev, grads) -> dict:
+    """Phase 20c: a real mesh over the card (NCCL, world 1):
+    ``rules_for`` of every arch on it, a starcoder2-7b decode step with
+    and without the rules, int8_ef of phase 20a's gradients on the card
+    against the CPU's, and a compressed all-reduce over the group."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import all_arch_ids, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim.compression import (
+        all_reduce_tree, compress_tree, decompress_tree,
+    )
+    from repro_torch.sharding import rules_for, tree_shardings
+    from repro_torch.train.steps import make_serve_step
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    out = {}
+    try:
+        mesh = make_host_mesh()
+        replicated = 0
+        for arch in all_arch_ids():
+            acfg = get_config(arch)
+            api = get_api(acfg)
+            rules = rules_for(acfg, mesh)
+            check(rules.kv_rep == 1, f"{arch}: kv_rep {rules.kv_rep} on one "
+                  f"device")
+            sh = tree_shardings(mesh, rules, api.param_axes(acfg),
+                                api.init(acfg, device="meta"),
+                                fsdp_axes=("data",))
+            for path in leaf_paths(sh):
+                leaf = sh
+                for k in path.strip("/").split("/"):
+                    leaf = leaf[k]
+                check(all(p.is_replicate() for p in leaf.placements),
+                      f"{arch} {path}: {leaf.placements} on one device")
+                replicated += 1
+        out["replicated_leaves"] = replicated
+        print(f"host mesh: {mesh} over nccl (world 1); rules_for of "
+              f"{len(all_arch_ids())} archs: kv_rep 1 and {replicated} "
+              f"parameter leaves, each replicated", flush=True)
+
+        params = transformer.init(cfg, seed=0, device=dev)
+        rules = rules_for(cfg, mesh)
+        toks = {}
+        for label, r in (("plain", None), ("rules", rules)):
+            serve = make_serve_step(cfg, rules=r)
+            cache = transformer.init_cache(cfg, 4, 64, device=dev)
+            cur = torch.tensor([[11], [22], [33], [44]], device=dev)
+            seq = []
+            for t in range(HOST_MESH_STEPS):
+                cl = torch.full((4,), t, dtype=torch.int32, device=dev)
+                nxt, cache = serve(params, cache, cur, cl)
+                seq.append(nxt.tolist())
+                cur = nxt[:, None].long()
+            toks[label] = seq
+        del params, cache
+        torch.cuda.empty_cache()
+        out["decode_tokens_equal"] = toks["plain"] == toks["rules"]
+        print(f"host mesh: {cfg.arch_id} ({cfg.n_layers} layers) "
+              f"{HOST_MESH_STEPS} greedy decode steps with the rules "
+              f"(one device) equal without: {out['decode_tokens_equal']}",
+              flush=True)
+        check(out["decode_tokens_equal"], f"decode with rules differs: "
+              f"{toks}")
+
+        tree = {f"{i:03d}": g for i, g in enumerate(grads)}
+        n = sum(g.numel() for g in grads)
+        compress_tree(tree, "int8_ef")            # warm up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload, err = compress_tree(tree, "int8_ef")
+        torch.cuda.synchronize()
+        card_ms = 1e3 * (time.perf_counter() - t0)
+        cpu_tree = {k: v.cpu() for k, v in tree.items()}
+        t0 = time.perf_counter()
+        cpu_payload, cpu_err = compress_tree(cpu_tree, "int8_ef")
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        equal = all(
+            torch.equal(payload[k][0].cpu(), cpu_payload[k][0])
+            and torch.equal(payload[k][1].cpu(), cpu_payload[k][1])
+            and torch.equal(err[k].cpu(), cpu_err[k]) for k in tree)
+        out.update(int8_ef_elements=n, int8_ef_card_ms=card_ms,
+                   int8_ef_cpu_ms=cpu_ms, int8_ef_bit_equal=equal)
+        print(f"int8_ef of phase 20a's gradients ({len(tree)} leaves, "
+              f"{n / 1e9:.3f} G elements): card {card_ms:.1f} ms, CPU "
+              f"{cpu_ms:.1f} ms; q, scales and carried error bit-equal: "
+              f"{equal}", flush=True)
+        check(equal, "int8_ef on the card differs from the CPU's")
+        del cpu_tree, cpu_payload, cpu_err, payload, err
+
+        small = {k: tree[k] for k in list(tree)[:4]}
+        for method in ("bf16", "int8_ef"):
+            summed, _ = all_reduce_tree(small, method)
+            want = decompress_tree(compress_tree(small, method)[0], method)
+            same = all(torch.equal(summed[k], want[k]) for k in small)
+            out[f"all_reduce_{method}_equal"] = same
+            print(f"compressed all_reduce ({method}) over the nccl group of "
+                  f"one: the dequantised tree: {same}", flush=True)
+            check(same, f"compressed all_reduce ({method}) differs")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -4276,6 +4611,19 @@ def run(torch) -> int:
             seq=ENCDEC_TEXT, frames=scfg.n_frame_tokens, frame_std=std)
     mark("19")
 
+    # phase 20: the multi-device and planning tools. 20a: remat "dots" at
+    # full width (starcoder2-7b, 4 of 32 layers) against "none" and
+    # "full", K3a/K3b recomputed under it
+    tools = {"remat": remat_modes_phase(torch, cfg, dev)}
+    mark("20a")
+    # 20b: the dry run on the card's host, in a subprocess
+    tools["dryrun"] = dryrun_phase()
+    mark("20b")
+    # 20c: a real mesh over the card (NCCL, world 1)
+    tools["host_mesh"] = host_mesh_phase(torch, cfg, dev,
+                                         tools["remat"].pop("grads"))
+    mark("20")
+
     bf16 = decode_cases[0]
     kernels = [
         {"name": "paged_decode_attention", "route": "cuda",
@@ -4336,13 +4684,16 @@ def run(torch) -> int:
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
             "launches": train["launches"][name] + ztrain["launches"][name]
             + mtrain["launches"][name] + etrain["launches"][name]
-            + eserve["launches"][name],
+            + eserve["launches"][name]
+            + tools["remat"]["dots"]["launches"][name],
             "launches_by_run": {cfg.arch_id: train["launches"][name],
                                 zcfg.arch_id: ztrain["launches"][name],
                                 mcfg.arch_id: mtrain["launches"][name],
                                 scfg.arch_id: etrain["launches"][name],
                                 f"{scfg.arch_id}-serve":
-                                    eserve["launches"][name]},
+                                    eserve["launches"][name],
+                                f"{cfg.arch_id}-remat-dots":
+                                    tools["remat"]["dots"]["launches"][name]},
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
@@ -4427,6 +4778,7 @@ def run(torch) -> int:
         "moe": {"serve": mserve, "train_path": mtrain},
         "invoke": invoke,
         "encdec": {"serve": eserve, "train_path": etrain},
+        "tools": tools,
         "phase_end_s": phase_end_s, "wall_s": time.perf_counter() - t_start}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -62,11 +62,17 @@ class Kernels:
     cross-attention included: :func:`decode_attention` of the new row over
     the encoder's positions, with no new token), ``ssd`` the hybrid's scan
     (:func:`mamba2_ssd`), ``wkv`` rwkv6's WKV (:func:`rwkv6_wkv`) and
-    ``gmm`` an MoE layer's grouped matmul (:func:`gmm`)."""
+    ``gmm`` an MoE layer's grouped matmul (:func:`gmm`), ``append`` the
+    decode branches' KV append (:func:`update_kv_buffer`). ``dots_policy``
+    is no kernel: the selective-checkpoint policy a transformer layer runs
+    under ``remat="dots"`` (None: ``models.module.save_products``), so a
+    control can take its place too."""
     attend: Callable | None = None
     ssd: Callable | None = None
     wkv: Callable | None = None
     gmm: Callable | None = None
+    append: Callable | None = None
+    dots_policy: Callable | None = None
 
 
 KERNELS = Kernels()     # every kernel its own

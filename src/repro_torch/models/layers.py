@@ -4,8 +4,12 @@ the branches of GQA attention: the no-cache one (training and prefill;
 causal, non-causal, or cross-attention over another source), two decode
 branches, the paged one and the carried dense-cache one, and decode-time
 cross-attention. Parameters come from
-``models.module.ParamBuilder`` subtrees; one device, so the reference's
-sharding constraints and Megatron KV replication (``kv_rep``) are gone.
+``models.module.ParamBuilder`` subtrees, each with the reference's logical
+axes. ``rules`` (a ``sharding.ShardingRules``, default None) adds the
+reference's sharding constraints (``sharding.constrain``: a no-op without
+a mesh of more than one device) and its Megatron KV replication
+(``rules.kv_rep``: each K/V head repeated to the tensor-parallel degree,
+the cache holding ``KV * kv_rep`` heads).
 """
 from __future__ import annotations
 
@@ -19,13 +23,14 @@ from repro_torch.kernels.decode_attention import (
     QSCALE, decode_attention_plain, paged_decode_attention_plain,
 )
 from repro_torch.kernels.flash_attention import flash_attention_fwd_plain
+from repro_torch.sharding import constrain
 
 __all__ = ["QSCALE", "rmsnorm", "rope_tables", "apply_rope", "rope",
            "flash_attention_xla", "paged_attention_xla",
            "decode_attention_xla", "decode_attention_two_part",
            "AttentionStep", "nocache_step", "paged_step", "dense_step",
            "cross_step", "init_attention", "attention", "init_mlp", "mlp",
-           "proj"]
+           "proj", "embed", "mergeable", "placed_for"]
 
 
 # ----------------------------------------------------------------- norms ----
@@ -113,21 +118,83 @@ def decode_attention_two_part(q, k_cache, v_cache, k_new, v_new, cache_len):
 def init_attention(pb, cfg, prefix: str = "attn"):
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     a = pb.sub(prefix)
-    a.param("wq", (D, H, hd))
-    a.param("wk", (D, KV, hd))
-    a.param("wv", (D, KV, hd))
-    a.param("wo", (H, hd, D))
+    a.param("wq", (D, H, hd), ("embed", "heads", "head_dim"))
+    a.param("wk", (D, KV, hd), ("embed", "kv_heads", "kv_head_dim"))
+    a.param("wv", (D, KV, hd), ("embed", "kv_heads", "kv_head_dim"))
+    a.param("wo", (H, hd, D), ("heads", "head_dim", "embed"))
     if cfg.qkv_bias:
-        a.param("bq", (H, hd), init="zeros")
-        a.param("bk", (KV, hd), init="zeros")
-        a.param("bv", (KV, hd), init="zeros")
+        a.param("bq", (H, hd), ("heads", "head_dim"), init="zeros")
+        a.param("bk", (KV, hd), ("kv_heads", "kv_head_dim"), init="zeros")
+        a.param("bv", (KV, hd), ("kv_heads", "kv_head_dim"), init="zeros")
+
+
+def mergeable(t, first: int, last: int = -1):
+    """``t`` ready for its dims ``first`` to ``last`` (the last dim by
+    default) to be merged into one.
+    A plain tensor is returned as it is. A DTensor sharded on one of
+    those dims after the first is gathered on it first: the merged dim
+    keeps the sharding of its first part only (DTensor would otherwise
+    need a strided shard, which its redistribution plans slowly or, in
+    some versions, not at all)."""
+    if type(t) is torch.Tensor:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return t
+    last = last % t.dim()
+    keep = [Replicate() if isinstance(p, Shard) and first < p.dim <= last
+            else p for p in t.placements]
+    if keep == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, keep)
+
+
+def placed_for(x, w):
+    """The weight ``w [K, N]`` of ``x [M, K] @ w``, placed as tensor and
+    data parallelism place it (a plain ``w`` is returned as it is). On a
+    mesh dim that splits x's rows (the batch), every device needs all of
+    ``w``: it is gathered there (FSDP's weight gather). On one that splits
+    x's K, ``w``'s K is split alike (row parallel: partial sums). Elsewhere
+    ``w`` keeps its placement (column parallel on N). DTensor would
+    otherwise choose, and may gather the activations instead."""
+    if type(w) is torch.Tensor:
+        return w
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(w, DTensor):
+        return w
+    xp = (x.placements if isinstance(x, DTensor)
+          else [Replicate()] * w.device_mesh.ndim)
+    want = [Replicate() if px == Shard(0) else Shard(0) if px == Shard(1)
+            else pw for px, pw in zip(xp, w.placements)]
+    if want == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, want)
 
 
 def proj(x, w):
     """x [B,S,D] @ w [D,*out] -> [B,S,*out] (einsum "bsd,d...->bs...")."""
     B, S, D = x.shape
-    return (x.reshape(B * S, D) @ w.to(x.dtype).reshape(D, -1)).view(
-        B, S, *w.shape[1:])
+    x2 = mergeable(x, 0, 1).reshape(B * S, D)
+    w2 = placed_for(x2, mergeable(w, 1).to(x.dtype).reshape(D, -1))
+    return (x2 @ w2).view(B, S, *w.shape[1:])
+
+
+def embed(table, tokens, dtype):
+    """The rows of ``table [V, D]`` at ``tokens`` (int), cast to ``dtype``
+    (the same values as the reference's cast-then-gather). A DTensor table
+    is gathered on the mesh dims that split the tokens and looked up by
+    ``F.embedding``, which DTensor runs on a split vocabulary as partial
+    sums; where a gradient is taken, it is gathered whole instead (DTensor
+    cannot take such partial sums' gradient back)."""
+    if type(table) is torch.Tensor:
+        return table[tokens.long()].to(dtype)
+    if torch.is_grad_enabled() and table.requires_grad:
+        from torch.distributed.tensor import Replicate
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+    else:
+        table = placed_for(tokens, table)
+    return F.embedding(tokens.long(), table).to(dtype)
 
 
 @dataclass(frozen=True)
@@ -207,7 +274,8 @@ def _quantise(t, dtype):
 
 
 def attention(p, cfg, x, *, step: AttentionStep, kv_x=None, causal=True,
-              paged_cache=None, carried_cache=None, attend=None):
+              paged_cache=None, carried_cache=None, attend=None, append=None,
+              rules=None):
     """GQA attention: the no-cache, paged or carried branch of the
     reference's ``attention``, or cross-attention. x [B,S,D]; returns
     [B,S,D].
@@ -235,7 +303,8 @@ def attention(p, cfg, x, *, step: AttentionStep, kv_x=None, causal=True,
     [L,NB,BS,KV,hd] and block_tables [B,MB] int32, ``step`` from
     :func:`paged_step`: writes the token's K/V at its slot with
     ``ops.update_kv_buffer`` (in place: the layer's arena slice is a
-    view), then attends through the block table over ``step.lens``
+    view; ``append`` takes its place when given), then attends through the
+    block table over ``step.lens``
     positions via ``attend`` (default: the CUDA kernel wrapper
     ``ops.paged_decode_attention``). Inactive rows carry all-null block
     tables and cache_len 0: their writes land in the null block and their
@@ -246,7 +315,12 @@ def attention(p, cfg, x, *, step: AttentionStep, kv_x=None, causal=True,
     together with the token itself, unquantised, via ``attend`` (default:
     the CUDA kernel wrapper ``ops.decode_attention``), then writes the
     token's K/V (int8: quantised) at ``[layer, b, cache_len[b]]`` in
-    place, dropping rows at ``cache_len >= S``."""
+    place, dropping rows at ``cache_len >= S``.
+
+    ``rules``: the reference's sharding constraints on q, k, v, the
+    attention's output and the result, and, where ``rules.kv_rep > 1``,
+    each K/V head repeated ``kv_rep`` times after the projection (the
+    caches then hold ``KV * kv_rep`` heads)."""
     B, S, _ = x.shape
     if kv_x is not None and (paged_cache is not None
                              or carried_cache is not None):
@@ -263,25 +337,39 @@ def attention(p, cfg, x, *, step: AttentionStep, kv_x=None, causal=True,
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
+    if rules is not None and rules.kv_rep > 1:
+        # Megatron-style KV replication to the TP degree: consecutive
+        # copies keep the (KV_eff, G_eff) grouping of the attention
+        k = k.repeat_interleave(rules.kv_rep, dim=2)
+        v = v.repeat_interleave(rules.kv_rep, dim=2)
+    q = constrain(q, rules, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, rules, "batch", "seq", "kv_heads", "kv_head_dim")
+    v = constrain(v, rules, "batch", "seq", "kv_heads", "kv_head_dim")
     if kv_x is None:
         q = apply_rope(q, step.cos, step.sin)
         k = apply_rope(k, step.cos, step.sin)
-    wo = p["wo"].reshape(-1, p["wo"].shape[-1])
+
+    def output(out):        # out [B,S,H,hd] -> [B,S,D]
+        out = constrain(out, rules, "batch", "seq", "heads", "head_dim")
+        wo = mergeable(p["wo"], 0, 1).reshape(-1, p["wo"].shape[-1])
+        y = proj(mergeable(out, 2).reshape(B, S, -1), wo)
+        return constrain(y, rules, "batch", "seq", "embed")
+
     if not decode:
-        out = (attend or ops.flash_attention)(
-            q, k, v, causal=causal and kv_x is None)
-        return proj(out.reshape(B, S, -1), wo)
+        return output((attend or ops.flash_attention)(
+            q, k, v, causal=causal and kv_x is None))
     if kv_x is not None:
         out = (attend or ops.decode_attention)(q[:, 0].contiguous(), k, v,
                                                step.lens)
-        return proj(out.reshape(B, 1, -1), wo)
+        return output(out.reshape(B, 1, *q.shape[2:]))
 
     q1, k1, v1 = (t[:, 0].contiguous() for t in (q, k, v))
     if paged_cache is not None:
         kp, vp, bt, li = paged_cache
         kp_l, vp_l = kp[li], vp[li]
-        ops.update_kv_buffer(kp_l, vp_l, _quantise(k1, kp.dtype),
-                             _quantise(v1, vp.dtype), step.slots)
+        (append or ops.update_kv_buffer)(
+            kp_l, vp_l, _quantise(k1, kp.dtype), _quantise(v1, vp.dtype),
+            step.slots)
         out = (attend or ops.paged_decode_attention)(q1, kp_l, vp_l, bt,
                                                      step.lens)
     else:
@@ -291,9 +379,10 @@ def attention(p, cfg, x, *, step: AttentionStep, kv_x=None, causal=True,
                                                k1, v1)
         # the write follows the read on the stream: nothing it overwrites
         # is read this step
-        ops.update_kv_buffer(kc_l, vc_l, _quantise(k1, kc.dtype),
-                             _quantise(v1, vc.dtype), step.slots)
-    return proj(out.reshape(B, 1, -1), wo)
+        (append or ops.update_kv_buffer)(
+            kc_l, vc_l, _quantise(k1, kc.dtype), _quantise(v1, vc.dtype),
+            step.slots)
+    return output(out.reshape(B, 1, *q.shape[2:]))
 
 
 # ------------------------------------------------------------------ mlp -----
@@ -302,15 +391,16 @@ def init_mlp(pb, cfg, prefix: str = "mlp"):
     D, F_ = cfg.d_model, cfg.d_ff
     m = pb.sub(prefix)
     if cfg.mlp_kind == "swiglu":
-        m.param("wi_gate", (D, F_))
-    m.param("wi_up", (D, F_))
-    m.param("wo", (F_, D))
+        m.param("wi_gate", (D, F_), ("embed", "mlp"))
+    m.param("wi_up", (D, F_), ("embed", "mlp"))
+    m.param("wo", (F_, D), ("mlp", "embed"))
 
 
-def mlp(p, x):
+def mlp(p, x, rules=None):
     u = proj(x, p["wi_up"])
     if "wi_gate" in p:   # swiglu
         h = F.silu(proj(x, p["wi_gate"])) * u
     else:                # gelu 2-matrix (starcoder2 / seamless); jax.nn.gelu
         h = F.gelu(u, approximate="tanh")   # defaults to the tanh form
-    return proj(h, p["wo"])
+    h = constrain(h, rules, "batch", "seq", "mlp")
+    return constrain(proj(h, p["wo"]), rules, "batch", "seq", "embed")

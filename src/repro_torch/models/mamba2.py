@@ -23,6 +23,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.module import (
     ParamBuilder, checkpoint_layer, layer_slice, stack_layers, unstack_layers,
 )
+from repro_torch.sharding import constrain
 
 
 # ---------------------------------------------------------------- decode ----
@@ -43,18 +44,19 @@ def init_mamba_block(pb: ParamBuilder, cfg: ModelConfig) -> None:
     D, Din, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
     nh = cfg.ssm_heads
     m = pb.sub("mamba")
-    m.param("in_proj", (D, 2 * Din + 2 * N + nh))
-    m.param("conv_w", (cfg.ssm_conv, Din + 2 * N), scale=0.5)
-    m.param("A_log", (nh,), init="zeros")
-    m.param("D", (nh,), init="ones")
-    m.param("dt_bias", (nh,), init="zeros")
-    m.param("norm", (Din,), init="ones")
-    m.param("out_proj", (Din, D))
-    pb.param("ln", (D,), init="ones")
+    m.param("in_proj", (D, 2 * Din + 2 * N + nh), ("embed", "ssm_inner"))
+    m.param("conv_w", (cfg.ssm_conv, Din + 2 * N), (None, "ssm_inner"),
+            scale=0.5)
+    m.param("A_log", (nh,), (None,), init="zeros")
+    m.param("D", (nh,), (None,), init="ones")
+    m.param("dt_bias", (nh,), (None,), init="zeros")
+    m.param("norm", (Din,), ("ssm_inner",), init="ones")
+    m.param("out_proj", (Din, D), ("ssm_inner", "embed"))
+    pb.param("ln", (D,), ("embed",), init="ones")
 
 
 def mamba_block(p, cfg: ModelConfig, x, *, ssm_state=None, conv_state=None,
-                decode: bool = False, ssd=None):
+                decode: bool = False, ssd=None, rules=None):
     """x [B,L,D] (L = 1 in decode). Returns ``(y, (ssm_state',
     conv_state'))``.
 
@@ -66,14 +68,16 @@ def mamba_block(p, cfg: ModelConfig, x, *, ssm_state=None, conv_state=None,
     chunked call, so ``ssm_state`` must be None.
 
     Decode: one token against ``conv_state [B,k-1,Din+2N]`` and
-    ``ssm_state [B,h,n,p]`` float32 through :func:`ssd_decode_step`."""
+    ``ssm_state [B,h,n,p]`` float32 through :func:`ssd_decode_step`.
+    ``rules``: the reference's sharding constraints."""
     dt_ = x.dtype
     Din, N, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
     m = p["mamba"]
     h = L.rmsnorm(x, p["ln"])
-    z, xbc, dt = torch.split(L.proj(h, m["in_proj"]), [Din, Din + 2 * N, nh],
-                             dim=-1)
+    proj = constrain(L.proj(h, m["in_proj"]), rules, "batch", "seq",
+                     "ssm_inner")
+    z, xbc, dt = torch.split(proj, [Din, Din + 2 * N, nh], dim=-1)
 
     # depthwise causal conv over (x, B, C): the reference's sum of shifted
     # products (F.conv1d would run an f32 conv in TF32 under cuDNN)
@@ -110,7 +114,8 @@ def mamba_block(p, cfg: ModelConfig, x, *, ssm_state=None, conv_state=None,
     y = y.reshape(*y.shape[:-2], Din)
     # gated rmsnorm, then the out projection
     y = L.rmsnorm(y * F.silu(z), m["norm"])
-    return x + L.proj(y, m["out_proj"]), (new_state, new_conv_state)
+    out = constrain(L.proj(y, m["out_proj"]), rules, "batch", "seq", "embed")
+    return x + out, (new_state, new_conv_state)
 
 
 # ---------------------------------------------------------- zamba2 hybrid ---
@@ -120,32 +125,45 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     """zamba2: ``n_layers`` mamba blocks stacked ``[L, ...]`` under
     ``blocks``, and one ``shared`` attention + MLP block. Random from
     ``seed`` on ``device``, each parameter held in ``weights.held_dtype``
-    (``master``: all in params dtype, for training)."""
+    (``master``: all in params dtype, for training; ``meta``: shapes and
+    dtypes only)."""
+    return _build(cfg, seed, device, master).params
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter, in the tree of :func:`init`."""
+    return _build(cfg, 0, "meta", True).axes
+
+
+def _build(cfg: ModelConfig, seed, device, master) -> ParamBuilder:
     if cfg.family != Family.HYBRID:
         raise ValueError(f"mamba2.init builds the hybrid family, not "
                          f"{cfg.family}")
     dtype_of = partial(weights.held_dtype, cfg=cfg, master=master)
     pb = ParamBuilder(seed, dtype_of, device)
-    pb.param("embed", (cfg.padded_vocab, cfg.d_model), scale=1.0)
-    pb.params["blocks"] = stack_layers(
+    pb.param("embed", (cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+             scale=1.0)
+    pb.params["blocks"], pb.axes["blocks"] = stack_layers(
         seed, dtype_of, device, cfg.n_layers,
         lambda lpb, i: init_mamba_block(lpb, cfg))
     if cfg.shared_attn_period:
         sh = pb.sub("shared")
         L.init_attention(sh, cfg)
         L.init_mlp(sh, cfg)
-        sh.param("ln_attn", (cfg.d_model,), init="ones")
-        sh.param("ln_mlp", (cfg.d_model,), init="ones")
-    pb.param("final_norm", (cfg.d_model,), init="ones")
-    pb.param("lm_head", (cfg.d_model, cfg.padded_vocab))
-    return pb.params
+        sh.param("ln_attn", (cfg.d_model,), ("embed",), init="ones")
+        sh.param("ln_mlp", (cfg.d_model,), ("embed",), init="ones")
+    pb.param("final_norm", (cfg.d_model,), ("embed",), init="ones")
+    pb.param("lm_head", (cfg.d_model, cfg.padded_vocab), ("embed", "vocab"))
+    return pb
 
 
-def _shared_attn(sp, cfg, x, *, step, attend, carried_cache=None):
+def _shared_attn(sp, cfg, x, *, step, kernels, carried_cache=None,
+                 rules=None):
     h = L.attention(sp["attn"], cfg, L.rmsnorm(x, sp["ln_attn"]), step=step,
-                    attend=attend, carried_cache=carried_cache)
+                    attend=kernels.attend, append=kernels.append,
+                    carried_cache=carried_cache, rules=rules)
     x = x + h
-    return x + L.mlp(sp["mlp"], L.rmsnorm(x, sp["ln_mlp"]))
+    return x + L.mlp(sp["mlp"], L.rmsnorm(x, sp["ln_mlp"]), rules)
 
 
 def n_shared_applications(cfg: ModelConfig) -> int:
@@ -165,7 +183,7 @@ def _groups(cfg: ModelConfig) -> tuple[int, int]:
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
             cache_len=None, cache=None,
-            kernels: ops.Kernels = ops.KERNELS):
+            kernels: ops.Kernels = ops.KERNELS, rules=None):
     """The hybrid over ``tokens [B,S]`` int: without a cache, the training
     and prefill forward; with one, one decode step.
 
@@ -190,11 +208,15 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
 
     ``embeds`` is a VLM's patch prefix (``models.transformer.forward``),
     taken so the families share one signature; the hybrid has none and
-    refuses one. The other fields of ``kernels`` are other families'."""
+    refuses one. The other fields of ``kernels`` are other families'.
+    ``rules``: the reference's sharding constraints and KV replication
+    (``layers.attention``; the cache's ``kv`` then holds ``KV *
+    rules.kv_rep`` heads)."""
     if embeds is not None:
         raise ValueError(f"{cfg.arch_id} takes no embeds prefix")
-    x = params["embed"][tokens.long()].to(
-        weights.torch_dtype(cfg.compute_dtype))
+    x = constrain(L.embed(params["embed"], tokens,
+                          weights.torch_dtype(cfg.compute_dtype)),
+                  rules, "batch", "seq", "embed")
     B, S, _ = x.shape
     n_groups, period = _groups(cfg)
     decode = cache is not None
@@ -208,7 +230,8 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
             positions = torch.arange(S, device=x.device).expand(B, S)
         step = L.nocache_step(cfg, positions)
         layer_fn = checkpoint_layer(
-            cfg, lambda lp, h: mamba_block(lp, cfg, h, ssd=kernels.ssd)[0])
+            cfg, lambda lp, h: mamba_block(lp, cfg, h, ssd=kernels.ssd,
+                                           rules=rules)[0])
         layers = unstack_layers(params["blocks"], cfg.n_layers)
 
     for g in range(n_groups):
@@ -217,29 +240,31 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
                 x, (s2, c2) = mamba_block(
                     layer_slice(params["blocks"], li), cfg, x,
                     ssm_state=cache["ssm"][li], conv_state=cache["conv"][li],
-                    decode=True)
+                    decode=True, rules=rules)
                 cache["ssm"][li].copy_(s2)
                 cache["conv"][li].copy_(c2)
             else:
                 x = layer_fn(layers[li], x)
         if cfg.shared_attn_period:
             x = _shared_attn(params["shared"], cfg, x, step=step,
-                             attend=kernels.attend,
-                             carried_cache=(kc, vc, g) if decode else None)
+                             kernels=kernels,
+                             carried_cache=(kc, vc, g) if decode else None,
+                             rules=rules)
 
     x = L.rmsnorm(x, params["final_norm"])
-    logits = (x @ params["lm_head"].to(x.dtype)).float()
-    return logits, cache
+    logits = constrain(L.proj(x, params["lm_head"]), rules, "batch",
+                       "seq", "vocab")
+    return logits.float(), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> dict:
-    """Zeros: ``kv {k,v: [R,batch,max_len,KV,hd]}`` and ``conv
+               device="cuda", kv_rep: int = 1) -> dict:
+    """Zeros: ``kv {k,v: [R,batch,max_len,KV * kv_rep,hd]}`` and ``conv
     [L,batch,k-1,Din+2N]`` in ``kv_cache_dtype``, ``ssm
     [L,batch,h,n,p]`` float32."""
     dtype = weights.torch_dtype(cfg.kv_cache_dtype)
-    kv_shape = (n_shared_applications(cfg), batch, max_len, cfg.n_kv_heads,
-                cfg.hd)
+    kv_shape = (n_shared_applications(cfg), batch, max_len,
+                cfg.n_kv_heads * kv_rep, cfg.hd)
     return {
         "kv": {"k": torch.zeros(kv_shape, dtype=dtype, device=device),
                "v": torch.zeros(kv_shape, dtype=dtype, device=device)},
@@ -249,4 +274,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1,
                              cfg.d_inner + 2 * cfg.ssm_state), dtype=dtype,
                             device=device),
+    }
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`init_cache`'s tree."""
+    kv = ("stack", "batch", "seq", "kv_heads", "kv_head_dim")
+    return {
+        "kv": {"k": kv, "v": kv},
+        "ssm": ("stack", "batch", None, "ssm_state", None),
+        "conv": ("stack", "batch", None, "ssm_inner"),
     }

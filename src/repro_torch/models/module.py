@@ -11,6 +11,7 @@ parameters instead (``repro_torch.weights.from_jax_params``).
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from functools import partial
 from typing import Callable
@@ -25,9 +26,11 @@ def _name_seed(key: str) -> int:
 
 
 class ParamBuilder:
-    """Builds one subtree of parameters. ``dtype_of(path)`` gives the dtype a
-    parameter is held in (``repro_torch.weights.held_dtype``); values are
-    drawn in float32 on ``device`` and cast once."""
+    """Builds one subtree of parameters and their logical axes
+    (``.params``, ``.axes``: the same tree). ``dtype_of(path)`` gives the
+    dtype a parameter is held in (``repro_torch.weights.held_dtype``);
+    values are drawn in float32 on ``device`` and cast once. On the
+    ``meta`` device nothing is drawn."""
 
     def __init__(self, seed: int, dtype_of: Callable[[str], torch.dtype],
                  device, path: str = ""):
@@ -36,11 +39,13 @@ class ParamBuilder:
         self.device = torch.device(device)
         self.path = path
         self.params: dict = {}
+        self.axes: dict = {}
 
     def sub(self, name: str) -> "ParamBuilder":
         child = ParamBuilder(self.seed, self.dtype_of, self.device,
                              f"{self.path}/{name}")
         self.params[name] = child.params
+        self.axes[name] = child.axes
         return child
 
     def _generator(self, name: str) -> torch.Generator:
@@ -48,10 +53,24 @@ class ParamBuilder:
         g.manual_seed(_name_seed(f"{self.seed}:{self.path}/{name}"))
         return g
 
-    def param(self, name: str, shape, init: str = "normal",
+    def param(self, name: str, shape, axes, init: str = "normal",
               scale: float | None = None) -> torch.Tensor:
+        """A parameter of ``shape`` whose dims have the logical ``axes``
+        (a name of ``sharding.ShardingRules`` or None each)."""
         shape = tuple(int(s) for s in shape)
+        axes = tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"{self.path}/{name}: shape {shape} has "
+                             f"{len(shape)} dims, axes {axes} name "
+                             f"{len(axes)}")
         dtype = self.dtype_of(f"{self.path}/{name}")
+        self.axes[name] = axes
+        if init not in ("normal", "zeros", "ones"):
+            raise ValueError(init)
+        if self.device.type == "meta":
+            v = torch.empty(shape, dtype=dtype, device=self.device)
+            self.params[name] = v
+            return v
         kw = dict(dtype=torch.float32, device=self.device)
         if init == "normal":
             fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
@@ -59,10 +78,8 @@ class ParamBuilder:
             v = torch.randn(shape, generator=self._generator(name), **kw) * s
         elif init == "zeros":
             v = torch.zeros(shape, **kw)
-        elif init == "ones":
-            v = torch.ones(shape, **kw)
         else:
-            raise ValueError(init)
+            v = torch.ones(shape, **kw)
         v = v.to(dtype)
         self.params[name] = v
         return v
@@ -82,19 +99,30 @@ def _empty_stacked(layer: dict, n: int) -> dict:
             for k, v in layer.items()}
 
 
+def _stacked_axes(axes: dict) -> dict:
+    return {k: (_stacked_axes(v) if isinstance(v, dict) else ("stack",) + v)
+            for k, v in axes.items()}
+
+
 def stack_layers(seed: int, dtype_of, device, n: int,
-                 build_one: Callable[[ParamBuilder, int], None]) -> dict:
+                 build_one: Callable[[ParamBuilder, int], None]
+                 ) -> tuple[dict, dict]:
     """Init ``n`` structurally identical layers and stack every leaf into
-    ``[n, ...]``. Layers are built one at a time into the preallocated
-    stack, so the peak is the stack plus one layer, not two stacks."""
+    ``[n, ...]``; the layer dim gets the logical axis "stack". Returns
+    ``(stacked, axes)``. Layers are built one at a time into the
+    preallocated stack, so the peak is the stack plus one layer, not two
+    stacks; on ``meta`` only the first layer is built."""
     stacked = None
     for i in range(n):
         pb = ParamBuilder(seed, dtype_of, device, path=f"layer{i}")
         build_one(pb, i)
         if stacked is None:
             stacked = _empty_stacked(pb.params, n)
+            axes = _stacked_axes(pb.axes)
+            if pb.device.type == "meta":
+                break
         _stack_into(stacked, pb.params, i)
-    return stacked
+    return stacked, axes
 
 
 def layer_slice(tree: dict, i: int) -> dict:
@@ -117,14 +145,59 @@ def unstack_layers(tree: dict, n: int) -> list[dict]:
     return layers
 
 
+# products without a batch dim: XLA's dot_general with no batch
+# dimensions, which the reference's remat="dots" saves
+# (``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``). An
+# einsum reaches aten.mm or, whatever its shapes, aten.bmm over a batch of
+# one (``torch.einsum("bsd,dhk->bshk", ...)`` does); a bmm over more than
+# one is a batched product (attention's scores and PV).
+_PRODUCTS = {torch.ops.aten.mm.default: None, torch.ops.aten.addmm.default:
+             None, torch.ops.aten.bmm.default: 0,
+             torch.ops.aten.baddbmm.default: 1}
+
+
+def save_products(ctx, op, *args, **kwargs):
+    """The checkpoint policy of remat="dots": a layer keeps the outputs of
+    its products that have no batch dim (the weight products: q, k, v, o
+    and the MLP's) and recomputes everything else in the backward, the
+    attention kernels' autograd functions included. Every product it
+    keeps in a forward adds one to ``save_products.saved``."""
+    if op in _PRODUCTS:
+        batched_arg = _PRODUCTS[op]
+        if batched_arg is None or args[batched_arg].shape[0] == 1:
+            if not ctx.is_recompute:
+                save_products.saved += 1
+            return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+save_products.saved = 0
+
+
+def remat(cfg, fn: Callable, policy: Callable | None = None) -> Callable:
+    """``fn`` run as ``cfg.remat`` says (the reference's ``_remat`` of the
+    transformer): "none" plainly; "full" under activation checkpointing
+    (only the inputs are kept, the backward runs ``fn`` again); "dots"
+    under selective checkpointing by ``policy`` (default
+    :func:`save_products`), the reference's
+    ``checkpoint_dots_with_no_batch_dims``."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return partial(ckpt.checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(
+                           ckpt.create_selective_checkpoint_contexts,
+                           policy or save_products))
+    raise ValueError(f"remat must be none, full or dots, got {cfg.remat!r}")
+
+
 def checkpoint_layer(cfg, fn: Callable) -> Callable:
     """``fn`` under activation checkpointing unless ``cfg.remat`` is
     "none": the reference's ``jax.checkpoint`` of a recurrent family's
-    layer body (the hybrid's mamba layers, rwkv6's blocks), for "full" and
-    "dots" alike."""
-    if cfg.remat not in ("none", "full", "dots"):
-        raise ValueError(f"remat must be none, full or dots, got "
-                         f"{cfg.remat!r}")
-    if cfg.remat == "none":
-        return fn
-    return partial(ckpt.checkpoint, fn, use_reentrant=False)
+    layer body and of the encoder-decoder's layers (the hybrid's mamba
+    layers, rwkv6's blocks, seamless's encoder and decoder layers), for
+    "full" and "dots" alike."""
+    return remat(cfg if cfg.remat != "dots"
+                 else dataclasses.replace(cfg, remat="full"), fn)

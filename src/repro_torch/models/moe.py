@@ -10,9 +10,10 @@ arctic-480b: 128 experts, top-2, plus a dense residual MLP in parallel.
 The reference runs the expert products as einsums over ``[n, E, C, D]``;
 here the dispatched rows are laid out ``[E, n C, D]``, one table tile of
 n C rows per expert, so the grouped matmul computes the same products
-(rows of a dropped or unused capacity slot are zeros and give zeros). One
-device, so the reference's sharding constraints are gone. The step keeps
-fixed shapes and reads nothing back to the host.
+(rows of a dropped or unused capacity slot are zeros and give zeros).
+``rules`` adds the reference's sharding constraints (experts on "model",
+groups on the batch axes) in that layout. The step keeps fixed shapes and
+reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import constrain
 
 GROUP_SIZE = 256  # tokens per dispatch group (GShard 'G'), as the reference
 
@@ -28,10 +30,10 @@ GROUP_SIZE = 256  # tokens per dispatch group (GShard 'G'), as the reference
 def init_moe(pb, cfg):
     D, E, F_ = cfg.d_model, cfg.n_experts, cfg.d_ff
     m = pb.sub("moe")
-    m.param("router", (D, E))
-    m.param("wi_gate", (E, D, F_))
-    m.param("wi_up", (E, D, F_))
-    m.param("wo", (E, F_, D))
+    m.param("router", (D, E), ("embed", "experts"))
+    m.param("wi_gate", (E, D, F_), ("experts", "embed", "expert_mlp"))
+    m.param("wi_up", (E, D, F_), ("experts", "embed", "expert_mlp"))
+    m.param("wo", (E, F_, D), ("experts", "expert_mlp", "embed"))
     if cfg.dense_residual:
         L.init_mlp(pb, cfg, prefix="dense_mlp")
 
@@ -133,13 +135,14 @@ def route(mp, cfg, xg):
     return combine, gate_idx
 
 
-def moe_mlp(p, cfg, x, *, gmm=None):
+def moe_mlp(p, cfg, x, *, gmm=None, rules=None):
     """x [B,S,D] -> [B,S,D]: the MoE output (+ the dense residual MLP).
 
     ``gmm(x, w, tile_expert, tile_m)`` runs the three expert products
     (default ``ops.gmm``, K6/K6b on CUDA tensors;
     ``kernels.moe_gmm.gmm_plain`` is the plain version). A
-    :class:`RoutingTap` sees (and may pin) the routing."""
+    :class:`RoutingTap` sees (and may pin) the routing. ``rules``: the
+    reference's sharding constraints."""
     dt = x.dtype
     mp = p["moe"]
     B, S, D = x.shape
@@ -147,22 +150,26 @@ def moe_mlp(p, cfg, x, *, gmm=None):
     T = B * S
     g = min(GROUP_SIZE, T)      # group across ALL tokens (decode: T=B)
     n = T // g
-    xg = x.reshape(n, g, D)
+    xg = constrain(x.reshape(n, g, D), rules, "batch", None, "embed")
     combine, _ = route(mp, cfg, xg)
     C = combine.shape[-1]
     dispatch = (combine > 0).to(dt)                        # [n,g,E,C]
 
     # dispatched rows, one table tile of n C rows per expert
-    ein = torch.einsum("ngec,ngd->encd", dispatch, xg).reshape(E * n * C, D)
+    ein = constrain(torch.einsum("ngec,ngd->encd", dispatch, xg), rules,
+                    "experts", "batch", None, "embed").reshape(E * n * C, D)
     tile_expert = torch.arange(E, dtype=torch.int32, device=x.device)
     gmm = gmm or ops.gmm
     h_g = gmm(ein, mp["wi_gate"].to(dt), tile_expert, n * C)
     h_u = gmm(ein, mp["wi_up"].to(dt), tile_expert, n * C)
-    h = F.silu(h_g) * h_u
-    eo = gmm(h, mp["wo"].to(dt), tile_expert, n * C).view(E, n, C, D)
-    y = torch.einsum("ngec,encd->ngd", combine.to(dt), eo).reshape(B, S, D)
+    h = constrain((F.silu(h_g) * h_u).view(E, n, C, -1), rules, "experts",
+                  "batch", None, "expert_mlp").reshape(E * n * C, -1)
+    eo = constrain(gmm(h, mp["wo"].to(dt), tile_expert, n * C).view(
+        E, n, C, D), rules, "experts", "batch", None, "embed")
+    y = constrain(torch.einsum("ngec,encd->ngd", combine.to(dt), eo), rules,
+                  "batch", None, "embed").reshape(B, S, D)
     if cfg.dense_residual:
-        y = y + L.mlp(p["dense_mlp"], x)
+        y = y + L.mlp(p["dense_mlp"], x, rules)
     return y
 
 

@@ -1,5 +1,6 @@
 """Model-family registry of the PyTorch port (the counterpart of
-``repro.models.registry``): family -> (init, forward, init_cache).
+``repro.models.registry``): family -> (init, forward, init_cache,
+cache_axes, param_axes).
 
 The port has every family of the reference: the dense transformer, the
 VLM's backbone (the same decoder; the patch-embed prefix is precomputed),
@@ -21,18 +22,22 @@ class ModelApi:
     init: Callable
     forward: Callable
     init_cache: Callable
+    cache_axes: Callable     # cfg -> the logical axes of init_cache's tree
+    param_axes: Callable     # cfg -> the logical axes of init's tree
+
+
+def _api(module) -> ModelApi:
+    return ModelApi(module.init, module.forward, module.init_cache,
+                    module.cache_axes, module.param_axes)
 
 
 _BY_FAMILY = {
-    Family.DENSE: ModelApi(transformer.init, transformer.forward,
-                           transformer.init_cache),
-    Family.VLM: ModelApi(transformer.init, transformer.forward,
-                         transformer.init_cache),
-    Family.MOE: ModelApi(transformer.init, transformer.forward,
-                         transformer.init_cache),
-    Family.HYBRID: ModelApi(mamba2.init, mamba2.forward, mamba2.init_cache),
-    Family.SSM: ModelApi(rwkv6.init, rwkv6.forward, rwkv6.init_cache),
-    Family.ENCDEC: ModelApi(encdec.init, encdec.forward, encdec.init_cache),
+    Family.DENSE: _api(transformer),
+    Family.VLM: _api(transformer),
+    Family.MOE: _api(transformer),
+    Family.HYBRID: _api(mamba2),
+    Family.SSM: _api(rwkv6),
+    Family.ENCDEC: _api(encdec),
 }
 
 

@@ -30,6 +30,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.module import (
     ParamBuilder, checkpoint_layer, layer_slice, stack_layers, unstack_layers,
 )
+from repro_torch.sharding import constrain
 
 LORA_W = 64
 LORA_MIX = 32
@@ -52,27 +53,29 @@ def wkv6_step(r, k, v, w, u, s):
 def _init_time_mix(pb: ParamBuilder, cfg: ModelConfig) -> None:
     D = cfg.d_model
     t = pb.sub("tmix")
-    t.param("mix_base", (D,), init="zeros")
-    t.param("mix_lora_A", (D, LORA_MIX))
-    t.param("mix_lora_B", (5, LORA_MIX, D), init="zeros")
-    t.param("mix_mu", (5, D), init="zeros")
-    t.param("decay_base", (D,), init="zeros")
-    t.param("decay_lora_A", (D, LORA_W))
-    t.param("decay_lora_B", (LORA_W, D), init="zeros")
-    t.param("bonus", (D,), init="zeros")
-    for nm in ("wr", "wk", "wv", "wg", "wo"):
-        t.param(nm, (D, D))
-    t.param("ln_x", (D,), init="ones")
+    t.param("mix_base", (D,), ("embed",), init="zeros")
+    t.param("mix_lora_A", (D, LORA_MIX), ("embed", None))
+    t.param("mix_lora_B", (5, LORA_MIX, D), (None, None, "embed"),
+            init="zeros")
+    t.param("mix_mu", (5, D), (None, "embed"), init="zeros")
+    t.param("decay_base", (D,), ("embed",), init="zeros")
+    t.param("decay_lora_A", (D, LORA_W), ("embed", None))
+    t.param("decay_lora_B", (LORA_W, D), (None, "embed"), init="zeros")
+    t.param("bonus", (D,), ("embed",), init="zeros")
+    for nm in ("wr", "wk", "wv", "wg"):
+        t.param(nm, (D, D), ("embed", "heads_flat"))
+    t.param("wo", (D, D), ("heads_flat", "embed"))
+    t.param("ln_x", (D,), ("embed",), init="ones")
 
 
 def _init_channel_mix(pb: ParamBuilder, cfg: ModelConfig) -> None:
     D, Fd = cfg.d_model, cfg.d_ff
     m = pb.sub("cmix")
-    m.param("mu_k", (D,), init="zeros")
-    m.param("mu_r", (D,), init="zeros")
-    m.param("wk", (D, Fd))
-    m.param("wv", (Fd, D))
-    m.param("wr", (D, D))
+    m.param("mu_k", (D,), ("embed",), init="zeros")
+    m.param("mu_r", (D,), ("embed",), init="zeros")
+    m.param("wk", (D, Fd), ("embed", "mlp"))
+    m.param("wv", (Fd, D), ("mlp", "embed"))
+    m.param("wr", (D, D), ("embed", "embed2"))
 
 
 def _shift(x, last):
@@ -82,7 +85,7 @@ def _shift(x, last):
 
 
 def time_mix(p, cfg: ModelConfig, x, *, shift_state, wkv_state=None,
-             decode: bool = False, wkv=None):
+             decode: bool = False, wkv=None, rules=None):
     """x [B,L,D] (L = 1 in decode). Returns ``(out, new_shift,
     new_wkv_state)``.
 
@@ -91,7 +94,8 @@ def time_mix(p, cfg: ModelConfig, x, *, shift_state, wkv_state=None,
     ``kernels.rwkv6_scan.wkv6_chunked_plain`` is the plain version) from a
     zero state: no path of the port carries one into a chunked call, so
     ``wkv_state`` must be None. Decode: one token against ``wkv_state
-    [B,H,hd,hd]`` float32 through :func:`wkv6_step`."""
+    [B,H,hd,hd]`` float32 through :func:`wkv6_step`. ``rules``: the
+    reference's sharding constraint on the output."""
     dt_ = x.dtype
     D, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
     t = p["tmix"]
@@ -122,21 +126,24 @@ def time_mix(p, cfg: ModelConfig, x, *, shift_state, wkv_state=None,
         o, new_state = (wkv or ops.rwkv6_wkv)(hsplit(r), hsplit(k),
                                               hsplit(v), hsplit(w), u)
     o = L.rmsnorm(o.reshape(*o.shape[:-2], D), t["ln_x"]) * F.silu(g)
-    return L.proj(o, t["wo"]), new_shift, new_state
+    out = constrain(L.proj(o, t["wo"]), rules, "batch", "seq", "embed")
+    return out, new_shift, new_state
 
 
-def channel_mix(p, cfg: ModelConfig, x, *, shift_state):
+def channel_mix(p, cfg: ModelConfig, x, *, shift_state, rules=None):
     """The squared-ReLU MLP over token-shifted inputs. Returns ``(out,
-    new_shift)``."""
+    new_shift)``. ``rules``: the reference's sharding constraints."""
     dt_ = x.dtype
     m = p["cmix"]
     prev, new_shift = _shift(x, shift_state)
     dx = prev - x
     xk = x + dx * m["mu_k"].to(dt_)
     xr = x + dx * m["mu_r"].to(dt_)
-    kk = torch.square(torch.relu(L.proj(xk, m["wk"])))
+    kk = constrain(torch.square(torch.relu(L.proj(xk, m["wk"]))), rules,
+                   "batch", "seq", "mlp")
     rr = torch.sigmoid(L.proj(xr, m["wr"]))
-    return rr * L.proj(kk, m["wv"]), new_shift
+    return constrain(rr * L.proj(kk, m["wv"]), rules, "batch", "seq",
+                     "embed"), new_shift
 
 
 # ------------------------------------------------------------------ model ---
@@ -146,29 +153,40 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     """rwkv6: ``n_layers`` blocks (time mix, channel mix, ``ln1``, ``ln2``)
     stacked ``[L, ...]`` under ``blocks``. Random from ``seed`` on
     ``device``, each parameter held in ``weights.held_dtype`` (``master``:
-    all in params dtype, for training)."""
+    all in params dtype, for training; ``meta``: shapes and dtypes
+    only)."""
+    return _build(cfg, seed, device, master).params
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter, in the tree of :func:`init`."""
+    return _build(cfg, 0, "meta", True).axes
+
+
+def _build(cfg: ModelConfig, seed, device, master) -> ParamBuilder:
     if cfg.family != Family.SSM:
         raise ValueError(f"rwkv6.init builds the SSM family, not "
                          f"{cfg.family}")
     dtype_of = partial(weights.held_dtype, cfg=cfg, master=master)
     pb = ParamBuilder(seed, dtype_of, device)
-    pb.param("embed", (cfg.padded_vocab, cfg.d_model), scale=1.0)
+    pb.param("embed", (cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+             scale=1.0)
 
     def one(lpb: ParamBuilder, i: int):
         _init_time_mix(lpb, cfg)
         _init_channel_mix(lpb, cfg)
-        lpb.param("ln1", (cfg.d_model,), init="ones")
-        lpb.param("ln2", (cfg.d_model,), init="ones")
-    pb.params["blocks"] = stack_layers(seed, dtype_of, device, cfg.n_layers,
-                                       one)
-    pb.param("final_norm", (cfg.d_model,), init="ones")
-    pb.param("lm_head", (cfg.d_model, cfg.padded_vocab))
-    return pb.params
+        lpb.param("ln1", (cfg.d_model,), ("embed",), init="ones")
+        lpb.param("ln2", (cfg.d_model,), ("embed",), init="ones")
+    pb.params["blocks"], pb.axes["blocks"] = stack_layers(
+        seed, dtype_of, device, cfg.n_layers, one)
+    pb.param("final_norm", (cfg.d_model,), ("embed",), init="ones")
+    pb.param("lm_head", (cfg.d_model, cfg.padded_vocab), ("embed", "vocab"))
+    return pb
 
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
             cache_len=None, cache=None,
-            kernels: ops.Kernels = ops.KERNELS):
+            kernels: ops.Kernels = ops.KERNELS, rules=None):
     """rwkv6 over ``tokens [B,S]`` int: without a cache, the training and
     prefill forward; with one, one decode step.
 
@@ -186,21 +204,24 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     ``embeds``, ``positions`` and ``cache_len`` are taken so the families
     share one signature: rwkv6 has no patch prefix and refuses one, and
     needs no positions. The other fields of ``kernels`` are other
-    families'."""
+    families'. ``rules``: the reference's sharding constraints."""
     if embeds is not None:
         raise ValueError(f"{cfg.arch_id} takes no embeds prefix")
-    x = params["embed"][tokens.long()].to(
-        weights.torch_dtype(cfg.compute_dtype))
+    x = constrain(L.embed(params["embed"], tokens,
+                          weights.torch_dtype(cfg.compute_dtype)),
+                  rules, "batch", "seq", "embed")
     B, S, D = x.shape
     if cache is not None:
         for li in range(cfg.n_layers):
             lp = layer_slice(params["blocks"], li)
             tm, s1, st = time_mix(lp, cfg, L.rmsnorm(x, lp["ln1"]),
                                   shift_state=cache["shift1"][li],
-                                  wkv_state=cache["wkv"][li], decode=True)
+                                  wkv_state=cache["wkv"][li], decode=True,
+                                  rules=rules)
             x = x + tm
             cm, s2 = channel_mix(lp, cfg, L.rmsnorm(x, lp["ln2"]),
-                                 shift_state=cache["shift2"][li])
+                                 shift_state=cache["shift2"][li],
+                                 rules=rules)
             x = x + cm
             cache["wkv"][li].copy_(st)
             cache["shift1"][li].copy_(s1)
@@ -210,28 +231,32 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
 
         def block(lp, h):
             tm, _, _ = time_mix(lp, cfg, L.rmsnorm(h, lp["ln1"]),
-                                shift_state=zero1, wkv=kernels.wkv)
+                                shift_state=zero1, wkv=kernels.wkv,
+                                rules=rules)
             h = h + tm
             cm, _ = channel_mix(lp, cfg, L.rmsnorm(h, lp["ln2"]),
-                                shift_state=zero1)
+                                shift_state=zero1, rules=rules)
             return h + cm
         block = checkpoint_layer(cfg, block)
         for lp in unstack_layers(params["blocks"], cfg.n_layers):
             x = block(lp, x)
     x = L.rmsnorm(x, params["final_norm"])
-    return (x @ params["lm_head"].to(x.dtype)).float(), cache
+    logits = constrain(L.proj(x, params["lm_head"]), rules, "batch",
+                       "seq", "vocab")
+    return logits.float(), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> dict:
+               device="cuda", kv_rep: int = 1) -> dict:
     """Zeros: ``wkv [L,batch,H,hd,hd]`` float32 and ``shift1``, ``shift2
     [L,batch,1,D]`` in the compute dtype. The state is O(1) in the
     sequence, so ``max_len`` is unused. The shifts are held in the compute
     dtype because the decode step writes them in place: the reference's
     cache holds them in bf16 only until its first step returns them in the
     compute dtype, and an f32 model's shifted token would otherwise be
-    rounded to bf16."""
-    del max_len
+    rounded to bf16. ``kv_rep`` is taken so the families share one
+    signature: rwkv6 has no KV heads."""
+    del max_len, kv_rep
     dtype = weights.torch_dtype(cfg.compute_dtype)
     shift = (cfg.n_layers, batch, 1, cfg.d_model)
     return {
@@ -240,3 +265,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         "shift1": torch.zeros(shift, dtype=dtype, device=device),
         "shift2": torch.zeros(shift, dtype=dtype, device=device),
     }
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`init_cache`'s tree."""
+    return {"wkv": ("stack", "batch", "heads", None, None),
+            "shift1": ("stack", "batch", None, "embed"),
+            "shift2": ("stack", "batch", None, "embed")}

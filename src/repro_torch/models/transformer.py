@@ -2,16 +2,16 @@
 (the counterpart of ``repro.models.transformer``): ``init``, ``forward``
 without a cache (training and prefill, with the config's
 rematerialisation) or as a decode step over a paged arena or a carried
-dense cache, ``init_paged_arena`` and ``init_cache``. The reference's
-``lax.scan`` over stacked layers is a Python loop over views of the
-stacked ``[L, ...]`` parameters here.
+dense cache, ``init_paged_arena``, ``init_cache``, and the logical axes
+of the parameters (``param_axes``) and of the cache (``cache_axes``). The
+reference's ``lax.scan`` over stacked layers is a Python loop over views
+of the stacked ``[L, ...]`` parameters here.
 """
 from __future__ import annotations
 
 from functools import partial
 
 import torch
-from torch.utils import checkpoint as ckpt
 
 from repro_torch import weights
 from repro_torch.config import Family, ModelConfig
@@ -19,8 +19,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.module import (
-    ParamBuilder, layer_slice, stack_layers, unstack_layers,
+    ParamBuilder, layer_slice, remat, stack_layers, unstack_layers,
 )
+from repro_torch.sharding import constrain
 
 # families whose decoder is this transformer (llava's backbone takes the
 # same tokens-only decode, paged or dense; MoE swaps the MLP for moe_mlp)
@@ -32,13 +33,24 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     """Random parameters from ``seed`` on ``device``, each held in
     ``weights.held_dtype``: for serving, matrices in compute dtype and
     norms in params dtype; with ``master`` (training), all in params
-    dtype."""
+    dtype. On ``device="meta"`` the tree has shapes and dtypes only."""
+    return _build(cfg, seed, device, master).params
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter, in the tree of :func:`init`
+    (built on ``meta``: nothing is allocated)."""
+    return _build(cfg, 0, "meta", True).axes
+
+
+def _build(cfg: ModelConfig, seed, device, master) -> ParamBuilder:
     if cfg.family not in DECODER_FAMILIES:
         raise ValueError(f"the transformer takes the dense, VLM and MoE "
                          f"families, not {cfg.family}")
     dtype_of = partial(weights.held_dtype, cfg=cfg, master=master)
     pb = ParamBuilder(seed, dtype_of, device)
-    pb.param("embed", (cfg.padded_vocab, cfg.d_model), scale=1.0)
+    pb.param("embed", (cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+             scale=1.0)
 
     def one(lpb: ParamBuilder, i: int):
         L.init_attention(lpb, cfg)
@@ -46,57 +58,45 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
             MOE.init_moe(lpb, cfg)
         else:
             L.init_mlp(lpb, cfg)
-        lpb.param("ln_attn", (cfg.d_model,), init="ones")
-        lpb.param("ln_mlp", (cfg.d_model,), init="ones")
-    pb.params["blocks"] = stack_layers(seed, dtype_of, device, cfg.n_layers,
-                                       one)
-    pb.param("final_norm", (cfg.d_model,), init="ones")
+        lpb.param("ln_attn", (cfg.d_model,), ("embed",), init="ones")
+        lpb.param("ln_mlp", (cfg.d_model,), ("embed",), init="ones")
+    pb.params["blocks"], pb.axes["blocks"] = stack_layers(
+        seed, dtype_of, device, cfg.n_layers, one)
+    pb.param("final_norm", (cfg.d_model,), ("embed",), init="ones")
     if not cfg.tie_embeddings:
-        pb.param("lm_head", (cfg.d_model, cfg.padded_vocab))
-    return pb.params
+        pb.param("lm_head", (cfg.d_model, cfg.padded_vocab),
+                 ("embed", "vocab"))
+    return pb
 
 
-def _block(cfg, p, x, *, step, kernels, **cache):
+def _block(cfg, p, x, *, step, kernels, rules=None, **cache):
     h = L.attention(p["attn"], cfg, L.rmsnorm(x, p["ln_attn"]), step=step,
-                    attend=kernels.attend, **cache)
+                    attend=kernels.attend, append=kernels.append,
+                    rules=rules, **cache)
     x = x + h
     if cfg.family == Family.MOE:
         return x + MOE.moe_mlp(p, cfg, L.rmsnorm(x, p["ln_mlp"]),
-                               gmm=kernels.gmm)
-    return x + L.mlp(p["mlp"], L.rmsnorm(x, p["ln_mlp"]))
-
-
-def _remat(fn, cfg):
-    """``fn`` run as ``cfg.remat`` says (the reference's ``_remat``):
-    "none" plainly, "full" under activation checkpointing (only the
-    block's inputs are kept; the backward runs the block again). "dots"
-    is not ported: no config uses it (ROADMAP.md, Queue 1 item 8)."""
-    if cfg.remat == "none":
-        return fn
-    if cfg.remat == "full":
-        return partial(ckpt.checkpoint, fn, use_reentrant=False)
-    if cfg.remat == "dots":
-        raise ValueError("remat='dots' is not ported yet: no config uses it "
-                         "(ROADMAP.md, Queue 1 item 8)")
-    raise ValueError(f"remat must be none, full or dots, got {cfg.remat!r}")
+                               gmm=kernels.gmm, rules=rules)
+    return x + L.mlp(p["mlp"], L.rmsnorm(x, p["ln_mlp"]), rules)
 
 
 def _embed(params, cfg, tokens):
     """The token embeddings in compute dtype (gathered, then cast: the
     same values as the reference's cast-then-gather)."""
-    return params["embed"][tokens.long()].to(
-        weights.torch_dtype(cfg.compute_dtype))
+    return L.embed(params["embed"], tokens,
+                   weights.torch_dtype(cfg.compute_dtype))
 
 
-def _logits(params, cfg, x):
+def _logits(params, cfg, x, rules=None):
     x = L.rmsnorm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head.to(x.dtype)).float()
+    logits = constrain(L.proj(x, head), rules, "batch", "seq", "vocab")
+    return logits.float()
 
 
 def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
             cache_len=None, paged_cache=None, cache=None,
-            kernels: ops.Kernels = ops.KERNELS):
+            kernels: ops.Kernels = ops.KERNELS, rules=None):
     """The model over ``tokens [B,S]`` int. Without a cache, the training
     and prefill forward; with one of two caches, one decode step.
 
@@ -104,9 +104,11 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     the tokens' embeddings; ``positions [B,P+S]`` default to 0, 1, ...;
     every layer attends causally over the whole sequence through
     ``kernels.attend`` (default: ``ops.flash_attention``, the K3a/K3b
-    kernels on CUDA tensors) and runs under ``cfg.remat``. The layers are
-    taken apart from their ``[L, ...]`` stacks once (``unstack_layers``).
-    Returns ``(logits [B,P+S,V] float32, None)``.
+    kernels on CUDA tensors) and runs under ``cfg.remat``
+    (``module.remat``; "dots" keeps the weight products by
+    ``kernels.dots_policy``, default ``module.save_products``). The
+    layers are taken apart from their ``[L, ...]`` stacks once
+    (``unstack_layers``). Returns ``(logits [B,P+S,V] float32, None)``.
 
     Decode: tokens [B,1]; cache_len [B] int32 (positions already cached
     per row).
@@ -127,13 +129,18 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
 
     ``kernels.gmm`` is an MoE layer's grouped matmul (default ``ops.gmm``,
     K6/K6b on CUDA tensors; ``kernels.moe_gmm.gmm_plain`` is the plain
-    version). The other fields of ``kernels`` are other families'."""
+    version). The other fields of ``kernels`` are other families'.
+
+    ``rules`` (``sharding.ShardingRules``) adds the reference's sharding
+    constraints and KV replication (``layers.attention``); a cache then
+    holds ``KV * rules.kv_rep`` heads (``init_cache(..., kv_rep=)``)."""
     if paged_cache is not None and cache is not None:
         raise ValueError("give at most one of paged_cache and cache")
-    x = _embed(params, cfg, tokens)
+    x = constrain(_embed(params, cfg, tokens), rules, "batch", "seq",
+                  "embed")
     if paged_cache is None and cache is None:
         return _forward_nocache(params, cfg, x, embeds, positions,
-                                kernels), None
+                                kernels, rules), None
     S = x.shape[1]
     positions = cache_len[:, None] + torch.arange(
         S, dtype=cache_len.dtype, device=x.device)
@@ -150,39 +157,48 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     blocks = params["blocks"]
     for i, layer_cache in enumerate(layer_caches):
         x = _block(cfg, layer_slice(blocks, i), x, step=step,
-                   kernels=kernels, **layer_cache)
-    return _logits(params, cfg, x), {"k": k, "v": v}
+                   kernels=kernels, rules=rules, **layer_cache)
+    return _logits(params, cfg, x, rules), {"k": k, "v": v}
 
 
-def _forward_nocache(params, cfg, x, embeds, positions, kernels):
+def _forward_nocache(params, cfg, x, embeds, positions, kernels, rules):
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     step = L.nocache_step(cfg, positions)
-    block = _remat(partial(_block, cfg, step=step, kernels=kernels), cfg)
+    block = remat(cfg, partial(_block, cfg, step=step, kernels=kernels,
+                               rules=rules), kernels.dots_policy)
     for layer in unstack_layers(params["blocks"], cfg.n_layers):
         x = block(layer, x)
-    return _logits(params, cfg, x)
+    return _logits(params, cfg, x, rules)
 
 
 def init_paged_arena(cfg: ModelConfig, n_blocks: int, block_size: int,
-                     device="cuda") -> dict:
-    """Block arenas for paged decode: {k,v: [L, NB, BS, KV, hd]} zeros in
-    ``kv_cache_dtype``. One arena serves every concurrent sequence; block 0
-    is the pool's null block."""
+                     device="cuda", kv_rep: int = 1) -> dict:
+    """Block arenas for paged decode: {k,v: [L, NB, BS, KV * kv_rep, hd]}
+    zeros in ``kv_cache_dtype``. One arena serves every concurrent
+    sequence; block 0 is the pool's null block."""
     dtype = weights.torch_dtype(cfg.kv_cache_dtype)
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads * kv_rep,
+             cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> dict:
-    """The carried dense KV cache: {k,v: [L, batch, max_len, KV, hd]}
-    zeros in ``kv_cache_dtype``."""
+               device="cuda", kv_rep: int = 1) -> dict:
+    """The carried dense KV cache: {k,v: [L, batch, max_len, KV * kv_rep,
+    hd]} zeros in ``kv_cache_dtype`` (``kv_rep``: the rules' KV
+    replication)."""
     dtype = weights.torch_dtype(cfg.kv_cache_dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads * kv_rep, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`init_cache`'s tree."""
+    ax = ("stack", "batch", "seq", "kv_heads", "kv_head_dim")
+    return {"k": ax, "v": ax}

@@ -67,11 +67,18 @@ class AdamW:
         def zeros(tree):
             if isinstance(tree, dict):
                 return {k: zeros(v) for k, v in tree.items()}
-            return torch.zeros(tree.shape, dtype=dt, device=tree.device)
+            # zeros_like keeps a DTensor parameter's mesh and placements
+            return torch.zeros_like(tree, dtype=dt,
+                                    memory_format=torch.contiguous_format)
         first = leaves(params)[0]
         return OptState(m=zeros(params), v=zeros(params),
                         count=torch.zeros((), dtype=torch.int32,
                                           device=first.device))
+
+    def state_axes(self, param_axes) -> OptState:
+        """Logical axes for the state: the moments follow the
+        parameters."""
+        return OptState(m=param_axes, v=param_axes, count=())
 
     @torch.no_grad()
     def update(self, grads, state: OptState, params):

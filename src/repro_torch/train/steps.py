@@ -19,6 +19,7 @@ from repro_torch.models import transformer
 from repro_torch.models.registry import get_api
 from repro_torch.optim import AdamW
 from repro_torch.optim.adamw import leaves
+from repro_torch.sharding import constrain
 
 IGNORE = -100
 
@@ -30,30 +31,38 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
     mask = labels != IGNORE
     labels_safe = torch.where(mask, labels, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    if type(logits) is torch.Tensor:
+        gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    else:
+        # a DTensor, its vocabulary perhaps split: the gold logit as a
+        # masked sum (the same value), which DTensor sums across the split
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.where(vocab == labels_safe[..., None], logits,
+                           0.0).sum(-1)
     nll = (lse - gold) * mask
     zl = z_loss * torch.square(lse) * mask
     denom = torch.clamp(mask.sum(), min=1)
     return (nll + zl).sum() / denom, nll.sum() / denom
 
 
-def _call_forward(params, cfg: ModelConfig, batch, kernels):
+def _call_forward(params, cfg: ModelConfig, batch, kernels, rules):
     """The family's no-cache forward over a batch: the encoder-decoder
     takes ``embeds`` as its frames, the other families as a prefix."""
     forward = get_api(cfg).forward
     if cfg.family == Family.ENCDEC:
         return forward(params, cfg, batch["tokens"],
-                       frames=batch.get("embeds"), kernels=kernels)
+                       frames=batch.get("embeds"), kernels=kernels,
+                       rules=rules)
     return forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"),
-                   kernels=kernels)
+                   kernels=kernels, rules=rules)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig,
-            kernels: ops.Kernels = ops.KERNELS):
+            kernels: ops.Kernels = ops.KERNELS, rules=None):
     """The no-cache forward and :func:`cross_entropy` over the text
     positions (a VLM's logits over its patch prefix are dropped). Returns
     ``(loss, {"nll": nll})``."""
-    logits, _ = _call_forward(params, cfg, batch, kernels)
+    logits, _ = _call_forward(params, cfg, batch, kernels, rules)
     if cfg.family == Family.VLM and batch.get("embeds") is not None:
         logits = logits[:, batch["embeds"].shape[1]:]
     loss, nll = cross_entropy(logits, batch["labels"], tc.z_loss)
@@ -61,7 +70,7 @@ def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig,
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
-                    kernels: ops.Kernels = ops.KERNELS):
+                    kernels: ops.Kernels = ops.KERNELS, *, rules=None):
     """``(train_step, opt)``: ``train_step(params, opt_state, batch) ->
     (params, opt_state, metrics)`` with ``loss``, ``grad_norm`` and
     ``nll`` as 0-d tensors.
@@ -77,7 +86,12 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     the forward's kernels for comparisons (``ops.Kernels``; the plain
     versions are ``layers.flash_attention_xla``,
     ``mamba2_scan.ssd_chunked_plain``, ``rwkv6_scan.wkv6_chunked_plain``
-    and ``moe_gmm.gmm_plain``)."""
+    and ``moe_gmm.gmm_plain``).
+
+    ``rules`` (``sharding.ShardingRules``, default None) adds the
+    reference's sharding constraints and KV replication to the forward,
+    for parameters that are DTensors placed by ``sharding.tree_shardings``
+    (this and every step builder below)."""
     opt = AdamW(lr=tc.lr, beta1=tc.beta1, beta2=tc.beta2,
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
     n_mb = tc.microbatches
@@ -93,9 +107,13 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
                              f"microbatches")
         losses, nlls = [], []
         for i in range(n_mb):
-            mb = {k: v.reshape(n_mb, rows // n_mb, *v.shape[1:])[i]
+            # rows i * rows/n_mb on, as the reference's reshape to
+            # [n_mb, rows/n_mb, ...] takes them; a DTensor's slice of its
+            # split batch is split over the batch axes again
+            mb = {k: constrain(v.narrow(0, i * (rows // n_mb), rows // n_mb),
+                               rules, "batch")
                   for k, v in batch.items()}
-            loss, aux = loss_fn(params, cfg, mb, tc, kernels)
+            loss, aux = loss_fn(params, cfg, mb, tc, kernels, rules)
             loss.backward()
             losses.append(loss.detach())
             nlls.append(aux["nll"].detach())
@@ -120,18 +138,20 @@ def _grads(params):
     return params.grad
 
 
-def make_prefill_step(cfg: ModelConfig, kernels: ops.Kernels = ops.KERNELS):
+def make_prefill_step(cfg: ModelConfig, kernels: ops.Kernels = ops.KERNELS,
+                      *, rules=None):
     """``prefill_step(params, batch) -> (logits [B,S,V] float32,
     next_token [B] int32)``: the no-cache forward without gradients."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = _call_forward(params, cfg, batch, kernels)
+        logits, _ = _call_forward(params, cfg, batch, kernels, rules)
         return logits, torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, kernels: ops.Kernels = ops.KERNELS):
+def make_serve_step(cfg: ModelConfig, kernels: ops.Kernels = ops.KERNELS,
+                    *, rules=None):
     """One decode step over the family's carried dense cache (its
     ``init_cache``: ``{k,v: [L,B,S,KV,hd]}`` for the transformer and the
     encoder-decoder's decoder, ``{kv, ssm, conv}`` for the hybrid, ``{wkv,
@@ -152,7 +172,8 @@ def make_serve_step(cfg: ModelConfig, kernels: ops.Kernels = ops.KERNELS):
 
     @torch.no_grad()
     def serve_step(params, cache, token, cache_len, enc_out=None):
-        kw = dict(cache_len=cache_len, cache=cache, kernels=kernels)
+        kw = dict(cache_len=cache_len, cache=cache, kernels=kernels,
+                  rules=rules)
         if cfg.family == Family.ENCDEC:
             kw["enc_out"] = enc_out
         logits, new_cache = forward(params, cfg, token, **kw)
@@ -163,7 +184,7 @@ def make_serve_step(cfg: ModelConfig, kernels: ops.Kernels = ops.KERNELS):
 
 
 def make_paged_serve_step(cfg: ModelConfig,
-                          kernels: ops.Kernels = ops.KERNELS):
+                          kernels: ops.Kernels = ops.KERNELS, *, rules=None):
     """One paged decode step over the genesys.pagedkv arena:
     ``(params, arenas {k,v: [L,NB,BS,KV,hd]}, block_tables [B,MB],
     token [B,1], cache_len [B]) -> (next_token [B] int32, arenas)``.
@@ -189,7 +210,7 @@ def make_paged_serve_step(cfg: ModelConfig,
         logits, new_arenas = transformer.forward(
             params, cfg, token, cache_len=cache_len,
             paged_cache=(arenas["k"], arenas["v"], block_tables),
-            kernels=kernels)
+            kernels=kernels, rules=rules)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, new_arenas
 

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports ``jax`` or the JAX package ``repro``; and the
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and no ``experiments/torch_*.py`` script imports ``jax``
+or the JAX package ``repro``; and the
 host-plane modules the port copies instead of importing are verbatim
 copies of their originals with ``repro.`` renamed ``repro_torch.`` (so the
 two cannot drift apart unnoticed)."""
@@ -43,7 +44,8 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "experiments").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -237,24 +237,22 @@ def test_dense_decode_matches_prefill():
 
 
 def test_remat_modes_give_equal_grads():
-    """remat "full" (activation checkpointing) recomputes the same block,
-    so its gradients equal "none"'s; "dots" is not ported and raises."""
+    """remat "full" (activation checkpointing) and "dots" (the weight
+    products kept, the rest recomputed) run the same block, so their
+    gradients equal "none"'s."""
     base = dataclasses.replace(get_config("starcoder2-7b").reduced(), **F32)
     _, tb = _batch(base, np.random.default_rng(7))
     grads = {}
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         cfg = dataclasses.replace(base, remat=remat)
         params = ttr.init(cfg, seed=0, device="cpu", master=True)
         for p in leaves(params):
             p.requires_grad_(True)
         tsteps.loss_fn(params, cfg, tb, TrainConfig())[0].backward()
         grads[remat] = [p.grad for p in leaves(params)]
-    for a, b in zip(grads["full"], grads["none"]):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
-    cfg = dataclasses.replace(base, remat="dots")
-    params = ttr.init(cfg, seed=0, device="cpu", master=True)
-    with pytest.raises(ValueError, match="not ported"):
-        tsteps.loss_fn(params, cfg, tb, TrainConfig())
+    for remat in ("full", "dots"):
+        for a, b in zip(grads[remat], grads["none"]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
 
 
 def test_master_weights_are_float32_and_serving_weights_compute_dtype():

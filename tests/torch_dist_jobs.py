@@ -1,0 +1,168 @@
+"""Multi-process jobs of the port's CPU tests on ``gloo`` (not a test
+module: ``test_torch_sharded_step.py`` and ``test_torch_compression.py``
+run it as a script, in a subprocess of their own).
+
+    python tests/torch_dist_jobs.py sharded_step 2,2
+    python tests/torch_dist_jobs.py compressed_reduce 2,4
+
+Each job spawns one process per rank of the mesh's shape, joins them in a
+gloo group at ``tcp://localhost:<free port>``, and prints one line
+``RESULT <json>`` with every rank's result (or ``ERROR`` and the
+tracebacks). Exits 0 only if every rank finished.
+"""
+import dataclasses
+import json
+import math
+import socket
+import sys
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+
+
+def sharded_step(mesh_shape):
+    """Reduced starcoder2-7b in f32: one train step (loss, grad norm) and
+    six greedy decode steps over a carried cache, once on plain tensors
+    and once with parameters, inputs and cache as DTensors on the mesh
+    placed by ``rules_for``."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import PLAIN, PLAIN_DECODE
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_api
+    from repro_torch.sharding import rules_for, tree_shardings
+    from repro_torch.train.steps import make_serve_step, make_train_step
+
+    cfg = dataclasses.replace(get_config("starcoder2-7b").reduced(),
+                              params_dtype="float32",
+                              compute_dtype="float32",
+                              kv_cache_dtype="float32")
+    api = get_api(cfg)
+    mesh = make_host_mesh(*mesh_shape)
+    rules = rules_for(cfg, mesh)
+
+    def place(tree, axes):
+        sh = tree_shardings(mesh, rules, axes, tree)
+        return _map2(lambda t, s: distribute_tensor(t, mesh, s.placements),
+                     tree, sh)
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, 17)))
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    out = {"kv_rep": rules.kv_rep}
+    for sharded in (False, True):
+        params = api.init(cfg, seed=0, device="cpu", master=True)
+        ts, opt = make_train_step(cfg, TrainConfig(), PLAIN,
+                                  rules=rules if sharded else None)
+        b = batch
+        if sharded:
+            params = place(params, api.param_axes(cfg))
+            b = {k: place(v, ("batch", "seq")) for k, v in batch.items()}
+        with implicit_replication():
+            _, _, m = ts(params, opt.init(params), b)
+        out[f"train_{sharded}"] = {k: float(_full(m[k]))
+                                   for k in ("loss", "grad_norm")}
+
+        params = api.init(cfg, seed=1, device="cpu")
+        cache = api.init_cache(cfg, 4, 32, device="cpu",
+                               kv_rep=rules.kv_rep if sharded else 1)
+        sv = make_serve_step(cfg, PLAIN_DECODE,
+                             rules=rules if sharded else None)
+        if sharded:
+            params = place(params, api.param_axes(cfg))
+            cache = place(cache, api.cache_axes(cfg))
+        cur = batch["tokens"][:, :1].clone()
+        seq = []
+        with implicit_replication():
+            for t in range(6):
+                cl = torch.full((4,), t, dtype=torch.int32)
+                c = cur
+                if sharded:
+                    c, cl = place(cur, ("batch", None)), place(cl, ("batch",))
+                nxt, cache = sv(params, cache, c, cl)
+                seq.append(_full(nxt).tolist())
+                cur = torch.tensor(seq[-1])[:, None]
+        out[f"tokens_{sharded}"] = seq
+    return out
+
+
+def compressed_reduce(mesh_shape):
+    """Each rank of the (pod, data) world holds one row of an [8, 64]
+    gradient; the tree is summed over every rank (the reference's psum
+    over ("pod", "data")) by ``all_reduce_tree`` in bf16 and in int8_ef,
+    against the exact sum."""
+    from repro_torch.optim.compression import all_reduce_tree
+
+    assert dist.get_world_size() == math.prod(mesh_shape)
+    g = torch.arange(8 * 64, dtype=torch.float32).reshape(8, 64) / 100
+    mine = {"g": g[dist.get_rank()].clone()}
+    ref = g.sum(0)
+    out = {}
+    for method in ("bf16", "int8_ef"):
+        summed, _ = all_reduce_tree(mine, method)
+        out[method] = float((summed["g"] - ref).abs().max())
+    return out
+
+
+def _map2(fn, a, b):
+    if isinstance(a, dict):
+        return {k: _map2(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _worker(rank, world, port, job, mesh_shape, q):
+    sys.path.insert(0, SRC)
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=world)
+        q.put((rank, "ok", JOBS[job](mesh_shape)))
+    except Exception:  # noqa: BLE001 — reported to the parent
+        q.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+JOBS = {"sharded_step": sharded_step, "compressed_reduce": compressed_reduce}
+
+
+def main() -> int:
+    job, shape = sys.argv[1], tuple(int(x) for x in sys.argv[2].split(","))
+    world = math.prod(shape)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_worker, args=(r, world, port, job, shape, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = sorted(q.get(timeout=240) for _ in procs)
+    for p in procs:
+        p.join(timeout=60)
+    errors = [r for r in results if r[1] != "ok"]
+    if errors:
+        print("ERROR " + "\n".join(e[2] for e in errors), flush=True)
+        return 1
+    print("RESULT " + json.dumps([r[2] for r in results]), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
