@@ -17,14 +17,16 @@ Phases, each fatal on failure:
    and every bf16 one bit-equal across two calls, and time kernel,
    plain version, one PyTorch library call as a yardstick, one plain read
    of the same bytes, and the bytes bound at the H100 SXM's 3.35 TB/s
-   (data sheet, 700 W limit);
+   (data sheet, 700 W limit); and K1 as the step calls it, appending the
+   step's token in the same launch (see the fold, below);
 3. drive the main path at full width: starcoder2-7b with random weights
    from a seed, bf16, served by ``GenesysUdpServer(use_tenants=True)``
    through the continuous-batching engine over a 2048-block paged arena
    with a spill file; a client thread sends 16 ``[budget, tag,
    prompt...]`` requests (two share a 64-token prefix) by UDP. Every tag
    must come back with exactly its budget of tokens, the shared prefix
-   must hit, and each kernel must have launched once per layer per step;
+   must hit, and K1 must have launched once per layer per step, each
+   launch appending the step's token (the append never alone);
 4. one paged step's logits with the kernels against the same step with
    the plain attention: full width in bf16, and two layers at full width
    in f32 (greedy tokens equal wherever the top-2 margin exceeds 1e-3).
@@ -49,8 +51,9 @@ The dense-cache path (the second slice) adds:
     ``CpuBaselineUdpServer.serve_model`` — the paper's GENESYS-versus-CPU
     comparison. Every reply must carry exactly its budget, eager and CPU
     baseline must return the same token lists (matched by content), and
-    K2 and the KV append must have launched once per layer per decode
-    dispatch in each of the three runs;
+    K2 must have launched once per layer per decode dispatch in each of
+    the three runs, each launch appending the step's token (the KV append
+    never launched alone);
 5b. one dense step's logits with the kernels against the same step with
     the plain attention, full width bf16, over a filled cache with ragged
     lengths (one row at capacity).
@@ -177,8 +180,8 @@ random weights from a seed):
     empty; every token on one expert);
 15. the main path at full width and all 48 layers in bf16: phase 3's
     requests through the paged engine over a 1024-block arena (6.4 GB
-    beside 56.1 GB of weights), K1 and the append once and K6 three times
-    per layer and step; the assignments the capacity dropped, counted on
+    beside 56.1 GB of weights), K1 (appending the token) once and K6 three
+    times per layer and step; the assignments the capacity dropped, counted on
     the device and read once; one decode step alone, host clock against
     device busy time and the bytes bound of the weights it reads;
 16. the three dense servers (phase 5's requests; eager and CPU baseline
@@ -221,8 +224,9 @@ a row, AR(1) stand-in audio features from a seeded generator):
     one a step through ``make_serve_step(cfg)(params, cache, tok,
     cache_len, enc_out)`` over a carried cache of 256 positions, then 32
     greedy tokens each, the rows' cache lengths ragged. K2 launched 24
-    times a step (12 self-attention, 12 cross-attention), the append 12,
-    K3a 12 for the encode and 36 for a no-cache forward, nothing else; the
+    times a step (12 self-attention, each appending the token, 12
+    cross-attention), the append alone never, K3a 12 for the encode and
+    36 for a no-cache forward, nothing else; the
     served tokens equal a teacher-forced replay's argmax; decode against
     the no-cache forward in bf16 (0.25) and, at 2 + 2 layers in f32, greedy
     tokens where the margin exceeds 1e-3; one decode step and one no-cache
@@ -263,6 +267,19 @@ kernel:
     gradient tree on the card equals the CPU's bit for bit (timed); a
     compressed all-reduce (bf16, int8_ef) over the group returns the
     dequantised tree.
+
+The fold of the KV append into K1 and K2 (a later kernel redesign) adds
+to phases 2 and 2b a case of each K1/K2 case as a decode step calls the
+kernel: the step's token written at its slot and attended in one launch
+(K1 attending it as the arena stores it, K2 unquantised), the output held
+to the case's tolerance against the plain two calls (append then attend;
+attend then append), the written cache bit-equal to the plain append's
+(int8 included), a second call giving the same bits, one slot out of
+range, and a control (every slot one on) that must fail; timed against
+the append and attention kernels called one after the other. Every
+serving path (phases 3, 5, 10, 13, 15, 16, 19a) must launch the append
+alone 0 times and K1/K2 as often as before, each launch appending, and
+the steps alone print their device operations.
 
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
@@ -449,6 +466,24 @@ def check(cond, what: str) -> None:
         raise SmokeFailure(what)
 
 
+def zero_counts(counters) -> None:
+    """Set the launch counts of kernel wrappers to 0 (K1's and K2's
+    launches that also appended the step's token too)."""
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "fused_launches"):
+            c.fused_launches = 0
+
+
+def read_counts(counters) -> dict:
+    """{wrapper name: launches}, and for K1 and K2 also
+    ``<name>_fused``: the launches that appended the step's token."""
+    out = {c.__name__: c.launches for c in counters}
+    out.update({f"{c.__name__}_fused": c.fused_launches for c in counters
+                if hasattr(c, "fused_launches")})
+    return out
+
+
 # ------------------------------------------------------------- timing ----
 
 # GPU clock cycles to hold the stream busy while the host enqueues a call:
@@ -571,19 +606,22 @@ def library_attention(torch, q, kp, vp, bt, lens, n_pages):
         attn_mask=mask, enable_gqa=True)[:, :, 0]
 
 
-def kernel_phase(torch, dev, flush, moe):
+def kernel_phase(torch, dev, flush, moe, fold: bool = True):
     """K1 at starcoder2's shape in bf16, f32 and int8, and at the MoE
     model's (``moe`` = (H, KV, hd)) in bf16, over rows of up to MAX_LEN
     positions; then both at the main path's own rows (8 of 16-288
     positions: phase 3's prompts of 16-256 tokens and budgets of 8-32, over
     the tables make_engine gives phases 3 and 15) and at the rows of up to
-    1024 positions of phases 4 and 15's step alone; the KV append."""
+    1024 positions of phases 4 and 15's step alone; with ``fold``, each
+    case again as the decode step calls K1, appending the step's token in
+    the same launch (:func:`paged_fold_case`); the KV append alone.
+    Returns (K1's cases, the fused cases, the append's case)."""
     from repro_torch.kernels import decode_attention as tda
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    cases = []
+    cases, folded = [], []
     serving = {"lens_range": (16, 288)}
     step = {"lens_range": (16, 1024)}
     for name, q_dtype, kv_dtype, heads, rows in (
@@ -643,6 +681,9 @@ def kernel_phase(torch, dev, flush, moe):
               f"{err} > {tol}")
         check(bits or q_dtype != torch.bfloat16, f"paged_decode_attention["
               f"{name}] gave other bits on a second call")
+        if fold:
+            folded.append(paged_fold_case(torch, gen, flush, name, q, kp, vp,
+                                          bt, lens, pages))
         del q, kp, vp, bt, lens, got, want
 
     # the paged KV append: one layer's arena, 8 rows, the last out of range
@@ -652,7 +693,127 @@ def kernel_phase(torch, dev, flush, moe):
     slots[-1] = N_BLOCKS * BS + 5
     append = append_case(torch, gen, flush, "paged-bfloat16", k_pages,
                          slots.to(torch.int32))
-    return cases, append
+    return cases, folded, append
+
+
+def fold_case(torch, flush, kernel: str, label: str, name: str, *, run,
+              plain, two_call, arenas, variant: str, nbytes: int,
+              flops: float) -> dict:
+    """One case of K1 or K2 as a decode step calls it: ``run(k, v,
+    shift)`` launches the kernel that writes the step's new token into
+    the cache ``k, v`` (at its slots moved on by ``shift``) and attends it,
+    ``plain(k, v)`` is its plain version (the reference's two calls), and
+    ``two_call(k, v)`` the same two calls through the kernels (the append
+    kernel and K1 or K2). Each runs on its own copy of ``arenas``: the
+    output is held to the case's tolerance and the cache, bytes and all,
+    to the plain append's, two calls give the same bits, and a control
+    (every slot one on) must fail. Timed against the two kernel calls,
+    the plain version and the bound (no one library call appends and
+    attends)."""
+    k0, v0 = arenas
+    kk, vk = k0.clone(), v0.clone()
+    kp, vp = k0.clone(), v0.clone()
+    got = run(kk, vk, 0)
+    want = plain(kp, vp)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = tolerance(name, want)
+    same_cache = bool(torch.equal(kk, kp) and torch.equal(vk, vp))
+    bits = same_bits(torch, lambda: run(kk, vk, 0))
+    same_cache = same_cache and bool(torch.equal(kk, kp)
+                                     and torch.equal(vk, vp))
+    kc, vc = k0.clone(), v0.clone()
+    ctrl = run(kc, vc, 1)
+    torch.cuda.synchronize()
+    ctrl_err = (ctrl.float() - want.float()).abs().max().item()
+    ctrl_passes = bool(ctrl_err <= tol and torch.equal(kc, kp)
+                       and torch.equal(vc, vp))
+    del kc, vc, ctrl
+    bnd, by = bound_ms(nbytes, flops, "float32" if name == "float32"
+                       else "bfloat16")
+    ms, host_k = cuda_ms(torch, lambda: run(kk, vk, 0), reps=20, flush=flush)
+    two_ms, host_two = cuda_ms(torch, lambda: two_call(kk, vk), reps=20,
+                               flush=flush)
+    plain_ms, _ = cuda_ms(torch, lambda: plain(kp, vp), reps=5, flush=flush)
+    case = {"case": f"{label}-fused", "variant": variant,
+            "max_abs_err": err, "tol": tol, "same_cache": same_cache,
+            "same_bits": bits, "control_err": ctrl_err,
+            "control_passes": ctrl_passes, "ms": ms, "two_call_ms": two_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bnd,
+            "bound_by": by, "kv_bytes": nbytes, "host_call_ms": host_k,
+            "two_call_host_ms": host_two}
+    print(f"kernel {kernel}[{case['case']}] ({variant}, appends and "
+          f"attends): max_abs_err={err:.3e} (tol {tol:g}) cache bit-equal "
+          f"to the plain append={same_cache} same_bits={bits} "
+          f"ms={ms:.4f} two_call_ms(append + attend)={two_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bnd:.6f} ({by}, {nbytes} B) "
+          f"host_call_ms={host_k:.4f} two_call_host_ms={host_two:.4f}; "
+          f"control (slots one on): err {ctrl_err:.3e}, passes="
+          f"{ctrl_passes}", flush=True)
+    check(err <= tol, f"{kernel}[{case['case']}] error {err} > {tol}")
+    check(same_cache, f"{kernel}[{case['case']}] wrote other cache bytes "
+          f"than the plain append")
+    check(bits or name == "float32", f"{kernel}[{case['case']}] gave "
+          f"other bits on a second call")
+    check(not ctrl_passes, f"{kernel}[{case['case']}]: the control with "
+          f"shifted slots passed")
+    return case
+
+
+def token_slots(torch, bt, cached):
+    """Each row's flat arena slot for the step's token at position
+    ``cached[b]`` of its block table (``layers.paged_step``'s rule)."""
+    pos = cached.long()
+    rows = torch.arange(bt.shape[0], device=bt.device)
+    return (bt[rows, pos // BS].long() * BS + pos % BS).to(torch.int32)
+
+
+def paged_fold_case(torch, gen, flush, name, q, kp, vp, bt, lens,
+                    pages) -> dict:
+    """K1 with the step's token on phase 2's inputs: each row holds
+    lens - 1 cached positions and its token goes to position lens - 1 of
+    its table (so as many positions are attended as in the case without
+    it); the last row's slot is out of range, and its position already
+    holds its token, as if an earlier step had written it, so the
+    dropped write leaves both forms attending the same token."""
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.kernels import ops
+
+    b_, h, hd = q.shape
+    kv = kp.shape[2]
+    n_slots = kp.shape[0] * BS
+    cached = lens - 1
+    slots = token_slots(torch, bt, cached)
+    k_new, v_new = (torch.randn(b_, kv, hd, generator=gen, device=q.device)
+                    .to(q.dtype) for _ in range(2))
+    last = slots[-1].long()
+    kp.view(n_slots, kv, hd)[last] = ops.quantise_kv(k_new[-1], kp.dtype)
+    vp.view(n_slots, kv, hd)[last] = ops.quantise_kv(v_new[-1], vp.dtype)
+    slots[-1] = n_slots + 5
+    kq, vq = ops.quantise_kv(k_new, kp.dtype), ops.quantise_kv(v_new, kp.dtype)
+    lens1 = cached + 1
+
+    def run(k, v, shift):
+        return ops.paged_decode_attention(q, k, v, bt, cached, k_new, v_new,
+                                          slots + shift if shift else slots)
+
+    def two_call(k, v):
+        ops.update_kv_buffer(k, v, kq, vq, slots)
+        return ops.paged_decode_attention(q, k, v, bt, lens1)
+
+    n_pos = int(cached.sum())
+    row = kv * hd
+    nbytes = (2 * n_pos * row * kp.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * (sum(pages) + b_)
+              + 2 * b_ * row * q.element_size() + 4 * b_
+              + 2 * (b_ - 1) * row * kp.element_size())
+    return fold_case(
+        torch, flush, "paged_decode_attention", name, name, run=run,
+        plain=lambda k, v: ops.paged_decode_attention_plain(
+            q, k, v, bt, cached, k_new, v_new, slots),
+        two_call=two_call, arenas=(kp, vp),
+        variant=tda.variant(q.dtype, hd), nbytes=nbytes,
+        flops=4.0 * (n_pos + b_) * h * hd)
 
 
 def append_case(torch, gen, flush, label, k_pages, slots) -> dict:
@@ -747,12 +908,16 @@ def library_dense_attention(torch, q, k, v, lens):
         attn_mask=mask, enable_gqa=True)[:, :, 0]
 
 
-def dense_kernel_phase(torch, dev, flush, hybrid, moe, seamless):
+def dense_kernel_phase(torch, dev, flush, hybrid, moe, seamless,
+                       fold: bool = True):
     """K2 against its plain version at starcoder2's shapes, at the
     hybrid's shared attention (``hybrid`` = (H, KV, hd), G = 1, hd 80), at
     the MoE model's attention (``moe``, G = 1, hd 128) and at seamless's
-    decoder (``seamless``, G = 1, hd 64), and the KV append at the hybrid's
-    dense cache. Returns (K2's cases, the append's cases)."""
+    decoder (``seamless``, G = 1, hd 64), with ``fold`` each shape again as
+    the decode step calls K2, appending the step's token in the same
+    launch (:func:`dense_fold_case`), and the KV append alone at the
+    hybrid's dense cache. Returns (K2's cases, the fused cases, the
+    append's cases)."""
     from repro_torch.kernels import decode_attention as tda
     from repro_torch.kernels import ops
 
@@ -780,7 +945,7 @@ def dense_kernel_phase(torch, dev, flush, hybrid, moe, seamless):
                ("moe-bucket8-S256", 8, DENSE_LEN, 40, moe, dtypes[0]),
                ("seamless-B1-S256", 1, DENSE_LEN, DENSE_LEN, seamless,
                 dtypes[0])]
-    cases = []
+    cases, folded = [], []
     for label, b, s, max_len, (h, kv, hd), (name, q_dtype, kv_dtype) \
             in shapes:
         q, k, v, lens, k_new, v_new = dense_inputs(
@@ -832,6 +997,9 @@ def dense_kernel_phase(torch, dev, flush, hybrid, moe, seamless):
                   f"{err} > {tol}")
             check(bits or q_dtype != torch.bfloat16, f"decode_attention["
                   f"{case['case']}] gave other bits on a second call")
+        if fold:
+            folded.append(dense_fold_case(torch, flush, f"{label}-{name}",
+                                          name, q, k, v, lens, k_new, v_new))
         del q, k, v, lens, k_new, v_new, got, want
     # the hybrid's KV append: a bucket's cache of one application of the
     # shared block (slots as layers.dense_step makes them; one row at
@@ -852,7 +1020,51 @@ def dense_kernel_phase(torch, dev, flush, hybrid, moe, seamless):
         appends.append(append_case(torch, gen, flush, f"hybrid-{name}", kc,
                                    slots))
         del kc
-    return cases, appends
+    return cases, folded, appends
+
+
+def dense_fold_case(torch, flush, label, name, q, k, v, lens, k_new,
+                    v_new) -> dict:
+    """K2 with the step's token on phase 2b's inputs: each row holds
+    min(lens - 1, S - 1) cached positions and its token is written after
+    them (so as many positions are attended as in the case with the new
+    token); in a case of several rows the last is full, at S cached
+    positions, and its write is dropped (``layers.dense_step``'s slot B *
+    S)."""
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.kernels import ops
+
+    b_, s, kv, hd = k.shape
+    h = q.shape[1]
+    cached = (lens - 1).clamp(0, s - 1)
+    if b_ > 1:
+        cached[-1] = s
+    rows = torch.arange(b_, device=q.device)
+    slots = torch.where(cached < s, rows * s + cached, b_ * s).to(torch.int32)
+    kq, vq = ops.quantise_kv(k_new, k.dtype), ops.quantise_kv(v_new, k.dtype)
+
+    def run(kc, vc, shift):
+        return ops.decode_attention(q, kc, vc, cached, k_new, v_new,
+                                    slots + shift if shift else slots)
+
+    def two_call(kc, vc):
+        out = ops.decode_attention(q, kc, vc, cached, k_new, v_new)
+        ops.update_kv_buffer(kc, vc, kq, vq, slots)
+        return out
+
+    n_pos = int(cached.clamp(max=s).sum())
+    n_in = int((cached < s).sum())
+    row = kv * hd
+    nbytes = (2 * n_pos * row * k.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * b_
+              + 2 * b_ * row * q.element_size() + 4 * b_
+              + 2 * n_in * row * k.element_size())
+    return fold_case(
+        torch, flush, "decode_attention", label, name, run=run,
+        plain=lambda kc, vc: ops.decode_attention_plain(
+            q, kc, vc, cached, k_new, v_new, slots),
+        two_call=two_call, arenas=(k, v), variant=tda.variant(q.dtype, hd),
+        nbytes=nbytes, flops=4.0 * (n_pos + b_) * h * hd)
 
 
 # ---------------------------------------------------- phase 3: main path --
@@ -911,8 +1123,7 @@ def serve_main_path(cfg, params, *, n_slots, n_blocks, reqs, spill_path,
                 eng, reply_port=client.getsockname()[1],
                 n_requests=len(reqs), max_idle_polls=400)
 
-        for c in counters:
-            c.launches = 0
+        zero_counts(counters)
         th = threading.Thread(target=serve, name="smoke-serve", daemon=True)
         t0 = time.perf_counter()
         th.start()
@@ -971,8 +1182,9 @@ def main_path_run(torch, cfg, params, *, n_blocks: int,
     slots, ``n_blocks`` blocks, a spill file): every reply carries its
     budget, the shared prefix hits, and each kernel wrapper of
     ``per_layer`` ({wrapper: launches per layer and step}) launched as
-    many times. An MoE model's capacity drops are counted on the device
-    and read once, at the end. Returns the run's numbers."""
+    many times, every K1 launch appending the step's token (no launch of
+    the append alone). An MoE model's capacity drops are counted on the
+    device and read once, at the end. Returns the run's numbers."""
     import numpy as np
 
     from repro_torch.config import Family
@@ -984,7 +1196,7 @@ def main_path_run(torch, cfg, params, *, n_blocks: int,
         replies, eng, stats, wall, step_s = serve_main_path(
             cfg, params, n_slots=B, n_blocks=n_blocks, reqs=reqs,
             spill_path=str(Path(tmp) / "kv.spill"), counters=counters)
-    launches = {f.__name__: f.launches for f in counters}
+    launches = read_counts(counters)
     steps = eng.stats.steps
     out = {"arch": cfg.arch_id, "steps": steps,
            "tokens_out": stats.tokens_out, "wall_s": wall,
@@ -1024,6 +1236,10 @@ def main_path_run(torch, cfg, params, *, n_blocks: int,
         want = per * cfg.n_layers * steps
         check(launches[f.__name__] == want, f"{cfg.arch_id}: {f.__name__} "
               f"launched {launches[f.__name__]} times, expected {want}")
+    check(launches["paged_decode_attention_fused"]
+          == launches["paged_decode_attention"], f"{cfg.arch_id}: "
+          f"{launches['paged_decode_attention_fused']} of "
+          f"{launches['paged_decode_attention']} K1 launches appended")
     check(all(np.isfinite(step_s)), "step times")
     return out
 
@@ -1097,8 +1313,7 @@ def serve_dense(torch, cfg, params, mode, reqs, *, max_tokens, counters):
                     batch_decode=mode == "bucketed",
                     per_request_tokens=mode == "bucketed")
 
-        for c in counters:
-            c.launches = 0
+        zero_counts(counters)
         th = threading.Thread(target=serve, name=f"smoke-{mode}",
                               daemon=True)
         t0 = time.perf_counter()
@@ -1137,9 +1352,11 @@ def attention_layers(cfg) -> int:
 
 def dense_path_phase(torch, cfg, params):
     """Phase 5 (and 10, 13, 16): the three dense servers at full width.
-    Returns a dict of per-run results and K2's launches per run. An MoE
-    model also launches K6 three times per layer and dispatch, and counts
-    the assignments its capacity drops (none in a one-row step)."""
+    Returns a dict of per-run results and K2's launches per run: once per
+    attention layer and dispatch, each appending the step's token (no
+    launch of the append alone). An MoE model also launches K6 three times
+    per layer and dispatch, and counts the assignments its capacity drops
+    (none in a one-row step)."""
     import numpy as np
 
     from repro_torch.config import Family
@@ -1164,7 +1381,7 @@ def dense_path_phase(torch, cfg, params):
                 torch, cfg, params, mode, reqs, max_tokens=max_tokens,
                 counters=counters)
         n_dropped = drops.read()
-        launches = {f.__name__: f.launches for f in counters}
+        launches = read_counts(counters)
         dispatches = len(step_s)
         if mode == "bucketed":
             got = {r[0]: r[1:] for r in replies}
@@ -1184,10 +1401,12 @@ def dense_path_phase(torch, cfg, params):
             check(stats.decode_dispatches == dispatches,
                   f"{mode}: {stats.decode_dispatches} dispatches counted, "
                   f"{dispatches} made")
-        for name in ("decode_attention", "update_kv_buffer"):
+        for name in ("decode_attention", "decode_attention_fused"):
             check(launches[name] == n_attn * dispatches,
                   f"{mode}: {name} launched {launches[name]} times, "
                   f"expected {n_attn} x {dispatches} dispatches")
+        check(launches["update_kv_buffer"] == 0, f"{mode}: the append "
+              f"launched alone {launches['update_kv_buffer']} times")
         check(launches["paged_decode_attention"] == 0
               and launches["mamba2_ssd_fwd"] == 0
               and launches["rwkv6_wkv_fwd"] == 0,
@@ -1202,6 +1421,8 @@ def dense_path_phase(torch, cfg, params):
                "mean_step_ms": 1e3 * statistics.mean(step_s),
                "median_step_ms": 1e3 * statistics.median(step_s),
                "launches": launches["decode_attention"],
+               "fused_launches": launches["decode_attention_fused"],
+               "append_launches": launches["update_kv_buffer"],
                "gmm_launches": launches["gmm_fwd"], "dropped": n_dropped}
         runs[mode] = run
         print(f"dense path {cfg.arch_id} [{mode}]: {len(reqs)} requests "
@@ -1249,9 +1470,11 @@ def dense_step_alone(torch, cfg, params, rows: int) -> dict:
     busy_ms = device_busy_ms(torch, one_step, top=8)
     busy = "not measured" if busy_ms is None else f"{busy_ms:.3f}"
     print(f"dense step alone {cfg.arch_id} ({rows} row(s), cached len "
-          f"128): host_ms={alone_ms:.3f} device_busy_ms={busy}", flush=True)
+          f"128): host_ms={alone_ms:.3f} device_busy_ms={busy} "
+          f"device_ops={device_busy_ms.ops}", flush=True)
     host_ops(torch, one_step, top=8)
-    return {"step_alone_ms": alone_ms, "step_device_busy_ms": busy_ms}
+    return {"step_alone_ms": alone_ms, "step_device_busy_ms": busy_ms,
+            "step_device_ops": device_busy_ms.ops}
 
 
 def host_ops(torch, fn, top: int) -> None:
@@ -1338,9 +1561,11 @@ def host_ms(torch, fn, reps: int) -> float:
 def device_busy_ms(torch, fn, top: int = 0):
     """Sum of the device time of the kernels ``fn`` launches, from
     torch.profiler (CUPTI); None where the profiler records no device
-    time on this machine. With ``top``, also prints the ``top`` kernels
-    by device time."""
+    time on this machine. ``device_busy_ms.ops`` is then the number of
+    device operations the call ran. With ``top``, also prints that number
+    and the ``top`` kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
+    device_busy_ms.ops = None
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -1350,11 +1575,16 @@ def device_busy_ms(torch, fn, top: int = 0):
     except (RuntimeError, AttributeError) as e:
         print(f"device busy: not measured ({e})", flush=True)
         return None
+    if us > 0:
+        device_busy_ms.ops = sum(e.count for e in events
+                                 if e.self_device_time_total > 0)
     if top and us > 0:
         heavy = sorted(events, key=lambda e: -e.self_device_time_total)
-        print("  device time by kernel: " + "; ".join(
-            f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
-            for e in heavy[:top]), flush=True)
+        print(f"  device ops (kernels, copies, sets): {device_busy_ms.ops}; "
+              "device time by kernel: " + "; ".join(
+                  f"{e.key[:48]} x{e.count} "
+                  f"{e.self_device_time_total / 1e3:.3f} ms"
+                  for e in heavy[:top]), flush=True)
     return us / 1e3 if us > 0 else None
 
 
@@ -3011,7 +3241,7 @@ def moe_main_path_phase(torch, mcfg, dev):
           flush=True)
     out = main_path_run(torch, mcfg, params, n_blocks=MOE_N_BLOCKS,
                         per_layer={ops.paged_decode_attention: 1,
-                                   ops.update_kv_buffer: 1, ops.gmm_fwd: 3,
+                                   ops.update_kv_buffer: 0, ops.gmm_fwd: 3,
                                    ops.gmm_bwd: 0})
 
     # one decode step alone, the host plane's threads stopped
@@ -3026,6 +3256,7 @@ def moe_main_path_phase(torch, mcfg, dev):
                                 paged_cache=(arenas["k"], arenas["v"], bt))
     alone_ms = host_ms(torch, one_step, reps=5)
     busy_ms = device_busy_ms(torch, one_step, top=8)
+    step_ops = device_busy_ms.ops
     bound = (weights_bytes - embed_bytes) / HBM_BYTES_PER_S * 1e3
     busy = "not measured" if busy_ms is None else f"{busy_ms:.3f}"
     print(f"step alone {mcfg.arch_id} (8 rows, cached lens {cl.tolist()}): "
@@ -3036,7 +3267,7 @@ def moe_main_path_phase(torch, mcfg, dev):
     torch.cuda.empty_cache()
     return params, dict(out, weights_bytes=weights_bytes,
                         step_alone_ms=alone_ms, step_device_busy_ms=busy_ms,
-                        step_bytes_bound_ms=bound)
+                        step_device_ops=step_ops, step_bytes_bound_ms=bound)
 
 
 def routing_flips(torch, mcfg, dev, *, layers: int) -> dict:
@@ -3773,11 +4004,10 @@ def encdec_serve_phase(torch, cfg, dev) -> dict:
     counters = [getattr(ops, n) for n in KERNEL_COUNTERS]
 
     def zero():
-        for c in counters:
-            c.launches = 0
+        zero_counts(counters)
 
     def read():
-        return {c.__name__: c.launches for c in counters}
+        return read_counts(counters)
 
     R, budget = ENCDEC_ROWS, ENCDEC_BUDGET
     torch.cuda.reset_peak_memory_stats()
@@ -3841,7 +4071,7 @@ def encdec_serve_phase(torch, cfg, dev) -> dict:
     launches = read()
     expected = {"flash_attention_fwd": cfg.n_enc_layers,
                 "decode_attention": 2 * cfg.n_layers * n_steps,
-                "update_kv_buffer": cfg.n_layers * n_steps}
+                "decode_attention_fused": cfg.n_layers * n_steps}
     for name, n in launches.items():
         check(n == expected.get(name, 0), f"{cfg.arch_id} serving: {name} "
               f"launched {n} times, expected {expected.get(name, 0)}")
@@ -3857,7 +4087,8 @@ def encdec_serve_phase(torch, cfg, dev) -> dict:
            "decode_tokens_per_s": R * budget / (t2 - t1),
            "launches": launches,
            "launches_per_step": {n: launches[n] / n_steps for n in (
-               "decode_attention", "update_kv_buffer")}}
+               "decode_attention", "decode_attention_fused",
+               "update_kv_buffer")}}
 
     # one step and one encode alone: host clock against device busy
     def one_step():
@@ -3868,6 +4099,7 @@ def encdec_serve_phase(torch, cfg, dev) -> dict:
             encdec.encode(params, cfg, frames)
     res["step_host_ms"] = host_ms(torch, one_step, reps=10)
     res["step_device_busy_ms"] = device_busy_ms(torch, one_step, top=6)
+    res["step_device_ops"] = device_busy_ms.ops
     res["encode_host_ms"] = host_ms(torch, one_encode, reps=3)
     res["encode_device_busy_ms"] = device_busy_ms(torch, one_encode, top=6)
     busy = {k: "not measured" if res[k] is None else f"{res[k]:.3f}"
@@ -4361,12 +4593,13 @@ def run(torch) -> int:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     mcfg = get_config("moonshot-v1-16b-a3b")
     moe_heads = (mcfg.n_heads, mcfg.n_kv_heads, mcfg.hd)
-    decode_cases, append = kernel_phase(torch, dev, flush, moe_heads)
+    decode_cases, paged_fused, append = kernel_phase(torch, dev, flush,
+                                                     moe_heads)
     mark("2")
     # phase 2b: the dense kernel against its plain version
     zcfg = get_config("zamba2-2.7b")
     scfg = get_config("seamless-m4t-medium")
-    dense_cases, hybrid_appends = dense_kernel_phase(
+    dense_cases, dense_fused, hybrid_appends = dense_kernel_phase(
         torch, dev, flush, (zcfg.n_heads, zcfg.n_kv_heads, zcfg.hd),
         moe_heads, (scfg.n_heads, scfg.n_kv_heads, scfg.hd))
     del flush
@@ -4385,7 +4618,7 @@ def run(torch) -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
           flush=True)
     sc_main = main_path_run(torch, cfg, params, n_blocks=N_BLOCKS, per_layer={
-        ops.paged_decode_attention: 1, ops.update_kv_buffer: 1})
+        ops.paged_decode_attention: 1, ops.update_kv_buffer: 0})
     mark("3")
 
     # phase 4a: one step's logits, kernels vs plain, full width bf16
@@ -4411,9 +4644,11 @@ def run(torch) -> int:
                                 paged_cache=(arenas["k"], arenas["v"], bt))
     alone_ms = host_ms(torch, one_step, reps=10)
     busy_ms = device_busy_ms(torch, one_step)
+    step_ops = device_busy_ms.ops
     busy = "not measured" if busy_ms is None else f"{busy_ms:.3f}"
     print(f"step alone (8 rows, cached lens {cl.tolist()}): "
           f"host_ms={alone_ms:.3f} device_busy_ms={busy} "
+          f"device_ops={step_ops} "
           f"(weights bound {weights_gb / HBM_BYTES_PER_S * 1e12:.3f} ms)",
           flush=True)
     del state, lk, lp
@@ -4638,6 +4873,23 @@ def run(torch) -> int:
          "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
          "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
          "pass": True, "cases": decode_cases},
+        # K1 as the paged step launches it: the step's token appended and
+        # attended in one launch (every K1 launch of phases 3 and 15)
+        {"name": "paged_decode_attention_fused", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:169",
+         "launches": sc_main["launches"]["paged_decode_attention_fused"]
+         + mserve["launches"]["paged_decode_attention_fused"],
+         "launches_by_run": {
+             cfg.arch_id: sc_main["launches"]["paged_decode_attention_fused"],
+             mcfg.arch_id:
+                 mserve["launches"]["paged_decode_attention_fused"]},
+         "max_abs_err": paged_fused[0]["max_abs_err"],
+         "ms": paged_fused[0]["ms"], "plain_ms": paged_fused[0]["plain_ms"],
+         "bound_ms": paged_fused[0]["bound_ms"],
+         "bound_by": paged_fused[0]["bound_by"], "library_ms": None,
+         "two_call_ms": paged_fused[0]["two_call_ms"],
+         "pass": True, "cases": paged_fused},
         {"name": "update_kv_buffer", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/ops.py:71",
@@ -4652,7 +4904,9 @@ def run(torch) -> int:
          "max_abs_err": append["max_abs_err"], "ms": append["ms"],
          "plain_ms": append["plain_ms"], "bound_ms": append["bound_ms"],
          "bound_by": append["bound_by"], "library_ms": append["library_ms"],
-         "pass": True, "cases": [append] + hybrid_appends},
+         "pass": True, "cases": [append] + hybrid_appends,
+         "note": "no serving path launches it: K1 and K2 append the "
+                 "step's token (the _fused entries)"},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dense_decode.cu",
          "replaces": "src/repro/kernels/decode_attention.py:83",
@@ -4674,6 +4928,30 @@ def run(torch) -> int:
          "bound_by": dense_cases[0]["bound_by"],
          "library_ms": dense_cases[0]["library_ms"],
          "pass": True, "cases": dense_cases + [cross_case]},
+        # K2 as the dense steps launch it: attends the step's token and
+        # appends it in one launch (every self-attention K2 launch of the
+        # dense runs and of phase 19a)
+        {"name": "decode_attention_fused", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dense_decode.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:83",
+         "launches": sum(r["fused_launches"] for runs in (
+             dense_runs, zserve["dense_path"], mserve["dense_path"])
+             for r in runs.values())
+         + eserve["launches"]["decode_attention_fused"],
+         "launches_by_run": dict({f"{arch}-{m}": r["fused_launches"]
+                                  for arch, runs in (
+                                      (cfg.arch_id, dense_runs),
+                                      (zcfg.arch_id, zserve["dense_path"]),
+                                      (mcfg.arch_id, mserve["dense_path"]))
+                                  for m, r in runs.items()},
+                                 **{f"{scfg.arch_id}-serve": eserve[
+                                     "launches"]["decode_attention_fused"]}),
+         "max_abs_err": dense_fused[0]["max_abs_err"],
+         "ms": dense_fused[0]["ms"], "plain_ms": dense_fused[0]["plain_ms"],
+         "bound_ms": dense_fused[0]["bound_ms"],
+         "bound_by": dense_fused[0]["bound_by"], "library_ms": None,
+         "two_call_ms": dense_fused[0]["two_call_ms"],
+         "pass": True, "cases": dense_fused},
     ]
     for kind, name, line in (("fwd", "flash_attention_fwd", 76),
                              ("bwd", "flash_attention_bwd", 205)):
@@ -4769,7 +5047,8 @@ def run(torch) -> int:
     print(json.dumps({"kernels": kernels, "main_path": dict(
         sc_main, build_s=build_s, logits_bf16_max_abs_diff=d_bf16,
         step_alone_ms=alone_ms, step_device_busy_ms=busy_ms,
-        poller_spin=POLLER_SPIN, poller_max_sleep_s=POLLER_MAX_SLEEP_S,
+        step_device_ops=step_ops, poller_spin=POLLER_SPIN,
+        poller_max_sleep_s=POLLER_MAX_SLEEP_S,
         logits_f32_max_abs_diff=d_f32), "dense_path": dict(
         dense_runs, logits_bf16_max_abs_diff=d_dense),
         "train_path": train, "hybrid": {"train_path": ztrain,

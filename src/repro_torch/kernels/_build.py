@@ -32,9 +32,10 @@ _ptr, _int, _ll, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # int as a 32-bit int and cut a device pointer
 SIGNATURES = {
     "paged_decode_attention_launch": (
-        [_ptr] * 9 + [_int] * 11 + [_f32, _f32, _int, _int, _ptr], _int),
+        [_ptr] * 8 + [_ll] + [_ptr] * 4 + [_int] * 11
+        + [_f32, _f32, _int, _int, _ptr], _int),
     "dense_decode_attention_launch": (
-        [_ptr] * 10 + [_int] * 10 + [_f32, _f32, _int, _int, _ptr], _int),
+        [_ptr] * 11 + [_int] * 10 + [_f32, _f32, _int, _int, _ptr], _int),
     "kv_append_launch": ([_ptr] * 5 + [_int, _ll, _ll, _ptr], _int),
     "flash_attention_fwd_launch": (
         [_ptr] * 6 + [_int] * 6 + [_f32, _int, _int, _ptr], _int),

@@ -56,13 +56,31 @@
 //     merged by the CTA that takes the row's last ticket (a counter per
 //     (row, KV head), released and acquired with the partials, that it
 //     resets), in split order, so two calls on the same inputs give the
-//     same bits. The merge folds in K2's new token (the two-part softmax),
-//     as a partial with m = q . k_new * scale, l = 1 and o = v_new, so
-//     attending it costs no pass over the cache.
+//     same bits. The merge folds in the step's new token as a partial with
+//     m = q . k_new * scale, l = 1 and o = v_new, so attending it costs no
+//     pass over the cache;
+//   * the step's new token is also written here, not by a launch of its
+//     own: one CTA per (row, KV head) stores its K and V rows at the row's
+//     slot (a flat token index of the cache; outside [0, n_slots) dropped)
+//     in the cache's dtype, int8 as rint(x * QSCALE) clipped to +-127. In
+//     decode_ring it is the CTA of split 0, once its first cp.async groups
+//     are in flight, so the store overlaps the loads; in the CUDA-core path
+//     decode_merge's CTA of the group's first head. K1 attends the token as
+//     the cache stores it (the reference writes, then reads it back); K2
+//     attends it unquantised (the carried branch's two-part softmax).
+//     There is no read-write hazard inside a launch: a row attends only its
+//     positions below lens[b] = cache_len[b], and its slot is position
+//     cache_len[b] (K1: bt[b, cl / BS] * BS + cl % BS; K2: b * S + cl), so
+//     no CTA reads what another writes; inactive K1 rows (lens 0) write
+//     into the pool's null block, which no row attends.
 // Everything else (f32 queries, other head dims) runs decode_split on the
 // CUDA cores in f32: pages in tiles of 64 tokens loaded as f32 into shared
 // memory, one thread per (head, token) score, a grid of CTAs striding over
 // fixed splits, then decode_merge. Accumulation is f32 throughout.
+//
+// Built with GENESYS_DECODE_STAMPS defined (the --stamps build of
+// experiments/torch_decode_compare.py), the CTA that merges a row's splits
+// records %globaltimer at each step of the merge in decode_stamps.
 
 #pragma once
 
@@ -98,8 +116,10 @@ __device__ __forceinline__ int valid_pages(int len, int BS) {
   return (len + BS - 1) / BS;
 }
 
-// K1: pages through the block table [B, MB].
+// K1: pages through the block table [B, MB]. The new token is attended as
+// the arena stores it (int8: rounded and clipped).
 struct PagedRows {
+  static constexpr bool kNewAsStored = true;
   const int* bt;
   int MB, BS, cap;  // cap = MB * BS
   int shift;        // log2(BS) when BS is a power of two, else -1
@@ -113,8 +133,9 @@ struct PagedRows {
 };
 
 // K2: row b's S positions are contiguous from token b * S (pages of BS = 64
-// for the CUDA-core kernel).
+// for the CUDA-core kernel). The new token is attended unquantised.
 struct DenseRows {
+  static constexpr bool kNewAsStored = false;
   int S, BS, cap;  // cap = S
   __device__ __forceinline__ int page_start(int b, int p) const {
     return b * S + p * BS;
@@ -123,6 +144,75 @@ struct DenseRows {
     return b * S + pos;
   }
 };
+
+#ifdef GENESYS_DECODE_STAMPS
+// %globaltimer stamps of the CTA that merges the splits of (row, KV head)
+// pair: 0 its start, 1 its partial stored (the row's last split's end), 2
+// its ticket taken, 3 the splits' (m, l) loaded, 4 the first batch of
+// part_o staged, 5 its products done and its outputs' stores issued, 6
+// every thread's; 7 the start of the pair's split-0 CTA. Thread 0 writes
+// them; each call overwrites.
+constexpr int kStampPairs = 1024;
+constexpr int kStamps = 8;
+__device__ unsigned long long decode_stamps[kStampPairs * kStamps];
+__device__ __forceinline__ unsigned long long stamp_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void stamp_at(int pair, int i,
+                                         unsigned long long t) {
+  if (threadIdx.x == 0 && pair < kStampPairs)
+    decode_stamps[pair * kStamps + i] = t;
+}
+#else
+__device__ __forceinline__ unsigned long long stamp_now() { return 0; }
+__device__ __forceinline__ void stamp_at(int, int, unsigned long long) {}
+#endif
+__device__ __forceinline__ void stamp(int pair, int i) {
+  stamp_at(pair, i, stamp_now());
+}
+
+// ---- the step's new token -------------------------------------------------
+
+// The int8 level of x: rint(x / kv_scale) (half to even, as torch.round and
+// jnp.round; kv_scale = 1 / QSCALE is a power of two, so x times its
+// reciprocal is exact) clipped to +-127.
+__device__ __forceinline__ float q8_level(float x, float kv_scale) {
+  return fminf(fmaxf(rintf(x * __frcp_rn(kv_scale)), -127.f), 127.f);
+}
+
+// An element of the new token as the cache stores it.
+template <typename KT, typename QT>
+__device__ __forceinline__ KT stored(QT x, float kv_scale) {
+  if constexpr (std::is_same<KT, int8_t>::value)
+    return static_cast<int8_t>(q8_level(to_float(x), kv_scale));
+  else
+    return from_float<KT>(to_float(x));  // KT is QT
+}
+
+// An element of the new token as the call attends it: q8_scale > 0 (K1 on
+// an int8 arena) reads it back as stored, else it is attended as given.
+__device__ __forceinline__ float attended(float x, float q8_scale) {
+  return q8_scale > 0.f ? q8_level(x, q8_scale) * q8_scale : x;
+}
+
+// The new token of row b and KV head kvh (kn, vn [hd]) stored at the
+// row's slot of the cache kc / vc (token rows of KV * hd elements); a slot
+// outside [0, n_slots) is dropped. The CTA's threads take the dims in turn.
+template <typename KT, typename QT>
+__device__ __forceinline__ void write_new(KT* kc, KT* vc, const QT* kn,
+                                          const QT* vn, const int* slots,
+                                          int b, long long n_slots, int KV,
+                                          int kvh, int hd, float kv_scale) {
+  const long long s = slots[b];
+  if (s < 0 || s >= n_slots) return;
+  const size_t at = ((size_t)s * KV + kvh) * hd;
+  for (int d = threadIdx.x; d < hd; d += kThreads) {
+    kc[at + d] = stored<KT>(kn[d], kv_scale);
+    vc[at + d] = stored<KT>(vn[d], kv_scale);
+  }
+}
 
 // ---- the CUDA-core split kernel: f32 queries, other head dims ---------------
 
@@ -378,17 +468,24 @@ __global__ void __launch_bounds__(kThreads) decode_split(
 
 // One CTA per (row, query head): log-sum-exp merge of the splits that ran,
 // and of the new token (k_new, v_new [B,KV,hd] in q's dtype) when given:
-// its partial is m = q . k_new * scale, l = 1, o = v_new. A row with no
-// valid position and no new token gives 0.
-template <typename QT>
+// its partial is m = q . k_new * scale, l = 1, o = v_new (read back as
+// stored where q8_new > 0). With slots, the CTA of the group's first head
+// also writes the token into kc / vc (n_slots token rows).
+template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads) decode_merge(
     const float* __restrict__ part_o, const float* __restrict__ part_ml,
     const int* __restrict__ lens, const QT* __restrict__ q,
     const QT* __restrict__ k_new, const QT* __restrict__ v_new,
-    QT* __restrict__ out, int H, int KV, int hd, int cap, int split_tokens,
-    int NS, float scale) {
+    QT* __restrict__ out, KT* kc, KT* vc, const int* __restrict__ slots,
+    long long n_slots, int H, int KV, int hd, int cap, int split_tokens,
+    int NS, float scale, float kv_scale, float q8_new) {
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (slots != nullptr && h % (H / KV) == 0) {
+    const size_t row = ((size_t)b * KV + h / (H / KV)) * hd;
+    write_new(kc, vc, k_new + row, v_new + row, slots, b, n_slots, KV,
+              h / (H / KV), hd, kv_scale);
+  }
   const int len = valid_len(lens, b, cap);
   const int n_run = (len + split_tokens - 1) / split_tokens;
   const float* ml = part_ml + (size_t)bh * NS * 2;
@@ -400,8 +497,8 @@ __global__ void __launch_bounds__(kThreads) decode_merge(
     __shared__ float red[kThreads / 32];
     float part = 0.f;
     for (int d = tid; d < hd; d += kThreads)
-      part = fmaf(to_float(q[(size_t)bh * hd + d]), to_float(k_new[kv_row + d]),
-                  part);
+      part = fmaf(to_float(q[(size_t)bh * hd + d]),
+                  attended(to_float(k_new[kv_row + d]), q8_new), part);
     part = warp_sum(part);
     if (lane == 0) red[warp] = part;
     __syncthreads();
@@ -420,7 +517,8 @@ __global__ void __launch_bounds__(kThreads) decode_merge(
     float o = 0.f;
     for (int s = 0; s < n_run; ++s)
       o += part_o[((size_t)bh * NS + s) * hd + d] * expf(ml[2 * s] - m);
-    if (v_new != nullptr) o = fmaf(p_new, to_float(v_new[kv_row + d]), o);
+    if (v_new != nullptr)
+      o = fmaf(p_new, attended(to_float(v_new[kv_row + d]), q8_new), o);
     out[(size_t)bh * hd + d] = from_float<QT>(o * inv);
   }
 }
@@ -513,7 +611,7 @@ struct RingShape {
   // ... and the last CTA's merge of the splits: (m, l) of every split and
   // at least one split's o rows (merge_splits)
   static_assert((2 * kMaxGroup * kMaxSplits + 2 * kMaxGroup + 4) * 4 +
-                        kMaxGroup * HD * 4 <=
+                        2 * kMaxGroup * HD * 4 <=
                     kSmem,
                 "split merge space");
   static_assert(HD % 16 == 0 && kRowBytes % 16 == 0, "whole copies");
@@ -757,20 +855,22 @@ __device__ __forceinline__ void store_partial(const WarpParts& p,
 }
 
 // One warp: the normalised output of one (row, query head) of a row of one
-// split, with the new token (kn, vn [hd], its score q . kn * scale) when kn
-// is given. qk_log2 = scale * log2(e). No position and no new token gives 0.
+// split, with the new token (kn, vn [hd], its score q . kn * scale; read
+// back as stored where q8_new > 0) when kn is given. qk_log2 = scale *
+// log2(e). No position and no new token gives 0.
 __device__ __forceinline__ void finish_head(const WarpParts& p,
                                             const __nv_bfloat16* qh,
                                             const __nv_bfloat16* kn,
                                             const __nv_bfloat16* vn,
                                             __nv_bfloat16* oh, int hd,
-                                            float qk_log2, int lane) {
+                                            float qk_log2, float q8_new,
+                                            int lane) {
   float m = p.max_m();
   float s_new = -CUDART_INF_F;
   if (kn != nullptr) {
     float dot = 0.f;
     for (int d = lane; d < hd; d += 32)
-      dot = fmaf(to_float(qh[d]), to_float(kn[d]), dot);
+      dot = fmaf(to_float(qh[d]), attended(to_float(kn[d]), q8_new), dot);
     s_new = warp_sum(dot) * qk_log2;
     m = fmaxf(m, s_new);
   }
@@ -785,29 +885,35 @@ __device__ __forceinline__ void finish_head(const WarpParts& p,
 #pragma unroll
     for (int i = 0; i < kWarps; ++i)
       acc = fmaf(p.o_at(i, d), part_weight(p.m(i), m), acc);
-    if (vn != nullptr) acc = fmaf(p_new, to_float(vn[d]), acc);
+    if (vn != nullptr)
+      acc = fmaf(p_new, attended(to_float(vn[d]), q8_new), acc);
     oh[d] = __float2bfloat16(acc * inv);
   }
 }
 
 // The CTA that takes the last ticket of a (row, KV head): the n splits'
 // partials of its G heads (rows bh0 + g of part_o [*, NS, HD] and part_ml
-// [*, NS, 2]) merged in split order, with the new token (kn, vn) when given,
-// into out. Every (m, l) comes in by one load of its own; the o rows go
-// through shared memory by cp.async, as many splits at a time as `smem`
-// holds (all of them at the shapes served), so each batch costs one round
-// trip to L2 instead of one per split.
+// [*, NS, 2]) merged in split order, with the new token (kn, vn; read back
+// as stored where q8_new > 0) when given, into out. Every (m, l) comes in
+// by one load of its own; the o rows go through shared memory by cp.async,
+// as many splits at a time as `smem` holds (all of them at the shapes
+// served), so each batch costs one round trip to L2 instead of one per
+// split. Its loops stay rolled: it runs once a row, by one CTA, at the
+// call's end, where after a read of other data its instructions are
+// fetched from memory line by line (stamped on an H100, the unrolled
+// products and store took 5-10 us cold, 1-3 warm).
 template <int HD>
 __device__ __forceinline__ void merge_splits(
     uint8_t* smem, int smem_bytes, const float* part_o, const float* part_ml,
     size_t bh0, int G, int n, int NS, const __nv_bfloat16* q,
     const __nv_bfloat16* kn, const __nv_bfloat16* vn, __nv_bfloat16* out,
-    float qk_log2) {
+    float qk_log2, float q8_new, int pair) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float* ws = reinterpret_cast<float*>(smem);  // [G][n] m, then the weight
   float* ls = ws + G * n;                       // [G][n] l
   float* hs = ls + G * n;                       // [G][2] 1 / den, p_new
-  float* os = ws + ((2 * G * n + 2 * G + 3) & ~3);  // [G][chunk][HD]
+  float* acc_s = ws + ((2 * G * n + 2 * G + 3) & ~3);  // [G][HD] sums
+  float* os = acc_s + G * HD;                   // [G][chunk][HD]
   const int chunk =
       (smem_bytes - (int)(reinterpret_cast<uint8_t*>(os) - smem)) /
       (G * HD * 4);
@@ -829,6 +935,7 @@ __device__ __forceinline__ void merge_splits(
     ls[x] = __ldcg(ml + 1);
   }
   __syncthreads();
+  stamp(pair, 3);
   for (int g = warp; g < G; g += kWarps) {  // one warp per head
     float m = -CUDART_INF_F;
     for (int i = lane; i < n; i += 32) m = fmaxf(m, ws[g * n + i]);
@@ -837,7 +944,8 @@ __device__ __forceinline__ void merge_splits(
     if (kn != nullptr) {
       float dot = 0.f;
       for (int d = lane; d < HD; d += 32)
-        dot = fmaf(to_float(q[(bh0 + g) * HD + d]), to_float(kn[d]), dot);
+        dot = fmaf(to_float(q[(bh0 + g) * HD + d]),
+                   attended(to_float(kn[d]), q8_new), dot);
       s_new = warp_sum(dot) * qk_log2;
       m = fmaxf(m, s_new);
     }
@@ -854,36 +962,38 @@ __device__ __forceinline__ void merge_splits(
       hs[2 * g + 1] = p_new;
     }
   }
-  constexpr int kOut = (kMaxGroup * HD + kThreads - 1) / kThreads;
-  float acc[kOut];
-#pragma unroll
-  for (int j = 0; j < kOut; ++j) acc[j] = 0.f;
+  // thread tid owns outputs x = tid + k kThreads of the G heads; a batch
+  // adds its splits to their sums (kept in acc_s between batches), and the
+  // last one writes them
   for (int i0 = 0; i0 < n; i0 += chunk) {
     const int nc = chunk < n - i0 ? chunk : n - i0;
+    const bool last_batch = i0 + nc == n;
     if (i0 > 0) stage(i0, nc);
     cp_async_wait<0>();
     __syncthreads();  // the batch has landed, and the weights are in place
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int x = tid + j * kThreads;
-      if (x < G * HD) {
-        const int g = x / HD, d = x - g * HD;
-        for (int i = 0; i < nc; ++i)
-          acc[j] = fmaf(os[(g * nc + i) * HD + d], ws[g * n + i0 + i], acc[j]);
-      }
-    }
-    __syncthreads();  // the batch is consumed
-  }
-#pragma unroll
-  for (int j = 0; j < kOut; ++j) {
-    const int x = tid + j * kThreads;
-    if (x < G * HD) {
+    if (i0 == 0) stamp(pair, 4);
+#pragma unroll 1
+    for (int x = tid; x < G * HD; x += kThreads) {
       const int g = x / HD, d = x - g * HD;
-      float a = acc[j];
-      if (vn != nullptr) a = fmaf(hs[2 * g + 1], to_float(vn[d]), a);
+      const float* o_g = os + g * nc * HD + d;
+      const float* w_g = ws + g * n + i0;
+      float a = i0 > 0 ? acc_s[x] : 0.f;
+      for (int i = 0; i < nc; ++i) a = fmaf(o_g[i * HD], w_g[i], a);
+      if (!last_batch) {
+        acc_s[x] = a;
+        continue;
+      }
+      if (vn != nullptr)
+        a = fmaf(hs[2 * g + 1], attended(to_float(vn[d]), q8_new), a);
       out[(bh0 + g) * HD + d] = __float2bfloat16(a * hs[2 * g]);
     }
+    if (!last_batch) __syncthreads();  // the batch is consumed
   }
+  stamp(pair, 5);
+#ifdef GENESYS_DECODE_STAMPS
+  __syncthreads();
+  stamp(pair, 6);
+#endif
 }
 
 // One CTA: row b (blockIdx.y), KV head kvh (blockIdx.x), split z
@@ -895,20 +1005,29 @@ __device__ __forceinline__ void merge_splits(
 // is written here, normalised; otherwise each split stores its partial and
 // the CTA that takes the last ticket of (b, kvh) merges them in order and
 // resets the ticket. qk_log2 = hd^-0.5 * log2(e); kv_scale scales cached K
-// and V (1 / QSCALE for int8), not the new token.
+// and V (1 / QSCALE for int8), not the new token. With slots, split 0
+// also writes the new token at slots[b] (kc and vc hold n_slots token
+// rows; positions below lens[b] never include it).
 template <typename KT, int HD, typename Rows>
 __global__ void __launch_bounds__(kThreads) decode_ring(
-    const __nv_bfloat16* __restrict__ q, const KT* __restrict__ kc,
-    const KT* __restrict__ vc, const Rows rows, const int* __restrict__ lens,
-    const __nv_bfloat16* __restrict__ k_new,
-    const __nv_bfloat16* __restrict__ v_new, __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ q, KT* kc, KT* vc, const Rows rows,
+    const int* __restrict__ lens, const __nv_bfloat16* __restrict__ k_new,
+    const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ slots,
+    long long n_slots, __nv_bfloat16* __restrict__ out,
     float* __restrict__ part_o, float* __restrict__ part_ml,
     int* __restrict__ tickets, int B, int H, int KV, int NS, int min_split,
     int target, float qk_log2, float kv_scale) {
   using Shape = RingShape<KT, HD>;
   using Frags = RingFrags<KT, HD>;
   constexpr int S = Shape::kStages;
+  // K1 on an int8 arena attends the new token as the arena stores it
+  constexpr bool kQ8New =
+      Rows::kNewAsStored && std::is_same<KT, int8_t>::value;
+  const float q8_new = kQ8New ? kv_scale : 0.f;
   const int kvh = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int pair = b * KV + kvh;
+  const unsigned long long started = stamp_now();
+  if (z == 0) stamp_at(pair, 7, started);
   const int len = valid_len(lens, b, rows.cap);
   const int split =
       split_length(call_positions(lens, B, rows.cap), KV, target, min_split);
@@ -989,6 +1108,10 @@ __global__ void __launch_bounds__(kThreads) decode_ring(
 
 #pragma unroll
   for (int k = 0; k < S - 1; ++k) issue(k);
+  const size_t kv_row = ((size_t)b * KV + kvh) * HD;
+  if (slots != nullptr && z == 0)  // the store overlaps the loads in flight
+    write_new(kc, vc, k_new + kv_row, v_new + kv_row, slots, b, n_slots, KV,
+              kvh, HD, kv_scale);
   for (int k = 0; k < n_tiles; ++k) {
     cp_async_wait<S - 2>();  // stripe k has landed (this thread's copies)
     __syncwarp();            // ... all lanes', and stage k - 1 is consumed
@@ -1085,14 +1208,14 @@ __global__ void __launch_bounds__(kThreads) decode_ring(
   }
   __syncthreads();
 
-  const size_t kv_row = ((size_t)b * KV + kvh) * HD;
   const __nv_bfloat16* kn = k_new != nullptr ? k_new + kv_row : nullptr;
   const __nv_bfloat16* vn = v_new != nullptr ? v_new + kv_row : nullptr;
   if (n_run == 1) {
     for (int g = warp; g < G; g += kWarps) {
       const size_t bh = (size_t)b * H + kvh * G + g;
       finish_head(WarpParts{mo + g * HD, mml + 2 * g, G * HD, 2 * G, kv_scale},
-                  q + bh * HD, kn, vn, out + bh * HD, HD, qk_log2, lane);
+                  q + bh * HD, kn, vn, out + bh * HD, HD, qk_log2, q8_new,
+                  lane);
     }
     return;
   }
@@ -1105,23 +1228,27 @@ __global__ void __launch_bounds__(kThreads) decode_ring(
   // the CTA's partials, seen by thread 0 through the barrier, are released
   // to the GPU with its ticket; the last ticket acquires every split's
   __syncthreads();
+  const unsigned long long stored_at = stamp_now();
   __shared__ int last;
   if (tid == 0) last = ticket_acq_rel(tickets + b * KV + kvh) == n_run - 1;
   __syncthreads();
   if (!last) return;
+  stamp_at(pair, 0, started);
+  stamp_at(pair, 1, stored_at);
+  stamp(pair, 2);
   merge_splits<HD>(ring_smem, Shape::kSmem, part_o, part_ml,
                    (size_t)b * H + kvh * G, G, n_run, NS, q, kn, vn, out,
-                   qk_log2);
+                   qk_log2, q8_new, pair);
   if (tid == 0) tickets[b * KV + kvh] = 0;  // ready for the next call
 }
 
 template <typename KT, int HD, typename Rows>
-cudaError_t launch_ring(const void* q, const void* kp, const void* vp,
-                        const Rows rows, const int* lens, const void* k_new,
-                        const void* v_new, void* out, float* part_o,
-                        float* part_ml, int* tickets, int B, int H, int KV,
-                        int NS, int min_split, int target, float qk_log2,
-                        float kv_scale, cudaStream_t stream) {
+cudaError_t launch_ring(const void* q, void* kp, void* vp, const Rows rows,
+                        const int* lens, const void* k_new, const void* v_new,
+                        const int* slots, long long n_slots, void* out,
+                        float* part_o, float* part_ml, int* tickets, int B,
+                        int H, int KV, int NS, int min_split, int target,
+                        float qk_log2, float kv_scale, cudaStream_t stream) {
   constexpr int smem = RingShape<KT, HD>::kSmem;
   // once per instantiation: the most shared memory an SM can give (so two
   // CTAs fit), and the opt-in above 48 KB
@@ -1139,10 +1266,10 @@ cudaError_t launch_ring(const void* q, const void* kp, const void* vp,
     opted_in = true;
   }
   decode_ring<KT, HD, Rows><<<dim3(KV, B, NS), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(kp),
-      static_cast<const KT*>(vp), rows, lens,
+      static_cast<const __nv_bfloat16*>(q), static_cast<KT*>(kp),
+      static_cast<KT*>(vp), rows, lens,
       static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new),
+      static_cast<const __nv_bfloat16*>(v_new), slots, n_slots,
       static_cast<__nv_bfloat16*>(out), part_o, part_ml, tickets, B, H, KV, NS,
       min_split, target, qk_log2, kv_scale);
   return cudaGetLastError();
@@ -1154,14 +1281,17 @@ __host__ __device__ __forceinline__ bool ring_head_dim(int hd) {
 
 // One call on `stream`: the ring kernel, or the CUDA-core split kernel and
 // the merge; returns the first launch error. k_new/v_new may be null (no
-// new token). split_tokens: the ring's shortest split, or the CUDA-core
+// new token); slots, null or [B] with the new token, says where it is
+// written into kp / vp (n_slots token rows). split_tokens: the ring's
+// shortest split, or the CUDA-core
 // kernel's split (a multiple of rows.BS); NS split slots per (row, KV
 // head); grid_x CTAs per (row, KV head) (the ring's: NS); target: the
 // splits the ring aims a call at (the CTAs the card holds at once).
 template <typename QT, typename KT, typename Rows>
-cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
-                          const Rows rows, const int* lens, const void* k_new,
-                          const void* v_new, void* out, float* part_o,
+cudaError_t launch_decode(const void* q, void* kp, void* vp, const Rows rows,
+                          const int* lens, const void* k_new,
+                          const void* v_new, const int* slots,
+                          long long n_slots, void* out, float* part_o,
                           float* part_ml, int* tickets, int B, int H, int KV,
                           int hd, int variant, int split_tokens, int NS,
                           int grid_x, int target, float scale, float kv_scale,
@@ -1171,10 +1301,10 @@ cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
                   !std::is_same<KT, float>::value) {
       const float qk_log2 = scale * kLog2e;
 #define GENESYS_RING(HD)                                                      \
-  return launch_ring<KT, HD, Rows>(q, kp, vp, rows, lens, k_new, v_new, out, \
-                                   part_o, part_ml, tickets, B, H, KV, NS,   \
-                                   split_tokens, target, qk_log2, kv_scale,  \
-                                   stream)
+  return launch_ring<KT, HD, Rows>(q, kp, vp, rows, lens, k_new, v_new,     \
+                                   slots, n_slots, out, part_o, part_ml,     \
+                                   tickets, B, H, KV, NS, split_tokens,      \
+                                   target, qk_log2, kv_scale, stream)
       if (hd == 64) GENESYS_RING(64);
       if (hd == 80) GENESYS_RING(80);
       if (hd == 128) GENESYS_RING(128);
@@ -1204,21 +1334,30 @@ cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
       split_tokens / rows.BS, NS, scale, kv_scale);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  decode_merge<QT><<<B * H, kThreads, 0, stream>>>(
+  constexpr bool kQ8New =
+      Rows::kNewAsStored && std::is_same<KT, int8_t>::value;
+  decode_merge<QT, KT><<<B * H, kThreads, 0, stream>>>(
       part_o, part_ml, lens, static_cast<const QT*>(q),
       static_cast<const QT*>(k_new), static_cast<const QT*>(v_new),
-      static_cast<QT*>(out), H, KV, hd, rows.cap, split_tokens, NS, scale);
+      static_cast<QT*>(out), static_cast<KT*>(kp), static_cast<KT*>(vp),
+      slots, n_slots, H, KV, hd, rows.cap, split_tokens, NS, scale, kv_scale,
+      kQ8New ? kv_scale : 0.f);
   return cudaGetLastError();
 }
 
 // Checks shared by both entry points: shapes the kernels take, 16-byte
-// aligned K/V (every load is 16 bytes wide); for the ring a head dim it has
-// and one CTA per split slot, for the CUDA-core kernel splits of whole
-// pages that cover the row and a tile that fits shared memory.
+// aligned K/V (every load is 16 bytes wide), a new token given whole and
+// before slots; for the ring a head dim it has and one CTA per split slot,
+// for the CUDA-core kernel splits of whole pages that cover the row and a
+// tile that fits shared memory.
 inline bool decode_args_ok(int B, int H, int KV, int hd, int BS, int variant,
                            int split_tokens, int NS, int cap, int grid_x,
-                           int target, const void* k, const void* v) {
+                           int target, const void* k, const void* v,
+                           const void* k_new, const void* v_new,
+                           const int* slots, long long n_slots) {
   const bool common =
+      (k_new == nullptr) == (v_new == nullptr) &&
+      (slots == nullptr || (k_new != nullptr && n_slots >= 0)) &&
       B > 0 && B <= 65535 && KV > 0 && H % KV == 0 && H / KV <= kMaxGroup &&
       hd > 0 && hd % 16 == 0 && hd <= kThreads * kMaxDimsPerThread && BS > 0 &&
       split_tokens > 0 && NS > 0 && NS <= 65535 && grid_x > 0 &&

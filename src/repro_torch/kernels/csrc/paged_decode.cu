@@ -7,10 +7,15 @@
 //   dense_decode.cu)
 //       replace the Pallas split-KV paged flash-decode
 //       `paged_decode_attention` / `_paged_kernel`
-//       (src/repro/kernels/decode_attention.py).
+//       (src/repro/kernels/decode_attention.py), and, given the step's
+//       new token and its slots, the paged KV append before it (the
+//       reference's write-then-attend, src/repro/models/layers.py): one
+//       launch writes the token into the arena and attends it with the
+//       cached positions, so the serving path launches no append.
 //   kv_append
 //       replaces the paged KV append `update_kv_buffer`
-//       (src/repro/kernels/ops.py, a scatter with mode="drop").
+//       (src/repro/kernels/ops.py, a scatter with mode="drop") where it is
+//       called alone.
 //
 // Built by src/repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -67,7 +72,12 @@ const char* genesys_kernels_error_string(int err) {
 }
 
 // q [B,H,hd] (q_dtype); k/v pages [NB,BS,KV,hd] (kv_dtype); block_tables
-// [B,MB] int32; lens [B] int32; out [B,H,hd] (q_dtype); part_o
+// [B,MB] int32; lens [B] int32, the cached positions to attend; k_new /
+// v_new [B,KV,hd] (q_dtype) and slots [B] int32, or all three null: the
+// step's new token, written at its flat slot of the arena's n_slots = NB *
+// BS (dropped outside [0, n_slots)) and attended as the arena stores it
+// beside positions [0, lens[b]), which must not hold the slot; out
+// [B,H,hd] (q_dtype); part_o
 // [B,H,NS,hd] f32 and part_ml [B,H,NS,2] f32 scratch for NS split slots;
 // tickets [B*KV] int32, all 0 (the ring kernel leaves them 0).
 // variant: kRing (bf16 q, hd 64/80/128; split_tokens is the shortest split, a
@@ -75,26 +85,30 @@ const char* genesys_kernels_error_string(int err) {
 // at) or kCudaCore (split_tokens a multiple of BS, NS * split_tokens >=
 // MB * BS, grid_x CTAs per (row, KV head) striding over the splits).
 // kv_scale multiplies every K/V element (1/QSCALE for int8 pages).
-int paged_decode_attention_launch(const void* q, const void* k_pages,
-                                  const void* v_pages, const int* block_tables,
-                                  const int* lens, void* out, float* part_o,
-                                  float* part_ml, int* tickets, int B, int H,
-                                  int KV, int hd, int BS, int MB, int variant,
+int paged_decode_attention_launch(const void* q, void* k_pages, void* v_pages,
+                                  const int* block_tables, const int* lens,
+                                  const void* k_new, const void* v_new,
+                                  const int* slots, long long n_slots,
+                                  void* out, float* part_o, float* part_ml,
+                                  int* tickets, int B, int H, int KV, int hd,
+                                  int BS, int MB, int variant,
                                   int split_tokens, int NS, int grid_x,
                                   int target, float scale, float kv_scale,
                                   int q_dtype, int kv_dtype, void* stream) {
   if (MB <= 0 || (long long)MB * BS >= (1LL << 31) ||
+      (k_new == nullptr) != (slots == nullptr) ||
       !decode_args_ok(B, H, KV, hd, BS, variant, split_tokens, NS, MB * BS,
-                      grid_x, target, k_pages, v_pages))
+                      grid_x, target, k_pages, v_pages, k_new, v_new, slots,
+                      n_slots))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PagedRows rows{block_tables, MB, BS, MB * BS,
                        (BS & (BS - 1)) == 0 ? __builtin_ctz(BS) : -1};
 #define GENESYS_DECODE(QT, KT)                                               \
   return launch_decode<QT, KT, PagedRows>(                                   \
-      q, k_pages, v_pages, rows, lens, nullptr, nullptr, out, part_o,        \
-      part_ml, tickets, B, H, KV, hd, variant, split_tokens, NS, grid_x,     \
-      target, scale, kv_scale, st)
+      q, k_pages, v_pages, rows, lens, k_new, v_new, slots, n_slots, out,    \
+      part_o, part_ml, tickets, B, H, KV, hd, variant, split_tokens, NS,     \
+      grid_x, target, scale, kv_scale, st)
   if (q_dtype == kF32 && kv_dtype == kF32) GENESYS_DECODE(float, float);
   if (q_dtype == kBF16 && kv_dtype == kBF16)
     GENESYS_DECODE(__nv_bfloat16, __nv_bfloat16);
@@ -132,5 +146,15 @@ int kv_append_launch(void* k_pages, void* v_pages, const void* k_new,
   return launch_append<uint8_t>(k_pages, v_pages, k_new, v_new, slots, B,
                                 n_slots, row_bytes, st);
 }
+
+#ifdef GENESYS_DECODE_STAMPS
+// The merge stamps of the last call (decode_common.cuh): n words of
+// decode_stamps into host memory dst.
+int decode_stamps_read(void* dst, int n) {
+  if (n < 0 || n > kStampPairs * kStamps) return cudaErrorInvalidValue;
+  return cudaMemcpyFromSymbol(dst, decode_stamps,
+                              (size_t)n * sizeof(unsigned long long));
+}
+#endif
 
 }  // extern "C"

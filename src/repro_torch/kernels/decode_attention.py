@@ -17,6 +17,18 @@ PyTorch version.
   the JAX package's ``decode_attention_xla`` without the new token and
   ``decode_attention_two_part`` with it.
 
+Both take the decode step's KV append too (``k_new``, ``v_new`` and
+``slots``): the same launch writes the new token at its slot of the cache
+(int8: :func:`quantise_kv`) and attends it beside the cached positions, so
+a serving step launches no append of its own. K1 attends the token as the
+arena stores it, as the reference's paged branch writes and then reads it
+back; K2 attends it unquantised, as the carried branch does. The plain
+versions are the two calls the reference makes: append then attend (K1),
+attend then append (K2). The two forms agree wherever each row's slot is
+its position ``lens[b]`` and no two rows share a slot (inactive rows of a
+paged step all write into the null block, and their outputs are read by
+no one).
+
 Bound on an H100: bytes, and at serving's short rows latency. A call
 reads each valid K/V position once, ``2 * sum(lens) * KV * hd * itemsize``
 bytes, for about ``4 * hd * G`` FLOPs per position and KV head (G = H / KV
@@ -92,7 +104,40 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _VARIANT_CODE = {"ring": 0, "cuda-core": 1}
 
 
-def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lens):
+def quantise_kv(t, dtype):
+    """The new K or V as a cache of ``dtype`` stores it: int8 by
+    ``clip(round(t * QSCALE), -127, 127)`` (round half to even), else a
+    cast (the reference's ``models.layers`` write)."""
+    if dtype == torch.int8:
+        return torch.clamp(torch.round(t * QSCALE), -127, 127).to(torch.int8)
+    return t.to(dtype)
+
+
+def update_kv_buffer_plain(k_pages, v_pages, k_new, v_new, slots):
+    """k_pages/v_pages [NB,BS,KV,hd]; k_new/v_new [B,KV,hd]; slots [B]
+    flat slot indices (block_id * BS + offset). Writes each row at its slot
+    in place and returns the pages; slots outside ``[0, NB*BS)`` are
+    dropped (the reference's ``mode="drop"``; negative slots, which the
+    reference would wrap, are dropped too and never occur on the path)."""
+    NB, BS, KV, hd = k_pages.shape
+    kf = k_pages.view(NB * BS, KV, hd)
+    vf = v_pages.view(NB * BS, KV, hd)
+    keep = (slots >= 0) & (slots < NB * BS)
+    idx = slots[keep].long()
+    kf[idx] = k_new[keep].to(kf.dtype)
+    vf[idx] = v_new[keep].to(vf.dtype)
+    return k_pages, v_pages
+
+
+def _append_plain(k, v, k_new, v_new, slots):
+    """The step's new token into a cache of token rows (pages, or the
+    carried cache's [B,S] rows), quantised as the cache stores it."""
+    update_kv_buffer_plain(k, v, quantise_kv(k_new, k.dtype),
+                           quantise_kv(v_new, v.dtype), slots)
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lens,
+                                 k_new=None, v_new=None, slots=None):
     """q [B,H,hd]; k_pages/v_pages [NB,BS,KV,hd] (int8 pages are
     dequantised by 1/QSCALE in q's dtype); block_tables [B,MB] (rows
     padded with the null block, masked by ``lens``); lens [B] valid
@@ -101,7 +146,16 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, lens):
 
     Gathers each row's pages into [B, MB*BS, KV, hd] and runs the masked
     decode softmax with f32 scores, as ``paged_attention_xla`` and
-    ``decode_attention_xla`` do in the JAX package."""
+    ``decode_attention_xla`` do in the JAX package.
+
+    With the step's new token (k_new/v_new [B,KV,hd] in q's dtype, slots
+    [B] int32 flat slots of the arena), ``lens`` counts the cached
+    positions before it: the token is written at its slot in place
+    (:func:`update_kv_buffer_plain` of :func:`quantise_kv`), then
+    ``lens + 1`` positions are attended, the reference's paged branch."""
+    if k_new is not None:
+        _append_plain(k_pages, v_pages, k_new, v_new, slots)
+        lens = lens + 1
     B, H, hd = q.shape
     NB, BS, KV, _ = k_pages.shape
     MB = block_tables.shape[1]
@@ -129,33 +183,52 @@ def _nothing_to_attend_is_zero(p, lens):
     return p.masked_fill((lens <= 0)[:, None, None, None], 0.0)
 
 
-def paged_decode_attention(q, k_pages, v_pages, block_tables, lens):
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lens,
+                           k_new=None, v_new=None, slots=None):
     """Paged decode attention, same contract as
-    :func:`paged_decode_attention_plain`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel, or raise on what it does not
-    take. ``paged_decode_attention.launches`` counts kernel launches."""
+    :func:`paged_decode_attention_plain`: with k_new, v_new and slots, one
+    launch writes the step's new token into the arena and attends it.
+    CPU tensors take the plain version; CUDA tensors launch the kernel, or
+    raise on what it does not take. ``paged_decode_attention.launches``
+    counts kernel launches, ``.fused_launches`` those that wrote a new
+    token."""
+    _new_token(k_new, v_new, slots)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages,
-                                            block_tables, lens)
-    return _launch(q, k_pages, v_pages, block_tables, lens)
+                                            block_tables, lens, k_new, v_new,
+                                            slots)
+    return _launch(q, k_pages, v_pages, block_tables, lens, k_new, v_new,
+                   slots)
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.fused_launches = 0
 
 
-def decode_attention_plain(q, k, v, lens, k_new=None, v_new=None):
+def decode_attention_plain(q, k, v, lens, k_new=None, v_new=None,
+                           slots=None):
     """q [B,H,hd]; k/v [B,S,KV,hd], one layer of the carried cache (int8
     is dequantised by 1/QSCALE in q's dtype); lens [B] cached positions to
     attend (from S on, all S are). Optionally the step's new token
     k_new/v_new [B,KV,hd] in q's dtype, attended beside the cache and not
-    quantised. Returns [B,H,hd] in q's dtype; scores are scaled by
-    hd ** -0.5 and taken in f32.
+    quantised, and with it ``slots`` [B] int32: where it is written after
+    the attention, ``b * S + lens[b]`` in the layer's B*S token rows
+    (dropped outside them), quantised by :func:`quantise_kv`. Returns
+    [B,H,hd] in q's dtype; scores are scaled by hd ** -0.5 and taken in
+    f32.
 
     Without the new token this is ``decode_attention_xla`` of the JAX
     package (a row of ``lens == 0`` gives 0 here, NaN there); with it,
     ``decode_attention_two_part``, including its cast of the weights,
     normalised by the running max only, to the cache's dtype before the
-    PV product."""
+    PV product; with slots, the carried branch's write after it."""
+    out = _decode_attention_plain(q, k, v, lens, k_new, v_new)
+    if slots is not None:
+        _append_plain(k, v, k_new, v_new, slots)
+    return out
+
+
+def _decode_attention_plain(q, k, v, lens, k_new, v_new):
     B, H, hd = q.shape
     _, S, KV, _ = k.shape
     G = H // KV
@@ -182,17 +255,29 @@ def decode_attention_plain(q, k, v, lens, k_new=None, v_new=None):
     return o.reshape(B, H, hd).to(q.dtype)
 
 
-def decode_attention(q, k, v, lens, k_new=None, v_new=None):
+def decode_attention(q, k, v, lens, k_new=None, v_new=None, slots=None):
     """Dense-cache decode attention, same contract as
-    :func:`decode_attention_plain`. CPU tensors take the plain version;
-    CUDA tensors launch the kernel, or raise on what it does not take.
-    ``decode_attention.launches`` counts kernel launches."""
+    :func:`decode_attention_plain`: with slots, one launch attends the new
+    token and writes it into the cache. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, or raise on what it does not
+    take. ``decode_attention.launches`` counts kernel launches,
+    ``.fused_launches`` those that wrote a new token."""
+    if slots is not None and k_new is None:
+        raise ValueError("slots come with the new token k_new/v_new")
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lens, k_new, v_new)
-    return _launch_dense(q, k, v, lens, k_new, v_new)
+        return decode_attention_plain(q, k, v, lens, k_new, v_new, slots)
+    return _launch_dense(q, k, v, lens, k_new, v_new, slots)
 
 
 decode_attention.launches = 0
+decode_attention.fused_launches = 0
+
+
+def _new_token(k_new, v_new, slots):
+    """The paged call's new token: k_new, v_new and slots all given, or
+    none of them."""
+    if not (k_new is None) == (v_new is None) == (slots is None):
+        raise ValueError("give k_new, v_new and slots together, or none")
 
 
 @functools.lru_cache(maxsize=None)
@@ -311,7 +396,32 @@ def _scratch(q, KV, cap, cuda_core_split):
             part_ml, _tickets(q.device, B * KV))
 
 
-def _launch(q, k_pages, v_pages, block_tables, lens):
+def _check_new(q, KV, k_new, v_new, slots):
+    """The new token k_new/v_new [B,KV,hd] in q's dtype and its int32
+    slots [B], when given; returns the tensors to check with the rest."""
+    if k_new is None:
+        return []
+    B, _, hd = q.shape
+    if k_new.shape != (B, KV, hd) or v_new.shape != k_new.shape:
+        raise ValueError(f"k_new/v_new [B,KV,hd] expected, got "
+                         f"{tuple(k_new.shape)} / {tuple(v_new.shape)}")
+    if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+        raise TypeError(f"k_new/v_new must be {q.dtype}, got "
+                        f"{k_new.dtype}/{v_new.dtype}")
+    if slots is None:
+        return [k_new, v_new]
+    if slots.shape != (B,) or slots.dtype != torch.int32:
+        raise ValueError(f"slots [B] int32 expected, got "
+                         f"{tuple(slots.shape)} {slots.dtype}")
+    return [k_new, v_new, slots]
+
+
+def _ptrs(*tensors):
+    """Device pointers, 0 for an absent tensor."""
+    return [0 if t is None else t.data_ptr() for t in tensors]
+
+
+def _launch(q, k_pages, v_pages, block_tables, lens, k_new, v_new, slots):
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError(f"q [B,H,hd] and pages [NB,BS,KV,hd] expected, got "
                          f"{tuple(q.shape)} and {tuple(k_pages.shape)}")
@@ -329,7 +439,8 @@ def _launch(q, k_pages, v_pages, block_tables, lens):
     if block_tables.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError("block_tables and lens must be int32")
     _check(q, KV, k_pages, v_pages, "pages",
-           (q, k_pages, v_pages, block_tables, lens))
+           [q, k_pages, v_pages, block_tables, lens]
+           + _check_new(q, KV, k_new, v_new, slots))
     MB = block_tables.shape[1]
     how, out, part_o, part_ml, tickets = _scratch(q, KV, MB * BS,
                                                   PAGES_PER_SPLIT * BS)
@@ -338,17 +449,18 @@ def _launch(q, k_pages, v_pages, block_tables, lens):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_decode_attention_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            part_o.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), B, H,
-            KV, hd, BS, MB, *how, hd ** -0.5, kv_scale,
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], stream)
+            *_ptrs(q, k_pages, v_pages, block_tables, lens, k_new, v_new,
+                   slots), NB * BS,
+            *_ptrs(out, part_o, part_ml, tickets), B, H, KV, hd, BS, MB,
+            *how, hd ** -0.5, kv_scale, _DTYPE_CODE[q.dtype],
+            _DTYPE_CODE[k_pages.dtype], stream)
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    paged_decode_attention.fused_launches += k_new is not None
     return out
 
 
-def _launch_dense(q, k, v, lens, k_new, v_new):
+def _launch_dense(q, k, v, lens, k_new, v_new, slots):
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"q [B,H,hd] and cache [B,S,KV,hd] expected, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -363,29 +475,20 @@ def _launch_dense(q, k, v, lens, k_new, v_new):
         raise TypeError(f"lens must be int32, got {lens.dtype}")
     if B * S >= 2 ** 31:
         raise ValueError(f"B*S = {B * S} positions do not fit int32")
-    tensors = [q, k, v, lens]
     if (k_new is None) != (v_new is None):
         raise ValueError("give both k_new and v_new, or neither")
-    if k_new is not None:
-        if k_new.shape != (B, KV, hd) or v_new.shape != k_new.shape:
-            raise ValueError(f"k_new/v_new [B,KV,hd] expected, got "
-                             f"{tuple(k_new.shape)} / {tuple(v_new.shape)}")
-        if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
-            raise TypeError(f"k_new/v_new must be {q.dtype}, got "
-                            f"{k_new.dtype}/{v_new.dtype}")
-        tensors += [k_new, v_new]
-    _check(q, KV, k, v, "cache", tensors)
+    _check(q, KV, k, v, "cache",
+           [q, k, v, lens] + _check_new(q, KV, k_new, v_new, slots))
     how, out, part_o, part_ml, tickets = _scratch(q, KV, S, TOKENS_PER_SPLIT)
     kv_scale = 1.0 / QSCALE if k.dtype == torch.int8 else 1.0
-    new = (0, 0) if k_new is None else (k_new.data_ptr(), v_new.data_ptr())
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dense_decode_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), *new, lens.data_ptr(),
-            out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
-            tickets.data_ptr(), B, H, KV, hd, S, *how, hd ** -0.5, kv_scale,
+            *_ptrs(q, k, v, k_new, v_new, slots, lens, out, part_o, part_ml,
+                   tickets), B, H, KV, hd, S, *how, hd ** -0.5, kv_scale,
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.fused_launches += slots is not None
     return out

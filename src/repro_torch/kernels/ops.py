@@ -20,7 +20,10 @@ update would copy it on every layer of every step. Its kernel
 each row's new K/V once and writes it once, ``4 * B * KV * hd * itemsize``
 bytes in all, in 16-byte units where the row and the pointers allow; the
 out-of-range drop is a compare inside the kernel, so the call never syncs
-with the host (boolean-mask filtering in PyTorch would).
+with the host (boolean-mask filtering in PyTorch would). No serving path
+launches it: the decode steps hand the new token to K1 or K2, whose launch
+writes it too (``k_new``, ``v_new``, ``slots``); it stays the counterpart
+of the reference's public op, for the callers that append alone.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (  # noqa: F401
     decode_attention, decode_attention_plain, paged_decode_attention,
-    paged_decode_attention_plain,
+    paged_decode_attention_plain, quantise_kv, update_kv_buffer_plain,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
@@ -63,7 +66,10 @@ class Kernels:
     the encoder's positions, with no new token), ``ssd`` the hybrid's scan
     (:func:`mamba2_ssd`), ``wkv`` rwkv6's WKV (:func:`rwkv6_wkv`) and
     ``gmm`` an MoE layer's grouped matmul (:func:`gmm`), ``append`` the
-    decode branches' KV append (:func:`update_kv_buffer`). ``dots_policy``
+    decode branches' KV append (:func:`update_kv_buffer`). With neither
+    ``attend`` nor ``append`` given, a decode branch makes one call that
+    appends and attends (K1 or K2 with the new token's slots); with
+    either, it appends and attends in two calls. ``dots_policy``
     is no kernel: the selective-checkpoint policy a transformer layer runs
     under ``remat="dots"`` (None: ``models.module.save_products``), so a
     control can take its place too."""
@@ -233,22 +239,6 @@ def moe_gmm_apply(x, w, expert_of_token, *, n_experts: int,
                       device=x.device)
     out[order] = out_p[slot]
     return out
-
-
-def update_kv_buffer_plain(k_pages, v_pages, k_new, v_new, slots):
-    """k_pages/v_pages [NB,BS,KV,hd]; k_new/v_new [B,KV,hd]; slots [B]
-    flat slot indices (block_id * BS + offset). Writes each row at its slot
-    in place and returns the pages; slots outside ``[0, NB*BS)`` are
-    dropped (the reference's ``mode="drop"``; negative slots, which the
-    reference would wrap, are dropped too and never occur on the path)."""
-    NB, BS, KV, hd = k_pages.shape
-    kf = k_pages.view(NB * BS, KV, hd)
-    vf = v_pages.view(NB * BS, KV, hd)
-    keep = (slots >= 0) & (slots < NB * BS)
-    idx = slots[keep].long()
-    kf[idx] = k_new[keep].to(kf.dtype)
-    vf[idx] = v_new[keep].to(vf.dtype)
-    return k_pages, v_pages
 
 
 def update_kv_buffer(k_pages, v_pages, k_new, v_new, slots):

@@ -15,9 +15,10 @@ comparisons): without a cache, the encoder's, the decoder's and the
 cross-attention all run ``ops.flash_attention`` (K3a/K3b); in a decode
 step, the self-attention over the carried cache and the cross-attention
 of the one new row over the S_enc encoder positions both run
-``ops.decode_attention`` (K2), and the new token's K/V is written by
-``ops.update_kv_buffer``. As in the reference, a decode step projects the
-cross-attention's K/V from ``enc_out`` in every layer anew.
+``ops.decode_attention`` (K2), the self-attention's launch also writing
+the new token's K/V (``ops.update_kv_buffer`` writes it only when a
+comparison gives ``attend``). As in the reference, a decode step projects
+the cross-attention's K/V from ``enc_out`` in every layer anew.
 """
 from __future__ import annotations
 

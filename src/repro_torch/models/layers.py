@@ -213,8 +213,8 @@ class AttentionStep:
     # arena; dense: b * S + cl in a layer's [B*S] cache, B * S (dropped)
     # where cl >= S; None without a cache
     slots: torch.Tensor | None = None
-    # [B] int32. paged: cache_len + 1 (the token is written first);
-    # dense: cache_len (the token is attended apart); decode-time
+    # [B] int32. paged and dense: cache_len, the positions cached before
+    # the step's token (which is attended beside them); decode-time
     # cross-attention: the source's length; None without a cache
     lens: torch.Tensor | None = None
 
@@ -236,7 +236,7 @@ def paged_step(cfg, positions, cache_len, block_tables,
     blk = torch.clamp(cache_len // block_size, 0, MB - 1).long()
     slots = block_tables[rows, blk] * block_size + cache_len % block_size
     return AttentionStep(cos, sin, slots.to(torch.int32),
-                         (cache_len + 1).to(torch.int32))
+                         cache_len.to(torch.int32))
 
 
 def dense_step(cfg, positions, cache_len, max_len: int) -> AttentionStep:
@@ -263,14 +263,6 @@ def cross_step(kv_x, *, decode: bool) -> AttentionStep:
     B, S_src, _ = kv_x.shape
     return AttentionStep(None, None, lens=torch.full(
         (B,), S_src, dtype=torch.int32, device=kv_x.device))
-
-
-def _quantise(t, dtype):
-    """The new K or V as the cache stores it: int8 by
-    ``clip(round(t * QSCALE))``, else a cast."""
-    if dtype == torch.int8:
-        return torch.clamp(torch.round(t * QSCALE), -127, 127).to(torch.int8)
-    return t.to(dtype)
 
 
 def attention(p, cfg, x, *, step: AttentionStep, kv_x=None, causal=True,
@@ -301,21 +293,25 @@ def attention(p, cfg, x, *, step: AttentionStep, kv_x=None, causal=True,
 
     paged_cache ``(k_pages, v_pages, block_tables, layer)``, arenas
     [L,NB,BS,KV,hd] and block_tables [B,MB] int32, ``step`` from
-    :func:`paged_step`: writes the token's K/V at its slot with
-    ``ops.update_kv_buffer`` (in place: the layer's arena slice is a
-    view; ``append`` takes its place when given), then attends through the
-    block table over ``step.lens``
-    positions via ``attend`` (default: the CUDA kernel wrapper
-    ``ops.paged_decode_attention``). Inactive rows carry all-null block
-    tables and cache_len 0: their writes land in the null block and their
-    outputs are never read.
+    :func:`paged_step`: writes the token's K/V at its slot (in place: the
+    layer's arena slice is a view), then attends through the block table
+    over the ``step.lens`` cached positions and the token. By default one
+    call does both: ``ops.paged_decode_attention`` with the token and its
+    slots (K1 on CUDA tensors). Given ``append`` or ``attend``, two calls:
+    ``append`` (default ``ops.update_kv_buffer``), then ``attend``
+    (default ``ops.paged_decode_attention``) over ``step.lens + 1``
+    positions. Inactive rows carry all-null block tables and cache_len 0:
+    their writes land in the null block and their outputs are never read.
 
     carried_cache ``(kc, vc, layer)``, caches [L,B,S,KV,hd], ``step`` from
     :func:`dense_step`: attends the layer's cache below ``step.lens``
-    together with the token itself, unquantised, via ``attend`` (default:
-    the CUDA kernel wrapper ``ops.decode_attention``), then writes the
-    token's K/V (int8: quantised) at ``[layer, b, cache_len[b]]`` in
-    place, dropping rows at ``cache_len >= S``.
+    together with the token itself, unquantised, then writes the token's
+    K/V (int8: quantised) at ``[layer, b, cache_len[b]]`` in place,
+    dropping rows at ``cache_len >= S``. By default one call does both:
+    ``ops.decode_attention`` with the token's slots (K2 on CUDA tensors);
+    given ``append`` or ``attend``, ``attend`` (default
+    ``ops.decode_attention``) then ``append`` (default
+    ``ops.update_kv_buffer``).
 
     ``rules``: the reference's sharding constraints on q, k, v, the
     attention's output and the result, and, where ``rules.kv_rep > 1``,
@@ -364,24 +360,33 @@ def attention(p, cfg, x, *, step: AttentionStep, kv_x=None, causal=True,
         return output(out.reshape(B, 1, *q.shape[2:]))
 
     q1, k1, v1 = (t[:, 0].contiguous() for t in (q, k, v))
+    fused = attend is None and append is None
     if paged_cache is not None:
         kp, vp, bt, li = paged_cache
         kp_l, vp_l = kp[li], vp[li]
-        (append or ops.update_kv_buffer)(
-            kp_l, vp_l, _quantise(k1, kp.dtype), _quantise(v1, vp.dtype),
-            step.slots)
-        out = (attend or ops.paged_decode_attention)(q1, kp_l, vp_l, bt,
-                                                     step.lens)
+        if fused:
+            out = ops.paged_decode_attention(q1, kp_l, vp_l, bt, step.lens,
+                                             k1, v1, step.slots)
+        else:
+            (append or ops.update_kv_buffer)(
+                kp_l, vp_l, ops.quantise_kv(k1, kp.dtype),
+                ops.quantise_kv(v1, vp.dtype), step.slots)
+            out = (attend or ops.paged_decode_attention)(
+                q1, kp_l, vp_l, bt, step.lens + 1)
     else:
         kc, vc, li = carried_cache
         kc_l, vc_l = kc[li], vc[li]     # [B,S,KV,hd] views
-        out = (attend or ops.decode_attention)(q1, kc_l, vc_l, step.lens,
-                                               k1, v1)
-        # the write follows the read on the stream: nothing it overwrites
-        # is read this step
-        (append or ops.update_kv_buffer)(
-            kc_l, vc_l, _quantise(k1, kc.dtype), _quantise(v1, vc.dtype),
-            step.slots)
+        if fused:
+            out = ops.decode_attention(q1, kc_l, vc_l, step.lens, k1, v1,
+                                       step.slots)
+        else:
+            out = (attend or ops.decode_attention)(q1, kc_l, vc_l,
+                                                   step.lens, k1, v1)
+            # the write follows the read on the stream: nothing it
+            # overwrites is read this step
+            (append or ops.update_kv_buffer)(
+                kc_l, vc_l, ops.quantise_kv(k1, kc.dtype),
+                ops.quantise_kv(v1, vc.dtype), step.slots)
     return output(out.reshape(B, 1, *q.shape[2:]))
 
 

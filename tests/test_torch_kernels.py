@@ -546,3 +546,174 @@ def test_tickets_are_zero_and_shared_per_device():
     assert big.numel() > t.numel() and not big.any()
     assert tda._tickets(dev, 8) is big
     tda._TICKETS.pop(dev, None)
+
+
+# ------------------- the decode step's KV append folded into K1 and K2 -----
+
+# the arena or cache dtypes a decode step writes: f32 (f32 queries), bf16
+# and int8 (bf16 queries; int8 written as clip(round(x * QSCALE)))
+FOLD_DTYPES = pytest.mark.parametrize("kvdt", ["float32", "bfloat16", "int8"])
+FOLD_HEAD_DIMS = pytest.mark.parametrize("hd", [64, 80, 128])
+
+
+def _fold_inputs(kvdt, rng, B, H, KV, hd, store_shape):
+    """q [B,H,hd] and the step's token k_new/v_new [B,KV,hd] in the query
+    dtype (f32, or bf16 beside a bf16 or int8 store), and a random store
+    of ``store_shape`` in ``kvdt``; as (jax arrays, torch tensors)."""
+    q = rng.standard_normal((B, H, hd), dtype=np.float32)
+    kn, vn = (rng.standard_normal((B, KV, hd), dtype=np.float32)
+              for _ in range(2))
+    if kvdt == "int8":
+        k, v = (rng.integers(-127, 128, size=store_shape, dtype=np.int8)
+                for _ in range(2))
+    else:
+        k, v = (rng.standard_normal(store_shape, dtype=np.float32)
+                for _ in range(2))
+    jdt = jnp.float32 if kvdt == "float32" else jnp.bfloat16
+    tdt = torch.float32 if kvdt == "float32" else torch.bfloat16
+    jnew = [jnp.asarray(a).astype(jdt) for a in (q, kn, vn)]
+    tnew = [torch.from_numpy(a).to(tdt) for a in (q, kn, vn)]
+    if kvdt == "int8":
+        jstore = [jnp.asarray(k), jnp.asarray(v)]
+        tstore = _t(k, v)
+    else:
+        jstore = [jnp.asarray(a).astype(jdt) for a in (k, v)]
+        tstore = [torch.from_numpy(a).to(tdt) for a in (k, v)]
+    return (*jnew, *jstore), (*tnew, *tstore)
+
+
+def _stored(x, like):
+    """The reference's write of the new K or V into a store like ``like``:
+    int8 by clip(round(x * QSCALE)), else a cast."""
+    if like.dtype == jnp.int8:
+        return jnp.clip(jnp.round(x * jlayers.QSCALE), -127,
+                        127).astype(jnp.int8)
+    return x.astype(like.dtype)
+
+
+def _same_store(got, want):
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@FOLD_DTYPES
+@FOLD_HEAD_DIMS
+def test_fused_paged_append_and_attend_matches_the_reference(kvdt, hd):
+    """The fused paged op (K1 with the step's token; on CPU tensors its
+    plain version) against the reference's paged branch: the quantised
+    token written by ``update_kv_buffer`` at block_tables[b, cl // BS] *
+    BS + cl % BS, then ``paged_attention_xla`` (and, off int8, the Pallas
+    kernel in interpret mode) over cache_len + 1 positions. Row 2 is
+    inactive (cache_len 0, a null block table): its write lands in the
+    null block, which only it attends. The arenas are equal exactly."""
+    B, H, KV, bs, MB, NB = 3, 4, 2, 8, 4, 16
+    rng = np.random.default_rng(hd * 3 + len(kvdt))
+    bt = np.zeros((B, MB), np.int32)
+    bt[:2] = rng.permutation(np.arange(1, NB))[:2 * MB].reshape(2, MB)
+    cl = np.asarray([9, MB * bs - 1, 0], np.int32)
+    slots = (bt[np.arange(B), cl // bs] * bs + cl % bs).astype(np.int32)
+    (jq, jkn, jvn, jkp, jvp), (tq, tkn, tvn, tkp, tvp) = _fold_inputs(
+        kvdt, rng, B, H, KV, hd, (NB, bs, KV, hd))
+    jk, jv = jops.update_kv_buffer(jkp, jvp, _stored(jkn, jkp),
+                                   _stored(jvn, jvp), jnp.asarray(slots))
+    want = jlayers.paged_attention_xla(jq[:, None], jk, jv, jnp.asarray(bt),
+                                       jnp.asarray(cl + 1))[:, 0]
+    got = tops.paged_decode_attention(tq, tkp, tvp, *_t(bt, cl), tkn, tvn,
+                                      *_t(slots))
+    _same_store(tkp, jk)
+    _same_store(tvp, jv)
+    # bf16: both round one output to bf16 from f32 sums in other orders
+    atol = F32_ATOL if kvdt == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=atol)
+    if kvdt != "int8":      # the Pallas kernel does not divide by QSCALE
+        pallas = jops.paged_decode_attention(
+            jq, jk, jv, jnp.asarray(bt), jnp.asarray(cl + 1), n_splits=2,
+            interpret=True)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(pallas.astype(jnp.float32)),
+                                   atol=atol)
+
+
+@FOLD_DTYPES
+@FOLD_HEAD_DIMS
+def test_fused_dense_attend_and_append_matches_the_reference(kvdt, hd):
+    """The fused dense op (K2 with the step's token and slots; on CPU
+    tensors its plain version) against the reference's carried branch:
+    ``decode_attention_two_part`` over the cache below cache_len (int8
+    dequantised by 1/QSCALE) and the unquantised token, then the token
+    written quantised at [b, cache_len[b]], the row at capacity (row 1)
+    dropping its write. The caches are equal exactly."""
+    B, H, KV, S = 3, 4, 2, 16
+    rng = np.random.default_rng(hd * 5 + len(kvdt))
+    cl = np.asarray([5, S, 0], np.int32)
+    slots = np.where(cl < S, np.arange(B) * S + cl, B * S).astype(np.int32)
+    (jq, jkn, jvn, jk, jv), (tq, tkn, tvn, tk, tv) = _fold_inputs(
+        kvdt, rng, B, H, KV, hd, (B, S, KV, hd))
+    jk_l, jv_l = jk, jv
+    if kvdt == "int8":
+        jk_l = jk.astype(jq.dtype) / jlayers.QSCALE
+        jv_l = jv.astype(jq.dtype) / jlayers.QSCALE
+    want = jlayers.decode_attention_two_part(
+        jq[:, None], jk_l, jv_l, jkn[:, None], jvn[:, None],
+        jnp.asarray(cl))[:, 0]
+    rows = jnp.arange(B)
+    jk = jk.at[rows, jnp.asarray(cl)].set(_stored(jkn, jk), mode="drop")
+    jv = jv.at[rows, jnp.asarray(cl)].set(_stored(jvn, jv), mode="drop")
+    got = tops.decode_attention(tq, tk, tv, *_t(cl), tkn, tvn, *_t(slots))
+    _same_store(tk, jk)
+    _same_store(tv, jv)
+    atol = F32_ATOL if kvdt == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=atol)
+
+
+def test_fused_paged_drops_an_out_of_range_slot_and_fills_the_null_block():
+    """Rows 0 and 2 are inactive (cache_len 0, null block tables): both
+    write slot 0 of the null block, which then holds one of their tokens;
+    row 1's slot is out of range and its write is dropped. Nothing else
+    of the arena changes, and the reference's scatter agrees on every
+    slot but the shared one."""
+    B, H, KV, hd, bs, NB = 3, 4, 2, 16, 4, 6
+    rng = np.random.default_rng(61)
+    bt = np.asarray([[0, 0], [2, 5], [0, 0]], np.int32)
+    cl = np.asarray([0, 6, 0], np.int32)
+    slots = np.asarray([0, NB * bs + 3, 0], np.int32)
+    (_, jkn, jvn, jkp, jvp), (tq, tkn, tvn, tkp, tvp) = _fold_inputs(
+        "float32", rng, B, H, KV, hd, (NB, bs, KV, hd))
+    kp0 = tkp.clone()
+    tops.paged_decode_attention(tq, tkp, tvp, *_t(bt, cl), tkn, tvn,
+                                *_t(slots))
+    flat, flat0 = tkp.view(NB * bs, KV, hd), kp0.view(NB * bs, KV, hd)
+    assert any(torch.equal(flat[0], tkn[b]) for b in (0, 2))
+    assert torch.equal(flat[1:], flat0[1:])
+    jk, _ = jops.update_kv_buffer(jkp, jvp, jkn, jvn, jnp.asarray(slots))
+    np.testing.assert_array_equal(flat[1:].numpy(),
+                                  np.asarray(jk).reshape(NB * bs, KV,
+                                                         hd)[1:])
+
+
+def test_fused_ops_take_the_token_whole():
+    """K1 takes k_new, v_new and slots together; K2 takes slots only
+    beside the token."""
+    q, kp, vp, bt, lens = _t(*_case(1, 4, 2, 16, 8, 4, seed=5))
+    new = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="together"):
+        tops.paged_decode_attention(q, kp, vp, bt, lens, new, new)
+    with pytest.raises(ValueError, match="slots come with"):
+        tops.decode_attention(q, kp[None, 0], vp[None, 0], lens,
+                              slots=torch.zeros(1, dtype=torch.int32))
+
+
+def test_cpu_fused_calls_launch_nothing():
+    counted = (tops.paged_decode_attention, tops.decode_attention,
+               tops.update_kv_buffer)
+    before = [(f.launches, getattr(f, "fused_launches", 0)) for f in counted]
+    q, kp, vp, bt, lens = _t(*_case(1, 4, 2, 16, 8, 4, seed=7))
+    new, slot = torch.zeros(1, 2, 8), torch.zeros(1, dtype=torch.int32)
+    tops.paged_decode_attention(q, kp, vp, bt, lens, new, new, slot)
+    tops.decode_attention(q, kp[None, 0], vp[None, 0], lens, new, new, slot)
+    assert [(f.launches, getattr(f, "fused_launches", 0))
+            for f in counted] == before

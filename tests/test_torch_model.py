@@ -259,3 +259,69 @@ def test_dense_step_rejects_other_families():
     the JAX package is in ``test_torch_encdec.py``)."""
     assert callable(make_serve_step(
         get_config("seamless-m4t-medium").reduced()))
+
+
+# ------------------------- the KV append folded into the decode kernels ----
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_decode_step_appends_and_attends_in_one_call(layout, kv_dtype,
+                                                     monkeypatch):
+    """With no kernel given, each attention layer of a decode step makes
+    one call that appends the step's token and attends it (K1 or K2 with
+    the token's slots; on the CPU its plain version), and nothing else:
+    the append alone is never called. Its logits and caches equal the
+    explicit two-call form's (``Kernels`` with the append and the
+    attention given), bit for bit."""
+    cfg = dataclasses.replace(get_config("starcoder2-7b").reduced(),
+                              **dict(F32, kv_cache_dtype=kv_dtype))
+    params = ttr.init(cfg, seed=2, device="cpu")
+    name = ("paged_decode_attention" if layout == "paged"
+            else "decode_attention")
+    at = 7 if layout == "paged" else 6        # where ``slots`` goes
+    calls = {"fused": 0, "append": 0}
+    real, real_append = getattr(tops, name), tops.update_kv_buffer
+
+    def spy(*args, **kwargs):
+        slots = kwargs.get("slots", args[at] if len(args) > at else None)
+        calls["fused"] += slots is not None
+        return real(*args, **kwargs)
+
+    def append_spy(*args):
+        calls["append"] += 1
+        return real_append(*args)
+
+    rng = np.random.default_rng(12)
+    if layout == "paged":
+        _, store = _arenas(dataclasses.replace(cfg, kv_cache_dtype="float32"),
+                           rng)
+        store = {n: (a * 16).round().clamp(-127, 127).to(torch.int8)
+                 if kv_dtype == "int8" else a for n, a in store.items()}
+        tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, (3, 1))
+                               .astype(np.int32))
+        extra = dict(cache_len=torch.from_numpy(CL0))
+    else:
+        _, store = _dense_caches(cfg, rng)
+        tok = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, (len(CL_DENSE), 1)).astype(np.int32))
+        extra = dict(cache_len=torch.from_numpy(CL_DENSE))
+    outs = []
+    for kernels in (tops.Kernels(), tops.Kernels(attend=real,
+                                                 append=real_append)):
+        s = {n: t.clone() for n, t in store.items()}
+        cache = (dict(paged_cache=(s["k"], s["v"], torch.from_numpy(BT)))
+                 if layout == "paged" else dict(cache=s))
+        monkeypatch.setattr(tops, name, spy)
+        monkeypatch.setattr(tops, "update_kv_buffer", append_spy)
+        logits, _ = ttr.forward(params, cfg, tok, kernels=kernels, **cache,
+                                **extra)
+        monkeypatch.undo()
+        outs.append((logits, s))
+        if len(outs) == 1:
+            assert calls == {"fused": cfg.n_layers, "append": 0}
+    assert calls == {"fused": cfg.n_layers, "append": 0}
+    (l1, s1), (l2, s2) = outs
+    assert torch.equal(l1, l2)
+    for n in ("k", "v"):
+        assert torch.equal(s1[n], s2[n])
+    assert not torch.equal(s1["k"], store["k"])      # the token was written
