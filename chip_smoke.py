@@ -287,6 +287,7 @@ is visible or the port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -3371,18 +3372,83 @@ INVOKE_REPS = 3              # host-clock reps of each Fig. 5-7 workload
 ROUND_TRIP_REPS = 30         # reps of each round-trip timing
 BARE_SLOTS = 64              # slots of the bare responder's area
 TIMEOUT_CHECK_S = 2.0        # the bound of phase 18's timeout check
+# the stamps of the invoke kernel's stamped build (csrc/genesys_protocol.cuh)
+INVOKE_CARD_PARTS = {"entry_to_owner": (0, 1), "owner_to_ready": (1, 2),
+                     "ready_to_finished": (2, 3), "finished_to_exit": (3, 4),
+                     "entry_to_exit": (0, 4)}
 
 
-def invoke_phase(torch, dev) -> dict:
+def stamped_invoke_build() -> Path:
+    """The invoke kernel built with GENESYS_INVOKE_STAMPS: each row records
+    %globaltimer at entry, owner taken, READY stored, FINISHED seen and
+    exit, and the backoff the paced wait replaced is kept beside it. A copy
+    of ``genesys_invoke.cu``, the headers and ``_build.py`` under build/,
+    the macro defined at the top of ``genesys_protocol.cuh`` (as
+    ``experiments/torch_invoke_latency.py --stamps`` copies the whole
+    tree), built by the copy's own ``build()``. Returns the library."""
+    import importlib.util
+
+    from repro_torch.kernels import _build
+    dst = ROOT / "build" / "invoke_stamps" / "src" / "repro_torch" / "kernels"
+    shutil.rmtree(dst, ignore_errors=True)
+    (dst / "csrc").mkdir(parents=True)
+    shutil.copy2(_build.__file__, dst / "_build.py")
+    for src in [_build.CSRC / "genesys_invoke.cu", *_build.headers()]:
+        shutil.copy2(src, dst / "csrc" / src.name)
+    proto = dst / "csrc" / "genesys_protocol.cuh"
+    text = proto.read_text()
+    check("#pragma once\n" in text, f"no '#pragma once' in {proto.name}")
+    proto.write_text(text.replace(
+        "#pragma once\n", "#pragma once\n#define GENESYS_INVOKE_STAMPS 1\n",
+        1))
+    spec = importlib.util.spec_from_file_location("invoke_stamps_build",
+                                                  dst / "_build.py")
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    return build.build()
+
+
+def stamped_call(torch, lib, stamped_lib, call, rows: int) -> dict:
+    """Run ``call()`` once with the invoke kernel's launch taken from the
+    stamped build (same arguments; the kernel library's entry point is put
+    back after), and return row 0's card intervals in µs (card clock)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    stamped = ctypes.CDLL(str(stamped_lib))
+    launch = stamped.genesys_invoke_launch
+    launch.argtypes, launch.restype = _build.SIGNATURES[
+        "genesys_invoke_launch"]
+    read = stamped.genesys_invoke_stamps_read
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    path = lib.genesys_invoke_launch
+    lib.genesys_invoke_launch = launch
+    try:
+        torch.cuda.synchronize()
+        call()
+        torch.cuda.synchronize()
+    finally:
+        lib.genesys_invoke_launch = path
+    buf = (ctypes.c_ulonglong * (5 * rows))()
+    check(read(ctypes.addressof(buf), len(buf)) == 0,
+          "genesys_invoke_stamps_read failed")
+    return {part: (buf[j] - buf[i]) / 1e3
+            for part, (i, j) in INVOKE_CARD_PARTS.items()}
+
+
+def invoke_phase(torch, dev, stamped_lib) -> dict:
     """Phase 18: ``Genesys.invoke`` on the card against its plain host
     entry (the same call on CPU tensors), at the reference's sizes: the
     quickstart's read, Fig. 5's granularities, Fig. 6's orderings, Fig.
-    7's coalescing and the ring, the rule errors, a control, a timeout."""
+    7's coalescing and the ring, the rule errors, a control, a timeout.
+    ``stamped_lib``: :func:`stamped_invoke_build`'s library, through
+    which one call of each round trip is cut on the card's clock."""
     import numpy as np
     from repro_torch.core.genesys import (Genesys, GenesysConfig,
                                           Granularity as Gr, Ordering as Or,
                                           Sys)
     from repro_torch.core.genesys.invoke import pack_args
+    from repro_torch.kernels import _build
     from repro_torch.kernels import genesys_invoke as gi
 
     work = ROOT / "build" / "smoke_invoke"
@@ -3457,11 +3523,19 @@ def invoke_phase(torch, dev) -> dict:
         g.call(Sys.CLOSE, fd)
         plane = g.device_plane(dev)
         out["device_attributes"] = plane.attributes
+        # the mapped area's poller waits in the native doorbell (C, the GIL
+        # released), never in the Python scan
+        out["native_doorbell"] = bool(plane.poller.native
+                                      and plane.poller._doorbell
+                                      == gi.doorbell())
+        check(out["native_doorbell"], "phase 18: the mapped area's poller "
+              "does not wait in the native doorbell")
         print(f"phase 18: {torch.cuda.get_device_name(0)} "
               f"cudaDevAttrHostNativeAtomicSupported="
               f"{plane.attributes['host_native_atomics']} "
               f"(the protocol relies on it either way: no); "
-              f"{plane.area.n_slots} slots in mapped host memory", flush=True)
+              f"{plane.area.n_slots} slots in mapped host memory; the "
+              f"poller waits in the native doorbell", flush=True)
     finally:
         g.shutdown()
 
@@ -3788,6 +3862,11 @@ def invoke_phase(torch, dev) -> dict:
                 if where.type == "cuda":
                     row["ms"] = statistics.median(dev_ms)
                     row["host_ms"] = statistics.median(host_ms)
+                    row["card_us"] = stamped_call(
+                        torch, _build.library(), stamped_lib,
+                        lambda: g.invoke(Sys.CLOCK_GETTIME, a,
+                                         granularity=gran,
+                                         ordering=ordering), row["rows"])
                 else:
                     row["plain_ms"] = statistics.median(host_ms)
             # the bytes a call must move: its args read, a slot line
@@ -3795,14 +3874,21 @@ def invoke_phase(torch, dev) -> dict:
             row["bound_ms"] = bound_ms(row["rows"] * (48 + 64 + 8), 0,
                                        "float32")[0]
             rt.append(row)
+            c = row["card_us"]
             print(f"round trip {label} ({row['rows']} rows): device "
                   f"{row['ms']:.4f} ms, with launch and sync "
-                  f"{row['host_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms",
-                  flush=True)
+                  f"{row['host_ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                  f"ms; one call on the card's clock (row 0): entry to "
+                  f"owner {c['entry_to_owner']:.2f} us, owner to READY "
+                  f"{c['owner_to_ready']:.2f}, READY to FINISHED seen "
+                  f"{c['ready_to_finished']:.2f}, FINISHED to exit "
+                  f"{c['finished_to_exit']:.2f}, entry to exit "
+                  f"{c['entry_to_exit']:.2f}", flush=True)
     finally:
         g.shutdown()
     out["round_trip"] = rt
-    out["bare_round_trip"] = bare_round_trip(torch, dev)
+    out["bare_round_trip"], out["bare_round_trip_old_wait"] = \
+        bare_round_trip(torch, dev, stamped_lib)
 
     # the bound: with the poller stopped, a blocking call gives up after
     # its bound, returns -ETIMEDOUT and the next barrier raises
@@ -3842,7 +3928,7 @@ def invoke_phase(torch, dev) -> dict:
     return out
 
 
-def bare_round_trip(torch, dev) -> dict:
+def bare_round_trip(torch, dev, stamped_lib) -> tuple[dict, dict]:
     """The floor of any device entry's round trip, ``Genesys.invoke``'s
     bound: one blocking row posted by the invoke kernel into a mapped area
     of its own, through the same 64-byte slot protocol, and answered by a
@@ -3850,7 +3936,10 @@ def bare_round_trip(torch, dev) -> dict:
     ``csrc/genesys_invoke.cu``: READY rows marked FINISHED at once, with
     no executor, dispatcher or handler) spinning in C on a thread of its
     own, the GIL released. Device time from CUDA events around the call,
-    median of ``ROUND_TRIP_REPS``."""
+    median of ``ROUND_TRIP_REPS``; the path's paced wait and, in turns
+    with it, the exponential backoff it replaced (the stamped build's
+    ``genesys_invoke_backoff_launch``, put in the launch's place for those
+    calls). Returns (paced, backoff)."""
     import ctypes
 
     from repro_torch.core.genesys import Sys
@@ -3864,9 +3953,15 @@ def bare_round_trip(torch, dev) -> dict:
     respond = ctypes.CDLL(str(_build.build())).genesys_bare_respond
     respond.argtypes, respond.restype = _build.SIGNATURES[
         "genesys_bare_respond"]
+    lib = _build.library()
+    backoff = ctypes.CDLL(str(stamped_lib)).genesys_invoke_backoff_launch
+    backoff.argtypes, backoff.restype = _build.SIGNATURES[
+        "genesys_invoke_launch"]
+    waits = {"paced": lib.genesys_invoke_launch, "backoff": backoff}
     nbytes = (BARE_SLOTS + 1) * SLOT_BYTES
     host, dev_ptr = gi.alloc_mapped(nbytes, dev)
     launches = gi.post_rows.launches
+    ms = {w: [] for w in waits}
     try:
         area = DeviceSyscallArea(
             BARE_SLOTS, (ctypes.c_uint8 * nbytes).from_address(host),
@@ -3878,38 +3973,44 @@ def bare_round_trip(torch, dev) -> dict:
             host, BARE_SLOTS, ctypes.byref(stop), int(120e9),
             ctypes.byref(answered)), daemon=True)
         responder.start()
-        ms = []
         try:
-            for i in range(ROUND_TRIP_REPS + 2):      # 2 warm-up calls
-                torch.cuda.synchronize()
-                s, e = (torch.cuda.Event(enable_timing=True),
-                        torch.cuda.Event(enable_timing=True))
-                s.record()
-                ret = gi.post_rows(area, owner, rows, base=i,
-                                   sysno=int(Sys.CLOCK_GETTIME), flags=1,
-                                   hw_id=0, timeout_s=2.0)
-                e.record()
-                torch.cuda.synchronize()
-                check(int(area.status[0]) == 0 and not bool(ret.any()),
-                      f"bare round trip {i}: status {area.status[:2]}, "
-                      f"retval {ret.tolist()}")
-                if i >= 2:
-                    ms.append(s.elapsed_time(e))
+            for i in range(ROUND_TRIP_REPS + 2):      # 2 warm-up rounds
+                for w, entry in waits.items():
+                    lib.genesys_invoke_launch = entry
+                    torch.cuda.synchronize()
+                    s, e = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                    s.record()
+                    ret = gi.post_rows(area, owner, rows, base=i,
+                                       sysno=int(Sys.CLOCK_GETTIME), flags=1,
+                                       hw_id=0, timeout_s=2.0)
+                    e.record()
+                    torch.cuda.synchronize()
+                    check(int(area.status[0]) == 0 and not bool(ret.any()),
+                          f"bare round trip {i} ({w} wait): status "
+                          f"{area.status[:2]}, retval {ret.tolist()}")
+                    if i >= 2:
+                        ms[w].append(s.elapsed_time(e))
         finally:
+            lib.genesys_invoke_launch = waits["paced"]
             stop.value = 1
             responder.join(timeout=10)
         check(not responder.is_alive(), "the bare responder did not stop")
-        check(answered.value == ROUND_TRIP_REPS + 2, f"the bare responder "
-              f"answered {answered.value} rows of {ROUND_TRIP_REPS + 2}")
+        n = len(waits) * (ROUND_TRIP_REPS + 2)
+        check(answered.value == n, f"the bare responder answered "
+              f"{answered.value} rows of {n}")
     finally:
         gi.free_mapped(host)
     gi.post_rows.launches = launches      # measurement, not the path
-    out = {"ms": statistics.median(ms), "min_ms": min(ms),
-           "reps": ROUND_TRIP_REPS, "rows": 1}
+    paced, backoff = ({"ms": statistics.median(ms[w]), "min_ms": min(ms[w]),
+                       "reps": ROUND_TRIP_REPS, "rows": 1, "wait": w}
+                      for w in waits)
     print(f"bare round trip (1 blocking row, host responder without "
-          f"executor): device {out['ms']:.4f} ms (min {out['min_ms']:.4f})",
-          flush=True)
-    return out
+          f"executor): device {paced['ms']:.4f} ms (min "
+          f"{paced['min_ms']:.4f}) with the paced wait, "
+          f"{backoff['ms']:.4f} ms (min {backoff['min_ms']:.4f}) with the "
+          f"backoff it replaced, in turns", flush=True)
+    return paced, backoff
 
 
 # ---------------------------------------- phase 19: the encoder-decoder --
@@ -4580,7 +4681,12 @@ def run(torch) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    lib = _build.build()
+    # the invoke kernel with its %globaltimer stamps (phase 18 reads one
+    # call of each round trip through it), built beside the path's library
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        stamped = pool.submit(stamped_invoke_build)
+        lib = _build.build()
+        stamped_lib = stamped.result()
     _build.library()
     build_s = time.perf_counter() - t0
     regs = [ln.split("info    : ")[-1] for ln in
@@ -4817,7 +4923,7 @@ def run(torch) -> int:
         pin_routing=True)
     mark("17b")
     # phase 18: device-initiated syscalls, Genesys.invoke on the card
-    invoke = invoke_phase(torch, dev)
+    invoke = invoke_phase(torch, dev, stamped_lib)
     mark("18")
 
     # the encoder-decoder: seamless-m4t-medium at full width and depth
@@ -5041,9 +5147,13 @@ def run(torch) -> int:
         "max_abs_err": invoke["max_abs_err"], "ms": wg["ms"],
         "plain_ms": wg["plain_ms"],
         "bound_ms": invoke["bare_round_trip"]["ms"],
+        "bound_old_wait_ms": invoke["bare_round_trip_old_wait"]["ms"],
         "bound_by": "latency", "library_ms": None,
+        "native_doorbell": invoke["native_doorbell"],
         "pass": True, "cases": invoke["round_trip"]
-        + [dict(invoke["bare_round_trip"], call="bare_responder")]})
+        + [dict(invoke["bare_round_trip"], call="bare_responder"),
+           dict(invoke["bare_round_trip_old_wait"],
+                call="bare_responder_old_wait")]})
     print(json.dumps({"kernels": kernels, "main_path": dict(
         sc_main, build_s=build_s, logits_bf16_max_abs_diff=d_bf16,
         step_alone_ms=alone_ms, step_device_busy_ms=busy_ms,

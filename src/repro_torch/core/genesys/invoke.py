@@ -621,10 +621,13 @@ class Genesys:
         more is queued on the caller's stream after the launch, where each
         PyTorch call would hand the GIL to the host plane's threads while
         they answer the card."""
-        from repro_torch.core.genesys import device as dv
-        plane = self.device_plane(args.device)
-        flags = ((FLAG_BLOCKING if blocking else 0)
-                 | (dv.FLAG_RING if via_ring else 0))
+        plane = self._device
+        if plane is None or plane.device != args.device:
+            plane = self.device_plane(args.device)
+        flags = FLAG_BLOCKING if blocking else 0
+        if via_ring:
+            from repro_torch.core.genesys.device import FLAG_RING
+            flags |= FLAG_RING
         rows = (args if args.dim() == 3 else args[None]).contiguous()
         out = tag = None
         if blocking:
@@ -639,12 +642,15 @@ class Genesys:
         # no pre-dependency: the side stream waits only for args that may
         # still be in flight on the caller's stream
         if not getattr(args, _ARGS_READY, False):
-            plane.side.wait_stream(current)
+            plane.side.wait_event(plane.record(current))
         plane.post(rows, sysno=sysno, flags=flags, hw_id=hw_id,
                    stream=plane.side, out=out, tag=tag)
-        rows.record_stream(plane.side)
         if blocking:
-            current.wait_stream(plane.side)
+            # the caller's stream waits for the call, so memory it frees
+            # (rows) is reused only after the kernel has read it
+            current.wait_event(plane.event(plane.side))
+        else:
+            rows.record_stream(plane.side)
         return out, tag
 
     def invoke(self, sysno, args: torch.Tensor, *,

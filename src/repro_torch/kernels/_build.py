@@ -58,6 +58,11 @@ SIGNATURES = {
         _int),
     "genesys_bare_respond": (
         [_ptr, _int, _ptr, _ll, ctypes.POINTER(_ll)], _int),
+    "genesys_doorbell_scan": (
+        [_ptr, _int, _int, _int, _ptr, _ptr, _int], _int),
+    "genesys_doorbell_wait": (
+        [_ptr, _int, _int, _int, _ptr, _ptr, _int, _ptr, _ll, _ptr, _ll],
+        _int),
     "genesys_kernels_error_string": ([_int], ctypes.c_char_p),
 }
 

@@ -13,12 +13,19 @@ thread watches (``core/genesys/device.py``).
 lie on the CPU it runs :func:`post_rows_plain`, which performs the
 kernel's writes on the area in the same order. Nothing on a path with a
 card calls the plain version. ``post_rows.launches`` counts launches.
+:func:`doorbell` is the host's side in C: the poller of a mapped area
+spins in it (``csrc/genesys_doorbell.cuh``), and the poller's Python scan
+of a numpy area is its plain version.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import threading
 import time
+from collections.abc import Callable
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -197,9 +204,13 @@ def post_rows(area, owner, rows, *, base: int, sysno: int, flags: int,
     rows = rows.contiguous()
     if stream is None:
         stream = torch.cuda.current_stream(rows.device)
-    lib = _build.library()
-    with torch.cuda.device(rows.device):
-        err = lib.genesys_invoke_launch(
+    # the launch goes to the current device's context: switch only if the
+    # rows live on another card
+    guard = (contextlib.nullcontext()
+             if rows.device.index == torch.cuda.current_device()
+             else torch.cuda.device(rows.device))
+    with guard:
+        err = _build.library().genesys_invoke_launch(
             area.dev_ptr, owner.data_ptr(), area.n_slots, base % area.n_slots,
             rows.data_ptr(), n, _i32(sysno), _i32(flags), _i32(hw_id),
             out.data_ptr() if blocking else 0,
@@ -211,6 +222,28 @@ def post_rows(area, owner, rows, *, base: int, sysno: int, flags: int,
 
 
 post_rows.launches = 0
+
+
+class Doorbell(NamedTuple):
+    """The native doorbell (``csrc/genesys_doorbell.cuh``): ``scan``, one
+    pass over a window of slots (``genesys_doorbell_scan``), and ``wait``,
+    which spins over it (``genesys_doorbell_wait``)."""
+    scan: Callable
+    wait: Callable
+
+
+@functools.lru_cache(maxsize=1)
+def doorbell() -> Doorbell:
+    """The native doorbell of the kernel library. ``wait`` goes through a
+    ``ctypes.CDLL`` handle, which releases the GIL while it spins; ``scan``
+    through the library's own ``PyDLL`` handle, which keeps it: one pass
+    takes well under a µs, and a GIL handed over and back costs the
+    poller tens of µs while the caller's thread is between CUDA calls.
+    Builds the library on first use and raises if it cannot be built or
+    loaded."""
+    wait = ctypes.CDLL(str(_build.build())).genesys_doorbell_wait
+    wait.argtypes, wait.restype = _build.SIGNATURES["genesys_doorbell_wait"]
+    return Doorbell(_build.library().genesys_doorbell_scan, wait)
 
 
 def alloc_mapped(nbytes: int, device: torch.device) -> tuple[int, int]:

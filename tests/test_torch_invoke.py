@@ -16,10 +16,18 @@
   poller and the real executor: the host entry's retvals, every slot FREE
   afterwards, no free list, the poller parked when idle and joined at
   shutdown, a stalled host timing the call out.
+* The native doorbell's C++ (``csrc/genesys_doorbell.cuh``, built here with
+  g++) against the poller's Python scan (``DeviceSyscallArea.take_ready``)
+  on the same numpy area, and its returns on the generation word, the stop
+  word and its spin bound.
 The kernel itself runs only on a card (``chip_smoke.py`` phase 18).
 """
+import ctypes
 import os
 import re
+import shutil
+import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -38,7 +46,8 @@ from repro.core.genesys.invoke import pack_args as jax_pack_args
 from repro_torch.core.genesys import (Genesys, GenesysConfig, Granularity,
                                       Ordering, SLOT_DTYPE, SlotState, Sys)
 from repro_torch.core.genesys.area import IllegalTransition
-from repro_torch.core.genesys.device import FLAG_RING, DeviceSyscallArea
+from repro_torch.core.genesys.device import (FLAG_RING, DevicePoller,
+                                            DeviceSyscallArea)
 from repro_torch.core.genesys.invoke import _join64, _split64, pack_args
 from repro_torch.kernels import _build
 from repro_torch.kernels import genesys_invoke as gi
@@ -586,3 +595,265 @@ def test_entry_points_match_their_ctypes_signatures():
         m = re.search(rf"int {name}\(([^)]*)\)", src)
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
+
+
+# ------------------------------------------------------ the native doorbell --
+
+CSRC = ROOT / "src/repro_torch/kernels/csrc"
+# the library's entry point (csrc/genesys_invoke.cu) over the header alone
+DOORBELL_SHIM = """
+#include "genesys_doorbell.cuh"
+extern "C" int genesys_doorbell_scan(
+    const void* host_area, int n_slots, int first, int count,
+    const unsigned char* rung, int* out, int max_out) {
+  return genesys::doorbell_scan(host_area, n_slots, first, count, rung, out,
+                                max_out);
+}
+extern "C" int genesys_doorbell_wait(
+    const void* host_area, int n_slots, int first, int count,
+    const unsigned char* rung, int* out, int max_out,
+    const long long* generation, long long seen, const int* stop,
+    long long spin_ns) {
+  return genesys::doorbell_wait(host_area, n_slots, first, count, rung, out,
+                                max_out,
+                                reinterpret_cast<const int64_t*>(generation),
+                                seen, stop, spin_ns);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def doorbell_lib(tmp_path_factory) -> Path:
+    """The doorbell's entry points built by g++ from the header alone."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build csrc/genesys_doorbell.cuh")
+    d = tmp_path_factory.mktemp("doorbell")
+    (d / "shim.cpp").write_text(DOORBELL_SHIM)
+    lib = d / "libdoorbell.so"
+    subprocess.run([gxx, "-O2", "-shared", "-fPIC", "-std=c++17",
+                    f"-I{CSRC}", "-o", str(lib), str(d / "shim.cpp")],
+                   check=True, capture_output=True)
+    return lib
+
+
+def _entry(lib: Path, name: str, handle=ctypes.CDLL):
+    fn = getattr(handle(str(lib)), name)
+    fn.argtypes, fn.restype = _build.SIGNATURES[name]
+    return fn
+
+
+@pytest.fixture(scope="module")
+def doorbell(doorbell_lib):
+    """``genesys_doorbell_wait`` through a CDLL handle (the GIL released
+    while it spins)."""
+    return _entry(doorbell_lib, "genesys_doorbell_wait")
+
+
+def _areas(n: int, seed: int):
+    """Two equal numpy areas: random states, ring flags and rung marks."""
+    rng = np.random.default_rng(seed)
+    states = rng.choice([SlotState.FREE, SlotState.POPULATING,
+                         SlotState.READY, SlotState.PROCESSING,
+                         SlotState.FINISHED], n, p=[.2, .1, .4, .2, .1])
+    flags = np.where(rng.random(n) < 0.3, FLAG_RING, 0) | 1
+    rung = rng.random(n) < 0.3
+    areas = []
+    for _ in range(2):
+        a = DeviceSyscallArea(n)
+        a.slots["state"] = states
+        a.slots["flags"] = flags
+        a._rung[:] = rung
+        areas.append(a)
+    return areas
+
+
+def _words():
+    return np.zeros(1, dtype=np.int64), np.zeros(1, dtype=np.int32)
+
+
+def _wait(fn, area, first, count, gen, stop, *, seen=0, spin_ns=0):
+    found = np.zeros(area.n_slots, dtype=np.int32)
+    k = fn(area.slots.ctypes.data, area.n_slots, first, count,
+           area._rung.ctypes.data, found.ctypes.data, area.n_slots,
+           gen.ctypes.data, seen, stop.ctypes.data, spin_ns)
+    return found[:k].copy()
+
+
+WINDOWS = {"ready_or_not": (0, 24, 24), "already_rung": (3, 10, 24),
+           "window_wraps": (21, 11, 24)}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOWS))
+def test_doorbell_header_equals_the_python_scan(doorbell, doorbell_lib,
+                                               case):
+    """The native doorbell (its one pass and its wait) and the Python scan
+    take the same slots from the same area: the READY slots not yet rung,
+    in the window's order, then split into bells (marked rung) and ring
+    rows (moved to PROCESSING)."""
+    first, count, n = WINDOWS[case]
+    scan = _entry(doorbell_lib, "genesys_doorbell_scan", ctypes.PyDLL)
+    watch = (first + np.arange(count)) % n
+    skipped = 0
+    for seed in range(8):
+        native, plain = _areas(n, seed)
+        if case == "ready_or_not":
+            native._rung[:] = plain._rung[:] = False
+        ready = plain.slots["state"][watch] == SlotState.READY
+        skipped += int((ready & plain._rung[watch]).sum())
+        gen, stop = _words()
+        found = _wait(doorbell, native, first, count, gen, stop)
+        np.testing.assert_array_equal(found, watch[ready
+                                                   & ~plain._rung[watch]])
+        once = np.zeros(n, dtype=np.int32)
+        k = scan(native.slots.ctypes.data, n, first, count,
+                 native._rung.ctypes.data, once.ctypes.data, n)
+        np.testing.assert_array_equal(once[:k], found)
+        for got, want in zip(native.take(found), plain.take_ready(watch)):
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(native.slots["state"],
+                                      plain.slots["state"])
+        np.testing.assert_array_equal(native._rung, plain._rung)
+        # taken: a second pass finds nothing (bells rung, rings PROCESSING)
+        assert len(_wait(doorbell, native, first, count, gen, stop)) == 0
+    assert (skipped > 0) == (case != "ready_or_not")
+    assert (watch < first).any() == (case == "window_wraps")
+
+
+def _returns_when(doorbell, poke) -> float:
+    """Seconds a wait with nothing READY and a 10 s bound takes to return
+    once ``poke(gen, stop)`` runs 50 ms after it started."""
+    area = DeviceSyscallArea(8)
+    gen, stop = _words()
+    out = []
+    t0 = time.monotonic()
+    th = threading.Thread(target=lambda: out.append(_wait(
+        doorbell, area, 0, 8, gen, stop, spin_ns=int(10e9))))
+    th.start()
+    time.sleep(0.05)
+    poke(gen, stop)
+    th.join(timeout=5)
+    assert not th.is_alive() and len(out[0]) == 0
+    return time.monotonic() - t0
+
+
+def test_doorbell_returns_on_the_generation_word(doorbell):
+    def bump(gen, stop):
+        gen[0] += 1
+    assert _returns_when(doorbell, bump) < 2.0
+
+
+def test_doorbell_returns_on_the_stop_word(doorbell):
+    def halt(gen, stop):
+        stop[0] = 1
+    assert _returns_when(doorbell, halt) < 2.0
+
+
+def test_doorbell_returns_what_turns_ready_while_it_spins(doorbell):
+    area = DeviceSyscallArea(8)
+    gen, stop = _words()
+    out = []
+    th = threading.Thread(target=lambda: out.append(_wait(
+        doorbell, area, 6, 4, gen, stop, spin_ns=int(10e9))))
+    th.start()
+    time.sleep(0.02)
+    area.slots["state"][1] = SlotState.READY      # in the window (6, 7, 0, 1)
+    th.join(timeout=5)
+    assert not th.is_alive() and out[0].tolist() == [1]
+
+
+def test_doorbell_spin_is_bounded(doorbell):
+    area = DeviceSyscallArea(8)
+    gen, stop = _words()
+    t0 = time.monotonic()
+    assert len(_wait(doorbell, area, 0, 8, gen, stop,
+                     spin_ns=int(20e6))) == 0
+    assert 0.02 <= time.monotonic() - t0 < 2.0
+
+
+def test_mapped_area_poller_raises_without_the_native_doorbell(monkeypatch):
+    """A poller of a mapped area never falls back to the Python scan: if
+    the doorbell's library cannot be built or loaded, creating it raises."""
+    def no_library():
+        raise RuntimeError("the kernel library cannot be built here")
+    monkeypatch.setattr(_build, "build", no_library)
+    gi.doorbell.cache_clear()
+    area = DeviceSyscallArea(4, dev_ptr=1 << 40)
+    try:
+        with pytest.raises(RuntimeError, match="cannot be built"):
+            DevicePoller(area, None, lambda: None, torch.device("cpu"))
+    finally:
+        gi.doorbell.cache_clear()
+
+
+def test_numpy_area_poller_takes_the_python_scan(tgsys):
+    assert not tgsys.device_plane("cpu").poller.native
+
+
+@pytest.mark.cuda
+def test_mapped_area_plane_on_the_card_takes_the_native_doorbell():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the mapped area lives in "
+                    "cudaHostAlloc memory")
+    g = Genesys(GenesysConfig(**CONFIG))
+    try:
+        poller = g.device_plane("cuda").poller
+        assert poller.native and poller._doorbell == gi.doorbell()
+        res = g.invoke(Sys.ECHO, pack_args(11, device="cuda"))
+        assert res.retval.cpu().tolist() == [11, 0]
+    finally:
+        g.shutdown()
+
+
+def _native_plane(g, doorbell_lib, monkeypatch):
+    """``g``'s CPU plane with its poller replaced by one that waits in the
+    g++-built doorbell (the area marked mapped; its rows still take the
+    plain version, which writes the same numpy memory)."""
+    plane = g.device_plane("cpu")
+    plane.poller.stop()
+    bell = gi.Doorbell(
+        _entry(doorbell_lib, "genesys_doorbell_scan", ctypes.PyDLL),
+        _entry(doorbell_lib, "genesys_doorbell_wait"))
+    monkeypatch.setattr(gi, "doorbell", lambda: bell)
+    plane.area.dev_ptr = 1 << 40          # never read by the plain version
+    plane.poller = DevicePoller(plane.area, g.executor, lambda: g.ring,
+                                torch.device("cpu"))
+    assert plane.poller.native
+    return plane
+
+
+NATIVE_CASES = {"blocking": (1, 4096), "nonblocking": (0, 4096),
+                "ring": (1 | FLAG_RING, 4096), "wrap": (1, 8)}
+
+
+@pytest.mark.parametrize("case", sorted(NATIVE_CASES))
+def test_native_poller_answers_as_the_python_scan(doorbell_lib,
+                                                  monkeypatch, case):
+    """The poller waiting in the native doorbell answers the plain
+    version's rows as the Python scan does: the values, one interrupt a
+    row (none for ring rows), every slot FREE, and it parks again."""
+    flags, n_slots = NATIVE_CASES[case]
+    g = Genesys(GenesysConfig(n_slots=n_slots, **CONFIG))
+    try:
+        plane = _native_plane(g, doorbell_lib, monkeypatch)
+        values = list(range(200, 225))
+        before = g.executor.counters.snapshot()
+        got = plane.post(_echo_rows(values), sysno=int(Sys.ECHO),
+                         flags=flags, hw_id=0)
+        g.drain()
+        after = g.executor.counters.snapshot()
+        if flags & 1:
+            assert got[:, 0].tolist() == values
+        ring = bool(flags & FLAG_RING)
+        assert after["interrupts"] - before["interrupts"] == \
+            (0 if ring else len(values))
+        assert after["processed"] - before["processed"] == len(values)
+        assert plane.poller.n_ring == (len(values) if ring else 0)
+        assert (plane.area.slots["state"] == SlotState.FREE).all()
+        deadline = time.monotonic() + 2.0
+        while not plane.poller.parked and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert plane.poller.parked
+    finally:
+        g.shutdown()
+    assert not plane.poller.alive

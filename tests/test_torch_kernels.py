@@ -675,24 +675,49 @@ def test_fused_paged_drops_an_out_of_range_slot_and_fills_the_null_block():
     write slot 0 of the null block, which then holds one of their tokens;
     row 1's slot is out of range and its write is dropped. Nothing else
     of the arena changes, and the reference's scatter agrees on every
-    slot but the shared one."""
+    slot but the shared one.
+
+    Row 1's attention: on CPU tensors the fused op is its plain version,
+    the reference's two calls (``update_kv_buffer``, which drops the write,
+    then ``paged_attention_xla`` over cache_len + 1), so it reads the
+    stale arena line at the row's position cache_len and equals the
+    reference. K1's fused launch on the card differs there, deliberately
+    (ROADMAP, "Deliberate differences"): it attends the step's
+    token itself, as the arena would hold it at that position, although
+    its write is dropped, which is the reference's two calls with the
+    token written at the row's own slot. At these inputs the two readings
+    differ by more than 1e-2; wherever each slot is its row's position
+    cache_len, as on every serving path, they agree."""
     B, H, KV, hd, bs, NB = 3, 4, 2, 16, 4, 6
     rng = np.random.default_rng(61)
     bt = np.asarray([[0, 0], [2, 5], [0, 0]], np.int32)
     cl = np.asarray([0, 6, 0], np.int32)
     slots = np.asarray([0, NB * bs + 3, 0], np.int32)
-    (_, jkn, jvn, jkp, jvp), (tq, tkn, tvn, tkp, tvp) = _fold_inputs(
+    (jq, jkn, jvn, jkp, jvp), (tq, tkn, tvn, tkp, tvp) = _fold_inputs(
         "float32", rng, B, H, KV, hd, (NB, bs, KV, hd))
     kp0 = tkp.clone()
-    tops.paged_decode_attention(tq, tkp, tvp, *_t(bt, cl), tkn, tvn,
-                                *_t(slots))
+    got = tops.paged_decode_attention(tq, tkp, tvp, *_t(bt, cl), tkn, tvn,
+                                      *_t(slots))
     flat, flat0 = tkp.view(NB * bs, KV, hd), kp0.view(NB * bs, KV, hd)
     assert any(torch.equal(flat[0], tkn[b]) for b in (0, 2))
     assert torch.equal(flat[1:], flat0[1:])
-    jk, _ = jops.update_kv_buffer(jkp, jvp, jkn, jvn, jnp.asarray(slots))
+    jk, jv = jops.update_kv_buffer(jkp, jvp, jkn, jvn, jnp.asarray(slots))
     np.testing.assert_array_equal(flat[1:].numpy(),
                                   np.asarray(jk).reshape(NB * bs, KV,
                                                          hd)[1:])
+    # row 1's own position cache_len: block bt[1, 6 // 4] = 5, offset 2
+    own = slots.copy()
+    own[1] = bt[1, cl[1] // bs] * bs + cl[1] % bs
+    jk_own, jv_own = jops.update_kv_buffer(jkp, jvp, jkn, jvn,
+                                           jnp.asarray(own))
+    lens = jnp.asarray(cl + 1)
+    dropped = jlayers.paged_attention_xla(jq[:, None], jk, jv,
+                                          jnp.asarray(bt), lens)[1, 0]
+    at_own = jlayers.paged_attention_xla(jq[:, None], jk_own, jv_own,
+                                         jnp.asarray(bt), lens)[1, 0]
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(dropped),
+                               atol=F32_ATOL)
+    assert np.abs(np.asarray(at_own) - np.asarray(dropped)).max() > 1e-2
 
 
 def test_fused_ops_take_the_token_whole():
