@@ -188,9 +188,10 @@ random weights from a seed):
     equal, a one-row step dropping nothing), and one step of a bucket of
     8 rows against each row alone, the logits of every row that lost no
     assignment held to its step alone;
-17. training, 4 of 48 layers (the one cut: 47.3 GB of f32 state; 449 GB
-    at 48) as phase 7 trains, K6 six times (remat) and K6b three times
-    per layer and microbatch; model FLOPs on the active parameters;
+17. training, 2 of 48 layers (the one cut: 449 GB of f32 state at 48;
+    4 layers before phases 5c and 21 had to fit) as phase 7 trains, K6
+    six times (remat) and K6b three times per layer and microbatch; model
+    FLOPs on the active parameters;
 17b. two layers' train step with K6/K6b against their plain versions in
     bf16 and f32, and a control (tile 1's expert id shifted) that must
     fail.
@@ -281,6 +282,44 @@ serving path (phases 3, 5, 10, 13, 15, 16, 19a) must launch the append
 alone 0 times and K1/K2 as often as before, each launch appending, and
 the steps alone print their device operations.
 
+The last modules of the port add:
+
+2.  K1 also at Fig. 12's block size of 4 positions (bf16, 8 rows of 2-33
+    positions over a table of 48 blocks), alone and appending the token;
+5c. Fig. 12's serving workload (``benchmarks/fig12_serving.py``) at full
+    width on phase 3's weights, with the reference's constants. Part A:
+    48 one-token requests (the reference's --quick) from seed 1207 with
+    bimodal budgets (2-6 tokens, a quarter 28-32), a burst of 16 and then
+    arrivals paced at 2.2x the service rate the continuous engine's
+    calibration drain measures, replayed against the closed buckets
+    (``serve_model(batch_decode=True, per_request_tokens=True)`` over a
+    40-position cache, K2) and the continuous engine
+    (``serve_model_continuous``, 8 slots over 96 blocks of 4, K1): every
+    tag answered with exactly its budget by both, K1 and K2 once per
+    layer and step or dispatch, each launch appending; tokens/s of each,
+    their ratio (the reference gates it at 1.5x: printed, not gated here),
+    p50/p99 latency, steps per dispatch, occupancy and the arena's RSS
+    peak printed. Part B: 12 sharers of a two-block prefix over 12 blocks
+    of 4, then a 40-token request that evicts it through a PWRITE64 spill
+    and a sharer that revives it with PREAD64_FIXED: prefix hits, a spill,
+    a revival, and the revived sharer's tokens equal to the same request's
+    on a fresh engine that evicted nothing;
+6.  K3a/K3b also at the reduced configs' heads (H 4 over KV 2, hd 32: the
+    CUDA-core kernels, in bf16 and f32) at S 4096 and 1000, causal, each
+    with the 3% control;
+21. the examples in this process through their ``main`` on the card:
+    ``torch_memory_hints`` (RSS after each phase and release),
+    ``torch_serve_echo`` (reduced rwkv6-3b over UDP, 6 tokens) and
+    ``torch_train_lm --steps 20`` (reduced internlm2-20b: async
+    checkpoints, kill and resume, 10 more steps; K3a and K3b launched
+    once per layer and step); then, in subprocesses, ``torchrun
+    --standalone --nproc_per_node 1 -m repro_torch.launch.train --arch
+    internlm2-20b --reduced --steps 4`` (a data-parallel world of one over
+    NCCL) and ``python -m repro_torch.launch.serve --arch starcoder2-7b
+    --reduced``, dense (``--batches 1``) and ``--continuous``, each
+    answering a UDP request; every one must exit 0 and print what its
+    docstring promises.
+
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
 is visible or the port's sources are not beside this script.
@@ -356,8 +395,11 @@ FA_REL = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -13}
 FA_FROB = {"bfloat16": 1e-2, "float32": 1e-5}
 FA_LSE_ATOL = 1e-4
 # the control: the kernel's outputs with the second half of their rows
-# (or keys) 3% off must fail the element-wise rule
+# (or keys) 3% off must fail the element-wise rule, in these cases
 FA_CONTROL_SCALE = 1.03
+FA_CONTROL_CASES = ("S4096-bfloat16", "S4096-hd32-bfloat16",
+                    "S4096-hd32-float32", "S1000-hd32-bfloat16",
+                    "S1000-hd32-float32")
 # one train step (phase 7's step at 2 layers), kernels vs plain attention:
 # loss to 1e-3 (bf16) or 1e-5 (f32), and each gradient leaf, read from
 # the step's first moments, by its relative norm ||g - g_ref|| / ||g_ref||
@@ -415,10 +457,12 @@ WKV_CLIP_REL = 2.0 ** -13
 PREFILL_LEN = 256
 # the MoE family (moonshot-v1-16b-a3b): serving over an arena of 1024
 # blocks of 16 tokens (6.4 GB at 393 KB a token) beside 56.1 GB of bf16
-# weights; training cut to 4 of 48 layers (47.3 GB of f32 state; 449 GB
-# at 48)
+# weights; training cut to 2 of 48 layers (the f32 state is 47.3 GB at 4
+# layers and 449 GB at 48; 4 layers until the examples' and Fig. 12's
+# phases had to fit in the smoke's time: their checkpoint's save and
+# restore took ~118 s of phase 17's ~200)
 MOE_N_BLOCKS = 1024
-MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_LAYERS = 2
 # the recurrent families' training depth (phases 9 and 12), cut from 54
 # and 32 so the smoke keeps within its time with the MoE phases: at full
 # depth their checkpoints (29 and 37 GB) took 56-95 s each to save and
@@ -456,6 +500,20 @@ HOST_MESH_STEPS = 8
 # 8 bf16 ulps of the largest |logit|, as phase 4a holds starcoder2's
 # logits (0.25 at |logit| ~5)
 MOE_BUCKET_ULPS = 8
+# phase 5c: benchmarks/fig12_serving.py's workload at full width, on phase
+# 3's weights, with the reference's constants: 8 slots, budgets of at most 32
+# tokens, blocks of 4 positions, arrivals paced at 2.2x the continuous
+# engine's service rate after a burst of two slots' worth; Part A's 48
+# requests (the reference's --quick run; its full run of 128 took 75 s
+# of Part A on an H100 80GB HBM3 machine whose host ran the engine's step
+# in 104 ms, and the smoke 1085 s, over its budget) from seed 1207 over a
+# 96-block arena; Part B's 12 sharers of a two-block prefix
+# over 12 blocks of 4, two slots and a table of 10 blocks, then a
+# 40-token request that evicts the prefix and a sharer that revives it.
+FIG12_SLOTS, FIG12_MAX_TOKENS, FIG12_BLOCK = 8, 32, 4
+FIG12_OVERSUBSCRIBE = 2.2
+FIG12_REQUESTS, FIG12_SEED, FIG12_ARENA = 48, 1207, 96
+FIG12_SHARERS = 12
 
 
 class SmokeFailure(RuntimeError):
@@ -541,16 +599,17 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 # ------------------------------------------------------ phase 2: kernels --
 
 def decode_inputs(torch, dev, gen, q_dtype, kv_dtype, heads=(H, KV, HD), *,
-                  lens_range=(1, MAX_LEN), table_width=TABLE_WIDTH):
+                  lens_range=(1, MAX_LEN), table_width=TABLE_WIDTH,
+                  block_size=BS):
     """Ragged rows: row b holds lens[b] positions on distinct random
-    blocks; the rest of its table points at the null block. ``heads`` =
-    (query heads, KV heads, hd); lens are drawn from ``lens_range`` with
-    row 0 at its top."""
+    blocks of ``block_size`` positions; the rest of its table points at
+    the null block. ``heads`` = (query heads, KV heads, hd); lens are
+    drawn from ``lens_range`` with row 0 at its top."""
     h, kv, hd = heads
     lens = torch.randint(lens_range[0], lens_range[1] + 1, (B,),
                          generator=gen, device=dev, dtype=torch.int32)
     lens[0] = lens_range[1]
-    pages = [(int(n) + BS - 1) // BS for n in lens.tolist()]
+    pages = [(int(n) + block_size - 1) // block_size for n in lens.tolist()]
     n_blocks = max(N_BLOCKS, 1 + sum(pages))
     order = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
     bt = torch.zeros((B, table_width), dtype=torch.int32, device=dev)
@@ -559,7 +618,7 @@ def decode_inputs(torch, dev, gen, q_dtype, kv_dtype, heads=(H, KV, HD), *,
         bt[b, :n] = order[at:at + n].to(torch.int32)
         at += n
     q = torch.randn(B, h, hd, generator=gen, device=dev).to(q_dtype)
-    shape = (n_blocks, BS, kv, hd)
+    shape = (n_blocks, block_size, kv, hd)
     if kv_dtype == torch.int8:
         kp = torch.randint(-127, 128, shape, generator=gen, device=dev,
                            dtype=torch.int8)
@@ -595,12 +654,12 @@ def library_attention(torch, q, kp, vp, bt, lens, n_pages):
     """Yardstick only, never on the path: gather the valid pages, then one
     F.scaled_dot_product_attention call (the gather is included)."""
     F = torch.nn.functional
-    kv, hd = kp.shape[2:]
-    kd = kp[bt[:, :n_pages].long()].reshape(B, n_pages * BS, kv, hd)
-    vd = vp[bt[:, :n_pages].long()].reshape(B, n_pages * BS, kv, hd)
+    bs, kv, hd = kp.shape[1:]
+    kd = kp[bt[:, :n_pages].long()].reshape(B, n_pages * bs, kv, hd)
+    vd = vp[bt[:, :n_pages].long()].reshape(B, n_pages * bs, kv, hd)
     if kp.dtype == torch.int8:
         kd, vd = kd.to(q.dtype) / 16.0, vd.to(q.dtype) / 16.0
-    mask = (torch.arange(n_pages * BS, device=q.device)[None]
+    mask = (torch.arange(n_pages * bs, device=q.device)[None]
             < lens[:, None])[:, None, None, :]
     return F.scaled_dot_product_attention(
         q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
@@ -613,7 +672,9 @@ def kernel_phase(torch, dev, flush, moe, fold: bool = True):
     positions; then both at the main path's own rows (8 of 16-288
     positions: phase 3's prompts of 16-256 tokens and budgets of 8-32, over
     the tables make_engine gives phases 3 and 15) and at the rows of up to
-    1024 positions of phases 4 and 15's step alone; with ``fold``, each
+    1024 positions of phases 4 and 15's step alone, and at phase 5c's
+    block size of 4 positions (rows of 2-33 over a table of 48 blocks: Fig.
+    12's one-token prompts and budgets of up to 32); with ``fold``, each
     case again as the decode step calls K1, appending the step's token in
     the same launch (:func:`paged_fold_case`); the KV append alone.
     Returns (K1's cases, the fused cases, the append's case)."""
@@ -637,7 +698,11 @@ def kernel_phase(torch, dev, flush, moe, fold: bool = True):
             ("step-bfloat16", torch.bfloat16, torch.bfloat16, (H, KV, HD),
              dict(step, table_width=N_BLOCKS // 2)),
             ("moe-step-bfloat16", torch.bfloat16, torch.bfloat16, moe,
-             dict(step, table_width=MOE_N_BLOCKS // 2))):
+             dict(step, table_width=MOE_N_BLOCKS // 2)),
+            ("fig12-bs4-bfloat16", torch.bfloat16, torch.bfloat16,
+             (H, KV, HD), dict(lens_range=(2, FIG12_MAX_TOKENS + 1),
+                               table_width=FIG12_ARENA // 2,
+                               block_size=FIG12_BLOCK))):
         h, kv, hd = heads
         q, kp, vp, bt, lens, pages = decode_inputs(torch, dev, gen, q_dtype,
                                                    kv_dtype, heads, **rows)
@@ -664,7 +729,8 @@ def kernel_phase(torch, dev, flush, moe, fold: bool = True):
         case = {
             "case": name, "heads": list(heads),
             "variant": tda.variant(q_dtype, hd),
-            "table_width": bt.shape[1], "max_abs_err": err,
+            "table_width": bt.shape[1], "block_size": kp.shape[1],
+            "max_abs_err": err,
             "tol": tol, "same_bits": bits, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "read_ms": read_ms(torch, nbytes, flush),
             "bound_ms": bnd, "bound_by": by, "kv_bytes": nbytes,
@@ -761,12 +827,13 @@ def fold_case(torch, flush, kernel: str, label: str, name: str, *, run,
     return case
 
 
-def token_slots(torch, bt, cached):
+def token_slots(torch, bt, cached, block_size=BS):
     """Each row's flat arena slot for the step's token at position
     ``cached[b]`` of its block table (``layers.paged_step``'s rule)."""
     pos = cached.long()
     rows = torch.arange(bt.shape[0], device=bt.device)
-    return (bt[rows, pos // BS].long() * BS + pos % BS).to(torch.int32)
+    return (bt[rows, pos // block_size].long() * block_size
+            + pos % block_size).to(torch.int32)
 
 
 def paged_fold_case(torch, gen, flush, name, q, kp, vp, bt, lens,
@@ -781,10 +848,10 @@ def paged_fold_case(torch, gen, flush, name, q, kp, vp, bt, lens,
     from repro_torch.kernels import ops
 
     b_, h, hd = q.shape
-    kv = kp.shape[2]
-    n_slots = kp.shape[0] * BS
+    bs, kv = kp.shape[1:3]
+    n_slots = kp.shape[0] * bs
     cached = lens - 1
-    slots = token_slots(torch, bt, cached)
+    slots = token_slots(torch, bt, cached, bs)
     k_new, v_new = (torch.randn(b_, kv, hd, generator=gen, device=q.device)
                     .to(q.dtype) for _ in range(2))
     last = slots[-1].long()
@@ -1524,6 +1591,363 @@ def dense_logits_kernel_vs_plain(torch, cfg, params, dev, gen):
 
 # ---------------------------------------------------- phase 4: logits -----
 
+# ---------------------------------- phase 5c: Fig. 12's churn and spill --
+
+
+def fig12_budgets(rng, n: int) -> list[int]:
+    """Bimodal budgets (``fig12_serving._budgets``): 2-6 tokens, a quarter
+    of the requests 28-32."""
+    heavy = rng.random(n) < 0.25
+    return [int(rng.integers(28, FIG12_MAX_TOKENS + 1)) if h
+            else int(rng.integers(2, 7)) for h in heavy]
+
+
+def fig12_requests(n: int, vocab: int) -> list[tuple[int, int, int]]:
+    """Part A's ``(tag, budget, prompt token)`` requests."""
+    import numpy as np
+    rng = np.random.default_rng(FIG12_SEED)
+    budgets = fig12_budgets(rng, n)
+    toks = rng.integers(1, vocab, size=n)
+    return [(tag, b, int(t)) for tag, (b, t) in enumerate(zip(budgets, toks))]
+
+
+def _pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
+
+
+def fig12_drive(serve_on_main, port: int, reqs, sched):
+    """Replay the schedule against a server that ``serve_on_main(reply
+    port)`` runs on this thread; a sender and a reply collector run on
+    helpers. Returns (the server's stats, {tag: latency ms}, {tag:
+    generated tokens})."""
+    import numpy as np
+
+    client = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    client.bind(("127.0.0.1", 0))
+    client.settimeout(1.0)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    send_ts, recv_ts, replies = {}, {}, {}
+
+    def send():
+        t0 = time.monotonic()
+        for (tag, budget, tok), at in zip(reqs, sched):
+            d = t0 + at - time.monotonic()
+            if d > 0:
+                time.sleep(d)
+            send_ts[tag] = time.monotonic()
+            tx.sendto(np.asarray([budget, tag, tok], np.int32).tobytes(),
+                      ("127.0.0.1", port))
+
+    def collect():
+        end = time.monotonic() + 120.0
+        while len(recv_ts) < len(reqs) and time.monotonic() < end:
+            try:
+                data, _ = client.recvfrom(4096)
+            except socket.timeout:
+                continue
+            tag, *gen = np.frombuffer(data, np.int32).tolist()
+            recv_ts[tag] = time.monotonic()
+            replies[tag] = gen
+
+    threads = [threading.Thread(target=f, daemon=True,
+                                name=f"fig12-{f.__name__}")
+               for f in (collect, send)]
+    for t in threads:
+        t.start()
+    try:
+        stats = serve_on_main(client.getsockname()[1])
+    finally:
+        for t in threads:
+            t.join(timeout=150)
+        client.close()
+        tx.close()
+    lat = {t: (recv_ts[t] - send_ts[t]) * 1e3 for t in recv_ts
+           if t in send_ts}
+    return stats, lat, replies
+
+
+def fig12_part_a(torch, cfg, params, *, n_requests: int,
+                 counters=()) -> dict:
+    """Part A: the closed buckets (``serve_model(batch_decode=True,
+    per_request_tokens=True)`` over a 40-position dense cache) and the
+    continuous engine (``serve_model_continuous`` over the paged pool)
+    replay one open-loop schedule; the engine's calibration drain (8 slots,
+    6 steps) sets the pace. ``counters`` are zeroed before each server's
+    replay and read after it. Returns both servers' numbers, replies and
+    launches."""
+    import numpy as np
+
+    from repro_torch.core.genesys import Genesys, GenesysConfig
+    from repro_torch.models.registry import get_api
+    from repro_torch.serving.engine import make_engine
+    from repro_torch.serving.server import GenesysUdpServer, _tile_cache
+    from repro_torch.train.steps import make_serve_step
+
+    dev = params["embed"].device
+    reqs = fig12_requests(n_requests, cfg.vocab_size)
+    budgets = [b for _, b, _ in reqs]
+    serve = make_serve_step(cfg)
+    cache = get_api(cfg).init_cache(cfg, 1, FIG12_MAX_TOKENS + 8, device=dev)
+    # warm every power-of-two bucket a poll of <= 8 can give, feeding each
+    # step's cache to the next
+    cur = torch.ones((FIG12_SLOTS, 1), dtype=torch.int32, device=dev)
+    cl = torch.zeros((FIG12_SLOTS,), dtype=torch.int32, device=dev)
+    for kb in (1, 2, 4, FIG12_SLOTS):
+        c = _tile_cache(cache, kb)
+        for _ in range(2):
+            _, c = serve(params, c, cur[:kb], cl[:kb])
+    del c
+
+    # the continuous engine first: its warm drain is also the service-rate
+    # calibration of the schedule
+    g_cont = Genesys(GenesysConfig(n_workers=2))
+    g = Genesys(GenesysConfig(n_workers=2))
+    try:
+        eng = make_engine(cfg, params, n_slots=FIG12_SLOTS,
+                          n_blocks=FIG12_ARENA, block_size=FIG12_BLOCK,
+                          gsys=g_cont)
+        check(eng.admit(np.asarray([3], np.int32), 2), "fig12: warm admit")
+        eng.drain()
+        for i in range(FIG12_SLOTS):
+            check(eng.admit(np.asarray([3 + i], np.int32), 6),
+                  "fig12: calibration admit")
+        t0 = time.monotonic()
+        eng.drain()
+        step_s = (time.monotonic() - t0) / 6
+        eng.stats = type(eng.stats)()
+        eng.pool.stats = type(eng.pool.stats)()
+        interval = (sum(budgets) / len(budgets) * step_s
+                    / (FIG12_SLOTS * FIG12_OVERSUBSCRIBE))
+        burst = 2 * FIG12_SLOTS
+        sched = [0.0] * burst + [(i + 1) * interval
+                                 for i in range(max(0, n_requests - burst))]
+
+        runs = {}
+        srv = GenesysUdpServer(g, port=0, max_batch=FIG12_SLOTS, payload=512,
+                               batch_window_s=0.005)
+        port = g.table._sockets[srv.fd].getsockname()[1]
+        try:
+            def closed(cport):
+                return srv.serve_model(
+                    serve, params, cache, n_batches=10 ** 9,
+                    reply_port=cport, max_tokens=FIG12_MAX_TOKENS,
+                    n_requests=n_requests, max_idle_polls=100,
+                    batch_decode=True, per_request_tokens=True)
+            zero_counts(counters)
+            runs["closed"] = fig12_drive(closed, port, reqs, sched)
+            closed_launches = read_counts(counters)
+        finally:
+            srv.close()
+        srv = GenesysUdpServer(g_cont, port=0, max_batch=FIG12_SLOTS,
+                               payload=512, batch_window_s=0.005)
+        port = g_cont.table._sockets[srv.fd].getsockname()[1]
+        try:
+            def continuous(cport):
+                return srv.serve_model_continuous(
+                    eng, reply_port=cport, n_requests=n_requests,
+                    max_tokens=FIG12_MAX_TOKENS)
+            zero_counts(counters)
+            runs["continuous"] = fig12_drive(continuous, port, reqs, sched)
+            cont_launches = read_counts(counters)
+        finally:
+            srv.close()
+        # the arena's working set peaks mid-run (retirement DONTNEEDs
+        # every block back, so the final RSS is ~0)
+        rss_peak = max((r for _, r in g_cont.pool._trace), default=0)
+    finally:
+        g.shutdown()
+        g_cont.shutdown()
+    out = {"n_requests": n_requests, "calibration_step_ms": 1e3 * step_s,
+           "interval_ms": 1e3 * interval, "kv_rss_peak_bytes": rss_peak,
+           "engine_steps": eng.stats.steps,
+           "continuous_occupancy": eng.stats.occupancy(),
+           "launches": {"closed": closed_launches,
+                        "continuous": cont_launches}}
+    for name, (stats, lat, replies) in runs.items():
+        out[f"{name}_tokens_per_s"] = stats.tokens_out / stats.wall_s
+        out[f"{name}_tokens_out"] = stats.tokens_out
+        out[f"{name}_wall_s"] = stats.wall_s
+        out[f"{name}_dispatches"] = stats.decode_dispatches
+        out[f"{name}_steps_per_dispatch"] = (stats.decode_steps
+                                             / max(1, stats.decode_dispatches))
+        out[f"{name}_p50_ms"] = _pct(list(lat.values()), 0.50)
+        out[f"{name}_p99_ms"] = _pct(list(lat.values()), 0.99)
+        out[f"{name}_replies"] = replies
+    out["speedup"] = (out["continuous_tokens_per_s"]
+                      / max(1e-9, out["closed_tokens_per_s"]))
+    out["budgets"] = {tag: b for tag, b, _ in reqs}
+    return out
+
+
+def fig12_part_b_run(eng, vocab: int, n_sharers: int) -> dict:
+    """Part B on a built engine of either package (2 slots, 12 blocks of
+    4, a table of 10, a spill file): a sharer of a two-block prefix seals
+    it, ``n_sharers`` more reuse it, a 40-token request evicts it (PWRITE64
+    spill) and one more sharer revives it (PREAD64_FIXED). Returns the
+    pool's and engine's counts from the first reuse on, and every
+    request's tokens by name."""
+    import numpy as np
+
+    bs = eng.block_size
+    prefix = np.random.default_rng(7).integers(1, vocab,
+                                               size=2 * bs).tolist()
+    tokens = {}
+
+    def run(name, prompt, budget):
+        check(eng.admit(np.asarray(prompt, np.int32), budget, meta=name),
+              f"fig12 part B: {name} not admitted")
+        for meta, gen in eng.drain():
+            tokens[meta] = gen
+
+    run("seal", prefix + [11], 2)
+    eng.stats = type(eng.stats)()
+    eng.pool.stats = type(eng.pool.stats)()
+    t0 = time.monotonic()
+    for i in range(n_sharers):
+        run(f"sharer{i}", prefix + [20 + i], 2)
+    reuse_s = time.monotonic() - t0
+    # 10 blocks wanted, 9 on the free list: the sealed prefix is evicted
+    run("evictor", [5], 10 * bs)
+    run("revived", prefix + [99], 2)
+    st = eng.pool.stats
+    return {"prefix_hits": st.prefix_hits,
+            "prefill_steps_saved": eng.stats.prefill_steps_saved,
+            "spill_writes": st.spill_writes, "fixed_reads": st.fixed_reads,
+            "evictions": st.evictions, "sharers_wall_s": reuse_s,
+            "prefix": prefix, "tokens": tokens}
+
+
+def fig12_part_b(torch, cfg, params, *, n_sharers: int = FIG12_SHARERS,
+                 counters=()) -> dict:
+    """Part B through the port's engine (``counters`` zeroed before and
+    read after), then the revived sharer's request on a fresh engine that
+    evicted nothing."""
+    import numpy as np
+
+    from repro_torch.core.genesys import Genesys, GenesysConfig
+    from repro_torch.serving.engine import make_engine
+
+    def engine(g, spill):
+        return make_engine(cfg, params, n_slots=2, n_blocks=12,
+                           block_size=FIG12_BLOCK, max_blocks_per_seq=10,
+                           gsys=g, spill_path=spill)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        g = Genesys(GenesysConfig(n_workers=2))
+        try:
+            zero_counts(counters)
+            out = fig12_part_b_run(engine(g, str(Path(tmp) / "kv.spill")),
+                                   cfg.vocab_size, n_sharers)
+            out["launches"] = read_counts(counters)
+        finally:
+            g.shutdown()
+        g = Genesys(GenesysConfig(n_workers=2))
+        try:
+            fresh = engine(g, str(Path(tmp) / "fresh.spill"))
+            check(fresh.admit(np.asarray(out["prefix"] + [99], np.int32), 2),
+                  "fig12 part B: the fresh engine refused the request")
+            out["fresh_tokens"] = fresh.drain()[0][1]
+            out["fresh_evictions"] = fresh.pool.stats.evictions
+        finally:
+            g.shutdown()
+    return out
+
+
+def fig12_launches(fig12: dict, name: str) -> int:
+    """Phase 5c's launches of one counter over its three runs."""
+    a = fig12["part_a"]["launches"]
+    return (a["closed"][name] + a["continuous"][name]
+            + fig12["part_b"]["launches"][name])
+
+
+def fig12_phase(torch, cfg, params) -> dict:
+    """Phase 5c: Parts A and B at full width with their checks: every tag
+    answered with exactly its budget by both servers; K2 launched once per
+    layer and closed-bucket dispatch and K1 once per layer and engine step,
+    every launch appending, the append never alone; prefix hits, a spill
+    and a revival, the revived sharer's tokens equal a fresh engine's.
+    Tokens/s of each server, their ratio (the reference gates it at 1.5x,
+    a claim for a future benchmark cell: printed, not gated), latencies,
+    steps per dispatch, occupancy and the arena's RSS peak are printed."""
+    from repro_torch.kernels import ops
+
+    counters = (ops.paged_decode_attention, ops.decode_attention,
+                ops.update_kv_buffer)
+    t0 = time.perf_counter()
+    a = fig12_part_a(torch, cfg, params, n_requests=FIG12_REQUESTS,
+                     counters=counters)
+    a_s = time.perf_counter() - t0
+    for name in ("closed", "continuous"):
+        replies = a.pop(f"{name}_replies")
+        for tag, budget in a["budgets"].items():
+            got = replies.get(tag)
+            check(got is not None, f"fig12 {name}: tag {tag} not answered")
+            check(len(got) == budget, f"fig12 {name}: tag {tag} got "
+                  f"{len(got)} tokens, budget {budget}")
+            check(all(0 <= t < cfg.vocab_size for t in got),
+                  f"fig12 {name}: tag {tag} token ids out of range")
+    del a["budgets"]
+    n = cfg.n_layers
+    closed, cont = a["launches"]["closed"], a["launches"]["continuous"]
+    for label, got, kernel, per in (
+            ("closed", closed, "decode_attention", a["closed_dispatches"]),
+            ("continuous", cont, "paged_decode_attention",
+             a["engine_steps"])):
+        check(got[kernel] == n * per and got[f"{kernel}_fused"] == n * per,
+              f"fig12 {label}: {kernel} launched {got[kernel]} times "
+              f"({got[f'{kernel}_fused']} appending), expected {n} x {per}")
+        check(got["update_kv_buffer"] == 0, f"fig12 {label}: the append "
+              f"launched alone {got['update_kv_buffer']} times")
+    check(closed["paged_decode_attention"] == 0
+          and cont["decode_attention"] == 0,
+          "fig12: a server ran the other server's kernel")
+    print(f"fig12 part A ({a['n_requests']} requests, {FIG12_SLOTS} slots, "
+          f"calibration step {a['calibration_step_ms']:.2f} ms, arrivals "
+          f"every {a['interval_ms']:.2f} ms after a burst of "
+          f"{2 * FIG12_SLOTS}): every tag answered with its budget by both "
+          f"servers; closed tokens/s={a['closed_tokens_per_s']:.1f} "
+          f"(p50 {a['closed_p50_ms']:.1f} ms, p99 {a['closed_p99_ms']:.1f} "
+          f"ms, {a['closed_steps_per_dispatch']:.2f} steps/dispatch, "
+          f"{a['closed_dispatches']} dispatches) continuous tokens/s="
+          f"{a['continuous_tokens_per_s']:.1f} (p50 "
+          f"{a['continuous_p50_ms']:.1f} ms, p99 "
+          f"{a['continuous_p99_ms']:.1f} ms, "
+          f"{a['continuous_steps_per_dispatch']:.2f} steps/dispatch, "
+          f"occupancy {a['continuous_occupancy']:.2f} of {FIG12_SLOTS}, "
+          f"{a['engine_steps']} steps); continuous/closed = "
+          f"{a['speedup']:.3f}x (the reference's gate, 1.5x, is not "
+          f"applied here); arena RSS peak {a['kv_rss_peak_bytes']} B; "
+          f"launches closed {closed} continuous {cont}; {a_s:.1f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    b = fig12_part_b(torch, cfg, params, counters=counters)
+    b_s = time.perf_counter() - t0
+    revived, fresh = b["tokens"]["revived"], b.pop("fresh_tokens")
+    print(f"fig12 part B ({FIG12_SHARERS} sharers of a {2 * FIG12_BLOCK}-"
+          f"token prefix): prefix_hits={b['prefix_hits']} "
+          f"prefill_steps_saved={b['prefill_steps_saved']} "
+          f"spill_writes={b['spill_writes']} fixed_reads={b['fixed_reads']} "
+          f"evictions={b['evictions']}; the revived sharer {revived} vs a "
+          f"fresh engine {fresh} (evictions {b['fresh_evictions']}); "
+          f"launches {b['launches']}; {b_s:.1f} s", flush=True)
+    check(b["prefix_hits"] > 0, "fig12 part B: the shared prefix never hit")
+    check(b["spill_writes"] >= 1 and b["fixed_reads"] >= 1,
+          f"fig12 part B: {b['spill_writes']} spill writes, "
+          f"{b['fixed_reads']} PREAD64_FIXED revivals")
+    check(revived == fresh and b["fresh_evictions"] == 0,
+          f"fig12 part B: the revived sharer decoded {revived}, a fresh "
+          f"engine {fresh}")
+    pb = b["launches"]
+    check(pb["paged_decode_attention"] > 0 and pb["paged_decode_attention"]
+          == pb["paged_decode_attention_fused"]
+          and pb["update_kv_buffer"] == 0,
+          f"fig12 part B: launches {pb}")
+    del b["tokens"], b["prefix"]
+    return {"part_a": dict(a, wall_s=a_s), "part_b": dict(b, wall_s=b_s)}
+
+
 def paged_state(torch, cfg, dev, gen, *, n_blocks, max_len):
     """A filled arena and 8 rows of ragged cached lengths on distinct
     random blocks, with one token per row to feed."""
@@ -1628,14 +2052,16 @@ def fa_reading(got, want, r: float) -> dict:
 def flash_cases_of(torch):
     """Phase 6's cases: (label, Sq, Skv, dtype, (H, KV, hd), causal). The
     training shapes (starcoder2-7b's in bf16 and f32, a ragged S = 1000,
-    zamba2's shared block at hd 80, moonshot's H = KV = 16) and
+    zamba2's shared block at hd 80, moonshot's H = KV = 16),
     seamless-m4t-medium's attention as an encoder-decoder would run it:
     non-causal self-attention over its 4096 frames and cross-attention of
-    1024 decoder positions over them (hd 64)."""
+    1024 decoder positions over them (hd 64), and the reduced configs'
+    heads (H 4 over KV 2 at hd 32, the CUDA-core kernels in both dtypes;
+    phase 21 trains on them) at S = 4096 and 1000 in bf16 and f32."""
     from repro_torch.configs import get_config
 
-    def heads(arch):
-        c = get_config(arch)
+    def heads(arch, reduced=False):
+        c = get_config(arch).reduced() if reduced else get_config(arch)
         return c.n_heads, c.n_kv_heads, c.hd
     enc = get_config("seamless-m4t-medium")
     bf, f32 = torch.bfloat16, torch.float32
@@ -1650,7 +2076,10 @@ def flash_cases_of(torch):
         ("S4096-encoder-hd64-bfloat16", enc.n_frame_tokens,
          enc.n_frame_tokens, bf, heads("seamless-m4t-medium"), False),
         ("Sq1024-Skv4096-cross-hd64-bfloat16", 1024, enc.n_frame_tokens, bf,
-         heads("seamless-m4t-medium"), False))
+         heads("seamless-m4t-medium"), False)) + tuple(
+        (f"S{s}-hd32-{str(dt).split('.')[-1]}", s, s, dt,
+         heads("internlm2-20b", reduced=True), True)
+        for s in (TRAIN_SEQ, 1000) for dt in (bf, f32))
 
 
 def flash_kernel_phase(torch, dev, flush):
@@ -1700,7 +2129,7 @@ def flash_kernel_phase(torch, dev, flush):
                   f"{e['worst']:.3g} x its bound (max abs "
                   f"{e['max_abs_err']:.3g}), relative Frobenius "
                   f"{e['frob']:.3g} (tol {FA_FROB[name]})")
-            if label == "S4096-bfloat16":
+            if label in FA_CONTROL_CASES:
                 off = got.clone()
                 off[:, off.shape[1] // 2:] *= FA_CONTROL_SCALE
                 control[n] = fa_reading(off, want, r)
@@ -4630,6 +5059,178 @@ def host_mesh_phase(torch, cfg, dev, grads) -> dict:
     return out
 
 
+# ------------------------- phase 21: the examples and launchers on the card --
+
+LAUNCHER_TIMEOUT_S = 300
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not yet run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_launcher(args, *, prompt=None, timeout_s: float = LAUNCHER_TIMEOUT_S
+                 ) -> tuple[int, str, list]:
+    """Run ``args`` (after ``python``) from the repository's root with
+    ``src`` on the path; with ``prompt``, send it as an int32 datagram
+    every 100 ms to the port given as ``--port``'s value until a reply
+    comes back on the socket whose port replaces ``{reply}`` in ``args``
+    (the continuous server stops at its first idle stretch with nothing
+    in flight, ~0.2 s of polls, so a prompt has to land soon after it
+    binds its port).
+    Returns (exit code, output, replies). The process is killed if it
+    outlives ``timeout_s``."""
+    import numpy as np
+
+    client = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    client.bind(("127.0.0.1", 0))
+    client.settimeout(0.1)
+    args = [a.format(reply=client.getsockname()[1]) for a in args]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    replies = []
+    with tempfile.TemporaryFile("w+") as log:
+        proc = subprocess.Popen([sys.executable] + args, cwd=ROOT, env=env,
+                                stdout=log, stderr=subprocess.STDOUT,
+                                text=True)
+        try:
+            end = time.monotonic() + timeout_s
+            if prompt is not None:
+                port = int(args[args.index("--port") + 1])
+                data = np.asarray(prompt, np.int32).tobytes()
+                while not replies and time.monotonic() < end \
+                        and proc.poll() is None:
+                    client.sendto(data, ("127.0.0.1", port))
+                    try:
+                        reply, _ = client.recvfrom(65536)
+                        replies.append(np.frombuffer(reply,
+                                                     np.int32).tolist())
+                    except socket.timeout:
+                        pass
+            rc = proc.wait(timeout=max(1.0, end - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            client.close()
+        log.seek(0)
+        out = log.read()
+    return rc, out, replies
+
+
+def timed_launcher(args, prompt):
+    """:func:`run_launcher` and its wall seconds."""
+    t0 = time.perf_counter()
+    return (*run_launcher(args, prompt=prompt), time.perf_counter() - t0)
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def examples_phase(torch) -> dict:
+    """Phase 21: the port's three examples in this process through their
+    ``main`` on the card (K3a/K3b's launches counted over train_lm, which
+    trains on the reduced configs' head dim 32), then ``torchrun`` of the
+    training launcher (a data-parallel world of one) and the serving
+    launcher, dense and continuous, in subprocesses. Each must finish and
+    give what its docstring promises."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    out = {}
+    t0 = time.perf_counter()
+    hints = load_example("torch_memory_hints").main([])
+    check(len(hints["rss_mb"]) == 3 and len(hints["released_rss_mb"]) == 2
+          and all(r < p for r, p in zip(hints["released_rss_mb"],
+                                        hints["rss_mb"][1:])),
+          f"torch_memory_hints: RSS {hints}")
+    out["memory_hints"] = dict(hints, s=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    echo_mod = load_example("torch_serve_echo")
+    echo = echo_mod.main([])
+    vocab = get_config("rwkv6-3b").reduced().vocab_size
+    check(len(echo) == echo_mod.MAX_TOKENS
+          and all(0 <= t < vocab for t in echo),
+          f"torch_serve_echo: continuation {echo}")
+    out["serve_echo"] = {"tokens": echo, "s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    counters = (ops.flash_attention_fwd, ops.flash_attention_bwd)
+    steps = 20
+    zero_counts(counters)
+    lm_mod = load_example("torch_train_lm")
+    lm = lm_mod.main(["--steps", str(steps)])
+    launches = read_counts(counters)
+    rcfg = get_config("internlm2-20b").reduced()
+    want = rcfg.n_layers * (steps + lm_mod.RESUME_STEPS)  # remat "none"
+    losses = lm["stats"].losses + lm["resume_losses"]
+    print(f"torch_train_lm ({rcfg.arch_id} reduced, hd {rcfg.hd}): "
+          f"{steps} steps, loss {losses[0]:.4f} -> "
+          f"{lm['stats'].losses[-1]:.4f}, {lm['stats'].ckpts} checkpoints, "
+          f"resumed at {lm['resumed_at']} (committed {lm['committed']}); "
+          f"K3 launches {launches} (expected {want} each)", flush=True)
+    check(all(math.isfinite(x) for x in losses), f"train_lm losses {losses}")
+    check(lm["resumed_at"] == lm["committed"] == steps,
+          f"train_lm resumed at {lm['resumed_at']}, committed "
+          f"{lm['committed']}")
+    check(all(n == want for n in launches.values()),
+          f"train_lm: K3 launched {launches}, expected {want} each")
+    check(all(lm["syscalls"].get(n, 0) > 0
+              for n in ("PREAD64", "PWRITE64", "MADVISE")),
+          f"train_lm syscalls {lm['syscalls']}")
+    out["train_lm"] = {"losses": losses, "ckpts": lm["stats"].ckpts,
+                       "resumed_at": lm["resumed_at"], "launches": launches,
+                       "s": time.perf_counter() - t0}
+
+    runs = {
+        "torchrun_train": (
+            ["-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
+             "--arch", "internlm2-20b", "--reduced", "--steps", "4"],
+            None, ("[rank 0/1] steps=4", "[rank 0/1] GENESYS: ")),
+        "serve_dense": (
+            ["-m", "repro_torch.launch.serve", "--arch", "starcoder2-7b",
+             "--reduced", "--port", str(free_port()), "--reply-port",
+             "{reply}", "--batches", "1"],
+            [1, 5, 9], ("requests=", " batches=1 ")),
+        "serve_continuous": (
+            ["-m", "repro_torch.launch.serve", "--arch", "starcoder2-7b",
+             "--reduced", "--port", str(free_port()), "--reply-port",
+             "{reply}", "--continuous"],
+            [1, 5, 9], ("engine: occupancy=", "requests=")),
+    }
+    # the three processes at once (each mostly starts up: Python, torch,
+    # the card; one after another they took 66 s of the smoke's budget)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        futures = {name: pool.submit(timed_launcher, args, prompt)
+                   for name, (args, prompt, _) in runs.items()}
+    out["launchers_s"] = time.perf_counter() - t0
+    for name, (args, prompt, promised) in runs.items():
+        rc, text, replies, s = futures[name].result()
+        tail = "\n".join(text.strip().splitlines()[-6:])
+        print(f"{name}: rc={rc} in {s:.1f} s, replies {replies}; last "
+              f"lines:\n{tail}", flush=True)
+        check(rc == 0, f"{name}: exit code {rc}:\n{text[-3000:]}")
+        for line in promised:
+            check(line in text, f"{name}: no {line!r} in its output")
+        if prompt is not None:
+            check(len(replies) >= 1 and len(replies[0]) == 8,
+                  f"{name}: replies {replies}")
+        out[name] = {"rc": rc, "replies": replies, "s": s}
+    return out
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -4795,10 +5396,14 @@ def run(torch) -> int:
     check(bool(torch.isfinite(lk).all()), "non-finite dense logits")
     check(d_dense <= LOGITS_ATOL_BF16, f"dense bf16 logits differ by "
           f"{d_dense}")
-    del params, lk, lp
+    del lk, lp
+    mark("5")
+    # phase 5c: Fig. 12's churn and spill workload, phase 3's weights
+    fig12 = fig12_phase(torch, cfg, params)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
-    mark("5")
+    mark("5c")
 
     # phase 6: the flash-attention kernels against their plain versions
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -4906,7 +5511,7 @@ def run(torch) -> int:
     del mparams
     gc.collect()
     torch.cuda.empty_cache()
-    # phase 17: training, 4 of 48 layers (the one cut); 17b: kernels vs
+    # phase 17: training, 2 of 48 layers (the one cut); 17b: kernels vs
     # plain on two layers
     mtcfg = dataclasses.replace(mcfg, n_layers=MOE_TRAIN_LAYERS)
     mtrain = train_path_phase(torch, mtcfg, dev, expected={
@@ -4964,6 +5569,9 @@ def run(torch) -> int:
     tools["host_mesh"] = host_mesh_phase(torch, cfg, dev,
                                          tools["remat"].pop("grads"))
     mark("20")
+    # phase 21: the examples and the launchers on the card
+    examples = examples_phase(torch)
+    mark("21")
 
     bf16 = decode_cases[0]
     kernels = [
@@ -4971,10 +5579,12 @@ def run(torch) -> int:
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/decode_attention.py:169",
          "launches": sc_main["launches"]["paged_decode_attention"]
-         + mserve["launches"]["paged_decode_attention"],
+         + mserve["launches"]["paged_decode_attention"]
+         + fig12_launches(fig12, "paged_decode_attention"),
          "launches_by_run": {
              cfg.arch_id: sc_main["launches"]["paged_decode_attention"],
-             mcfg.arch_id: mserve["launches"]["paged_decode_attention"]},
+             mcfg.arch_id: mserve["launches"]["paged_decode_attention"],
+             "fig12": fig12_launches(fig12, "paged_decode_attention")},
          "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
          "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
          "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
@@ -4985,11 +5595,14 @@ def run(torch) -> int:
          "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/decode_attention.py:169",
          "launches": sc_main["launches"]["paged_decode_attention_fused"]
-         + mserve["launches"]["paged_decode_attention_fused"],
+         + mserve["launches"]["paged_decode_attention_fused"]
+         + fig12_launches(fig12, "paged_decode_attention_fused"),
          "launches_by_run": {
              cfg.arch_id: sc_main["launches"]["paged_decode_attention_fused"],
              mcfg.arch_id:
-                 mserve["launches"]["paged_decode_attention_fused"]},
+                 mserve["launches"]["paged_decode_attention_fused"],
+             "fig12": fig12_launches(fig12,
+                                     "paged_decode_attention_fused")},
          "max_abs_err": paged_fused[0]["max_abs_err"],
          "ms": paged_fused[0]["ms"], "plain_ms": paged_fused[0]["plain_ms"],
          "bound_ms": paged_fused[0]["bound_ms"],
@@ -5019,7 +5632,8 @@ def run(torch) -> int:
          "launches": sum(r["launches"] for runs in (
              dense_runs, zserve["dense_path"], mserve["dense_path"])
              for r in runs.values())
-         + eserve["launches"]["decode_attention"],
+         + eserve["launches"]["decode_attention"]
+         + fig12_launches(fig12, "decode_attention"),
          "launches_by_run": dict({f"{arch}-{m}": r["launches"]
                                   for arch, runs in (
                                       (cfg.arch_id, dense_runs),
@@ -5027,7 +5641,9 @@ def run(torch) -> int:
                                       (mcfg.arch_id, mserve["dense_path"]))
                                   for m, r in runs.items()},
                                  **{f"{scfg.arch_id}-serve":
-                                    eserve["launches"]["decode_attention"]}),
+                                    eserve["launches"]["decode_attention"],
+                                    "fig12": fig12_launches(
+                                        fig12, "decode_attention")}),
          "max_abs_err": dense_cases[0]["max_abs_err"],
          "ms": dense_cases[0]["ms"], "plain_ms": dense_cases[0]["plain_ms"],
          "bound_ms": dense_cases[0]["bound_ms"],
@@ -5043,7 +5659,8 @@ def run(torch) -> int:
          "launches": sum(r["fused_launches"] for runs in (
              dense_runs, zserve["dense_path"], mserve["dense_path"])
              for r in runs.values())
-         + eserve["launches"]["decode_attention_fused"],
+         + eserve["launches"]["decode_attention_fused"]
+         + fig12_launches(fig12, "decode_attention_fused"),
          "launches_by_run": dict({f"{arch}-{m}": r["fused_launches"]
                                   for arch, runs in (
                                       (cfg.arch_id, dense_runs),
@@ -5051,7 +5668,9 @@ def run(torch) -> int:
                                       (mcfg.arch_id, mserve["dense_path"]))
                                   for m, r in runs.items()},
                                  **{f"{scfg.arch_id}-serve": eserve[
-                                     "launches"]["decode_attention_fused"]}),
+                                     "launches"]["decode_attention_fused"],
+                                    "fig12": fig12_launches(
+                                        fig12, "decode_attention_fused")}),
          "max_abs_err": dense_fused[0]["max_abs_err"],
          "ms": dense_fused[0]["ms"], "plain_ms": dense_fused[0]["plain_ms"],
          "bound_ms": dense_fused[0]["bound_ms"],
@@ -5069,7 +5688,8 @@ def run(torch) -> int:
             "launches": train["launches"][name] + ztrain["launches"][name]
             + mtrain["launches"][name] + etrain["launches"][name]
             + eserve["launches"][name]
-            + tools["remat"]["dots"]["launches"][name],
+            + tools["remat"]["dots"]["launches"][name]
+            + examples["train_lm"]["launches"][name],
             "launches_by_run": {cfg.arch_id: train["launches"][name],
                                 zcfg.arch_id: ztrain["launches"][name],
                                 mcfg.arch_id: mtrain["launches"][name],
@@ -5077,7 +5697,9 @@ def run(torch) -> int:
                                 f"{scfg.arch_id}-serve":
                                     eserve["launches"][name],
                                 f"{cfg.arch_id}-remat-dots":
-                                    tools["remat"]["dots"]["launches"][name]},
+                                    tools["remat"]["dots"]["launches"][name],
+                                "internlm2-20b-reduced-train_lm":
+                                    examples["train_lm"]["launches"][name]},
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
@@ -5167,7 +5789,7 @@ def run(torch) -> int:
         "moe": {"serve": mserve, "train_path": mtrain},
         "invoke": invoke,
         "encdec": {"serve": eserve, "train_path": etrain},
-        "tools": tools,
+        "tools": tools, "fig12": fig12, "examples": examples,
         "phase_end_s": phase_end_s, "wall_s": time.perf_counter() - t_start}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,14 @@ order (dict keys sorted, an :class:`~repro_torch.optim.OptState` as
 dtype name. bf16 leaves are written as their 2-byte patterns under the
 dtype name ``"bfloat16"``, as numpy's bf16 names itself on the JAX side.
 
+A tree of DTensors (the data-parallel launcher's state) must hold each
+leaf whole on every rank (replicated): global rank 0 alone writes it,
+every rank waits at a barrier of the default process group until the
+manifest is committed, and restore copies each leaf into every rank's
+local tensor. A split leaf is refused.
+
 Differences from the reference: restore copies each leaf into its
-counterpart in ``tree_like`` in place (one device, so no shardings); a
+counterpart in ``tree_like`` in place (no shardings to restore onto); a
 leaf travels in pieces of at most
 :data:`IO_CHUNK` bytes, one PWRITE64/PREAD64 each, because Linux moves at
 most 2 GiB - 4 KiB per call and a full-width leaf can be larger (the
@@ -55,10 +61,29 @@ def unflatten(like, leaves):
     return next(leaves)
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A leaf's values on this rank: a DTensor's local tensor, which must
+    be the whole leaf (replicated), or the tensor itself."""
+    if not hasattr(t, "to_local"):
+        return t
+    local = t.to_local()
+    if local.shape != t.shape:
+        raise ValueError(f"a checkpoint takes whole leaves: this rank holds "
+                         f"{tuple(local.shape)} of {tuple(t.shape)} "
+                         f"({t.placements})")
+    return local
+
+
+def _shared(leaves) -> bool:
+    """Whether the tree is the replicated state of every rank (it holds
+    DTensors), so that one rank writes it for all."""
+    return any(hasattr(t, "to_local") for t in leaves)
+
+
 def _host_bytes(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """A tensor's bytes on the host as flat uint8, and its manifest dtype
     name."""
-    t = t.detach().contiguous()
+    t = _whole(t).detach().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view(np.uint8).reshape(-1), \
             "bfloat16"
@@ -92,20 +117,32 @@ class CheckpointManager:
         return fd
 
     # ------------------------------------------------------------- save ----
-    def save(self, step: int, tree) -> dict:
+    def save(self, step: int, tree) -> dict | None:
         """Write all leaves via non-blocking GENESYS pwrites, drain, then
-        atomically commit the manifest.
+        atomically commit the manifest; returns it. A tree of DTensors is
+        written by global rank 0 alone (the others return None), and every
+        rank returns once the manifest is committed.
 
         Every leaf's bytes sit in an arena extent from its copy until the
         drain, so the host holds the whole state at once (starcoder2-7b
         at full width, 8 layers, f32 parameters and moments: 26 GB)."""
+        leaves = flatten(tree)
+        if not _shared(leaves):
+            return self._write(step, leaves)
+        import torch.distributed as dist
+        manifest = self._write(step, leaves) if dist.get_rank() == 0 \
+            else None
+        dist.barrier()
+        return manifest
+
+    def _write(self, step: int, leaves) -> dict:
         t0 = time.monotonic()
         step_dir = self.dir / f"step_{step:08d}"
         step_dir.mkdir(parents=True, exist_ok=True)
         manifest = {"step": step, "leaves": []}
         handles = []          # payload extents live until the drain barrier
         fds = []              # so do the files: closed after it
-        for i, leaf in enumerate(flatten(tree)):
+        for i, leaf in enumerate(leaves):
             flat, dtype = _host_bytes(leaf)
             path = step_dir / f"leaf_{i:05d}.bin"
             fd = self._open(path, os.O_CREAT | os.O_WRONLY | os.O_TRUNC,
@@ -195,7 +232,8 @@ class CheckpointManager:
             # the copy to the leaf's place ends before the extent goes
             # home: a released extent can be re-carved
             with torch.no_grad():
-                out.append(like.copy_(host))
+                _whole(like).copy_(host)
+            out.append(like)
             self.gsys.heap.release(bh)
         self.stats["restores"] += 1
         return unflatten(tree_like, iter(out))

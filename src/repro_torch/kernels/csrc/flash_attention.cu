@@ -72,6 +72,12 @@
 //     lane per head dimension for the accumulators (at hd 80 lanes 16-31
 //     own two, the others three), tiles in shared memory; delta comes from
 //     the wrapper, summed as the plain version sums it.
+//   * hd 32 (only the reduced configs have it) takes the same CUDA-core
+//     kernels in bf16 too: they read bf16 q, k, v and do, compute in f32
+//     (p is not rounded to bf16) and round each output once; delta comes
+//     from fa_delta, as for the other bf16 kernels. A wgmma tile at hd 32
+//     would be a 64-byte row, which the 128-byte swizzle of the slabs above
+//     does not take.
 // Not done yet: overlap of a warpgroup's softmax with its own next product
 // (issuing the next S before this tile's P V made ptxas serialise every
 // wgmma, C7514, and the forward slower), TMA stores of the outputs, a
@@ -463,7 +469,7 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   return make_float4(a.x, a.y, c.x, c.y);
 }
 __device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
 // delta = rowsum(do * o) in f32 from one read of each (a warp per row of
@@ -837,23 +843,28 @@ constexpr int kF32Keys = 32;     // forward and dq: keys per tile, one a lane
 constexpr int kF32KvRows = 8;    // dk/dv: keys per CTA, 2 per warp
 constexpr int kF32QTile = 32;    // dk/dv: query rows per tile, one a lane
 
-// Rows [r0, r0 + n) of a [*, ld] f32 matrix at `src` (row stride `ld`
-// elements, HD used) into shared rows of stride `str`; rows at or past
-// `lim` are zero.
-template <int HD>
-__device__ __forceinline__ void stage_f32(float* dst, int str, const float* src,
+// Rows [r0, r0 + n) of a [*, ld] f32 or bf16 matrix at `src` (row stride
+// `ld` elements, HD used) into shared f32 rows of stride `str`; rows at or
+// past `lim` are zero.
+template <int HD, typename T>
+__device__ __forceinline__ void stage_f32(float* dst, int str, const T* src,
                                           size_t ld, int r0, int n, int lim) {
   for (int c = threadIdx.x; c < n * (HD / 4); c += kFaThreads) {
     const int r = c / (HD / 4), w = c % (HD / 4);
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < lim)
-      x = __ldg(reinterpret_cast<const float4*>(src + (r0 + r) * ld) + w);
+    if (r0 + r < lim) x = load4(src + (r0 + r) * ld + 4 * w);
     float* d = dst + r * str + 4 * w;
     d[0] = x.x;
     d[1] = x.y;
     d[2] = x.z;
     d[3] = x.w;
   }
+}
+
+// An output element in the output's type, rounded once.
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(bf16* p, float x) {
+  *p = __float2bfloat16(x);
 }
 
 // Whether lane `lane` owns head dim lane + 32 i (at HD = 80 the third is
@@ -867,10 +878,12 @@ __device__ __forceinline__ bool has_dim(int lane, int i) {
 // Per 32-key tile a lane scores one key against each row; the row's online
 // softmax runs across the warp, and each lane accumulates head dims
 // lane, lane + 32, ...
-template <int HD>
+// T is float or (hd 32) bf16; o32, if not null (bf16), receives o before
+// its rounding.
+template <int HD, typename T>
 __global__ void __launch_bounds__(kFaThreads) fa_fwd_f32(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ o32,
     float* __restrict__ lse, int H, int KV, int Sq, int Skv, float scale,
     int causal) {
   constexpr int DL = (HD + 31) / 32;
@@ -932,10 +945,13 @@ __global__ void __launch_bounds__(kFaThreads) fa_fwd_f32(
     const int row = q0 + RW * warp + r;
     if (row >= Sq) continue;
     const float d = fmaxf(l[r], 1e-30f);
-    float* orow = o + qoff + row * qs_;
+    const size_t orow = qoff + row * qs_;
 #pragma unroll
-    for (int i = 0; i < DL; ++i)
-      if (has_dim<HD>(lane, i)) orow[lane + 32 * i] = acc[r][i] / d;
+    for (int i = 0; i < DL; ++i) {
+      if (!has_dim<HD>(lane, i)) continue;
+      put(o + orow + lane + 32 * i, acc[r][i] / d);
+      if (o32 != nullptr) o32[orow + lane + 32 * i] = acc[r][i] / d;
+    }
     if (lane == 0) lse[((size_t)b * H + h) * Sq + row] = m[r] + logf(d);
   }
 }
@@ -943,13 +959,15 @@ __global__ void __launch_bounds__(kFaThreads) fa_fwd_f32(
 // One CTA: query rows [q0, q0 + 8) of head h of row b; warp w owns 2 rows.
 // Per 32-key tile a lane takes one key: s and dP of each row, then dS; dq
 // accumulates over the keys with each lane on its head dims.
-template <int HD>
+// delta rows have `dpitch` elements (Sq for f32; bf16 takes fa_delta's
+// padded rows).
+template <int HD, typename T>
 __global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int H, int KV, int Sq, int Skv, float scale,
-    int causal) {
+    T* __restrict__ dq, int H, int KV, int Sq, int Skv, int dpitch,
+    float scale, int causal) {
   constexpr int DL = (HD + 31) / 32;
   constexpr int RW = kF32DqRows / 4;
   __shared__ float qs[kF32DqRows * HD];
@@ -971,7 +989,7 @@ __global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
   for (int r = 0; r < RW; ++r) {
     const int row = q0 + RW * warp + r;
     ls[r] = row < Sq ? lse[((size_t)b * H + h) * Sq + row] : 0.f;
-    dl[r] = row < Sq ? delta[((size_t)b * H + h) * Sq + row] : 0.f;
+    dl[r] = row < Sq ? delta[((size_t)b * H + h) * dpitch + row] : 0.f;
 #pragma unroll
     for (int i = 0; i < DL; ++i) acc[r][i] = 0.f;
   }
@@ -1012,10 +1030,10 @@ __global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
   for (int r = 0; r < RW; ++r) {
     const int row = q0 + RW * warp + r;
     if (row >= Sq) continue;
-    float* out = dq + qoff + row * qs_;
+    T* out = dq + qoff + row * qs_;
 #pragma unroll
     for (int i = 0; i < DL; ++i)
-      if (has_dim<HD>(lane, i)) out[lane + 32 * i] = acc[r][i];
+      if (has_dim<HD>(lane, i)) put(out + lane + 32 * i, acc[r][i]);
   }
 }
 
@@ -1023,13 +1041,13 @@ __global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
 // For each of the G heads, 32-row tiles of Q and dO stream through shared
 // memory; a lane takes one query row (p and dS against each key), then dk
 // and dv accumulate over the rows with each lane on its head dims.
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int H, int KV, int Sq,
-    int Skv, float scale, int causal) {
+    T* __restrict__ dk, T* __restrict__ dv, int H, int KV, int Sq, int Skv,
+    int dpitch, float scale, int causal) {
   constexpr int DL = (HD + 31) / 32;
   constexpr int RW = kF32KvRows / 4;
   __shared__ float kt[kF32KvRows * HD];
@@ -1055,7 +1073,7 @@ __global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
     const int h = kvh * G + g;
     const size_t qoff = (size_t)b * Sq * qs_ + (size_t)h * HD;
     const float* lb = lse + ((size_t)b * H + h) * Sq;
-    const float* db = delta + ((size_t)b * H + h) * Sq;
+    const float* db = delta + ((size_t)b * H + h) * dpitch;
     for (int i0 = i_begin; i0 < Sq; i0 += kF32QTile) {
       __syncthreads();
       stage_f32<HD>(qs, HD + 1, q + qoff, qs_, i0, kF32QTile, Sq);
@@ -1106,8 +1124,8 @@ __global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
 #pragma unroll
     for (int i = 0; i < DL; ++i) {
       if (!has_dim<HD>(lane, i)) continue;
-      dk[koff + key * ks_ + lane + 32 * i] = dka[r][i];
-      dv[koff + key * ks_ + lane + 32 * i] = dva[r][i];
+      put(dk + koff + key * ks_ + lane + 32 * i, dka[r][i]);
+      put(dv + koff + key * ks_ + lane + 32 * i, dva[r][i]);
     }
   }
 }
@@ -1115,7 +1133,7 @@ __global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
 bool fa_args_ok(int B, int H, int KV, int Sq, int Skv, int hd, int causal,
                 int dtype) {
   return B > 0 && KV > 0 && H % KV == 0 && Sq > 0 && Skv > 0 &&
-         (hd == 64 || hd == 80 || hd == 128) &&
+         (hd == 32 || hd == 64 || hd == 80 || hd == 128) &&
          (dtype == kF32 || dtype == kBF16) &&
          (!causal || Sq == Skv) && B <= 65535 && H <= 65535;
 }
@@ -1140,17 +1158,23 @@ cudaError_t opt_in_smem(K kernel, int bytes) {
                               bytes);
 }
 
+// The CUDA-core forward over elements of type T.
+template <int HD, typename T>
+int fwd_cuda_cores(const void* q, const void* k, const void* v, void* o,
+                   float* o32, float* lse, int B, int H, int KV, int Sq,
+                   int Skv, float scale, int causal, cudaStream_t st) {
+  fa_fwd_f32<HD, T><<<dim3(cdiv(Sq, kF32Rows), H, B), kFaThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), o32, lse, H, KV, Sq, Skv,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+// The bf16 forward on wgmma (hd 64, 80, 128).
 template <int HD>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* o32, float* lse, int B, int H, int KV, int Sq, int Skv,
-               float scale, int causal, int dtype, cudaStream_t st) {
-  if (dtype == kF32) {
-    fa_fwd_f32<HD><<<dim3(cdiv(Sq, kF32Rows), H, B), kFaThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, Sq,
-        Skv, scale, causal);
-    return cudaGetLastError();
-  }
+int fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+              float* o32, float* lse, int B, int H, int KV, int Sq, int Skv,
+              float scale, int causal, cudaStream_t st) {
   TileMaps tq, tk, tv;
   cudaError_t e = tile_maps(&tq, q, B, Sq, H, HD, kRows);
   if (e == cudaSuccess) e = tile_maps(&tk, k, B, Skv, KV, HD, fwd_keys<HD>());
@@ -1167,45 +1191,53 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int HD>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* lse, float* stats,
-               float* partial, void* dq, void* dk, void* dv, int B, int H,
-               int KV, int Sq, int Skv, int pitch, float scale, int causal,
-               int dtype, int parts, int o_f32, cudaStream_t st) {
-  float* lse2 = stats;
-  float* delta = stats + (size_t)B * H * pitch;
-  if ((parts & 1) && dtype == kBF16) {
-    const long long threads = 32LL * B * pitch * H;
-    const int blocks = (int)((threads + 255) / 256);
-    if (o_f32)
-      fa_delta<float><<<blocks, 256, 0, st>>>(
-          static_cast<const float*>(o), static_cast<const bf16*>(dout), lse,
-          lse2, delta, B, H, Sq, HD, pitch);
-    else
-      fa_delta<bf16><<<blocks, 256, 0, st>>>(
-          static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
-          lse2, delta, B, H, Sq, HD, pitch);
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               float* o32, float* lse, int B, int H, int KV, int Sq, int Skv,
+               float scale, int causal, int dtype, cudaStream_t st) {
+  if (dtype == kF32)
+    return fwd_cuda_cores<HD, float>(q, k, v, o, nullptr, lse, B, H, KV, Sq,
+                                     Skv, scale, causal, st);
+  if constexpr (HD == 32)
+    return fwd_cuda_cores<HD, bf16>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv,
+                                    scale, causal, st);
+  else
+    return fwd_wgmma<HD>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
+                         causal, st);
+}
+
+// dq (parts & 2) and dk/dv (parts & 4) on the CUDA cores over elements of
+// type T; delta rows of dpitch elements.
+template <int HD, typename T>
+int bwd_cuda_cores(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, void* dk, void* dv, int B, int H, int KV, int Sq,
+                   int Skv, int dpitch, float scale, int causal, int parts,
+                   cudaStream_t st) {
+  if (parts & 2) {
+    fa_dq_f32<HD, T><<<dim3(cdiv(Sq, kF32DqRows), H, B), kFaThreads, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), H, KV, Sq, Skv, dpitch, scale, causal);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  if (dtype == kF32) {
-    if (parts & 2) {
-      fa_dq_f32<HD><<<dim3(cdiv(Sq, kF32DqRows), H, B), kFaThreads, 0, st>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-          delta, static_cast<float*>(dq), H, KV, Sq, Skv, scale, causal);
-      const cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return e;
-    }
-    if (parts & 4)
-      fa_dkv_f32<HD><<<dim3(cdiv(Skv, kF32KvRows), KV, B), kFaThreads, 0,
-                       st>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-          delta, static_cast<float*>(dk), static_cast<float*>(dv), H, KV, Sq,
-          Skv, scale, causal);
-    return cudaGetLastError();
-  }
+  if (parts & 4)
+    fa_dkv_f32<HD, T><<<dim3(cdiv(Skv, kF32KvRows), KV, B), kFaThreads, 0,
+                        st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), H, KV, Sq, Skv, dpitch,
+        scale, causal);
+  return cudaGetLastError();
+}
+
+// dq and dk/dv in bf16 on wgmma (hd 64, 80, 128), after fa_delta.
+template <int HD>
+int bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse2, const float* delta, float* partial, void* dq,
+              void* dk, void* dv, int B, int H, int KV, int Sq, int Skv,
+              int pitch, float scale, int causal, int parts,
+              cudaStream_t st) {
   if (parts & 2) {
     TileMaps tq, tdo, tk, tv;
     cudaError_t e = tile_maps(&tq, q, B, Sq, H, HD, kRows);
@@ -1256,6 +1288,41 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
+template <int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* stats,
+               float* partial, void* dq, void* dk, void* dv, int B, int H,
+               int KV, int Sq, int Skv, int pitch, float scale, int causal,
+               int dtype, int parts, int o_f32, cudaStream_t st) {
+  float* lse2 = stats;
+  float* delta = stats + (size_t)B * H * pitch;
+  if ((parts & 1) && dtype == kBF16) {
+    const long long threads = 32LL * B * pitch * H;
+    const int blocks = (int)((threads + 255) / 256);
+    if (o_f32)
+      fa_delta<float><<<blocks, 256, 0, st>>>(
+          static_cast<const float*>(o), static_cast<const bf16*>(dout), lse,
+          lse2, delta, B, H, Sq, HD, pitch);
+    else
+      fa_delta<bf16><<<blocks, 256, 0, st>>>(
+          static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+          lse2, delta, B, H, Sq, HD, pitch);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (dtype == kF32)
+    return bwd_cuda_cores<HD, float>(q, k, v, dout, lse, delta, dq, dk, dv, B,
+                                     H, KV, Sq, Skv, pitch, scale, causal,
+                                     parts, st);
+  if constexpr (HD == 32)
+    return bwd_cuda_cores<HD, bf16>(q, k, v, dout, lse, delta, dq, dk, dv, B,
+                                    H, KV, Sq, Skv, pitch, scale, causal,
+                                    parts, st);
+  else
+    return bwd_wgmma<HD>(q, k, v, dout, lse2, delta, partial, dq, dk, dv, B,
+                         H, KV, Sq, Skv, pitch, scale, causal, parts, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1263,7 +1330,8 @@ extern "C" {
 // q [B,Sq,H,hd], k/v [B,Skv,KV,hd] (dtype: 0 f32, 1 bf16), contiguous and
 // 16-byte aligned; o [B,Sq,H,hd] in the same dtype and lse [B,H,Sq] f32 are
 // written, and (bf16, if o32 is not null) o32 [B,Sq,H,hd] f32, the output
-// before its rounding to bf16. hd is 64, 80 or 128; causal needs Sq == Skv.
+// before its rounding to bf16. hd is 32, 64, 80 or 128; causal needs
+// Sq == Skv.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, float* o32, float* lse, int B, int H,
                                int KV, int Sq, int Skv, int hd, float scale,
@@ -1272,6 +1340,9 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
       (o32 != nullptr && dtype != kBF16))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 32)
+    return launch_fwd<32>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
+                          causal, dtype, st);
   if (hd == 64)
     return launch_fwd<64>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
                           causal, dtype, st);
@@ -1287,10 +1358,10 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
 // dq [B,Sq,H,hd] and dk, dv [B,Skv,KV,hd] in the inputs' dtype. Scratch:
 // stats [2, B, H, pitch] f32 (bf16: lse * log2 e and delta, written by the
 // delta launch, pitch a multiple of 128 at least Sq; f32: pitch = Sq and
-// stats[1] holds delta on entry) and, for bf16 with H > KV, partial [2, B,
-// Skv, H, hd] f32 (the dk and dv of each query head). parts selects the
-// launches (1 delta, 2 dq, 4 dk/dv; 7 for the whole backward), so that each
-// can be timed alone.
+// stats[1] holds delta on entry) and, for bf16 with H > KV at hd 64, 80 or
+// 128, partial [2, B, Skv, H, hd] f32 (the dk and dv of each query head).
+// parts selects the launches (1 delta, 2 dq, 4 dk/dv; 7 for the whole
+// backward), so that each can be timed alone.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
                                const float* lse, float* stats, float* partial,
@@ -1300,10 +1371,14 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                int o_f32, void* stream) {
   if (!fa_args_ok(B, H, KV, Sq, Skv, hd, causal, dtype) ||
       (dtype == kF32 ? pitch != Sq : pitch % 128 != 0 || pitch < Sq) ||
-      (dtype == kBF16 && H != KV && partial == nullptr) ||
+      (dtype == kBF16 && H != KV && hd != 32 && partial == nullptr) ||
       (o_f32 && dtype != kBF16))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 32)
+    return launch_bwd<32>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
+                          H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,
+                          o_f32, st);
   if (hd == 64)
     return launch_bwd<64>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
                           H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,

@@ -1,9 +1,12 @@
 """Training launcher of the PyTorch port (the counterpart of
-``repro.launch.train``), on one device.
+``repro.launch.train``), on one device or data parallel over a
+``torchrun`` world.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \\
       --reduced --steps 100 --batch 8 --seq 128 [--data tokens.bin] \\
       [--ckpt-dir DIR [--ckpt-every N] [--resume]] [--device cpu]
+  PYTHONPATH=src torchrun --standalone --nproc_per_node N \\
+      -m repro_torch.launch.train --arch internlm2-20b --reduced ...
 
 ``--arch`` names any model of the dense, VLM, MoE, hybrid or SSM family
 (moonshot-v1-16b-a3b trains its experts through the grouped-matmul
@@ -17,6 +20,22 @@ Batches come from a uint32 token shard through ``GenesysDataLoader``
 through ``CheckpointManager``. Train with ``--ckpt-dir``, stop, and run
 again with ``--resume``: the second run continues from the last committed
 step (the kill-and-resume of the reference's ``examples/train_lm.py``).
+
+Data parallelism: under ``torchrun`` (``WORLD_SIZE`` set) the launcher
+joins the process group (NCCL on the card ``LOCAL_RANK`` names, gloo with
+``--device cpu``; a group the caller already started is used as it is),
+builds the reference's ``make_host_mesh(data=world, model=1)`` and
+``rules_for`` on it, and trains with ``rules``: parameters and optimizer
+state are DTensors replicated over the ranks, each batch a DTensor split
+over them by its rows (every rank reads the same global batch from the
+same shard, as the reference's one process does, so a data-parallel step
+is the one-process step), and the attention kernels run on each rank's
+rows (``sharding.on_shards``). The dense and VLM families only: the scans'
+and the grouped matmul's kernels take no DTensors. The parameters are
+replicated, so global rank 0 alone writes a checkpoint, every rank waits
+until its manifest is committed, and every rank restores it into its own
+tensors (``checkpoint.ckpt``). Every rank prints its lines, prefixed
+``[rank r/world]``.
 """
 from __future__ import annotations
 
@@ -51,50 +70,122 @@ def main(argv=None):
     import numpy as np
 
     from repro_torch.checkpoint.ckpt import CheckpointManager
-    from repro_torch.config import TrainConfig
+    from repro_torch.config import Family, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.genesys import Genesys, GenesysConfig
     from repro_torch.data.pipeline import GenesysDataLoader, write_token_shard
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.registry import get_api
+    from repro_torch.sharding import on_shards, rules_for
     from repro_torch.train.loop import Trainer
     from repro_torch.train.steps import make_train_step
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    world = int(os.environ.get("WORLD_SIZE", "0"))
+    if world and cfg.family not in (Family.DENSE, Family.VLM):
+        raise ValueError(f"data parallelism takes the dense and VLM "
+                         f"families, not {cfg.family.value}")
+    device, own_group, prefix = args.device, False, ""
+    rules, kernels = None, ops.KERNELS
+    if world:
+        device, own_group = _join_world(device)
+        rules = rules_for(cfg, make_host_mesh(data=world, model=1))
+        # q [B,S,H,hd], k and v [B,S,KV,hd]: each rank attends its rows
+        kernels = ops.Kernels(attend=on_shards(ops.flash_attention,
+                                               (2, 2, 2)))
+        prefix = f"[rank {rules.mesh.get_rank()}/{world}] "
     gsys = Genesys(GenesysConfig(n_workers=2, coalesce_window_us=200,
                                  coalesce_max=8))
-    with tempfile.TemporaryDirectory() as tmp:
-        data = args.data
-        if data is None:
-            data = os.path.join(tmp, "tokens.bin")
-            write_token_shard(data, np.random.default_rng(0).integers(
-                0, min(cfg.vocab_size, 32000),
-                size=args.batch * (args.seq + 1) * 64).astype(np.uint32))
-            print(f"synthesized corpus at {data}")
-        params = get_api(cfg).init(cfg, seed=0, device=args.device,
-                                   master=True)
-        ts, opt = make_train_step(cfg, TrainConfig(
-            lr=args.lr, microbatches=args.microbatches))
-        loader = GenesysDataLoader(gsys, [data], batch=args.batch,
-                                   seq=args.seq)
-        ckpt = (CheckpointManager(gsys, args.ckpt_dir) if args.ckpt_dir
-                else None)
-        try:
-            tr = Trainer(gsys, ts, params, opt.init(params), loader,
-                         ckpt=ckpt, ckpt_every=args.ckpt_every)
-            if args.resume and tr.resume():
-                print(f"resumed from step {tr.step}")
-            st = tr.run(args.steps)
-            print(f"steps={st.steps} loss[0]={st.losses[0]:.4f} "
-                  f"loss[-1]={st.losses[-1]:.4f} ckpts={st.ckpts} "
-                  f"stragglers={st.straggler_steps}")
-            print(f"GENESYS: {dict(gsys.table.stats)} "
-                  f"coalesce_hist={gsys.executor.stats.coalesce_hist}")
-        finally:
-            loader.close()
-            gsys.shutdown()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data = args.data
+            if data is None:
+                data = os.path.join(tmp, "tokens.bin")
+                write_token_shard(data, np.random.default_rng(0).integers(
+                    0, min(cfg.vocab_size, 32000),
+                    size=args.batch * (args.seq + 1) * 64).astype(np.uint32))
+                print(f"{prefix}synthesized corpus at {data}")
+            api = get_api(cfg)
+            params = api.init(cfg, seed=0, device=device, master=True)
+            ts, opt = make_train_step(cfg, TrainConfig(
+                lr=args.lr, microbatches=args.microbatches), kernels,
+                rules=rules)
+            if rules is not None:
+                params = _replicate(params, api.param_axes(cfg), rules)
+                ts = _with_implicit_replication(ts)
+            loader = GenesysDataLoader(gsys, [data], batch=args.batch,
+                                       seq=args.seq)
+            ckpt = (CheckpointManager(gsys, args.ckpt_dir) if args.ckpt_dir
+                    else None)
+            try:
+                tr = Trainer(gsys, ts, params, opt.init(params), loader,
+                             ckpt=ckpt, ckpt_every=args.ckpt_every,
+                             rules=rules)
+                if args.resume and tr.resume():
+                    print(f"{prefix}resumed from step {tr.step}")
+                st = tr.run(args.steps)
+                print(f"{prefix}steps={st.steps} loss[0]={st.losses[0]:.4f} "
+                      f"loss[-1]={st.losses[-1]:.4f} ckpts={st.ckpts} "
+                      f"stragglers={st.straggler_steps}")
+                print(f"{prefix}GENESYS: {dict(gsys.table.stats)} "
+                      f"coalesce_hist={gsys.executor.stats.coalesce_hist}")
+            finally:
+                loader.close()
+    finally:
+        gsys.shutdown()
+        if own_group:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     return st
+
+
+def _join_world(device: str):
+    """Join the ``torchrun`` world (``env://``): NCCL on the card
+    ``LOCAL_RANK`` names, gloo for ``--device cpu``; a process group the
+    caller started is used as it is. Returns (this rank's device, whether
+    this call started the group)."""
+    import torch
+    import torch.distributed as dist
+
+    if device != "cpu":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        device = f"cuda:{local}"
+    if dist.is_initialized():
+        return device, False
+    dist.init_process_group("gloo" if device == "cpu" else "nccl")
+    return device, True
+
+
+def _replicate(params, axes, rules):
+    """``params`` as DTensors placed by ``rules`` on its mesh (replicated
+    there: the mesh's model dim has one rank)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.sharding import tree_shardings
+
+    sh = tree_shardings(rules.mesh, rules, axes, params)
+
+    def place(p, s):
+        if isinstance(p, dict):
+            return {k: place(p[k], s[k]) for k in p}
+        return distribute_tensor(p, rules.mesh, s.placements)
+    return place(params, sh)
+
+
+def _with_implicit_replication(train_step):
+    """``train_step`` run inside DTensor's ``implicit_replication()``:
+    plain tensors it meets beside DTensors (rope tables, AdamW's bias
+    corrections, the step count) count as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def step(*args):
+        with implicit_replication():
+            return train_step(*args)
+    return step
 
 
 if __name__ == "__main__":

@@ -156,18 +156,25 @@ def moe_mlp(p, cfg, x, *, gmm=None, rules=None):
     dispatch = (combine > 0).to(dt)                        # [n,g,E,C]
 
     # dispatched rows, one table tile of n C rows per expert
-    ein = constrain(torch.einsum("ngec,ngd->encd", dispatch, xg), rules,
-                    "experts", "batch", None, "embed").reshape(E * n * C, D)
+    ein = L.mergeable(constrain(
+        torch.einsum("ngec,ngd->encd", dispatch, xg), rules, "experts",
+        "batch", None, "embed"), 0, 2).reshape(E * n * C, D)
     tile_expert = torch.arange(E, dtype=torch.int32, device=x.device)
     gmm = gmm or ops.gmm
     h_g = gmm(ein, mp["wi_gate"].to(dt), tile_expert, n * C)
     h_u = gmm(ein, mp["wi_up"].to(dt), tile_expert, n * C)
-    h = constrain((F.silu(h_g) * h_u).view(E, n, C, -1), rules, "experts",
-                  "batch", None, "expert_mlp").reshape(E * n * C, -1)
+    h = L.mergeable(constrain((F.silu(h_g) * h_u).view(E, n, C, -1), rules,
+                              "experts", "batch", None, "expert_mlp"),
+                    0, 2).reshape(E * n * C, -1)
     eo = constrain(gmm(h, mp["wo"].to(dt), tile_expert, n * C).view(
         E, n, C, D), rules, "experts", "batch", None, "embed")
-    y = constrain(torch.einsum("ngec,encd->ngd", combine.to(dt), eo), rules,
-                  "batch", None, "embed").reshape(B, S, D)
+    # y = sum over (e, c) of combine[n,g,e,c] eo[e,n,c,d], as one product
+    # batched over n with e and c merged, e first: DTensor flattens dims
+    # only where the first of them carries the sharding (some versions'
+    # einsum merged them otherwise)
+    y = torch.bmm(combine.to(dt).reshape(n, g, E * C),
+                  eo.permute(1, 0, 2, 3).reshape(n, E * C, D))
+    y = constrain(y, rules, "batch", None, "embed").reshape(B, S, D)
     if cfg.dense_residual:
         y = y + L.mlp(p["dense_mlp"], x, rules)
     return y

@@ -281,3 +281,54 @@ def tree_shardings(mesh, rules: ShardingRules, logical_tree,
                               None if shapes_tree is None else shapes_tree[k],
                               fsdp_axes)
             for k, v in logical_tree.items()}
+
+
+def on_shards(fn, head_dims):
+    """``fn``, an attention, run on each device's shards of its tensor
+    arguments: a row's and a head's attention needs only that row and
+    head. On each mesh dim the arguments keep a batch sharding (dim 0)
+    or a head sharding (``head_dims[i]`` of argument ``i``; None for one
+    without heads, which is then replicated there) that none of them
+    contradicts (a replicated argument is cut to match); everything else
+    is gathered first. A plain tensor argument counts as replicated. The
+    result takes the first argument's shape and placements. Without
+    DTensors, ``fn`` runs as it is."""
+    def run(*args, **kwargs):
+        import torch
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(args[0], DTensor):
+            return fn(*args, **kwargs)
+        mesh = args[0].device_mesh
+        args = [a if isinstance(a, DTensor) or not isinstance(
+                    a, torch.Tensor)
+                else DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                        run_check=False)
+                for a in args]
+        dts = [(head_dims[i], a) for i, a in enumerate(args)
+               if isinstance(a, DTensor)]
+        keep = []
+        for m in range(mesh.ndim):
+            ps = [(h, a.placements[m]) for h, a in dts]
+            if all(p in (Shard(0), Replicate()) for _, p in ps) \
+                    and any(p == Shard(0) for _, p in ps):
+                keep.append("batch")
+            elif all(p == Replicate() or (h is not None and p == Shard(h))
+                     for h, p in ps) and any(p != Replicate() for _, p in ps):
+                keep.append("heads")
+            else:
+                keep.append(None)
+
+        def placements(h):
+            return [Shard(0) if k == "batch"
+                    else Shard(h) if k == "heads" and h is not None
+                    else Replicate() for k in keep]
+        local = [a.redistribute(mesh, placements(head_dims[i])).to_local()
+                 if isinstance(a, DTensor) else a
+                 for i, a in enumerate(args)]
+        q = args[0]
+        return DTensor.from_local(fn(*local, **kwargs), mesh,
+                                  placements(head_dims[0]), run_check=False,
+                                  shape=q.shape,
+                                  stride=torch.empty(q.shape,
+                                                     device="meta").stride())
+    return run

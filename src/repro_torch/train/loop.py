@@ -11,6 +11,12 @@ Per step:
     stragglers (timing via the GENESYS clock syscall);
   * crash/preemption recovery: ``resume()`` restores the latest committed
     checkpoint into the live tensors.
+
+With ``rules`` (``sharding.ShardingRules`` on a mesh, the data-parallel
+launcher's), the parameters are DTensors and each batch becomes one too,
+split over the rules' batch axes by its rows; every rank holds the same
+global batch, so a rank keeps its own rows of it. The loss a step returns
+is then a DTensor, read whole.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.core.genesys import Genesys, Sys
 from repro_torch.core.genesys.memory_pool import MADV_DONTNEED
 from repro_torch.optim.adamw import leaves
+from repro_torch.sharding import named_sharding
 
 
 @dataclass
@@ -35,7 +42,8 @@ class LoopStats:
 class Trainer:
     def __init__(self, gsys: Genesys, train_step, params, opt_state, loader,
                  *, ckpt: CheckpointManager | None = None,
-                 ckpt_every: int = 50, step_deadline_s: float = 60.0):
+                 ckpt_every: int = 50, step_deadline_s: float = 60.0,
+                 rules=None):
         self.gsys = gsys
         self.train_step = train_step
         self.params = params
@@ -45,6 +53,7 @@ class Trainer:
         self.ckpt_every = ckpt_every
         self.deadline = step_deadline_s
         self.device = leaves(params)[0].device     # batches go there
+        self.rules = rules
         self.step = 0
         self.stats = LoopStats()
 
@@ -61,6 +70,18 @@ class Trainer:
         self.step = latest
         return True
 
+    def _place(self, t: torch.Tensor) -> torch.Tensor:
+        """A batch tensor [B, S] on the parameters' device; with rules on
+        a mesh, a DTensor split by rows over the batch axes."""
+        t = t.to(self.device)
+        if self.rules is None or self.rules.mesh is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        mesh = self.rules.mesh
+        sh = named_sharding(mesh, self.rules, "batch", "seq",
+                            shape=tuple(t.shape))
+        return distribute_tensor(t, mesh, sh.placements)
+
     def run(self, n_steps: int) -> LoopStats:
         for _ in range(n_steps):
             t0 = self.gsys.call(Sys.CLOCK_GETTIME, 0) / 1e6
@@ -69,14 +90,17 @@ class Trainer:
             # stage through the host pool; release pages after device copy
             staging = self.gsys.pool.mmap(batch["tokens"].nbytes * 2)
             self.gsys.pool.touch(staging)
-            tbatch = {k: torch.from_numpy(v).to(self.device)
+            tbatch = {k: self._place(torch.from_numpy(v))
                       for k, v in batch.items()}
             self.gsys.call(Sys.MADVISE, staging, 0, MADV_DONTNEED,
                            blocking=False)    # §7.2: weak + non-blocking
 
             self.params, self.opt_state, metrics = self.train_step(
                 self.params, self.opt_state, tbatch)
-            loss = float(metrics["loss"])
+            loss = metrics["loss"]
+            if hasattr(loss, "full_tensor"):
+                loss = loss.full_tensor()
+            loss = float(loss)
             self.stats.losses.append(loss)
             self.step += 1
             self.stats.steps += 1

@@ -208,7 +208,7 @@ def test_attention_layer_takes_the_autograd_function_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("case,exc", [
-    ("hd32", ValueError), ("causal-ragged", ValueError),
+    ("hd48", ValueError), ("causal-ragged", ValueError),
     ("mixed-dtype", TypeError), ("kv-not-dividing", ValueError),
     ("non-contiguous", ValueError)])
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(case, exc):
@@ -217,9 +217,9 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(case, exc):
     q = torch.zeros(1, 8, 4, 64)
     k = v = torch.zeros(1, 8, 2, 64)
     causal = True
-    if case == "hd32":
-        q, k, v = torch.zeros(1, 8, 4, 32), torch.zeros(1, 8, 2, 32), \
-            torch.zeros(1, 8, 2, 32)
+    if case == "hd48":
+        q, k, v = torch.zeros(1, 8, 4, 48), torch.zeros(1, 8, 2, 48), \
+            torch.zeros(1, 8, 2, 48)
     elif case == "causal-ragged":
         k = v = torch.zeros(1, 16, 2, 64)
     elif case == "mixed-dtype":
@@ -247,6 +247,32 @@ def test_plain_at_the_hybrid_head_dim_matches_xla(dtype):
     for g, w in zip(grads, vjp(jdo)):
         _close(g, w, dtype, atol=GRAD_F32_ATOL)
     assert tfa._check(tq, tk, tv, True, (tq, tk, tv)) == (1, 128, 4, 80)
+
+
+@pytest.mark.parametrize("causal", [True, False],
+                         ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_at_the_reduced_head_dim_matches_xla(dtype, causal):
+    """The reduced configs' attention: hd 32, H 4 over KV 2 (G = 2), S 200
+    (no multiple of a tile). The plain forward matches
+    ``flash_attention_xla`` (f32 to 2e-5; bf16 to 2e-2 of the largest
+    |output|, the weights rounded at other points) and its backward
+    ``jax.vjp`` of it (f32 to 5e-5); the kernel wrappers take hd 32 (the
+    CUDA-core kernels in both dtypes), with no per-head partials in bf16
+    (those kernels sum the G heads themselves)."""
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(1, 4, 2, 200, 32, dtype,
+                                                    seed=9)
+    o, lse = tfa.flash_attention_fwd_plain(tq, tk, tv, causal=causal)
+    want, vjp = jax.vjp(lambda q, k, v: jlayers.flash_attention_xla(
+        q, k, v, causal=causal), jq, jk, jv)
+    _close(o, want, dtype)
+    grads = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo,
+                                          causal=causal)
+    for g, w in zip(grads, vjp(jdo)):
+        _close(g, w, dtype, atol=GRAD_F32_ATOL)
+    assert tfa._check(tq, tk, tv, causal, (tq, tk, tv)) == (1, 200, 4, 32)
+    _, partial = tfa.bwd_scratch(tq, tk)
+    assert partial.numel() == 0
 
 
 # cross-attention: Sq 128 over Skv 256, H = KV = 4, hd 64, non-causal, in

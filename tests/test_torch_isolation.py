@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, not
-``chip_smoke.py`` and no ``experiments/torch_*.py`` script imports ``jax``
-or the JAX package ``repro``; and the
+``chip_smoke.py``, no ``experiments/torch_*.py`` script and no
+``examples/torch_*.py`` example imports ``jax`` or the JAX package
+``repro``; and the
 host-plane modules the port copies instead of importing are verbatim
 copies of their originals with ``repro.`` renamed ``repro_torch.`` (so the
 two cannot drift apart unnoticed)."""
@@ -45,7 +46,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "experiments").glob("torch_*.py")))
+              + sorted((ROOT / "experiments").glob("torch_*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

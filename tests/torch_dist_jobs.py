@@ -4,13 +4,18 @@ run it as a script, in a subprocess of their own).
 
     python tests/torch_dist_jobs.py sharded_step 2,2
     python tests/torch_dist_jobs.py compressed_reduce 2,4
+    python tests/torch_dist_jobs.py launch_dp 2 CKPT_DIR
 
 Each job spawns one process per rank of the mesh's shape, joins them in a
 gloo group at ``tcp://localhost:<free port>``, and prints one line
 ``RESULT <json>`` with every rank's result (or ``ERROR`` and the
-tracebacks). Exits 0 only if every rank finished.
+tracebacks). Exits 0 only if every rank finished. Arguments after the
+shape go to the job.
 """
+import contextlib
 import dataclasses
+import io
+import os
 import json
 import math
 import socket
@@ -114,6 +119,60 @@ def compressed_reduce(mesh_shape):
     return out
 
 
+# the data-parallel launcher's run: reduced internlm2-20b, 3 steps with a
+# checkpoint at step 3, then a resumed run of 1 step
+LAUNCH_ARGS = ["--arch", "internlm2-20b", "--reduced", "--device", "cpu",
+               "--batch", "4", "--seq", "32", "--lr", "1e-3"]
+LAUNCH_STEPS = 3
+
+
+@contextlib.contextmanager
+def f32_configs():
+    """``configs.get_config`` giving each config in float32 (parameters
+    and compute), so that a data-parallel step can be held to the
+    one-process step to 1e-5."""
+    from repro_torch import configs
+    get = configs.get_config
+    configs.get_config = lambda arch: dataclasses.replace(
+        get(arch), params_dtype="float32", compute_dtype="float32")
+    try:
+        yield
+    finally:
+        configs.get_config = get
+
+
+def launch_train(ckpt_dir):
+    """``launch.train.main`` as LAUNCH_ARGS say, in f32: LAUNCH_STEPS
+    steps checkpointed at the last into ``ckpt_dir``, then a run that
+    resumes from it and takes one step. Returns each run's losses and
+    printed lines."""
+    from repro_torch.launch import train
+
+    out = {}
+    with f32_configs():
+        for name, extra in (
+                ("first", ["--steps", str(LAUNCH_STEPS), "--ckpt-dir",
+                           ckpt_dir, "--ckpt-every", str(LAUNCH_STEPS)]),
+                ("resumed", ["--steps", "1", "--ckpt-dir", ckpt_dir,
+                             "--resume"])):
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                st = train.main(LAUNCH_ARGS + extra)
+            out[name] = {"losses": st.losses, "ckpts": st.ckpts,
+                         "printed": printed.getvalue()}
+    return out
+
+
+def launch_dp(mesh_shape, ckpt_dir):
+    """:func:`launch_train` on every rank of the gloo world, as
+    ``torchrun`` would start the launcher (``WORLD_SIZE``, ``RANK`` and
+    ``LOCAL_RANK`` set; the launcher takes the running group)."""
+    os.environ.update(WORLD_SIZE=str(dist.get_world_size()),
+                      RANK=str(dist.get_rank()),
+                      LOCAL_RANK=str(dist.get_rank()))
+    return dict(launch_train(ckpt_dir), rank=dist.get_rank())
+
+
 def _map2(fn, a, b):
     if isinstance(a, dict):
         return {k: _map2(fn, a[k], b[k]) for k in a}
@@ -124,13 +183,13 @@ def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def _worker(rank, world, port, job, mesh_shape, q):
+def _worker(rank, world, port, job, mesh_shape, extra, q):
     sys.path.insert(0, SRC)
     torch.set_num_threads(1)
     try:
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                                 rank=rank, world_size=world)
-        q.put((rank, "ok", JOBS[job](mesh_shape)))
+        q.put((rank, "ok", JOBS[job](mesh_shape, *extra)))
     except Exception:  # noqa: BLE001 — reported to the parent
         q.put((rank, "error", traceback.format_exc()))
     finally:
@@ -138,18 +197,21 @@ def _worker(rank, world, port, job, mesh_shape, q):
             dist.destroy_process_group()
 
 
-JOBS = {"sharded_step": sharded_step, "compressed_reduce": compressed_reduce}
+JOBS = {"sharded_step": sharded_step, "compressed_reduce": compressed_reduce,
+        "launch_dp": launch_dp}
 
 
 def main() -> int:
     job, shape = sys.argv[1], tuple(int(x) for x in sys.argv[2].split(","))
+    extra = tuple(sys.argv[3:])
     world = math.prod(shape)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=_worker, args=(r, world, port, job, shape, q))
+    procs = [ctx.Process(target=_worker,
+                         args=(r, world, port, job, shape, extra, q))
              for r in range(world)]
     for p in procs:
         p.start()
