@@ -304,21 +304,32 @@ The last modules of the port add:
     and a sharer that revives it with PREAD64_FIXED: prefix hits, a spill,
     a revival, and the revived sharer's tokens equal to the same request's
     on a fresh engine that evicted nothing;
-6.  K3a/K3b also at the reduced configs' heads (H 4 over KV 2, hd 32: the
-    CUDA-core kernels, in bf16 and f32) at S 4096 and 1000, causal, each
-    with the 3% control;
+6.  K3a/K3b also at the reduced configs' heads (H 4 over KV 2, hd 32) at
+    S 4096 and 1000, causal, in bf16 (the wgmma kernels) and f32 (the
+    CUDA-core ones), each with the 3% control;
 21. the examples in this process through their ``main`` on the card:
     ``torch_memory_hints`` (RSS after each phase and release),
     ``torch_serve_echo`` (reduced rwkv6-3b over UDP, 6 tokens) and
     ``torch_train_lm --steps 20`` (reduced internlm2-20b: async
     checkpoints, kill and resume, 10 more steps; K3a and K3b launched
-    once per layer and step); then, in subprocesses, ``torchrun
-    --standalone --nproc_per_node 1 -m repro_torch.launch.train --arch
-    internlm2-20b --reduced --steps 4`` (a data-parallel world of one over
-    NCCL) and ``python -m repro_torch.launch.serve --arch starcoder2-7b
-    --reduced``, dense (``--batches 1``) and ``--continuous``, each
-    answering a UDP request; every one must exit 0 and print what its
-    docstring promises.
+    once per layer and step; the loss must fall); then, in subprocesses,
+    ``torchrun --standalone --nproc_per_node 1 -m repro_torch.launch.train
+    --arch A --reduced --steps 12 --lr 3e-3`` for internlm2-20b, zamba2-2.7b
+    and rwkv6-3b (data-parallel worlds of one over NCCL, the attention's
+    and the scans' kernels on the rank's rows; each loss must fall, and
+    each kernel of the model's path must launch: K3 at hd 32, K4, K5) and
+    ``python -m
+    repro_torch.launch.serve --arch starcoder2-7b --reduced``, dense
+    (``--batches 1``) and ``--continuous``, each answering a UDP request;
+    every one must exit 0 and print what its docstring promises.
+
+The redesign of K3a/K3b at hd 32 (bf16 on wgmma and TMA, one consumer
+warpgroup and two CTAs an SM) adds to phase 6 the training example's shape
+(B 8 x S 64, bf16, with the 3% control) and an SFU term in every K3 case's
+bound (the exponentials: one a (query, key) pair, forward and backward, at
+``SFU_OPS_PER_S``); the kernels line records hd 32's times, bounds, SDPA
+times and launches beside the path's hd-128 case. Every case's two bf16
+backward calls, hd 32 with G = 2 included, must give the same bits.
 
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
@@ -326,6 +337,7 @@ is visible or the port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import ast
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -333,6 +345,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -352,7 +365,9 @@ TF32_FLOPS = 495e12                # dense TF32 tensor-core rate (data sheet)
 # exponentials (ex2.approx) a second on the card's special-function units:
 # experiments/torch_mma_rate.py read 3.94e12-4.16e12 on an H100 80GB HBM3
 # at 700 W (lg2.approx the same; the CUDA guide gives 16 a clock per SM
-# for compute capability 9.0); the highest is the bound's rate
+# for compute capability 9.0); the highest is the bound's rate. It is the
+# MUFU pipe's rate alone: an exp2 can also be computed by a polynomial on
+# the FMA pipes, so a term at this rate is no hard floor
 SFU_OPS_PER_S = 4.16e12
 F32_ATOL = 1e-4                    # kernel vs plain, f32 outputs
 # one bf16 step, kernels vs plain: the attention outputs differ by about
@@ -399,7 +414,10 @@ FA_LSE_ATOL = 1e-4
 FA_CONTROL_SCALE = 1.03
 FA_CONTROL_CASES = ("S4096-bfloat16", "S4096-hd32-bfloat16",
                     "S4096-hd32-float32", "S1000-hd32-bfloat16",
-                    "S1000-hd32-float32")
+                    "S1000-hd32-float32", "B8-S64-hd32-bfloat16")
+# the reduced configs' attention as the training example runs it on the
+# card: a batch of 8 rows of 64 positions
+FA_PATH_BATCH, FA_PATH_SEQ = 8, 64
 # one train step (phase 7's step at 2 layers), kernels vs plain attention:
 # loss to 1e-3 (bf16) or 1e-5 (f32), and each gradient leaf, read from
 # the step's first moments, by its relative norm ||g - g_ref|| / ||g_ref||
@@ -2050,14 +2068,15 @@ def fa_reading(got, want, r: float) -> dict:
 
 
 def flash_cases_of(torch):
-    """Phase 6's cases: (label, Sq, Skv, dtype, (H, KV, hd), causal). The
-    training shapes (starcoder2-7b's in bf16 and f32, a ragged S = 1000,
-    zamba2's shared block at hd 80, moonshot's H = KV = 16),
+    """Phase 6's cases: (label, B, Sq, Skv, dtype, (H, KV, hd), causal).
+    The training shapes (starcoder2-7b's in bf16 and f32, a ragged S =
+    1000, zamba2's shared block at hd 80, moonshot's H = KV = 16),
     seamless-m4t-medium's attention as an encoder-decoder would run it:
     non-causal self-attention over its 4096 frames and cross-attention of
     1024 decoder positions over them (hd 64), and the reduced configs'
-    heads (H 4 over KV 2 at hd 32, the CUDA-core kernels in both dtypes;
-    phase 21 trains on them) at S = 4096 and 1000 in bf16 and f32."""
+    heads (H 4 over KV 2 at hd 32; phase 21 trains on them) at S = 4096 and
+    1000 in bf16 and f32, and in bf16 at the training example's batch of 8
+    rows of 64."""
     from repro_torch.configs import get_config
 
     def heads(arch, reduced=False):
@@ -2065,47 +2084,56 @@ def flash_cases_of(torch):
         return c.n_heads, c.n_kv_heads, c.hd
     enc = get_config("seamless-m4t-medium")
     bf, f32 = torch.bfloat16, torch.float32
+    reduced = heads("internlm2-20b", reduced=True)
     return (
-        ("S4096-bfloat16", TRAIN_SEQ, TRAIN_SEQ, bf, (H, KV, HD), True),
-        ("S4096-float32", TRAIN_SEQ, TRAIN_SEQ, f32, (H, KV, HD), True),
-        ("S1000-tail-bfloat16", 1000, 1000, bf, (H, KV, HD), True),
-        ("S4096-hd80-bfloat16", TRAIN_SEQ, TRAIN_SEQ, bf,
+        ("S4096-bfloat16", 1, TRAIN_SEQ, TRAIN_SEQ, bf, (H, KV, HD), True),
+        ("S4096-float32", 1, TRAIN_SEQ, TRAIN_SEQ, f32, (H, KV, HD), True),
+        ("S1000-tail-bfloat16", 1, 1000, 1000, bf, (H, KV, HD), True),
+        ("S4096-hd80-bfloat16", 1, TRAIN_SEQ, TRAIN_SEQ, bf,
          heads("zamba2-2.7b"), True),
-        ("S4096-moonshot-bfloat16", TRAIN_SEQ, TRAIN_SEQ, bf,
+        ("S4096-moonshot-bfloat16", 1, TRAIN_SEQ, TRAIN_SEQ, bf,
          heads("moonshot-v1-16b-a3b"), True),
-        ("S4096-encoder-hd64-bfloat16", enc.n_frame_tokens,
+        ("S4096-encoder-hd64-bfloat16", 1, enc.n_frame_tokens,
          enc.n_frame_tokens, bf, heads("seamless-m4t-medium"), False),
-        ("Sq1024-Skv4096-cross-hd64-bfloat16", 1024, enc.n_frame_tokens, bf,
-         heads("seamless-m4t-medium"), False)) + tuple(
-        (f"S{s}-hd32-{str(dt).split('.')[-1]}", s, s, dt,
-         heads("internlm2-20b", reduced=True), True)
-        for s in (TRAIN_SEQ, 1000) for dt in (bf, f32))
+        ("Sq1024-Skv4096-cross-hd64-bfloat16", 1, 1024, enc.n_frame_tokens,
+         bf, heads("seamless-m4t-medium"), False)) + tuple(
+        (f"S{s}-hd32-{str(dt).split('.')[-1]}", 1, s, s, dt, reduced, True)
+        for s in (TRAIN_SEQ, 1000) for dt in (bf, f32)) + (
+        ("B8-S64-hd32-bfloat16", FA_PATH_BATCH, FA_PATH_SEQ, FA_PATH_SEQ, bf,
+         reduced, True),)
 
 
-def flash_kernel_phase(torch, dev, flush):
+def flash_kernel_phase(torch, dev, flush, labels=None):
     """K3a and K3b against their plain versions at the shapes they serve
-    (flash_cases_of). The backward kernel and its plain version take the
-    same o and lse (the plain forward's), so each comparison sees one
-    kernel; two calls of the backward kernel must give the same bits. K3b
-    is timed whole and as its launches (delta, dq, dk/dv). At S=4096 in
-    bf16 a control holds the kernel's outputs, 3% off in the second half
-    of the rows (keys for dk, dv), to the same rule: it must fail. In bf16
-    the training mode too (``ops.flash_attention`` with a gradient): K3a
-    also writing its f32 output, which must round to its bf16 one, and K3b
-    taking delta from an f32 o (the plain forward's, on both sides), each
-    held to the same rule and timed."""
+    (flash_cases_of; only those named in ``labels`` if given). The backward
+    kernel and its plain version take the same o and lse (the plain
+    forward's), so each comparison sees one kernel; two calls of the
+    backward kernel must give the same bits. K3b is timed whole and as its
+    launches (delta, dq, dk/dv). In FA_CONTROL_CASES a control holds the
+    kernel's outputs, 3% off in the second half of the rows (keys for dk,
+    dv), to the same rule: it must fail. In bf16 the training mode too
+    (``ops.flash_attention`` with a gradient): K3a also writing its f32
+    output, which must round to its bf16 one, and K3b taking delta from an
+    f32 o (the plain forward's, on both sides), each held to the same rule
+    and timed. Each case's bound is the largest of its bytes, its products
+    at the dtype's peak and its exponentials (one a (query, key) pair, in
+    the forward and in the backward, which need p once) at the SFU's
+    rate."""
     from repro_torch.kernels import flash_attention as fa
 
     F = torch.nn.functional
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     cases = {"fwd": [], "bwd": []}
-    for label, sq, skv, dt, (nh, nkv, hd), causal in flash_cases_of(torch):
+    for label, nb, sq, skv, dt, (nh, nkv, hd), causal in flash_cases_of(
+            torch):
+        if labels is not None and label not in labels:
+            continue
         name = str(dt).split(".")[-1]
-        q, do = (torch.randn(1, sq, nh, hd, generator=gen, device=dev).to(dt)
-                 for _ in range(2))
-        k, v = (torch.randn(1, skv, nkv, hd, generator=gen, device=dev).to(dt)
-                for _ in range(2))
+        q, do = (torch.randn(nb, sq, nh, hd, generator=gen,
+                             device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn(nb, skv, nkv, hd, generator=gen,
+                            device=dev).to(dt) for _ in range(2))
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
         grads = fa.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal)
@@ -2168,13 +2196,19 @@ def flash_kernel_phase(torch, dev, flush):
         del o_p, lse_p, grads_p, o, grads
         torch.cuda.empty_cache()
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        # (query, key) pairs the attention needs per head: s(s+1)/2 causal
-        pairs = nh * (sq * (sq + 1) / 2 if causal else sq * skv)
+        # (query, key) pairs the attention needs: s(s+1)/2 a head causal
+        pairs = nb * nh * (sq * (sq + 1) / 2 if causal else sq * skv)
         esz = q.element_size()
-        io_fwd = (2 * sq * nh + 2 * skv * nkv) * hd * esz + 4 * nh * sq
-        io_bwd = (4 * sq * nh + 4 * skv * nkv) * hd * esz + 4 * nh * sq
-        bounds = {"fwd": bound_ms(io_fwd, 4.0 * pairs * hd, name),
-                  "bwd": bound_ms(io_bwd, 10.0 * pairs * hd, name)}
+        io_fwd = nb * ((2 * sq * nh + 2 * skv * nkv) * hd * esz + 4 * nh * sq)
+        io_bwd = nb * ((4 * sq * nh + 4 * skv * nkv) * hd * esz + 4 * nh * sq)
+        # exponentials: the function needs p once a pair, forward and
+        # backward (the kernels' dq and dk/dv each recompute it: that
+        # second pass is the design's cost, not the function's); at the
+        # MUFU pipe's rate (SFU_OPS_PER_S)
+        sfu = dict.fromkeys(("fwd", "bwd"), pairs / SFU_OPS_PER_S * 1e3)
+        bounds = {k_: max(bound_ms(io, flops, name), (sfu[k_], "operations"))
+                  for k_, io, flops in (("fwd", io_fwd, 4.0 * pairs * hd),
+                                        ("bwd", io_bwd, 10.0 * pairs * hd))}
         reps = 10 if name == "bfloat16" else 3
         ms_f, host_f = cuda_ms(torch, lambda: fa.flash_attention_fwd(
             q, k, v, causal=causal), reps=reps, flush=flush)
@@ -2221,8 +2255,9 @@ def flash_kernel_phase(torch, dev, flush):
                 ("bwd", ms_b, host_b, plain_b, lib_fb - lib_f)):
             bnd, by = bounds[kind]
             outs = ("o",) if kind == "fwd" else ("dq", "dk", "dv")
-            case = {"case": label, "sq": sq, "skv": skv, "causal": causal,
-                    "heads": nh, "kv_heads": nkv, "head_dim": hd,
+            case = {"case": label, "batch": nb, "sq": sq, "skv": skv,
+                    "causal": causal, "heads": nh, "kv_heads": nkv,
+                    "head_dim": hd, "bound_sfu_ms": sfu[kind],
                     "max_abs_err": max(errs[n]["max_abs_err"] for n in outs),
                     "ms": ms, "plain_ms": plain, "library_ms": lib,
                     "bound_ms": bnd, "bound_by": by, "host_call_ms": host,
@@ -2238,7 +2273,8 @@ def flash_kernel_phase(torch, dev, flush):
                 case["f32_out_ms"] = f32_out[f"{kind}_ms"]
                 case["f32_out_errors"] = f32_out["errors"]
             cases[kind].append(case)
-        print(f"kernel flash_attention[{label}] H={nh} KV={nkv} hd={hd} "
+        print(f"kernel flash_attention[{label}] B={nb} H={nh} KV={nkv} "
+              f"hd={hd} "
               f"{'causal' if causal else 'full'}: errors (max abs, worst "
               f"ratio to the bound r={r:g}, relative Frobenius tol "
               f"{FA_FROB[name]:g}) "
@@ -2249,11 +2285,13 @@ def flash_kernel_phase(torch, dev, flush):
                   for n, e in control.items()) if control else "")
               + f" lse={lse_err:.2e} | fwd ms={ms_f:.4f} plain_ms="
               f"{plain_f:.4f} sdpa_ms={lib_f:.4f} bound_ms="
-              f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) | bwd ms="
+              f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}; SFU "
+              f"{sfu['fwd']:.4f}) | bwd ms="
               f"{ms_b:.4f} (delta {split['delta']:.4f}, dq "
               f"{split['dq']:.4f}, dkv {split['dkv']:.4f}) plain_ms="
               f"{plain_b:.4f} sdpa_fwd_bwd_ms={lib_fb:.4f} bound_ms="
-              f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}) bit-equal "
+              f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}; SFU "
+              f"{sfu['bwd']:.4f}) bit-equal "
               f"twice: {bit_equal}"
               + (f" | with the f32 output: fwd ms={f32_out['fwd_ms']:.4f} "
                  f"bwd ms={f32_out['bwd_ms']:.4f}, worst ratios "
@@ -5062,6 +5100,17 @@ def host_mesh_phase(torch, cfg, dev, grads) -> dict:
 # ------------------------- phase 21: the examples and launchers on the card --
 
 LAUNCHER_TIMEOUT_S = 300
+# the training launcher's steps and learning rate under torchrun (its
+# loss must fall: reduced rwkv6-3b's moves little in 6 steps at 1e-3)
+LAUNCHER_STEPS = 12
+LAUNCHER_LR = "3e-3"
+# the models phase 21 trains under torchrun, and the kernels each must
+# launch there (the attention's; the hybrid's and the SSM's scans)
+TORCHRUN_KERNELS = {
+    "internlm2-20b": ("flash_attention_fwd", "flash_attention_bwd"),
+    "zamba2-2.7b": ("flash_attention_fwd", "flash_attention_bwd",
+                    "mamba2_ssd_fwd", "mamba2_ssd_bwd"),
+    "rwkv6-3b": ("rwkv6_wkv_fwd", "rwkv6_wkv_bwd")}
 
 
 def load_example(name: str):
@@ -5140,9 +5189,9 @@ def examples_phase(torch) -> dict:
     """Phase 21: the port's three examples in this process through their
     ``main`` on the card (K3a/K3b's launches counted over train_lm, which
     trains on the reduced configs' head dim 32), then ``torchrun`` of the
-    training launcher (a data-parallel world of one) and the serving
-    launcher, dense and continuous, in subprocesses. Each must finish and
-    give what its docstring promises."""
+    training launcher (data-parallel worlds of one, TORCHRUN_KERNELS'
+    models) and the serving launcher, dense and continuous, in
+    subprocesses. Each must finish and give what its docstring promises."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
 
@@ -5180,6 +5229,9 @@ def examples_phase(torch) -> dict:
           f"resumed at {lm['resumed_at']} (committed {lm['committed']}); "
           f"K3 launches {launches} (expected {want} each)", flush=True)
     check(all(math.isfinite(x) for x in losses), f"train_lm losses {losses}")
+    check(lm["stats"].losses[-1] < lm["stats"].losses[0],
+          f"train_lm: the loss did not fall over {steps} steps: "
+          f"{lm['stats'].losses}")
     check(lm["resumed_at"] == lm["committed"] == steps,
           f"train_lm resumed at {lm['resumed_at']}, committed "
           f"{lm['committed']}")
@@ -5192,12 +5244,16 @@ def examples_phase(torch) -> dict:
                        "resumed_at": lm["resumed_at"], "launches": launches,
                        "s": time.perf_counter() - t0}
 
-    runs = {
-        "torchrun_train": (
-            ["-m", "torch.distributed.run", "--standalone",
-             "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
-             "--arch", "internlm2-20b", "--reduced", "--steps", "4"],
-            None, ("[rank 0/1] steps=4", "[rank 0/1] GENESYS: ")),
+    # the training launcher under torchrun for a dense, a hybrid and an SSM
+    # model: the attention's and the scans' kernels on the rank's rows
+    runs = {f"torchrun_{arch}": (
+        ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         "1", "-m", "repro_torch.launch.train", "--arch", arch, "--reduced",
+         "--steps", str(LAUNCHER_STEPS), "--lr", LAUNCHER_LR],
+        None, (f"[rank 0/1] steps={LAUNCHER_STEPS}", "[rank 0/1] GENESYS: ",
+               "[rank 0/1] kernel launches: "))
+        for arch in TORCHRUN_KERNELS}
+    runs.update({
         "serve_dense": (
             ["-m", "repro_torch.launch.serve", "--arch", "starcoder2-7b",
              "--reduced", "--port", str(free_port()), "--reply-port",
@@ -5208,9 +5264,9 @@ def examples_phase(torch) -> dict:
              "--reduced", "--port", str(free_port()), "--reply-port",
              "{reply}", "--continuous"],
             [1, 5, 9], ("engine: occupancy=", "requests=")),
-    }
-    # the three processes at once (each mostly starts up: Python, torch,
-    # the card; one after another they took 66 s of the smoke's budget)
+    })
+    # the processes at once (each mostly starts up: Python, torch, the
+    # card; three one after another took 66 s of the smoke's budget)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
         futures = {name: pool.submit(timed_launcher, args, prompt)
@@ -5224,10 +5280,22 @@ def examples_phase(torch) -> dict:
         check(rc == 0, f"{name}: exit code {rc}:\n{text[-3000:]}")
         for line in promised:
             check(line in text, f"{name}: no {line!r} in its output")
+        out[name] = {"rc": rc, "replies": replies, "s": s}
+        if name.startswith("torchrun_"):
+            first, last = (float(x) for x in re.search(
+                r"loss\[0\]=(\S+) loss\[-1\]=(\S+)", text).groups())
+            check(last < first, f"{name}: the loss did not fall: {first} -> "
+                  f"{last}")
+            launches = ast.literal_eval(re.search(
+                r"kernel launches: (\{.*?\})", text).group(1))
+            check(all(launches[k] > 0
+                      for k in TORCHRUN_KERNELS[name[len("torchrun_"):]]),
+                  f"{name}: a kernel of its path was not launched: "
+                  f"{launches}")
+            out[name].update(losses=[first, last], launches=launches)
         if prompt is not None:
             check(len(replies) >= 1 and len(replies[0]) == 8,
                   f"{name}: replies {replies}")
-        out[name] = {"rc": rc, "replies": replies, "s": s}
     return out
 
 
@@ -5573,6 +5641,10 @@ def run(torch) -> int:
     examples = examples_phase(torch)
     mark("21")
 
+    # the launches of the training launcher's torchrun runs (phase 21),
+    # by run, of reduced models: K3 at hd 32, K4 and K5
+    torchruns = {f"{arch}-reduced-torchrun": examples[f"torchrun_{arch}"][
+        "launches"] for arch in TORCHRUN_KERNELS}
     bf16 = decode_cases[0]
     kernels = [
         {"name": "paged_decode_attention", "route": "cuda",
@@ -5689,7 +5761,8 @@ def run(torch) -> int:
             + mtrain["launches"][name] + etrain["launches"][name]
             + eserve["launches"][name]
             + tools["remat"]["dots"]["launches"][name]
-            + examples["train_lm"]["launches"][name],
+            + examples["train_lm"]["launches"][name]
+            + sum(torchrun[name] for torchrun in torchruns.values()),
             "launches_by_run": {cfg.arch_id: train["launches"][name],
                                 zcfg.arch_id: ztrain["launches"][name],
                                 mcfg.arch_id: mtrain["launches"][name],
@@ -5699,11 +5772,24 @@ def run(torch) -> int:
                                 f"{cfg.arch_id}-remat-dots":
                                     tools["remat"]["dots"]["launches"][name],
                                 "internlm2-20b-reduced-train_lm":
-                                    examples["train_lm"]["launches"][name]},
+                                    examples["train_lm"]["launches"][name],
+                                **{run: torchrun[name] for run, torchrun
+                                   in torchruns.items()}},
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "f32_out_ms": case["f32_out_ms"],
+            "bound_sfu_ms": case["bound_sfu_ms"],
+            # the reduced configs' hd 32 (H 4 over KV 2): S 4096 and the
+            # training example's 8 x 64, launched by train_lm on the path
+            "hd32": {c["case"]: {n: c[n] for n in (
+                "ms", "bound_ms", "bound_by", "bound_sfu_ms", "library_ms",
+                "plain_ms", "max_abs_err")}
+                for c in flash_cases[kind] if c["head_dim"] == 32
+                and c["case"] in ("S4096-hd32-bfloat16",
+                                  "B8-S64-hd32-bfloat16")},
+            "hd32_launches": examples["train_lm"]["launches"][name]
+            + sum(torchrun[name] for torchrun in torchruns.values()),
             "pass": True, "cases": flash_cases[kind]})
     for kind, name in (("fwd", "mamba2_ssd_fwd"), ("bwd", "mamba2_ssd_bwd")):
         case = ssd_cases[kind][0]            # L=4096, bf16: the path's case
@@ -5711,7 +5797,11 @@ def run(torch) -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
             "replaces": "src/repro/kernels/mamba2_scan.py:67",
-            "launches": ztrain["launches"][name],
+            "launches": ztrain["launches"][name]
+            + sum(torchrun[name] for torchrun in torchruns.values()),
+            "launches_by_run": {zcfg.arch_id: ztrain["launches"][name],
+                                **{run: torchrun[name] for run, torchrun
+                                   in torchruns.items()}},
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
@@ -5725,7 +5815,12 @@ def run(torch) -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
             "replaces": "src/repro/kernels/rwkv6_scan.py:65",
-            "launches": rtrain["launches"][name],
+            "launches": rtrain["launches"][name]
+            + sum(torchrun[name] for torchrun in torchruns.values()),
+            "launches_by_run": {rcfg.arch_id:
+                                rtrain["launches"][name],
+                                **{run: torchrun[name] for run, torchrun
+                                   in torchruns.items()}},
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,

@@ -26,14 +26,14 @@
 // of device memory and, in bf16 (the path's compute dtype), every product
 // runs on wgmma, the only way to the card's full tensor-core rate:
 //   * Warp specialisation, one CTA per SM (384 threads, 100-165 KB of
-//     shared memory). Warpgroup 2 is the producer: it gives up its
-//     registers (setmaxnreg 24) and one of its threads issues every TMA
-//     load, the CTA's own tile once, then the streamed operand through a
-//     ring of kStages stages on full/empty mbarriers, so the next tile
-//     lands while this one's products run. Consumer warpgroups 0 and 1
-//     (setmaxnreg 240) own 64 rows each of the CTA's 128 and issue the
-//     products; two warpgroups on one SM overlap one's softmax with the
-//     other's wgmma.
+//     shared memory; at hd 32 two CTAs of 256 threads, below). The last
+//     warpgroup is the producer: it gives up its registers (setmaxnreg 24)
+//     and one of its threads issues every TMA load, the CTA's own tile
+//     once, then the streamed operand through a ring of kStages stages on
+//     full/empty mbarriers, so the next tile lands while this one's
+//     products run. Consumer warpgroups 0 and 1 (setmaxnreg 240) own 64
+//     rows each of the CTA's 128 and issue the products; two warpgroups on
+//     one SM overlap one's softmax with the other's wgmma.
 //   * Operands come from TMA as column slabs swizzled for wgmma
 //     (hopper_common.cuh) and are read K-major for the score products and
 //     MN-major for the products over keys or queries (the descriptor's
@@ -41,8 +41,9 @@
 //     accumulator fragment to A-operand registers.
 //   * K3a (fa_fwd_wgmma): a CTA per 128 query rows and head, K and V tiles
 //     of fwd_keys streamed; the online softmax in registers in the log2
-//     domain (exp2 of scores prescaled by scale * log2 e), f32 max, sum and
-//     lse.
+//     domain (each exponent one fma of a raw score, scale * log2 e and the
+//     running max; ex2.approx.ftz, exp2f's fix-up for results under 2^-126
+//     left out), f32 max, sum (both as trees) and lse.
 //   * K3b is three launches, each sum in a fixed order (no atomics: two
 //     calls give the same bits): fa_delta (delta from one read of o and do,
 //     and lse * log2 e, into rows padded to 128 so that the tiles read no
@@ -56,7 +57,9 @@
 //     score tiles. Where ptxas spilled and serialised the wgmmas (it
 //     reported 168 registers, whatever setmaxnreg's 240), the tiles
 //     shrink: 64-key forward tiles at hd 128, and dk/dv at hd 128 in two
-//     passes over the query tiles (dv, then dk; S^T twice).
+//     passes over the query tiles (dv, then dk; S^T twice). At hd 32 a
+//     thread has at most 128 (two CTAs an SM; no setmaxnreg there), which
+//     ptxas fits without spilling.
 //   * Causal: key tiles past the diagonal are not loaded (the Pallas `live`
 //     predicate), only tiles that cross the diagonal or the end of the keys
 //     are masked, and the grid starts with the longest tiles (query tiles
@@ -67,17 +70,32 @@
 //     tile is a 64-column slab (128-byte swizzle) and a 16-column slab
 //     (32-byte swizzle, its own tensor map), each read by its own
 //     descriptors: one 16-deep step and an m64n16 product more, no padding.
-//   * f32 (f32 models, no speed target) takes CUDA-core kernels: a lane per
-//     key (forward, dq) or per query row (dk/dv) for the dot products, a
-//     lane per head dimension for the accumulators (at hd 80 lanes 16-31
-//     own two, the others three), tiles in shared memory; delta comes from
-//     the wrapper, summed as the plain version sums it.
-//   * hd 32 (only the reduced configs have it) takes the same CUDA-core
-//     kernels in bf16 too: they read bf16 q, k, v and do, compute in f32
-//     (p is not rounded to bf16) and round each output once; delta comes
-//     from fa_delta, as for the other bf16 kernels. A wgmma tile at hd 32
-//     would be a 64-byte row, which the 128-byte swizzle of the slabs above
-//     does not take.
+//   * hd 32 (the reduced configs): a 64-byte row fits no 128-byte swizzle
+//     span, so a tile is two of hd 80's 16-column slabs, each 32-byte
+//     swizzled: the score products take one 16-deep step from each, the
+//     products over keys or queries an m64n16 product into each. This
+//     rather than one 32-column slab under the 64-byte swizzle: the 32-byte
+//     slab's descriptors, K-major and MN-major, already run at hd 80, and at
+//     hd 32 the tensor cores are not what sets the pace. A 128 x 128 tile
+//     of scores is 2 x 2 k16 products (0.26 M MACs, ~130 clocks of an SM's
+//     tensor cores) against 16 K exponentials (1 K clocks of its SFUs at 16
+//     a clock) and the softmax's arithmetic beside them: the exponentials
+//     and the latency of each warpgroup's serial chain (S, softmax, P V)
+//     bound the kernels, and the longest CTA's walk bounds a causal call's
+//     time (the forward's last query tile over all Skv keys). So at hd 32 a
+//     CTA is one consumer warpgroup of 64 rows (queries, or keys in dk/dv)
+//     and a producer, two CTAs an SM (consumers<HD>): twice the CTAs, each
+//     walking half the rows, and an SM's two consumers step through their
+//     tiles independently. Measured on an H100 at B 1, H 4, KV 2, S 4096
+//     causal (experiments/torch_fa_compare.py, each pair in one call): K3a
+//     0.0484 ms with 128-row CTAs against 0.0398 with 64-row ones, K3b
+//     0.1365 against 0.1103. The forward keeps 128-key tiles (64-key ones
+//     were slower); dq and dk/dv keep 64 (kDqKeys, kDkvRows).
+//   * f32 takes CUDA-core kernels: a lane per key (forward, dq) or per
+//     query row (dk/dv) for the dot products, a lane per head dimension for
+//     the accumulators (at hd 80 lanes 16-31 own two, the others three),
+//     tiles in shared memory; delta comes from the wrapper, summed as the
+//     plain version sums it.
 // Not done yet: overlap of a warpgroup's softmax with its own next product
 // (issuing the next S before this tile's P V made ptxas serialise every
 // wgmma, C7514, and the forward slower), TMA stores of the outputs, a
@@ -103,31 +121,54 @@ __device__ __forceinline__ bool keep(int key, int row, int Skv, int causal) {
 
 // ---- bf16: wgmma + TMA, warp-specialised ------------------------------------
 
-constexpr int kWsThreads = 384;  // 2 consumer warpgroups + a producer one
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg
-constexpr int kRows = 128;       // fwd, dq: query rows a CTA owns; dkv: keys
-constexpr int kDqKeys = 64;      // dq: keys per streamed tile
-constexpr int kDkvRows = 64;     // dkv: query rows per streamed tile
+// dq: keys per streamed tile; dk/dv: query rows per streamed tile. 64 at
+// every head dim: at hd 32, 128 (S beside dP at 64 registers each) spilled
+// 96 and 288 bytes under the 168 registers ptxas gave a consumer of a
+// 128-row CTA, and dk/dv ran 1.6x slower than at 64
+constexpr int kDqKeys = 64;
+constexpr int kDkvRows = 64;
 constexpr int kStages = 2;       // ring depth of every streamed operand
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
 // Columns of an hd-wide bf16 row as shared-memory slabs (hopper_common.cuh):
-// kFull slabs of 64, 128-byte swizzled, and at hd 80 a 16-column tail slab,
-// 32-byte swizzled.
+// kFull slabs of 64, 128-byte swizzled, then kTails slabs of 16, 32-byte
+// swizzled (one at hd 80, two at hd 32).
 template <int HD>
 struct Cols {
   static constexpr int kFull = HD / 64;
-  static constexpr int kTail = HD % 64;
-  static_assert(kTail == 0 || kTail == 16, "head_dim 64, 80 or 128");
+  static constexpr int kTails = HD % 64 / 16;
+  static_assert(HD % 64 == 0 || HD == 80 || HD == 32,
+                "head_dim 32, 64, 80 or 128");
 };
+
+// Consumer warpgroups a CTA, each owning 64 rows: query rows in the
+// forward and dq, keys in dk/dv. Two (128 rows, one CTA an SM, 384 threads
+// with a producer warpgroup) but at hd 32: there one, and two CTAs an SM,
+// so that a causal grid has twice the CTAs, each walking half the rows
+// over the same keys or queries (the longest CTA's walk sets the call's
+// time), and an SM's two consumers step through their tiles independently,
+// not in lockstep on one CTA's barriers. Its registers: up to 65536 / (2 x
+// 256) = 128 a thread, with no setmaxnreg (an increase the pool cannot meet
+// would wait forever).
+template <int HD>
+__host__ __device__ constexpr int consumers() {
+  return HD == 32 ? 1 : 2;
+}
+
+template <int HD>
+__host__ __device__ constexpr int cta_threads() {
+  return 128 * (consumers<HD>() + 1);
+}
 
 // forward: keys per streamed tile. 64 at hd 128, where a 128-key score
 // tile (64 registers a thread) beside the 64 x 128 accumulator made ptxas
-// spill and serialise the wgmmas.
+// spill and serialise the wgmmas; 128, the widest score product, elsewhere.
 template <int HD>
 __host__ __device__ constexpr int fwd_keys() {
   return HD == 128 ? 64 : 128;
 }
+
 
 template <int HD, int R>
 __host__ __device__ constexpr int tile_bytes() {
@@ -135,11 +176,12 @@ __host__ __device__ constexpr int tile_bytes() {
 }
 
 // f32 accumulator of a 64 x HD product, per slab (the m64n64 fragment) and
-// for the tail (m64n16).
+// per tail slab (m64n16). An array a head dim has no slab for is never
+// touched (its one row only keeps the type legal).
 template <int HD>
 struct AccHD {
-  float s[Cols<HD>::kFull][32];
-  float t[8];
+  float s[Cols<HD>::kFull > 0 ? Cols<HD>::kFull : 1][32];
+  float t[Cols<HD>::kTails > 0 ? Cols<HD>::kTails : 1][8];
 };
 
 template <int HD>
@@ -149,19 +191,87 @@ __device__ __forceinline__ void zero(AccHD<HD>& a) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) a.s[s][i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) a.t[i] = 0.f;
+  for (int j = 0; j < Cols<HD>::kTails; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a.t[j][i] = 0.f;
 }
 
 template <int HD>
 __device__ __forceinline__ void fence_acc(AccHD<HD>& a) {
 #pragma unroll
   for (int s = 0; s < Cols<HD>::kFull; ++s) fence_regs(a.s[s]);
-  if (Cols<HD>::kTail) fence_regs(a.t);
+#pragma unroll
+  for (int j = 0; j < Cols<HD>::kTails; ++j) fence_regs(a.t[j]);
+}
+
+// Every accumulator element times `c_lo` (fragment rows lo) or `c_hi`.
+template <int HD>
+__device__ __forceinline__ void scale_rows(AccHD<HD>& a, float c_lo,
+                                           float c_hi) {
+#pragma unroll
+  for (int s = 0; s < Cols<HD>::kFull; ++s)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) a.s[s][i] *= (i & 2) ? c_hi : c_lo;
+#pragma unroll
+  for (int j = 0; j < Cols<HD>::kTails; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a.t[j][i] *= (i & 2) ? c_hi : c_lo;
 }
 
 // Element (i of the m64n64 fragment, slab s) of an AccHD -> its column.
 __device__ __forceinline__ int frag_col(int i, int tig) {
   return 8 * (i / 4) + 2 * tig + (i & 1);
+}
+
+// 2^x on the special-function unit alone: ex2.approx.ftz, whose result
+// below 2^-126 is 0 (no weight p needs one), without the range fix-up
+// (a compare and two multiplies) that exp2f wraps around it.
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The largest (kMax) or the sum of a score fragment's elements in row lo
+// (i & 2 == 0) and in row hi, as a tree: a chain of N / 2 dependent
+// operations would leave the SFU idle while it runs. The tree's levels are
+// template steps, so that every index is a constant and the partial
+// results stay in registers.
+template <bool kMax>
+__device__ __forceinline__ float combine(float x, float y) {
+  return kMax ? fmaxf(x, y) : x + y;
+}
+
+template <bool kMax, int W, int M>
+__device__ __forceinline__ void tree_level(float (&a)[M], float (&c)[M]) {
+  if constexpr (W >= 1) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      a[j] = combine<kMax>(a[j], a[j + W]);
+      c[j] = combine<kMax>(c[j], c[j + W]);
+    }
+    tree_level<kMax, W / 2>(a, c);
+  }
+}
+
+template <bool kMax, int N>
+__device__ __forceinline__ void row_reduce(const float (&s)[N], float& lo,
+                                           float& hi) {
+  float a[N / 4], c[N / 4];
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    a[j] = combine<kMax>(s[4 * j], s[4 * j + 1]);
+    c[j] = combine<kMax>(s[4 * j + 2], s[4 * j + 3]);
+  }
+  tree_level<kMax, N / 8>(a, c);
+  lo = a[0];
+  hi = c[0];
+}
+
+// Byte offset of tail slab j in an R-row tile (after the 64-column slabs).
+template <int HD, int R>
+__host__ __device__ constexpr int tail_at(int j) {
+  return Cols<HD>::kFull * R * 128 + j * R * 32;
 }
 
 // The R-row tile at head `head`, rows [row0, row0 + R) of batch row b, into
@@ -174,9 +284,10 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* m,
 #pragma unroll
   for (int s = 0; s < Cols<HD>::kFull; ++s)
     tma_load_4d(dst + s * R * 128, m, bar, 64 * s, head, row0, b);
-  if (Cols<HD>::kTail)
-    tma_load_4d(dst + Cols<HD>::kFull * R * 128, tail, bar,
-                64 * Cols<HD>::kFull, head, row0, b);
+#pragma unroll
+  for (int j = 0; j < Cols<HD>::kTails; ++j)
+    tma_load_4d(dst + tail_at<HD, R>(j), tail, bar,
+                64 * Cols<HD>::kFull + 16 * j, head, row0, b);
 }
 
 // d = A B^T over hd: A is rows [a_row0, a_row0 + 64) of an RA-row tile, B
@@ -194,9 +305,10 @@ __device__ __forceinline__ void mma_rows(float (&d)[N / 2],
       const int s = k / 4, c = 32 * (k % 4);
       da = gmma_desc(a + s * RA * 128 + a_row0 * 128 + c, 16, 1024, kSw128);
       db = gmma_desc(b + s * N * 128 + c, 16, 1024, kSw128);
-    } else {  // the tail slab: one 16-deep step
-      da = gmma_desc(a + kFull * RA * 128 + a_row0 * 32, 16, 256, kSw32);
-      db = gmma_desc(b + kFull * N * 128, 16, 256, kSw32);
+    } else {  // a tail slab: one 16-deep step each
+      const int j = k - 4 * kFull;
+      da = gmma_desc(a + tail_at<HD, RA>(j) + a_row0 * 32, 16, 256, kSw32);
+      db = gmma_desc(b + tail_at<HD, N>(j), 16, 256, kSw32);
     }
     if constexpr (N == 128)
       wgmma_ss_n128(d, da, db, k > 0);
@@ -221,9 +333,10 @@ __device__ __forceinline__ void mma_cols(AccHD<HD>& acc,
                    gmma_desc(b + s * KR * 128 + k * 16 * 128, KR * 128, 1024,
                              kSw128),
                    1);
-    if (Cols<HD>::kTail)
-      wgmma_rs_n16(acc.t, p[k],
-                   gmma_desc(b + kFull * KR * 128 + k * 16 * 32, 256, 256,
+#pragma unroll
+    for (int j = 0; j < Cols<HD>::kTails; ++j)
+      wgmma_rs_n16(acc.t[j], p[k],
+                   gmma_desc(b + tail_at<HD, KR>(j) + k * 16 * 32, 256, 256,
                              kSw32),
                    1);
   }
@@ -276,12 +389,13 @@ __device__ __forceinline__ void store_rows(T* base, size_t ld,
       store_group(base, ld, 64 * s + 8 * j + 2 * tig, a.s[s][4 * j],
                   a.s[s][4 * j + 1], a.s[s][4 * j + 2], a.s[s][4 * j + 3],
                   lo_ok, hi_ok, mul_lo, mul_hi);
-  if (Cols<HD>::kTail)
+#pragma unroll
+  for (int t = 0; t < Cols<HD>::kTails; ++t)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      store_group(base, ld, 64 * Cols<HD>::kFull + 8 * j + 2 * tig,
-                  a.t[4 * j], a.t[4 * j + 1], a.t[4 * j + 2], a.t[4 * j + 3],
-                  lo_ok, hi_ok, mul_lo, mul_hi);
+      store_group(base, ld, 64 * Cols<HD>::kFull + 16 * t + 8 * j + 2 * tig,
+                  a.t[t][4 * j], a.t[t][4 * j + 1], a.t[t][4 * j + 2],
+                  a.t[t][4 * j + 3], lo_ok, hi_ok, mul_lo, mul_hi);
 }
 
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
@@ -308,14 +422,15 @@ struct TileMaps {
 // MN-major. Only tiles that cross the diagonal or the end of the keys are
 // masked; key tiles past the diagonal are not loaded.
 template <int HD>
-__global__ void __launch_bounds__(kWsThreads, 1)
+__global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
     fa_fwd_wgmma(const __grid_constant__ TileMaps tq,
                  const __grid_constant__ TileMaps tk,
                  const __grid_constant__ TileMaps tv, bf16* __restrict__ o,
                  float* __restrict__ o32, float* __restrict__ lse, int H,
                  int KV, int Sq, int Skv, float scale_log2, int causal) {
+  constexpr int kCons = consumers<HD>(), kQRows = 64 * kCons;
   constexpr int kFwdKeys = fwd_keys<HD>();
-  constexpr int QB = tile_bytes<HD, kRows>(), KB = tile_bytes<HD, kFwdKeys>();
+  constexpr int QB = tile_bytes<HD, kQRows>(), KB = tile_bytes<HD, kFwdKeys>();
   extern __shared__ uint8_t fa_smem[];
   uint8_t* sq = align_1024(fa_smem);
   uint8_t* sk = sq + QB;
@@ -325,17 +440,18 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   uint64_t* full_v = full_k + kStages;
   uint64_t* empty = full_v + kStages;
 
-  const int nqt = (Sq + kRows - 1) / kRows;
-  const int q0 = (causal ? nqt - 1 - (int)blockIdx.z : (int)blockIdx.z) * kRows;
+  const int nqt = (Sq + kQRows - 1) / kQRows;
+  const int q0 =
+      (causal ? nqt - 1 - (int)blockIdx.z : (int)blockIdx.z) * kQRows;
   const int h = blockIdx.x, b = blockIdx.y, kvh = h / (H / KV);
-  const int kv_end = causal ? min(Skv, q0 + kRows) : Skv;
+  const int kv_end = causal ? min(Skv, q0 + kQRows) : Skv;
   const int n_tiles = (kv_end + kFwdKeys - 1) / kFwdKeys;
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full_k[s], 1);
       mbar_init(&full_v[s], 1);
-      mbar_init(&empty[s], 256);
+      mbar_init(&empty[s], 128 * kCons);
     }
     mbar_fence_init();
   }
@@ -344,11 +460,11 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   // the warpgroup index through a shuffle: provably warp-uniform, as the
   // branches around setmaxnreg must be
   const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
-  if (wg == 2) {
-    regs_dealloc<kProducerRegs>();
-    if (threadIdx.x == 256) {
+  if (wg == kCons) {
+    if constexpr (kCons == 2) regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128 * kCons) {
       mbar_expect_tx(bar_q, QB);
-      load_tile<HD, kRows>(sq, &tq.m, &tq.tail, bar_q, h, q0, b);
+      load_tile<HD, kQRows>(sq, &tq.m, &tq.tail, bar_q, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) & 1) ^ 1);
@@ -361,7 +477,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       }
     }
   } else {
-    regs_alloc<kConsumerRegs>();
+    if constexpr (kCons == 2) regs_alloc<kConsumerRegs>();
     const int cw = wg, t128 = threadIdx.x % 128;
     const int warp = t128 / 32, lane = t128 % 32, gid = lane / 4,
               tig = lane % 4;
@@ -378,58 +494,45 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       float s[kFwdKeys / 2];
       mbar_wait(&full_k[st], par);
       wgmma_fence();
-      mma_rows<HD, kRows, kFwdKeys>(s, sq, 64 * cw, sk + st * KB);
+      mma_rows<HD, kQRows, kFwdKeys>(s, sq, 64 * cw, sk + st * KB);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
       const bool edge = kv0 + kFwdKeys > Skv ||
                         (causal && kv0 + kFwdKeys - 1 > wg_row0);
-      float mx_lo = -CUDART_INF_F, mx_hi = -CUDART_INF_F;
+      if (edge)
 #pragma unroll
-      for (int i = 0; i < kFwdKeys / 2; ++i) {
-        float x = s[i] * scale_log2;
-        if (edge) {
+        for (int i = 0; i < kFwdKeys / 2; ++i) {
           const int key = kv0 + frag_col(i, tig);
           const int row = (i & 2) ? r_hi : r_lo;
-          if (key >= Skv || (causal && key > row)) x = -CUDART_INF_F;
+          if (key >= Skv || (causal && key > row)) s[i] = -CUDART_INF_F;
         }
-        s[i] = x;
-        if (i & 2)
-          mx_hi = fmaxf(mx_hi, x);
-        else
-          mx_lo = fmaxf(mx_lo, x);
-      }
+      // the max of the raw scores: scale_log2 > 0, so scaling it gives the
+      // max of the scaled ones, and each exponent is one fma
+      float mx_lo, mx_hi;
+      row_reduce<true>(s, mx_lo, mx_hi);
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
         mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
         mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
       }
-      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      const float mn_lo = fmaxf(m_lo, mx_lo * scale_log2),
+                  mn_hi = fmaxf(m_hi, mx_hi * scale_log2);
       // a row with no key yet keeps max -inf: exponentiate against 0
       const float base_lo = mn_lo == -CUDART_INF_F ? 0.f : mn_lo;
       const float base_hi = mn_hi == -CUDART_INF_F ? 0.f : mn_hi;
-      const float c_lo = exp2f(m_lo - base_lo), c_hi = exp2f(m_hi - base_hi);
-      float ps_lo = 0.f, ps_hi = 0.f;
+      const float c_lo = exp2_sfu(m_lo - base_lo),
+                  c_hi = exp2_sfu(m_hi - base_hi);
 #pragma unroll
-      for (int i = 0; i < kFwdKeys / 2; ++i) {
-        if (i & 2) {
-          s[i] = exp2f(s[i] - base_hi);
-          ps_hi += s[i];
-        } else {
-          s[i] = exp2f(s[i] - base_lo);
-          ps_lo += s[i];
-        }
-      }
+      for (int i = 0; i < kFwdKeys / 2; ++i)
+        s[i] = exp2_sfu(fmaf(s[i], scale_log2, (i & 2) ? -base_hi : -base_lo));
+      float ps_lo, ps_hi;
+      row_reduce<false>(s, ps_lo, ps_hi);
       l_lo = l_lo * c_lo + ps_lo;  // this lane's part of the row sum
       l_hi = l_hi * c_hi + ps_hi;
       m_lo = mn_lo;
       m_hi = mn_hi;
-#pragma unroll
-      for (int sl = 0; sl < Cols<HD>::kFull; ++sl)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) acc.s[sl][i] *= (i & 2) ? c_hi : c_lo;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc.t[i] *= (i & 2) ? c_hi : c_lo;
+      scale_rows(acc, c_lo, c_hi);
       uint32_t pf[kFwdKeys / 16][4];
       to_frags(pf, s);
       mbar_wait(&full_v[st], par);
@@ -519,7 +622,7 @@ __global__ void __launch_bounds__(256) fa_delta(
 // shared memory), p = exp2(S scale log2 e - lse2), dS = p (dP - delta)
 // scale rounded to bf16 once, dq += dS K with the same K tile read MN-major.
 template <int HD>
-__global__ void __launch_bounds__(kWsThreads, 1)
+__global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
     fa_dq_wgmma(const __grid_constant__ TileMaps tq,
                 const __grid_constant__ TileMaps tdo,
                 const __grid_constant__ TileMaps tk,
@@ -528,7 +631,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
                 const float* __restrict__ delta, bf16* __restrict__ dq, int H,
                 int KV, int Sq, int Skv, int pitch, float scale,
                 float scale_log2, int causal) {
-  constexpr int QB = tile_bytes<HD, kRows>(), KB = tile_bytes<HD, kDqKeys>();
+  constexpr int kCons = consumers<HD>(), kQRows = 64 * kCons;
+  constexpr int QB = tile_bytes<HD, kQRows>(), KB = tile_bytes<HD, kDqKeys>();
   extern __shared__ uint8_t fa_smem[];
   uint8_t* sq = align_1024(fa_smem);
   uint8_t* sdo = sq + QB;
@@ -539,17 +643,18 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   uint64_t* full_v = full_k + kStages;
   uint64_t* empty = full_v + kStages;
 
-  const int nqt = (Sq + kRows - 1) / kRows;
-  const int q0 = (causal ? nqt - 1 - (int)blockIdx.z : (int)blockIdx.z) * kRows;
+  const int nqt = (Sq + kQRows - 1) / kQRows;
+  const int q0 =
+      (causal ? nqt - 1 - (int)blockIdx.z : (int)blockIdx.z) * kQRows;
   const int h = blockIdx.x, b = blockIdx.y, kvh = h / (H / KV);
-  const int kv_end = causal ? min(Skv, q0 + kRows) : Skv;
+  const int kv_end = causal ? min(Skv, q0 + kQRows) : Skv;
   const int n_tiles = (kv_end + kDqKeys - 1) / kDqKeys;
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full_k[s], 1);
       mbar_init(&full_v[s], 1);
-      mbar_init(&empty[s], 256);
+      mbar_init(&empty[s], 128 * kCons);
     }
     mbar_fence_init();
   }
@@ -558,12 +663,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   // the warpgroup index through a shuffle: provably warp-uniform, as the
   // branches around setmaxnreg must be
   const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
-  if (wg == 2) {
-    regs_dealloc<kProducerRegs>();
-    if (threadIdx.x == 256) {
+  if (wg == kCons) {
+    if constexpr (kCons == 2) regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128 * kCons) {
       mbar_expect_tx(bar_q, 2 * QB);
-      load_tile<HD, kRows>(sq, &tq.m, &tq.tail, bar_q, h, q0, b);
-      load_tile<HD, kRows>(sdo, &tdo.m, &tdo.tail, bar_q, h, q0, b);
+      load_tile<HD, kQRows>(sq, &tq.m, &tq.tail, bar_q, h, q0, b);
+      load_tile<HD, kQRows>(sdo, &tdo.m, &tdo.tail, bar_q, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) & 1) ^ 1);
@@ -576,7 +681,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       }
     }
   } else {
-    regs_alloc<kConsumerRegs>();
+    if constexpr (kCons == 2) regs_alloc<kConsumerRegs>();
     const int cw = wg, t128 = threadIdx.x % 128;
     const int warp = t128 / 32, lane = t128 % 32, gid = lane / 4,
               tig = lane % 4;
@@ -584,7 +689,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     const int r_lo = wg_row0 + 16 * warp + gid, r_hi = r_lo + 8;
     const size_t srow = ((size_t)b * H + h) * pitch;  // r_hi < pitch
     const float l2_lo = lse2[srow + r_lo], l2_hi = lse2[srow + r_hi];
-    const float dl_lo = delta[srow + r_lo], dl_hi = delta[srow + r_hi];
+    // delta * scale: dS = p (dP - delta) scale = p fma(dP, scale, -delta scale)
+    const float dls_lo = delta[srow + r_lo] * scale,
+                dls_hi = delta[srow + r_hi] * scale;
     AccHD<HD> acc;
     zero(acc);
     mbar_wait(bar_q, 0);
@@ -595,10 +702,10 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       float s[kDqKeys / 2], dp[kDqKeys / 2];
       mbar_wait(&full_k[st], par);
       wgmma_fence();
-      mma_rows<HD, kRows, kDqKeys>(s, sq, 64 * cw, sk + st * KB);
+      mma_rows<HD, kQRows, kDqKeys>(s, sq, 64 * cw, sk + st * KB);
       mbar_wait(&full_v[st], par);
       wgmma_fence();
-      mma_rows<HD, kRows, kDqKeys>(dp, sdo, 64 * cw, sv + st * KB);
+      mma_rows<HD, kQRows, kDqKeys>(dp, sdo, 64 * cw, sv + st * KB);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -608,12 +715,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 #pragma unroll
       for (int i = 0; i < kDqKeys / 2; ++i) {
         const bool hi = i & 2;
-        float p = exp2f(s[i] * scale_log2 - (hi ? l2_hi : l2_lo));
+        float p = exp2_sfu(fmaf(s[i], scale_log2, hi ? -l2_hi : -l2_lo));
         if (edge) {
           const int key = kv0 + frag_col(i, tig);
           if (key >= Skv || (causal && key > (hi ? r_hi : r_lo))) p = 0.f;
         }
-        s[i] = p * (dp[i] - (hi ? dl_hi : dl_lo)) * scale;
+        s[i] = p * fmaf(dp[i], scale, hi ? -dls_hi : -dls_lo);
       }
       uint32_t dsf[kDqKeys / 16][4];
       to_frags(dsf, s);
@@ -637,7 +744,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 // dO^T (wgmma, shared memory), p = exp2(S^T scale log2 e - lse2), dS^T = p
 // (dP^T - delta) scale; p and dS are rounded to bf16 once and multiply the
 // dO and Q tiles read MN-major.
-template <int HD, bool kDv, bool kDk>
+template <int HD, int KR, bool kDv, bool kDk>
 __device__ __forceinline__ void dkv_pass(AccHD<HD>& dva, AccHD<HD>& dka,
                                          const uint8_t* sk,
                                          const uint8_t* sv,
@@ -658,8 +765,8 @@ __device__ __forceinline__ void dkv_pass(AccHD<HD>& dva, AccHD<HD>& dka,
     float s[kDkvRows / 2], dp[kDkvRows / 2];
     mbar_wait(&full[st], (u / kStages) & 1);
     wgmma_fence();
-    mma_rows<HD, kRows, kDkvRows>(s, sk, wg_row0, stage);
-    if (kDk) mma_rows<HD, kRows, kDkvRows>(dp, sv, wg_row0, stage + QB);
+    mma_rows<HD, KR, kDkvRows>(s, sk, wg_row0, stage);
+    if (kDk) mma_rows<HD, KR, kDkvRows>(dp, sv, wg_row0, stage + QB);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -669,10 +776,10 @@ __device__ __forceinline__ void dkv_pass(AccHD<HD>& dva, AccHD<HD>& dka,
 #pragma unroll
     for (int i = 0; i < kDkvRows / 2; ++i) {
       const int c = frag_col(i, tig);
-      float p = exp2f(s[i] * scale_log2 - sl2[c]);
+      float p = exp2_sfu(fmaf(s[i], scale_log2, -sl2[c]));
       if (edge && key_lo + ((i & 2) ? 8 : 0) > i0 + c) p = 0.f;
       s[i] = p;
-      if (kDk) dp[i] = p * (dp[i] - sdl[c]) * scale;
+      if (kDk) dp[i] = p * ((dp[i] - sdl[c]) * scale);
     }
     uint32_t pf[kDkvRows / 16][4], dsf[kDkvRows / 16][4];
     if (kDv) to_frags(pf, s);
@@ -712,8 +819,9 @@ __device__ __forceinline__ void store_dkv(bf16* out, float* partial,
 // batch row b (H x Skv / 128 CTAs, not KV x ...: the G heads of a KV head
 // run in parallel). K and V are loaded once; 64-row tiles of Q, dO, lse2
 // and delta of head h stream through the ring. Consumer warpgroup w owns
-// keys k0 + 64 w .. + 64 (dkv_pass). At hd 64 and 80 it accumulates dk and
-// dv together in one pass over the tiles (four products). At hd 128 two
+// keys k0 + 64 w .. + 64 (dkv_pass). At hd 32, 64 and 80 it
+// accumulates dk and dv together in one pass over the tiles (four
+// products). At hd 128 two
 // 64 x 128 accumulators beside S^T and dP^T are more registers than ptxas
 // gave a consumer (it spilled 772 bytes and serialised the wgmmas), so the
 // tiles stream twice: dv in the first pass, dk in the second, one product
@@ -724,7 +832,7 @@ __device__ __forceinline__ void store_dkv(bf16* out, float* partial,
 // over the G heads in a fixed order by fa_dkv_reduce (no atomics: two calls
 // give the same bits).
 template <int HD>
-__global__ void __launch_bounds__(kWsThreads, 1)
+__global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
     fa_dkv_wgmma(const __grid_constant__ TileMaps tk,
                  const __grid_constant__ TileMaps tv,
                  const __grid_constant__ TileMaps tq,
@@ -735,7 +843,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
                  float* __restrict__ dkp, float* __restrict__ dvp, int H,
                  int KV, int Sq, int Skv, float scale, float scale_log2,
                  int causal) {
-  constexpr int KB = tile_bytes<HD, kRows>(),
+  constexpr int kCons = consumers<HD>(), kKRows = 64 * kCons;
+  constexpr int KB = tile_bytes<HD, kKRows>(),
                 QB = tile_bytes<HD, kDkvRows>();
   constexpr int kStage = 2 * QB + 1024;  // Q, dO, then lse2 and delta
   extern __shared__ uint8_t fa_smem[];
@@ -747,7 +856,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   uint64_t* empty = full + kStages;
 
   constexpr int kPasses = HD == 128 ? 2 : 1;  // see above
-  const int k0 = blockIdx.z * kRows;
+  const int k0 = blockIdx.z * kKRows;
   const int h = blockIdx.x, b = blockIdx.y, kvh = h / (H / KV);
   const int i_begin = causal ? k0 : 0;  // query rows < k0 see none
   const int n_tiles =
@@ -757,7 +866,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     mbar_init(bar_kv, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 256);
+      mbar_init(&empty[s], 128 * kCons);
     }
     mbar_fence_init();
   }
@@ -766,12 +875,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   // the warpgroup index through a shuffle: provably warp-uniform, as the
   // branches around setmaxnreg must be
   const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
-  if (wg == 2) {
-    regs_dealloc<kProducerRegs>();
-    if (threadIdx.x == 256) {
+  if (wg == kCons) {
+    if constexpr (kCons == 2) regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128 * kCons) {
       mbar_expect_tx(bar_kv, 2 * KB);
-      load_tile<HD, kRows>(sk, &tk.m, &tk.tail, bar_kv, kvh, k0, b);
-      load_tile<HD, kRows>(sv, &tv.m, &tv.tail, bar_kv, kvh, k0, b);
+      load_tile<HD, kKRows>(sk, &tk.m, &tk.tail, bar_kv, kvh, k0, b);
+      load_tile<HD, kKRows>(sv, &tv.m, &tv.tail, bar_kv, kvh, k0, b);
       for (int u = 0; u < kPasses * n_tiles; ++u) {  // once per pass
         const int st = u % kStages;
         const int i0 = i_begin + (u % n_tiles) * kDkvRows;
@@ -786,7 +895,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       }
     }
   } else {
-    regs_alloc<kConsumerRegs>();
+    if constexpr (kCons == 2) regs_alloc<kConsumerRegs>();
     const int t128 = threadIdx.x % 128;
     const int warp = t128 / 32, lane = t128 % 32, gid = lane / 4,
               tig = lane % 4;
@@ -794,18 +903,19 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     mbar_wait(bar_kv, 0);
     AccHD<HD> dva, dka;
     if (kPasses == 1)
-      dkv_pass<HD, true, true>(dva, dka, sk, sv, ring, full, empty, 0,
-                               n_tiles, i_begin, 64 * wg, key_lo, tig, scale,
-                               scale_log2, causal);
+      dkv_pass<HD, kKRows, true, true>(dva, dka, sk, sv, ring, full, empty,
+                                       0, n_tiles, i_begin, 64 * wg, key_lo,
+                                       tig, scale, scale_log2, causal);
     else
-      dkv_pass<HD, true, false>(dva, dka, sk, sv, ring, full, empty, 0,
-                                n_tiles, i_begin, 64 * wg, key_lo, tig, scale,
-                                scale_log2, causal);
+      dkv_pass<HD, kKRows, true, false>(dva, dka, sk, sv, ring, full, empty,
+                                        0, n_tiles, i_begin, 64 * wg, key_lo,
+                                        tig, scale, scale_log2, causal);
     store_dkv<HD>(dv, dvp, dva, b, key_lo, h, H, KV, Skv, tig);
     if (kPasses == 2)
-      dkv_pass<HD, false, true>(dva, dka, sk, sv, ring, full, empty, n_tiles,
-                                n_tiles, i_begin, 64 * wg, key_lo, tig, scale,
-                                scale_log2, causal);
+      dkv_pass<HD, kKRows, false, true>(dva, dka, sk, sv, ring, full, empty,
+                                        n_tiles, n_tiles, i_begin, 64 * wg,
+                                        key_lo, tig, scale, scale_log2,
+                                        causal);
     store_dkv<HD>(dk, dkp, dka, b, key_lo, h, H, KV, Skv, tig);
   }
 }
@@ -843,12 +953,13 @@ constexpr int kF32Keys = 32;     // forward and dq: keys per tile, one a lane
 constexpr int kF32KvRows = 8;    // dk/dv: keys per CTA, 2 per warp
 constexpr int kF32QTile = 32;    // dk/dv: query rows per tile, one a lane
 
-// Rows [r0, r0 + n) of a [*, ld] f32 or bf16 matrix at `src` (row stride
-// `ld` elements, HD used) into shared f32 rows of stride `str`; rows at or
-// past `lim` are zero.
-template <int HD, typename T>
-__device__ __forceinline__ void stage_f32(float* dst, int str, const T* src,
-                                          size_t ld, int r0, int n, int lim) {
+// Rows [r0, r0 + n) of a [*, ld] f32 matrix at `src` (row stride `ld`
+// elements, HD used) into shared rows of stride `str`; rows at or past `lim`
+// are zero.
+template <int HD>
+__device__ __forceinline__ void stage_f32(float* dst, int str,
+                                          const float* src, size_t ld, int r0,
+                                          int n, int lim) {
   for (int c = threadIdx.x; c < n * (HD / 4); c += kFaThreads) {
     const int r = c / (HD / 4), w = c % (HD / 4);
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -859,12 +970,6 @@ __device__ __forceinline__ void stage_f32(float* dst, int str, const T* src,
     d[2] = x.z;
     d[3] = x.w;
   }
-}
-
-// An output element in the output's type, rounded once.
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(bf16* p, float x) {
-  *p = __float2bfloat16(x);
 }
 
 // Whether lane `lane` owns head dim lane + 32 i (at HD = 80 the third is
@@ -878,12 +983,10 @@ __device__ __forceinline__ bool has_dim(int lane, int i) {
 // Per 32-key tile a lane scores one key against each row; the row's online
 // softmax runs across the warp, and each lane accumulates head dims
 // lane, lane + 32, ...
-// T is float or (hd 32) bf16; o32, if not null (bf16), receives o before
-// its rounding.
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kFaThreads) fa_fwd_f32(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ o32,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse, int H, int KV, int Sq, int Skv, float scale,
     int causal) {
   constexpr int DL = (HD + 31) / 32;
@@ -948,9 +1051,7 @@ __global__ void __launch_bounds__(kFaThreads) fa_fwd_f32(
     const size_t orow = qoff + row * qs_;
 #pragma unroll
     for (int i = 0; i < DL; ++i) {
-      if (!has_dim<HD>(lane, i)) continue;
-      put(o + orow + lane + 32 * i, acc[r][i] / d);
-      if (o32 != nullptr) o32[orow + lane + 32 * i] = acc[r][i] / d;
+      if (has_dim<HD>(lane, i)) o[orow + lane + 32 * i] = acc[r][i] / d;
     }
     if (lane == 0) lse[((size_t)b * H + h) * Sq + row] = m[r] + logf(d);
   }
@@ -959,15 +1060,13 @@ __global__ void __launch_bounds__(kFaThreads) fa_fwd_f32(
 // One CTA: query rows [q0, q0 + 8) of head h of row b; warp w owns 2 rows.
 // Per 32-key tile a lane takes one key: s and dP of each row, then dS; dq
 // accumulates over the keys with each lane on its head dims.
-// delta rows have `dpitch` elements (Sq for f32; bf16 takes fa_delta's
-// padded rows).
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int H, int KV, int Sq, int Skv, int dpitch,
-    float scale, int causal) {
+    float* __restrict__ dq, int H, int KV, int Sq, int Skv, float scale,
+    int causal) {
   constexpr int DL = (HD + 31) / 32;
   constexpr int RW = kF32DqRows / 4;
   __shared__ float qs[kF32DqRows * HD];
@@ -989,7 +1088,7 @@ __global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
   for (int r = 0; r < RW; ++r) {
     const int row = q0 + RW * warp + r;
     ls[r] = row < Sq ? lse[((size_t)b * H + h) * Sq + row] : 0.f;
-    dl[r] = row < Sq ? delta[((size_t)b * H + h) * dpitch + row] : 0.f;
+    dl[r] = row < Sq ? delta[((size_t)b * H + h) * Sq + row] : 0.f;
 #pragma unroll
     for (int i = 0; i < DL; ++i) acc[r][i] = 0.f;
   }
@@ -1030,10 +1129,10 @@ __global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
   for (int r = 0; r < RW; ++r) {
     const int row = q0 + RW * warp + r;
     if (row >= Sq) continue;
-    T* out = dq + qoff + row * qs_;
+    float* out = dq + qoff + row * qs_;
 #pragma unroll
     for (int i = 0; i < DL; ++i)
-      if (has_dim<HD>(lane, i)) put(out + lane + 32 * i, acc[r][i]);
+      if (has_dim<HD>(lane, i)) out[lane + 32 * i] = acc[r][i];
   }
 }
 
@@ -1041,13 +1140,13 @@ __global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
 // For each of the G heads, 32-row tiles of Q and dO stream through shared
 // memory; a lane takes one query row (p and dS against each key), then dk
 // and dv accumulate over the rows with each lane on its head dims.
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int H, int KV, int Sq, int Skv,
-    int dpitch, float scale, int causal) {
+    float* __restrict__ dk, float* __restrict__ dv, int H, int KV, int Sq,
+    int Skv, float scale, int causal) {
   constexpr int DL = (HD + 31) / 32;
   constexpr int RW = kF32KvRows / 4;
   __shared__ float kt[kF32KvRows * HD];
@@ -1073,7 +1172,7 @@ __global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
     const int h = kvh * G + g;
     const size_t qoff = (size_t)b * Sq * qs_ + (size_t)h * HD;
     const float* lb = lse + ((size_t)b * H + h) * Sq;
-    const float* db = delta + ((size_t)b * H + h) * dpitch;
+    const float* db = delta + ((size_t)b * H + h) * Sq;
     for (int i0 = i_begin; i0 < Sq; i0 += kF32QTile) {
       __syncthreads();
       stage_f32<HD>(qs, HD + 1, q + qoff, qs_, i0, kF32QTile, Sq);
@@ -1124,8 +1223,8 @@ __global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
 #pragma unroll
     for (int i = 0; i < DL; ++i) {
       if (!has_dim<HD>(lane, i)) continue;
-      put(dk + koff + key * ks_ + lane + 32 * i, dka[r][i]);
-      put(dv + koff + key * ks_ + lane + 32 * i, dva[r][i]);
+      dk[koff + key * ks_ + lane + 32 * i] = dka[r][i];
+      dv[koff + key * ks_ + lane + 32 * i] = dva[r][i];
     }
   }
 }
@@ -1140,15 +1239,20 @@ bool fa_args_ok(int B, int H, int KV, int Sq, int Skv, int hd, int causal,
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// The column-slab maps of one [B, S, N, hd] bf16 tensor, boxes of `rows`.
+// The column-slab maps of one [B, S, N, hd] bf16 tensor, boxes of `rows`:
+// 64 columns (none at hd 32) and 16 (hd 32, 80); a map a head dim has no
+// slab for is a copy of the other.
 cudaError_t tile_maps(TileMaps* t, const void* p, int B, int S, int N, int hd,
                       int rows) {
-  const cudaError_t e = encode_rows_map(&t->m, p, B, S, N, hd, 64, rows, 128);
-  if (e != cudaSuccess || hd % 64 == 0) {
+  cudaError_t e = cudaSuccess;
+  if (hd >= 64) e = encode_rows_map(&t->m, p, B, S, N, hd, 64, rows, 128);
+  if (e == cudaSuccess && hd % 64)
+    e = encode_rows_map(&t->tail, p, B, S, N, hd, 16, rows, 32);
+  if (hd < 64)
+    t->m = t->tail;
+  else if (hd % 64 == 0)
     t->tail = t->m;
-    return e;
-  }
-  return encode_rows_map(&t->tail, p, B, S, N, hd, 16, rows, 32);
+  return e;
 }
 
 template <typename K>
@@ -1158,33 +1262,35 @@ cudaError_t opt_in_smem(K kernel, int bytes) {
                               bytes);
 }
 
-// The CUDA-core forward over elements of type T.
-template <int HD, typename T>
+// The f32 forward on the CUDA cores.
+template <int HD>
 int fwd_cuda_cores(const void* q, const void* k, const void* v, void* o,
-                   float* o32, float* lse, int B, int H, int KV, int Sq,
-                   int Skv, float scale, int causal, cudaStream_t st) {
-  fa_fwd_f32<HD, T><<<dim3(cdiv(Sq, kF32Rows), H, B), kFaThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), o32, lse, H, KV, Sq, Skv,
-      scale, causal);
+                   float* lse, int B, int H, int KV, int Sq, int Skv,
+                   float scale, int causal, cudaStream_t st) {
+  fa_fwd_f32<HD><<<dim3(cdiv(Sq, kF32Rows), H, B), kFaThreads, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, Sq,
+      Skv, scale, causal);
   return cudaGetLastError();
 }
 
-// The bf16 forward on wgmma (hd 64, 80, 128).
+// The bf16 forward on wgmma.
 template <int HD>
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o,
               float* o32, float* lse, int B, int H, int KV, int Sq, int Skv,
               float scale, int causal, cudaStream_t st) {
+  constexpr int kQRows = 64 * consumers<HD>();
   TileMaps tq, tk, tv;
-  cudaError_t e = tile_maps(&tq, q, B, Sq, H, HD, kRows);
+  cudaError_t e = tile_maps(&tq, q, B, Sq, H, HD, kQRows);
   if (e == cudaSuccess) e = tile_maps(&tk, k, B, Skv, KV, HD, fwd_keys<HD>());
   if (e == cudaSuccess) e = tile_maps(&tv, v, B, Skv, KV, HD, fwd_keys<HD>());
-  const int smem = 1024 + tile_bytes<HD, kRows>() +
+  const int smem = 1024 + tile_bytes<HD, kQRows>() +
                    2 * kStages * tile_bytes<HD, fwd_keys<HD>()>() +
                    8 * (1 + 3 * kStages);
   if (e == cudaSuccess) e = opt_in_smem(fa_fwd_wgmma<HD>, smem);
   if (e != cudaSuccess) return e;
-  fa_fwd_wgmma<HD><<<dim3(H, B, cdiv(Sq, kRows)), kWsThreads, smem, st>>>(
+  fa_fwd_wgmma<HD><<<dim3(H, B, cdiv(Sq, kQRows)), cta_threads<HD>(), smem,
+                     st>>>(
       tq, tk, tv, static_cast<bf16*>(o), o32, lse, H, KV, Sq, Skv,
       scale * kLog2e, causal);
   return cudaGetLastError();
@@ -1195,49 +1301,47 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* o32, float* lse, int B, int H, int KV, int Sq, int Skv,
                float scale, int causal, int dtype, cudaStream_t st) {
   if (dtype == kF32)
-    return fwd_cuda_cores<HD, float>(q, k, v, o, nullptr, lse, B, H, KV, Sq,
-                                     Skv, scale, causal, st);
-  if constexpr (HD == 32)
-    return fwd_cuda_cores<HD, bf16>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv,
-                                    scale, causal, st);
-  else
-    return fwd_wgmma<HD>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
-                         causal, st);
+    return fwd_cuda_cores<HD>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale,
+                              causal, st);
+  return fwd_wgmma<HD>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale, causal,
+                       st);
 }
 
-// dq (parts & 2) and dk/dv (parts & 4) on the CUDA cores over elements of
-// type T; delta rows of dpitch elements.
-template <int HD, typename T>
+// dq (parts & 2) and dk/dv (parts & 4) in f32 on the CUDA cores; delta
+// rows of Sq elements.
+template <int HD>
 int bwd_cuda_cores(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, void* dk, void* dv, int B, int H, int KV, int Sq,
-                   int Skv, int dpitch, float scale, int causal, int parts,
+                   int Skv, float scale, int causal, int parts,
                    cudaStream_t st) {
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* df = static_cast<const float*>(dout);
   if (parts & 2) {
-    fa_dq_f32<HD, T><<<dim3(cdiv(Sq, kF32DqRows), H, B), kFaThreads, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dq), H, KV, Sq, Skv, dpitch, scale, causal);
+    fa_dq_f32<HD><<<dim3(cdiv(Sq, kF32DqRows), H, B), kFaThreads, 0, st>>>(
+        qf, kf, vf, df, lse, delta, static_cast<float*>(dq), H, KV, Sq, Skv,
+        scale, causal);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   if (parts & 4)
-    fa_dkv_f32<HD, T><<<dim3(cdiv(Skv, kF32KvRows), KV, B), kFaThreads, 0,
-                        st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), H, KV, Sq, Skv, dpitch,
-        scale, causal);
+    fa_dkv_f32<HD><<<dim3(cdiv(Skv, kF32KvRows), KV, B), kFaThreads, 0,
+                     st>>>(qf, kf, vf, df, lse, delta,
+                           static_cast<float*>(dk), static_cast<float*>(dv),
+                           H, KV, Sq, Skv, scale, causal);
   return cudaGetLastError();
 }
 
-// dq and dk/dv in bf16 on wgmma (hd 64, 80, 128), after fa_delta.
+// dq and dk/dv in bf16 on wgmma, after fa_delta.
 template <int HD>
 int bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
               const float* lse2, const float* delta, float* partial, void* dq,
               void* dk, void* dv, int B, int H, int KV, int Sq, int Skv,
               int pitch, float scale, int causal, int parts,
               cudaStream_t st) {
+  constexpr int kRows = 64 * consumers<HD>();  // dq: queries, dk/dv: keys
   if (parts & 2) {
     TileMaps tq, tdo, tk, tv;
     cudaError_t e = tile_maps(&tq, q, B, Sq, H, HD, kRows);
@@ -1249,7 +1353,8 @@ int bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
                      8 * (1 + 3 * kStages);
     if (e == cudaSuccess) e = opt_in_smem(fa_dq_wgmma<HD>, smem);
     if (e != cudaSuccess) return e;
-    fa_dq_wgmma<HD><<<dim3(H, B, cdiv(Sq, kRows)), kWsThreads, smem, st>>>(
+    fa_dq_wgmma<HD><<<dim3(H, B, cdiv(Sq, kRows)), cta_threads<HD>(), smem,
+                      st>>>(
         tq, tdo, tk, tv, lse2, delta, static_cast<bf16*>(dq), H, KV, Sq, Skv,
         pitch, scale, scale * kLog2e, causal);
     e = cudaGetLastError();
@@ -1274,7 +1379,8 @@ int bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
                      8 * (1 + 2 * kStages);
     if (e == cudaSuccess) e = opt_in_smem(fa_dkv_wgmma<HD>, smem);
     if (e != cudaSuccess) return e;
-    fa_dkv_wgmma<HD><<<dim3(H, B, cdiv(Skv, kRows)), kWsThreads, smem, st>>>(
+    fa_dkv_wgmma<HD><<<dim3(H, B, cdiv(Skv, kRows)), cta_threads<HD>(),
+                       smem, st>>>(
         tk, tv, tq, tdo, tl, td, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), dkp, dvp, H, KV, Sq, Skv, scale,
         scale * kLog2e, causal);
@@ -1311,16 +1417,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
     if (e != cudaSuccess) return e;
   }
   if (dtype == kF32)
-    return bwd_cuda_cores<HD, float>(q, k, v, dout, lse, delta, dq, dk, dv, B,
-                                     H, KV, Sq, Skv, pitch, scale, causal,
-                                     parts, st);
-  if constexpr (HD == 32)
-    return bwd_cuda_cores<HD, bf16>(q, k, v, dout, lse, delta, dq, dk, dv, B,
-                                    H, KV, Sq, Skv, pitch, scale, causal,
-                                    parts, st);
-  else
-    return bwd_wgmma<HD>(q, k, v, dout, lse2, delta, partial, dq, dk, dv, B,
-                         H, KV, Sq, Skv, pitch, scale, causal, parts, st);
+    return bwd_cuda_cores<HD>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV,
+                              Sq, Skv, scale, causal, parts, st);
+  return bwd_wgmma<HD>(q, k, v, dout, lse2, delta, partial, dq, dk, dv, B, H,
+                       KV, Sq, Skv, pitch, scale, causal, parts, st);
 }
 
 }  // namespace
@@ -1358,8 +1458,8 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
 // dq [B,Sq,H,hd] and dk, dv [B,Skv,KV,hd] in the inputs' dtype. Scratch:
 // stats [2, B, H, pitch] f32 (bf16: lse * log2 e and delta, written by the
 // delta launch, pitch a multiple of 128 at least Sq; f32: pitch = Sq and
-// stats[1] holds delta on entry) and, for bf16 with H > KV at hd 64, 80 or
-// 128, partial [2, B, Skv, H, hd] f32 (the dk and dv of each query head).
+// stats[1] holds delta on entry) and, for bf16 with H > KV, partial [2, B,
+// Skv, H, hd] f32 (the dk and dv of each query head).
 // parts selects the launches (1 delta, 2 dq, 4 dk/dv; 7 for the whole
 // backward), so that each can be timed alone.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
@@ -1371,7 +1471,7 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                int o_f32, void* stream) {
   if (!fa_args_ok(B, H, KV, Sq, Skv, hd, causal, dtype) ||
       (dtype == kF32 ? pitch != Sq : pitch % 128 != 0 || pitch < Sq) ||
-      (dtype == kBF16 && H != KV && hd != 32 && partial == nullptr) ||
+      (dtype == kBF16 && H != KV && partial == nullptr) ||
       (o_f32 && dtype != kBF16))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -14,8 +14,8 @@
 // rows of 128 bytes, 128-byte swizzled (16-byte chunk c of row r at chunk
 // c ^ (r % 8)), as a TMA box of {64, R} with CU_TENSOR_MAP_SWIZZLE_128B
 // writes it; at hd 80 a last slab holds columns [64, 80) as R rows of 32
-// bytes, 32-byte swizzled (CU_TENSOR_MAP_SWIZZLE_32B). Slabs start on 1024
-// bytes. wgmma reads such a slab in two ways (CUTLASS's canonical GMMA
+// bytes, 32-byte swizzled (CU_TENSOR_MAP_SWIZZLE_32B), and at hd 32 two
+// such slabs hold columns [0, 16) and [16, 32). Slabs start on 1024 bytes. wgmma reads such a slab in two ways (CUTLASS's canonical GMMA
 // layouts, in 16-byte units):
 //   K-major (the slab's columns are the product's depth): 8-row groups
 //     SBO = 8 * row bytes apart; a 16-deep step is the next 32 bytes of the

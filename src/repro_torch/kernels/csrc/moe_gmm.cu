@@ -60,7 +60,7 @@
 // m16n8k16) keeps the wasted rows of the m16 products at 12 of 16 and many
 // CTAs resident to keep the weight stream in flight; it stages 32-deep
 // slabs in registers then shared memory, reading a [k][n] weight with
-// ldmatrix.trans. f32 (no speed target) runs on CUDA cores.
+// ldmatrix.trans. f32 runs on CUDA cores.
 //
 // Built with the other csrc/*.cu files by src/repro_torch/kernels/_build.py
 // and bound through ctypes (plain C entry points below: raw device pointers,

@@ -24,13 +24,12 @@ version.
   ``fa_dkv_reduce``, which sums the G heads' f32 partials in a fixed
   order. No atomics: two calls on the same inputs give the same bits. f32
   takes CUDA-core ``fa_dq_f32`` and ``fa_dkv_f32``, with delta summed in
-  PyTorch as the plain version sums it (f32 is no speed target).
+  PyTorch as the plain version sums it.
 
-Head dims: 64, 80 and 128 (every full-width config's) take the kernels
-above; 32, which only the reduced configs have, takes the CUDA-core
-kernels in bf16 as well as in f32 (bf16 inputs read into f32, each output
-rounded once; delta from ``fa_delta``): a simple kernel for small models,
-no speed target either.
+Head dims: 32 (the reduced configs), 64, 80 and 128 (every full-width
+config's), each on the kernels above; at hd 32 a row is two 16-column
+slabs and a CTA one consumer warpgroup of 64 rows, two CTAs an SM (see
+``csrc/flash_attention.cu``).
 
 Layout: the path's own, ``q, o, do [B,Sq,H,hd]`` and ``k, v [B,Skv,KV,hd]``
 (the Pallas kernels take ``[B,H,S,hd]``), ``lse [B,H,Sq]`` float32; query
@@ -42,14 +41,16 @@ Every query row and key is covered; the Pallas kernels leave rows from
 ``(Sq // 128) * 128`` on unwritten when S is not a multiple of the tile.
 
 Bound on an H100: operations, 2 * B * H * S^2 * hd FLOPs for a causal
-forward, 5 * B * H * S^2 * hd for the backward, at the bf16 or f32 peak.
-The bf16 kernels at hd 64, 80 and 128 put every product on ``wgmma``
-with operands brought by TMA through rings of shared-memory stages (warp
-specialised: one producer warpgroup, two consumer warpgroups of 64 rows
-each). The TMA tensor maps are encoded for each call from the shapes
+forward, 5 * B * H * S^2 * hd for the backward, at the bf16 or f32 peak;
+at hd 32 the exponentials (B * H * S^2 / 2 causal forward, twice that
+backward) at the special-function units' rate take longer. The bf16
+kernels put every product on ``wgmma`` with operands brought by TMA
+through rings of shared-memory stages (warp specialised: one producer
+warpgroup, two consumer warpgroups of 64 rows each, one at hd 32). The
+TMA tensor maps are encoded for each call from the shapes
 (:func:`tma_strides` checks what TMA takes); at hd 80 a row is a
-64-column and a 16-column slab, each with its own map and swizzle (see
-``csrc/flash_attention.cu``).
+64-column and a 16-column slab, at hd 32 two 16-column slabs, each slab
+width with its own map and swizzle (see ``csrc/flash_attention.cu``).
 
 Precision: the plain versions compute in float32 throughout, except that
 the forward rounds the softmax weights to V's dtype before the PV product,
@@ -67,8 +68,6 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
-# bf16 at these head dims takes the wgmma kernels; the rest the CUDA cores
-WGMMA_HEAD_DIMS = (64, 80, 128)
 STATS_ROWS = 128       # bf16 kernels' query tile: stats rows pad to it
 BWD_PARTS = 1 | 2 | 4  # the backward's launches: delta, dq, dk/dv
 
@@ -199,9 +198,8 @@ def stats_pitch(Sq, dtype):
     """Row length of the backward's stats scratch (lse * log2 e and delta,
     ``[2, B, H, pitch]`` float32): the bf16 kernels read whole tiles of
     ``STATS_ROWS`` query rows, so their rows are padded to a multiple of it
-    (a padded row has lse = +inf and delta = 0: its p is 0; the CUDA-core
-    kernels at hd 32 read delta at this pitch too); the f32 kernels index
-    rows of ``Sq``."""
+    (a padded row has lse = +inf and delta = 0: its p is 0); the f32
+    kernels index rows of ``Sq``."""
     if dtype == torch.float32:
         return Sq
     return -(-Sq // STATS_ROWS) * STATS_ROWS
@@ -209,15 +207,14 @@ def stats_pitch(Sq, dtype):
 
 def bwd_scratch(q, k):
     """The backward's float32 scratch on q's device: ``stats [2, B, H,
-    stats_pitch]`` and, for bf16 at a wgmma head dim with G = H // KV > 1,
-    ``partial [2, B, Skv, H, hd]`` (each query head's dk and dv before the
-    sum over its KV head's G heads), else an empty tensor."""
+    stats_pitch]`` and, for bf16 with G = H // KV > 1, ``partial [2, B,
+    Skv, H, hd]`` (each query head's dk and dv before the sum over its KV
+    head's G heads), else an empty tensor."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     kw = {"dtype": torch.float32, "device": q.device}
     stats = torch.empty((2, B, H, stats_pitch(Sq, q.dtype)), **kw)
-    grouped = q.dtype == torch.bfloat16 and H != KV \
-        and hd in WGMMA_HEAD_DIMS
+    grouped = q.dtype == torch.bfloat16 and H != KV
     partial = torch.empty((2, B, Skv, H, hd) if grouped else (0,), **kw)
     return stats, partial
 
@@ -280,8 +277,8 @@ def _check_bwd(q, k, v, o, lse, do, causal):
 def _check(q, k, v, causal, tensors):
     """What the kernels take: q [B,Sq,H,hd], k and v [B,Skv,KV,hd] with H
     a multiple of KV and hd in ``HEAD_DIMS``, all float32 or all bfloat16,
-    every input on q's device, contiguous and 16-byte aligned (bf16 at a
-    wgmma head dim: with :func:`tma_strides`); causal only with Sq == Skv.
+    every input on q's device, contiguous and 16-byte aligned (bf16: with
+    :func:`tma_strides`); causal only with Sq == Skv.
     Returns (B, Sq, H, hd)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q [B,Sq,H,hd] and k, v [B,Skv,KV,hd] expected, "
@@ -306,7 +303,7 @@ def _check(q, k, v, causal, tensors):
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in tensors):
         raise ValueError("all inputs must be contiguous and 16-byte aligned")
-    if q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+    if q.dtype == torch.bfloat16:
         tma_strides(q.shape, q.element_size())
         tma_strides(k.shape, k.element_size())
     return B, Sq, H, hd

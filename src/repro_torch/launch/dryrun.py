@@ -49,7 +49,8 @@ from repro_torch.optim.adamw import leaves
 from repro_torch.perf.op_cost import OpCost
 from repro_torch.perf.roofline import model_flops, roofline_terms
 from repro_torch.sharding import (
-    mesh_sizes, named_sharding, on_shards, rules_for, tree_shardings,
+    SSD_DIMS, WKV_DIMS, mesh_sizes, named_sharding, on_shards, rules_for,
+    tree_shardings,
 )
 from repro_torch.train.steps import (
     make_prefill_step, make_serve_step, make_train_step,
@@ -94,9 +95,12 @@ def planned_append(k_pages, v_pages, k_new, v_new, slots):
 
 
 # the plain versions of every kernel: the no-cache attention for training
-# and prefill, the carried decode (and decode-time cross-attention)
+# and prefill, the scans (each device on its rows and heads, so that no op
+# of theirs, forward or backward, meets a DTensor), the carried decode (and
+# decode-time cross-attention)
 PLAIN = ops.Kernels(attend=on_shards(L.flash_attention_xla, (2, 2, 2)),
-                    ssd=ssd_chunked_plain, wkv=wkv6_chunked_plain,
+                    ssd=on_shards(ssd_chunked_plain, *SSD_DIMS),
+                    wkv=on_shards(wkv6_chunked_plain, *WKV_DIMS),
                     gmm=gmm_plain)
 PLAIN_DECODE = ops.Kernels(
     attend=on_shards(decode_attention_plain, (1, 2, 2, None, 1, 1)),

@@ -29,13 +29,20 @@ builds the reference's ``make_host_mesh(data=world, model=1)`` and
 state are DTensors replicated over the ranks, each batch a DTensor split
 over them by its rows (every rank reads the same global batch from the
 same shard, as the reference's one process does, so a data-parallel step
-is the one-process step), and the attention kernels run on each rank's
-rows (``sharding.on_shards``). The dense and VLM families only: the scans'
-and the grouped matmul's kernels take no DTensors. The parameters are
+is the one-process step), and the attention and the scans' kernels run on
+each rank's rows (``sharding.on_shards``: the kernels take plain tensors).
+The dense, VLM, hybrid and SSM families; MoE and the encoder-decoder are
+refused. The grouped matmul's rows are ``[E, n C, D]``, each expert's
+tokens gathered from every batch row, not batch-first, so ``on_shards``
+cannot hand a rank its own rows of them; the encoder-decoder's encoder
+and cross-attention have not been run on shards. The reference trains
+both on its host mesh (ROADMAP Queue 3). The parameters are
 replicated, so global rank 0 alone writes a checkpoint, every rank waits
 until its manifest is committed, and every rank restores it into its own
 tensors (``checkpoint.ckpt``). Every rank prints its lines, prefixed
-``[rank r/world]``.
+``[rank r/world]``, the last of them the training kernels' launches in
+this run (``kernel launches: {wrapper: n}``; 0 where the plain versions
+ran, on the CPU).
 """
 from __future__ import annotations
 
@@ -77,7 +84,9 @@ def main(argv=None):
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.registry import get_api
-    from repro_torch.sharding import on_shards, rules_for
+    from repro_torch.sharding import (
+        SSD_DIMS, WKV_DIMS, on_shards, rules_for,
+    )
     from repro_torch.train.loop import Trainer
     from repro_torch.train.steps import make_train_step
 
@@ -85,17 +94,21 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     world = int(os.environ.get("WORLD_SIZE", "0"))
-    if world and cfg.family not in (Family.DENSE, Family.VLM):
-        raise ValueError(f"data parallelism takes the dense and VLM "
-                         f"families, not {cfg.family.value}")
+    if world and cfg.family in (Family.MOE, Family.ENCDEC):
+        raise ValueError(f"data parallelism takes the dense, VLM, hybrid "
+                         f"and SSM families, not {cfg.family.value} "
+                         f"({cfg.arch_id})")
     device, own_group, prefix = args.device, False, ""
     rules, kernels = None, ops.KERNELS
     if world:
         device, own_group = _join_world(device)
         rules = rules_for(cfg, make_host_mesh(data=world, model=1))
-        # q [B,S,H,hd], k and v [B,S,KV,hd]: each rank attends its rows
-        kernels = ops.Kernels(attend=on_shards(ops.flash_attention,
-                                               (2, 2, 2)))
+        # q [B,S,H,hd], k and v [B,S,KV,hd]: each rank attends its rows;
+        # the scans run on them too
+        kernels = ops.Kernels(
+            attend=on_shards(ops.flash_attention, (2, 2, 2)),
+            ssd=on_shards(ops.mamba2_ssd, *SSD_DIMS),
+            wkv=on_shards(ops.rwkv6_wkv, *WKV_DIMS))
         prefix = f"[rank {rules.mesh.get_rank()}/{world}] "
     gsys = Genesys(GenesysConfig(n_workers=2, coalesce_window_us=200,
                                  coalesce_max=8))
@@ -126,12 +139,20 @@ def main(argv=None):
                              rules=rules)
                 if args.resume and tr.resume():
                     print(f"{prefix}resumed from step {tr.step}")
+                counted = (ops.flash_attention_fwd, ops.flash_attention_bwd,
+                           ops.mamba2_ssd_fwd, ops.mamba2_ssd_bwd,
+                           ops.rwkv6_wkv_fwd, ops.rwkv6_wkv_bwd, ops.gmm_fwd,
+                           ops.gmm_bwd)
+                before = [c.launches for c in counted]
                 st = tr.run(args.steps)
                 print(f"{prefix}steps={st.steps} loss[0]={st.losses[0]:.4f} "
                       f"loss[-1]={st.losses[-1]:.4f} ckpts={st.ckpts} "
                       f"stragglers={st.straggler_steps}")
                 print(f"{prefix}GENESYS: {dict(gsys.table.stats)} "
                       f"coalesce_hist={gsys.executor.stats.coalesce_hist}")
+                print(f"{prefix}kernel launches: " + str(
+                    {c.__name__: c.launches - n
+                     for c, n in zip(counted, before)}))
             finally:
                 loader.close()
     finally:

@@ -283,19 +283,38 @@ def tree_shardings(mesh, rules: ShardingRules, logical_tree,
             for k, v in logical_tree.items()}
 
 
-def on_shards(fn, head_dims):
-    """``fn``, an attention, run on each device's shards of its tensor
-    arguments: a row's and a head's attention needs only that row and
-    head. On each mesh dim the arguments keep a batch sharding (dim 0)
-    or a head sharding (``head_dims[i]`` of argument ``i``; None for one
-    without heads, which is then replicated there) that none of them
-    contradicts (a replicated argument is cut to match); everything else
-    is gathered first. A plain tensor argument counts as replicated. The
-    result takes the first argument's shape and placements. Without
-    DTensors, ``fn`` runs as it is."""
+# on_shards' (head_dims, batch_dims, out_dims) of the scans: the SSD scan
+# (ops.mamba2_ssd, kernels.mamba2_scan.ssd_chunked_plain) of x [B,L,H,P],
+# dt [B,L,H], A [H], Bm, Cm [B,L,N] -> (y [B,L,H,P], s_final [B,H,N,P]),
+# and the WKV (ops.rwkv6_wkv, kernels.rwkv6_scan.wkv6_chunked_plain) of
+# r, k, v, w [B,L,H,hd], u [H,hd] -> (o [B,L,H,hd], s_final [B,H,hd,hd])
+SSD_DIMS = ((2, 2, 0, None, None), (0, 0, None, 0, 0), ((0, 2), (0, 1)))
+WKV_DIMS = ((2, 2, 2, 2, 0), (0, 0, 0, 0, None), ((0, 2), (0, 1)))
+
+
+def on_shards(fn, head_dims, batch_dims=None, out_dims=None):
+    """``fn`` run on each device's shards of its tensor arguments: an
+    attention or a scan, where a batch row's and a head's output needs only
+    that row and head. ``head_dims[i]`` and ``batch_dims[i]`` name argument
+    ``i``'s head and batch dims (None for one it has not: ``A [H]`` has no
+    batch dim, ``Bm [B,L,N]`` no head dim; ``batch_dims`` defaults to dim 0
+    of every argument). On each mesh dim the arguments keep a batch
+    sharding or a head sharding that none of them contradicts (a
+    replicated argument is cut to match; one without that dim stays
+    whole, and its gradient from each device's shards is a partial sum
+    over them); everything else is gathered first. A plain tensor argument
+    counts as replicated. ``out_dims``: None for one result, which takes
+    the first argument's shape and placements; else one ``(batch_dim,
+    head_dim)`` per element of a tuple result, each placed by its own
+    dims, with the first batched argument's global batch and the first
+    argument's global heads. Without DTensors, ``fn`` runs as it is."""
+    batch_dims = (0,) * len(head_dims) if batch_dims is None else batch_dims
+
     def run(*args, **kwargs):
         import torch
-        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from torch.distributed.tensor import (
+            DTensor, Partial, Replicate, Shard,
+        )
         if not isinstance(args[0], DTensor):
             return fn(*args, **kwargs)
         mesh = args[0].device_mesh
@@ -304,31 +323,59 @@ def on_shards(fn, head_dims):
                 else DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
                                         run_check=False)
                 for a in args]
-        dts = [(head_dims[i], a) for i, a in enumerate(args)
+        dts = [(batch_dims[i], head_dims[i], a) for i, a in enumerate(args)
                if isinstance(a, DTensor)]
+
+        def kind(p, bd, hd):    # what a placement says of one argument
+            if p == Replicate():
+                return "any"
+            return ("batch" if bd is not None and p == Shard(bd)
+                    else "heads" if hd is not None and p == Shard(hd)
+                    else None)
         keep = []
         for m in range(mesh.ndim):
-            ps = [(h, a.placements[m]) for h, a in dts]
-            if all(p in (Shard(0), Replicate()) for _, p in ps) \
-                    and any(p == Shard(0) for _, p in ps):
-                keep.append("batch")
-            elif all(p == Replicate() or (h is not None and p == Shard(h))
-                     for h, p in ps) and any(p != Replicate() for _, p in ps):
-                keep.append("heads")
-            else:
-                keep.append(None)
+            kinds = {kind(a.placements[m], bd, hd) for bd, hd, a in dts}
+            keep.append(next(iter(kinds - {"any"}))
+                        if len(kinds - {"any"}) == 1 and None not in kinds
+                        else None)
 
-        def placements(h):
-            return [Shard(0) if k == "batch"
-                    else Shard(h) if k == "heads" and h is not None
+        def placements(bd, hd):
+            return [Shard(bd) if k == "batch" and bd is not None
+                    else Shard(hd) if k == "heads" and hd is not None
                     else Replicate() for k in keep]
-        local = [a.redistribute(mesh, placements(head_dims[i])).to_local()
+
+        def local(a, bd, hd):
+            pl = placements(bd, hd)
+            # whole on a mesh dim whose shards split the work: each
+            # device's gradient of it is its share of the sum
+            grad = [Partial() if p == Replicate() and k is not None else p
+                    for p, k in zip(pl, keep)]
+            return a.redistribute(mesh, pl).to_local(grad_placements=grad)
+        local = [local(a, batch_dims[i], head_dims[i])
                  if isinstance(a, DTensor) else a
                  for i, a in enumerate(args)]
-        q = args[0]
-        return DTensor.from_local(fn(*local, **kwargs), mesh,
-                                  placements(head_dims[0]), run_check=False,
-                                  shape=q.shape,
-                                  stride=torch.empty(q.shape,
-                                                     device="meta").stride())
+        out = fn(*local, **kwargs)
+        if out_dims is None:
+            q = args[0]
+            return DTensor.from_local(
+                out, mesh, placements(batch_dims[0], head_dims[0]),
+                run_check=False, shape=q.shape,
+                stride=torch.empty(q.shape, device="meta").stride())
+        batch = next(a.shape[bd] for bd, _, a in dts if bd is not None)
+        heads = args[0].shape[head_dims[0]]
+
+        def place(t, bd, hd):
+            # the DTensor's strides are the contiguous ones of its shape:
+            # so must the shard's be (the plain scans return permuted views)
+            t = t.contiguous()
+            shape = list(t.shape)
+            if bd is not None:
+                shape[bd] = batch
+            if hd is not None:
+                shape[hd] = heads
+            return DTensor.from_local(
+                t, mesh, placements(bd, hd), run_check=False,
+                shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
+        return tuple(place(t, bd, hd) for t, (bd, hd) in zip(out, out_dims))
     return run

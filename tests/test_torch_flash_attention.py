@@ -210,16 +210,20 @@ def test_attention_layer_takes_the_autograd_function_by_default(monkeypatch):
 @pytest.mark.parametrize("case,exc", [
     ("hd48", ValueError), ("causal-ragged", ValueError),
     ("mixed-dtype", TypeError), ("kv-not-dividing", ValueError),
-    ("non-contiguous", ValueError)])
+    ("non-contiguous", ValueError), ("hd48-bfloat16", ValueError)])
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(case, exc):
     """The checks a CUDA tensor meets before a launch (run here on CPU
-    tensors: the checks do not depend on the device)."""
+    tensors: the checks do not depend on the device). hd 48 is refused in
+    both dtypes: bf16 takes the wgmma kernels at hd 32, 64, 80 and 128
+    only."""
     q = torch.zeros(1, 8, 4, 64)
     k = v = torch.zeros(1, 8, 2, 64)
     causal = True
-    if case == "hd48":
-        q, k, v = torch.zeros(1, 8, 4, 48), torch.zeros(1, 8, 2, 48), \
-            torch.zeros(1, 8, 2, 48)
+    if case.startswith("hd48"):
+        dt = torch.bfloat16 if case.endswith("bfloat16") else torch.float32
+        q, k, v = torch.zeros(1, 8, 4, 48, dtype=dt), \
+            torch.zeros(1, 8, 2, 48, dtype=dt), \
+            torch.zeros(1, 8, 2, 48, dtype=dt)
     elif case == "causal-ragged":
         k = v = torch.zeros(1, 16, 2, 64)
     elif case == "mixed-dtype":
@@ -258,8 +262,9 @@ def test_plain_at_the_reduced_head_dim_matches_xla(dtype, causal):
     ``flash_attention_xla`` (f32 to 2e-5; bf16 to 2e-2 of the largest
     |output|, the weights rounded at other points) and its backward
     ``jax.vjp`` of it (f32 to 5e-5); the kernel wrappers take hd 32 (the
-    CUDA-core kernels in both dtypes), with no per-head partials in bf16
-    (those kernels sum the G heads themselves)."""
+    wgmma kernels in bf16, with per-head partials of dk and dv that
+    ``fa_dkv_reduce`` sums over the G heads; the CUDA-core kernels in f32,
+    which sum the G heads themselves)."""
     (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(1, 4, 2, 200, 32, dtype,
                                                     seed=9)
     o, lse = tfa.flash_attention_fwd_plain(tq, tk, tv, causal=causal)
@@ -272,7 +277,8 @@ def test_plain_at_the_reduced_head_dim_matches_xla(dtype, causal):
         _close(g, w, dtype, atol=GRAD_F32_ATOL)
     assert tfa._check(tq, tk, tv, causal, (tq, tk, tv)) == (1, 200, 4, 32)
     _, partial = tfa.bwd_scratch(tq, tk)
-    assert partial.numel() == 0
+    assert tuple(partial.shape) == ((2, 1, 200, 4, 32)
+                                    if dtype == "bfloat16" else (0,))
 
 
 # cross-attention: Sq 128 over Skv 256, H = KV = 4, hd 64, non-causal, in
@@ -327,10 +333,12 @@ def test_wrappers_take_cross_attention_shapes(Sq, Skv):
     ((1, 4096, 36, 128), 2, (256, 9216, 37748736)),
     ((2, 1000, 32, 80), 2, (160, 5120, 5120000)),
     ((1, 128, 4, 64), 2, (128, 512, 65536)),
-    ((3, 5, 1, 64), 4, (256, 256, 1280))])
+    ((3, 5, 1, 64), 4, (256, 256, 1280)),
+    ((8, 64, 4, 32), 2, (64, 256, 16384))])
 def test_tma_strides_of_the_kernels_tensor_maps(shape, itemsize, want):
     """The byte strides (head, row, batch row) of the 4-D tensor map over a
-    contiguous [B, S, N, hd] tensor."""
+    contiguous [B, S, N, hd] tensor (the last: the reduced configs' q at
+    hd 32, in the training example's batch of 8 rows of 64)."""
     assert tfa.tma_strides(shape, itemsize) == want
 
 
@@ -356,12 +364,16 @@ def test_stats_pitch(Sq, dtype, want):
 @pytest.mark.parametrize("dtype,H,KV,partial_shape", [
     (torch.bfloat16, 8, 2, (2, 2, 100, 8, 64)),
     (torch.bfloat16, 4, 4, (0,)),
-    (torch.float32, 8, 2, (0,))])
+    (torch.float32, 8, 2, (0,)),
+    (torch.bfloat16, 4, 2, (2, 2, 100, 4, 32))])
 def test_bwd_scratch_shapes(dtype, H, KV, partial_shape):
     """Scratch of the backward: stats [2, B, H, pitch] f32 always; the f32
-    partials of dk and dv per query head only for bf16 with G > 1."""
-    q = torch.zeros(2, 60, H, 64, dtype=dtype)
-    k = torch.zeros(2, 100, KV, 64, dtype=dtype)
+    partials of dk and dv per query head only for bf16 with G > 1, at every
+    head dim (the last case: the reduced configs' H 4 over KV 2 at hd 32).
+    The head dim is the partials' last where there are partials, else 64."""
+    hd = partial_shape[-1] if len(partial_shape) == 5 else 64
+    q = torch.zeros(2, 60, H, hd, dtype=dtype)
+    k = torch.zeros(2, 100, KV, hd, dtype=dtype)
     stats, partial = tfa.bwd_scratch(q, k)
     assert stats.shape == (2, 2, H, tfa.stats_pitch(60, dtype))
     assert stats.dtype == partial.dtype == torch.float32

@@ -1,9 +1,12 @@
 """Data parallelism in the training launcher: ``launch.train`` on 2 gloo
 ranks (as ``torchrun`` starts it, through ``tests/torch_dist_jobs.py``)
-against the launcher in one process on the same shard, reduced
-internlm2-20b in float32. Every step's loss agrees to 1e-5; the
-checkpoint is written once (by rank 0: the other rank issues no PWRITE64)
-and both ranks resume from it; the resumed step's losses agree too."""
+against the launcher in one process on the same shard, in float32, for
+reduced internlm2-20b (dense), zamba2-2.7b (hybrid: the SSD scan on each
+rank's rows) and rwkv6-3b (SSM: the WKV on each rank's rows). Every
+step's loss agrees to 1e-5; the checkpoint is written once (by rank 0:
+the other rank issues no PWRITE64) and both ranks resume from it; the
+resumed step's losses agree too. The families the launcher refuses to
+train data parallel (MoE, the encoder-decoder) are refused by name."""
 import ast
 import json
 import os
@@ -15,6 +18,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tests"))
 
+import pytest  # noqa: E402
 import torch_dist_jobs  # noqa: E402
 
 LOSS_ATOL = 1e-5
@@ -25,11 +29,13 @@ def _syscalls(printed: str) -> dict:
     return ast.literal_eval(re.search(r"GENESYS: (\{.*?\})", line).group(1))
 
 
-def test_two_ranks_train_as_one_process(tmp_path, monkeypatch):
+@pytest.mark.parametrize("arch", ["internlm2-20b", "zamba2-2.7b",
+                                  "rwkv6-3b"])
+def test_two_ranks_train_as_one_process(tmp_path, monkeypatch, arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, str(ROOT / "tests" /
                                             "torch_dist_jobs.py"),
-                        "launch_dp", "2", str(tmp_path / "dp")],
+                        "launch_dp", "2", str(tmp_path / "dp"), arch],
                        env=env, capture_output=True, text=True, timeout=300)
     line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
     assert r.returncode == 0 and line, r.stdout[-3000:] + r.stderr[-3000:]
@@ -38,7 +44,7 @@ def test_two_ranks_train_as_one_process(tmp_path, monkeypatch):
 
     for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
         monkeypatch.delenv(name, raising=False)
-    one = torch_dist_jobs.launch_train(str(tmp_path / "one"))
+    one = torch_dist_jobs.launch_train(str(tmp_path / "one"), arch)
     steps = torch_dist_jobs.LAUNCH_STEPS
     assert len(one["first"]["losses"]) == steps
     for res in ranks:
@@ -57,3 +63,39 @@ def test_two_ranks_train_as_one_process(tmp_path, monkeypatch):
               for res in ranks]
     assert writes[0] > 0 and writes[1] == 0
     assert writes[0] == _syscalls(one["first"]["printed"])["PWRITE64"]
+
+
+@pytest.mark.parametrize("arch,family", [("moonshot-v1-16b-a3b", "moe"),
+                                         ("seamless-m4t-medium", "encdec")])
+def test_data_parallel_refuses_moe_and_the_encoder_decoder(monkeypatch,
+                                                           arch, family):
+    """Under a ``torchrun`` world the launcher refuses, before it joins the
+    group or builds anything, the families whose kernels it does not run on
+    each rank's rows, naming the family and the arch."""
+    from repro_torch.config import Family
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    assert get_config(arch).family == Family(family)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match=f"not {family} \\({arch}\\)"):
+        train.main(["--arch", arch, "--reduced", "--device", "cpu"])
+
+
+def test_launcher_prints_its_kernel_launches(monkeypatch, capsys):
+    """The launcher's last line counts the training kernels' launches in
+    its run (the card's smoke reads it under ``torchrun``): none on the
+    CPU, where the plain versions run."""
+    from repro_torch.launch import train
+
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    train.main(["--arch", "internlm2-20b", "--reduced", "--device", "cpu",
+                "--steps", "1", "--batch", "2", "--seq", "32"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    launches = ast.literal_eval(
+        re.search(r"^kernel launches: (\{.*\})$", last).group(1))
+    assert launches == dict.fromkeys(
+        ("flash_attention_fwd", "flash_attention_bwd", "mamba2_ssd_fwd",
+         "mamba2_ssd_bwd", "rwkv6_wkv_fwd", "rwkv6_wkv_bwd", "gmm_fwd",
+         "gmm_bwd"), 0)

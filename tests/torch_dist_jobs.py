@@ -4,7 +4,8 @@ run it as a script, in a subprocess of their own).
 
     python tests/torch_dist_jobs.py sharded_step 2,2
     python tests/torch_dist_jobs.py compressed_reduce 2,4
-    python tests/torch_dist_jobs.py launch_dp 2 CKPT_DIR
+    python tests/torch_dist_jobs.py launch_dp 2 CKPT_DIR [ARCH]
+    python tests/torch_dist_jobs.py scan_shards 2,2
 
 Each job spawns one process per rank of the mesh's shape, joins them in a
 gloo group at ``tcp://localhost:<free port>``, and prints one line
@@ -119,10 +120,11 @@ def compressed_reduce(mesh_shape):
     return out
 
 
-# the data-parallel launcher's run: reduced internlm2-20b, 3 steps with a
-# checkpoint at step 3, then a resumed run of 1 step
-LAUNCH_ARGS = ["--arch", "internlm2-20b", "--reduced", "--device", "cpu",
-               "--batch", "4", "--seq", "32", "--lr", "1e-3"]
+# the data-parallel launcher's run: a reduced config (internlm2-20b unless
+# named), 3 steps with a checkpoint at step 3, then a resumed run of 1 step
+LAUNCH_ARGS = ["--reduced", "--device", "cpu", "--batch", "4", "--seq", "32",
+               "--lr", "1e-3"]
+LAUNCH_ARCH = "internlm2-20b"
 LAUNCH_STEPS = 3
 
 
@@ -141,11 +143,11 @@ def f32_configs():
         configs.get_config = get
 
 
-def launch_train(ckpt_dir):
-    """``launch.train.main`` as LAUNCH_ARGS say, in f32: LAUNCH_STEPS
-    steps checkpointed at the last into ``ckpt_dir``, then a run that
-    resumes from it and takes one step. Returns each run's losses and
-    printed lines."""
+def launch_train(ckpt_dir, arch=LAUNCH_ARCH):
+    """``launch.train.main`` of ``arch`` as LAUNCH_ARGS say, in f32:
+    LAUNCH_STEPS steps checkpointed at the last into ``ckpt_dir``, then a
+    run that resumes from it and takes one step. Returns each run's losses
+    and printed lines."""
     from repro_torch.launch import train
 
     out = {}
@@ -157,20 +159,20 @@ def launch_train(ckpt_dir):
                              "--resume"])):
             printed = io.StringIO()
             with contextlib.redirect_stdout(printed):
-                st = train.main(LAUNCH_ARGS + extra)
+                st = train.main(["--arch", arch] + LAUNCH_ARGS + extra)
             out[name] = {"losses": st.losses, "ckpts": st.ckpts,
                          "printed": printed.getvalue()}
     return out
 
 
-def launch_dp(mesh_shape, ckpt_dir):
+def launch_dp(mesh_shape, ckpt_dir, arch=LAUNCH_ARCH):
     """:func:`launch_train` on every rank of the gloo world, as
     ``torchrun`` would start the launcher (``WORLD_SIZE``, ``RANK`` and
     ``LOCAL_RANK`` set; the launcher takes the running group)."""
     os.environ.update(WORLD_SIZE=str(dist.get_world_size()),
                       RANK=str(dist.get_rank()),
                       LOCAL_RANK=str(dist.get_rank()))
-    return dict(launch_train(ckpt_dir), rank=dist.get_rank())
+    return dict(launch_train(ckpt_dir, arch), rank=dist.get_rank())
 
 
 def _map2(fn, a, b):
@@ -197,8 +199,93 @@ def _worker(rank, world, port, job, mesh_shape, extra, q):
             dist.destroy_process_group()
 
 
+def scan_inputs(name):
+    """The plain scan ``name`` ("ssd" or "wkv"), its inputs at a small size
+    from numpy seed 3 (float32; the WKV's decay in (0.4, 0.9)), the weights
+    of the output whose weighted sum the gradients are taken of, and its
+    on_shards dims."""
+    from repro_torch.kernels.mamba2_scan import ssd_chunked_plain
+    from repro_torch.kernels.rwkv6_scan import wkv6_chunked_plain
+    from repro_torch.sharding import SSD_DIMS, WKV_DIMS
+
+    rng = np.random.default_rng(3)
+    B, L, H = 4, 32, 4
+
+    def f(*shape, lo=-1.0, hi=1.0):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
+    if name == "ssd":
+        P, N = 8, 16
+        ins = (f(B, L, H, P), f(B, L, H, lo=0.05, hi=0.5), f(H, lo=-1.0,
+                                                              hi=-0.1),
+               f(B, L, N), f(B, L, N))
+        return ssd_chunked_plain, ins, f(B, L, H, P), f(B, H, N, P), SSD_DIMS
+    hd = 8
+    ins = (f(B, L, H, hd), f(B, L, H, hd), f(B, L, H, hd),
+           f(B, L, H, hd, lo=0.4, hi=0.9), f(H, hd))
+    return wkv6_chunked_plain, ins, f(B, L, H, hd), f(B, H, hd, hd), WKV_DIMS
+
+
+def scan_shards(mesh_shape):
+    """Each plain scan through ``sharding.on_shards`` on a 2 x 2 mesh, its
+    inputs' batch split over mesh dim 0 and their heads over dim 1 (an
+    argument without the dim whole), against the scan on whole tensors:
+    the largest difference of y, s_final and every input's gradient (of a
+    weighted sum of y and s_final), over the largest element of the
+    unsharded one, and the types the scan received and
+    the gradients that entered and left it (each device's own tensors,
+    never a DTensor)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.sharding import on_shards
+
+    mesh = init_device_mesh("cpu", mesh_shape)
+    out = {}
+    for name in ("ssd", "wkv"):
+        fn, ins, wy, ws, (head_dims, batch_dims, out_dims) = scan_inputs(name)
+        seen = {"args": set(), "grads": set()}
+
+        def spy(*args):
+            seen["args"] |= {type(a).__name__ for a in args}
+            for a in args:
+                a.register_hook(
+                    lambda g: seen["grads"].add(type(g).__name__))
+            y, s = fn(*args)
+            y.register_hook(lambda g: seen["grads"].add(type(g).__name__))
+            return y, s
+
+        whole = [t.clone().requires_grad_(True) for t in ins]
+        y, s = fn(*whole)
+        ((y * wy).sum() + (s * ws).sum()).backward()
+        placed = []
+        for t, bd, hd in zip(ins, batch_dims, head_dims):
+            pl = [Shard(bd) if bd is not None else Replicate(),
+                  Shard(hd) if hd is not None else Replicate()]
+            placed.append(torch.distributed.tensor.distribute_tensor(
+                t, mesh, pl).requires_grad_(True))
+        yd, sd = on_shards(spy, head_dims, batch_dims, out_dims)(*placed)
+        wyd = torch.distributed.tensor.distribute_tensor(
+            wy, mesh, yd.placements)
+        wsd = torch.distributed.tensor.distribute_tensor(
+            ws, mesh, sd.placements)
+        ((yd * wyd).sum() + (sd * wsd).sum()).backward()
+        def rel(got, want):     # largest difference over the largest |want|
+            return ((got - want).abs().max() / want.abs().max()).item()
+        diff = {"y": rel(yd.full_tensor(), y),
+                "s_final": rel(sd.full_tensor(), s)}
+        for i, (a, b) in enumerate(zip(placed, whole)):
+            diff[f"grad{i}"] = rel(a.grad.full_tensor(), b.grad)
+        out[name] = {"diff": diff, "placements": [str(yd.placements),
+                                                  str(sd.placements)],
+                     "args": sorted(seen["args"]),
+                     "grads": sorted(seen["grads"]),
+                     "is_dtensor": [isinstance(t, DTensor)
+                                    for t in (yd, sd)]}
+    return out
+
+
 JOBS = {"sharded_step": sharded_step, "compressed_reduce": compressed_reduce,
-        "launch_dp": launch_dp}
+        "launch_dp": launch_dp, "scan_shards": scan_shards}
 
 
 def main() -> int:
