@@ -168,14 +168,17 @@ random weights from a seed):
     dw), against their plain versions at the expert products' shapes (64
     groups of d_model 2048 -> d_ff 1408) with 512 rows a group (training)
     and 4 (a decode step's capacity), in bf16 and f32, the
-    down-projection (1408 -> 2048) at 512 rows in bf16, and 9 tiles of 200
-    rows over 8 experts with one tile's id out of range and one expert
-    without tiles in bf16 (both must read zero), each output element held
-    to phase 6's rule, which a control (tile 1's expert id shifted) must
-    fail, and K6b bit-equal across two calls; timed (K6b whole and as its
-    dx and dw launches) against the plain versions, ``torch.bmm`` over
-    the same tiles and the bound; and ``ops.moe_gmm_apply`` (sort, pad and
-    tile ids on the device) through K6 and K6b against the plain versions
+    down-projection (1408 -> 2048) at 512 rows in bf16 and f32, and 9
+    tiles of 200 rows over 8 experts with one tile's id out of range and
+    one expert without tiles in bf16 and f32 (both must read zero), each
+    output element held to phase 6's rule (f32 also to a relative
+    Frobenius error of 1e-5), which a control (tile 1's expert id
+    shifted) must fail, and K6b bit-equal across two calls; timed (K6b
+    whole and as its dx and dw launches) against the plain versions,
+    ``torch.bmm`` over the same tiles and the bound (in f32 the design's,
+    split TF32 for its tiles over 16 rows and dw, and the f32 peak's
+    beside it); and ``ops.moe_gmm_apply`` (sort, pad and tile ids on the
+    device) through K6 and K6b against the plain versions
     at the reference's ragged test shapes (random experts with one left
     empty; every token on one expert);
 15. the main path at full width and all 48 layers in bf16: phase 3's
@@ -314,10 +317,11 @@ The last modules of the port add:
     checkpoints, kill and resume, 10 more steps; K3a and K3b launched
     once per layer and step; the loss must fall); then, in subprocesses,
     ``torchrun --standalone --nproc_per_node 1 -m repro_torch.launch.train
-    --arch A --reduced --steps 12 --lr 3e-3`` for internlm2-20b, zamba2-2.7b
-    and rwkv6-3b (data-parallel worlds of one over NCCL, the attention's
-    and the scans' kernels on the rank's rows; each loss must fall, and
-    each kernel of the model's path must launch: K3 at hd 32, K4, K5) and
+    --arch A --reduced --steps 12 --lr 3e-3`` for internlm2-20b,
+    zamba2-2.7b, rwkv6-3b and moonshot-v1-16b-a3b (data-parallel worlds of
+    one over NCCL, the attention's, the scans' and the experts' kernels on
+    the rank's rows; each loss must fall, and each kernel of the model's
+    path must launch: K3 at hd 32, K4, K5, K6/K6b) and
     ``python -m
     repro_torch.launch.serve --arch starcoder2-7b --reduced``, dense
     (``--batches 1``) and ``--continuous``, each answering a UDP request;
@@ -444,6 +448,10 @@ CONTROL_KEYS = (2048, 2112)
 # the two may land one bf16 ulp apart (<= 2**-7 of it): r = 2**-6, as in
 # phase 6.
 SSD_REL = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -13}
+# K6/K6b in f32 (phase 14) also to a relative Frobenius error of the whole
+# output: its decode tiles multiply in f32, its larger tiles and dw in split
+# TF32 (tests/test_torch_gmm_tf32.py: one tf32 product fails both rules)
+GMM_F32_FROB = 1e-5
 # the control, the kernels run on the two halves of the sequence apart
 # (the carry across the middle boundary dropped), must fail that rule in
 # these outputs
@@ -3496,6 +3504,9 @@ def gmm_case(torch, mg, flush, label, x, w, dy, te, tm, *, reps):
         check(errs[n]["worst"] <= 1.0, f"gmm [{label}] {n}: error up to "
               f"{errs[n]['worst']:.3g} x its bound (max abs "
               f"{errs[n]['max_abs_err']:.3g})")
+        if name == "float32":
+            check(errs[n]["frob"] <= GMM_F32_FROB, f"gmm [{label}] {n}: "
+                  f"relative Frobenius error {errs[n]['frob']:.3g}")
         check(control[n]["worst"] > 1.0, f"gmm control [{label}]: {n} "
               f"with tile 1's expert shifted passes")
     same_bits = all(torch.equal(a, b)
@@ -3516,17 +3527,31 @@ def gmm_case(torch, mg, flush, label, x, w, dy, te, tm, *, reps):
     torch.cuda.empty_cache()
 
     # the bound: what this table needs (no work for an out-of-range tile;
-    # the weights of the experts it uses read once, dw written whole)
+    # the weights of the experts it uses read once, dw written whole). In
+    # f32 the design's: a tile of at most 16 rows (the forward and dx)
+    # multiplies in f32 on the CUDA cores, larger tiles and dw in split TF32
+    # (three tf32 products a product, at the TF32 rate); the f32 peak's
+    # beside it
     esz = x.element_size()
     T, Tv = nt * tm, int((~bad).sum()) * tm
     flops = 2.0 * Tv * K * N
     w_used = len(used) * K * N
-    bounds = {
-        "fwd": bound_ms((T * K + w_used + T * N) * esz, flops, name),
-        "dx": bound_ms((T * N + w_used + T * K) * esz, flops, name),
-        "dw": bound_ms((T * K + T * N + E * K * N) * esz, flops, name),
-        "bwd": bound_ms((2 * T * K + T * N + w_used + E * K * N) * esz,
-                        2 * flops, name)}
+    nbytes = {"fwd": (T * K + w_used + T * N) * esz,
+              "dx": (T * N + w_used + T * K) * esz,
+              "dw": (T * K + T * N + E * K * N) * esz,
+              "bwd": (2 * T * K + T * N + w_used + E * K * N) * esz}
+    split = name == "float32"
+    ops_s = {"fwd": (3 * flops / TF32_FLOPS if split and tm > 16
+                     else flops / PEAK_FLOPS[name]),
+             "dw": 3 * flops / TF32_FLOPS if split
+             else flops / PEAK_FLOPS[name]}
+    ops_s["dx"] = ops_s["fwd"]
+    ops_s["bwd"] = ops_s["dx"] + ops_s["dw"]
+    bounds = {k: max((nbytes[k] / HBM_BYTES_PER_S * 1e3, "bytes"),
+                     (ops_s[k] * 1e3, "operations")) for k in nbytes}
+    bounds_f32 = {k: bound_ms(nbytes[k], flops * (2 if k == "bwd" else 1),
+                              "float32") if split else (None, None)
+                  for k in nbytes}
     xg, dyg = x.view(nt, tm, K), dy.view(nt, tm, N)
     wg = w[te_ref.long()]
 
@@ -3563,6 +3588,8 @@ def gmm_case(torch, mg, flush, label, x, w, dy, te, tm, *, reps):
           + f"; K6b bit-equal twice; zeros {zeros} | "
           + " | ".join(f"{k} ms={ms[k]:.4f} bmm_ms={ms['bmm_' + k]:.4f} "
                        f"bound_ms={bounds[k][0]:.4f} ({bounds[k][1]})"
+                       + (f" bound_f32_ms={bounds_f32[k][0]:.4f}" if split
+                          else "")
                        for k in ("fwd", "dx", "dw", "bwd"))
           + f" | plain fwd_ms={ms['plain_fwd']:.4f} bwd_ms="
           f"{ms['plain_bwd']:.4f}", flush=True)
@@ -3574,13 +3601,16 @@ def gmm_case(torch, mg, flush, label, x, w, dy, te, tm, *, reps):
             "max_abs_err": max(errs[n]["max_abs_err"] for n in outs),
             "ms": ms[kind], "plain_ms": ms[f"plain_{kind}"],
             "library_ms": ms[f"bmm_{kind}"], "bound_ms": bounds[kind][0],
-            "bound_by": bounds[kind][1], "host_call_ms": ms[f"host_{kind}"],
+            "bound_by": bounds[kind][1],
+            "bound_f32_ms": bounds_f32[kind][0],
+            "host_call_ms": ms[f"host_{kind}"],
             "rule_r": r, "errors": {n: errs[n] for n in outs},
             "control_tile_shifted": {n: control[n] for n in outs},
             "zeros": zeros}
     entries["bwd"].update(bit_equal_twice=same_bits, parts={
         p: {"ms": ms[p], "library_ms": ms[f"bmm_{p}"],
-            "bound_ms": bounds[p][0], "bound_by": bounds[p][1]}
+            "bound_ms": bounds[p][0], "bound_by": bounds[p][1],
+            "bound_f32_ms": bounds_f32[p][0]}
         for p in ("dx", "dw")})
     return entries
 
@@ -3590,10 +3620,10 @@ def gmm_kernel_phase(torch, mcfg, dev, flush):
     the MoE model's expert shapes (E groups, d_model -> d_ff, the
     up-projections): the training step's 512 rows a group and the decode
     step's 4, in bf16 and f32; the down-projection (d_ff -> d_model) at
-    512 rows in bf16; and a table of 200-row tiles (no multiple of the
+    512 rows in bf16 and f32; and a table of 200-row tiles (no multiple of the
     kernels' 128-row tiles, so boxes run past each tile's end) over 8
     experts with one tile's id out of range and one expert without tiles,
-    in bf16. Each case by :func:`gmm_case`. Then ``ops.moe_gmm_apply``
+    in bf16 and f32. Each case by :func:`gmm_case`. Then ``ops.moe_gmm_apply``
     (sort, pad, tile ids on the device) through K6 and, by autograd, K6b
     against the same through the plain versions at ``test_kernels.py``'s
     ragged shapes: random experts with one left empty, and every token on
@@ -3609,7 +3639,8 @@ def gmm_kernel_phase(torch, mcfg, dev, flush):
             ("decode", 4, D, F, torch.float32),
             ("train", 512, D, F, torch.bfloat16),
             ("train", 512, D, F, torch.float32),
-            ("train-wo", 512, F, D, torch.bfloat16)]
+            ("train-wo", 512, F, D, torch.bfloat16),
+            ("train-wo", 512, F, D, torch.float32)]
     for label, G, K, N, dtype in plan:
         x, w, dy, te = gmm_inputs(torch, dev, gen, E, G, K, N, dtype)
         reps = 10 if dtype == torch.bfloat16 else 3
@@ -3620,20 +3651,21 @@ def gmm_kernel_phase(torch, mcfg, dev, flush):
         del x, w, dy, te
         torch.cuda.empty_cache()
     # 9 table tiles of 200 rows over 8 experts: expert 3 twice, tile 2's id
-    # out of range, expert 4 without tiles
+    # out of range, expert 4 without tiles; bf16 and f32
     Ep, tm = 8, 200
-    te = torch.tensor([3, 0, Ep + 1, 5, 3, 7, 1, 2, 6], dtype=torch.int32,
-                      device=dev)
-    x = torch.randn(9 * tm, D, generator=gen, device=dev).bfloat16()
-    w = (torch.randn(Ep, D, F, generator=gen, device=dev)
-         * D ** -0.5).bfloat16()
-    dy = torch.randn(9 * tm, F, generator=gen, device=dev).bfloat16()
-    entries = gmm_case(torch, mg, flush, "partial", x, w, dy, te, tm,
-                       reps=10)
-    for kind in cases:
-        cases[kind].append(entries[kind])
-    del x, w, dy, te
-    torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        te = torch.tensor([3, 0, Ep + 1, 5, 3, 7, 1, 2, 6],
+                          dtype=torch.int32, device=dev)
+        x = torch.randn(9 * tm, D, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(Ep, D, F, generator=gen, device=dev)
+             * D ** -0.5).to(dtype)
+        dy = torch.randn(9 * tm, F, generator=gen, device=dev).to(dtype)
+        entries = gmm_case(torch, mg, flush, "partial", x, w, dy, te, tm,
+                           reps=10 if dtype == torch.bfloat16 else 3)
+        for kind in cases:
+            cases[kind].append(entries[kind])
+        del x, w, dy, te
+        torch.cuda.empty_cache()
 
     ragged = []
     for T, Dr, Fr, Er, skew in ((512, 128, 256, 8, False),
@@ -5110,7 +5142,9 @@ TORCHRUN_KERNELS = {
     "internlm2-20b": ("flash_attention_fwd", "flash_attention_bwd"),
     "zamba2-2.7b": ("flash_attention_fwd", "flash_attention_bwd",
                     "mamba2_ssd_fwd", "mamba2_ssd_bwd"),
-    "rwkv6-3b": ("rwkv6_wkv_fwd", "rwkv6_wkv_bwd")}
+    "rwkv6-3b": ("rwkv6_wkv_fwd", "rwkv6_wkv_bwd"),
+    "moonshot-v1-16b-a3b": ("flash_attention_fwd", "flash_attention_bwd",
+                            "gmm_fwd", "gmm_bwd")}
 
 
 def load_example(name: str):
@@ -5244,8 +5278,9 @@ def examples_phase(torch) -> dict:
                        "resumed_at": lm["resumed_at"], "launches": launches,
                        "s": time.perf_counter() - t0}
 
-    # the training launcher under torchrun for a dense, a hybrid and an SSM
-    # model: the attention's and the scans' kernels on the rank's rows
+    # the training launcher under torchrun for a dense, a hybrid, an SSM
+    # and an MoE model: the attention's, the scans' and the experts'
+    # kernels on the rank's rows
     runs = {f"torchrun_{arch}": (
         ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
          "1", "-m", "repro_torch.launch.train", "--arch", arch, "--reduced",
@@ -5642,7 +5677,7 @@ def run(torch) -> int:
     mark("21")
 
     # the launches of the training launcher's torchrun runs (phase 21),
-    # by run, of reduced models: K3 at hd 32, K4 and K5
+    # by run, of reduced models: K3 at hd 32, K4, K5 and K6/K6b
     torchruns = {f"{arch}-reduced-torchrun": examples[f"torchrun_{arch}"][
         "launches"] for arch in TORCHRUN_KERNELS}
     bf16 = decode_cases[0]
@@ -5832,7 +5867,8 @@ def run(torch) -> int:
             "launches_sum_ms": case.get("launches_sum_ms"),
             "pass": True, "cases": wkv_cases[kind]})
     # K6 on its main path (phase 15's decode: 4 rows a group), K6b on its
-    # (phase 17's training: 512 rows a group); bf16
+    # (phase 17's training: 512 rows a group); bf16; and both under
+    # torchrun (phase 21, reduced moonshot on the rank's groups)
     for kind, name, case, launched in (
             ("fwd", "gmm_fwd", gmm_cases["fwd"][0],
              mserve["launches"]["gmm_fwd"]),
@@ -5842,13 +5878,17 @@ def run(torch) -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
             "replaces": "src/repro/kernels/moe_gmm.py:40",
-            "launches": launched,
+            "launches": launched
+            + sum(torchrun[name] for torchrun in torchruns.values()),
             "launches_by_run": {
                 f"{mcfg.arch_id}-serve": mserve["launches"][name],
-                f"{mcfg.arch_id}-train": mtrain["launches"][name]},
+                f"{mcfg.arch_id}-train": mtrain["launches"][name],
+                **{run: torchrun[name] for run, torchrun
+                   in torchruns.items()}},
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
+            "bound_f32_ms": case["bound_f32_ms"],
             "pass": True, "cases": gmm_cases[kind]
             + ([{"ragged": gmm_cases["ragged"]}] if kind == "fwd" else [])})
     # the device entry of Genesys.invoke: one blocking CLOCK_GETTIME at

@@ -1,9 +1,9 @@
 """The kernels of one source tree, on one card: K3a/K3b (the flash
-attention, smoke phase 6), K4/K4b (the Mamba2 SSD scan, phase 8) or K5/K5b
-(the RWKV-6 WKV, phase 11).
+attention, smoke phase 6), K4/K4b (the Mamba2 SSD scan, phase 8), K5/K5b
+(the RWKV-6 WKV, phase 11) or K6/K6b (the MoE grouped matmul, phase 14).
 
     python3 experiments/torch_ssd_compare.py --src SRC --tag TAG
-        [--phase 6|8|11] [--labels L ...] [--ptxas] [--out DIR]
+        [--phase 6|8|11|14] [--labels L ...] [--ptxas] [--out DIR]
 
 Runs chip_smoke.py's phase (each case: forward and backward kernels beside
 their plain versions, held to the smoke's rule, two backward calls
@@ -14,9 +14,11 @@ Phase 6 runs the cases ``--labels`` names (``all``: every case; default:
 the reduced configs' head dim 32: B 1, H 4, KV 2, causal, S 4096 and 1000
 in bf16 and f32, and B 8 x S 64 in bf16). ``--ptxas`` prints what ``ptxas
 -v`` said (registers, spills) of the phase's own kernels (``fa_*``,
-``ssd_*`` or ``wkv_*``; not the carry and sums the scans share). Writes
-OUT/fa_<TAG>.json for phase 6, OUT/ssd_<TAG>.json for phase 8,
-OUT/wkv_<TAG>.json for phase 11 (OUT: build/ssd_compare unless --out).
+``ssd_*``, ``wkv_*`` or ``gmm_*``; not the carry and sums the scans
+share). Phase 14 prints each case's kernels beside ``torch.bmm`` and both
+bounds (the design's and the f32 peak's). Writes OUT/fa_<TAG>.json for
+phase 6, OUT/ssd_<TAG>.json for phase 8, OUT/wkv_<TAG>.json for phase 11,
+OUT/gmm_<TAG>.json for phase 14 (OUT: build/ssd_compare unless --out).
 Compare two trees only within one call on the card, in turns (parent,
 change, change, parent): two calls may land on two cards.
 """
@@ -30,7 +32,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 # each phase's output stem and its kernels' entry-function name prefix
-PHASES = {"6": ("fa", "fa_"), "8": ("ssd", "ssd_"), "11": ("wkv", "wkv_")}
+PHASES = {"6": ("fa", "fa_"), "8": ("ssd", "ssd_"), "11": ("wkv", "wkv_"),
+          "14": ("gmm", "gmm_")}
 
 
 def ptxas_lines(log: Path, prefix: str) -> list[str]:
@@ -85,14 +88,32 @@ def main() -> int:
     elif args.phase == "8":
         cases = cs.ssd_kernel_phase(torch, get_config("zamba2-2.7b"), dev,
                                     flush)
-    else:
+    elif args.phase == "11":
         cases = cs.wkv_kernel_phase(torch, get_config("rwkv6-3b"), dev, flush)
+    else:
+        cases = cs.gmm_kernel_phase(torch, get_config("moonshot-v1-16b-a3b"),
+                                    dev, flush)
     for kind in ("fwd", "bwd"):
         for case in cases[kind]:
             extra = (f" sdpa={case['library_ms']:.4f} bound="
                      f"{case['bound_ms']:.4f} ({case['bound_by']}; SFU "
                      f"{case['bound_sfu_ms']:.4f})" if args.phase == "6"
                      else "")
+            if args.phase == "14":
+                parts = case.get("parts", {})
+                f32 = case["bound_f32_ms"]
+                extra = (f" bmm={case['library_ms']:.4f} bound="
+                         f"{case['bound_ms']:.4f} ({case['bound_by']}"
+                         + ("" if f32 is None else f"; f32 peak {f32:.4f}")
+                         + ") worst="
+                         + "/".join(f"{e['worst']:.3f}"
+                                    for e in case["errors"].values())
+                         + " frob=" + "/".join(
+                             f"{e['frob']:.2e}"
+                             for e in case["errors"].values())
+                         + "".join(f" {p}={v['ms']:.4f} (bmm "
+                                   f"{v['library_ms']:.4f})"
+                                   for p, v in parts.items()))
             print(f"{args.tag} {kind} {case['case']}: ms={case['ms']:.4f}"
                   f"{extra} launches {case.get('launches_ms')}", flush=True)
     args.out.mkdir(parents=True, exist_ok=True)

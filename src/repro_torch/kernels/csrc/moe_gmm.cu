@@ -1,14 +1,17 @@
 // Hand-written Hopper (sm_90a) kernels of the grouped (ragged) matmul of the
 // MoE expert FFNs: the forward (K6) and its gradient (K6b).
 //
-//   K6  gmm_wgmma<kFwd> (bf16, tm > 16), gmm_mma (bf16 decode, tm <= 16)
-//       and gmm_f32 (f32 on CUDA cores) replace the Pallas `gmm` / `_kernel`
-//       (src/repro/kernels/moe_gmm.py) and, on the MoE paths, the three
-//       expert einsums of `moe_mlp` (src/repro/models/moe.py)
-//   K6b dx = dy w[e]^T (gmm_wgmma<kDx>, or gmm_mma at tm <= 16: the weight
-//       read transposed, no transposed copy) and dw[e] = x_e^T dy_e
-//       (gmm_wgmma<kDw>; gmm_f32 in f32); the JAX package takes that
-//       gradient from XLA autodiff of the einsums
+//   K6  gmm_wgmma<kFwd> (bf16, tm > 16), gmm_mma (bf16 decode, tm <= 16),
+//       gmm_tf32 (f32, tm > 16: split-TF32 mma.sync) and gmm_stream (f32
+//       decode, tm <= 16: the weight streamed, exact f32 on CUDA cores)
+//       replace the Pallas `gmm` / `_kernel` (src/repro/kernels/moe_gmm.py)
+//       and, on the MoE paths, the three expert einsums of `moe_mlp`
+//       (src/repro/models/moe.py)
+//   K6b dx = dy w[e]^T (gmm_wgmma<kDx>, or gmm_mma at tm <= 16; f32:
+//       gmm_tf32, or gmm_stream at tm <= 16; the weight read transposed, no
+//       transposed copy) and dw[e] = x_e^T dy_e (gmm_wgmma<kDw>; f32:
+//       gmm_tf32); the JAX package takes that gradient from XLA autodiff of
+//       the einsums
 //
 // Layout. x [T, K] holds its rows in a table of tiles of tm rows: table tile
 // t is rows [t tm, (t+1) tm) and belongs to expert tile_expert[t], an int32
@@ -60,7 +63,13 @@
 // m16n8k16) keeps the wasted rows of the m16 products at 12 of 16 and many
 // CTAs resident to keep the weight stream in flight; it stages 32-deep
 // slabs in registers then shared memory, reading a [k][n] weight with
-// ldmatrix.trans. f32 runs on CUDA cores.
+// ldmatrix.trans.
+// f32 (see their sections below): a decode step's tiles stream the f32
+// weight (738 MB, 0.22 ms at 3.35 TB/s) through a cp.async ring, each
+// product an exact f32 fmaf (1.5 GFLOP: bandwidth sets the pace);
+// training's tiles and every dw (3 x 189 GFLOP of tf32 products a product,
+// 1.15 ms at the 495 TFLOP/s TF32 peak) run split TF32 on mma.sync, which
+// holds the f32 rule where one tf32 product does not.
 //
 // Built with the other csrc/*.cu files by src/repro_torch/kernels/_build.py
 // and bound through ctypes (plain C entry points below: raw device pointers,
@@ -69,15 +78,13 @@
 
 #include "hopper_common.cuh"
 #include "mma_common.cuh"
+#include "tf32_tiles.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int kBK = 32;           // depth of one staged slab (decode path)
-constexpr int kFB = 64;           // f32 path: 64 x 64 output tile
-constexpr int kFK = 16;           // f32 path: slab depth
-constexpr int kFThreads = 256;
 
 struct View {                     // element (i, j) at p[i * si + j * sj]
   const void* p;
@@ -227,8 +234,8 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
 // The A fragment (16 x 16, rows m0.., depths kk..) of an [m][k] slab
 // (mma_common's layout).
 template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s,
-                                       int m0, int kk, int lane) {
+__device__ __forceinline__ void frag_a_bf16(uint32_t (&a)[4], const bf16* s,
+                                            int m0, int kk, int lane) {
   const int gid = lane / 4, tig = lane % 4;
   const bf16* p = s + (m0 + gid) * LD + kk + 2 * tig;
   a[0] = ld_pair(p);
@@ -305,7 +312,7 @@ __global__ void __launch_bounds__(WM * WN * 32) gmm_mma(GmmArgs g) {
       uint32_t a[TM][4];
 #pragma unroll
       for (int mt = 0; mt < TM; ++mt)
-        frag_a<SA::LD>(a[mt], sA, wm0 + mt * 16, kk, lane);
+        frag_a_bf16<SA::LD>(a[mt], sA, wm0 + mt * 16, kk, lane);
 #pragma unroll
       for (int nt = 0; nt < TN; nt += 2) {
         uint32_t b[4];
@@ -591,62 +598,274 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// ---- f32: CUDA cores ------------------------------------------------------
+// ---- f32 decode (tm <= 16): the weight streamed, exact f32 on CUDA cores --
 
-// One R x kFK slab of an f32 view into s[kFK][R + 4] (i contiguous), out of
-// range elements zero; consecutive threads walk the view's contiguous axis.
-template <int R>
-__device__ __forceinline__ void load_f32(float (*s)[R + 4], const float* p,
-                                         long long si, long long sj,
-                                         int i_lim, int k_lim) {
-  for (int v = threadIdx.x; v < R * kFK; v += kFThreads) {
-    int i, k;
-    if (sj == 1) {
-      i = v / kFK;
-      k = v % kFK;
-    } else {
-      k = v / R;
-      i = v % R;
+constexpr int kSThreads = 256;    // 8 warps
+constexpr int kSBN = 128;         // columns of a CTA
+constexpr int kSBK = 32;          // depth of a stage
+constexpr int kSStages = 4;       // ring depth: 3 stages in flight
+constexpr int kSLd = kSBK + 4;    // pitch of an [i][k] slab, in floats
+
+// A stage of the ring: the weight's slab (kSBK x kSBN) as it lies in
+// memory, [k][n] (B_KI) or [n][k] padded, then the x rows' [r][k] slab.
+template <bool B_KI>
+struct StreamStage {
+  static constexpr int kW = B_KI ? kSBK * kSBN : kSBN * kSLd;
+  static constexpr int kFloats = kW + 16 * kSLd;
+  static constexpr int kSmem = kSStages * kFloats * 4;
+};
+
+// The columns of lane l: four neighbours from 4 l where the slab is [k][n]
+// (one float4 read a depth), l + 32 c where it is [n][k] (then the lanes
+// of a quarter-warp read 16-byte pieces on distinct banks).
+template <bool B_KI>
+__device__ __forceinline__ int stream_col(int lane, int c) {
+  return B_KI ? 4 * lane + c : lane + 32 * c;
+}
+
+// K6 (and K6b's dx, the weight read transposed) for a table tile of at
+// most R rows: a CTA takes one tile and kSBN columns, and streams the
+// weight's K x kSBN slab (with the tile's rows beside it) through a ring
+// of kSStages stages of 16-byte cp.async copies. Warp w takes depths [4 w,
+// 4 w + 4) of each stage, a lane four columns by R rows in registers, each
+// product an fmaf in f32: the warps' sums are added at the end in warp
+// order. Rows past the tile, and every row of a tile whose expert id lies
+// outside [0, E), come out zero or are not stored.
+template <int R, bool B_KI>
+__global__ void __launch_bounds__(kSThreads, 2) gmm_stream(GmmArgs g) {
+  using St = StreamStage<B_KI>;
+  extern __shared__ __align__(16) float smem[];
+  const Job<float> j = make_job<float, 16, kSBN>(g);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_slabs = j.skip ? 0 : g.K / kSBK;
+
+  auto fetch = [&](int i) {
+    float* sw = smem + (i % kSStages) * St::kFloats;
+    float* sx = sw + St::kW;
+    const long long k0 = (long long)i * kSBK;
+#pragma unroll
+    for (int q = 0; q < kSBK * kSBN / 4 / kSThreads; ++q) {
+      const int v = tid + q * kSThreads;
+      int n, k;
+      float* dst;
+      const float* src;
+      if (B_KI) {                 // w [k][n]: 32 vectors a depth
+        k = v / (kSBN / 4);
+        n = (v % (kSBN / 4)) * 4;
+        dst = sw + k * kSBN + n;
+      } else {                    // w [n][k]: 8 vectors a column
+        n = v / (kSBK / 4);
+        k = (v % (kSBK / 4)) * 4;
+        dst = sw + n * kSLd + k;
+      }
+      src = j.b + n * g.b.si + (k0 + k) * g.b.sj;
+      const bool ok = n < j.n_lim;
+      cp_async16(dst, ok ? src : j.b, ok);
     }
-    s[k][i] = (i < i_lim && k < k_lim) ? p[i * si + k * sj] : 0.f;
+    if (tid < R * (kSBK / 4)) {   // x [r][k]
+      const int r = tid / (kSBK / 4), k = (tid % (kSBK / 4)) * 4;
+      const bool ok = r < j.m_lim;
+      cp_async16(sx + r * kSLd + k, ok ? j.a + r * g.a.si + k0 + k : j.a,
+                 ok);
+    }
+  };
+
+  float acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kSStages - 1; ++i) {
+    if (i < n_slabs) fetch(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_slabs; ++i) {
+    cp_async_wait<kSStages - 2>();   // slab i has landed
+    __syncthreads();                 // and slab i - 1's stage is free
+    if (i + kSStages - 1 < n_slabs) fetch(i + kSStages - 1);
+    cp_async_commit();
+    const float* sw = smem + (i % kSStages) * St::kFloats;
+    const float* sx = sw + St::kW;
+    float4 b[4];                     // B_KI: b[kk] is depth 4 w + kk of
+#pragma unroll                       // the four columns; else b[c] is
+    for (int q = 0; q < 4; ++q)      // column c's four depths
+      b[q] = B_KI ? *reinterpret_cast<const float4*>(
+                        sw + (4 * warp + q) * kSBN + 4 * lane)
+                  : *reinterpret_cast<const float4*>(
+                        sw + stream_col<false>(lane, q) * kSLd + 4 * warp);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 x = *reinterpret_cast<const float4*>(sx + r * kSLd +
+                                                        4 * warp);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4& bq = b[B_KI ? kk : c];
+          const float bs[4] = {bq.x, bq.y, bq.z, bq.w};
+          acc[r][c] = fmaf(xs[kk], bs[B_KI ? c : kk], acc[r][c]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warps' sums, added in warp order
+  float* red = smem;                 // [warp][r][kSBN]
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      red[(warp * R + r) * kSBN + stream_col<B_KI>(lane, c)] = acc[r][c];
+  __syncthreads();
+  for (int o = tid; o < R * kSBN; o += kSThreads) {
+    const int r = o / kSBN, n = o % kSBN;
+    float v = red[o];
+#pragma unroll
+    for (int w = 1; w < kSThreads / 32; ++w) v += red[w * R * kSBN + o];
+    if (r < j.m_lim && n < j.n_lim) j.out[r * j.ldo + n] = v;
   }
 }
 
-// f32 on CUDA cores: a 64 x 64 output tile per CTA, 4 x 4 per thread.
-__global__ void __launch_bounds__(kFThreads) gmm_f32(GmmArgs g) {
-  __shared__ float sA[kFK][kFB + 4];
-  __shared__ float sB[kFK][kFB + 4];
-  const Job<float> j = make_job<float, kFB, kFB>(g);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[4][4] = {};
-  Slabs<kFK> it;
-  long long k0;
-  int k_lim;
-  while (it.next(g, j.e, j.skip, k0, k_lim)) {
-    load_f32<kFB>(sA, j.a + k0 * g.a.sj, g.a.si, g.a.sj, j.m_lim, k_lim);
-    load_f32<kFB>(sB, j.b + k0 * g.b.sj, g.b.si, g.b.sj, j.n_lim, k_lim);
+// ---- f32 tiles (tm > 16, and dw): split-TF32 mma.sync on tensor cores ----
+//
+// wgmma's tf32 form reads only K-major operands from shared memory, and the
+// forward's weight [K, N] and dw's x (x^T as A) lie MN-major, so these run
+// on mma.sync m16n8k8, which takes fragments from registers in any layout.
+// Each product is a_hi b_hi + a_hi b_lo + a_lo b_hi (tf32_tiles.cuh's split
+// and mma3: each part rounded to tf32, a fresh f32 sum a depth step added
+// to the accumulator), about 22 of f32's 24 bits where one tf32 product
+// keeps 11.
+
+constexpr int kTThreads = 256;    // 8 warps: 4 (rows) x 2 (columns)
+constexpr int kTB = 128;          // a CTA's output tile: 128 x 128
+constexpr int kTBK = 32;          // depth of a stage
+constexpr int kTStages = 3;
+constexpr int kTLdK = kTBK + 4;   // pitch of an [i][k] slab (36)
+constexpr int kTLdI = kTB + 8;    // pitch of a [k][i] slab (136)
+constexpr int kTSlab = kTB * kTLdK;           // floats, the larger layout
+constexpr int kTSmem = kTStages * 2 * kTSlab * 4;
+
+// One operand's kTB x kTBK slab, element (i, k) at p[i si + k sj], into
+// shared memory as it lies: [k][i] pitch kTLdI where i is contiguous (MN),
+// else [i][k] pitch kTLdK; rows i >= i_lim and depths k >= k_lim zero
+// (i_lim a multiple of 4 for MN). The pitches put the 32 lanes of every
+// fragment read on distinct banks.
+template <bool MN>
+__device__ __forceinline__ void tile_slab(float* s, const float* p,
+                                          long long si, long long sj,
+                                          int i_lim, int k_lim) {
+#pragma unroll
+  for (int q = 0; q < kTB * kTBK / 4 / kTThreads; ++q) {
+    const int v = threadIdx.x + q * kTThreads;
+    int i, k;
+    float* dst;
+    if (MN) {
+      k = v / (kTB / 4);
+      i = (v % (kTB / 4)) * 4;
+      dst = s + k * kTLdI + i;
+    } else {
+      i = v / (kTBK / 4);
+      k = (v % (kTBK / 4)) * 4;
+      dst = s + i * kTLdK + k;
+    }
+    const bool ok = i < i_lim && k < k_lim;
+    cp_async16(dst, ok ? p + i * si + k * sj : p, ok);
+  }
+}
+
+template <bool MN>
+__device__ __forceinline__ float tile_at(const float* s, int i, int k) {
+  return MN ? s[k * kTLdI + i] : s[i * kTLdK + k];
+}
+
+// out tile = A B^T over the CTA's slabs (make_job, Slabs): A (m, k) is x or
+// dy (forward, dx; [i][k]) or x^T (dw; A_MN), B (n, k) is w [K, N] (forward,
+// B_MN), w [N, K] (dx) or dy^T (dw, B_MN). Warp (wm, wn) computes rows
+// [32 wm, 32 wm + 32) and columns [64 wn, 64 wn + 64): two 16-row strips by
+// eight 8-column tiles, each A fragment split once for its eight products
+// and each B fragment once for its two. Two slabs are in flight while a
+// third is in the products.
+template <bool A_MN, bool B_MN>
+__global__ void __launch_bounds__(kTThreads, 2) gmm_tf32(GmmArgs g) {
+  extern __shared__ __align__(16) float smem[];
+  const Job<float> j = make_job<float, kTB, kTB>(g);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wm0 = (warp / 2) * 32, wn0 = (warp % 2) * 64;
+  Slabs<kTBK> it;
+  int fetched = 0;
+  auto fetch = [&]() {
+    long long at;
+    int len;
+    if (!it.next(g, j.e, j.skip, at, len)) return;
+    float* sa = smem + (fetched % kTStages) * 2 * kTSlab;
+    tile_slab<A_MN>(sa, j.a + at * g.a.sj, g.a.si, g.a.sj, j.m_lim, len);
+    tile_slab<B_MN>(sa + kTSlab, j.b + at * g.b.sj, g.b.si, g.b.sj, j.n_lim,
+                    len);
+    ++fetched;
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kTStages - 1; ++s) {
+    fetch();
+    cp_async_commit();
+  }
+  for (int i = 0; i < fetched; ++i) {
+    cp_async_wait<kTStages - 2>();
     __syncthreads();
+    fetch();
+    cp_async_commit();
+    const float* sa = smem + (i % kTStages) * 2 * kTSlab;
+    const float* sb = sa + kTSlab;
 #pragma unroll
-    for (int k = 0; k < kFK; ++k) {
-      float a[4], b[4];
+    for (int ks = 0; ks < kTBK / 8; ++ks) {
+      const int k0 = 8 * ks + tig;
+      FragA fa[2];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        a[q] = sA[k][ty * 4 + q];
-        b[q] = sB[k][tx * 4 + q];
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = wm0 + 16 * mt + gid;
+        fa[mt] = frag_a(tile_at<A_MN>(sa, r, k0),
+                        tile_at<A_MN>(sa, r + 8, k0),
+                        tile_at<A_MN>(sa, r, k0 + 4),
+                        tile_at<A_MN>(sa, r + 8, k0 + 4));
       }
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
+      for (int nt = 0; nt < 8; ++nt) {
+        const int n = wn0 + 8 * nt + gid;
+        const Split b0 = split(tile_at<B_MN>(sb, n, k0));
+        const Split b1 = split(tile_at<B_MN>(sb, n, k0 + 4));
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
+        for (int mt = 0; mt < 2; ++mt)
+          mma3<false, false>(acc[mt][nt], fa[mt], b0, b1);
+      }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = ty * 4 + p, c = tx * 4 + q;
-      if (r < j.m_lim && c < j.n_lim) j.out[r * j.ldo + c] = acc[p][q];
+    for (int nt = 0; nt < 8; ++nt) {
+      const int r = wm0 + 16 * mt + gid, c = wn0 + 8 * nt + 2 * tig;
+      if (c >= j.n_lim) continue;
+      if (r < j.m_lim)
+        *reinterpret_cast<float2*>(j.out + r * j.ldo + c) =
+            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      if (r + 8 < j.m_lim)
+        *reinterpret_cast<float2*>(j.out + (r + 8) * j.ldo + c) =
+            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
 }
 
@@ -691,21 +910,50 @@ int launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb, WgArgs g,
   return cudaGetLastError();
 }
 
+static_assert(kSThreads == kTThreads, "one block size for the f32 kernels");
+
+template <typename Kernel>
+cudaError_t launch_f32(Kernel kernel, dim3 grid, int smem, const GmmArgs& g,
+                       cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kSThreads, smem, st>>>(g);
+  return cudaGetLastError();
+}
+
+// f32 decode (tm <= 16): the streaming kernel at the fewest rows that hold
+// the tile (4, 8 or 16), w [K, N] or read transposed.
+template <bool B_KI>
+cudaError_t launch_stream(const GmmArgs& g, cudaStream_t st) {
+  const dim3 grid(cdiv(g.N, kSBN), g.n_tiles);
+  const int smem = StreamStage<B_KI>::kSmem;
+  if (g.tm <= 4) return launch_f32(gmm_stream<4, B_KI>, grid, smem, g, st);
+  if (g.tm <= 8) return launch_f32(gmm_stream<8, B_KI>, grid, smem, g, st);
+  return launch_f32(gmm_stream<16, B_KI>, grid, smem, g, st);
+}
+
 int launch(const GmmArgs& g, int dtype, cudaStream_t st) {
+  const bool w_trans = g.b.sj == 1;     // the weight read transposed (dx)
   if (dtype == kF32) {
-    const dim3 grid(cdiv(g.N, kFB),
-                    g.dw ? cdiv(g.M, kFB) : g.n_tiles * cdiv(g.tm, kFB),
+    if (!g.dw && g.tm <= 16)
+      return w_trans ? launch_stream<false>(g, st)
+                     : launch_stream<true>(g, st);
+    const dim3 grid(cdiv(g.N, kTB),
+                    g.dw ? cdiv(g.M, kTB) : g.n_tiles * cdiv(g.tm, kTB),
                     g.dw ? g.n_experts : 1);
     if (grid.y > 65535) return cudaErrorInvalidValue;
-    gmm_f32<<<grid, kFThreads, 0, st>>>(g);
-  } else {                              // decode: a few rows per expert
-    const dim3 grid(cdiv(g.N, 128), g.n_tiles);
-    if (grid.y > 65535) return cudaErrorInvalidValue;
-    if (g.b.sj == 1)                    // w read transposed (dx)
-      gmm_mma<16, 128, 1, 4, false><<<grid, 128, 0, st>>>(g);
-    else
-      gmm_mma<16, 128, 1, 4, true><<<grid, 128, 0, st>>>(g);
+    if (g.dw) return launch_f32(gmm_tf32<true, true>, grid, kTSmem, g, st);
+    return w_trans ? launch_f32(gmm_tf32<false, false>, grid, kTSmem, g, st)
+                   : launch_f32(gmm_tf32<false, true>, grid, kTSmem, g, st);
   }
+  // bf16 decode: a few rows per expert
+  const dim3 grid(cdiv(g.N, 128), g.n_tiles);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  if (w_trans)
+    gmm_mma<16, 128, 1, 4, false><<<grid, 128, 0, st>>>(g);
+  else
+    gmm_mma<16, 128, 1, 4, true><<<grid, 128, 0, st>>>(g);
   return cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // Split-TF32 tensor-core products on 64 x 64 f32 tiles in shared memory,
-// for the chunked scans (mamba2_scan.cu, rwkv6_scan.cu).
+// for the chunked scans (mamba2_scan.cu, rwkv6_scan.cu); the grouped
+// matmul's f32 tiles (moe_gmm.cu) take the products alone.
 //
 // Split TF32. An f32 operand a is taken as a_hi = tf32(a) and a_lo =
 // tf32(a - a_hi) (each rounded as cvt.rna rounds), formed in registers as
@@ -114,10 +115,11 @@ __device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
 // its last place a step, where a fresh sum drops bits of the step's own
 // size only. The products that make y and dx (bf16 outputs, where each
 // drift flips roundings against the plain version) take it.
+// The B elements already split (x, y), for a B fragment that several
+// products read.
 template <bool kAExact, bool kBExact, bool kFresh = true>
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0,
-                                     float b1) {
-  const Split x = split<kBExact>(b0), y = split<kBExact>(b1);
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const Split& x, const Split& y) {
   float z[4] = {0.f, 0.f, 0.f, 0.f};
   float (&s)[4] = kFresh ? z : d;
   if (!kAExact)
@@ -128,6 +130,13 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0,
   if (kFresh)
 #pragma unroll
     for (int e = 0; e < 4; ++e) d[e] += z[e];
+}
+
+template <bool kAExact, bool kBExact, bool kFresh = true>
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0,
+                                     float b1) {
+  mma3<kAExact, kBExact, kFresh>(d, a, split<kBExact>(b0),
+                                 split<kBExact>(b1));
 }
 
 // Operands of a strip product, read from a tile: A (16 x 64, the strip's

@@ -23,16 +23,21 @@ tile of its n·C dispatched rows, which need not be a multiple of anything
   the card's tensor cores through ``wgmma`` fed by TMA: at the training
   shape a product is bound by operations (0.19 ms at 989 TFLOP/s), a
   decode step's (4 rows) by reading every expert's weight, which its
-  ``mma.sync`` variant streams; f32 runs on CUDA cores. The file's note
-  has the design.
+  ``mma.sync`` variant streams. In f32 a tile of at most 16 rows (decode;
+  the forward and dx) streams the weight through a ring of asynchronous
+  copies and multiplies in exact f32 on the CUDA cores; larger tiles and
+  every dw run split TF32 on the tensor cores (``mma.sync``: each product
+  ``a_hi b_hi + a_hi b_lo + a_lo b_hi`` of tf32 parts, summed in f32). The
+  file's note has the design.
 
 Tile edges: the kernels see x, dy and the output as ``[tiles, tile_m,
 *]``, so rows past a tile's end read as zeros and are not written, for
 any ``tile_m``. A tile whose expert id lies outside [0, E) gives zero
 rows and adds nothing to dw; an expert without tiles gets a zero dw.
-Each output element is one float32 sum in a fixed order (dw over its
-expert's tiles in table order), rounded once: two calls give the same
-bits. K must be a multiple of 32 and N of 8, and the tensors 16-byte
+Each output element is a float32 sum in a fixed order (dw over its
+expert's tiles in table order; f32 decode tiles as eight partial sums
+added in order; f32 tiles of split-TF32 products a depth step of 8), rounded
+once: two calls give the same bits. K must be a multiple of 32 and N of 8, and the tensors 16-byte
 aligned (the reference asserts that its 128 tiles divide T, D and F).
 """
 from __future__ import annotations

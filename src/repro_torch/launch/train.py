@@ -31,12 +31,15 @@ over them by its rows (every rank reads the same global batch from the
 same shard, as the reference's one process does, so a data-parallel step
 is the one-process step), and the attention and the scans' kernels run on
 each rank's rows (``sharding.on_shards``: the kernels take plain tensors).
-The dense, VLM, hybrid and SSM families; MoE and the encoder-decoder are
-refused. The grouped matmul's rows are ``[E, n C, D]``, each expert's
-tokens gathered from every batch row, not batch-first, so ``on_shards``
-cannot hand a rank its own rows of them; the encoder-decoder's encoder
-and cross-attention have not been run on shards. The reference trains
-both on its host mesh (ROADMAP Queue 3). The parameters are
+The MoE expert products run on each rank's dispatch groups
+(``sharding.gmm_on_shards``: the dispatched rows ``[E, n, C, D]`` split on
+n), while routing, dispatch and combine stay on the DTensors, so the
+groups, capacities and drops are those of one process; where the groups
+do not divide over the ranks (one group of fewer than 256 tokens spans
+them) every rank multiplies them all. The dense, VLM, MoE, hybrid and SSM
+families; the encoder-decoder is refused: neither this launcher nor the
+reference's trains it, since the loader gives tokens and no frames. The
+parameters are
 replicated, so global rank 0 alone writes a checkpoint, every rank waits
 until its manifest is committed, and every rank restores it into its own
 tensors (``checkpoint.ckpt``). Every rank prints its lines, prefixed
@@ -85,7 +88,7 @@ def main(argv=None):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.registry import get_api
     from repro_torch.sharding import (
-        SSD_DIMS, WKV_DIMS, on_shards, rules_for,
+        SSD_DIMS, WKV_DIMS, gmm_on_shards, on_shards, rules_for,
     )
     from repro_torch.train.loop import Trainer
     from repro_torch.train.steps import make_train_step
@@ -94,21 +97,23 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     world = int(os.environ.get("WORLD_SIZE", "0"))
-    if world and cfg.family in (Family.MOE, Family.ENCDEC):
-        raise ValueError(f"data parallelism takes the dense, VLM, hybrid "
-                         f"and SSM families, not {cfg.family.value} "
-                         f"({cfg.arch_id})")
+    if world and cfg.family == Family.ENCDEC:
+        raise ValueError(f"data parallelism takes the dense, VLM, MoE, "
+                         f"hybrid and SSM families, not "
+                         f"{cfg.family.value} ({cfg.arch_id}): neither "
+                         f"launcher trains it, the loader gives no frames")
     device, own_group, prefix = args.device, False, ""
     rules, kernels = None, ops.KERNELS
     if world:
         device, own_group = _join_world(device)
         rules = rules_for(cfg, make_host_mesh(data=world, model=1))
         # q [B,S,H,hd], k and v [B,S,KV,hd]: each rank attends its rows;
-        # the scans run on them too
+        # the scans run on them too, and the experts on its groups' rows
         kernels = ops.Kernels(
             attend=on_shards(ops.flash_attention, (2, 2, 2)),
             ssd=on_shards(ops.mamba2_ssd, *SSD_DIMS),
-            wkv=on_shards(ops.rwkv6_wkv, *WKV_DIMS))
+            wkv=on_shards(ops.rwkv6_wkv, *WKV_DIMS),
+            gmm=gmm_on_shards(ops.gmm))
         prefix = f"[rank {rules.mesh.get_rank()}/{world}] "
     gsys = Genesys(GenesysConfig(n_workers=2, coalesce_window_us=200,
                                  coalesce_max=8))

@@ -30,7 +30,7 @@ __all__ = ["QSCALE", "rmsnorm", "rope_tables", "apply_rope", "rope",
            "decode_attention_xla", "decode_attention_two_part",
            "AttentionStep", "nocache_step", "paged_step", "dense_step",
            "cross_step", "init_attention", "attention", "init_mlp", "mlp",
-           "proj", "embed", "mergeable", "placed_for"]
+           "proj", "embed", "mergeable", "pinned", "placed_for"]
 
 
 # ----------------------------------------------------------------- norms ----
@@ -147,6 +147,19 @@ def mergeable(t, first: int, last: int = -1):
     if keep == list(t.placements):
         return t
     return t.redistribute(t.device_mesh, keep)
+
+
+def pinned(t):
+    """``t``, taking its gradient back in its own placements (a plain
+    tensor is returned as it is). After an op whose backward splits a dim
+    that the forward merged: placement propagation may bring the gradient
+    sharded on that dim, into parts DTensor cannot split."""
+    if type(t) is torch.Tensor:
+        return t
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, t.placements)
 
 
 def placed_for(x, w):

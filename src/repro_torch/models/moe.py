@@ -135,11 +135,25 @@ def route(mp, cfg, xg):
     return combine, gate_idx
 
 
+def expert_rows(gmm, rows, w, tile_expert):
+    """The dispatched rows ``[E, n, C, K]`` times each expert's ``w [E, K,
+    N]`` -> ``[E, n, C, N]``, through ``gmm(x, w, tile_expert, tile_m)``
+    over one table tile of n C rows an expert. A ``gmm`` of
+    ``sharding.gmm_on_shards`` takes DTensor rows itself
+    (``gmm.on_rows``): each device multiplies its own rows."""
+    on_rows = getattr(gmm, "on_rows", None)
+    if on_rows is not None and type(rows) is not torch.Tensor:
+        return on_rows(rows, w, tile_expert)
+    E, n, C, K = rows.shape
+    return gmm(L.mergeable(rows, 0, 2).reshape(E * n * C, K), w,
+               tile_expert, n * C).view(E, n, C, -1)
+
+
 def moe_mlp(p, cfg, x, *, gmm=None, rules=None):
     """x [B,S,D] -> [B,S,D]: the MoE output (+ the dense residual MLP).
 
     ``gmm(x, w, tile_expert, tile_m)`` runs the three expert products
-    (default ``ops.gmm``, K6/K6b on CUDA tensors;
+    (:func:`expert_rows`; default ``ops.gmm``, K6/K6b on CUDA tensors;
     ``kernels.moe_gmm.gmm_plain`` is the plain version). A
     :class:`RoutingTap` sees (and may pin) the routing. ``rules``: the
     reference's sharding constraints."""
@@ -155,19 +169,17 @@ def moe_mlp(p, cfg, x, *, gmm=None, rules=None):
     C = combine.shape[-1]
     dispatch = (combine > 0).to(dt)                        # [n,g,E,C]
 
-    # dispatched rows, one table tile of n C rows per expert
-    ein = L.mergeable(constrain(
-        torch.einsum("ngec,ngd->encd", dispatch, xg), rules, "experts",
-        "batch", None, "embed"), 0, 2).reshape(E * n * C, D)
+    # dispatched rows [E, n, C, D]
+    ein = constrain(torch.einsum("ngec,ngd->encd", dispatch, xg), rules,
+                    "experts", "batch", None, "embed")
     tile_expert = torch.arange(E, dtype=torch.int32, device=x.device)
     gmm = gmm or ops.gmm
-    h_g = gmm(ein, mp["wi_gate"].to(dt), tile_expert, n * C)
-    h_u = gmm(ein, mp["wi_up"].to(dt), tile_expert, n * C)
-    h = L.mergeable(constrain((F.silu(h_g) * h_u).view(E, n, C, -1), rules,
-                              "experts", "batch", None, "expert_mlp"),
-                    0, 2).reshape(E * n * C, -1)
-    eo = constrain(gmm(h, mp["wo"].to(dt), tile_expert, n * C).view(
-        E, n, C, D), rules, "experts", "batch", None, "embed")
+    h_g = expert_rows(gmm, ein, mp["wi_gate"].to(dt), tile_expert)
+    h_u = expert_rows(gmm, ein, mp["wi_up"].to(dt), tile_expert)
+    h = constrain(F.silu(h_g) * h_u, rules, "experts", "batch", None,
+                  "expert_mlp")
+    eo = constrain(expert_rows(gmm, h, mp["wo"].to(dt), tile_expert), rules,
+                   "experts", "batch", None, "embed")
     # y = sum over (e, c) of combine[n,g,e,c] eo[e,n,c,d], as one product
     # batched over n with e and c merged, e first: DTensor flattens dims
     # only where the first of them carries the sharding (some versions'

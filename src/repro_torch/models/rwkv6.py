@@ -30,7 +30,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.module import (
     ParamBuilder, checkpoint_layer, layer_slice, stack_layers, unstack_layers,
 )
-from repro_torch.sharding import constrain
+from repro_torch.sharding import constrain, splittable
 
 LORA_W = 64
 LORA_MIX = 32
@@ -103,9 +103,11 @@ def time_mix(p, cfg: ModelConfig, x, *, shift_state, wkv_state=None,
     dx = prev - x
     # ddlerp: 5 interpolated views (w, k, v, r, g)
     base = x + dx * t["mix_base"].to(dt_)
-    lora = torch.einsum("blr,mrd->mbld",
-                        torch.tanh(L.proj(base, t["mix_lora_A"])),
-                        t["mix_lora_B"].to(dt_))
+    # the einsum merges dims m and d of mix_lora_B (forward) and of its
+    # output's gradient (backward): d whole in both
+    lora = L.pinned(torch.einsum("blr,mrd->mbld",
+                                 torch.tanh(L.proj(base, t["mix_lora_A"])),
+                                 L.mergeable(t["mix_lora_B"], 0).to(dt_)))
     mixed = x[None] + dx[None] * (t["mix_mu"].to(dt_)[:, None, None] + lora)
     xw, xk, xv, xr, xg = mixed.unbind(0)
 
@@ -113,8 +115,8 @@ def time_mix(p, cfg: ModelConfig, x, *, shift_state, wkv_state=None,
     w = torch.exp(-torch.exp(t["decay_base"].float() + dw.float()))
     r, k, v, g = (L.proj(xi, t[n]) for xi, n in
                   ((xr, "wr"), (xk, "wk"), (xv, "wv"), (xg, "wg")))
-    hsplit = lambda z: z.reshape(*z.shape[:-1], H, hd)
-    u = t["bonus"].float().reshape(H, hd)
+    hsplit = lambda z: splittable(z, -1, H).reshape(*z.shape[:-1], H, hd)
+    u = hsplit(t["bonus"].float())
     if decode:
         o, new_state = wkv6_step(hsplit(r)[:, 0], hsplit(k)[:, 0],
                                  hsplit(v)[:, 0], hsplit(w)[:, 0], u,
@@ -125,7 +127,9 @@ def time_mix(p, cfg: ModelConfig, x, *, shift_state, wkv_state=None,
             raise ValueError("the chunked WKV starts from a zero state")
         o, new_state = (wkv or ops.rwkv6_wkv)(hsplit(r), hsplit(k),
                                               hsplit(v), hsplit(w), u)
-    o = L.rmsnorm(o.reshape(*o.shape[:-2], D), t["ln_x"]) * F.silu(g)
+    # the backward splits D into heads again
+    o = L.pinned(L.mergeable(o, o.dim() - 2).reshape(*o.shape[:-2], D))
+    o = L.rmsnorm(o, t["ln_x"]) * F.silu(g)
     out = constrain(L.proj(o, t["wo"]), rules, "batch", "seq", "embed")
     return out, new_shift, new_state
 

@@ -22,6 +22,7 @@ DTensor placement and is refused.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -283,6 +284,25 @@ def tree_shardings(mesh, rules: ShardingRules, logical_tree,
             for k, v in logical_tree.items()}
 
 
+def splittable(t, dim: int, parts: int):
+    """``t`` ready for its dim ``dim`` to be split into ``parts`` parts
+    of equal size (heads out of a fused projection, groups of rows). A
+    plain tensor is returned as it is. A DTensor whose shards on that dim
+    do not hold whole parts (the dim's mesh ways do not divide ``parts``)
+    is gathered on it first: DTensor cannot unflatten an uneven split, nor
+    hand a device a share of a part."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return t
+    dim = dim % t.dim()
+    ways = math.prod(t.device_mesh.size(i)
+                     for i, p in enumerate(t.placements) if p == Shard(dim))
+    if parts % ways == 0:
+        return t
+    keep = [Replicate() if p == Shard(dim) else p for p in t.placements]
+    return t.redistribute(t.device_mesh, keep)
+
+
 # on_shards' (head_dims, batch_dims, out_dims) of the scans: the SSD scan
 # (ops.mamba2_ssd, kernels.mamba2_scan.ssd_chunked_plain) of x [B,L,H,P],
 # dt [B,L,H], A [H], Bm, Cm [B,L,N] -> (y [B,L,H,P], s_final [B,H,N,P]),
@@ -362,7 +382,8 @@ def on_shards(fn, head_dims, batch_dims=None, out_dims=None):
                 run_check=False, shape=q.shape,
                 stride=torch.empty(q.shape, device="meta").stride())
         batch = next(a.shape[bd] for bd, _, a in dts if bd is not None)
-        heads = args[0].shape[head_dims[0]]
+        heads = (None if head_dims[0] is None
+                 else args[0].shape[head_dims[0]])
 
         def place(t, bd, hd):
             # the DTensor's strides are the contiguous ones of its shape:
@@ -378,4 +399,32 @@ def on_shards(fn, head_dims, batch_dims=None, out_dims=None):
                 shape=torch.Size(shape),
                 stride=torch.empty(shape, device="meta").stride())
         return tuple(place(t, bd, hd) for t, (bd, hd) in zip(out, out_dims))
+    return run
+
+
+def gmm_on_shards(gmm):
+    """The grouped matmul ``gmm(x, w, tile_expert, tile_m)`` (``ops.gmm``),
+    as it is for plain tensors, with ``on_rows(rows, w, tile_expert)`` for
+    ``models.moe.expert_rows``: the dispatched rows ``[E, n, C, K]`` (a
+    DTensor) times each expert's ``w [E, K, N]`` on each device's own
+    groups n, through :func:`on_shards` (``w`` whole, its gradient a
+    partial sum where the groups are split). Where the groups do not
+    divide over the mesh dims that split them, the rows are gathered
+    first and every device multiplies them all. Routing, dispatch and
+    combine stay on the DTensors: the groups, capacities and drops are
+    the one-process step's."""
+    def by_rows(rows, w, tile_expert):
+        E, n, C, K = rows.shape
+        return (gmm(rows.reshape(E * n * C, K), w, tile_expert,
+                    n * C).view(E, n, C, -1),)
+    sharded = on_shards(by_rows, (None, None, None), (1, None, None),
+                        ((1, None),))
+
+    def on_rows(rows, w, tile_expert):
+        return sharded(splittable(rows, 1, rows.shape[1]), w,
+                       tile_expert)[0]
+
+    def run(*args, **kwargs):
+        return gmm(*args, **kwargs)
+    run.on_rows = on_rows
     return run

@@ -150,6 +150,32 @@ def test_op_cost_counts_each_device_its_share(mesh16, sharded):
     assert c.flops == (full / 16 if sharded else full)
 
 
+@pytest.mark.parametrize("pin", [True, False], ids=["pinned", "reshaped"])
+def test_merged_heads_take_their_gradient_back_whole(mesh16, pin):
+    """40 heads of 64 merged into D = 2560 on a 16-way mesh, then a
+    product with a weight split 16 ways on D: the gradient comes back
+    sharded on D into 160-wide parts, 2.5 heads, which the reshape's
+    backward cannot split into heads; ``layers.pinned`` takes it back in
+    the merge's own (replicated) placement first."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models import layers as L
+    o = DTensor.from_local(torch.randn(2, 8, 40, 64, requires_grad=True),
+                           mesh16, [Replicate()], run_check=False)
+    m = o.reshape(2, 8, 2560)
+    if pin:
+        m = L.pinned(m)
+    w = DTensor.from_local(torch.randn(2560 // 16), mesh16, [Shard(0)],
+                           run_check=False)
+    y = m * w
+    assert y.placements == (Shard(2),)
+    if pin:
+        y.sum().backward()
+    else:
+        with pytest.raises(RuntimeError, match="unevenly sharded"):
+            y.sum().backward()
+
+
 def test_production_mesh_shapes():
     code = textwrap.dedent("""
         from repro_torch.launch.mesh import make_production_mesh
@@ -245,3 +271,42 @@ def test_dryrun_cell_in_subprocess():
     ref = [ln for ln in r.stdout.splitlines() if ln.startswith("REF_BYTES")]
     assert ref, r.stdout[-2000:] + r.stderr[-4000:]
     assert mem["argument_bytes_dev"] == int(ref[0].split()[1])
+
+
+RWKV6_CELL = textwrap.dedent("""
+    import json
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, mesh
+
+    def small_mesh(multi_pod=False):
+        mesh.fake_world(16)
+        return init_device_mesh('cpu', (2, 8),
+                                mesh_dim_names=('data', 'model'))
+    dryrun.make_production_mesh = small_mesh
+    r = get_config('rwkv6-3b').reduced()
+    cut = {f: getattr(r, f) for f in ('n_layers', 'd_model', 'n_heads',
+           'n_kv_heads', 'head_dim', 'd_ff', 'vocab_size')}
+    out = dryrun.run_cell('rwkv6-3b', 'train_4k', False, microbatches=1,
+                          cfg_overrides=cut)
+    print('CELL ' + json.dumps(out))
+""")
+
+
+def test_rwkv6_train_cell_splits_heads_its_shards_cut():
+    """rwkv6-3b's train_4k cell at the reduced widths on a (2, 8) fake
+    mesh: "model" cuts D = 128 into shards of 16, half a head of 32, so
+    the time mix's fused projections cannot be split into heads (nor
+    their heads merged back) as they lie; the cell runs to its end with
+    the heads gathered first, and every device counts its share."""
+    r = subprocess.run([sys.executable, "-c", RWKV6_CELL], env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("CELL ")]
+    assert line, r.stdout[-2000:] + r.stderr[-4000:]
+    out = json.loads(line[0][len("CELL "):])
+    assert out["status"] == "ok", out
+    assert out["chips"] == 16
+    assert out["cost"]["flops_dev"] > 0
+    assert out["memory"]["peak_bytes_dev"] > 0
+    assert out["roofline"]["bottleneck"] in ("compute", "memory",
+                                             "collective")

@@ -21,6 +21,8 @@ ENTRIES = {
     "fa": "_ZN12_GLOBAL__N_112fa_fwd_wgmmaILi32EEEvNS_8TileMapsE",
     "ssd": "_Z13ssd_chunk_outI13__nv_bfloat16EvPKT_PKf",
     "wkv": "_Z13wkv_chunk_bwdIfEvPKT_S2_",
+    "gmm": "_ZN43_GLOBAL__N__36b24e7b_10_moe_gmm_cu_2dbdb9688gmm_tf32ILb0E"
+           "Lb1EEEvNS_7GmmArgsE",
     "carry": "_Z11chunk_carryPfS_PKfiii",
 }
 
@@ -40,7 +42,7 @@ def _report(tmp_path) -> Path:
 
 
 @pytest.mark.parametrize("phase,entry", [("6", "fa"), ("8", "ssd"),
-                                         ("11", "wkv")])
+                                         ("11", "wkv"), ("14", "gmm")])
 def test_ptxas_lines_keep_the_phase_kernels(tmp_path, phase, entry):
     stem, prefix = compare.PHASES[phase]
     assert stem == entry

@@ -2,11 +2,14 @@
 ranks (as ``torchrun`` starts it, through ``tests/torch_dist_jobs.py``)
 against the launcher in one process on the same shard, in float32, for
 reduced internlm2-20b (dense), zamba2-2.7b (hybrid: the SSD scan on each
-rank's rows) and rwkv6-3b (SSM: the WKV on each rank's rows). Every
-step's loss agrees to 1e-5; the checkpoint is written once (by rank 0:
-the other rank issues no PWRITE64) and both ranks resume from it; the
-resumed step's losses agree too. The families the launcher refuses to
-train data parallel (MoE, the encoder-decoder) are refused by name."""
+rank's rows), rwkv6-3b (SSM: the WKV on each rank's rows) and
+moonshot-v1-16b-a3b (MoE: the expert products on each rank's dispatch
+groups; at the launcher's 4 x 32 tokens one group spans both ranks' rows,
+at 4 x 256 each rank holds two whole groups). Every step's loss agrees to
+1e-5; the checkpoint is written once (by rank 0: the other rank makes no
+PWRITE64) and both ranks resume from it; the resumed step's losses agree
+too. The encoder-decoder, which neither launcher trains, is refused by
+name."""
 import ast
 import json
 import os
@@ -29,13 +32,21 @@ def _syscalls(printed: str) -> dict:
     return ast.literal_eval(re.search(r"GENESYS: (\{.*?\})", line).group(1))
 
 
-@pytest.mark.parametrize("arch", ["internlm2-20b", "zamba2-2.7b",
-                                  "rwkv6-3b"])
-def test_two_ranks_train_as_one_process(tmp_path, monkeypatch, arch):
+@pytest.mark.parametrize("arch,seq", [
+    pytest.param("internlm2-20b", None, id="internlm2-20b"),
+    pytest.param("zamba2-2.7b", None, id="zamba2-2.7b"),
+    pytest.param("rwkv6-3b", None, id="rwkv6-3b"),
+    # 4 x 32 tokens: one dispatch group of 128 across both ranks' rows
+    pytest.param("moonshot-v1-16b-a3b", None, id="moonshot-v1-16b-a3b"),
+    # 4 x 256 tokens: four groups of 256, two whole groups on each rank
+    pytest.param("moonshot-v1-16b-a3b", "256",
+                 id="moonshot-v1-16b-a3b-seq256")])
+def test_two_ranks_train_as_one_process(tmp_path, monkeypatch, arch, seq):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, str(ROOT / "tests" /
                                             "torch_dist_jobs.py"),
-                        "launch_dp", "2", str(tmp_path / "dp"), arch],
+                        "launch_dp", "2", str(tmp_path / "dp"), arch]
+                       + ([] if seq is None else [seq]),
                        env=env, capture_output=True, text=True, timeout=300)
     line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
     assert r.returncode == 0 and line, r.stdout[-3000:] + r.stderr[-3000:]
@@ -44,7 +55,7 @@ def test_two_ranks_train_as_one_process(tmp_path, monkeypatch, arch):
 
     for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
         monkeypatch.delenv(name, raising=False)
-    one = torch_dist_jobs.launch_train(str(tmp_path / "one"), arch)
+    one = torch_dist_jobs.launch_train(str(tmp_path / "one"), arch, seq)
     steps = torch_dist_jobs.LAUNCH_STEPS
     assert len(one["first"]["losses"]) == steps
     for res in ranks:
@@ -65,13 +76,13 @@ def test_two_ranks_train_as_one_process(tmp_path, monkeypatch, arch):
     assert writes[0] == _syscalls(one["first"]["printed"])["PWRITE64"]
 
 
-@pytest.mark.parametrize("arch,family", [("moonshot-v1-16b-a3b", "moe"),
-                                         ("seamless-m4t-medium", "encdec")])
+@pytest.mark.parametrize("arch,family", [("seamless-m4t-medium", "encdec")])
 def test_data_parallel_refuses_moe_and_the_encoder_decoder(monkeypatch,
                                                            arch, family):
-    """Under a ``torchrun`` world the launcher refuses, before it joins the
-    group or builds anything, the families whose kernels it does not run on
-    each rank's rows, naming the family and the arch."""
+    """Under a ``torchrun`` world the launcher refuses the encoder-decoder
+    before it joins the group or builds anything, naming the family and
+    the arch: neither launcher trains it, since the loader gives tokens
+    and no frames."""
     from repro_torch.config import Family
     from repro_torch.configs import get_config
     from repro_torch.launch import train

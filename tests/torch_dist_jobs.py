@@ -143,11 +143,12 @@ def f32_configs():
         configs.get_config = get
 
 
-def launch_train(ckpt_dir, arch=LAUNCH_ARCH):
+def launch_train(ckpt_dir, arch=LAUNCH_ARCH, seq=None):
     """``launch.train.main`` of ``arch`` as LAUNCH_ARGS say, in f32:
     LAUNCH_STEPS steps checkpointed at the last into ``ckpt_dir``, then a
-    run that resumes from it and takes one step. Returns each run's losses
-    and printed lines."""
+    run that resumes from it and takes one step (``seq``: in place of
+    LAUNCH_ARGS's sequence length). Returns each run's losses and printed
+    lines."""
     from repro_torch.launch import train
 
     out = {}
@@ -159,20 +160,21 @@ def launch_train(ckpt_dir, arch=LAUNCH_ARCH):
                              "--resume"])):
             printed = io.StringIO()
             with contextlib.redirect_stdout(printed):
-                st = train.main(["--arch", arch] + LAUNCH_ARGS + extra)
+                st = train.main(["--arch", arch] + LAUNCH_ARGS + extra
+                                + ([] if seq is None else ["--seq", seq]))
             out[name] = {"losses": st.losses, "ckpts": st.ckpts,
                          "printed": printed.getvalue()}
     return out
 
 
-def launch_dp(mesh_shape, ckpt_dir, arch=LAUNCH_ARCH):
+def launch_dp(mesh_shape, ckpt_dir, arch=LAUNCH_ARCH, seq=None):
     """:func:`launch_train` on every rank of the gloo world, as
     ``torchrun`` would start the launcher (``WORLD_SIZE``, ``RANK`` and
     ``LOCAL_RANK`` set; the launcher takes the running group)."""
     os.environ.update(WORLD_SIZE=str(dist.get_world_size()),
                       RANK=str(dist.get_rank()),
                       LOCAL_RANK=str(dist.get_rank()))
-    return dict(launch_train(ckpt_dir, arch), rank=dist.get_rank())
+    return dict(launch_train(ckpt_dir, arch, seq), rank=dist.get_rank())
 
 
 def _map2(fn, a, b):
