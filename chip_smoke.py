@@ -69,7 +69,8 @@ The training path (the third slice) adds:
     queries over 4096 keys): o, lse, dq, dk and dv, timed against the
     plain versions, ``F.scaled_dot_product_attention(...,
     enable_gqa=True)`` forward and forward+backward as the library
-    yardstick, and the operations bound at the bf16 / f32 peak, K3b also
+    yardstick, and the operations bound at the bf16 peak or the f32
+    kernels' split TF32 (the f32 peak's beside it), K3b also
     as its three launches (delta, dq, dk/dv); each output element is held
     to a bound relative to its own size and its head vector's (and the
     kernel's outputs made 3% off in half their rows must fail that rule),
@@ -309,7 +310,7 @@ The last modules of the port add:
     on a fresh engine that evicted nothing;
 6.  K3a/K3b also at the reduced configs' heads (H 4 over KV 2, hd 32) at
     S 4096 and 1000, causal, in bf16 (the wgmma kernels) and f32 (the
-    CUDA-core ones), each with the 3% control;
+    split-TF32 ones), each with the 3% control;
 21. the examples in this process through their ``main`` on the card:
     ``torch_memory_hints`` (RSS after each phase and release),
     ``torch_serve_echo`` (reduced rwkv6-3b over UDP, 6 tokens) and
@@ -334,6 +335,14 @@ bound (the exponentials: one a (query, key) pair, forward and backward, at
 ``SFU_OPS_PER_S``); the kernels line records hd 32's times, bounds, SDPA
 times and launches beside the path's hd-128 case. Every case's two bf16
 backward calls, hd 32 with G = 2 included, must give the same bits.
+
+The redesign of K3a/K3b in f32 (split TF32 on ``mma.sync``) adds to phase
+6 f32 cases at zamba2's hd 80 and seamless's encoder (hd 64), and the 3%
+control at starcoder2's hd-128 f32 case; an f32 case's bound is the split
+design's (three tf32 products a product at the TF32 rate), the f32 peak's
+beside it (``bound_f32_ms``). Phases 7b, 9b, 17b and 19b count the f32
+step's K3 launches, which the kernels line gives apart from the path's
+bf16 ones.
 
 Prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a result when no CUDA device
@@ -416,7 +425,7 @@ FA_LSE_ATOL = 1e-4
 # the control: the kernel's outputs with the second half of their rows
 # (or keys) 3% off must fail the element-wise rule, in these cases
 FA_CONTROL_SCALE = 1.03
-FA_CONTROL_CASES = ("S4096-bfloat16", "S4096-hd32-bfloat16",
+FA_CONTROL_CASES = ("S4096-bfloat16", "S4096-float32", "S4096-hd32-bfloat16",
                     "S4096-hd32-float32", "S1000-hd32-bfloat16",
                     "S1000-hd32-float32", "B8-S64-hd32-bfloat16")
 # the reduced configs' attention as the training example runs it on the
@@ -2084,7 +2093,8 @@ def flash_cases_of(torch):
     1024 decoder positions over them (hd 64), and the reduced configs'
     heads (H 4 over KV 2 at hd 32; phase 21 trains on them) at S = 4096 and
     1000 in bf16 and f32, and in bf16 at the training example's batch of 8
-    rows of 64."""
+    rows of 64. zamba2's hd 80 and seamless's encoder (hd 64) run in f32
+    too: the f32 kernels serve every head dim."""
     from repro_torch.configs import get_config
 
     def heads(arch, reduced=False):
@@ -2099,10 +2109,14 @@ def flash_cases_of(torch):
         ("S1000-tail-bfloat16", 1, 1000, 1000, bf, (H, KV, HD), True),
         ("S4096-hd80-bfloat16", 1, TRAIN_SEQ, TRAIN_SEQ, bf,
          heads("zamba2-2.7b"), True),
+        ("S4096-hd80-float32", 1, TRAIN_SEQ, TRAIN_SEQ, f32,
+         heads("zamba2-2.7b"), True),
         ("S4096-moonshot-bfloat16", 1, TRAIN_SEQ, TRAIN_SEQ, bf,
          heads("moonshot-v1-16b-a3b"), True),
         ("S4096-encoder-hd64-bfloat16", 1, enc.n_frame_tokens,
          enc.n_frame_tokens, bf, heads("seamless-m4t-medium"), False),
+        ("S4096-encoder-hd64-float32", 1, enc.n_frame_tokens,
+         enc.n_frame_tokens, f32, heads("seamless-m4t-medium"), False),
         ("Sq1024-Skv4096-cross-hd64-bfloat16", 1, 1024, enc.n_frame_tokens,
          bf, heads("seamless-m4t-medium"), False)) + tuple(
         (f"S{s}-hd32-{str(dt).split('.')[-1]}", 1, s, s, dt, reduced, True)
@@ -2124,9 +2138,11 @@ def flash_kernel_phase(torch, dev, flush, labels=None):
     output, which must round to its bf16 one, and K3b taking delta from an
     f32 o (the plain forward's, on both sides), each held to the same rule
     and timed. Each case's bound is the largest of its bytes, its products
-    at the dtype's peak and its exponentials (one a (query, key) pair, in
-    the forward and in the backward, which need p once) at the SFU's
-    rate."""
+    and its exponentials (one a (query, key) pair, in the forward and in
+    the backward, which need p once) at the SFU's rate; the products at
+    the bf16 peak, or in f32 at the split-TF32 design's (three tf32
+    products a product at the TF32 rate), with the f32 peak's bound beside
+    it (``bound_f32_ms``)."""
     from repro_torch.kernels import flash_attention as fa
 
     F = torch.nn.functional
@@ -2214,9 +2230,16 @@ def flash_kernel_phase(torch, dev, flush, labels=None):
         # second pass is the design's cost, not the function's); at the
         # MUFU pipe's rate (SFU_OPS_PER_S)
         sfu = dict.fromkeys(("fwd", "bwd"), pairs / SFU_OPS_PER_S * 1e3)
-        bounds = {k_: max(bound_ms(io, flops, name), (sfu[k_], "operations"))
-                  for k_, io, flops in (("fwd", io_fwd, 4.0 * pairs * hd),
-                                        ("bwd", io_bwd, 10.0 * pairs * hd))}
+        tf32x3 = name == "float32"     # the f32 kernels' split TF32
+        bounds, bounds_f32 = {}, {}
+        for k_, io, flops in (("fwd", io_fwd, 4.0 * pairs * hd),
+                              ("bwd", io_bwd, 10.0 * pairs * hd)):
+            bounds_f32[k_] = max(bound_ms(io, flops, name),
+                                 (sfu[k_], "operations"))
+            ops = (3 * flops / TF32_FLOPS if tf32x3
+                   else flops / PEAK_FLOPS[name]) * 1e3
+            bounds[k_] = max((io / HBM_BYTES_PER_S * 1e3, "bytes"),
+                             (ops, "operations"), (sfu[k_], "operations"))
         reps = 10 if name == "bfloat16" else 3
         ms_f, host_f = cuda_ms(torch, lambda: fa.flash_attention_fwd(
             q, k, v, causal=causal), reps=reps, flush=flush)
@@ -2269,6 +2292,7 @@ def flash_kernel_phase(torch, dev, flush, labels=None):
                     "max_abs_err": max(errs[n]["max_abs_err"] for n in outs),
                     "ms": ms, "plain_ms": plain, "library_ms": lib,
                     "bound_ms": bnd, "bound_by": by, "host_call_ms": host,
+                    "bound_f32_ms": bounds_f32[kind][0] if tf32x3 else None,
                     "rule_r": r, "frob_tol": FA_FROB[name],
                     "errors": errs, "lse_err": lse_err}
             if control:
@@ -2294,12 +2318,16 @@ def flash_kernel_phase(torch, dev, flush, labels=None):
               + f" lse={lse_err:.2e} | fwd ms={ms_f:.4f} plain_ms="
               f"{plain_f:.4f} sdpa_ms={lib_f:.4f} bound_ms="
               f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}; SFU "
-              f"{sfu['fwd']:.4f}) | bwd ms="
+              f"{sfu['fwd']:.4f}"
+              + (f"; f32 peak {bounds_f32['fwd'][0]:.4f}" if tf32x3 else "")
+              + f") | bwd ms="
               f"{ms_b:.4f} (delta {split['delta']:.4f}, dq "
               f"{split['dq']:.4f}, dkv {split['dkv']:.4f}) plain_ms="
               f"{plain_b:.4f} sdpa_fwd_bwd_ms={lib_fb:.4f} bound_ms="
               f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}; SFU "
-              f"{sfu['bwd']:.4f}) bit-equal "
+              f"{sfu['bwd']:.4f}"
+              + (f"; f32 peak {bounds_f32['bwd'][0]:.4f}" if tf32x3 else "")
+              + f") bit-equal "
               f"twice: {bit_equal}"
               + (f" | with the f32 output: fwd ms={f32_out['fwd_ms']:.4f} "
                  f"bwd ms={f32_out['bwd_ms']:.4f}, worst ratios "
@@ -2585,11 +2613,14 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain,
     steps follow one routing and the gradients are compared as phase 7b
     compares them. f32 routes alike without the pin. The encoder-decoder
     (``frames``: AR(1) frames of ``frame_std`` a row beside ``seq`` text
-    tokens) runs ``layers`` encoder and ``layers`` decoder layers."""
+    tokens) runs ``layers`` encoder and ``layers`` decoder layers. The
+    kernel step's K3a/K3b launches are counted (``k3_launches``: in f32
+    they are the f32 kernels' launches on the smoke's paths)."""
     import numpy as np
 
     from repro_torch.checkpoint.ckpt import flatten
     from repro_torch.config import TrainConfig
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models.registry import get_api
     from repro_torch.train.steps import make_train_step
@@ -2655,8 +2686,12 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain,
         names = leaf_paths(base)
         pin = PinnedRouting() if pin_routing and compute == "bfloat16" \
             else None
+        k3_wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+        before = [c.launches for c in k3_wrappers]
         with pin.record() if pin else contextlib.nullcontext():
             got = one_step(base, batch, ops.KERNELS)
+        k3 = {c.__name__: c.launches - n
+              for c, n in zip(k3_wrappers, before)}
         with pin.replay() if pin else contextlib.nullcontext():
             ref = one_step(base, batch, plain)
         kern = against_plain(got, ref)
@@ -2683,7 +2718,8 @@ def step_kernel_vs_plain(torch, cfg, dev, *, layers: int, plain,
         check(not ctrl["pass"], f"{compute} step: the control "
               f"({control_label}) passes the comparison: {ctrl}")
         out[compute] = {"kernels": kern, "control": ctrl,
-                        "loss_plain": ref[0], "grad_norm_plain": ref[1]}
+                        "loss_plain": ref[0], "grad_norm_plain": ref[1],
+                        "k3_launches": k3}
         del base, ref
         gc.collect()
         torch.cuda.empty_cache()
@@ -5785,9 +5821,18 @@ def run(torch) -> int:
          "two_call_ms": dense_fused[0]["two_call_ms"],
          "pass": True, "cases": dense_fused},
     ]
+    # the f32 steps of phases 7b, 9b, 17b and 19b: the f32 kernels' launches
+    f32_steps = {cfg.arch_id: train["step_kernel_vs_plain"],
+                 zcfg.arch_id: ztrain["step_kernel_vs_plain"],
+                 mcfg.arch_id: mtrain["step_kernel_vs_plain"],
+                 scfg.arch_id: etrain["step_kernel_vs_plain"],
+                 f"{scfg.arch_id}-alike-frames":
+                     etrain["step_kernel_vs_plain_alike_frames"]}
     for kind, name, line in (("fwd", "flash_attention_fwd", 76),
                              ("bwd", "flash_attention_bwd", 205)):
         case = flash_cases[kind][0]          # S=4096, bf16: the path's case
+        f32_case = next(c for c in flash_cases[kind]
+                        if c["case"] == "S4096-float32")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -5825,6 +5870,20 @@ def run(torch) -> int:
                                   "B8-S64-hd32-bfloat16")},
             "hd32_launches": examples["train_lm"]["launches"][name]
             + sum(torchrun[name] for torchrun in torchruns.values()),
+            # f32: split TF32 on mma.sync (the bf16 path's kernels above)
+            "cuda_kernels": {
+                "bfloat16": (["fa_fwd_wgmma"] if kind == "fwd" else
+                             ["fa_delta", "fa_dq_wgmma", "fa_dkv_wgmma",
+                              "fa_dkv_reduce"]),
+                "float32": (["fa_fwd_tf32"] if kind == "fwd" else
+                            ["fa_dq_tf32", "fa_dkv_tf32", "fa_dkv_reduce"])},
+            "f32": {n: f32_case[n] for n in (
+                "ms", "bound_ms", "bound_by", "bound_f32_ms", "library_ms",
+                "plain_ms", "max_abs_err")},
+            "f32_launches": sum(r["float32"]["k3_launches"][name]
+                                for r in f32_steps.values()),
+            "f32_launches_by_run": {run: r["float32"]["k3_launches"][name]
+                                    for run, r in f32_steps.items()},
             "pass": True, "cases": flash_cases[kind]})
     for kind, name in (("fwd", "mamba2_ssd_fwd"), ("bwd", "mamba2_ssd_bwd")):
         case = ssd_cases[kind][0]            # L=4096, bf16: the path's case

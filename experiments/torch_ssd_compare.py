@@ -97,8 +97,12 @@ def main() -> int:
         for case in cases[kind]:
             extra = (f" sdpa={case['library_ms']:.4f} bound="
                      f"{case['bound_ms']:.4f} ({case['bound_by']}; SFU "
-                     f"{case['bound_sfu_ms']:.4f})" if args.phase == "6"
-                     else "")
+                     f"{case['bound_sfu_ms']:.4f}"
+                     + ("" if case.get("bound_f32_ms") is None else
+                        f"; f32 peak {case['bound_f32_ms']:.4f}")
+                     + ") worst=" + "/".join(
+                         f"{e['worst']:.3f}" for e in case["errors"].values())
+                     if args.phase == "6" else "")
             if args.phase == "14":
                 parts = case.get("parts", {})
                 f32 = case["bound_f32_ms"]

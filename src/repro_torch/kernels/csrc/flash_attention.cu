@@ -1,11 +1,11 @@
 // Hand-written Hopper (sm_90a) kernels of the no-cache attention: the flash
 // attention forward (K3a) and backward (K3b).
 //
-//   fa_fwd_wgmma / fa_fwd_f32      replace the Pallas `flash_attention_fwd` /
+//   fa_fwd_wgmma / fa_fwd_tf32     replace the Pallas `flash_attention_fwd` /
 //                                  `_fwd_kernel`
 //   fa_delta, fa_dq_wgmma,         replace `flash_attention_bwd` /
-//   fa_dkv_wgmma (+ fa_dkv_reduce) `_dq_kernel`, `_dkv_kernel`, and (bf16)
-//   / fa_dq_f32, fa_dkv_f32        the delta = rowsum(do * o) it takes
+//   fa_dkv_wgmma / fa_dq_tf32,     `_dq_kernel`, `_dkv_kernel`, and (bf16)
+//   fa_dkv_tf32 (+ fa_dkv_reduce)  the delta = rowsum(do * o) it takes
 //                                  (src/repro/kernels/flash_attention.py)
 //
 // and on the training and prefill paths the XLA `flash_attention_xla` of
@@ -25,6 +25,7 @@
 // needs five products, 5 * B * H * S^2 * hd. So the score matrix stays out
 // of device memory and, in bf16 (the path's compute dtype), every product
 // runs on wgmma, the only way to the card's full tensor-core rate:
+// bf16 (below; the f32 kernels' design is at their section):
 //   * Warp specialisation, one CTA per SM (384 threads, 100-165 KB of
 //     shared memory; at hd 32 two CTAs of 256 threads, below). The last
 //     warpgroup is the producer: it gives up its registers (setmaxnreg 24)
@@ -87,15 +88,15 @@
 //     and a producer, two CTAs an SM (consumers<HD>): twice the CTAs, each
 //     walking half the rows, and an SM's two consumers step through their
 //     tiles independently. Measured on an H100 at B 1, H 4, KV 2, S 4096
-//     causal (experiments/torch_fa_compare.py, each pair in one call): K3a
-//     0.0484 ms with 128-row CTAs against 0.0398 with 64-row ones, K3b
-//     0.1365 against 0.1103. The forward keeps 128-key tiles (64-key ones
-//     were slower); dq and dk/dv keep 64 (kDqKeys, kDkvRows).
-//   * f32 takes CUDA-core kernels: a lane per key (forward, dq) or per
-//     query row (dk/dv) for the dot products, a lane per head dimension for
-//     the accumulators (at hd 80 lanes 16-31 own two, the others three),
-//     tiles in shared memory; delta comes from the wrapper, summed as the
-//     plain version sums it.
+//     causal (`experiments/torch_ssd_compare.py --phase 6`, each pair in
+//     one call): K3a 0.0484 ms with 128-row CTAs against 0.0398 with 64-row
+//     ones, K3b 0.1365 against 0.1103. The forward keeps 128-key tiles
+//     (64-key ones were slower); dq and dk/dv keep 64 (kDqKeys, kDkvRows).
+//   * f32 runs its products on the tensor cores too, as split TF32 on
+//     mma.sync (fa_fwd_tf32, fa_dq_tf32, fa_dkv_tf32 over tf32_tiles.cuh;
+//     their section below), but for dq's dP where p >= 1/32, summed again
+//     on the CUDA cores; delta comes from the wrapper, summed as the plain
+//     version sums it.
 // Not done yet: overlap of a warpgroup's softmax with its own next product
 // (issuing the next S before this tile's P V made ptxas serialise every
 // wgmma, C7514, and the forward slower), TMA stores of the outputs, a
@@ -108,10 +109,9 @@
 
 #include "hopper_common.cuh"
 #include "mma_common.cuh"
+#include "tf32_tiles.cuh"
 
 namespace {
-
-constexpr int kFaThreads = 128;  // f32 kernels: 4 warps per CTA
 
 using bf16 = __nv_bfloat16;
 
@@ -920,11 +920,21 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
   }
 }
 
+__device__ __forceinline__ void store4(bf16* p, float4 a) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_f32(a.x, a.y), pack_f32(a.z, a.w));
+}
+__device__ __forceinline__ void store4(float* p, float4 a) {
+  *reinterpret_cast<float4*>(p) = a;
+}
+
 // dk[b, s, g', :] = sum over g < G of dkp[b, s, g' G + g, :] in order g = 0,
-// 1, ... (and dv from dvp), rounded to bf16 once: 4 elements a thread.
+// 1, ... (and dv from dvp), rounded to T (bf16 or f32) once: 4 elements a
+// thread.
+template <typename T>
 __global__ void __launch_bounds__(256) fa_dkv_reduce(
     const float* __restrict__ dkp, const float* __restrict__ dvp,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, long long n4, int KV, int G,
+    T* __restrict__ dk, T* __restrict__ dv, long long n4, int KV, int G,
     int HD) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
@@ -939,294 +949,622 @@ __global__ void __launch_bounds__(256) fa_dkv_reduce(
     c.x += y.x, c.y += y.y, c.z += y.z, c.w += y.w;
   }
   const size_t dst = (size_t)row * HD + d;
-  *reinterpret_cast<uint2*>(dk + dst) =
-      make_uint2(pack_f32(a.x, a.y), pack_f32(a.z, a.w));
-  *reinterpret_cast<uint2*>(dv + dst) =
-      make_uint2(pack_f32(c.x, c.y), pack_f32(c.z, c.w));
+  store4(dk + dst, a);
+  store4(dv + dst, c);
 }
 
-// ---- f32, CUDA cores --------------------------------------------------------
+// ---- f32: split TF32 on mma.sync --------------------------------------------
+//
+// The f32 kernels' products run on the tensor cores as split TF32
+// (tf32_tiles.cuh: split, mma3), all but dq's dP where p >= kExactP: each
+// element of A and B as a tf32 hi part and a tf32 lo part of the
+// remainder, the product lo hi + hi lo + hi hi on mma.sync m16n8k8, about
+// 22 of f32's 24 bits where one tf32 product keeps 11. A CTA is 4 or 8
+// warps (kTfFwdWarps, tf_bwd_warps); each owns a strip of 16 of the CTA's
+// rows (query rows in the forward and dq, keys in dk/dv) and the CTA's own
+// tiles are loaded once; the other operand streams in tiles of tf_fwd_tile
+// / tf_bwd_tile rows through a 2-stage ring of 16-byte cp.async copies.
+//   * The score products (Q K^T, dO V^T, K Q^T, V dO^T: depth hd) read both
+//     operands from shared memory; Q K^T and K Q^T sum in place over the
+//     hd / 8 depth steps, dP and dP^T each step fresh. Where p >= kExactP,
+//     dq's dP is summed again on the CUDA cores as the plain version's f32
+//     product sums it (dot_f32): dS = p (dP - delta) cancels where one key
+//     holds a row's p, and there dq is the rounding of dP (below).
+//   * The backward splits each streamed tile once a CTA (tf_presplit: hi
+//     in place, lo beside it), not once a warp: a B operand's split is five
+//     ALU operations an element, which every warp repeated for each of its
+//     products, and the kernels issue more ALU operations than products
+//     (K3b at starcoder2-7b's shape 14.3 -> 13.5 ms on an H100; the B reads
+//     double, and shared memory's bandwidth now paces the products about
+//     as much as the issue does). The forward has no room for the lo parts
+//     at hd 128 (two CTAs an SM).
+//   * p (and dS) stay in registers: a C fragment of the scores is the A
+//     fragment of the next product with its depth taken in the order 2t,
+//     2t + 1 (tf32_tiles.cuh), so the products over keys or query rows (P V,
+//     dS K, P^T dO, dS^T Q) read their B operand at depth rows 2t and 2t + 1.
+//   * Long sums: those products sum over all keys (4096) or all query rows,
+//     and the tensor core's sum truncates toward zero. Each tile's products
+//     are summed fresh (KT keys or rows, 3-8 depth steps) and the tile's sum
+//     is added to the f32 accumulator (the forward: acc = fma(acc, c, sum)
+//     with the online softmax's correction c), so the truncation acts on a
+//     tile's share only; a fresh sum each depth step would add 4 FADDs to
+//     every 3 products. Four column tiles at a time, four product chains in
+//     flight.
+//   * Layout: a tile row is hd + 4 floats (4 or 20 mod 32 at hd 32, 64, 80,
+//     128), no swizzle, any head dim a multiple of 16: the A read (rows g,
+//     columns k + t) and the transposed B read of the scores (rows 8 nt + g,
+//     columns k + t) fall on banks 4g + t (20g + t at hd 80), the B read
+//     after a register A (rows 2t, 2t + 1, columns n + g) on 8t + g: all 32
+//     distinct. No wgmma: its tf32 form takes only K-major operands, which V,
+//     K, Q and dO are not in the products over keys or rows.
+//   * The softmax in f32 with expf (accurate, not ex2.approx), as the plain
+//     version: s * scale, running max and sum, lse = m + log(l); in the
+//     backward p = expf(s * scale - lse), dS = p (dP - delta) scale, delta
+//     from the wrapper, summed as the plain version sums it.
+//   * Causal: a warp skips the products of a tile its rows do not reach;
+//     key tiles past the CTA's last row are not loaded; the forward and dq
+//     start with the last query tiles, dk/dv with the first keys (the
+//     longest walks). dk/dv are a CTA per 64 or 128 keys and *query* head;
+//     with G = H / KV > 1 each head's f32 partials are summed by
+//     fa_dkv_reduce in the order g = 0, 1, ... (no atomics: two calls give
+//     the same bits).
 
-constexpr int kF32Rows = 16;     // forward: query rows per CTA, 4 per warp
-constexpr int kF32DqRows = 8;    // dq: query rows per CTA, 2 per warp
-constexpr int kF32Keys = 32;     // forward and dq: keys per tile, one a lane
-constexpr int kF32KvRows = 8;    // dk/dv: keys per CTA, 2 per warp
-constexpr int kF32QTile = 32;    // dk/dv: query rows per tile, one a lane
-
-// Rows [r0, r0 + n) of a [*, ld] f32 matrix at `src` (row stride `ld`
-// elements, HD used) into shared rows of stride `str`; rows at or past `lim`
-// are zero.
 template <int HD>
-__device__ __forceinline__ void stage_f32(float* dst, int str,
-                                          const float* src, size_t ld, int r0,
-                                          int n, int lim) {
-  for (int c = threadIdx.x; c < n * (HD / 4); c += kFaThreads) {
-    const int r = c / (HD / 4), w = c % (HD / 4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < lim) x = load4(src + (r0 + r) * ld + 4 * w);
-    float* d = dst + r * str + 4 * w;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
+__host__ __device__ constexpr int tf_pitch() {
+  static_assert(HD % 16 == 0, "head_dim a multiple of 16");
+  return HD + 4;
+}
+
+// Warps a CTA (each a strip of 16 of its own rows) and rows a streamed tile
+// (keys in the forward and dq, query rows in dk/dv). Shared memory holds the
+// own rows' tiles and a 2-stage ring of the streamed ones: the forward 4
+// warps with 32 keys at hd 128, 64 elsewhere (two CTAs an SM, 8 warps, up to
+// 255 registers a thread; 8 warps a CTA at hd 128 ran no faster); the
+// backward 4 warps with 32 keys or rows (64 at hd 32), two CTAs an SM, but
+// at hd 128 one CTA of 8 warps with 24 (Q and dO, or K and V, of 128 rows:
+// 135 KB; the ring and the stage's lo parts 76 KB), so that an A fragment
+// split once serves three column tiles, not two: K3b at starcoder2-7b's
+// shape took 14.3 ms with 8 warps and 32-row tiles split by each warp,
+// 15.6 with 4 warps and 16, 19.6 with 4 warps and 32 (one CTA an SM), on
+// an H100.
+constexpr int kTfFwdWarps = 4;
+template <int HD>
+__host__ __device__ constexpr int tf_fwd_tile() {
+  return HD == 128 ? 32 : 64;
+}
+template <int HD>
+__host__ __device__ constexpr int tf_bwd_warps() {
+  return HD == 128 ? 8 : 4;
+}
+template <int HD>
+__host__ __device__ constexpr int tf_bwd_tile() {
+  return HD == 128 ? 24 : HD == 32 ? 64 : 32;
+}
+
+template <int HD>
+__host__ __device__ constexpr int tf_fwd_bytes() {
+  return 4 * (16 * kTfFwdWarps + 4 * tf_fwd_tile<HD>()) * tf_pitch<HD>();
+}
+template <int HD>
+__host__ __device__ constexpr int tf_dq_bytes() {  // + the stage's lo parts
+  return 4 * (32 * tf_bwd_warps<HD>() + 6 * tf_bwd_tile<HD>()) *
+         tf_pitch<HD>();
+}
+template <int HD>
+__host__ __device__ constexpr int tf_dkv_stage() {  // floats: Q, dO, lse, delta
+  return 2 * tf_bwd_tile<HD>() * tf_pitch<HD>() + 2 * tf_bwd_tile<HD>();
+}
+template <int HD>
+__host__ __device__ constexpr int tf_dkv_bytes() {  // + the stage's lo parts
+  return 4 * ((32 * tf_bwd_warps<HD>() + 2 * tf_bwd_tile<HD>()) *
+                  tf_pitch<HD>() +
+              2 * tf_dkv_stage<HD>());
+}
+
+// Rows [r0, r0 + ROWS) of a matrix at src with a row stride of ld floats
+// (HD of them used) into a shared tile of pitch tf_pitch<HD>(), as 16-byte
+// cp.async pieces; rows at or past lim are zero.
+template <int HD, int ROWS, int NTHR>
+__device__ __forceinline__ void tf_stage(float* dst, const float* src,
+                                         size_t ld, int r0, int lim) {
+  constexpr int kP = tf_pitch<HD>(), kC = HD / 4;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * kC; e += NTHR) {
+    const int r = e / kC, c = (e % kC) * 4;
+    const bool in = r0 + r < lim;
+    cp_async16(dst + r * kP + c, in ? src + (size_t)(r0 + r) * ld + c : src,
+               in);
   }
 }
 
-// Whether lane `lane` owns head dim lane + 32 i (at HD = 80 the third is
-// lanes 0-15 only; the others skip it).
-template <int HD>
-__device__ __forceinline__ bool has_dim(int lane, int i) {
-  return HD % 32 == 0 || lane + 32 * i < HD;
+// src[r0 .. r0 + n) into dst as 4-byte cp.async copies, 0 at or past lim.
+__device__ __forceinline__ void tf_stage_vec(float* dst, const float* src,
+                                             int r0, int n, int lim) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const bool in = r0 + i < lim;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     shared_addr(dst + i)),
+                 "l"(in ? src + r0 + i : src), "r"(in ? 4 : 0)
+                 : "memory");
+  }
 }
 
-// One CTA: query rows [q0, q0 + 16) of head h of row b; warp w owns 4 rows.
-// Per 32-key tile a lane scores one key against each row; the row's online
-// softmax runs across the warp, and each lane accumulates head dims
-// lane, lane + 32, ...
+// Rows [0, ROWS) of a tile T split once for the CTA: each element's hi
+// part in place, its lo part at the same place of L (split's rounding), so
+// that the warps read their B operands split (b_part).
+template <int HD, int ROWS, int NTHR>
+__device__ __forceinline__ void tf_presplit(float* T, float* L) {
+  constexpr int kP = tf_pitch<HD>(), kC = HD / 4;
+  auto part = [](float x, float& lo) {
+    const Split v = split(x);
+    lo = __uint_as_float(v.lo);
+    return __uint_as_float(v.hi);
+  };
+#pragma unroll 2
+  for (int e = threadIdx.x; e < ROWS * kC; e += NTHR) {
+    const int i = (e / kC) * kP + (e % kC) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(T + i);
+    float4 h, l;
+    h.x = part(x.x, l.x);
+    h.y = part(x.y, l.y);
+    h.z = part(x.z, l.z);
+    h.w = part(x.w, l.w);
+    *reinterpret_cast<float4*>(T + i) = h;
+    *reinterpret_cast<float4*>(L + i) = l;
+  }
+}
+
+// A B operand element: split here (kPre false: T raw), or read as the hi
+// and lo parts that tf_presplit left at T[i] and L[i].
+template <bool kPre>
+__device__ __forceinline__ Split b_part(const float* T, const float* L,
+                                        int i) {
+  if (kPre) return {__float_as_uint(T[i]), __float_as_uint(L[i])};
+  return split(T[i]);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// s[j][nt] = A_j B_j^T over the depth HD for NP products at once (their
+// chains interleave): A_j(r, d) = a[j][r][d], the warp's 16 rows,
+// B_j^T(d, n) = b[j][8 nt + n][d]. Product 0 sums in place over the HD / 8
+// depth steps (the scores Q K^T, K Q^T: their error moves p relatively,
+// which no sum cancels), product 1 each step fresh, added in f32 (dP,
+// dP^T: dS = p (dP - delta) cancels against them). kPre: each B_j split
+// already, its lo parts in bl[j] (tf_presplit).
+template <int HD, int NT, int NP, bool kPre>
+__device__ __forceinline__ void tf_scores(float (&s)[NP][NT][4],
+                                          const float* const (&a)[NP],
+                                          const float* const (&b)[NP],
+                                          const float* const (&bl)[NP]) {
+  constexpr int P = tf_pitch<HD>();
+  const int lane = threadIdx.x & 31, o = (lane >> 2) * P + (lane & 3);
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][nt][e] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < HD; k += 8) {
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const float* pa = a[j] + o + k;
+      const float* pb = b[j] + o + k;
+      const float* pl = bl[j] + o + k;
+      const FragA fa = frag_a(pa[0], pa[8 * P], pa[4], pa[8 * P + 4]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const Split x = b_part<kPre>(pb, pl, 8 * nt * P);
+        const Split y = b_part<kPre>(pb, pl, 8 * nt * P + 4);
+        if (j == 0)
+          mma3<false, false, false>(s[j][nt], fa, x, y);
+        else
+          mma3<false, false, true>(s[j][nt], fa, x, y);
+      }
+    }
+  }
+}
+
+// dq's dP where p >= kExactP, as the plain version's f32 product sums it:
+// sum over d < HD of a[d] b[d], one fma chain in the order d = 0, 1, ...
+// Where one key holds most of a row's p, dS = p (dP - delta) cancels (row
+// 0's dq is that cancellation alone, dS_00 = 0 but for rounding), and dq
+// there is the rounding of dP and of delta: phase 6 holds it to the plain
+// version's, which the same chain repeats bit for bit. A product of any
+// other order, however exact, does not: with dP in three tf32 parts (six
+// products), row 0's dq read 3.45x phase 6's f32 rule against the plain
+// version at S 4096 and hd 128 on an H100, and the plain version itself
+// 2.56x it against float64. Elsewhere the tensor cores' dP moves dq by p
+// times its error, p < 1/32.
+constexpr float kExactP = 1.f / 32.f;
+
 template <int HD>
-__global__ void __launch_bounds__(kFaThreads) fa_fwd_f32(
+__device__ __forceinline__ float dot_f32(const float* a, const float* b) {
+  float acc = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < HD; ++d) acc = fmaf(a[d], b[d], acc);
+  return acc;
+}
+
+// The split A fragments of a 16 x 8 C tile with its depth (columns) taken
+// in the order 2t, 2t + 1.
+__device__ __forceinline__ FragA c_frag(const float (&c)[4]) {
+  return frag_a(c[0], c[2], c[1], c[3]);
+}
+
+// acc[nt] = fma(acc[nt], c, z[nt]) (kScale: c = c0 on the fragment's row g,
+// c1 on g + 8) or acc[nt] + z[nt], where z[nt] = sum over the tile's KT
+// depth of p(r, k) T[k][8 nt + n], summed fresh: p the warp's 16 x KT strip
+// as split A fragments (pa[kt] its columns [8 kt, 8 kt + 8) in the order
+// 2t, 2t + 1), so T is read at rows 8 kt + 2t and + 1. kPre: T split
+// already, its lo parts in TL (tf_presplit).
+template <int HD, int KT, bool kScale, bool kPre>
+__device__ __forceinline__ void tf_accumulate(float (&acc)[HD / 8][4],
+                                              const FragA (&pa)[KT / 8],
+                                              const float* T, const float* TL,
+                                              float c0, float c1) {
+  constexpr int P = tf_pitch<HD>(), DT = HD / 8;
+  const int lane = threadIdx.x & 31, o = 2 * (lane & 3) * P + (lane >> 2);
+  const float* p0 = T + o;
+  const float* l0 = TL + o;
+#pragma unroll
+  for (int n0 = 0; n0 < DT; n0 += 4) {
+    float z[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[j][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT / 8; ++kt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n0 + j < DT) {
+          const int i = 8 * kt * P + 8 * (n0 + j);
+          mma3<false, false, false>(z[j], pa[kt], b_part<kPre>(p0, l0, i),
+                                    b_part<kPre>(p0, l0, i + P));
+        }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (n0 + j >= DT) continue;
+      float* d = acc[n0 + j];
+      if (kScale) {
+        d[0] = fmaf(d[0], c0, z[j][0]);
+        d[1] = fmaf(d[1], c0, z[j][1]);
+        d[2] = fmaf(d[2], c1, z[j][2]);
+        d[3] = fmaf(d[3], c1, z[j][3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[e] += z[j][e];
+      }
+    }
+  }
+}
+
+// The warp's 16 x HD accumulator (row g: acc[nt][0, 1], row g + 8: [2, 3],
+// columns 8 nt + 2t, + 1) divided by d0 / d1 into out rows row0 / row0 + 8
+// (of stride ld), rows at or past lim skipped.
+template <int HD>
+__device__ __forceinline__ void tf_store(float* out, size_t ld,
+                                         const float (&acc)[HD / 8][4],
+                                         int row0, int lim, float d0,
+                                         float d1) {
+  const int c = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    if (row0 < lim)
+      *reinterpret_cast<float2*>(out + (size_t)row0 * ld + 8 * nt + c) =
+          make_float2(acc[nt][0] / d0, acc[nt][1] / d0);
+    if (row0 + 8 < lim)
+      *reinterpret_cast<float2*>(out + (size_t)(row0 + 8) * ld + 8 * nt +
+                                 c) =
+          make_float2(acc[nt][2] / d1, acc[nt][3] / d1);
+  }
+}
+
+// One CTA: query rows [q0, q0 + kRows) of head h of row b; K and V tiles
+// of KT keys stream. Per tile, a warp's scores S = Q K^T (16 x KT), the online
+// softmax on them (f32, expf; a row's max and sum over its quad of lanes),
+// then acc = acc c + P V.
+template <int HD>
+__global__ void __launch_bounds__(32 * kTfFwdWarps, 2) fa_fwd_tf32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse, int H, int KV, int Sq, int Skv, float scale,
     int causal) {
-  constexpr int DL = (HD + 31) / 32;
-  constexpr int RW = kF32Rows / 4;
-  __shared__ float qs[kF32Rows * HD];
-  __shared__ float ks[kF32Keys * (HD + 1)];
-  __shared__ float vs[kF32Keys * (HD + 1)];
-  const int nqt = (Sq + kF32Rows - 1) / kF32Rows;
+  constexpr int P = tf_pitch<HD>(), KT = tf_fwd_tile<HD>(), NT = KT / 8;
+  constexpr int kThr = 32 * kTfFwdWarps, kRows = kThr / 2;
+  extern __shared__ float4 tf_smem4[];
+  float* tf_smem = reinterpret_cast<float*>(tf_smem4);
+  float* sq = tf_smem;                  // [kRows][P]
+  float* ring = sq + kRows * P;         // per stage: K, then V, [KT][P]
+  const int nqt = (Sq + kRows - 1) / kRows;
   const int q0 = (causal ? nqt - 1 - (int)blockIdx.x : (int)blockIdx.x) *
-                 kF32Rows;
+                 kRows;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t qs_ = (size_t)H * HD, ks_ = (size_t)KV * HD;
-  const size_t qoff = (size_t)b * Sq * qs_ + (size_t)h * HD;
-  const size_t koff = (size_t)b * Skv * ks_ + (size_t)kvh * HD;
-  stage_f32<HD>(qs, HD, q + qoff, qs_, q0, kF32Rows, Sq);
-  float m[RW], l[RW], acc[RW][DL];
+  const int g = lane >> 2, t = lane & 3;
+  const size_t ldq = (size_t)H * HD, ldk = (size_t)KV * HD;
+  const size_t qoff = (size_t)b * Sq * ldq + (size_t)h * HD;
+  const float* kb = k + (size_t)b * Skv * ldk + (size_t)kvh * HD;
+  const float* vb = v + (size_t)b * Skv * ldk + (size_t)kvh * HD;
+  const int n_tiles =
+      ((causal ? min(Skv, q0 + kRows) : Skv) + KT - 1) / KT;
+  tf_stage<HD, kRows, kThr>(sq, q + qoff, ldq, q0, Sq);
+  tf_stage<HD, KT, kThr>(ring, kb, ldk, 0, Skv);
+  tf_stage<HD, KT, kThr>(ring + KT * P, vb, ldk, 0, Skv);
+  cp_async_commit();
+  const int r0 = q0 + 16 * warp, row0 = r0 + g, row1 = row0 + 8;
+  float acc[HD / 8][4];
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.f;
+  for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
-    for (int i = 0; i < DL; ++i) acc[r][i] = 0.f;
-  }
-  const int kv_end = causal ? min(Skv, q0 + kF32Rows) : Skv;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kF32Keys) {
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  const float* A[1] = {sq + 16 * warp * P};
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      float* nx = ring + ((it + 1) & 1) * 2 * KT * P;
+      tf_stage<HD, KT, kThr>(nx, kb, ldk, (it + 1) * KT, Skv);
+      tf_stage<HD, KT, kThr>(nx + KT * P, vb, ldk, (it + 1) * KT, Skv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    stage_f32<HD>(ks, HD + 1, k + koff, ks_, kv0, kF32Keys, Skv);
-    stage_f32<HD>(vs, HD + 1, v + koff, ks_, kv0, kF32Keys, Skv);
-    __syncthreads();
-    const int key = kv0 + lane;
+    const int j0 = it * KT;
+    const float* sk = ring + (it & 1) * 2 * KT * P;
+    if (!causal || j0 <= r0 + 15) {
+      float s[1][NT][4];
+      const float* Bk[1] = {sk};
+      tf_scores<HD, NT, 1, false>(s, A, Bk, Bk);
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const int lr = RW * warp + r, row = q0 + lr;
-      const float* qr = qs + lr * HD;
-      const float* kr = ks + lane * (HD + 1);
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) s += qr[d] * kr[d];
-      s = keep(key, row, Skv, causal) ? s * scale : -CUDART_INF_F;
-      const float mn = fmaxf(m[r], warp_max(s));
-      const float base = mn == -CUDART_INF_F ? 0.f : mn;
-      const float p = expf(s - base), c = expf(m[r] - base);
-      l[r] = l[r] * c + warp_sum(p);
-      m[r] = mn;
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int i = 0; i < DL; ++i) acc[r][i] *= c;
-      for (int j = 0; j < kF32Keys; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-        const float* vr = vs + j * (HD + 1) + lane;
+        for (int e = 0; e < 4; ++e) {
+          const int key = j0 + 8 * nt + 2 * t + (e & 1);
+          const float x = keep(key, e < 2 ? row0 : row1, Skv, causal)
+                              ? s[0][nt][e] * scale
+                              : -CUDART_INF_F;
+          s[0][nt][e] = x;
+          if (e < 2)
+            mx0 = fmaxf(mx0, x);
+          else
+            mx1 = fmaxf(mx1, x);
+        }
+      const float mn0 = fmaxf(m0, quad_max(mx0)),
+                  mn1 = fmaxf(m1, quad_max(mx1));
+      // a row with no key yet keeps exp's argument finite
+      const float b0 = mn0 == -CUDART_INF_F ? 0.f : mn0;
+      const float b1 = mn1 == -CUDART_INF_F ? 0.f : mn1;
+      const float c0 = expf(m0 - b0), c1 = expf(m1 - b1);
+      float sum0 = 0.f, sum1 = 0.f;
+      FragA pa[NT];
 #pragma unroll
-        for (int i = 0; i < DL; ++i)
-          if (has_dim<HD>(lane, i)) acc[r][i] += pj * vr[32 * i];
+      for (int nt = 0; nt < NT; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = expf(s[0][nt][e] - (e < 2 ? b0 : b1));
+        sum0 += p[0] + p[1];
+        sum1 += p[2] + p[3];
+        pa[nt] = c_frag(p);
       }
+      l0 = l0 * c0 + quad_sum(sum0);
+      l1 = l1 * c1 + quad_sum(sum1);
+      m0 = mn0;
+      m1 = mn1;
+      tf_accumulate<HD, KT, true, false>(acc, pa, sk + KT * P, sk + KT * P,
+                                         c0, c1);
     }
+    __syncthreads();  // the stage is refilled next
   }
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int row = q0 + RW * warp + r;
-    if (row >= Sq) continue;
-    const float d = fmaxf(l[r], 1e-30f);
-    const size_t orow = qoff + row * qs_;
-#pragma unroll
-    for (int i = 0; i < DL; ++i) {
-      if (has_dim<HD>(lane, i)) o[orow + lane + 32 * i] = acc[r][i] / d;
-    }
-    if (lane == 0) lse[((size_t)b * H + h) * Sq + row] = m[r] + logf(d);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  tf_store<HD>(o + qoff, ldq, acc, row0, Sq, d0, d1);
+  if (t == 0) {
+    float* lb = lse + ((size_t)b * H + h) * Sq;
+    if (row0 < Sq) lb[row0] = m0 + logf(d0);
+    if (row1 < Sq) lb[row1] = m1 + logf(d1);
   }
 }
 
-// One CTA: query rows [q0, q0 + 8) of head h of row b; warp w owns 2 rows.
-// Per 32-key tile a lane takes one key: s and dP of each row, then dS; dq
-// accumulates over the keys with each lane on its head dims.
+// One CTA: query rows [q0, q0 + kRows) of head h of row b, Q and dO loaded
+// once; K and V tiles of KT keys stream. Per tile, a warp's S = Q K^T and
+// dP = dO V^T (16 x KT), p = expf(s scale - lse) and dS = p (dP - delta)
+// scale in registers, then dq += dS K.
 template <int HD>
-__global__ void __launch_bounds__(kFaThreads) fa_dq_f32(
+__global__ void __launch_bounds__(32 * tf_bwd_warps<HD>(),
+                                  8 / tf_bwd_warps<HD>()) fa_dq_tf32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dq, int H, int KV, int Sq, int Skv, float scale,
     int causal) {
-  constexpr int DL = (HD + 31) / 32;
-  constexpr int RW = kF32DqRows / 4;
-  __shared__ float qs[kF32DqRows * HD];
-  __shared__ float dos[kF32DqRows * HD];
-  __shared__ float ks[kF32Keys * (HD + 1)];
-  __shared__ float vs[kF32Keys * (HD + 1)];
-  const int nqt = (Sq + kF32DqRows - 1) / kF32DqRows;
+  constexpr int P = tf_pitch<HD>(), KT = tf_bwd_tile<HD>(), NT = KT / 8;
+  constexpr int kThr = 32 * tf_bwd_warps<HD>(), kRows = kThr / 2;
+  extern __shared__ float4 tf_smem4[];
+  float* tf_smem = reinterpret_cast<float*>(tf_smem4);
+  float* sq = tf_smem;                  // [kRows][P]
+  float* sdo = sq + kRows * P;          // [kRows][P]
+  float* ring = sdo + kRows * P;        // per stage: K, then V, [KT][P]
+  float* slo = ring + 4 * KT * P;       // the lo parts of the stage in use
+  const int nqt = (Sq + kRows - 1) / kRows;
   const int q0 = (causal ? nqt - 1 - (int)blockIdx.x : (int)blockIdx.x) *
-                 kF32DqRows;
+                 kRows;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t qs_ = (size_t)H * HD, ks_ = (size_t)KV * HD;
-  const size_t qoff = (size_t)b * Sq * qs_ + (size_t)h * HD;
-  const size_t koff = (size_t)b * Skv * ks_ + (size_t)kvh * HD;
-  stage_f32<HD>(qs, HD, q + qoff, qs_, q0, kF32DqRows, Sq);
-  stage_f32<HD>(dos, HD, dout + qoff, qs_, q0, kF32DqRows, Sq);
-  float ls[RW], dl[RW], acc[RW][DL];
+  const int g = lane >> 2, t = lane & 3;
+  const size_t ldq = (size_t)H * HD, ldk = (size_t)KV * HD;
+  const size_t qoff = (size_t)b * Sq * ldq + (size_t)h * HD;
+  const float* kb = k + (size_t)b * Skv * ldk + (size_t)kvh * HD;
+  const float* vb = v + (size_t)b * Skv * ldk + (size_t)kvh * HD;
+  const int n_tiles =
+      ((causal ? min(Skv, q0 + kRows) : Skv) + KT - 1) / KT;
+  tf_stage<HD, kRows, kThr>(sq, q + qoff, ldq, q0, Sq);
+  tf_stage<HD, kRows, kThr>(sdo, dout + qoff, ldq, q0, Sq);
+  tf_stage<HD, KT, kThr>(ring, kb, ldk, 0, Skv);
+  tf_stage<HD, KT, kThr>(ring + KT * P, vb, ldk, 0, Skv);
+  cp_async_commit();
+  const int r0 = q0 + 16 * warp, row0 = r0 + g, row1 = row0 + 8;
+  const float* lb = lse + ((size_t)b * H + h) * Sq;
+  const float* db = delta + ((size_t)b * H + h) * Sq;
+  const float ls0 = row0 < Sq ? lb[row0] : 0.f;
+  const float ls1 = row1 < Sq ? lb[row1] : 0.f;
+  const float dl0 = row0 < Sq ? db[row0] : 0.f;
+  const float dl1 = row1 < Sq ? db[row1] : 0.f;
+  float acc[HD / 8][4];
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int row = q0 + RW * warp + r;
-    ls[r] = row < Sq ? lse[((size_t)b * H + h) * Sq + row] : 0.f;
-    dl[r] = row < Sq ? delta[((size_t)b * H + h) * Sq + row] : 0.f;
+  for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
-    for (int i = 0; i < DL; ++i) acc[r][i] = 0.f;
-  }
-  const int kv_end = causal ? min(Skv, q0 + kF32DqRows) : Skv;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kF32Keys) {
-    __syncthreads();
-    stage_f32<HD>(ks, HD + 1, k + koff, ks_, kv0, kF32Keys, Skv);
-    stage_f32<HD>(vs, HD + 1, v + koff, ks_, kv0, kF32Keys, Skv);
-    __syncthreads();
-    const int key = kv0 + lane;
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const int lr = RW * warp + r, row = q0 + lr;
-      const float* qr = qs + lr * HD;
-      const float* dr = dos + lr * HD;
-      const float* kr = ks + lane * (HD + 1);
-      const float* vr = vs + lane * (HD + 1);
-      float s = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        s += qr[d] * kr[d];
-        dp += dr[d] * vr[d];
-      }
-      const float p = (row < Sq && keep(key, row, Skv, causal))
-                          ? expf(s * scale - ls[r])
-                          : 0.f;
-      const float dsv = p * (dp - dl[r]) * scale;
-      for (int j = 0; j < kF32Keys; ++j) {
-        const float dsj = __shfl_sync(0xffffffffu, dsv, j);
-        const float* kj = ks + j * (HD + 1) + lane;
-#pragma unroll
-        for (int i = 0; i < DL; ++i)
-          if (has_dim<HD>(lane, i)) acc[r][i] += dsj * kj[32 * i];
-      }
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const float* A[2] = {sq + 16 * warp * P, sdo + 16 * warp * P};
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      float* nx = ring + ((it + 1) & 1) * 2 * KT * P;
+      tf_stage<HD, KT, kThr>(nx, kb, ldk, (it + 1) * KT, Skv);
+      tf_stage<HD, KT, kThr>(nx + KT * P, vb, ldk, (it + 1) * KT, Skv);
     }
-  }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int j0 = it * KT;
+    float* sk = ring + (it & 1) * 2 * KT * P;
+    tf_presplit<HD, 2 * KT, kThr>(sk, slo);
+    __syncthreads();
+    if (!causal || j0 <= r0 + 15) {
+      float s[2][NT][4];
+      const float* Bkv[2] = {sk, sk + KT * P};
+      const float* Lkv[2] = {slo, slo + KT * P};
+      tf_scores<HD, NT, 2, true>(s, A, Bkv, Lkv);
+      FragA pa[NT];
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int row = q0 + RW * warp + r;
-    if (row >= Sq) continue;
-    float* out = dq + qoff + row * qs_;
+      for (int nt = 0; nt < NT; ++nt) {
+        float d[4];
 #pragma unroll
-    for (int i = 0; i < DL; ++i)
-      if (has_dim<HD>(lane, i)) out[lane + 32 * i] = acc[r][i];
+        for (int e = 0; e < 4; ++e) {
+          const int kl = 8 * nt + 2 * t + (e & 1), key = j0 + kl;
+          const int row = e < 2 ? row0 : row1;
+          const float p = (row < Sq && keep(key, row, Skv, causal))
+                              ? expf(s[0][nt][e] * scale - (e < 2 ? ls0 : ls1))
+                              : 0.f;
+          float dp = s[1][nt][e];
+          if (p >= kExactP)  // V's row as stored, not its split parts
+            dp = dot_f32<HD>(A[1] + (e < 2 ? g : g + 8) * P,
+                             vb + (size_t)key * ldk);
+          d[e] = p * (dp - (e < 2 ? dl0 : dl1)) * scale;
+        }
+        pa[nt] = c_frag(d);
+      }
+      tf_accumulate<HD, KT, false, true>(acc, pa, sk, slo, 1.f, 1.f);
+    }
+    __syncthreads();
   }
+  tf_store<HD>(dq + qoff, ldq, acc, row0, Sq, 1.f, 1.f);
 }
 
-// One CTA: keys [k0, k0 + 8) of KV head kvh of row b; warp w owns 2 keys.
-// For each of the G heads, 32-row tiles of Q and dO stream through shared
-// memory; a lane takes one query row (p and dS against each key), then dk
-// and dv accumulate over the rows with each lane on its head dims.
+// One CTA: keys [k0, k0 + kRows) of the KV head of query head h, row b; K
+// and V loaded once, tiles of KT query rows of Q, dO, lse and delta stream.
+// Per tile, a warp's S^T = K Q^T and dP^T = V dO^T (16 keys x KT rows),
+// p^T and dS^T in registers, then dv += P^T dO and dk += dS^T Q. Writes
+// the head's dk, dv: into dk, dv [B, Skv, KV, hd] when H == KV, else into
+// the partials [B, Skv, H, hd] that fa_dkv_reduce sums.
 template <int HD>
-__global__ void __launch_bounds__(kFaThreads) fa_dkv_f32(
+__global__ void __launch_bounds__(32 * tf_bwd_warps<HD>(),
+                                  8 / tf_bwd_warps<HD>()) fa_dkv_tf32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int H, int KV, int Sq,
     int Skv, float scale, int causal) {
-  constexpr int DL = (HD + 31) / 32;
-  constexpr int RW = kF32KvRows / 4;
-  __shared__ float kt[kF32KvRows * HD];
-  __shared__ float vt[kF32KvRows * HD];
-  __shared__ float qs[kF32QTile * (HD + 1)];
-  __shared__ float dos[kF32QTile * (HD + 1)];
-  __shared__ float lse_s[kF32QTile], dl_s[kF32QTile];
-  const int G = H / KV;
-  const int k0 = blockIdx.x * kF32KvRows;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  constexpr int P = tf_pitch<HD>(), KT = tf_bwd_tile<HD>(), NT = KT / 8;
+  constexpr int kStage = tf_dkv_stage<HD>();
+  constexpr int kThr = 32 * tf_bwd_warps<HD>(), kRows = kThr / 2;
+  extern __shared__ float4 tf_smem4[];
+  float* tf_smem = reinterpret_cast<float*>(tf_smem4);
+  float* sk = tf_smem;                  // [kRows][P]
+  float* sv = sk + kRows * P;           // [kRows][P]
+  float* ring = sv + kRows * P;  // per stage: Q, dO [KT][P], lse, delta [KT]
+  float* slo = ring + 2 * kStage;  // the lo parts of the stage's Q and dO
+  const int k0 = blockIdx.x * kRows;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t qs_ = (size_t)H * HD, ks_ = (size_t)KV * HD;
-  const size_t koff = (size_t)b * Skv * ks_ + (size_t)kvh * HD;
-  stage_f32<HD>(kt, HD, k + koff, ks_, k0, kF32KvRows, Skv);
-  stage_f32<HD>(vt, HD, v + koff, ks_, k0, kF32KvRows, Skv);
-  float dka[RW][DL], dva[RW][DL];
+  const int g = lane >> 2, t = lane & 3;
+  const size_t ldq = (size_t)H * HD, ldk = (size_t)KV * HD;
+  const float* qb = q + (size_t)b * Sq * ldq + (size_t)h * HD;
+  const float* dob = dout + (size_t)b * Sq * ldq + (size_t)h * HD;
+  const size_t koff = (size_t)b * Skv * ldk + (size_t)kvh * HD;
+  const float* lb = lse + ((size_t)b * H + h) * Sq;
+  const float* db = delta + ((size_t)b * H + h) * Sq;
+  // causal: query rows before the CTA's first key see none of its keys
+  const int i_begin = causal ? (k0 / KT) * KT : 0;
+  const int n_tiles = (Sq - i_begin + KT - 1) / KT;
+  tf_stage<HD, kRows, kThr>(sk, k + koff, ldk, k0, Skv);
+  tf_stage<HD, kRows, kThr>(sv, v + koff, ldk, k0, Skv);
+  tf_stage<HD, KT, kThr>(ring, qb, ldq, i_begin, Sq);
+  tf_stage<HD, KT, kThr>(ring + KT * P, dob, ldq, i_begin, Sq);
+  tf_stage_vec(ring + 2 * KT * P, lb, i_begin, KT, Sq);
+  tf_stage_vec(ring + 2 * KT * P + KT, db, i_begin, KT, Sq);
+  cp_async_commit();
+  const int kw = k0 + 16 * warp, key0 = kw + g, key1 = key0 + 8;
+  float dka[HD / 8][4], dva[HD / 8][4];
 #pragma unroll
-  for (int r = 0; r < RW; ++r)
+  for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
-    for (int i = 0; i < DL; ++i) dka[r][i] = dva[r][i] = 0.f;
-  const int i_begin = causal ? (k0 / kF32QTile) * kF32QTile : 0;
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const size_t qoff = (size_t)b * Sq * qs_ + (size_t)h * HD;
-    const float* lb = lse + ((size_t)b * H + h) * Sq;
-    const float* db = delta + ((size_t)b * H + h) * Sq;
-    for (int i0 = i_begin; i0 < Sq; i0 += kF32QTile) {
-      __syncthreads();
-      stage_f32<HD>(qs, HD + 1, q + qoff, qs_, i0, kF32QTile, Sq);
-      stage_f32<HD>(dos, HD + 1, dout + qoff, qs_, i0, kF32QTile, Sq);
-      if (threadIdx.x < kF32QTile) {
-        const int row = i0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < Sq ? lb[row] : 0.f;
-        dl_s[threadIdx.x] = row < Sq ? db[row] : 0.f;
-      }
-      __syncthreads();
-      const int row = i0 + lane;
-      const float* qr = qs + lane * (HD + 1);
-      const float* dr = dos + lane * (HD + 1);
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        const int lk = RW * warp + r, key = k0 + lk;
-        const float* kr = kt + lk * HD;
-        const float* vr = vt + lk * HD;
-        float s = 0.f, dp = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) {
-          s += qr[d] * kr[d];
-          dp += dr[d] * vr[d];
-        }
-        const float p = (row < Sq && keep(key, row, Skv, causal))
-                            ? expf(s * scale - lse_s[lane])
-                            : 0.f;
-        const float dsv = p * (dp - dl_s[lane]) * scale;
-        for (int j = 0; j < kF32QTile; ++j) {
-          const float pj = __shfl_sync(0xffffffffu, p, j);
-          const float dsj = __shfl_sync(0xffffffffu, dsv, j);
-          const float* qj = qs + j * (HD + 1) + lane;
-          const float* dj = dos + j * (HD + 1) + lane;
-#pragma unroll
-          for (int i = 0; i < DL; ++i) {
-            if (!has_dim<HD>(lane, i)) continue;
-            dva[r][i] += pj * dj[32 * i];
-            dka[r][i] += dsj * qj[32 * i];
-          }
-        }
-      }
+    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
+  const float* A[2] = {sk + 16 * warp * P, sv + 16 * warp * P};
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      float* nx = ring + ((it + 1) & 1) * kStage;
+      const int i1 = i_begin + (it + 1) * KT;
+      tf_stage<HD, KT, kThr>(nx, qb, ldq, i1, Sq);
+      tf_stage<HD, KT, kThr>(nx + KT * P, dob, ldq, i1, Sq);
+      tf_stage_vec(nx + 2 * KT * P, lb, i1, KT, Sq);
+      tf_stage_vec(nx + 2 * KT * P + KT, db, i1, KT, Sq);
     }
-  }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int i0 = i_begin + it * KT;
+    float* st = ring + (it & 1) * kStage;
+    const float* sl = st + 2 * KT * P;
+    const float* sd = sl + KT;
+    tf_presplit<HD, 2 * KT, kThr>(st, slo);
+    __syncthreads();
+    if (!causal || i0 + KT - 1 >= kw) {
+      float s[2][NT][4];
+      const float* Bqd[2] = {st, st + KT * P};
+      const float* Lqd[2] = {slo, slo + KT * P};
+      tf_scores<HD, NT, 2, true>(s, A, Bqd, Lqd);
+      FragA pa[NT];
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int key = k0 + RW * warp + r;
-    if (key >= Skv) continue;
+      for (int nt = 0; nt < NT; ++nt) {
+        float p[4];
 #pragma unroll
-    for (int i = 0; i < DL; ++i) {
-      if (!has_dim<HD>(lane, i)) continue;
-      dk[koff + key * ks_ + lane + 32 * i] = dka[r][i];
-      dv[koff + key * ks_ + lane + 32 * i] = dva[r][i];
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * nt + 2 * t + (e & 1), row = i0 + c;
+          const int key = e < 2 ? key0 : key1;
+          p[e] = (row < Sq && keep(key, row, Skv, causal))
+                     ? expf(s[0][nt][e] * scale - sl[c])
+                     : 0.f;
+          s[1][nt][e] = p[e] * (s[1][nt][e] - sd[c]) * scale;
+        }
+        pa[nt] = c_frag(p);
+      }
+      tf_accumulate<HD, KT, false, true>(dva, pa, st + KT * P, slo + KT * P,
+                                         1.f, 1.f);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) pa[nt] = c_frag(s[1][nt]);
+      tf_accumulate<HD, KT, false, true>(dka, pa, st, slo, 1.f, 1.f);
     }
+    __syncthreads();
   }
+  // [B, Skv, H, hd] rows of head h (with H == KV that is dk / dv itself)
+  const size_t out = ((size_t)b * Skv * H + h) * HD;
+  tf_store<HD>(dk + out, (size_t)H * HD, dka, key0, Skv, 1.f, 1.f);
+  tf_store<HD>(dv + out, (size_t)H * HD, dva, key0, Skv, 1.f, 1.f);
 }
 
 bool fa_args_ok(int B, int H, int KV, int Sq, int Skv, int hd, int causal,
@@ -1262,12 +1600,16 @@ cudaError_t opt_in_smem(K kernel, int bytes) {
                               bytes);
 }
 
-// The f32 forward on the CUDA cores.
+// The f32 forward: split TF32 on mma.sync.
 template <int HD>
-int fwd_cuda_cores(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int H, int KV, int Sq, int Skv,
-                   float scale, int causal, cudaStream_t st) {
-  fa_fwd_f32<HD><<<dim3(cdiv(Sq, kF32Rows), H, B), kFaThreads, 0, st>>>(
+int fwd_tf32(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int H, int KV, int Sq, int Skv, float scale, int causal,
+             cudaStream_t st) {
+  constexpr int smem = tf_fwd_bytes<HD>();
+  const cudaError_t e = opt_in_smem(fa_fwd_tf32<HD>, smem);
+  if (e != cudaSuccess) return e;
+  constexpr int kThr = 32 * kTfFwdWarps;
+  fa_fwd_tf32<HD><<<dim3(cdiv(Sq, kThr / 2), H, B), kThr, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, Sq,
       Skv, scale, causal);
@@ -1301,36 +1643,53 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* o32, float* lse, int B, int H, int KV, int Sq, int Skv,
                float scale, int causal, int dtype, cudaStream_t st) {
   if (dtype == kF32)
-    return fwd_cuda_cores<HD>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale,
-                              causal, st);
+    return fwd_tf32<HD>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal,
+                        st);
   return fwd_wgmma<HD>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale, causal,
                        st);
 }
 
-// dq (parts & 2) and dk/dv (parts & 4) in f32 on the CUDA cores; delta
-// rows of Sq elements.
+// dq (parts & 2) and dk/dv (parts & 4) in f32, split TF32 on mma.sync;
+// delta rows of Sq elements; with H > KV each query head's dk and dv go to
+// the partials [2, B, Skv, H, hd], summed by fa_dkv_reduce.
 template <int HD>
-int bwd_cuda_cores(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, void* dk, void* dv, int B, int H, int KV, int Sq,
-                   int Skv, float scale, int causal, int parts,
-                   cudaStream_t st) {
+int bwd_tf32(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, float* partial, void* dq,
+             void* dk, void* dv, int B, int H, int KV, int Sq, int Skv,
+             float scale, int causal, int parts, cudaStream_t st) {
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   const float* df = static_cast<const float*>(dout);
+  constexpr int kThr = 32 * tf_bwd_warps<HD>();
   if (parts & 2) {
-    fa_dq_f32<HD><<<dim3(cdiv(Sq, kF32DqRows), H, B), kFaThreads, 0, st>>>(
+    constexpr int smem = tf_dq_bytes<HD>();
+    cudaError_t e = opt_in_smem(fa_dq_tf32<HD>, smem);
+    if (e != cudaSuccess) return e;
+    fa_dq_tf32<HD><<<dim3(cdiv(Sq, kThr / 2), H, B), kThr, smem, st>>>(
         qf, kf, vf, df, lse, delta, static_cast<float*>(dq), H, KV, Sq, Skv,
         scale, causal);
-    const cudaError_t e = cudaGetLastError();
+    e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  if (parts & 4)
-    fa_dkv_f32<HD><<<dim3(cdiv(Skv, kF32KvRows), KV, B), kFaThreads, 0,
-                     st>>>(qf, kf, vf, df, lse, delta,
-                           static_cast<float*>(dk), static_cast<float*>(dv),
-                           H, KV, Sq, Skv, scale, causal);
+  if (parts & 4) {
+    const int G = H / KV;
+    float* dkp = G > 1 ? partial : static_cast<float*>(dk);
+    float* dvp = G > 1 ? partial + (size_t)B * Skv * H * HD
+                       : static_cast<float*>(dv);
+    constexpr int smem = tf_dkv_bytes<HD>();
+    cudaError_t e = opt_in_smem(fa_dkv_tf32<HD>, smem);
+    if (e != cudaSuccess) return e;
+    fa_dkv_tf32<HD><<<dim3(cdiv(Skv, kThr / 2), H, B), kThr, smem,
+                      st>>>(qf, kf, vf, df, lse, delta, dkp, dvp, H, KV, Sq,
+                            Skv, scale, causal);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || G == 1) return e;
+    const long long n4 = (long long)B * Skv * KV * HD / 4;
+    fa_dkv_reduce<<<(int)((n4 + 255) / 256), 256, 0, st>>>(
+        dkp, dvp, static_cast<float*>(dk), static_cast<float*>(dv), n4, KV,
+        G, HD);
+  }
   return cudaGetLastError();
 }
 
@@ -1417,8 +1776,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
     if (e != cudaSuccess) return e;
   }
   if (dtype == kF32)
-    return bwd_cuda_cores<HD>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV,
-                              Sq, Skv, scale, causal, parts, st);
+    return bwd_tf32<HD>(q, k, v, dout, lse, delta, partial, dq, dk, dv, B, H,
+                        KV, Sq, Skv, scale, causal, parts, st);
   return bwd_wgmma<HD>(q, k, v, dout, lse2, delta, partial, dq, dk, dv, B, H,
                        KV, Sq, Skv, pitch, scale, causal, parts, st);
 }
@@ -1458,8 +1817,8 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
 // dq [B,Sq,H,hd] and dk, dv [B,Skv,KV,hd] in the inputs' dtype. Scratch:
 // stats [2, B, H, pitch] f32 (bf16: lse * log2 e and delta, written by the
 // delta launch, pitch a multiple of 128 at least Sq; f32: pitch = Sq and
-// stats[1] holds delta on entry) and, for bf16 with H > KV, partial [2, B,
-// Skv, H, hd] f32 (the dk and dv of each query head).
+// stats[1] holds delta on entry) and, with H > KV, partial [2, B, Skv, H,
+// hd] f32 (the dk and dv of each query head).
 // parts selects the launches (1 delta, 2 dq, 4 dk/dv; 7 for the whole
 // backward), so that each can be timed alone.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
@@ -1471,7 +1830,7 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                int o_f32, void* stream) {
   if (!fa_args_ok(B, H, KV, Sq, Skv, hd, causal, dtype) ||
       (dtype == kF32 ? pitch != Sq : pitch % 128 != 0 || pitch < Sq) ||
-      (dtype == kBF16 && H != KV && partial == nullptr) ||
+      (H != KV && partial == nullptr) ||
       (o_f32 && dtype != kBF16))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -3,7 +3,7 @@ a wrapper around hand-written CUDA kernels beside its plain PyTorch
 version.
 
 * :func:`flash_attention_fwd` returns ``(o, lse)``; its kernels
-  (``csrc/flash_attention.cu``: ``fa_fwd_wgmma`` for bf16, ``fa_fwd_f32``)
+  (``csrc/flash_attention.cu``: ``fa_fwd_wgmma`` for bf16, ``fa_fwd_tf32``)
   replace the Pallas ``flash_attention_fwd`` / ``_fwd_kernel`` of
   ``src/repro/kernels/flash_attention.py``. For bf16 inputs it can also
   write ``out_f32``, the output before its rounding to bf16.
@@ -23,13 +23,14 @@ version.
   the G heads of a KV head run in parallel), then with G > 1
   ``fa_dkv_reduce``, which sums the G heads' f32 partials in a fixed
   order. No atomics: two calls on the same inputs give the same bits. f32
-  takes CUDA-core ``fa_dq_f32`` and ``fa_dkv_f32``, with delta summed in
-  PyTorch as the plain version sums it.
+  takes ``fa_dq_tf32`` and ``fa_dkv_tf32`` (a CTA per 64 keys and query
+  head; ``fa_dkv_reduce`` sums the G heads' partials as in bf16), with
+  delta summed in PyTorch as the plain version sums it.
 
 Head dims: 32 (the reduced configs), 64, 80 and 128 (every full-width
-config's), each on the kernels above; at hd 32 a row is two 16-column
-slabs and a CTA one consumer warpgroup of 64 rows, two CTAs an SM (see
-``csrc/flash_attention.cu``).
+config's), each on the kernels above, in both dtypes; in bf16 at hd 32 a
+row is two 16-column slabs and a CTA one consumer warpgroup of 64 rows,
+two CTAs an SM (see ``csrc/flash_attention.cu``).
 
 Layout: the path's own, ``q, o, do [B,Sq,H,hd]`` and ``k, v [B,Skv,KV,hd]``
 (the Pallas kernels take ``[B,H,S,hd]``), ``lse [B,H,Sq]`` float32; query
@@ -41,7 +42,8 @@ Every query row and key is covered; the Pallas kernels leave rows from
 ``(Sq // 128) * 128`` on unwritten when S is not a multiple of the tile.
 
 Bound on an H100: operations, 2 * B * H * S^2 * hd FLOPs for a causal
-forward, 5 * B * H * S^2 * hd for the backward, at the bf16 or f32 peak;
+forward, 5 * B * H * S^2 * hd for the backward, at the bf16 peak, or in
+f32 at the TF32 peak three times over (split TF32, below);
 at hd 32 the exponentials (B * H * S^2 / 2 causal forward, twice that
 backward) at the special-function units' rate take longer. The bf16
 kernels put every product on ``wgmma`` with operands brought by TMA
@@ -51,14 +53,25 @@ TMA tensor maps are encoded for each call from the shapes
 (:func:`tma_strides` checks what TMA takes); at hd 80 a row is a
 64-column and a 16-column slab, at hd 32 two 16-column slabs, each slab
 width with its own map and swizzle (see ``csrc/flash_attention.cu``).
+The f32 kernels run their products on the tensor cores too, as split
+TF32 on ``mma.sync`` (each operand a tf32 hi part and the tf32 rest,
+three products: about 22 of f32's 24 bits): warps of 16 rows (4 a CTA, 8
+in the backward at hd 128), the streamed operand through a 2-stage ring
+of ``cp.async`` copies into rows of hd + 4 floats (in the backward split
+once a CTA), p and dS kept in registers, each tile's products over keys
+or rows summed fresh and added to the f32 sums. Where p >= 1/32, dq's dP
+is summed again on the CUDA cores in the plain version's order: there
+dS = p (dP - delta) cancels, and dq is the rounding of dP.
 
 Precision: the plain versions compute in float32 throughout, except that
 the forward rounds the softmax weights to V's dtype before the PV product,
 as ``flash_attention_xla`` does. The bf16 kernels accumulate in f32 on the
 tensor cores and round p (relative to the running max in the forward, not
 the final one) and dS to bf16 once each for the products that take them;
-``chip_smoke.py`` holds them to the plain versions within a tolerance
-relative to each output vector's size.
+the f32 kernels' products keep about 22 bits each
+(``tests/test_torch_fa_tf32.py`` emulates them on the CPU). ``chip_smoke.py``
+holds them to the plain versions within a tolerance relative to each
+output vector's size.
 """
 from __future__ import annotations
 
@@ -207,15 +220,14 @@ def stats_pitch(Sq, dtype):
 
 def bwd_scratch(q, k):
     """The backward's float32 scratch on q's device: ``stats [2, B, H,
-    stats_pitch]`` and, for bf16 with G = H // KV > 1, ``partial [2, B,
-    Skv, H, hd]`` (each query head's dk and dv before the sum over its KV
-    head's G heads), else an empty tensor."""
+    stats_pitch]`` and, with G = H // KV > 1, ``partial [2, B, Skv, H,
+    hd]`` (each query head's dk and dv before the sum over its KV head's G
+    heads), else an empty tensor."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     kw = {"dtype": torch.float32, "device": q.device}
     stats = torch.empty((2, B, H, stats_pitch(Sq, q.dtype)), **kw)
-    grouped = q.dtype == torch.bfloat16 and H != KV
-    partial = torch.empty((2, B, Skv, H, hd) if grouped else (0,), **kw)
+    partial = torch.empty((2, B, Skv, H, hd) if H != KV else (0,), **kw)
     return stats, partial
 
 

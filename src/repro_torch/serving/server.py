@@ -30,14 +30,18 @@ replies fan out through the ring/tenant path as one multi-entry
 submission.
 
 This is the PyTorch port of ``repro.serving.server``: the reference's
-text, with its JAX arrays as torch tensors on the cache's device. One
-difference: the port's serve steps update the dense cache in place, where
+text, with its JAX arrays as torch tensors on the cache's device. Two
+differences: the port's serve steps update the dense cache in place, where
 the reference's return a new one, so every request decodes on a copy of
-the template cache (see :func:`_greedy_decode`).
+the template cache (see :func:`_greedy_decode`); and a
+:class:`GenesysUdpServer` whose BIND fails raises ``OSError``, where the
+reference drops BIND's result and polls a socket that is bound to
+nothing.
 """
 from __future__ import annotations
 
 import json
+import os
 import socket
 import time
 from dataclasses import dataclass
@@ -130,7 +134,13 @@ class GenesysUdpServer:
             self._tx = []
             self._call = gsys.ring_call if self.use_ring else gsys.call
         self.fd = self._call(Sys.SOCKET, socket.AF_INET, socket.SOCK_DGRAM, 0)
-        self._call(Sys.BIND, self.fd, port)
+        rc = self._call(Sys.BIND, self.fd, port)
+        if rc < 0:
+            # an unbound socket would poll forever for requests that
+            # cannot reach it: a port that is taken fails here, at once
+            self._call(Sys.CLOSE, self.fd)
+            raise OSError(-rc, f"GenesysUdpServer: BIND to port {port} "
+                               f"failed: {os.strerror(-rc)}")
         sock = gsys.table._sockets[self.fd]
         sock.settimeout(0.2)
         # trace.Counters fold: serving stats join Genesys.telemetry()

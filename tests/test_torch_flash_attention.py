@@ -262,9 +262,9 @@ def test_plain_at_the_reduced_head_dim_matches_xla(dtype, causal):
     ``flash_attention_xla`` (f32 to 2e-5; bf16 to 2e-2 of the largest
     |output|, the weights rounded at other points) and its backward
     ``jax.vjp`` of it (f32 to 5e-5); the kernel wrappers take hd 32 (the
-    wgmma kernels in bf16, with per-head partials of dk and dv that
-    ``fa_dkv_reduce`` sums over the G heads; the CUDA-core kernels in f32,
-    which sum the G heads themselves)."""
+    wgmma kernels in bf16, the split-TF32 kernels in f32, each with
+    per-head partials of dk and dv that ``fa_dkv_reduce`` sums over the G
+    heads)."""
     (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _inputs(1, 4, 2, 200, 32, dtype,
                                                     seed=9)
     o, lse = tfa.flash_attention_fwd_plain(tq, tk, tv, causal=causal)
@@ -277,8 +277,7 @@ def test_plain_at_the_reduced_head_dim_matches_xla(dtype, causal):
         _close(g, w, dtype, atol=GRAD_F32_ATOL)
     assert tfa._check(tq, tk, tv, causal, (tq, tk, tv)) == (1, 200, 4, 32)
     _, partial = tfa.bwd_scratch(tq, tk)
-    assert tuple(partial.shape) == ((2, 1, 200, 4, 32)
-                                    if dtype == "bfloat16" else (0,))
+    assert tuple(partial.shape) == (2, 1, 200, 4, 32)
 
 
 # cross-attention: Sq 128 over Skv 256, H = KV = 4, hd 64, non-causal, in
@@ -364,12 +363,14 @@ def test_stats_pitch(Sq, dtype, want):
 @pytest.mark.parametrize("dtype,H,KV,partial_shape", [
     (torch.bfloat16, 8, 2, (2, 2, 100, 8, 64)),
     (torch.bfloat16, 4, 4, (0,)),
-    (torch.float32, 8, 2, (0,)),
-    (torch.bfloat16, 4, 2, (2, 2, 100, 4, 32))])
+    (torch.float32, 8, 2, (2, 2, 100, 8, 64)),
+    (torch.bfloat16, 4, 2, (2, 2, 100, 4, 32)),
+    (torch.float32, 4, 4, (0,))])
 def test_bwd_scratch_shapes(dtype, H, KV, partial_shape):
     """Scratch of the backward: stats [2, B, H, pitch] f32 always; the f32
-    partials of dk and dv per query head only for bf16 with G > 1, at every
-    head dim (the last case: the reduced configs' H 4 over KV 2 at hd 32).
+    partials of dk and dv per query head only with G > 1, in both dtypes
+    and at every head dim (the fourth case: the reduced configs' H 4 over
+    KV 2 at hd 32).
     The head dim is the partials' last where there are partials, else 64."""
     hd = partial_shape[-1] if len(partial_shape) == 5 else 64
     q = torch.zeros(2, 60, H, hd, dtype=dtype)

@@ -42,7 +42,7 @@ from repro_torch.serving.server import CpuBaselineUdpServer, GenesysUdpServer
 from repro_torch.train import steps as tsteps
 from repro_torch.weights import from_jax_params, to_numpy_tree
 from test_torch_dense_serve import _serve_requests
-from test_torch_serve import _free_udp_port, _port_is_free
+from test_torch_serve import _free_udp_port, _port_is_bound
 from test_torch_train import LOSS_ATOL, PARAM_ATOL, _assert_tree_close, _batch
 
 torch.set_num_threads(1)
@@ -357,7 +357,7 @@ def test_launcher_serves_moe(flags, capsys):
                           daemon=True)
     th.start()
     deadline = time.monotonic() + 60
-    while _port_is_free(port):      # the server binds it once it is built
+    while not _port_is_bound(port):  # the server binds it once built
         assert time.monotonic() < deadline and th.is_alive()
         time.sleep(0.02)
     reqs = [[3, 31, 5, 9], [2, 32, 7]]

@@ -95,13 +95,45 @@ def _free_udp_port() -> int:
         return s.getsockname()[1]
 
 
-def _port_is_free(port: int) -> bool:
-    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+def _port_is_bound(port: int) -> bool:
+    """Whether a UDP socket of this host is bound to ``port``, read from
+    the kernel's socket tables without taking the port: a probe that binds
+    it races the server's own BIND for it."""
+    for table in ("/proc/net/udp", "/proc/net/udp6"):
         try:
-            s.bind(("127.0.0.1", port))
-        except OSError:
-            return False
-        return True
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except FileNotFoundError:
+            continue
+        if any(int(r.split()[1].rsplit(":", 1)[1], 16) == port
+               for r in rows):
+            return True
+    return False
+
+
+@pytest.mark.parametrize("kw", [{}, {"use_ring": True},
+                                {"use_tenants": True}],
+                         ids=["doorbell", "ring", "tenants"])
+def test_server_refuses_a_port_that_is_taken(kw):
+    """A BIND that fails (the port held by another socket) raises
+    EADDRINUSE from ``GenesysUdpServer`` on each syscall path, and the
+    socket it made is closed; the reference drops BIND's result and serves
+    a socket bound to nothing, which no request reaches."""
+    import errno
+
+    held = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    held.bind(("127.0.0.1", 0))
+    port = held.getsockname()[1]
+    gsys = Genesys(GenesysConfig(n_workers=2, sched_pollers=1))
+    try:
+        with pytest.raises(OSError) as err:
+            GenesysUdpServer(gsys, port=port, payload=64, **kw)
+        assert err.value.errno == errno.EADDRINUSE
+        assert not gsys.table._sockets
+        assert _port_is_bound(port)
+    finally:
+        gsys.shutdown()
+        held.close()
 
 
 @pytest.mark.parametrize("flags,reqs,want_lens", [
@@ -130,7 +162,7 @@ def test_launcher_serves_dense_cache(flags, reqs, want_lens, capsys):
     th = threading.Thread(target=launcher.main, args=(argv,), daemon=True)
     th.start()
     deadline = time.monotonic() + 60
-    while _port_is_free(port):      # the server binds it once it is built
+    while not _port_is_bound(port):  # the server binds it once built
         assert time.monotonic() < deadline and th.is_alive()
         time.sleep(0.02)
     replies = []
