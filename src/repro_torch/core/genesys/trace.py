@@ -65,6 +65,21 @@ While a thread holds :meth:`Tracer.span`, every ring SUBMIT it records
 carries the span id in ``aux`` — so the Chrome exporter can nest the
 request's own syscalls (the reply SENDTO, KV spill/revival I/O) inside
 its request span on the pid-5 "request" track.
+
+Named spans (the training loop's phases) pair two events on one channel,
+joined on ``(channel, seq)`` like the stages above:
+
+    SPAN_BEGIN  a span opened (sysno = its interned name, seq = the span
+                id, aux = the enclosing span's id, 0 = none)
+    SPAN_END    it closed (aux = its device ns where it had device marks)
+
+:class:`SpanRecorder` records them. While one is open its id is the
+thread's span context above (so a doorbell IRQ carries it too, as a ring
+SUBMIT does), and code below the span's owner adds children through
+:func:`current_recorder`. Ring stamps are ``perf_counter_ns``;
+:attr:`Tracer.clock` pairs one with ``time.time_ns()``, the clock
+``torch.profiler`` stamps its events in, and :meth:`Tracer.closed_spans`
+and the Chrome export's ``metadata["clock"]`` map them to it.
 """
 from __future__ import annotations
 
@@ -99,6 +114,8 @@ EV_REJECT = 10
 EV_REQ_BEGIN = 11
 EV_REQ_END = 12
 EV_STEP = 13
+EV_SPAN_BEGIN = 14
+EV_SPAN_END = 15
 
 EV_NAMES = {
     EV_SUBMIT: "SUBMIT", EV_SQ_POP: "SQ_POP", EV_FUSE_MERGE: "FUSE_MERGE",
@@ -106,12 +123,52 @@ EV_NAMES = {
     EV_IRQ: "IRQ", EV_FALLBACK: "FALLBACK", EV_THROTTLE: "THROTTLE",
     EV_REJECT: "REJECT", EV_REQ_BEGIN: "REQ_BEGIN", EV_REQ_END: "REQ_END",
     EV_STEP: "STEP",
+    EV_SPAN_BEGIN: "SPAN_BEGIN", EV_SPAN_END: "SPAN_END",
 }
 
 # the sysno request-span events carry (a request is not one syscall);
 # latency_histograms names it "REQUEST" so the serving channel's
 # end-to-end wall-time histogram reads like any syscall stage
 REQ_SYSNO = -2
+
+# a named span's sysno: its name interned process-wide (so one name reads
+# the same in every tracer), above every syscall number
+SPAN_SYSNO = 1 << 20
+_span_names: list[str] = []
+_span_ids: dict[str, int] = {}
+_span_lock = threading.Lock()
+
+
+def span_sysno(name: str) -> int:
+    """The sysno that span events of ``name`` carry."""
+    sysno = _span_ids.get(name)            # lock-free hit (GIL-safe read)
+    if sysno is None:
+        with _span_lock:
+            sysno = _span_ids.get(name)
+            if sysno is None:
+                sysno = SPAN_SYSNO + len(_span_names)
+                _span_names.append(name)
+                _span_ids[name] = sysno
+    return sysno
+
+
+def span_name(sysno: int) -> str:
+    return _span_names[sysno - SPAN_SYSNO]
+
+
+def _clock_pair() -> tuple[int, int]:
+    """``(perf_counter_ns, time_ns)`` read together: the perf_counter
+    reading of the tightest of a few time_ns brackets, beside their
+    middle. Both clocks take NTP's slewing alike, so one pair maps every
+    later stamp; a step of the wall clock would break it."""
+    best = None
+    for _ in range(5):
+        w0 = time.time_ns()
+        p = time.perf_counter_ns()
+        w1 = time.time_ns()
+        if best is None or w1 - w0 < best[0]:
+            best = (w1 - w0, p, (w0 + w1) // 2)
+    return best[1], best[2]
 
 # Lifecycle stages as (name, from_event, to_event) pairs; the histogram
 # matcher joins the two event sets on (channel, seq). Grouping metadata
@@ -125,6 +182,7 @@ STAGES = (
     ("reap", EV_COMPLETE, EV_REAP),         # retval -> CQE drained
     ("irq_total", EV_IRQ, EV_COMPLETE),     # doorbell end-to-end
     ("request", EV_REQ_BEGIN, EV_REQ_END),  # serving request wall time
+    ("span", EV_SPAN_BEGIN, EV_SPAN_END),   # named span wall time
 )
 
 EVENT_DTYPE = np.dtype([
@@ -360,6 +418,9 @@ class TraceChannel:
 
     def rec(self, ev: int, sysno: int, seq: int, aux: int = 0,
             ts: int | None = None) -> None:
+        if ev == EV_IRQ and not aux:
+            # a doorbell call carries its caller's span, as a ring SUBMIT
+            aux = self.tracer.current_span()
         self.tracer.events.append(ev, self.tid, sysno, seq, aux, ts=ts)
 
     def rec_block(self, ev: int, sysnos, seqs, aux=0,
@@ -394,6 +455,8 @@ class Tracer:
         # request-span context: per-thread current span id; SUBMIT records
         # stamp it into aux so a request's own syscalls nest under its span
         self._span = threading.local()
+        # ring stamps -> time.time_ns(), the profiler's clock (wall_ns)
+        self.clock = _clock_pair()
 
     # -- request-span context -------------------------------------------------
     def current_span(self) -> int:
@@ -415,6 +478,45 @@ class Tracer:
             yield
         finally:
             self._span.v = prev
+
+    # -- named spans ----------------------------------------------------------
+    def wall_ns(self, ts):
+        """Ring stamps (``perf_counter_ns``; an int or an array) in
+        ``time.time_ns()``'s clock, the one ``torch.profiler`` stamps
+        its events in."""
+        p, w = self.clock
+        return ts - p + w
+
+    def closed_spans(self, channel: str | None = None) -> list[dict]:
+        """The named spans (of ``channel``, or all) whose SPAN_BEGIN and
+        SPAN_END are both in the ring, oldest first: ``name``, ``id``,
+        ``parent`` (0 = none), ``index`` (how many spans of that name
+        the parent opened before it: a microbatch's), ``start_ns`` and
+        ``end_ns`` in ``time.time_ns()``'s clock, ``device_ns`` (0
+        without device marks) and ``channel``. A span whose SPAN_BEGIN the
+        ring has overwritten is left out, never returned torn."""
+        names = self.channel_names()
+        if channel is not None and channel not in names:
+            return []
+        A, B, ia, ib = _match_events(self.events.snapshot(), EV_SPAN_BEGIN,
+                                     EV_SPAN_END)
+        if channel is not None:
+            keep = A["tenant"][ia] == names.index(channel)
+            ia, ib = ia[keep], ib[keep]
+        order = np.argsort(A["ts"][ia], kind="stable")
+        a, b = A[ia[order]], B[ib[order]]
+        start, end = self.wall_ns(a["ts"]), self.wall_ns(b["ts"])
+        out, seen = [], {}
+        for j in range(len(a)):
+            name, parent = span_name(int(a["sysno"][j])), int(a["aux"][j])
+            index = seen.get((parent, name), 0)
+            seen[(parent, name)] = index + 1
+            out.append({"name": name, "id": int(a["seq"][j]),
+                        "parent": parent, "index": index,
+                        "start_ns": int(start[j]), "end_ns": int(end[j]),
+                        "device_ns": int(b["aux"][j]),
+                        "channel": names[int(a["tenant"][j])]})
+        return out
 
     # -- interning ------------------------------------------------------------
     def channel(self, name: str) -> TraceChannel:
@@ -462,6 +564,8 @@ class Tracer:
             "dropped": self.events.dropped,
             "wrapped": self.events.dropped > 0,
             "channels": self.channel_names(),
+            "clock": {"perf_counter_ns": self.clock[0],
+                      "time_ns": self.clock[1]},
         }
 
     # -- Chrome-trace / Perfetto export ---------------------------------------
@@ -554,11 +658,44 @@ class Tracer:
                 put({"ph": "X", "pid": 5, "tid": int(r["seq"]),
                      "ts": us(r["ts"]), "dur": max(0.0, int(r["aux"]) / 1e3),
                      "name": f"step:{int(r['sysno'])}"})
+            # pid 6 "training": named spans, a track a channel, nested by
+            # time; the syscalls a thread made inside one (ring SUBMITs,
+            # doorbell IRQs) on its span's track
+            begins = evs[evs["ev"] == EV_SPAN_BEGIN]
+            named = dict(zip(begins["seq"].tolist(),
+                             begins["tenant"].tolist()))
+            if named:
+                out.append({"ph": "M", "pid": 6, "tid": 0,
+                            "name": "process_name",
+                            "args": {"name": "training"}})
+                for tid in sorted(set(named.values())):
+                    out.append({"ph": "M", "pid": 6, "tid": tid,
+                                "name": "thread_name",
+                                "args": {"name": ch_names[tid]}})
+                spans(EV_SPAN_BEGIN, EV_SPAN_END, 6, "tenant",
+                      lambda a: span_name(int(a["sysno"])),
+                      args=lambda a, b: {"span": int(a["seq"]),
+                                         "parent": int(a["aux"]),
+                                         "device_ms": int(b["aux"]) / 1e6})
+                for ea in (EV_SUBMIT, EV_IRQ):
+                    A, B, ia, ib = _match_events(evs, ea, EV_COMPLETE)
+                    for j in range(len(ia)):
+                        a, b = A[ia[j]], B[ib[j]]
+                        if int(a["aux"]) not in named:
+                            continue
+                        put({"ph": "X", "pid": 6,
+                             "tid": named[int(a["aux"])], "ts": us(a["ts"]),
+                             "dur": max(0.0, us(b["ts"]) - us(a["ts"])),
+                             "name": f"sys:{sysname(a)}",
+                             "args": {"seq": int(a["seq"]),
+                                      "span": int(a["aux"])}})
             A, B, ia, ib = _match_events(evs, EV_SUBMIT, EV_COMPLETE)
             for j in range(len(ia)):
                 a, b = A[ia[j]], B[ib[j]]
                 if int(a["aux"]) == 0:
                     continue            # not recorded under a span context
+                if int(a["aux"]) in named:
+                    continue            # on the training track (pid 6)
                 put({"ph": "X", "pid": 5, "tid": int(a["aux"]),
                      "ts": us(a["ts"]),
                      "dur": max(0.0, us(b["ts"]) - us(a["ts"])),
@@ -605,9 +742,75 @@ class Tracer:
         trace = {"traceEvents": out, "displayTimeUnit": "ms",
                  "metadata": {"dropped_spans": dropped,
                               "max_spans": max_spans}}
+        if len(evs):
+            # ts is µs from the ring's first stamp: at this time_ns
+            trace["metadata"]["clock"] = {
+                "ts0_time_ns": int(self.wall_ns(int(evs["ts"].min()))),
+                "perf_counter_ns": self.clock[0], "time_ns": self.clock[1]}
         with open(path, "w") as f:
             json.dump(trace, f)
         return trace
+
+
+_current = threading.local()
+
+
+def current_recorder() -> "SpanRecorder | None":
+    """The recorder whose span the calling thread holds open, or None."""
+    return getattr(_current, "rec", None)
+
+
+class SpanRecorder:
+    """Named, nested spans of a thread's work on one channel of a
+    :class:`Tracer`: a SPAN_BEGIN (sysno = :func:`span_sysno` of the
+    name, seq = a tracer-allocated id, aux = the enclosing span's id) and
+    a SPAN_END (aux = device ns). While a span is open its id is the
+    tracer's span context and this recorder is :func:`current_recorder`.
+
+    ``marks`` (an object with ``begin()``, ``end()`` and
+    ``elapsed_ns()``, such as a pair of CUDA events) time a span on a
+    device. Its SPAN_END, stamped when the span closes, is held until
+    :meth:`settle`, which the owner calls once the device has done the
+    work (after a sync it makes anyway): recording adds no sync."""
+
+    def __init__(self, tracer: Tracer, channel: str):
+        self.tracer = tracer
+        self.channel = tracer.channel(channel)
+        self._held: list = []      # (sysno, id, end stamp, marks)
+
+    @contextlib.contextmanager
+    def span(self, name: str, marks=None):
+        tracer, ch = self.tracer, self.channel
+        sysno, sid = span_sysno(name), tracer.next_seq()
+        parent = tracer.set_span(sid)
+        outer = current_recorder()
+        _current.rec = self
+        ch.rec(EV_SPAN_BEGIN, sysno, sid, parent)
+        if marks is not None:
+            marks.begin()
+        try:
+            yield sid
+        finally:
+            if marks is not None:
+                marks.end()
+            ts = time.perf_counter_ns()
+            tracer.set_span(parent)
+            _current.rec = outer
+            if marks is None:
+                ch.rec(EV_SPAN_END, sysno, sid, 0, ts=ts)
+            else:
+                self._held.append((sysno, sid, ts, marks))
+
+    def settle(self) -> None:
+        """Record the held SPAN_ENDs with their marks' device ns."""
+        held, self._held = self._held, []
+        for sysno, sid, ts, marks in held:
+            self.channel.rec(EV_SPAN_END, sysno, sid, marks.elapsed_ns(),
+                             ts=ts)
+
+    def closed(self) -> list[dict]:
+        """This channel's closed spans (:meth:`Tracer.closed_spans`)."""
+        return self.tracer.closed_spans(self.channel.name)
 
 
 def _match_events(evs: np.ndarray, ea: int, eb: int):
@@ -669,6 +872,8 @@ def latency_histograms(evs: np.ndarray, channel_names: list[str],
                      else str(tid))
             sname = names.get(
                 sysno, "REQUEST" if sysno == REQ_SYSNO else str(sysno))
+            if sysno >= SPAN_SYSNO:
+                sname = span_name(sysno)
             out.setdefault(cname, {}).setdefault(sname, {})[stage] = {
                 "count": n,
                 "p50_us": float(2.0 ** p50_b),

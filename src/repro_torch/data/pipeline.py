@@ -85,7 +85,7 @@ class GenesysDataLoader:
             self._sizes.append(os.path.getsize(p))
         self._pending: list[_Pending] = []
         self._cursor = 0
-        self.stats = {"reads": 0, "straggler_reissues": 0, "bytes": 0}
+        self.stats = {"reads": 0, "straggler_reissues": 0}
         for _ in range(self.prefetch_depth):
             self._issue()
 
@@ -138,7 +138,6 @@ class GenesysDataLoader:
             self.gsys.call(Sys.PREAD64, p.fd, p.buf_handle,
                            p.nbytes, p.offset, blocking=True)
         buf = np.asarray(self.gsys.heap.resolve(p.buf_handle))
-        self.stats["bytes"] += p.nbytes
         # NOTE: this is a view into the handle's buffer — the caller
         # (next_batch) copies it out and only THEN releases the handle.
         # A released arena extent returns to the free list for re-carving,

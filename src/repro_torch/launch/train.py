@@ -43,7 +43,11 @@ parameters are
 replicated, so global rank 0 alone writes a checkpoint, every rank waits
 until its manifest is committed, and every rank restores it into its own
 tensors (``checkpoint.ckpt``). Every rank prints its lines, prefixed
-``[rank r/world]``, the last of them the training kernels' launches in
+``[rank r/world]``: the losses, checkpoints, stragglers and the loader's
+re-issued reads; each phase's milliseconds a step from the Trainer's
+spans, on the host's clock and, for ``forward``, ``backward`` and
+``optimizer`` on a card, between their device marks (``phases a step, ms
+host / device: ...``); the last line the training kernels' launches in
 this run (``kernel launches: {wrapper: n}``; 0 where the plain versions
 ran, on the CPU).
 """
@@ -152,7 +156,10 @@ def main(argv=None):
                 st = tr.run(args.steps)
                 print(f"{prefix}steps={st.steps} loss[0]={st.losses[0]:.4f} "
                       f"loss[-1]={st.losses[-1]:.4f} ckpts={st.ckpts} "
-                      f"stragglers={st.straggler_steps}")
+                      f"stragglers={st.straggler_steps} straggler_reissues="
+                      f"{loader.stats['straggler_reissues']}")
+                print(f"{prefix}phases a step, ms host / device: "
+                      + phase_line(tr.spans.closed()))
                 print(f"{prefix}GENESYS: {dict(gsys.table.stats)} "
                       f"coalesce_hist={gsys.executor.stats.coalesce_hist}")
                 print(f"{prefix}kernel launches: " + str(
@@ -166,6 +173,21 @@ def main(argv=None):
             import torch.distributed as dist
             dist.destroy_process_group()
     return st
+
+
+def phase_line(spans: list) -> str:
+    """Each span name's milliseconds a step (over the ``step`` spans
+    there are), host and, where it had device marks, device:
+    ``step 12.345, load 0.123, ..., forward 3.210 / 3.001, ...``."""
+    steps = max(1, sum(s["name"] == "step" for s in spans))
+    host, device = {}, {}
+    for s in spans:
+        host[s["name"]] = host.get(s["name"], 0) + s["end_ns"] - s["start_ns"]
+        device[s["name"]] = device.get(s["name"], 0) + s["device_ns"]
+    return ", ".join(
+        f"{n} {host[n] / 1e6 / steps:.3f}"
+        + (f" / {device[n] / 1e6 / steps:.3f}" if device[n] else "")
+        for n in host)
 
 
 def _join_world(device: str):

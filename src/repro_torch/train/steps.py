@@ -11,9 +11,12 @@ Batch dict convention (the reference's):
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.config import Family, ModelConfig, TrainConfig
+from repro_torch.core.genesys.trace import current_recorder
 from repro_torch.kernels import ops
 from repro_torch.models import transformer
 from repro_torch.models.registry import get_api
@@ -69,6 +72,33 @@ def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig,
     return loss, {"nll": nll}
 
 
+class CudaMarks:
+    """A span's device time on the current stream: an event recorded at
+    its start and one at its end (``trace.SpanRecorder``'s marks)."""
+
+    __slots__ = ("start", "stop")
+
+    def begin(self) -> None:
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+
+    def end(self) -> None:
+        self.stop = torch.cuda.Event(enable_timing=True)
+        self.stop.record()
+
+    def elapsed_ns(self) -> int:
+        return round(self.start.elapsed_time(self.stop) * 1e6)
+
+
+def _phase(rec, name: str, cuda: bool):
+    """The step's span ``name`` under the thread's open one (the
+    Trainer's ``step``), with device marks on a card; nothing where no
+    span is open."""
+    if rec is None:
+        return contextlib.nullcontext()
+    return rec.span(name, CudaMarks() if cuda else None)
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
                     kernels: ops.Kernels = ops.KERNELS, *, rules=None):
     """``(train_step, opt)``: ``train_step(params, opt_state, batch) ->
@@ -91,13 +121,19 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     ``rules`` (``sharding.ShardingRules``, default None) adds the
     reference's sharding constraints and KV replication to the forward,
     for parameters that are DTensors placed by ``sharding.tree_shardings``
-    (this and every step builder below)."""
+    (this and every step builder below).
+
+    Called inside a Trainer's ``step`` span (``trace.current_recorder``),
+    the step records ``forward`` and ``backward`` a microbatch and one
+    ``optimizer`` (the division and AdamW's update) as its children, each
+    with device marks when the parameters are on a card."""
     opt = AdamW(lr=tc.lr, beta1=tc.beta1, beta2=tc.beta2,
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
     n_mb = tc.microbatches
 
     def train_step(params, opt_state, batch):
         ps = leaves(params)
+        rec, cuda = current_recorder(), ps[0].device.type == "cuda"
         for p in ps:
             p.requires_grad_(True)
             p.grad = None
@@ -107,21 +143,24 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
                              f"microbatches")
         losses, nlls = [], []
         for i in range(n_mb):
-            # rows i * rows/n_mb on, as the reference's reshape to
-            # [n_mb, rows/n_mb, ...] takes them; a DTensor's slice of its
-            # split batch is split over the batch axes again
-            mb = {k: constrain(v.narrow(0, i * (rows // n_mb), rows // n_mb),
-                               rules, "batch")
-                  for k, v in batch.items()}
-            loss, aux = loss_fn(params, cfg, mb, tc, kernels, rules)
-            loss.backward()
+            with _phase(rec, "forward", cuda):
+                # rows i * rows/n_mb on, as the reference's reshape to
+                # [n_mb, rows/n_mb, ...] takes them; a DTensor's slice of
+                # its split batch is split over the batch axes again
+                mb = {k: constrain(v.narrow(0, i * (rows // n_mb),
+                                            rows // n_mb), rules, "batch")
+                      for k, v in batch.items()}
+                loss, aux = loss_fn(params, cfg, mb, tc, kernels, rules)
+            with _phase(rec, "backward", cuda):
+                loss.backward()
             losses.append(loss.detach())
             nlls.append(aux["nll"].detach())
-        grads = _grads(params)
-        if n_mb > 1:
-            for g in leaves(grads):
-                g.div_(n_mb)
-        params, opt_state, gnorm = opt.update(grads, opt_state, params)
+        with _phase(rec, "optimizer", cuda):
+            grads = _grads(params)
+            if n_mb > 1:
+                for g in leaves(grads):
+                    g.div_(n_mb)
+            params, opt_state, gnorm = opt.update(grads, opt_state, params)
         for p in ps:
             p.grad = None
         metrics = {"loss": torch.stack(losses).mean(), "grad_norm": gnorm,
