@@ -328,6 +328,25 @@ The last modules of the port add:
     (``--batches 1``) and ``--continuous``, each answering a UDP request;
     every one must exit 0 and print what its docstring promises.
 
+The fused optimizer step (``kernels/csrc/adamw.cu``) adds, run right after
+phase 2b while the card holds little else:
+
+22. AdamW's kernels (the norm, then the update) against the eager route
+    (``AdamW.update_plain``) at the benchmark cells' leaf shapes:
+    starcoder2-7b at 8 layers (11 leaves, 2.19 B parameters, 2
+    microbatches) and zamba2-2.7b at 54 (20 leaves, 2.42 B, 1), one step
+    from seeded moments at count 10 with the clip engaged; the norm to
+    ADAMW_NORM_RTOL of the eager one and every element by the card test's
+    rule (``tests/test_torch_adamw.py``), two norms of the same gradients
+    the same bits. Timed: the kernels (norm and update apart and together)
+    against the bytes bound (4, 28 and 32 bytes a parameter at 3.35 TB/s),
+    the eager route, and ``clip_grad_norm_(foreach=True)`` with
+    ``torch._fused_adamw_`` as the library yardstick (its update alone
+    beside). Each training phase (7, 9, 12, 17, 19b) sets AdamW's launch
+    and leaf counters to 0 before its run and checks them after it: one
+    norm and one update launch a step, every leaf through the kernels, none
+    through the eager route; the kernels line gives them by run.
+
 The redesign of K3a/K3b at hd 32 (bf16 on wgmma and TMA, one consumer
 warpgroup and two CTAs an SM) adds to phase 6 the training example's shape
 (B 8 x S 64, bf16, with the 3% control) and an SFU term in every K3 case's
@@ -406,6 +425,15 @@ DENSE_LEN, N_DENSE_REQS, EAGER_TOKENS = 256, 16, 16
 # the training path: starcoder2-7b at full width, depth cut to 8 layers
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 8, 4096, 2, 2
 TRAIN_STEPS, RESUME_STEPS = 4, 2
+# phase 22, AdamW's kernels against the eager route (the card test's rule,
+# tests/test_torch_adamw.py): the norm sums ~2.4e9 squares in another
+# order; the rest rounds as the eager route does, so v to 2e-5 of itself
+# (the scale squared), m to 2e-5 of its leaf's largest (its terms may
+# cancel), p to 2^-21 of itself plus 4e-5 of its step lr |m_hat| /
+# (sqrt(v_hat) + eps), or of lr where the step is smaller (the card test's
+# steps are; the phase's seeded moments, drawn apart, give steps of ~400 lr)
+ADAMW_NORM_RTOL = 1e-5
+ADAMW_CELLS = (("starcoder2-7b", TRAIN_LAYERS, 2), ("zamba2-2.7b", None, 1))
 # K3 vs plain, each element of o, dq, dk and dv:
 #   |got - ref| <= r * (|ref| + rms_vec + rms / 16)
 # rms_vec is the RMS of the element's own head vector (one query row or
@@ -2445,7 +2473,9 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict,
     """Train ``tcfg`` at full width through the port's Trainer,
     GenesysDataLoader and CheckpointManager; resume in a fresh Trainer.
     ``expected`` maps kernel counters to their launches over the run (every
-    other counter must stay 0). Rows of ``seq`` tokens; with ``frames``
+    other counter must stay 0); every step must update every leaf through
+    AdamW's kernels, one norm and one update launch. Rows of ``seq``
+    tokens; with ``frames``
     (the encoder-decoder), each row also carries that many frames
     (:class:`FramesLoader`). Returns the phase's numbers."""
     import numpy as np
@@ -2454,8 +2484,10 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict,
     from repro_torch.config import TrainConfig
     from repro_torch.core.genesys import Genesys, GenesysConfig
     from repro_torch.data.pipeline import GenesysDataLoader, write_token_shard
+    from repro_torch.kernels import adamw as KA
     from repro_torch.kernels import ops
     from repro_torch.models.registry import get_api
+    from repro_torch.optim import AdamW
     from repro_torch.train.loop import Trainer
     from repro_torch.train.steps import make_train_step
 
@@ -2477,6 +2509,7 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict,
         torch.cuda.reset_peak_memory_stats()
         params = init(tcfg, seed=0, device=dev, master=True)
         n_params = sum(x.numel() for x in flatten(params))
+        n_leaves = len(flatten(params))
         inner, opt = make_train_step(tcfg, TrainConfig(
             microbatches=TRAIN_MICRO))
         step_s, gnorms = [], []
@@ -2496,6 +2529,8 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict,
         counters = [getattr(ops, n) for n in KERNEL_COUNTERS]
         for c in counters:
             c.launches = 0
+        KA.adamw_sqnorm.launches = KA.adamw_update.launches = 0
+        AdamW.fused_leaves = AdamW.plain_leaves = 0
         tr = Trainer(gsys, train_step, params, opt.init(params), loader,
                      ckpt=cm, ckpt_every=TRAIN_STEPS)
         st = tr.run(TRAIN_STEPS)
@@ -2529,6 +2564,17 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict,
         st2 = tr.run(RESUME_STEPS)
         losses += st2.losses[-RESUME_STEPS:]
         launches = {f.__name__: f.launches for f in counters}
+        adamw = {"sqnorm_launches": KA.adamw_sqnorm.launches,
+                 "update_launches": KA.adamw_update.launches,
+                 "fused_leaves": AdamW.fused_leaves,
+                 "plain_leaves": AdamW.plain_leaves}
+        run_steps = TRAIN_STEPS + RESUME_STEPS
+        check(adamw == {"sqnorm_launches": run_steps,
+                        "update_launches": run_steps,
+                        "fused_leaves": run_steps * n_leaves,
+                        "plain_leaves": 0},
+              f"{tcfg.arch_id} training: AdamW {adamw} over {run_steps} "
+              f"steps of {n_leaves} leaves")
         check(all(math.isfinite(x) for x in losses + gnorms),
               f"non-finite loss or grad norm: {losses} {gnorms}")
         check(statistics.mean(losses[-2:]) < losses[0],
@@ -2564,7 +2610,7 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict,
         "disk_free_gb_before": free_gb, "model_flops_per_step": flops,
         "model_flops_share_of_bf16_peak":
             flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
-        "launches": launches,
+        "launches": launches, "adamw": adamw,
     }
     layers, row = f"{tcfg.n_layers} layers", f"{seq}"
     if frames:
@@ -2586,7 +2632,8 @@ def train_path_phase(torch, tcfg, dev, *, expected: dict,
           f"{save_s:.1f} s (disk free before {free_gb:.1f} GB), restored in "
           f"{restore_s:.1f} s, bit-equal; model flops/step "
           f"{flops:.4g} = {out['model_flops_share_of_bf16_peak']:.3f}"
-          f" of the bf16 peak; launches={launches}", flush=True)
+          f" of the bf16 peak; launches={launches} adamw={adamw}",
+          flush=True)
     return out
 
 
@@ -3746,6 +3793,152 @@ def gmm_kernel_phase(torch, mcfg, dev, flush):
             ragged.append({"case": label, "errors": errs,
                            "per_token_max_abs_err": tok_err.item()})
     cases["ragged"] = ragged
+    return cases
+
+
+# ------------------------------------------- phase 22: AdamW's kernels ----
+
+def adamw_worst(torch, got, want, kind: str, step=None) -> float:
+    """The largest |got - want| over its tolerance (ADAMW_NORM_RTOL's
+    note), in slices of 2^26 elements (a leaf is up to 5.8 GB). For p,
+    ``step(i, j)`` is lr |m_hat| / (sqrt(v_hat) + eps) over elements [i,
+    j) by the eager route's moments: the step's part of the tolerance is
+    4e-5 of it, and of lr where the step is smaller."""
+    g, w = got.reshape(-1), want.reshape(-1)
+    big = w.abs().max()
+    worst = torch.zeros((), device=w.device)
+    for i in range(0, w.numel(), 1 << 26):
+        j = min(i + (1 << 26), w.numel())
+        a, b = g[i:j], w[i:j]
+        tol = {"p": lambda: 2.0 ** -21 * b.abs() + 4e-5 * step(i, j),
+               "m": lambda: 2e-5 * big, "v": lambda: 2e-5 * b.abs()}[kind]()
+        worst = torch.maximum(worst, ((a - b).abs() / tol).max())
+    return worst.item()
+
+
+def adamw_kernel_phase(torch, dev, flush) -> list:
+    """Phase 22: AdamW's kernels against the eager route at the cells'
+    leaf shapes, then timed (the module docstring). Returns a case a
+    cell."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as K
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim.adamw import AdamW, OptState, leaves
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    cases = []
+    held = torch.cuda.memory_allocated()
+    for arch, layers, mb in ADAMW_CELLS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        shapes = [t.shape for t in leaves(get_api(cfg).init(
+            cfg, device="meta", master=True))]
+        n = sum(math.prod(s) for s in shapes)
+        opt = AdamW(lr=3e-4, microbatches=mb)
+
+        def draw(scale, square=False):
+            out = {}
+            for i, s in enumerate(shapes):
+                t = torch.randn(s, generator=gen, device=dev)
+                out[f"{i:03d}"] = (t.square_().mul_(scale) if square
+                                   else t.mul_(scale))
+            return out
+        ps, gs = draw(1.0), draw(1e-3 * mb)
+        ms, vs = draw(1e-3), draw(1e-6, square=True)
+        count = torch.full((), 10, dtype=torch.int32, device=dev)
+        twin = [{k: t.clone() for k, t in x.items()} for x in (ps, ms, vs)]
+        twin_count = count.clone()
+        norm = K.adamw_sqnorm(leaves(gs), mb)
+        check(torch.equal(norm, K.adamw_sqnorm(leaves(gs), mb)),
+              f"adamw [{arch}]: two norms of the same gradients differ")
+        before = K.adamw_update.launches
+        opt.update(gs, OptState(ms, vs, count), ps)
+        check(K.adamw_update.launches == before + 1,
+              f"adamw [{arch}]: the update took the eager route")
+        # (the returned tree and state name the twin: keep the norm alone)
+        eager_norm = opt.update_plain(
+            gs, OptState(twin[1], twin[2], twin_count), twin[0])[2]
+        torch.cuda.synchronize()
+        norm_err = abs(norm.item() - eager_norm.item()) / eager_norm.item()
+        c1, c2 = (1 - b ** twin_count.item() for b in (opt.beta1,
+                                                        opt.beta2))
+
+        def steps_of(m, v):
+            m, v = m.reshape(-1), v.reshape(-1)
+            return lambda i, j: opt.lr * torch.clamp(
+                (m[i:j] / c1).abs() / ((v[i:j] / c2).sqrt() + opt.eps),
+                min=1.0)
+        worst = {kind: max(
+            adamw_worst(torch, a, b, kind, steps_of(m, v))
+            for a, b, m, v in zip(leaves(got), leaves(want),
+                                  leaves(twin[1]), leaves(twin[2])))
+            for kind, got, want in (("p", ps, twin[0]), ("m", ms, twin[1]),
+                                    ("v", vs, twin[2]))}
+        check(count.item() == twin_count.item() == 11,
+              f"adamw [{arch}]: count {count.item()}")
+        check(norm_err <= ADAMW_NORM_RTOL, f"adamw [{arch}]: the norm "
+              f"{norm.item()} against the eager {eager_norm.item()}")
+        check(max(worst.values()) <= 1.0,
+              f"adamw [{arch}]: error up to {worst} x its bound")
+        del twin, twin_count
+        torch.cuda.empty_cache()
+
+        state = OptState(ms, vs, count)
+        lp, lg, lm, lv = (leaves(x) for x in (ps, gs, ms, vs))
+        steps = [torch.zeros((), device=dev) for _ in lp]
+
+        def library():
+            # clip_grad_norm_(foreach=True)'s calls, on the gradients
+            norms = torch._foreach_norm(lg)
+            total = torch.linalg.vector_norm(torch.stack(norms))
+            coef = torch.clamp(opt.grad_clip / (total + 1e-6), max=1.0)
+            torch._foreach_mul_(lg, coef)
+            library_update()
+
+        def library_update():
+            torch._fused_adamw_(lp, lg, lm, lv, [], steps, lr=opt.lr,
+                                beta1=opt.beta1, beta2=opt.beta2,
+                                weight_decay=opt.weight_decay, eps=opt.eps,
+                                amsgrad=False, maximize=False)
+
+        def update_alone():
+            K.adamw_update(lp, lg, lm, lv, count, norm, lr=opt.lr,
+                           beta1=opt.beta1, beta2=opt.beta2, eps=opt.eps,
+                           weight_decay=opt.weight_decay,
+                           grad_clip=opt.grad_clip, divisor=mb)
+        timed = {name: cuda_ms(torch, fn, reps=5, flush=flush)[0]
+                 for name, fn in (
+                     ("ms", lambda: opt.update(gs, state, ps)),
+                     ("sqnorm_ms", lambda: K.adamw_sqnorm(lg, mb)),
+                     ("update_ms", update_alone),
+                     ("plain_ms", lambda: opt.update_plain(gs, state, ps)),
+                     ("library_ms", library),
+                     ("library_update_ms", library_update))}
+        case = {"case": arch, "leaves": len(shapes), "parameters": n,
+                "microbatches": mb, "norm_rel_err": norm_err,
+                "worst": worst, **timed,
+                "bound_ms": 32 * n / HBM_BYTES_PER_S * 1e3,
+                "sqnorm_bound_ms": 4 * n / HBM_BYTES_PER_S * 1e3,
+                "update_bound_ms": 28 * n / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes"}
+        print(f"kernel adamw[{arch}]: {len(shapes)} leaves, {n} parameters,"
+              f" norm rel err {norm_err:.2e}, worst "
+              + " ".join(f"{k}={v:.3f}" for k, v in worst.items())
+              + f"; ms {case['ms']:.3f} (norm {case['sqnorm_ms']:.3f}, "
+              f"update {case['update_ms']:.3f}) bound "
+              f"{case['bound_ms']:.3f} (norm {case['sqnorm_bound_ms']:.3f}, "
+              f"update {case['update_bound_ms']:.3f}); plain "
+              f"{case['plain_ms']:.3f}; library {case['library_ms']:.3f} "
+              f"(update alone {case['library_update_ms']:.3f})", flush=True)
+        cases.append(case)
+        del ps, gs, ms, vs, lp, lg, lm, lv, state, steps, norm
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.cuda.memory_allocated() <= held + (1 << 20),
+              f"adamw [{arch}]: {torch.cuda.memory_allocated() - held} "
+              f"bytes still held after the case")
     return cases
 
 
@@ -5448,9 +5641,13 @@ def run(torch) -> int:
     dense_cases, dense_fused, hybrid_appends = dense_kernel_phase(
         torch, dev, flush, (zcfg.n_heads, zcfg.n_kv_heads, zcfg.hd),
         moe_heads, (scfg.n_heads, scfg.n_kv_heads, scfg.hd))
-    del flush
     mark("2b")
+    # phase 22, early: the cells' optimizer state takes ~74 GB of the card
     torch.cuda.empty_cache()
+    adamw_cases = adamw_kernel_phase(torch, dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    mark("22")
 
     # phase 3: the main path at full width
     cfg = get_config("starcoder2-7b")
@@ -5970,6 +6167,23 @@ def run(torch) -> int:
         + [dict(invoke["bare_round_trip"], call="bare_responder"),
            dict(invoke["bare_round_trip_old_wait"],
                 call="bare_responder_old_wait")]})
+    # AdamW's kernels: they replace no Pallas kernel; they stand for the
+    # reference's update under jit, one XLA fusion a leaf. Each training
+    # phase checked its own run's counters (train_path_phase).
+    adamw_by_run = {t["arch"]: t["adamw"] for t in (
+        train, ztrain, rtrain, mtrain, etrain)}
+    kernels.append({
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "none: the XLA fusion of src/repro/optim/adamw.py "
+                    "AdamW.update",
+        **{k: sum(r[k] for r in adamw_by_run.values()) for k in (
+            "sqnorm_launches", "fused_leaves", "plain_leaves")},
+        "launches": sum(r["update_launches"] for r in adamw_by_run.values()),
+        "launches_by_run": adamw_by_run,
+        **{k: adamw_cases[0][k] for k in (
+            "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")},
+        "max_abs_err": None, "pass": True, "cases": adamw_cases})
     print(json.dumps({"kernels": kernels, "main_path": dict(
         sc_main, build_s=build_s, logits_bf16_max_abs_diff=d_bf16,
         step_alone_ms=alone_ms, step_device_busy_ms=busy_ms,

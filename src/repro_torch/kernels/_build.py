@@ -48,6 +48,10 @@ SIGNATURES = {
     "rwkv6_wkv_bwd_launch": ([_ptr] * 16 + [_int] * 6 + [_ptr], _int),
     "gmm_fwd_launch": ([_ptr] * 4 + [_int] * 7 + [_ptr], _int),
     "gmm_dw_launch": ([_ptr] * 4 + [_int] * 6 + [_ptr], _int),
+    "adamw_sqnorm_launch": (
+        [_ptr, _ptr, _int, _f32, _ptr, _int, _ptr, _ptr], _int),
+    "adamw_update_launch": (
+        [_ptr] * 5 + [_int, _ptr, _ptr] + [_f32] * 9 + [_int, _ptr], _int),
     "genesys_mapped_alloc": (
         [_ll, ctypes.POINTER(_ptr), ctypes.POINTER(_ptr)], _int),
     "genesys_mapped_free": ([_ptr], _int),

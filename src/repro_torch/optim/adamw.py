@@ -7,23 +7,37 @@ g`` and ``v = b2 v + (1-b2) g^2``, bias correction by ``1 - b**count``
 with an int32 ``count``, and weight decay added to the step (not to the
 gradient): ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``.
 ``moments_dtype="bfloat16"`` stores the moments in bf16 and computes in
-f32, as the reference does.
+f32, as the reference does. ``microbatches`` says how many microbatches'
+gradients the update gets summed: it divides them by that count first
+(the reference's train step takes their mean).
 
 Unlike the reference, :meth:`AdamW.update` works IN PLACE: the largest
 leaf of a full-width model is gigabytes (starcoder2-7b's stacked
 ``mlp/wi_up`` at 8 layers: 2.7 GB in f32), and the reference's
-per-leaf expression would hold about six such temporaries at once. Each
-leaf here costs at most one leaf-sized temporary (f32 moments and
-parameters); parameters, moments and ``count`` are updated in place and
-returned, and the gradients are scaled in place (they are spent). The
+per-leaf expression would hold about six such temporaries at once.
+Parameters, moments and ``count`` are updated in place and returned. The
 state never leaves the device, so the update does not wait on the host.
+
+Two routes, chosen by what the leaves are. Where ``kernels.adamw.refusal``
+finds no reason to refuse them (plain float32 CUDA tensors, contiguous and
+16-byte aligned, parameters, gradients and moments alike, with the count
+on their device), the update takes the hand-written kernels
+(``kernels.adamw``: one pass for the norm, one for the update, 32 bytes a
+parameter; the gradients are only read). Everything else (CPU tensors,
+DTensors, whose norm crosses ranks, bf16 moments) takes
+:meth:`AdamW.update_plain`, eager PyTorch with at most one leaf-sized
+temporary at a time, which divides and scales the gradients in place
+(they are spent). ``AdamW.fused_leaves`` and ``AdamW.plain_leaves`` count
+the leaves each route has updated in this process.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, ClassVar
 
 import torch
+
+from repro_torch.kernels.adamw import adamw_sqnorm, adamw_update, refusal
 
 
 @dataclass
@@ -60,6 +74,10 @@ class AdamW:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     moments_dtype: str = "float32"
+    microbatches: int = 1
+    # leaves updated by each route, in this process
+    fused_leaves: ClassVar[int] = 0
+    plain_leaves: ClassVar[int] = 0
 
     def init(self, params) -> OptState:
         dt = getattr(torch, self.moments_dtype)
@@ -83,7 +101,29 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state: OptState, params):
         """One step: ``(params, state, gnorm)``, params and state updated
-        in place (see the module docstring)."""
+        in place (see the module docstring). ``gnorm`` is the global norm
+        of the gradients divided by ``microbatches``."""
+        gs, ms, vs, ps = (leaves(t) for t in (grads, state.m, state.v,
+                                               params))
+        if refusal((ps, gs, ms, vs), state.count) is not None:
+            AdamW.plain_leaves += len(ps)
+            return self.update_plain(grads, state, params)
+        AdamW.fused_leaves += len(ps)
+        gnorm = adamw_sqnorm(gs, self.microbatches)
+        adamw_update(ps, gs, ms, vs, state.count, gnorm, lr=self.lr,
+                     beta1=self.beta1, beta2=self.beta2, eps=self.eps,
+                     weight_decay=self.weight_decay, grad_clip=self.grad_clip,
+                     divisor=self.microbatches)
+        return params, state, gnorm
+
+    @torch.no_grad()
+    def update_plain(self, grads, state: OptState, params):
+        """:meth:`update` in eager PyTorch, on any leaves: at most one
+        leaf-sized temporary at a time; the gradients are divided and
+        scaled in place."""
+        if self.microbatches > 1:
+            for g in leaves(grads):
+                g.div_(self.microbatches)
         state.count.add_(1)
         gnorm = global_norm(grads)
         scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-9),
@@ -110,3 +150,4 @@ class AdamW:
                 if low is not f32:
                     low.copy_(f32)
         return params, state, gnorm
+

@@ -107,14 +107,14 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
 
     ``tc.microbatches > 1`` splits the batch's rows into that many
     microbatches (the reference's ``lax.scan``): each one's gradient is
-    accumulated in the parameters' f32 ``.grad`` by ``backward()``, the
-    sum is divided by ``microbatches``, and loss and nll are the
-    microbatches' means. Then AdamW updates ``params`` and ``opt_state``
-    IN PLACE (``optim.adamw``) and they are returned. ``params`` are the
-    port's master weights (``init(..., master=True)`` of the family's
-    model); the step marks them as requiring grad. ``kernels`` replaces
-    the forward's kernels for comparisons (``ops.Kernels``; the plain
-    versions are ``layers.flash_attention_xla``,
+    accumulated in the parameters' f32 ``.grad`` by ``backward()``, AdamW
+    (built with ``microbatches``) divides the sum by their count, and loss
+    and nll are the microbatches' means. AdamW updates ``params`` and
+    ``opt_state`` IN PLACE (``optim.adamw``) and they are returned.
+    ``params`` are the port's master weights (``init(..., master=True)``
+    of the family's model); the step marks them as requiring grad.
+    ``kernels`` replaces the forward's kernels for comparisons
+    (``ops.Kernels``; the plain versions are ``layers.flash_attention_xla``,
     ``mamba2_scan.ssd_chunked_plain``, ``rwkv6_scan.wkv6_chunked_plain``
     and ``moe_gmm.gmm_plain``).
 
@@ -125,10 +125,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
 
     Called inside a Trainer's ``step`` span (``trace.current_recorder``),
     the step records ``forward`` and ``backward`` a microbatch and one
-    ``optimizer`` (the division and AdamW's update) as its children, each
-    with device marks when the parameters are on a card."""
+    ``optimizer`` (AdamW's update, the division included) as its children,
+    each with device marks when the parameters are on a card."""
     opt = AdamW(lr=tc.lr, beta1=tc.beta1, beta2=tc.beta2,
-                weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
+                weight_decay=tc.weight_decay, grad_clip=tc.grad_clip,
+                microbatches=tc.microbatches)
     n_mb = tc.microbatches
 
     def train_step(params, opt_state, batch):
@@ -156,11 +157,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
             losses.append(loss.detach())
             nlls.append(aux["nll"].detach())
         with _phase(rec, "optimizer", cuda):
-            grads = _grads(params)
-            if n_mb > 1:
-                for g in leaves(grads):
-                    g.div_(n_mb)
-            params, opt_state, gnorm = opt.update(grads, opt_state, params)
+            params, opt_state, gnorm = opt.update(_grads(params), opt_state,
+                                                  params)
         for p in ps:
             p.grad = None
         metrics = {"loss": torch.stack(losses).mean(), "grad_norm": gnorm,

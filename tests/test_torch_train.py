@@ -26,6 +26,7 @@ from repro.sharding import rules_for
 from repro.train import steps as jsteps
 from repro_torch.config import TrainConfig
 from repro_torch.configs import get_config
+from repro_torch.kernels import adamw as kadamw
 from repro_torch.models import transformer as ttr
 from repro_torch.optim import AdamW
 from repro_torch.optim.adamw import leaves
@@ -199,6 +200,45 @@ def test_adamw_matches_jax(moments_dtype):
                                lambda x: np.asarray(x.astype(jnp.float32)),
                                want), rel=rel)
     assert ts.count.item() == int(js.count) == 3
+
+
+@pytest.mark.parametrize("clip", ["engaged", "not_engaged"])
+def test_kernel_arithmetic_matches_jax(clip):
+    """The AdamW kernels' arithmetic (``kernels.adamw``'s plain version)
+    over three updates against the JAX
+    package's, with fresh gradients whose global norm exceeds the clip or
+    stays under it; held as the eager route is above."""
+    rng = np.random.default_rng(8)
+    shapes = {"a": (5, 3), "b": {"c": (7,), "d": (2, 2, 4)}, "e": (1,)}
+    scale = 0.3 if clip == "engaged" else 0.01
+    np_p = jax.tree_util.tree_map(
+        lambda s: rng.standard_normal(s, dtype=np.float32), shapes,
+        is_leaf=lambda x: isinstance(x, tuple))
+    np_gs = [jax.tree_util.tree_map(
+        lambda s: rng.standard_normal(s, dtype=np.float32) * scale, shapes,
+        is_leaf=lambda x: isinstance(x, tuple)) for _ in range(3)]
+    hp = dict(lr=1e-2, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1,
+              grad_clip=1.0)
+    jopt = JAdamW(**hp)
+    jp = jax.tree_util.tree_map(jnp.asarray, np_p)
+    tp = leaves(jax.tree_util.tree_map(torch.tensor, np_p))
+    js = jopt.init(jp)
+    tm, tv = [torch.zeros_like(p) for p in tp], [torch.zeros_like(p)
+                                                  for p in tp]
+    count = torch.zeros((), dtype=torch.int32)
+    for np_g in np_gs:
+        jp, js, jn = jopt.update(jax.tree_util.tree_map(jnp.asarray, np_g),
+                                 js, jp)
+        tg = leaves(jax.tree_util.tree_map(torch.tensor, np_g))
+        tn = kadamw.adamw_sqnorm_plain(tg)
+        kadamw.adamw_update_plain(tp, tg, tm, tv, count, tn, **hp)
+        assert (float(jn) > 1) == (clip == "engaged")
+        np.testing.assert_allclose(tn.item(), float(jn), rtol=1e-6)
+    for got, want in ((tp, jp), (tm, js.m), (tv, js.v)):
+        _assert_tree_close([t.numpy() for t in got],
+                           jax.tree_util.tree_leaves(want),
+                           atol=0.1 * hp["lr"] if got is tp else None)
+    assert count.item() == int(js.count) == 3
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-7b", "qwen2-72b"])
