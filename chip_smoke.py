@@ -63,7 +63,9 @@ The training path (the third slice) adds:
 6.  the flash-attention kernels, forward (K3a) and backward (K3b), against
     their plain versions at the training shapes (B=1, H=36, KV=4, hd=128,
     S=4096, causal) in bf16 and f32, at S=1000 in bf16 (a tail that is no
-    multiple of the tiles), at moonshot's H = KV = 16 and (later slices)
+    multiple of the tiles), at moonshot's H = KV = 16, at Moonlight's
+    latent attention (H = KV = 16, a query/key head dim of 192 and a value
+    head dim of 128, with the 3% control) and (later slices)
     zamba2's hd 80, and at seamless-m4t-medium's encoder self-attention
     (non-causal, S=4096, H = KV = 16, hd 64) and cross-attention (1024
     queries over 4096 keys): o, lse, dq, dk and dv, timed against the
@@ -199,6 +201,17 @@ random weights from a seed):
 17b. two layers' train step with K6/K6b against their plain versions in
     bf16 and f32, and a control (tile 1's expert id shifted) that must
     fail.
+23. (run after 17b) Moonlight-16B-A3B, the benchmark's MoE cell, at its
+    published widths: K6 and K6b over a real dropless table (one row of
+    4096 tokens routed by sigmoid scores plus the selection bias and
+    sorted by ``ops.moe_dispatch`` into 256 tiles of 128 rows, the spare
+    tiles past the last group with id E) for the gate/up and the down
+    products in bf16, by phase 14's rule, control and zero checks; then
+    one train step at the cell's depth (5 layers, 2 x 4096 tokens)
+    through ``make_train_step`` with every counter set to 0 just before
+    it: K3, K6/K6b, the dispatch and AdamW's kernels launched as the
+    layers say, the frozen selection bias left to no kernel; the kernels
+    line gives those launches by run.
 18. device-initiated syscalls: ``Genesys.invoke`` on CUDA tensors (the
     kernel of ``csrc/genesys_invoke.cu`` posting GENESYS's slots into
     mapped host memory) against the plain host entry (the same calls on
@@ -455,7 +468,8 @@ FA_LSE_ATOL = 1e-4
 FA_CONTROL_SCALE = 1.03
 FA_CONTROL_CASES = ("S4096-bfloat16", "S4096-float32", "S4096-hd32-bfloat16",
                     "S4096-hd32-float32", "S1000-hd32-bfloat16",
-                    "S1000-hd32-float32", "B8-S64-hd32-bfloat16")
+                    "S1000-hd32-float32", "B8-S64-hd32-bfloat16",
+                    "S4096-mla-192-128-bfloat16")
 # the reduced configs' attention as the training example runs it on the
 # card: a batch of 8 rows of 64 positions
 FA_PATH_BATCH, FA_PATH_SEQ = 8, 64
@@ -526,6 +540,9 @@ PREFILL_LEN = 256
 # restore took ~118 s of phase 17's ~200)
 MOE_N_BLOCKS = 1024
 MOE_TRAIN_LAYERS = 2
+# phase 23: Moonlight-16B-A3B at its benchmark cell's depth (the dense
+# layer and 4 MoE layers; ~59 GB at the step's peak)
+MOONLIGHT_TRAIN_LAYERS = 5
 # the recurrent families' training depth (phases 9 and 12), cut from 54
 # and 32 so the smoke keeps within its time with the MoE phases: at full
 # depth their checkpoints (29 and 37 GB) took 56-95 s each to save and
@@ -2122,8 +2139,11 @@ def flash_cases_of(torch):
     heads (H 4 over KV 2 at hd 32; phase 21 trains on them) at S = 4096 and
     1000 in bf16 and f32, and in bf16 at the training example's batch of 8
     rows of 64. zamba2's hd 80 and seamless's encoder (hd 64) run in f32
-    too: the f32 kernels serve every head dim."""
+    too: the f32 kernels serve every head dim. Moonlight's latent attention
+    (the benchmark cell's shape: H = KV = 16, a query/key head dim of 192
+    and a value head dim of 128, given as the pair) in bf16."""
     from repro_torch.configs import get_config
+    from repro_torch.port_configs import MOONLIGHT as ml
 
     def heads(arch, reduced=False):
         c = get_config(arch).reduced() if reduced else get_config(arch)
@@ -2141,6 +2161,8 @@ def flash_cases_of(torch):
          heads("zamba2-2.7b"), True),
         ("S4096-moonshot-bfloat16", 1, TRAIN_SEQ, TRAIN_SEQ, bf,
          heads("moonshot-v1-16b-a3b"), True),
+        ("S4096-mla-192-128-bfloat16", 1, TRAIN_SEQ, TRAIN_SEQ, bf,
+         (ml.n_heads, ml.n_kv_heads, (ml.qk_head_dim, ml.v_head_dim)), True),
         ("S4096-encoder-hd64-bfloat16", 1, enc.n_frame_tokens,
          enc.n_frame_tokens, bf, heads("seamless-m4t-medium"), False),
         ("S4096-encoder-hd64-float32", 1, enc.n_frame_tokens,
@@ -2170,7 +2192,8 @@ def flash_kernel_phase(torch, dev, flush, labels=None):
     the backward, which need p once) at the SFU's rate; the products at
     the bf16 peak, or in f32 at the split-TF32 design's (three tf32
     products a product at the TF32 rate), with the f32 peak's bound beside
-    it (``bound_f32_ms``)."""
+    it (``bound_f32_ms``). A case's head dim may be a pair (query/key,
+    value): q and k take the first, v, o and do the second."""
     from repro_torch.kernels import flash_attention as fa
 
     F = torch.nn.functional
@@ -2182,10 +2205,11 @@ def flash_kernel_phase(torch, dev, flush, labels=None):
         if labels is not None and label not in labels:
             continue
         name = str(dt).split(".")[-1]
-        q, do = (torch.randn(nb, sq, nh, hd, generator=gen,
-                             device=dev).to(dt) for _ in range(2))
-        k, v = (torch.randn(nb, skv, nkv, hd, generator=gen,
-                            device=dev).to(dt) for _ in range(2))
+        dqk, dv = hd if isinstance(hd, tuple) else (hd, hd)
+        q, do = (torch.randn(nb, sq, nh, d, generator=gen,
+                             device=dev).to(dt) for d in (dqk, dv))
+        k, v = (torch.randn(nb, skv, nkv, d, generator=gen,
+                            device=dev).to(dt) for d in (dqk, dv))
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
         grads = fa.flash_attention_bwd(q, k, v, o_p, lse_p, do, causal=causal)
@@ -2221,7 +2245,7 @@ def flash_kernel_phase(torch, dev, flush, labels=None):
               f"{lse_err} > {FA_LSE_ATOL}")
         f32_out = {}
         if name == "bfloat16":      # training's mode
-            o32, o32_p = (torch.empty(q.shape, dtype=torch.float32,
+            o32, o32_p = (torch.empty(do.shape, dtype=torch.float32,
                                       device=dev) for _ in range(2))
             o_t, _ = fa.flash_attention_fwd(q, k, v, causal=causal,
                                             out_f32=o32)
@@ -2251,8 +2275,10 @@ def flash_kernel_phase(torch, dev, flush, labels=None):
         # (query, key) pairs the attention needs: s(s+1)/2 a head causal
         pairs = nb * nh * (sq * (sq + 1) / 2 if causal else sq * skv)
         esz = q.element_size()
-        io_fwd = nb * ((2 * sq * nh + 2 * skv * nkv) * hd * esz + 4 * nh * sq)
-        io_bwd = nb * ((4 * sq * nh + 4 * skv * nkv) * hd * esz + 4 * nh * sq)
+        # q, o and k, v; the backward also do, dq and dk, dv
+        io_fwd = nb * ((sq * nh + skv * nkv) * (dqk + dv) * esz + 4 * nh * sq)
+        io_bwd = nb * (2 * (sq * nh + skv * nkv) * (dqk + dv) * esz
+                       + 4 * nh * sq)
         # exponentials: the function needs p once a pair, forward and
         # backward (the kernels' dq and dk/dv each recompute it: that
         # second pass is the design's cost, not the function's); at the
@@ -2260,8 +2286,10 @@ def flash_kernel_phase(torch, dev, flush, labels=None):
         sfu = dict.fromkeys(("fwd", "bwd"), pairs / SFU_OPS_PER_S * 1e3)
         tf32x3 = name == "float32"     # the f32 kernels' split TF32
         bounds, bounds_f32 = {}, {}
-        for k_, io, flops in (("fwd", io_fwd, 4.0 * pairs * hd),
-                              ("bwd", io_bwd, 10.0 * pairs * hd)):
+        # a pair's products: q k and p v forward; the backward's s again,
+        # dp = do v, dv = p do, dq = ds k and dk = ds q
+        for k_, io, flops in (("fwd", io_fwd, 2.0 * pairs * (dqk + dv)),
+                              ("bwd", io_bwd, pairs * (6.0 * dqk + 4 * dv))):
             bounds_f32[k_] = max(bound_ms(io, flops, name),
                                  (sfu[k_], "operations"))
             ops = (3 * flops / TF32_FLOPS if tf32x3
@@ -2373,7 +2401,7 @@ KERNEL_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd",
                    "mamba2_ssd_fwd", "mamba2_ssd_bwd",
                    "rwkv6_wkv_fwd", "rwkv6_wkv_bwd", "gmm_fwd", "gmm_bwd",
                    "paged_decode_attention", "decode_attention",
-                   "update_kv_buffer")
+                   "update_kv_buffer", "moe_dispatch")
 
 
 def model_flops(cfg, n_params: int, batch: int, seq: int,
@@ -4088,6 +4116,147 @@ def moe_bucket_vs_eager(torch, mcfg, params, dev) -> dict:
     return {"dropped_per_row": lost.tolist(), "clean_rows": int(clean.sum()),
             "logits_max_abs_diff_per_row": diff.tolist(), "tol": tol,
             "held_max_abs_diff": held, "argmax_equal": agree}
+
+
+# ------------------- phase 23: Moonlight-16B-A3B, the benchmark's MoE cell --
+
+def moonlight_phase(torch, dev, flush) -> dict:
+    """Moonlight-16B-A3B's path as its benchmark cell runs it (K3 at its
+    head dims, (192, 128), is phase 6's ``S4096-mla-192-128-bfloat16``
+    case). K6/K6b over a real dropless table: one row of TRAIN_SEQ tokens
+    drawn normal, routed by the preset's router and selection bias (an MoE
+    layer's weights from seed 0; ``moe.route_sigmoid``) and sorted by
+    ``ops.moe_dispatch`` into its fixed table (``dispatch_rows`` rows in
+    tiles of ``moe.TILE_M``, each expert's group padded with zero rows,
+    the spare tiles past the last group with id E, which K6 skips); the
+    gate and up product (D -> 2F) over that table, then the down product
+    (F -> D) over SiLU(gate) times up of its output, each in bf16 by
+    :func:`gmm_case` (phase 14's rule, control, zero checks and times),
+    with dy zero on the padding rows as the combine's gradient leaves it.
+    Then one train step of the cell's model (MOONLIGHT_TRAIN_LAYERS
+    layers at full width, TRAIN_MICRO microbatches of one row of
+    TRAIN_SEQ) through ``make_train_step``, every counter set to 0 just
+    before it: under remat "full" K3 forward twice and backward once a
+    layer and microbatch; K6 twice (two products) twice, K6b twice and the
+    dispatch twice an MoE layer and microbatch; AdamW one norm and one
+    update launch, every leaf through its kernels but the frozen selection
+    bias, none through the eager route; every other counter 0."""
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels import adamw as KA
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer
+    from repro_torch.models.module import FROZEN, ParamBuilder
+    from repro_torch.optim import AdamW
+    from repro_torch.port_configs import MOONLIGHT
+    from repro_torch.train.steps import make_train_step
+
+    F = torch.nn.functional
+    cfg = dataclasses.replace(MOONLIGHT, n_layers=MOONLIGHT_TRAIN_LAYERS)
+    E, D, F_, K, tm = (cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.top_k,
+                       MOE.TILE_M)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    pb = ParamBuilder(0, lambda path: torch.float32, dev)
+    MOE.init_moe_dropless(pb, cfg)
+    mp = pb.params["moe"]
+    x = torch.randn(TRAIN_SEQ, D, generator=gen, device=dev).bfloat16()
+    with torch.no_grad():
+        _, idx = MOE.route_sigmoid(mp, cfg, x)
+        table, te, slot, routed = ops.moe_dispatch(x, idx, n_experts=E,
+                                                   tile_m=tm)
+    rows, assignments = table.shape[0], TRAIN_SEQ * K
+    used = torch.zeros(rows, dtype=torch.bool, device=dev)
+    used[slot] = True
+    routed = routed.tolist()
+    spare = int((te == E).sum())
+    check(rows == ops.dispatch_rows(assignments, E, tm)
+          and sum(routed) == assignments and int(used.sum()) == assignments
+          and spare > 0, f"moonlight: a table of {rows} rows with "
+          f"{int(used.sum())} routed of {assignments} and {spare} spare "
+          f"tiles")
+    wi, wo = (mp[n].bfloat16() for n in ("wi", "wo"))
+    with torch.no_grad():
+        h = mg.gmm_fwd(table, wi, te, tm)
+        h = F.silu(h[:, :F_]) * h[:, F_:]
+    cases = {"fwd": [], "bwd": []}
+    for label, xin, w in (("dropless-wi", table, wi),
+                          ("dropless-wo", h, wo)):
+        dy = torch.randn(rows, w.shape[2], generator=gen,
+                         device=dev).bfloat16()
+        dy[~used] = 0
+        entries = gmm_case(torch, mg, flush, label, xin, w, dy, te, tm,
+                           reps=10)
+        for kind in cases:
+            cases[kind].append(entries[kind])
+        del dy
+    table_share = {"routed_rows": assignments, "table_rows": rows,
+                   "padding_rows_in_groups": rows - assignments - spare * tm,
+                   "spare_tiles": spare,
+                   "routed_share": assignments / rows,
+                   "load_max_over_mean": max(routed) / (sum(routed) / E)}
+    print(f"moonlight dropless table: {table_share}", flush=True)
+    del pb, mp, x, table, te, slot, used, h, wi, wo
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init(cfg, seed=0, device=dev, master=True)
+    paths = leaf_paths(params)
+    n_leaves = len(paths)
+    frozen = sum(path.rsplit("/", 1)[-1] in FROZEN for path in paths)
+    n_params = sum(t.numel() for t in flatten(params))
+    step, opt = make_train_step(cfg, TrainConfig(microbatches=TRAIN_MICRO))
+    state = opt.init(params)
+    tok = torch.randint(0, cfg.vocab_size, (TRAIN_MICRO, TRAIN_SEQ),
+                        generator=gen, device=dev)
+    batch = {"tokens": tok, "labels": tok}
+    counters = [getattr(ops, n) for n in KERNEL_COUNTERS]
+    for c in counters:
+        c.launches = 0
+    KA.adamw_sqnorm.launches = KA.adamw_update.launches = 0
+    AdamW.fused_leaves = AdamW.plain_leaves = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, metrics = step(params, state, batch)
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    step_s = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in counters}
+    adamw = {"sqnorm_launches": KA.adamw_sqnorm.launches,
+             "update_launches": KA.adamw_update.launches,
+             "fused_leaves": AdamW.fused_leaves,
+             "plain_leaves": AdamW.plain_leaves}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    Lall, Lm, mb = cfg.n_layers, cfg.n_moe_layers, TRAIN_MICRO
+    expected = {"flash_attention_fwd": 2 * Lall * mb,
+                "flash_attention_bwd": Lall * mb,
+                "gmm_fwd": 2 * 2 * Lm * mb, "gmm_bwd": 2 * Lm * mb,
+                "moe_dispatch": 2 * Lm * mb}
+    print(f"moonlight train step: {cfg.arch_id} full width, {Lall} layers "
+          f"({n_params / 1e9:.3f} B params, {n_leaves} leaves of which "
+          f"{frozen} frozen), {mb}x{TRAIN_SEQ} tokens in {mb} microbatches: "
+          f"loss {loss:.4f} grad_norm {gnorm:.4f} in {step_s:.2f} s (the "
+          f"first step) peak_mem={peak_gb:.2f} GB; launches={launches} "
+          f"adamw={adamw}", flush=True)
+    check(math.isfinite(loss) and math.isfinite(gnorm),
+          f"moonlight: loss {loss}, grad norm {gnorm}")
+    for name, n in launches.items():
+        check(n == expected.get(name, 0), f"moonlight train step: {name} "
+              f"launched {n} times, expected {expected.get(name, 0)}")
+    check(adamw == {"sqnorm_launches": 1, "update_launches": 1,
+                    "fused_leaves": n_leaves - frozen, "plain_leaves": 0},
+          f"moonlight train step: AdamW {adamw} over {n_leaves} leaves, "
+          f"{frozen} frozen")
+    del params, state, metrics, step, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.arch_id, "layers": Lall, "params": n_params,
+            "leaves": n_leaves, "frozen_leaves": frozen, "loss": loss,
+            "grad_norm": gnorm, "first_step_s": step_s,
+            "peak_mem_gb": peak_gb, "launches": launches, "adamw": adamw,
+            "gmm_cases": cases, "table": table_share, "routed": routed}
 
 
 # ------------------------------- phase 18: device-initiated syscalls ----
@@ -5863,6 +6032,14 @@ def run(torch) -> int:
         control_label="tile 1's expert id shifted in every expert product",
         pin_routing=True)
     mark("17b")
+    # phase 23: Moonlight-16B-A3B, the benchmark's MoE cell: K6/K6b over a
+    # dropless table, and one train step with its launches counted
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    moonlight = moonlight_phase(torch, dev, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("23")
     # phase 18: device-initiated syscalls, Genesys.invoke on the card
     invoke = invoke_phase(torch, dev, stamped_lib)
     mark("18")
@@ -6036,7 +6213,7 @@ def run(torch) -> int:
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
             "launches": train["launches"][name] + ztrain["launches"][name]
             + mtrain["launches"][name] + etrain["launches"][name]
-            + eserve["launches"][name]
+            + moonlight["launches"][name] + eserve["launches"][name]
             + tools["remat"]["dots"]["launches"][name]
             + examples["train_lm"]["launches"][name]
             + sum(torchrun[name] for torchrun in torchruns.values()),
@@ -6044,6 +6221,8 @@ def run(torch) -> int:
                                 zcfg.arch_id: ztrain["launches"][name],
                                 mcfg.arch_id: mtrain["launches"][name],
                                 scfg.arch_id: etrain["launches"][name],
+                                f"{moonlight['arch']}-step":
+                                    moonlight["launches"][name],
                                 f"{scfg.arch_id}-serve":
                                     eserve["launches"][name],
                                 f"{cfg.arch_id}-remat-dots":
@@ -6134,18 +6313,26 @@ def run(torch) -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
             "replaces": "src/repro/kernels/moe_gmm.py:40",
-            "launches": launched
+            "launches": launched + moonlight["launches"][name]
             + sum(torchrun[name] for torchrun in torchruns.values()),
             "launches_by_run": {
                 f"{mcfg.arch_id}-serve": mserve["launches"][name],
                 f"{mcfg.arch_id}-train": mtrain["launches"][name],
+                f"{moonlight['arch']}-step": moonlight["launches"][name],
                 **{run: torchrun[name] for run, torchrun
                    in torchruns.items()}},
+            # the dropless dispatch that sorts the step's tables (no
+            # kernel of its own: sort and gathers on the device)
+            "moe_dispatch_by_run": {
+                f"{moonlight['arch']}-step":
+                    moonlight["launches"]["moe_dispatch"]},
+            "dropless_table": moonlight["table"],
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "bound_f32_ms": case["bound_f32_ms"],
             "pass": True, "cases": gmm_cases[kind]
+            + moonlight["gmm_cases"][kind]
             + ([{"ragged": gmm_cases["ragged"]}] if kind == "fwd" else [])})
     # the device entry of Genesys.invoke: one blocking CLOCK_GETTIME at
     # work-group granularity, the device's round trip against the plain
@@ -6171,7 +6358,7 @@ def run(torch) -> int:
     # reference's update under jit, one XLA fusion a leaf. Each training
     # phase checked its own run's counters (train_path_phase).
     adamw_by_run = {t["arch"]: t["adamw"] for t in (
-        train, ztrain, rtrain, mtrain, etrain)}
+        train, ztrain, rtrain, mtrain, etrain, moonlight)}
     kernels.append({
         "name": "adamw", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/adamw.cu",
@@ -6194,7 +6381,9 @@ def run(torch) -> int:
         "train_path": train, "hybrid": {"train_path": ztrain,
                                          "serve": zserve},
         "ssm": {"train_path": rtrain, "serve": rserve},
-        "moe": {"serve": mserve, "train_path": mtrain},
+        "moe": {"serve": mserve, "train_path": mtrain,
+                "moonlight": {k: v for k, v in moonlight.items()
+                              if k != "gmm_cases"}},
         "invoke": invoke,
         "encdec": {"serve": eserve, "train_path": etrain},
         "tools": tools, "fig12": fig12, "examples": examples,

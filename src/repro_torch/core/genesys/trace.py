@@ -777,6 +777,7 @@ class SpanRecorder:
         self.tracer = tracer
         self.channel = tracer.channel(channel)
         self._held: list = []      # (sysno, id, end stamp, marks)
+        self._open: list = []      # ids of the open spans, innermost last
 
     @contextlib.contextmanager
     def span(self, name: str, marks=None):
@@ -786,6 +787,7 @@ class SpanRecorder:
         outer = current_recorder()
         _current.rec = self
         ch.rec(EV_SPAN_BEGIN, sysno, sid, parent)
+        self._open.append(sid)
         if marks is not None:
             marks.begin()
         try:
@@ -794,12 +796,32 @@ class SpanRecorder:
             if marks is not None:
                 marks.end()
             ts = time.perf_counter_ns()
+            self._open.remove(sid)
             tracer.set_span(parent)
             _current.rec = outer
             if marks is None:
                 ch.rec(EV_SPAN_END, sysno, sid, 0, ts=ts)
             else:
                 self._held.append((sysno, sid, ts, marks))
+
+    @contextlib.contextmanager
+    def adopted(self):
+        """The calling thread holds this recorder's innermost open span for
+        the block, so that the spans it opens nest there: for work that
+        the owner's open span waits on but another thread runs, as
+        autograd's backward runs a layer's recomputation. On the owner's
+        own thread it changes nothing."""
+        if current_recorder() is self or not self._open:
+            yield
+            return
+        outer, parent = current_recorder(), self.tracer.set_span(
+            self._open[-1])
+        _current.rec = self
+        try:
+            yield
+        finally:
+            self.tracer.set_span(parent)
+            _current.rec = outer
 
     def settle(self) -> None:
         """Record the held SPAN_ENDs with their marks' device ns."""

@@ -38,9 +38,9 @@ SIGNATURES = {
         [_ptr] * 11 + [_int] * 10 + [_f32, _f32, _int, _int, _ptr], _int),
     "kv_append_launch": ([_ptr] * 5 + [_int, _ll, _ll, _ptr], _int),
     "flash_attention_fwd_launch": (
-        [_ptr] * 6 + [_int] * 6 + [_f32, _int, _int, _ptr], _int),
+        [_ptr] * 6 + [_int] * 7 + [_f32, _int, _int, _ptr], _int),
     "flash_attention_bwd_launch": (
-        [_ptr] * 11 + [_int] * 7 + [_f32, _int, _int, _int, _int, _ptr],
+        [_ptr] * 11 + [_int] * 8 + [_f32, _int, _int, _int, _int, _ptr],
         _int),
     "mamba2_ssd_fwd_launch": ([_ptr] * 9 + [_int] * 8 + [_ptr], _int),
     "mamba2_ssd_bwd_launch": ([_ptr] * 17 + [_int] * 8 + [_ptr], _int),

@@ -91,7 +91,19 @@
 //     causal (`experiments/torch_ssd_compare.py --phase 6`, each pair in
 //     one call): K3a 0.0484 ms with 128-row CTAs against 0.0398 with 64-row
 //     ones, K3b 0.1365 against 0.1103. The forward keeps 128-key tiles
-//     (64-key ones were slower); dq and dk/dv keep 64 (kDqKeys, kDkvRows).
+//     (64-key ones were slower); dq and dk/dv keep 64 (dq_keys, dkv_rows).
+//   * (192, 128), latent attention (MLA): q and k 192 wide, v, o and do 128,
+//     so every kernel takes the query/key head dim DK apart from the value
+//     head dim DV (K and V tiles of their own widths; the score products
+//     over DK, or over DV for dP, the products over keys or rows into DV
+//     (o, dv) or DK (dq, dk) columns; no column of V is padded). A 192-wide
+//     row is three 64-column slabs. The forward runs as at hd 128 (64-key
+//     tiles: its accumulator is DV wide); dq and dk hold 64 x 192
+//     accumulators (96 registers a thread), so their streamed tiles are 32
+//     keys or rows (m64n32 score products), and dk/dv runs two passes, dv
+//     then dk, as at hd 128. Shared memory: 128 KB (forward), 120 KB (dq),
+//     122 KB (dk/dv) of the 227 KB a block may take. One query head a KV
+//     head only (MLA decompresses a key and a value for every head).
 //   * f32 runs its products on the tensor cores too, as split TF32 on
 //     mma.sync (fa_fwd_tf32, fa_dq_tf32, fa_dkv_tf32 over tf32_tiles.cuh;
 //     their section below), but for dq's dP where p >= 1/32, summed again
@@ -122,13 +134,23 @@ __device__ __forceinline__ bool keep(int key, int row, int Skv, int causal) {
 // ---- bf16: wgmma + TMA, warp-specialised ------------------------------------
 
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg
-// dq: keys per streamed tile; dk/dv: query rows per streamed tile. 64 at
-// every head dim: at hd 32, 128 (S beside dP at 64 registers each) spilled
-// 96 and 288 bytes under the 168 registers ptxas gave a consumer of a
-// 128-row CTA, and dk/dv ran 1.6x slower than at 64
-constexpr int kDqKeys = 64;
-constexpr int kDkvRows = 64;
 constexpr int kStages = 2;       // ring depth of every streamed operand
+
+// dq: keys per streamed tile; dk/dv: query rows per streamed tile, by the
+// query/key head dim DK. 64 up to 128: at hd 32, 128 (S beside dP at 64
+// registers each) spilled 96 and 288 bytes under the 168 registers ptxas
+// gave a consumer of a 128-row CTA, and dk/dv ran 1.6x slower than at 64.
+// 32 at DK 192 (MLA), where dq's and dk's 64 x 192 accumulators are 96
+// registers a thread: beside S and dP of 64 columns (64 registers) and
+// dS's fragments they would pass the 168, beside 32 columns they do not.
+template <int DK>
+__host__ __device__ constexpr int dq_keys() {
+  return DK > 128 ? 32 : 64;
+}
+template <int DK>
+__host__ __device__ constexpr int dkv_rows() {
+  return DK > 128 ? 32 : 64;
+}
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
 // Columns of an hd-wide bf16 row as shared-memory slabs (hopper_common.cuh):
@@ -139,7 +161,7 @@ struct Cols {
   static constexpr int kFull = HD / 64;
   static constexpr int kTails = HD % 64 / 16;
   static_assert(HD % 64 == 0 || HD == 80 || HD == 32,
-                "head_dim 32, 64, 80 or 128");
+                "head_dim 32, 64, 80, 128 or 192");
 };
 
 // Consumer warpgroups a CTA, each owning 64 rows: query rows in the
@@ -163,10 +185,11 @@ __host__ __device__ constexpr int cta_threads() {
 
 // forward: keys per streamed tile. 64 at hd 128, where a 128-key score
 // tile (64 registers a thread) beside the 64 x 128 accumulator made ptxas
-// spill and serialise the wgmmas; 128, the widest score product, elsewhere.
-template <int HD>
+// spill and serialise the wgmmas, and so at (192, 128), whose accumulator
+// is as wide; 128, the widest score product, elsewhere.
+template <int DK>
 __host__ __device__ constexpr int fwd_keys() {
-  return HD == 128 ? 64 : 128;
+  return DK >= 128 ? 64 : 128;
 }
 
 
@@ -291,7 +314,7 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* m,
 }
 
 // d = A B^T over hd: A is rows [a_row0, a_row0 + 64) of an RA-row tile, B
-// the whole N-row tile, both K-major (hd is the depth). N = 64 or 128.
+// the whole N-row tile, both K-major (hd is the depth). N = 32, 64 or 128.
 template <int HD, int RA, int N>
 __device__ __forceinline__ void mma_rows(float (&d)[N / 2],
                                          const uint8_t* a_tile, int a_row0,
@@ -312,8 +335,10 @@ __device__ __forceinline__ void mma_rows(float (&d)[N / 2],
     }
     if constexpr (N == 128)
       wgmma_ss_n128(d, da, db, k > 0);
-    else
+    else if constexpr (N == 64)
       wgmma_ss_n64(d, da, db, k > 0);
+    else
+      wgmma_ss_n32(d, da, db, k > 0);
   }
 }
 
@@ -410,7 +435,8 @@ struct TileMaps {
 
 // ---- forward ----------------------------------------------------------------
 
-// One CTA: query rows [q0, q0 + 128) of head h of batch row b. The
+// One CTA: query rows [q0, q0 + 128) of head h of batch row b, q and k
+// DK wide, v and o DV wide. The
 // producer warpgroup's thread loads the Q tile once and streams K and V
 // tiles (fwd_keys) through a ring of kStages stages (full/empty mbarriers;
 // K and V on separate full barriers, so S = Q K^T starts before V has
@@ -421,21 +447,22 @@ struct TileMaps {
 // into A fragments in registers, and O += P V on wgmma with V read
 // MN-major. Only tiles that cross the diagonal or the end of the keys are
 // masked; key tiles past the diagonal are not loaded.
-template <int HD>
-__global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
+template <int DK, int DV>
+__global__ void __launch_bounds__(cta_threads<DK>(), 3 - consumers<DK>())
     fa_fwd_wgmma(const __grid_constant__ TileMaps tq,
                  const __grid_constant__ TileMaps tk,
                  const __grid_constant__ TileMaps tv, bf16* __restrict__ o,
                  float* __restrict__ o32, float* __restrict__ lse, int H,
                  int KV, int Sq, int Skv, float scale_log2, int causal) {
-  constexpr int kCons = consumers<HD>(), kQRows = 64 * kCons;
-  constexpr int kFwdKeys = fwd_keys<HD>();
-  constexpr int QB = tile_bytes<HD, kQRows>(), KB = tile_bytes<HD, kFwdKeys>();
+  constexpr int kCons = consumers<DK>(), kQRows = 64 * kCons;
+  constexpr int kFwdKeys = fwd_keys<DK>();
+  constexpr int QB = tile_bytes<DK, kQRows>(), KB = tile_bytes<DK, kFwdKeys>(),
+                VB = tile_bytes<DV, kFwdKeys>();
   extern __shared__ uint8_t fa_smem[];
   uint8_t* sq = align_1024(fa_smem);
   uint8_t* sk = sq + QB;
   uint8_t* sv = sk + kStages * KB;
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sv + kStages * KB);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sv + kStages * VB);
   uint64_t* full_k = bar_q + 1;
   uint64_t* full_v = full_k + kStages;
   uint64_t* empty = full_v + kStages;
@@ -464,15 +491,15 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
     if constexpr (kCons == 2) regs_dealloc<kProducerRegs>();
     if (threadIdx.x == 128 * kCons) {
       mbar_expect_tx(bar_q, QB);
-      load_tile<HD, kQRows>(sq, &tq.m, &tq.tail, bar_q, h, q0, b);
+      load_tile<DK, kQRows>(sq, &tq.m, &tq.tail, bar_q, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(&full_k[st], KB);
-        load_tile<HD, kFwdKeys>(sk + st * KB, &tk.m, &tk.tail, &full_k[st],
+        load_tile<DK, kFwdKeys>(sk + st * KB, &tk.m, &tk.tail, &full_k[st],
                                 kvh, t * kFwdKeys, b);
-        mbar_expect_tx(&full_v[st], KB);
-        load_tile<HD, kFwdKeys>(sv + st * KB, &tv.m, &tv.tail, &full_v[st],
+        mbar_expect_tx(&full_v[st], VB);
+        load_tile<DV, kFwdKeys>(sv + st * VB, &tv.m, &tv.tail, &full_v[st],
                                 kvh, t * kFwdKeys, b);
       }
     }
@@ -483,7 +510,7 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
               tig = lane % 4;
     const int wg_row0 = q0 + 64 * cw;
     const int r_lo = wg_row0 + 16 * warp + gid, r_hi = r_lo + 8;
-    AccHD<HD> acc;
+    AccHD<DV> acc;
     zero(acc);
     float m_lo = -CUDART_INF_F, m_hi = -CUDART_INF_F, l_lo = 0.f, l_hi = 0.f;
     mbar_wait(bar_q, 0);
@@ -494,7 +521,7 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
       float s[kFwdKeys / 2];
       mbar_wait(&full_k[st], par);
       wgmma_fence();
-      mma_rows<HD, kQRows, kFwdKeys>(s, sq, 64 * cw, sk + st * KB);
+      mma_rows<DK, kQRows, kFwdKeys>(s, sq, 64 * cw, sk + st * KB);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -537,7 +564,7 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
       to_frags(pf, s);
       mbar_wait(&full_v[st], par);
       wgmma_fence();
-      mma_cols<HD, kFwdKeys>(acc, pf, sv + st * KB);
+      mma_cols<DV, kFwdKeys>(acc, pf, sv + st * VB);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(acc);
@@ -549,12 +576,12 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
       l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
     }
     const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
-    const size_t ld = (size_t)H * HD;
-    const size_t row = ((size_t)b * Sq + r_lo) * ld + (size_t)h * HD;
-    store_rows<HD>(o + row, ld, acc, r_lo < Sq, r_hi < Sq, 1.f / d_lo,
+    const size_t ld = (size_t)H * DV;
+    const size_t row = ((size_t)b * Sq + r_lo) * ld + (size_t)h * DV;
+    store_rows<DV>(o + row, ld, acc, r_lo < Sq, r_hi < Sq, 1.f / d_lo,
                    1.f / d_hi, tig);
     if (o32 != nullptr)      // the same values before rounding (see fa_delta)
-      store_rows<HD>(o32 + row, ld, acc, r_lo < Sq, r_hi < Sq, 1.f / d_lo,
+      store_rows<DV>(o32 + row, ld, acc, r_lo < Sq, r_hi < Sq, 1.f / d_lo,
                      1.f / d_hi, tig);
     if (tig == 0) {
       float* lb = lse + ((size_t)b * H + h) * Sq;
@@ -617,12 +644,12 @@ __global__ void __launch_bounds__(256) fa_delta(
 }
 
 // One CTA: query rows [q0, q0 + 128) of head h, as in the forward; Q and dO
-// are loaded once, 64-key K and V tiles stream through the ring. Per tile,
+// are loaded once, K and V tiles of dq_keys stream through the ring. Per tile,
 // in each consumer warpgroup's 64 rows: S = Q K^T and dP = dO V^T (wgmma,
 // shared memory), p = exp2(S scale log2 e - lse2), dS = p (dP - delta)
 // scale rounded to bf16 once, dq += dS K with the same K tile read MN-major.
-template <int HD>
-__global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
+template <int DK, int DV>
+__global__ void __launch_bounds__(cta_threads<DK>(), 3 - consumers<DK>())
     fa_dq_wgmma(const __grid_constant__ TileMaps tq,
                 const __grid_constant__ TileMaps tdo,
                 const __grid_constant__ TileMaps tk,
@@ -631,14 +658,16 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
                 const float* __restrict__ delta, bf16* __restrict__ dq, int H,
                 int KV, int Sq, int Skv, int pitch, float scale,
                 float scale_log2, int causal) {
-  constexpr int kCons = consumers<HD>(), kQRows = 64 * kCons;
-  constexpr int QB = tile_bytes<HD, kQRows>(), KB = tile_bytes<HD, kDqKeys>();
+  constexpr int kCons = consumers<DK>(), kQRows = 64 * kCons;
+  constexpr int kDqKeys = dq_keys<DK>();
+  constexpr int QB = tile_bytes<DK, kQRows>(), OB = tile_bytes<DV, kQRows>(),
+                KB = tile_bytes<DK, kDqKeys>(), VB = tile_bytes<DV, kDqKeys>();
   extern __shared__ uint8_t fa_smem[];
   uint8_t* sq = align_1024(fa_smem);
   uint8_t* sdo = sq + QB;
-  uint8_t* sk = sdo + QB;
+  uint8_t* sk = sdo + OB;
   uint8_t* sv = sk + kStages * KB;
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sv + kStages * KB);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sv + kStages * VB);
   uint64_t* full_k = bar_q + 1;
   uint64_t* full_v = full_k + kStages;
   uint64_t* empty = full_v + kStages;
@@ -666,17 +695,17 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
   if (wg == kCons) {
     if constexpr (kCons == 2) regs_dealloc<kProducerRegs>();
     if (threadIdx.x == 128 * kCons) {
-      mbar_expect_tx(bar_q, 2 * QB);
-      load_tile<HD, kQRows>(sq, &tq.m, &tq.tail, bar_q, h, q0, b);
-      load_tile<HD, kQRows>(sdo, &tdo.m, &tdo.tail, bar_q, h, q0, b);
+      mbar_expect_tx(bar_q, QB + OB);
+      load_tile<DK, kQRows>(sq, &tq.m, &tq.tail, bar_q, h, q0, b);
+      load_tile<DV, kQRows>(sdo, &tdo.m, &tdo.tail, bar_q, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(&full_k[st], KB);
-        load_tile<HD, kDqKeys>(sk + st * KB, &tk.m, &tk.tail, &full_k[st],
+        load_tile<DK, kDqKeys>(sk + st * KB, &tk.m, &tk.tail, &full_k[st],
                                kvh, t * kDqKeys, b);
-        mbar_expect_tx(&full_v[st], KB);
-        load_tile<HD, kDqKeys>(sv + st * KB, &tv.m, &tv.tail, &full_v[st],
+        mbar_expect_tx(&full_v[st], VB);
+        load_tile<DV, kDqKeys>(sv + st * VB, &tv.m, &tv.tail, &full_v[st],
                                kvh, t * kDqKeys, b);
       }
     }
@@ -692,7 +721,7 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
     // delta * scale: dS = p (dP - delta) scale = p fma(dP, scale, -delta scale)
     const float dls_lo = delta[srow + r_lo] * scale,
                 dls_hi = delta[srow + r_hi] * scale;
-    AccHD<HD> acc;
+    AccHD<DK> acc;
     zero(acc);
     mbar_wait(bar_q, 0);
     for (int t = 0; t < n_tiles; ++t) {
@@ -702,10 +731,10 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
       float s[kDqKeys / 2], dp[kDqKeys / 2];
       mbar_wait(&full_k[st], par);
       wgmma_fence();
-      mma_rows<HD, kQRows, kDqKeys>(s, sq, 64 * cw, sk + st * KB);
+      mma_rows<DK, kQRows, kDqKeys>(s, sq, 64 * cw, sk + st * KB);
       mbar_wait(&full_v[st], par);
       wgmma_fence();
-      mma_rows<HD, kQRows, kDqKeys>(dp, sdo, 64 * cw, sv + st * KB);
+      mma_rows<DV, kQRows, kDqKeys>(dp, sdo, 64 * cw, sv + st * VB);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -725,14 +754,14 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
       uint32_t dsf[kDqKeys / 16][4];
       to_frags(dsf, s);
       wgmma_fence();
-      mma_cols<HD, kDqKeys>(acc, dsf, sk + st * KB);
+      mma_cols<DK, kDqKeys>(acc, dsf, sk + st * KB);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(acc);
       mbar_arrive(&empty[st]);
     }
-    const size_t ld = (size_t)H * HD;
-    store_rows<HD>(dq + ((size_t)b * Sq + r_lo) * ld + (size_t)h * HD, ld,
+    const size_t ld = (size_t)H * DK;
+    store_rows<DK>(dq + ((size_t)b * Sq + r_lo) * ld + (size_t)h * DK, ld,
                    acc, r_lo < Sq, r_hi < Sq, 1.f, 1.f, tig);
   }
 }
@@ -744,8 +773,16 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
 // dO^T (wgmma, shared memory), p = exp2(S^T scale log2 e - lse2), dS^T = p
 // (dP^T - delta) scale; p and dS are rounded to bf16 once and multiply the
 // dO and Q tiles read MN-major.
-template <int HD, int KR, bool kDv, bool kDk>
-__device__ __forceinline__ void dkv_pass(AccHD<HD>& dva, AccHD<HD>& dka,
+template <int DK, int DV>
+struct DkvStage {  // a ring stage of dk/dv: Q, dO, then lse2 and delta
+  static constexpr int kRows = dkv_rows<DK>();
+  static constexpr int QB = tile_bytes<DK, kRows>(),
+                       OB = tile_bytes<DV, kRows>();
+  static constexpr int kStats = QB + OB, kBytes = kStats + 1024;
+};
+
+template <int DK, int DV, int KR, bool kDv, bool kDk>
+__device__ __forceinline__ void dkv_pass(AccHD<DV>& dva, AccHD<DK>& dka,
                                          const uint8_t* sk,
                                          const uint8_t* sv,
                                          const uint8_t* ring, uint64_t* full,
@@ -753,20 +790,22 @@ __device__ __forceinline__ void dkv_pass(AccHD<HD>& dva, AccHD<HD>& dka,
                                          int i_begin, int wg_row0, int key_lo,
                                          int tig, float scale,
                                          float scale_log2, int causal) {
-  constexpr int QB = tile_bytes<HD, kDkvRows>(), kStage = 2 * QB + 1024;
+  using St = DkvStage<DK, DV>;
+  constexpr int kDkvRows = St::kRows;
   if (kDv) zero(dva);
   if (kDk) zero(dka);
   for (int t = 0; t < n; ++t) {
     const int u = u0 + t, st = u % kStages;
     const int i0 = i_begin + t * kDkvRows;
-    const uint8_t* stage = ring + st * kStage;
-    const float* sl2 = reinterpret_cast<const float*>(stage + 2 * QB);
-    const float* sdl = reinterpret_cast<const float*>(stage + 2 * QB + 512);
+    const uint8_t* stage = ring + st * St::kBytes;
+    const float* sl2 = reinterpret_cast<const float*>(stage + St::kStats);
+    const float* sdl =
+        reinterpret_cast<const float*>(stage + St::kStats + 512);
     float s[kDkvRows / 2], dp[kDkvRows / 2];
     mbar_wait(&full[st], (u / kStages) & 1);
     wgmma_fence();
-    mma_rows<HD, KR, kDkvRows>(s, sk, wg_row0, stage);
-    if (kDk) mma_rows<HD, KR, kDkvRows>(dp, sv, wg_row0, stage + QB);
+    mma_rows<DK, KR, kDkvRows>(s, sk, wg_row0, stage);
+    if (kDk) mma_rows<DV, KR, kDkvRows>(dp, sv, wg_row0, stage + St::QB);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -785,8 +824,8 @@ __device__ __forceinline__ void dkv_pass(AccHD<HD>& dva, AccHD<HD>& dka,
     if (kDv) to_frags(pf, s);
     if (kDk) to_frags(dsf, dp);
     wgmma_fence();
-    if (kDv) mma_cols<HD, kDkvRows>(dva, pf, stage + QB);
-    if (kDk) mma_cols<HD, kDkvRows>(dka, dsf, stage);
+    if (kDv) mma_cols<DV, kDkvRows>(dva, pf, stage + St::QB);
+    if (kDk) mma_cols<DK, kDkvRows>(dka, dsf, stage);
     wgmma_commit();
     wgmma_wait<0>();
     if (kDv) fence_acc(dva);
@@ -817,22 +856,23 @@ __device__ __forceinline__ void store_dkv(bf16* out, float* partial,
 
 // One CTA: keys [k0, k0 + 128) of KV head h / G against query head h of
 // batch row b (H x Skv / 128 CTAs, not KV x ...: the G heads of a KV head
-// run in parallel). K and V are loaded once; 64-row tiles of Q, dO, lse2
-// and delta of head h stream through the ring. Consumer warpgroup w owns
+// run in parallel). K and V are loaded once; tiles of dkv_rows rows of Q,
+// dO, lse2 and delta of head h stream through the ring. Consumer warpgroup w owns
 // keys k0 + 64 w .. + 64 (dkv_pass). At hd 32, 64 and 80 it
 // accumulates dk and dv together in one pass over the tiles (four
 // products). At hd 128 two
 // 64 x 128 accumulators beside S^T and dP^T are more registers than ptxas
 // gave a consumer (it spilled 772 bytes and serialised the wgmmas), so the
 // tiles stream twice: dv in the first pass, dk in the second, one product
-// more (S^T twice) for one accumulator at a time. Causal: query tiles
+// more (S^T twice) for one accumulator at a time; so at (192, 128), whose
+// 64 x 192 dk accumulator alone is 96 registers. Causal: query tiles
 // before k0 are skipped; grid z is the key tile, so the CTAs with the most
 // query tiles (k0 = 0) start first. With G = 1 the CTA writes bf16 dk and
 // dv; with G > 1 it writes its head's f32 partials [B, Skv, H, hd], summed
 // over the G heads in a fixed order by fa_dkv_reduce (no atomics: two calls
 // give the same bits).
-template <int HD>
-__global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
+template <int DK, int DV>
+__global__ void __launch_bounds__(cta_threads<DK>(), 3 - consumers<DK>())
     fa_dkv_wgmma(const __grid_constant__ TileMaps tk,
                  const __grid_constant__ TileMaps tv,
                  const __grid_constant__ TileMaps tq,
@@ -843,19 +883,20 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
                  float* __restrict__ dkp, float* __restrict__ dvp, int H,
                  int KV, int Sq, int Skv, float scale, float scale_log2,
                  int causal) {
-  constexpr int kCons = consumers<HD>(), kKRows = 64 * kCons;
-  constexpr int KB = tile_bytes<HD, kKRows>(),
-                QB = tile_bytes<HD, kDkvRows>();
-  constexpr int kStage = 2 * QB + 1024;  // Q, dO, then lse2 and delta
+  using St = DkvStage<DK, DV>;
+  constexpr int kCons = consumers<DK>(), kKRows = 64 * kCons;
+  constexpr int kDkvRows = St::kRows;
+  constexpr int KB = tile_bytes<DK, kKRows>(), VB = tile_bytes<DV, kKRows>();
   extern __shared__ uint8_t fa_smem[];
   uint8_t* sk = align_1024(fa_smem);
   uint8_t* sv = sk + KB;
-  uint8_t* ring = sv + KB;
-  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  uint8_t* ring = sv + VB;
+  uint64_t* bar_kv =
+      reinterpret_cast<uint64_t*>(ring + kStages * St::kBytes);
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + kStages;
 
-  constexpr int kPasses = HD == 128 ? 2 : 1;  // see above
+  constexpr int kPasses = DK == 128 || DK != DV ? 2 : 1;  // see above
   const int k0 = blockIdx.z * kKRows;
   const int h = blockIdx.x, b = blockIdx.y, kvh = h / (H / KV);
   const int i_begin = causal ? k0 : 0;  // query rows < k0 see none
@@ -878,20 +919,21 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
   if (wg == kCons) {
     if constexpr (kCons == 2) regs_dealloc<kProducerRegs>();
     if (threadIdx.x == 128 * kCons) {
-      mbar_expect_tx(bar_kv, 2 * KB);
-      load_tile<HD, kKRows>(sk, &tk.m, &tk.tail, bar_kv, kvh, k0, b);
-      load_tile<HD, kKRows>(sv, &tv.m, &tv.tail, bar_kv, kvh, k0, b);
+      mbar_expect_tx(bar_kv, KB + VB);
+      load_tile<DK, kKRows>(sk, &tk.m, &tk.tail, bar_kv, kvh, k0, b);
+      load_tile<DV, kKRows>(sv, &tv.m, &tv.tail, bar_kv, kvh, k0, b);
       for (int u = 0; u < kPasses * n_tiles; ++u) {  // once per pass
         const int st = u % kStages;
         const int i0 = i_begin + (u % n_tiles) * kDkvRows;
         if (u >= kStages) mbar_wait(&empty[st], ((u / kStages) & 1) ^ 1);
-        uint8_t* stage = ring + st * kStage;
-        mbar_expect_tx(&full[st], 2 * QB + 2 * kDkvRows * 4);
-        load_tile<HD, kDkvRows>(stage, &tq.m, &tq.tail, &full[st], h, i0, b);
-        load_tile<HD, kDkvRows>(stage + QB, &tdo.m, &tdo.tail, &full[st], h,
-                                i0, b);
-        tma_load_2d(stage + 2 * QB, &tlse2, &full[st], i0, b * H + h);
-        tma_load_2d(stage + 2 * QB + 512, &tdelta, &full[st], i0, b * H + h);
+        uint8_t* stage = ring + st * St::kBytes;
+        mbar_expect_tx(&full[st], St::kStats + 2 * kDkvRows * 4);
+        load_tile<DK, kDkvRows>(stage, &tq.m, &tq.tail, &full[st], h, i0, b);
+        load_tile<DV, kDkvRows>(stage + St::QB, &tdo.m, &tdo.tail, &full[st],
+                                h, i0, b);
+        tma_load_2d(stage + St::kStats, &tlse2, &full[st], i0, b * H + h);
+        tma_load_2d(stage + St::kStats + 512, &tdelta, &full[st], i0,
+                    b * H + h);
       }
     }
   } else {
@@ -901,22 +943,25 @@ __global__ void __launch_bounds__(cta_threads<HD>(), 3 - consumers<HD>())
               tig = lane % 4;
     const int key_lo = k0 + 64 * wg + 16 * warp + gid;
     mbar_wait(bar_kv, 0);
-    AccHD<HD> dva, dka;
+    AccHD<DV> dva;
+    AccHD<DK> dka;
     if (kPasses == 1)
-      dkv_pass<HD, kKRows, true, true>(dva, dka, sk, sv, ring, full, empty,
-                                       0, n_tiles, i_begin, 64 * wg, key_lo,
-                                       tig, scale, scale_log2, causal);
+      dkv_pass<DK, DV, kKRows, true, true>(dva, dka, sk, sv, ring, full,
+                                           empty, 0, n_tiles, i_begin,
+                                           64 * wg, key_lo, tig, scale,
+                                           scale_log2, causal);
     else
-      dkv_pass<HD, kKRows, true, false>(dva, dka, sk, sv, ring, full, empty,
-                                        0, n_tiles, i_begin, 64 * wg, key_lo,
-                                        tig, scale, scale_log2, causal);
-    store_dkv<HD>(dv, dvp, dva, b, key_lo, h, H, KV, Skv, tig);
+      dkv_pass<DK, DV, kKRows, true, false>(dva, dka, sk, sv, ring, full,
+                                            empty, 0, n_tiles, i_begin,
+                                            64 * wg, key_lo, tig, scale,
+                                            scale_log2, causal);
+    store_dkv<DV>(dv, dvp, dva, b, key_lo, h, H, KV, Skv, tig);
     if (kPasses == 2)
-      dkv_pass<HD, kKRows, false, true>(dva, dka, sk, sv, ring, full, empty,
-                                        n_tiles, n_tiles, i_begin, 64 * wg,
-                                        key_lo, tig, scale, scale_log2,
-                                        causal);
-    store_dkv<HD>(dk, dkp, dka, b, key_lo, h, H, KV, Skv, tig);
+      dkv_pass<DK, DV, kKRows, false, true>(dva, dka, sk, sv, ring, full,
+                                            empty, n_tiles, n_tiles, i_begin,
+                                            64 * wg, key_lo, tig, scale,
+                                            scale_log2, causal);
+    store_dkv<DK>(dk, dkp, dka, b, key_lo, h, H, KV, Skv, tig);
   }
 }
 
@@ -1567,10 +1612,14 @@ __global__ void __launch_bounds__(32 * tf_bwd_warps<HD>(),
   tf_store<HD>(dv + out, (size_t)H * HD, dva, key0, Skv, 1.f, 1.f);
 }
 
-bool fa_args_ok(int B, int H, int KV, int Sq, int Skv, int hd, int causal,
-                int dtype) {
-  return B > 0 && KV > 0 && H % KV == 0 && Sq > 0 && Skv > 0 &&
-         (hd == 32 || hd == 64 || hd == 80 || hd == 128) &&
+// Head dims: equal at 32, 64, 80 or 128; or MLA's query/key 192 and value
+// 128, in bf16 with one query head a KV head.
+bool fa_args_ok(int B, int H, int KV, int Sq, int Skv, int hd, int hdv,
+                int causal, int dtype) {
+  const bool dims =
+      hdv == hd ? (hd == 32 || hd == 64 || hd == 80 || hd == 128)
+                : hd == 192 && hdv == 128 && dtype == kBF16 && H == KV;
+  return B > 0 && KV > 0 && H % KV == 0 && Sq > 0 && Skv > 0 && dims &&
          (dtype == kF32 || dtype == kBF16) &&
          (!causal || Sq == Skv) && B <= 65535 && H <= 65535;
 }
@@ -1617,36 +1666,39 @@ int fwd_tf32(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 // The bf16 forward on wgmma.
-template <int HD>
+template <int DK, int DV>
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o,
               float* o32, float* lse, int B, int H, int KV, int Sq, int Skv,
               float scale, int causal, cudaStream_t st) {
-  constexpr int kQRows = 64 * consumers<HD>();
+  constexpr int kQRows = 64 * consumers<DK>(), kKeys = fwd_keys<DK>();
   TileMaps tq, tk, tv;
-  cudaError_t e = tile_maps(&tq, q, B, Sq, H, HD, kQRows);
-  if (e == cudaSuccess) e = tile_maps(&tk, k, B, Skv, KV, HD, fwd_keys<HD>());
-  if (e == cudaSuccess) e = tile_maps(&tv, v, B, Skv, KV, HD, fwd_keys<HD>());
-  const int smem = 1024 + tile_bytes<HD, kQRows>() +
-                   2 * kStages * tile_bytes<HD, fwd_keys<HD>()>() +
+  cudaError_t e = tile_maps(&tq, q, B, Sq, H, DK, kQRows);
+  if (e == cudaSuccess) e = tile_maps(&tk, k, B, Skv, KV, DK, kKeys);
+  if (e == cudaSuccess) e = tile_maps(&tv, v, B, Skv, KV, DV, kKeys);
+  const int smem = 1024 + tile_bytes<DK, kQRows>() +
+                   kStages * (tile_bytes<DK, kKeys>() +
+                              tile_bytes<DV, kKeys>()) +
                    8 * (1 + 3 * kStages);
-  if (e == cudaSuccess) e = opt_in_smem(fa_fwd_wgmma<HD>, smem);
+  if (e == cudaSuccess) e = opt_in_smem(fa_fwd_wgmma<DK, DV>, smem);
   if (e != cudaSuccess) return e;
-  fa_fwd_wgmma<HD><<<dim3(H, B, cdiv(Sq, kQRows)), cta_threads<HD>(), smem,
-                     st>>>(
+  fa_fwd_wgmma<DK, DV><<<dim3(H, B, cdiv(Sq, kQRows)), cta_threads<DK>(),
+                         smem, st>>>(
       tq, tk, tv, static_cast<bf16*>(o), o32, lse, H, KV, Sq, Skv,
       scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* o32, float* lse, int B, int H, int KV, int Sq, int Skv,
                float scale, int causal, int dtype, cudaStream_t st) {
-  if (dtype == kF32)
-    return fwd_tf32<HD>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal,
-                        st);
-  return fwd_wgmma<HD>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale, causal,
-                       st);
+  if constexpr (DK == DV) {
+    if (dtype == kF32)
+      return fwd_tf32<DK>(q, k, v, o, lse, B, H, KV, Sq, Skv, scale, causal,
+                          st);
+  }
+  return fwd_wgmma<DK, DV>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
+                           causal, st);
 }
 
 // dq (parts & 2) and dk/dv (parts & 4) in f32, split TF32 on mma.sync;
@@ -1693,67 +1745,71 @@ int bwd_tf32(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-// dq and dk/dv in bf16 on wgmma, after fa_delta.
-template <int HD>
+// dq and dk/dv in bf16 on wgmma, after fa_delta. With G > 1 (DK == DV),
+// each query head's dk and dv go to the partials, summed by fa_dkv_reduce.
+template <int DK, int DV>
 int bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
               const float* lse2, const float* delta, float* partial, void* dq,
               void* dk, void* dv, int B, int H, int KV, int Sq, int Skv,
               int pitch, float scale, int causal, int parts,
               cudaStream_t st) {
-  constexpr int kRows = 64 * consumers<HD>();  // dq: queries, dk/dv: keys
+  constexpr int kRows = 64 * consumers<DK>();  // dq: queries, dk/dv: keys
   if (parts & 2) {
+    constexpr int kKeys = dq_keys<DK>();
     TileMaps tq, tdo, tk, tv;
-    cudaError_t e = tile_maps(&tq, q, B, Sq, H, HD, kRows);
-    if (e == cudaSuccess) e = tile_maps(&tdo, dout, B, Sq, H, HD, kRows);
-    if (e == cudaSuccess) e = tile_maps(&tk, k, B, Skv, KV, HD, kDqKeys);
-    if (e == cudaSuccess) e = tile_maps(&tv, v, B, Skv, KV, HD, kDqKeys);
-    const int smem = 1024 + 2 * tile_bytes<HD, kRows>() +
-                     2 * kStages * tile_bytes<HD, kDqKeys>() +
+    cudaError_t e = tile_maps(&tq, q, B, Sq, H, DK, kRows);
+    if (e == cudaSuccess) e = tile_maps(&tdo, dout, B, Sq, H, DV, kRows);
+    if (e == cudaSuccess) e = tile_maps(&tk, k, B, Skv, KV, DK, kKeys);
+    if (e == cudaSuccess) e = tile_maps(&tv, v, B, Skv, KV, DV, kKeys);
+    const int smem = 1024 + tile_bytes<DK, kRows>() + tile_bytes<DV, kRows>() +
+                     kStages * (tile_bytes<DK, kKeys>() +
+                                tile_bytes<DV, kKeys>()) +
                      8 * (1 + 3 * kStages);
-    if (e == cudaSuccess) e = opt_in_smem(fa_dq_wgmma<HD>, smem);
+    if (e == cudaSuccess) e = opt_in_smem(fa_dq_wgmma<DK, DV>, smem);
     if (e != cudaSuccess) return e;
-    fa_dq_wgmma<HD><<<dim3(H, B, cdiv(Sq, kRows)), cta_threads<HD>(), smem,
-                      st>>>(
+    fa_dq_wgmma<DK, DV><<<dim3(H, B, cdiv(Sq, kRows)), cta_threads<DK>(),
+                          smem, st>>>(
         tq, tdo, tk, tv, lse2, delta, static_cast<bf16*>(dq), H, KV, Sq, Skv,
         pitch, scale, scale * kLog2e, causal);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   if (parts & 4) {
+    using Stage = DkvStage<DK, DV>;
     const int G = H / KV;
     float* dkp = partial;
-    float* dvp = G > 1 ? partial + (size_t)B * Skv * H * HD : nullptr;
+    float* dvp = G > 1 ? partial + (size_t)B * Skv * H * DK : nullptr;
     TileMaps tk, tv, tq, tdo;
     CUtensorMap tl, td;
-    cudaError_t e = tile_maps(&tk, k, B, Skv, KV, HD, kRows);
-    if (e == cudaSuccess) e = tile_maps(&tv, v, B, Skv, KV, HD, kRows);
-    if (e == cudaSuccess) e = tile_maps(&tq, q, B, Sq, H, HD, kDkvRows);
-    if (e == cudaSuccess) e = tile_maps(&tdo, dout, B, Sq, H, HD, kDkvRows);
+    cudaError_t e = tile_maps(&tk, k, B, Skv, KV, DK, kRows);
+    if (e == cudaSuccess) e = tile_maps(&tv, v, B, Skv, KV, DV, kRows);
+    if (e == cudaSuccess) e = tile_maps(&tq, q, B, Sq, H, DK, Stage::kRows);
     if (e == cudaSuccess)
-      e = encode_f32_rows_map(&tl, lse2, B * H, pitch, kDkvRows);
+      e = tile_maps(&tdo, dout, B, Sq, H, DV, Stage::kRows);
     if (e == cudaSuccess)
-      e = encode_f32_rows_map(&td, delta, B * H, pitch, kDkvRows);
-    const int smem = 1024 + 2 * tile_bytes<HD, kRows>() +
-                     kStages * (2 * tile_bytes<HD, kDkvRows>() + 1024) +
-                     8 * (1 + 2 * kStages);
-    if (e == cudaSuccess) e = opt_in_smem(fa_dkv_wgmma<HD>, smem);
+      e = encode_f32_rows_map(&tl, lse2, B * H, pitch, Stage::kRows);
+    if (e == cudaSuccess)
+      e = encode_f32_rows_map(&td, delta, B * H, pitch, Stage::kRows);
+    const int smem = 1024 + tile_bytes<DK, kRows>() + tile_bytes<DV, kRows>() +
+                     kStages * Stage::kBytes + 8 * (1 + 2 * kStages);
+    if (e == cudaSuccess) e = opt_in_smem(fa_dkv_wgmma<DK, DV>, smem);
     if (e != cudaSuccess) return e;
-    fa_dkv_wgmma<HD><<<dim3(H, B, cdiv(Skv, kRows)), cta_threads<HD>(),
-                       smem, st>>>(
+    fa_dkv_wgmma<DK, DV><<<dim3(H, B, cdiv(Skv, kRows)), cta_threads<DK>(),
+                           smem, st>>>(
         tk, tv, tq, tdo, tl, td, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), dkp, dvp, H, KV, Sq, Skv, scale,
         scale * kLog2e, causal);
     e = cudaGetLastError();
     if (e != cudaSuccess || G == 1) return e;
-    const long long n4 = (long long)B * Skv * KV * HD / 4;
+    const long long n4 = (long long)B * Skv * KV * DK / 4;
     fa_dkv_reduce<<<(int)((n4 + 255) / 256), 256, 0, st>>>(
         dkp, dvp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n4, KV, G,
-        HD);
+        DK);
   }
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* stats,
                float* partial, void* dq, void* dk, void* dv, int B, int H,
@@ -1767,54 +1823,62 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
     if (o_f32)
       fa_delta<float><<<blocks, 256, 0, st>>>(
           static_cast<const float*>(o), static_cast<const bf16*>(dout), lse,
-          lse2, delta, B, H, Sq, HD, pitch);
+          lse2, delta, B, H, Sq, DV, pitch);
     else
       fa_delta<bf16><<<blocks, 256, 0, st>>>(
           static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
-          lse2, delta, B, H, Sq, HD, pitch);
+          lse2, delta, B, H, Sq, DV, pitch);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  if (dtype == kF32)
-    return bwd_tf32<HD>(q, k, v, dout, lse, delta, partial, dq, dk, dv, B, H,
-                        KV, Sq, Skv, scale, causal, parts, st);
-  return bwd_wgmma<HD>(q, k, v, dout, lse2, delta, partial, dq, dk, dv, B, H,
-                       KV, Sq, Skv, pitch, scale, causal, parts, st);
+  if constexpr (DK == DV) {
+    if (dtype == kF32)
+      return bwd_tf32<DK>(q, k, v, dout, lse, delta, partial, dq, dk, dv, B,
+                          H, KV, Sq, Skv, scale, causal, parts, st);
+  }
+  return bwd_wgmma<DK, DV>(q, k, v, dout, lse2, delta, partial, dq, dk, dv, B,
+                           H, KV, Sq, Skv, pitch, scale, causal, parts, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [B,Sq,H,hd], k/v [B,Skv,KV,hd] (dtype: 0 f32, 1 bf16), contiguous and
-// 16-byte aligned; o [B,Sq,H,hd] in the same dtype and lse [B,H,Sq] f32 are
-// written, and (bf16, if o32 is not null) o32 [B,Sq,H,hd] f32, the output
-// before its rounding to bf16. hd is 32, 64, 80 or 128; causal needs
-// Sq == Skv.
+// q [B,Sq,H,hd], k [B,Skv,KV,hd], v [B,Skv,KV,hdv] (dtype: 0 f32, 1 bf16),
+// contiguous and 16-byte aligned; o [B,Sq,H,hdv] in the same dtype and lse
+// [B,H,Sq] f32 are written, and (bf16, if o32 is not null) o32
+// [B,Sq,H,hdv] f32, the output before its rounding to bf16. hd = hdv is
+// 32, 64, 80 or 128, or (hd, hdv) = (192, 128) in bf16 with H == KV;
+// causal needs Sq == Skv.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, float* o32, float* lse, int B, int H,
-                               int KV, int Sq, int Skv, int hd, float scale,
-                               int causal, int dtype, void* stream) {
-  if (!fa_args_ok(B, H, KV, Sq, Skv, hd, causal, dtype) ||
+                               int KV, int Sq, int Skv, int hd, int hdv,
+                               float scale, int causal, int dtype,
+                               void* stream) {
+  if (!fa_args_ok(B, H, KV, Sq, Skv, hd, hdv, causal, dtype) ||
       (o32 != nullptr && dtype != kBF16))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 32)
-    return launch_fwd<32>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
-                          causal, dtype, st);
+    return launch_fwd<32, 32>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
+                              causal, dtype, st);
   if (hd == 64)
-    return launch_fwd<64>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
-                          causal, dtype, st);
+    return launch_fwd<64, 64>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
+                              causal, dtype, st);
   if (hd == 80)
-    return launch_fwd<80>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
-                          causal, dtype, st);
-  return launch_fwd<128>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
-                         causal, dtype, st);
+    return launch_fwd<80, 80>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
+                              causal, dtype, st);
+  if (hd == 192)
+    return launch_fwd<192, 128>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv,
+                                scale, causal, dtype, st);
+  return launch_fwd<128, 128>(q, k, v, o, o32, lse, B, H, KV, Sq, Skv, scale,
+                              causal, dtype, st);
 }
 
 // The forward's inputs, its o (bf16: or, with o_f32, its o32) and lse, do
-// [B,Sq,H,hd] (the inputs' dtype); writes
-// dq [B,Sq,H,hd] and dk, dv [B,Skv,KV,hd] in the inputs' dtype. Scratch:
+// [B,Sq,H,hdv] (the inputs' dtype); writes
+// dq [B,Sq,H,hd], dk [B,Skv,KV,hd] and dv [B,Skv,KV,hdv] in the inputs'
+// dtype. Head dims as the forward's. Scratch:
 // stats [2, B, H, pitch] f32 (bf16: lse * log2 e and delta, written by the
 // delta launch, pitch a multiple of 128 at least Sq; f32: pitch = Sq and
 // stats[1] holds delta on entry) and, with H > KV, partial [2, B, Skv, H,
@@ -1825,30 +1889,34 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
                                const float* lse, float* stats, float* partial,
                                void* dq, void* dk, void* dv, int B, int H,
-                               int KV, int Sq, int Skv, int hd, int pitch,
-                               float scale, int causal, int dtype, int parts,
-                               int o_f32, void* stream) {
-  if (!fa_args_ok(B, H, KV, Sq, Skv, hd, causal, dtype) ||
+                               int KV, int Sq, int Skv, int hd, int hdv,
+                               int pitch, float scale, int causal, int dtype,
+                               int parts, int o_f32, void* stream) {
+  if (!fa_args_ok(B, H, KV, Sq, Skv, hd, hdv, causal, dtype) ||
       (dtype == kF32 ? pitch != Sq : pitch % 128 != 0 || pitch < Sq) ||
       (H != KV && partial == nullptr) ||
       (o_f32 && dtype != kBF16))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 32)
-    return launch_bwd<32>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
-                          H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,
-                          o_f32, st);
+    return launch_bwd<32, 32>(q, k, v, o, dout, lse, stats, partial, dq, dk,
+                              dv, B, H, KV, Sq, Skv, pitch, scale, causal,
+                              dtype, parts, o_f32, st);
   if (hd == 64)
-    return launch_bwd<64>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
-                          H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,
-                          o_f32, st);
+    return launch_bwd<64, 64>(q, k, v, o, dout, lse, stats, partial, dq, dk,
+                              dv, B, H, KV, Sq, Skv, pitch, scale, causal,
+                              dtype, parts, o_f32, st);
   if (hd == 80)
-    return launch_bwd<80>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
-                          H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,
-                          o_f32, st);
-  return launch_bwd<128>(q, k, v, o, dout, lse, stats, partial, dq, dk, dv, B,
-                         H, KV, Sq, Skv, pitch, scale, causal, dtype, parts,
-                         o_f32, st);
+    return launch_bwd<80, 80>(q, k, v, o, dout, lse, stats, partial, dq, dk,
+                              dv, B, H, KV, Sq, Skv, pitch, scale, causal,
+                              dtype, parts, o_f32, st);
+  if (hd == 192)
+    return launch_bwd<192, 128>(q, k, v, o, dout, lse, stats, partial, dq, dk,
+                                dv, B, H, KV, Sq, Skv, pitch, scale, causal,
+                                dtype, parts, o_f32, st);
+  return launch_bwd<128, 128>(q, k, v, o, dout, lse, stats, partial, dq, dk,
+                              dv, B, H, KV, Sq, Skv, pitch, scale, causal,
+                              dtype, parts, o_f32, st);
 }
 
 }  // extern "C"

@@ -30,7 +30,10 @@ version.
 Head dims: 32 (the reduced configs), 64, 80 and 128 (every full-width
 config's), each on the kernels above, in both dtypes; in bf16 at hd 32 a
 row is two 16-column slabs and a CTA one consumer warpgroup of 64 rows,
-two CTAs an SM (see ``csrc/flash_attention.cu``).
+two CTAs an SM (see ``csrc/flash_attention.cu``). Latent attention (MLA)
+takes a query/key head dim of 192 and a value head dim of 128
+(:data:`SPLIT_HEAD_DIMS`), in bf16 and with one query head a KV head; the
+plain versions take any value head dim.
 
 Layout: the path's own, ``q, o, do [B,Sq,H,hd]`` and ``k, v [B,Skv,KV,hd]``
 (the Pallas kernels take ``[B,H,S,hd]``), ``lse [B,H,Sq]`` float32; query
@@ -81,6 +84,9 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
+# (query/key, value) head dims apart from HEAD_DIMS' equal pairs: MLA's,
+# bf16 with H == KV only
+SPLIT_HEAD_DIMS = ((192, 128),)
 STATS_ROWS = 128       # bf16 kernels' query tile: stats rows pad to it
 BWD_PARTS = 1 | 2 | 4  # the backward's launches: delta, dq, dk/dv
 
@@ -99,8 +105,8 @@ def _causal_keep(Sq, Skv, q_offset, device):
 
 def flash_attention_fwd_plain(q, k, v, *, causal, scale=None, q_offset=0,
                               out_f32=None):
-    """q [B,Sq,H,hd]; k, v [B,Skv,KV,hd] -> (o [B,Sq,H,hd] in q's dtype,
-    lse [B,H,Sq] float32). Scores in float32 from the inputs, masked with
+    """q [B,Sq,H,hd]; k [B,Skv,KV,hd]; v [B,Skv,KV,hdv] -> (o [B,Sq,H,hdv]
+    in q's dtype, lse [B,H,Sq] float32). Scores in float32 from the inputs, masked with
     -inf (causal: query ``q_offset + i`` sees keys ``j <= q_offset + i``),
     softmax weights rounded to V's dtype before the PV product, as in the
     JAX package's ``flash_attention_xla``; lse = max + log(sum) as the
@@ -120,7 +126,7 @@ def flash_attention_fwd_plain(q, k, v, *, causal, scale=None, q_offset=0,
     o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(), v.float())
     o = o / denom.permute(0, 3, 1, 2)[..., None]
     lse = m[..., 0] + torch.log(denom)
-    o = o.reshape(B, Sq, H, hd)
+    o = o.reshape(B, Sq, H, v.shape[-1])
     if out_f32 is not None:
         out_f32.copy_(o)
     return o.to(q.dtype).contiguous(), lse.reshape(B, H, Sq).contiguous()
@@ -130,8 +136,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal, scale=None):
     """The Pallas backward's arithmetic in float32: p = exp(s * scale -
     lse) (0 where masked), delta = rowsum(do * o), dv = p^T do, dS = p *
     (do v^T - delta) * scale, dq = dS k, dk = dS^T q, dk and dv summed over
-    the G query heads of each KV head. ``o`` is in q's dtype or, the
-    forward's ``out_f32``, float32. Returns (dq, dk, dv) in the inputs'
+    the G query heads of each KV head. ``o`` and ``do`` have v's head
+    dim; ``o`` is in q's dtype or, the forward's ``out_f32``, float32. Returns (dq, dk, dv) in the inputs'
     dtypes."""
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
@@ -162,13 +168,13 @@ def flash_attention_fwd(q, k, v, *, causal, scale=None, out_f32=None):
         return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale,
                                          out_f32=out_f32)
     B, Sq, H, hd = _check(q, k, v, causal, (q, k, v))
+    o = q.new_empty(q.shape[:3] + v.shape[3:])
     if out_f32 is not None and (
-            q.dtype != torch.bfloat16 or out_f32.shape != q.shape
+            q.dtype != torch.bfloat16 or out_f32.shape != o.shape
             or out_f32.dtype != torch.float32 or out_f32.device != q.device
             or not out_f32.is_contiguous()):
         raise ValueError(f"out_f32 must be a contiguous float32 "
-                         f"{tuple(q.shape)} on {q.device}, for bf16 inputs")
-    o = torch.empty_like(q)
+                         f"{tuple(o.shape)} on {q.device}, for bf16 inputs")
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -177,7 +183,7 @@ def flash_attention_fwd(q, k, v, *, causal, scale=None, out_f32=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if out_f32 is None else out_f32.data_ptr(),
             lse.data_ptr(), B, H, k.shape[2], Sq, k.shape[1], hd,
-            hd ** -0.5 if scale is None else scale, int(causal),
+            v.shape[-1], hd ** -0.5 if scale is None else scale, int(causal),
             _DTYPE_CODE[q.dtype], stream)
     _build.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
@@ -222,7 +228,8 @@ def bwd_scratch(q, k):
     """The backward's float32 scratch on q's device: ``stats [2, B, H,
     stats_pitch]`` and, with G = H // KV > 1, ``partial [2, B, Skv, H,
     hd]`` (each query head's dk and dv before the sum over its KV head's G
-    heads), else an empty tensor."""
+    heads; the kernels take G > 1 at equal head dims only), else an empty
+    tensor."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     kw = {"dtype": torch.float32, "device": q.device}
@@ -253,7 +260,8 @@ def bwd_launch(q, k, v, o, lse, do, grads, stats, partial, *, causal,
             do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
             partial.data_ptr() if partial.numel() else None, dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, k.shape[2], Sq, k.shape[1],
-            hd, stats.shape[-1], hd ** -0.5 if scale is None else scale,
+            hd, v.shape[-1], stats.shape[-1],
+            hd ** -0.5 if scale is None else scale,
             int(causal), _DTYPE_CODE[q.dtype], parts,
             int(o.dtype != q.dtype), stream)
     _build.check(err, "flash_attention_bwd")
@@ -275,11 +283,12 @@ def tma_strides(shape, itemsize):
 
 def _check_bwd(q, k, v, o, lse, do, causal):
     B, Sq, H, hd = _check(q, k, v, causal, (q, k, v, o, lse, do))
-    if o.shape != q.shape or do.shape != q.shape \
+    want = q.shape[:3] + v.shape[3:]
+    if o.shape != want or do.shape != want \
             or o.dtype not in (q.dtype, torch.float32) \
             or do.dtype != q.dtype:
-        raise ValueError(f"o (q's dtype or float32) and do must match q "
-                         f"{tuple(q.shape)} {q.dtype}, got {tuple(o.shape)} "
+        raise ValueError(f"o (q's dtype or float32) and do must be "
+                         f"{tuple(want)} {q.dtype}, got {tuple(o.shape)} "
                          f"{o.dtype} / {tuple(do.shape)} {do.dtype}")
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse [B,H,Sq] float32 expected, got "
@@ -287,21 +296,30 @@ def _check_bwd(q, k, v, o, lse, do, causal):
 
 
 def _check(q, k, v, causal, tensors):
-    """What the kernels take: q [B,Sq,H,hd], k and v [B,Skv,KV,hd] with H
-    a multiple of KV and hd in ``HEAD_DIMS``, all float32 or all bfloat16,
-    every input on q's device, contiguous and 16-byte aligned (bf16: with
-    :func:`tma_strides`); causal only with Sq == Skv.
+    """What the kernels take: q [B,Sq,H,hd], k [B,Skv,KV,hd] and v
+    [B,Skv,KV,hdv] with H a multiple of KV, hd = hdv in ``HEAD_DIMS`` or
+    (hd, hdv) in ``SPLIT_HEAD_DIMS`` (bf16, H == KV), all float32 or all
+    bfloat16, every input on q's device, contiguous and 16-byte aligned
+    (bf16: with :func:`tma_strides`); causal only with Sq == Skv.
     Returns (B, Sq, H, hd)."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"q [B,Sq,H,hd] and k, v [B,Skv,KV,hd] expected, "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"q [B,Sq,H,hd], k [B,Skv,KV,hd] and v "
+                         f"[B,Skv,KV,hdv] expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, H, hd = q.shape
     Bk, Skv, KV, hdk = k.shape
+    hdv = v.shape[-1]
     if Bk != B or hdk != hd or H % KV:
         raise ValueError(f"k, v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    if hd not in HEAD_DIMS:
+    if hdv != hd and ((hd, hdv) not in SPLIT_HEAD_DIMS
+                      or q.dtype != torch.bfloat16 or H != KV):
+        raise ValueError(f"kernel takes a value head dim apart from the "
+                         f"query/key one in bf16 with H == KV at "
+                         f"{SPLIT_HEAD_DIMS} only, got ({hd}, {hdv}) "
+                         f"{q.dtype}, H {H}, KV {KV}")
+    if hdv == hd and hd not in HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if causal and Sq != Skv:
         raise ValueError(f"causal attention needs Sq == Skv, got {Sq} and "
@@ -318,4 +336,5 @@ def _check(q, k, v, causal, tensors):
     if q.dtype == torch.bfloat16:
         tma_strides(q.shape, q.element_size())
         tma_strides(k.shape, k.element_size())
+        tma_strides(v.shape, v.element_size())
     return B, Sq, H, hd

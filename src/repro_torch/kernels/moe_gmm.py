@@ -60,25 +60,37 @@ def _tiles(x, tile_m: int) -> int:
 def gmm_plain(x, w, tile_expert, tile_m: int, *, transpose_w: bool = False):
     """x [T, K]; w [E, K, N] (``transpose_w``: [E, N, K]); tile_expert
     [T // tile_m] int -> [T, N] in x's dtype: each tile of rows times its
-    expert's weight, in float32."""
+    expert's weight, in float32; a tile whose expert id lies outside [0,
+    E) gives zero rows, as the kernel's do."""
     nt = _tiles(x, tile_m)
-    ws = w[tile_expert.long()].float()                  # [nt, K, N]
+    te, valid = _experts(tile_expert, w.shape[0])
+    ws = w[te].float()                                  # [nt, K, N]
     if transpose_w:
         ws = ws.transpose(1, 2)
     out = torch.bmm(x.reshape(nt, tile_m, -1).float(), ws)
+    out = out * valid[:, None, None]
     return out.reshape(x.shape[0], -1).to(x.dtype)
+
+
+def _experts(tile_expert, E: int):
+    """Each tile's expert id clamped into [0, E), and whether it was in
+    range (float32)."""
+    te = tile_expert.long()
+    return te.clamp(0, E - 1), ((te >= 0) & (te < E)).float()
 
 
 def gmm_dw_plain(x, dy, tile_expert, tile_m: int, n_experts: int):
     """x [T, M]; dy [T, N] -> dw [E, M, N] in x's dtype: the sum over the
     tiles of each expert of ``x_t^T dy_t`` in float32 (zeros for an expert
-    without tiles)."""
+    without tiles; a tile whose expert id lies outside [0, E) adds
+    nothing)."""
     nt = _tiles(x, tile_m)
+    te, valid = _experts(tile_expert, n_experts)
     part = torch.bmm(x.reshape(nt, tile_m, -1).float().transpose(1, 2),
                      dy.reshape(nt, tile_m, -1).float())
     dw = torch.zeros((n_experts,) + part.shape[1:], dtype=torch.float32,
                      device=x.device)
-    return dw.index_add_(0, tile_expert.long(), part).to(x.dtype)
+    return dw.index_add_(0, te, part * valid[:, None, None]).to(x.dtype)
 
 
 def gmm_backward_plain(x, w, tile_expert, tile_m: int, dy):
@@ -148,9 +160,8 @@ def _launch_dw(x, dy, tile_expert, tile_m, n_experts):
 def gmm_fwd(x, w, tile_expert, tile_m: int, *, transpose_w: bool = False):
     """K6, same contract as :func:`gmm_plain`. CPU tensors take the plain
     version; CUDA tensors launch the kernel, or raise on what it does not
-    take. A tile whose expert id lies outside [0, E) comes out zero from
-    the kernel (the plain version raises). ``gmm_fwd.launches`` counts
-    calls that launch."""
+    take. A tile whose expert id lies outside [0, E) comes out zero.
+    ``gmm_fwd.launches`` counts calls that launch."""
     if x.device.type == "cpu":
         return gmm_plain(x, w, tile_expert, tile_m, transpose_w=transpose_w)
     out = _launch_fwd(x, w, tile_expert, tile_m, transpose_w, "gmm_fwd")

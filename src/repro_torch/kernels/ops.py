@@ -8,7 +8,10 @@ gradient (K5 forward, K5b backward), and :func:`gmm`, the grouped matmul
 of the MoE experts with its gradient (K6 forward, K6b backward), with
 :func:`moe_gmm_apply` around it for tokens in any order; each launches
 hand-written CUDA kernels on CUDA tensors and runs its plain PyTorch
-version on CPU tensors.
+version on CPU tensors. :func:`moe_dispatch` and :func:`moe_combine` are
+the dropless experts' bookkeeping around K6 (no kernel of their own): the
+(token, choice) rows sorted into a table of whole tiles an expert, and
+back.
 
 :func:`update_kv_buffer` replaces ``repro.kernels.ops.update_kv_buffer``
 (a jnp scatter with ``mode="drop"``). Unlike the reference it updates the
@@ -96,7 +99,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         o32 = None
         if q.dtype != torch.float32 and any(ctx.needs_input_grad[:3]):
-            o32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+            o32 = torch.empty(q.shape[:3] + v.shape[3:], dtype=torch.float32,
+                              device=q.device)
         o, lse = flash_attention_fwd(q, k, v, causal=causal, out_f32=o32)
         ctx.save_for_backward(q, k, v, o if o32 is None else o32, lse)
         ctx.causal = causal
@@ -111,9 +115,10 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, causal=True):
-    """Attention of q [B,S,H,hd] over k, v [B,S,KV,hd] -> [B,S,H,hd],
-    differentiable: K3a forward and K3b backward on CUDA tensors, their
-    plain versions on CPU tensors (see ``kernels.flash_attention``)."""
+    """Attention of q [B,S,H,hd] over k [B,S,KV,hd], v [B,S,KV,hdv] ->
+    [B,S,H,hdv], differentiable: K3a forward and K3b backward on CUDA
+    tensors, their plain versions on CPU tensors (see
+    ``kernels.flash_attention``)."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal)
 
@@ -210,35 +215,117 @@ def moe_gmm_apply(x, w, expert_of_token, *, n_experts: int,
     device (the reference's ``moe_gmm_apply``): x [T, D]; w [E, D, F];
     expert_of_token [T] int -> [T, F] in the input's token order.
 
-    Tokens are sorted stably by expert, each group is padded to a multiple
-    of ``tile_m`` rows in a buffer of ``Tp = (ceil(T / tile_m) + E)
-    tile_m`` zero rows, every tile gets its expert's id (tiles past the
-    last group the last expert's, as the reference clips them), and
-    ``gmm_fn`` (default :func:`gmm`) multiplies the tiles. No step reads a
-    count back to the host."""
+    :func:`moe_dispatch` with one choice a token sorts the tokens stably
+    by expert into a table of whole tiles of ``tile_m`` rows, ``gmm_fn``
+    (default :func:`gmm`) multiplies the tiles, and each token's row is
+    taken back. No step reads a count back to the host."""
+    table, tile_expert, slot, _ = moe_dispatch(
+        x, expert_of_token[:, None], n_experts=n_experts, tile_m=tile_m)
+    return (gmm_fn or gmm)(table, w, tile_expert, tile_m).index_select(
+        0, slot)
+
+
+def dispatch_rows(assignments: int, n_experts: int, tile_m: int) -> int:
+    """Rows of :func:`moe_dispatch`'s table: ``assignments + n_experts
+    (tile_m - 1)`` rounded up to whole tiles, the most that groups padded
+    to whole tiles can fill, so the table's size depends on no routing."""
+    rows = assignments + n_experts * (tile_m - 1)
+    return -(-rows // tile_m) * tile_m
+
+
+class _MoeDispatch(torch.autograd.Function):
+    """The table's rows gathered from the tokens (a zero row where
+    ``row_token`` is the token count); the gradient of each token is the
+    sum of its K rows' gradients in choice order (no atomics)."""
+
+    @staticmethod
+    def forward(ctx, x, slot, row_token):
+        ctx.save_for_backward(slot)
+        ctx.tokens = x.shape[0]
+        return torch.cat([x, x.new_zeros((1, x.shape[1]))]).index_select(
+            0, row_token)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, = ctx.saved_tensors
+        return (g.index_select(0, slot).view(ctx.tokens, -1, g.shape[1])
+                .sum(1), None, None)
+
+
+class _MoeCombine(torch.autograd.Function):
+    """out[t] = sum over j of gates[t, j] rows[slot[t K + j]], in float32
+    (or the rows' wider dtype) over j in order, rounded once to the rows'
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, rows, slot, gates):
+        ctx.save_for_backward(rows, slot, gates)
+        T, K = gates.shape
+        wide = torch.promote_types(rows.dtype, torch.float32)
+        y = rows.index_select(0, slot).view(T, K, -1).to(wide)
+        return (y * gates.to(wide)[..., None]).sum(1).to(rows.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, slot, gates = ctx.saved_tensors
+        T, K = gates.shape
+        wide = torch.promote_types(rows.dtype, torch.float32)
+        gw = g.to(wide)[:, None, :]
+        y = rows.index_select(0, slot).view(T, K, -1).to(wide)
+        dgates = (y * gw).sum(-1).to(gates.dtype)
+        drows = torch.zeros_like(rows).index_copy_(
+            0, slot, (gw * gates.to(wide)[..., None]).to(rows.dtype)
+            .view(T * K, -1))
+        return drows, None, dgates
+
+
+def moe_dispatch(x, expert_idx, *, n_experts: int, tile_m: int = 128):
+    """The dropless dispatch of ``x [T, D]`` to its tokens' experts
+    ``expert_idx [T, K]``: each (token, choice) ``a = t K + j`` sorted
+    stably by expert into a table of :func:`dispatch_rows` rows, each
+    expert's rows padded to whole tiles of ``tile_m``, zero rows between.
+    Returns ``(table [rows, D], tile_expert [rows / tile_m] int32, slot
+    [T K] int64, routed [n_experts] int64)``: the table, differentiable in
+    x; each tile's expert (``n_experts``, out of range, past the last
+    group: K6 skips such a tile and gives zero rows); the table row of each
+    (token, choice); and the rows each expert got. Everything stays on the
+    device: no count is read back, and the table's size is the same in
+    every call. ``moe_dispatch.launches`` counts calls."""
     T, D = x.shape
-    E = n_experts
-    ids = expert_of_token.long()
+    K, E = expert_idx.shape[1], n_experts
+    ids = expert_idx.reshape(-1).long()
     order = torch.argsort(ids, stable=True)
-    sorted_ids = ids[order]
-    group_sizes = torch.zeros(E, dtype=torch.long, device=x.device)
-    group_sizes.scatter_add_(0, ids, torch.ones_like(ids))
-    padded = (group_sizes + tile_m - 1) // tile_m * tile_m
+    routed = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+    padded = (routed + tile_m - 1) // tile_m * tile_m
     ends = torch.cumsum(padded, 0)
-    Tp = (-(-T // tile_m) + E) * tile_m
-    rank = torch.arange(T, device=x.device) - (
-        torch.cumsum(group_sizes, 0) - group_sizes)[sorted_ids]
-    slot = (ends - padded)[sorted_ids] + rank
-    xp = x.new_zeros((Tp, D))
-    xp[slot] = x[order]
-    tile_start = torch.arange(0, Tp, tile_m, device=x.device)
-    tile_ids = torch.searchsorted(ends, tile_start, right=True)
-    tile_ids = tile_ids.clamp(0, E - 1).to(torch.int32)
-    out_p = (gmm_fn or gmm)(xp, w, tile_ids, tile_m)
-    out = torch.empty((T, out_p.shape[1]), dtype=out_p.dtype,
-                      device=x.device)
-    out[order] = out_p[slot]
-    return out
+    sorted_ids = ids[order]
+    within = torch.arange(T * K, device=x.device) - (
+        torch.cumsum(routed, 0) - routed)[sorted_ids]
+    slot = torch.empty_like(ids)
+    slot[order] = (ends - padded)[sorted_ids] + within
+    rows = dispatch_rows(T * K, E, tile_m)
+    row_token = torch.full((rows,), T, dtype=torch.long, device=x.device)
+    row_token[slot] = torch.arange(T * K, device=x.device) // K
+    tile_expert = torch.searchsorted(
+        ends, torch.arange(0, rows, tile_m, device=x.device),
+        right=True).to(torch.int32)
+    moe_dispatch.launches += 1
+    return (_MoeDispatch.apply(x, slot, row_token), tile_expert, slot,
+            routed)
+
+
+moe_dispatch.launches = 0
+
+
+def moe_combine(rows, slot, gates):
+    """The experts' output rows ``rows [R, D]`` of :func:`moe_dispatch`'s
+    table back in token order, weighted: ``out [T, D]`` with ``out[t] =
+    sum_j gates[t, j] rows[slot[t K + j]]`` (``gates [T, K]`` float32),
+    summed in float32 over j in order and rounded once to the rows' dtype:
+    two calls give the same bits. Differentiable in ``rows`` and
+    ``gates``."""
+    return _MoeCombine.apply(rows, slot, gates)
 
 
 def update_kv_buffer(k_pages, v_pages, k_new, v_new, slots):

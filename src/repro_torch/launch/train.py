@@ -12,7 +12,10 @@
 (moonshot-v1-16b-a3b trains its experts through the grouped-matmul
 kernels; zamba2-2.7b trains through the chunked SSD scan, rwkv6-3b through
 the chunked WKV; the sequence must then be a multiple of 64, or at most
-64).
+64), or a preset of ``port_configs`` (moonlight-16b-a3b: latent attention
+and dropless experts, on one device; its last line gives each MoE layer's
+largest expert load over the mean, from the routed rows counted on the
+device).
 
 Weights are random, drawn from seed 0 and held as float32 master weights.
 Batches come from a uint32 token shard through ``GenesysDataLoader``
@@ -85,12 +88,13 @@ def main(argv=None):
 
     from repro_torch.checkpoint.ckpt import CheckpointManager
     from repro_torch.config import Family, TrainConfig
-    from repro_torch.configs import get_config
     from repro_torch.core.genesys import Genesys, GenesysConfig
     from repro_torch.data.pipeline import GenesysDataLoader, write_token_shard
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.moe import ROUTED
     from repro_torch.models.registry import get_api
+    from repro_torch.port_configs import get_config, is_mla
     from repro_torch.sharding import (
         SSD_DIMS, WKV_DIMS, gmm_on_shards, on_shards, rules_for,
     )
@@ -106,6 +110,9 @@ def main(argv=None):
                          f"hybrid and SSM families, not "
                          f"{cfg.family.value} ({cfg.arch_id}): neither "
                          f"launcher trains it, the loader gives no frames")
+    if world and is_mla(cfg):
+        raise ValueError(f"{cfg.arch_id} trains on one device: its dropless "
+                         f"dispatch has no sharded route")
     device, own_group, prefix = args.device, False, ""
     rules, kernels = None, ops.KERNELS
     if world:
@@ -153,6 +160,7 @@ def main(argv=None):
                            ops.rwkv6_wkv_fwd, ops.rwkv6_wkv_bwd, ops.gmm_fwd,
                            ops.gmm_bwd)
                 before = [c.launches for c in counted]
+                ROUTED.reset()
                 st = tr.run(args.steps)
                 print(f"{prefix}steps={st.steps} loss[0]={st.losses[0]:.4f} "
                       f"loss[-1]={st.losses[-1]:.4f} ckpts={st.ckpts} "
@@ -165,6 +173,9 @@ def main(argv=None):
                 print(f"{prefix}kernel launches: " + str(
                     {c.__name__: c.launches - n
                      for c, n in zip(counted, before)}))
+                if is_mla(cfg):
+                    print(f"{prefix}expert load max/mean by MoE layer: "
+                          + load_line(ROUTED.read()))
             finally:
                 loader.close()
     finally:
@@ -173,6 +184,13 @@ def main(argv=None):
             import torch.distributed as dist
             dist.destroy_process_group()
     return st
+
+
+def load_line(routed: dict) -> str:
+    """Each MoE layer's largest count of routed rows over the mean of its
+    experts': ``0 1.234, 1 1.111, ...``."""
+    return ", ".join(f"{layer} {max(n) / (sum(n) / len(n)):.3f}"
+                     for layer, n in routed.items() if sum(n))
 
 
 def phase_line(spans: list) -> str:

@@ -75,8 +75,9 @@ def rope(x, positions, theta: float):
 
 def flash_attention_xla(q, k, v, *, causal, q_offset=0):
     """The plain no-cache attention (the reference's
-    ``flash_attention_xla``): q [B,Sq,H,hd]; k, v [B,Skv,KV,hd] (grouped)
-    -> [B,Sq,H,hd]. Scores in float32, masked causally at
+    ``flash_attention_xla``): q [B,Sq,H,hd]; k [B,Skv,KV,hd], v
+    [B,Skv,KV,hdv] (grouped; hdv = hd but in latent attention) ->
+    [B,Sq,H,hdv]. Scores in float32, masked causally at
     ``q_offset + i >= j``, softmax weights cast to V's dtype before the PV
     product; differentiable by autograd. The reference's online softmax
     over KV chunks gives the same function; this takes the softmax whole.

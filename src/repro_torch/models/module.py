@@ -19,6 +19,11 @@ from typing import Callable
 import torch
 from torch.utils import checkpoint as ckpt
 
+# names of leaves that take part in no differentiable path (an MoE router's
+# selection bias, ``moe.init_moe_dropless``): the train step does not mark
+# them as requiring a gradient, and AdamW leaves them as they are
+FROZEN = frozenset({"e_score_correction_bias"})
+
 
 def _name_seed(key: str) -> int:
     return int.from_bytes(hashlib.blake2b(key.encode(), digest_size=8)
@@ -105,16 +110,18 @@ def _stacked_axes(axes: dict) -> dict:
 
 
 def stack_layers(seed: int, dtype_of, device, n: int,
-                 build_one: Callable[[ParamBuilder, int], None]
-                 ) -> tuple[dict, dict]:
+                 build_one: Callable[[ParamBuilder, int], None],
+                 first: int = 0) -> tuple[dict, dict]:
     """Init ``n`` structurally identical layers and stack every leaf into
     ``[n, ...]``; the layer dim gets the logical axis "stack". Returns
     ``(stacked, axes)``. Layers are built one at a time into the
     preallocated stack, so the peak is the stack plus one layer, not two
-    stacks; on ``meta`` only the first layer is built."""
+    stacks; on ``meta`` only the first layer is built. Layer ``i`` draws
+    as the model's layer ``first + i`` (a second stack of one model
+    starts where the first ends)."""
     stacked = None
     for i in range(n):
-        pb = ParamBuilder(seed, dtype_of, device, path=f"layer{i}")
+        pb = ParamBuilder(seed, dtype_of, device, path=f"layer{first + i}")
         build_one(pb, i)
         if stacked is None:
             stacked = _empty_stacked(pb.params, n)

@@ -2,7 +2,10 @@
 ``repro.models.moe``): GShard grouped dispatch with a capacity per expert,
 one-hot dispatch and combine einsums, and the three expert products as one
 grouped matmul each (``ops.gmm``: K6 forward and K6b backward on CUDA
-tensors).
+tensors). Beside it, for the DeepSeek-V3 layout of
+``port_configs.MlaMoeConfig`` (no counterpart in the JAX package),
+:func:`moe_mlp_dropless`: sigmoid routing with a selection bias, every
+(token, choice) computed, and shared experts.
 
 moonshot-v1-16b-a3b: 64 experts, top-6.
 arctic-480b: 128 experts, top-2, plus a dense residual MLP in parallel.
@@ -17,11 +20,14 @@ reads nothing back to the host.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.perf import marks
 from repro_torch.sharding import constrain
 
 GROUP_SIZE = 256  # tokens per dispatch group (GShard 'G'), as the reference
@@ -200,3 +206,95 @@ def load_balance_loss(logits_f32, gate_idx, n_experts: int):
     ce = F.one_hot(gate_idx[..., 0].long(), n_experts).float()
     ce = ce.reshape(-1, n_experts).mean(dim=0)
     return n_experts * torch.sum(me * ce)
+
+
+# ------------------------------------------------- dropless (DeepSeek-V3) ----
+
+TILE_M = 128  # rows of a table tile of the dropless dispatch (K6's tile)
+
+
+def init_moe_dropless(pb, cfg):
+    """The router, the selection bias ``e_score_correction_bias`` (drawn
+    normal, std 0.01; it takes part in the choice alone: a leaf of
+    ``module.FROZEN``, with no gradient), the routed experts' gate and up
+    products as one ``wi [E, D, 2F]`` (gate columns first) and their ``wo
+    [E, F, D]``, and the shared experts as one SwiGLU of
+    ``n_shared_experts * d_ff`` (``shared``)."""
+    D, E, F_ = cfg.d_model, cfg.n_experts, cfg.d_ff
+    m = pb.sub("moe")
+    m.param("router", (D, E), ("embed", "experts"))
+    m.param("e_score_correction_bias", (E,), ("experts",), scale=0.01)
+    m.param("wi", (E, D, 2 * F_), ("experts", "embed", "expert_mlp"))
+    m.param("wo", (E, F_, D), ("experts", "expert_mlp", "embed"))
+    L.init_mlp(pb, dataclasses.replace(cfg, d_ff=cfg.shared_d_ff,
+                                       mlp_kind="swiglu"), prefix="shared")
+
+
+def route_sigmoid(mp, cfg, x):
+    """DeepSeek-V3's ``noaux_tc`` routing of ``x [T, D]`` (one group):
+    float32 scores s = sigmoid(x W_r), the ``top_k`` experts of s + b
+    (b the selection bias; ties to the lower index), weighted by s,
+    normalised to sum 1 and scaled by ``routed_scaling``. Returns ``(gates
+    [T, K] float32, idx [T, K])``; the gates carry the router's gradient,
+    the choice none."""
+    s = torch.sigmoid(x.float() @ mp["router"].float())
+    _, idx = top_k(s.detach() + mp["e_score_correction_bias"].detach()
+                   .float(), cfg.top_k)
+    gates = s.gather(-1, idx)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+    return gates * cfg.routed_scaling, idx
+
+
+class RoutedRows:
+    """The rows each expert of each MoE layer got, summed on the device
+    over every dropless dispatch since :meth:`reset` (a layer's
+    recomputation under remat counts again, which moves no share):
+    nothing is read back until :meth:`read`."""
+
+    def __init__(self):
+        self.counts: dict = {}
+
+    def add(self, layer: int, routed) -> None:
+        got = self.counts.get(layer)
+        self.counts[layer] = routed if got is None else got + routed
+
+    def reset(self) -> None:
+        self.counts = {}
+
+    def read(self) -> dict:
+        """``{layer: [rows an expert]}``."""
+        return {k: v.tolist() for k, v in sorted(self.counts.items())}
+
+
+ROUTED = RoutedRows()
+
+
+def moe_mlp_dropless(p, cfg, x, *, gmm=None, layer: int = 0):
+    """x [B,S,D] -> [B,S,D]: the routed experts' output, every (token,
+    choice) computed, plus the shared experts'. Routing
+    (:func:`route_sigmoid`) and the sort into a table of whole tiles
+    (``ops.moe_dispatch``) run in the span ``moe_dispatch``; the gate and
+    up products as one grouped matmul of N = 2F, SiLU(gate) times up, and
+    the down product run on ``gmm`` over the table (default ``ops.gmm``,
+    K6/K6b on CUDA tensors; ``kernels.moe_gmm.gmm_plain`` is the plain
+    version); the rows back in token order, weighted (``ops.moe_combine``),
+    in the span ``moe_combine``. The spans are children of the thread's
+    open one (``perf.marks``) with device marks on a card. ``layer``
+    indexes :data:`ROUTED`'s counts."""
+    dt, mp = x.dtype, p["moe"]
+    B, S, D = x.shape
+    F_ = cfg.d_ff
+    cuda = x.device.type == "cuda"
+    x2 = x.reshape(B * S, D)
+    with marks.here("moe_dispatch", cuda):
+        gates, idx = route_sigmoid(mp, cfg, x2)
+        table, tile_expert, slot, routed = ops.moe_dispatch(
+            x2, idx, n_experts=cfg.n_experts, tile_m=TILE_M)
+    ROUTED.add(layer, routed)
+    gmm = gmm or ops.gmm
+    h = gmm(table, mp["wi"].to(dt), tile_expert, TILE_M)
+    h = F.silu(h[:, :F_]) * h[:, F_:]
+    rows = gmm(h, mp["wo"].to(dt), tile_expert, TILE_M)
+    with marks.here("moe_combine", cuda):
+        y = ops.moe_combine(rows, slot, gates)
+    return y.view(B, S, D) + L.mlp(p["shared"], x)

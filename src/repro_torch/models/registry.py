@@ -10,9 +10,10 @@ audio frontend is precomputed frame embeddings).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Callable
 
+from repro_torch import port_configs
 from repro_torch.config import Family, ModelConfig
 from repro_torch.models import encdec, mamba2, rwkv6, transformer
 
@@ -42,5 +43,19 @@ _BY_FAMILY = {
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
-    """The family's functions."""
-    return _BY_FAMILY[cfg.family]
+    """The family's functions. Where ``cfg`` is a plain ``ModelConfig``
+    that names a preset of ``port_configs`` (a configuration file gives
+    only the shared fields), each function is called with
+    ``port_configs.resolve(cfg)`` in place of the config it is given."""
+    api = _BY_FAMILY[cfg.family]
+    full = port_configs.resolve(cfg)
+    if full is cfg:
+        return api
+    return ModelApi(*(_taking(full, getattr(api, f.name))
+                      for f in fields(api)))
+
+
+def _taking(full: ModelConfig, fn: Callable) -> Callable:
+    def call(cfg, *args, **kwargs):
+        return fn(full, *args, **kwargs)
+    return call

@@ -6,17 +6,25 @@ dense cache, ``init_paged_arena``, ``init_cache``, and the logical axes
 of the parameters (``param_axes``) and of the cache (``cache_axes``). The
 reference's ``lax.scan`` over stacked layers is a Python loop over views
 of the stacked ``[L, ...]`` parameters here.
+
+A ``port_configs.MlaMoeConfig`` (the DeepSeek-V3 layout, which the JAX
+package does not have) takes latent attention (``models.mla``), its
+leading dense layers in a stack of their own, and ``moe_mlp_dropless``;
+it trains and prefills without a cache only.
 """
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 
 import torch
 
-from repro_torch import weights
+from repro_torch import port_configs, weights
 from repro_torch.config import Family, ModelConfig
+from repro_torch.core.genesys.trace import current_recorder
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.module import (
     ParamBuilder, layer_slice, remat, stack_layers, unstack_layers,
@@ -51,6 +59,9 @@ def _build(cfg: ModelConfig, seed, device, master) -> ParamBuilder:
     pb = ParamBuilder(seed, dtype_of, device)
     pb.param("embed", (cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
              scale=1.0)
+    if port_configs.is_mla(cfg):
+        _build_mla(pb, cfg, seed, dtype_of, device)
+        return pb
 
     def one(lpb: ParamBuilder, i: int):
         L.init_attention(lpb, cfg)
@@ -67,6 +78,34 @@ def _build(cfg: ModelConfig, seed, device, master) -> ParamBuilder:
         pb.param("lm_head", (cfg.d_model, cfg.padded_vocab),
                  ("embed", "vocab"))
     return pb
+
+
+def _build_mla(pb, cfg, seed, dtype_of, device) -> None:
+    """The DeepSeek-V3 layout: ``dense_blocks``, the leading
+    ``first_k_dense`` layers (MLA and a dense SwiGLU), then ``blocks``,
+    the MoE layers (MLA and ``moe.moe_mlp_dropless``)."""
+    def norms(lpb):
+        lpb.param("ln_attn", (cfg.d_model,), ("embed",), init="ones")
+        lpb.param("ln_mlp", (cfg.d_model,), ("embed",), init="ones")
+
+    def dense(lpb: ParamBuilder, i: int):
+        MLA.init_attention(lpb, cfg)
+        MLA.init_dense_mlp(lpb, cfg)
+        norms(lpb)
+
+    def moe(lpb: ParamBuilder, i: int):
+        MLA.init_attention(lpb, cfg)
+        MOE.init_moe_dropless(lpb, cfg)
+        norms(lpb)
+    if cfg.first_k_dense:
+        pb.params["dense_blocks"], pb.axes["dense_blocks"] = stack_layers(
+            seed, dtype_of, device, cfg.first_k_dense, dense)
+    pb.params["blocks"], pb.axes["blocks"] = stack_layers(
+        seed, dtype_of, device, cfg.n_moe_layers, moe, cfg.first_k_dense)
+    pb.param("final_norm", (cfg.d_model,), ("embed",), init="ones")
+    if not cfg.tie_embeddings:
+        pb.param("lm_head", (cfg.d_model, cfg.padded_vocab),
+                 ("embed", "vocab"))
 
 
 def _block(cfg, p, x, *, step, kernels, rules=None, **cache):
@@ -87,8 +126,24 @@ def _embed(params, cfg, tokens):
                    weights.torch_dtype(cfg.compute_dtype))
 
 
-def _logits(params, cfg, x, rules=None):
-    x = L.rmsnorm(x, params["final_norm"])
+def _mla_block(cfg, p, x, layer, *, step, kernels, rules=None, rec=None):
+    """A layer of the DeepSeek-V3 layout: MLA, then the dense SwiGLU
+    (``layer`` None) or MoE layer ``layer``'s dropless experts. ``rec``,
+    the forward's span recorder, is adopted where a recomputation runs on
+    autograd's thread, so the MoE spans nest under ``backward`` there."""
+    eps = cfg.rms_eps
+    with rec.adopted() if rec is not None else contextlib.nullcontext():
+        x = x + MLA.attention(p["attn"], cfg, L.rmsnorm(x, p["ln_attn"], eps),
+                              step=step, attend=kernels.attend, rules=rules)
+        h = L.rmsnorm(x, p["ln_mlp"], eps)
+        if layer is None:
+            return x + L.mlp(p["mlp"], h, rules)
+        return x + MOE.moe_mlp_dropless(p, cfg, h, gmm=kernels.gmm,
+                                        layer=layer)
+
+
+def _logits(params, cfg, x, rules=None, eps=1e-6):
+    x = L.rmsnorm(x, params["final_norm"], eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = constrain(L.proj(x, head), rules, "batch", "seq", "vocab")
     return logits.float()
@@ -136,6 +191,11 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None, positions=None,
     holds ``KV * rules.kv_rep`` heads (``init_cache(..., kv_rep=)``)."""
     if paged_cache is not None and cache is not None:
         raise ValueError("give at most one of paged_cache and cache")
+    if port_configs.is_mla(cfg) and (paged_cache is not None
+                                     or cache is not None):
+        raise ValueError(f"{cfg.arch_id}: latent attention (MLA) runs "
+                         f"without a cache only; its decode (a latent "
+                         f"paged cache) is not built")
     x = constrain(_embed(params, cfg, tokens), rules, "batch", "seq",
                   "embed")
     if paged_cache is None and cache is None:
@@ -167,12 +227,30 @@ def _forward_nocache(params, cfg, x, embeds, positions, kernels, rules):
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
+    if port_configs.is_mla(cfg):
+        return _forward_mla(params, cfg, x, positions, kernels, rules)
     step = L.nocache_step(cfg, positions)
     block = remat(cfg, partial(_block, cfg, step=step, kernels=kernels,
                                rules=rules), kernels.dots_policy)
     for layer in unstack_layers(params["blocks"], cfg.n_layers):
         x = block(layer, x)
     return _logits(params, cfg, x, rules)
+
+
+def _forward_mla(params, cfg, x, positions, kernels, rules):
+    block = remat(cfg, partial(_mla_block, cfg,
+                               step=MLA.nocache_step(cfg, positions),
+                               kernels=kernels, rules=rules,
+                               rec=current_recorder()),
+                  kernels.dots_policy)
+    if cfg.first_k_dense:
+        for layer in unstack_layers(params["dense_blocks"],
+                                    cfg.first_k_dense):
+            x = block(layer, x, None)
+    for i, layer in enumerate(unstack_layers(params["blocks"],
+                                             cfg.n_moe_layers)):
+        x = block(layer, x, i)
+    return _logits(params, cfg, x, rules, cfg.rms_eps)
 
 
 def init_paged_arena(cfg: ModelConfig, n_blocks: int, block_size: int,

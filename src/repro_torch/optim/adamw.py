@@ -60,9 +60,29 @@ def leaves(tree) -> list:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(leaf^2), in f32 (0-d tensor)."""
-    sq = [torch.linalg.vector_norm(t, dtype=torch.float32) ** 2
-          for t in leaves(tree)]
+    return _norm(leaves(tree))
+
+
+def _norm(ts) -> torch.Tensor:
+    sq = [torch.linalg.vector_norm(t, dtype=torch.float32) ** 2 for t in ts]
     return torch.sqrt(torch.stack(sq).sum())
+
+
+def _stepped(grads, state, params):
+    """The leaves the update steps, as lists ``(gs, ms, vs, ps)``: those
+    with a gradient. A leaf without one is left as it is where its
+    parameter requires none (a frozen leaf, ``models.module.FROZEN``);
+    where it requires one, the parameter was cut off from the loss, and
+    that raises."""
+    gs, ms, vs, ps = (leaves(t) for t in (grads, state.m, state.v, params))
+    keep = []
+    for i, (g, p) in enumerate(zip(gs, ps)):
+        if g is not None:
+            keep.append(i)
+        elif p.requires_grad:
+            raise ValueError(f"parameter leaf {i} {tuple(p.shape)} "
+                             f"requires a gradient and got none")
+    return tuple([t[i] for i in keep] for t in (gs, ms, vs, ps))
 
 
 @dataclass(frozen=True)
@@ -102,9 +122,10 @@ class AdamW:
     def update(self, grads, state: OptState, params):
         """One step: ``(params, state, gnorm)``, params and state updated
         in place (see the module docstring). ``gnorm`` is the global norm
-        of the gradients divided by ``microbatches``."""
-        gs, ms, vs, ps = (leaves(t) for t in (grads, state.m, state.v,
-                                               params))
+        of the gradients divided by ``microbatches``. A frozen leaf
+        (no gradient, and its parameter requires none) is left as it is:
+        no decay, no moments."""
+        gs, ms, vs, ps = _stepped(grads, state, params)
         if refusal((ps, gs, ms, vs), state.count) is not None:
             AdamW.plain_leaves += len(ps)
             return self.update_plain(grads, state, params)
@@ -121,19 +142,19 @@ class AdamW:
         """:meth:`update` in eager PyTorch, on any leaves: at most one
         leaf-sized temporary at a time; the gradients are divided and
         scaled in place."""
+        gs, ms, vs, ps = _stepped(grads, state, params)
         if self.microbatches > 1:
-            for g in leaves(grads):
+            for g in gs:
                 g.div_(self.microbatches)
         state.count.add_(1)
-        gnorm = global_norm(grads)
+        gnorm = _norm(gs)
         scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         b1, b2 = self.beta1, self.beta2
         cnt = state.count.float()
         c1 = 1.0 - torch.pow(torch.tensor(b1, device=cnt.device), cnt)
         c2 = 1.0 - torch.pow(torch.tensor(b2, device=cnt.device), cnt)
-        for g, m, v, p in zip(leaves(grads), leaves(state.m),
-                              leaves(state.v), leaves(params)):
+        for g, m, v, p in zip(gs, ms, vs, ps):
             g = g.float() if g.dtype != torch.float32 else g
             g.mul_(scale)
             mf = m if m.dtype == torch.float32 else m.float()

@@ -11,17 +11,18 @@ Batch dict convention (the reference's):
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
+from repro_torch import port_configs
 from repro_torch.config import Family, ModelConfig, TrainConfig
 from repro_torch.core.genesys.trace import current_recorder
 from repro_torch.kernels import ops
 from repro_torch.models import transformer
+from repro_torch.models.module import FROZEN
 from repro_torch.models.registry import get_api
 from repro_torch.optim import AdamW
 from repro_torch.optim.adamw import leaves
+from repro_torch.perf import marks
 from repro_torch.sharding import constrain
 
 IGNORE = -100
@@ -72,31 +73,11 @@ def loss_fn(params, cfg: ModelConfig, batch, tc: TrainConfig,
     return loss, {"nll": nll}
 
 
-class CudaMarks:
-    """A span's device time on the current stream: an event recorded at
-    its start and one at its end (``trace.SpanRecorder``'s marks)."""
-
-    __slots__ = ("start", "stop")
-
-    def begin(self) -> None:
-        self.start = torch.cuda.Event(enable_timing=True)
-        self.start.record()
-
-    def end(self) -> None:
-        self.stop = torch.cuda.Event(enable_timing=True)
-        self.stop.record()
-
-    def elapsed_ns(self) -> int:
-        return round(self.start.elapsed_time(self.stop) * 1e6)
-
-
 def _phase(rec, name: str, cuda: bool):
     """The step's span ``name`` under the thread's open one (the
     Trainer's ``step``), with device marks on a card; nothing where no
     span is open."""
-    if rec is None:
-        return contextlib.nullcontext()
-    return rec.span(name, CudaMarks() if cuda else None)
+    return marks.span(rec, name, cuda)
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
@@ -112,7 +93,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     and nll are the microbatches' means. AdamW updates ``params`` and
     ``opt_state`` IN PLACE (``optim.adamw``) and they are returned.
     ``params`` are the port's master weights (``init(..., master=True)``
-    of the family's model); the step marks them as requiring grad.
+    of the family's model); the step marks them as requiring grad, but
+    the frozen leaves (``models.module.FROZEN``).
     ``kernels`` replaces the forward's kernels for comparisons
     (``ops.Kernels``; the plain versions are ``layers.flash_attention_xla``,
     ``mamba2_scan.ssd_chunked_plain``, ``rwkv6_scan.wkv6_chunked_plain``
@@ -126,7 +108,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     Called inside a Trainer's ``step`` span (``trace.current_recorder``),
     the step records ``forward`` and ``backward`` a microbatch and one
     ``optimizer`` (AdamW's update, the division included) as its children,
-    each with device marks when the parameters are on a card."""
+    each with device marks when the parameters are on a card.
+
+    A plain ``ModelConfig`` that names a preset of ``port_configs`` is
+    taken as that preset (``port_configs.resolve``)."""
+    cfg = port_configs.resolve(cfg)
     opt = AdamW(lr=tc.lr, beta1=tc.beta1, beta2=tc.beta2,
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip,
                 microbatches=tc.microbatches)
@@ -135,9 +121,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     def train_step(params, opt_state, batch):
         ps = leaves(params)
         rec, cuda = current_recorder(), ps[0].device.type == "cuda"
-        for p in ps:
-            p.requires_grad_(True)
-            p.grad = None
+        _require_grads(params)
         rows = batch["tokens"].shape[0]
         if rows % n_mb:
             raise ValueError(f"{rows} rows do not split into {n_mb} "
@@ -166,6 +150,17 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
         return params, opt_state, metrics
 
     return train_step, opt
+
+
+def _require_grads(tree, frozen: bool = False) -> None:
+    """Mark every leaf of ``tree`` as requiring a gradient, but those under
+    a key of ``module.FROZEN``, and clear every ``.grad``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _require_grads(v, frozen or k in FROZEN)
+        return
+    tree.requires_grad_(not frozen)
+    tree.grad = None
 
 
 def _grads(params):
